@@ -1,0 +1,117 @@
+"""Wrapper of the hand-written CUDA paged-attention kernel.
+
+The kernel (``csrc/paged_attention.cu``, sm_90a) replaces the Pallas TPU
+kernel ``repro/kernels/paged_attention/kernel.py:33,73``.  It is built
+with ``nvcc`` on first use (``kernels.build``) and called through ctypes
+on the current CUDA stream.  This wrapper takes CUDA tensors only: it
+checks device, dtype, shape, contiguity and alignment, allocates the
+output (and, where a lane's positions are split over several CTAs, the
+workspace of their softmax states) with ``torch.empty``, launches, and
+raises if the launch failed.  ``launches`` counts successful launches and
+nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 8
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+_fns = None
+_workspace_floats = {}   # geometry -> floats of split-softmax workspace
+
+
+def _lib():
+    """The two C entries, their signatures declared once: every pointer
+    and the stream as ``c_void_p`` (a bare Python int would be cut to 32
+    bits)."""
+    global _fns
+    if _fns is None:
+        lib = build.load("paged_attention")
+        launch = lib.paged_attention_launch
+        launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                           + [ctypes.c_int] * 7
+                           + [ctypes.c_float, ctypes.c_void_p])
+        launch.restype = ctypes.c_int
+        workspace = lib.paged_attention_workspace
+        workspace.argtypes = [ctypes.c_int] * 7
+        workspace.restype = ctypes.c_longlong
+        _fns = launch, workspace
+    return _fns
+
+
+def check_args(q, k_pool, v_pool, block_tables, kv_len):
+    """Raise ``ValueError`` for arguments the kernel does not take."""
+    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"want q (B,H,D) and pools (NB,bs,KV,D); got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}")
+    b, h, d = q.shape
+    nb, bs, kv, dk = k_pool.shape
+    if dk != d or d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} (pool {dk}); supported {HEAD_DIMS}")
+    if h % kv or h // kv > MAX_GROUP:
+        raise ValueError(f"{h} q heads over {kv} kv heads: the GQA group "
+                         f"must divide and be at most {MAX_GROUP}")
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k_pool.dtype}/{v_pool.dtype}: "
+                         f"want one of float32, bfloat16 for all three")
+    if block_tables.dtype != torch.int32 or kv_len.dtype != torch.int32:
+        raise ValueError("block_tables and kv_len must be int32")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or tuple(kv_len.shape) != (b,):
+        raise ValueError(f"want block_tables ({b}, max_blocks) and kv_len "
+                         f"({b},); got {tuple(block_tables.shape)}, "
+                         f"{tuple(kv_len.shape)}")
+    if nb == 0 or block_tables.shape[1] == 0:
+        raise ValueError("empty pool or block table")
+    tensors = (q, k_pool, v_pool, block_tables, kv_len)
+    for t in tensors:
+        if t.device != q.device or t.device.type != "cuda":
+            raise ValueError(f"all tensors must be on one CUDA device; got "
+                             f"{[str(x.device) for x in tensors]}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("tensors must be contiguous and 16-byte "
+                             "aligned")
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, kv_len):
+    """q: (B, H, D); pools: (num_blocks, bs, KV, D) of q's dtype;
+    block_tables: (B, max_blocks) int32 (sentinel entries allowed: the
+    kernel clamps them into the pool); kv_len: (B,) int32.
+    Returns (B, H, D)."""
+    global launches
+    check_args(q, k_pool, v_pool, block_tables, kv_len)
+    b, h, d = q.shape
+    nb, bs, kv, _ = k_pool.shape
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    launch, workspace = _lib()
+    code = _DTYPE_CODE[q.dtype]
+    geom = (code, b, h, kv, d, bs, block_tables.shape[1])
+    if geom not in _workspace_floats:
+        _workspace_floats[geom] = workspace(*geom)
+    n = _workspace_floats[geom]
+    if n < 0:
+        raise ValueError(f"paged_attention: bad geometry {geom}")
+    ws = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = launch(code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                    block_tables.data_ptr(), kv_len.data_ptr(),
+                    out.data_ptr(), None if ws is None else ws.data_ptr(),
+                    b, h, kv, d, nb, bs, block_tables.shape[1], d ** -0.5,
+                    stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
+    launches += 1
+    return out

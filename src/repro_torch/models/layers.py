@@ -1,0 +1,283 @@
+"""Shared neural building blocks: norms, rotary, attention, MLPs.
+
+Port of ``repro.models.layers``.  Params are per-layer dicts of tensors
+(``models.convert``): matmul weights already in compute dtype, norm
+weights float32.
+
+JAX's implicit index rules are explicit here:
+
+* out-of-range gathers clamp (``clamp`` on the index);
+* out-of-range ``.at[].set(mode="drop")`` writes land in a **sink row**:
+  a paged pool holds ``num_blocks + 1`` rows, and row ``num_blocks``
+  (the table sentinel) is written by sentinel and inactive-lane writes
+  and never read as live data.  Clamping a sentinel to ``num_blocks - 1``
+  instead would alias a live block of another lane, and duplicate
+  indices in one ``index_copy_`` have no defined order, so only the sink
+  row ever receives duplicates;
+* masking never uses a boolean index (that syncs with the host).
+
+Cache and pool updates are in place (``index_copy_`` into the caller's
+tensors), where the reference returns updated copies: the functions still
+return the (mutated) cache tensors so the call sites read the same.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import dtype_of
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------------------- norms
+def rms_norm(x, weight, eps: float):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dt)
+
+
+# ----------------------------------------------------------------------------- rotary
+def rotary_embedding(positions, head_dim: int, theta: float):
+    """positions: (..., S) int -> (cos, sin) of shape (..., S, head_dim//2)."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rotary(x, cos, sin):
+    """x: (B, S, H, D); cos/sin: (B, S, D//2) or (S, D//2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.ndim == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------- projections
+def _proj(h, w):
+    """(B, S, d) x (d, H, D) -> (B, S, H, D): ``einsum('bsd,dhk->bshk')``."""
+    d, nh, hd = w.shape
+    return torch.matmul(h, w.reshape(d, nh * hd)).reshape(
+        *h.shape[:-1], nh, hd)
+
+
+def _proj_out(o, w):
+    """(B, S, H, D) x (H, D, d) -> (B, S, d): ``einsum('bshk,hkd->bsd')``."""
+    nh, hd, d = w.shape
+    return torch.matmul(o.reshape(*o.shape[:-2], nh * hd),
+                        w.reshape(nh * hd, d))
+
+
+def _qkv(p, x, cfg):
+    dt = dtype_of(cfg.compute_dtype)
+    h = rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
+    return _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
+
+
+# ----------------------------------------------------------------------------- attention cores
+def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                   kv_len=None):
+    """Reference full attention with GQA. q:(B,Sq,H,D), k/v:(B,Sk,KV,D).
+
+    ``q_offset`` is the absolute position of q[0] (for decode).
+    ``kv_len`` optionally masks out cache positions >= kv_len.
+
+    Logits are float32 from operands in their own dtype: bf16 values are
+    upcast before the product, which is exact (a product of two bf16
+    values fits float32), so this is the reference's bf16-operand,
+    float32-accumulation einsum.  Plain tensor ops, as XLA's is in the
+    reference; it is not a kernel.
+    """
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, d)       # (B,Sq,KV,G,D)
+    scale = d ** -0.5
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    sk = k.shape[1]
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]   # (Sq, Sk)
+        logits = torch.where(mask, logits, NEG_INF)
+    if kv_len is not None:
+        valid = (torch.arange(sk, device=q.device)[None, :]
+                 < kv_len[:, None])             # (B, Sk)
+        logits = torch.where(valid[:, None, None, None], logits, NEG_INF)
+    # jax.nn.softmax's own formula: exp(x - max) / sum
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------- attention layer
+def attention_block(p, x, cfg, *, causal=True, positions=None):
+    """Pre-norm attention block with rotary + GQA, prefill mode: attends
+    within ``x`` and returns ``(out, (k, v))``."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "blockwise" if s > 8192 else "full"
+    if impl != "full":
+        raise NotImplementedError(
+            "blockwise attention (prefill > 8192 tokens) is not ported yet "
+            "(ROADMAP queue 1, item 7)")
+    out = full_attention(q, k, v, causal=causal)
+    return x + _proj_out(out, p["wo"]), (k, v)
+
+
+def decode_attention(p, x, cfg, *, cache_k, cache_v, cache_len,
+                     active=None):
+    """One-token decode against a KV cache.
+
+    cache_k/v: (B, S_max, KV, D); cache_len: (B,) current lengths.
+    Writes the new token at ``cache_len`` in place and returns
+    ``(out, (cache_k, cache_v))``.  Inactive lanes and lanes with
+    ``cache_len == S_max`` write back the value already at the clamped
+    position (the reference keeps the old value and drops the write);
+    each lane writes its own row, so no two writes collide.
+    """
+    dt = dtype_of(cfg.compute_dtype)
+    b = x.shape[0]  # x: (B, 1, d)
+    q, k, v = _qkv(p, x, cfg)
+    cos, sin = rotary_embedding(cache_len[:, None], cfg.head_dim,
+                                cfg.rope_theta)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    S = cache_k.shape[1]
+    bidx = torch.arange(b, device=x.device)
+    pos = cache_len.clamp(0, S - 1)
+    write = cache_len < S
+    if active is not None:
+        write = write & active
+    flat = bidx * S + pos.long()
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        rows = cache.view(b * S, *cache.shape[2:])
+        old = rows.index_select(0, flat)
+        rows.index_copy_(0, flat, torch.where(
+            write[:, None, None], new[:, 0].to(cache.dtype), old))
+    out = full_attention(q, cache_k.to(dt), cache_v.to(dt), causal=False,
+                         kv_len=cache_len + 1)
+    return x + _proj_out(out, p["wo"]), (cache_k, cache_v)
+
+
+def _drop_to_sink(rows, nb: int):
+    """Pool rows of a write: entries outside ``[0, nb)`` -> sink row nb."""
+    return torch.where((rows >= 0) & (rows < nb), rows, nb).long()
+
+
+def paged_decode_attention(p, x, cfg, *, pool_k, pool_v, block_tables,
+                           cache_len, active=None, impl: str = "kernel"):
+    """One-token decode against a *paged* KV cache (block pool + tables).
+
+    pool_k/v: (num_blocks + 1, bs, KV, D) — one shared pool plus the sink
+    row; each lane's logical positions map through block_tables
+    (B, max_blocks) to physical pool rows.  Writes the new kv at logical
+    position ``cache_len`` (physical: block ``bt[b, cache_len // bs]``,
+    the column clamped to ``max_blocks - 1`` as JAX clamps the read;
+    offset ``cache_len % bs``).  Inactive lanes and sentinel entries
+    write into the sink row.  The attention core is
+    ``kernels.paged_attention`` over the ``num_blocks`` live rows: the
+    hand-written kernel on a CUDA tensor, its plain version on a CPU
+    tensor or with ``impl="ref"``.
+
+    Returns (out, (pool_k, pool_v)).
+    """
+    from repro_torch.kernels.paged_attention import paged_attention
+    dt = dtype_of(cfg.compute_dtype)
+    q, k, v = _qkv(p, x, cfg)
+    cos, sin = rotary_embedding(cache_len[:, None], cfg.head_dim,
+                                cfg.rope_theta)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    nb, bs = pool_k.shape[0] - 1, pool_k.shape[1]
+    mb = block_tables.shape[1]
+    col = (cache_len // bs).clamp(0, mb - 1)
+    blk = block_tables.gather(1, col[:, None].long())[:, 0]
+    if active is not None:
+        blk = torch.where(active, blk, nb)
+    flat = _drop_to_sink(blk, nb) * bs + (cache_len % bs).long()
+    for pool, new in ((pool_k, k), (pool_v, v)):
+        pool.view(-1, *pool.shape[2:]).index_copy_(
+            0, flat, new[:, 0].to(pool.dtype))
+    out = paged_attention(q[:, 0], pool_k[:nb].to(dt), pool_v[:nb].to(dt),
+                          block_tables, cache_len + 1, impl=impl)[:, None]
+    return x + _proj_out(out, p["wo"]), (pool_k, pool_v)
+
+
+def paged_chunk_attention(p, x, cfg, *, pool_k, pool_v, bt_row, off: int,
+                          history=True):
+    """Chunk prefill over one slot's paged KV blocks.
+
+    x: (1, C, d) — C prompt tokens at absolute positions off..off+C-1.
+    bt_row: (max_blocks,) the slot's block table; pools carry the sink
+    row as in ``paged_decode_attention``.  Gathers the slot's blocks
+    (table clamped) into a contiguous (1, S_max, KV, D) view, writes the
+    chunk's kv at ``off`` (start clamped so the chunk fits, as
+    ``dynamic_update_slice`` does), attends causally at ``q_offset=off``
+    over history + chunk, and scatters the rows back through the table
+    (sentinel entries into the sink row).
+
+    ``history=False`` is the first-chunk (``off == 0``) specialization:
+    causal attention within the chunk plus a scatter of only the chunk's
+    own blocks.
+
+    Returns (out, pool_k, pool_v), the pools updated in place.
+    """
+    dt = dtype_of(cfg.compute_dtype)
+    c = x.shape[1]
+    q, k, v = _qkv(p, x, cfg)
+    positions = off + torch.arange(c, device=x.device)
+    cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    nb, bs = pool_k.shape[0] - 1, pool_k.shape[1]
+    if not history:
+        out = full_attention(q, k.to(dt), v.to(dt), causal=True)
+        n_blk = -(-c // bs)
+        dest = _drop_to_sink(bt_row[:n_blk], nb)
+        for pool, new in ((pool_k, k), (pool_v, v)):
+            rows = F.pad(new[0].to(pool.dtype),
+                         (0, 0, 0, 0, 0, n_blk * bs - c))
+            pool.index_copy_(0, dest, rows.reshape(n_blk, bs,
+                                                   *pool.shape[2:]))
+        return x + _proj_out(out, p["wo"]), pool_k, pool_v
+    mb = bt_row.shape[0]
+    src = bt_row.clamp(0, nb - 1).long()
+    start = max(0, min(off, mb * bs - c))
+    rows = []
+    for pool, new in ((pool_k, k), (pool_v, v)):
+        r = pool[src].reshape(1, mb * bs, *pool.shape[2:])
+        r[:, start:start + c] = new.to(r.dtype)
+        rows.append(r)
+    out = full_attention(q, rows[0].to(dt), rows[1].to(dt), causal=True,
+                         q_offset=off)
+    dest = _drop_to_sink(bt_row, nb)
+    for pool, r in zip((pool_k, pool_v), rows):
+        pool.index_copy_(0, dest, r.reshape(mb, bs, *pool.shape[2:]))
+    return x + _proj_out(out, p["wo"]), pool_k, pool_v
+
+
+# ----------------------------------------------------------------------------- MLP
+def swiglu_block(p, x, cfg):
+    dt = dtype_of(cfg.compute_dtype)
+    h = rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
+    g = torch.matmul(h, p["w_gate"])
+    u = torch.matmul(h, p["w_up"])
+    return x + torch.matmul(F.silu(g) * u, p["w_down"])

@@ -14,3 +14,9 @@ if "--xla_force_host_platform_device_count" not in os.environ.get(
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=8").strip()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped without one (the "
+        "CUDA kernels have no CPU mode). On the card: pytest -m cuda")

@@ -1,0 +1,227 @@
+"""The port's serving engine held against the JAX engine.
+
+Reduced ``granite-8b``; the JAX parameters are carried across with
+``params_from_numpy``.  In float32 compute the two packages' dense and
+paged engines must emit identical greedy streams with equal sync,
+chunk-prefill and peak-slot counters, on prompts that span the 16 and 64
+buckets and exceed the largest (multi-chunk paged prefill) and with a
+pool smaller than lanes x max_seq.  Within the port, paged equals dense
+bit for bit on the CPU.  In the default bf16 compute the first decode
+step's logits agree within a stated tolerance.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.configs.base import ShapeConfig as JShape
+from repro.models import model_zoo as jzoo
+from repro.serving.engine import Request as JRequest
+from repro.serving.engine import ServingEngine as JEngine
+from repro_torch.configs import get_config as torch_config
+from repro_torch.configs.base import ShapeConfig as TShape
+from repro_torch.models import model_zoo as tzoo
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serving.engine import Request as TRequest
+from repro_torch.serving.engine import ServingEngine as TEngine
+
+# One intra-op thread: the suite runs in parallel workers beside tests
+# that time the wall clock.
+torch.set_num_threads(1)
+
+ARCH = "granite-8b"
+# prompt lengths: within the 16 bucket, the 64 bucket, and past the
+# largest bucket (two and three paged chunks)
+PROMPTS = (5, 20, 70, 90, 12, 40)
+MAX_NEW = (6, 4, 5, 3, 8, 6)
+ENGINE = dict(batch_size=3, max_seq=96, prefill_buckets=(16, 64))
+PAGED = dict(cache_mode="paged", block_size=8, kv_pool_blocks=24)  # < 3x12
+
+
+def _configs(**kw):
+    jcfg = jax_config(ARCH).reduced().with_(**kw)
+    tcfg = torch_config(ARCH).reduced().with_(**kw)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    return jcfg, tcfg
+
+
+def _models(**kw):
+    jcfg, tcfg = _configs(**kw)
+    jparams = jzoo.init_state(jcfg, jax.random.PRNGKey(0)).params
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg,
+                                device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+@pytest.fixture(scope="module")
+def f32_models():
+    return _models(compute_dtype="float32")
+
+
+def _prompts(seed=11):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 250, n).astype(np.int32) for n in PROMPTS]
+
+
+def _serve(engine, request_cls):
+    reqs = [request_cls(rid=i, prompt=p.copy(), max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(_prompts(), MAX_NEW))]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_idle()
+    assert all(r.done for r in reqs)
+    assert [len(r.out_tokens) for r in reqs] == list(MAX_NEW)
+    counters = {"host_syncs": engine.host_syncs,
+                "chunk_prefills": engine.chunk_prefills,
+                "peak_slots": engine._peak_slots,
+                "processed": engine.processed_tokens}
+    return {r.rid: list(r.out_tokens) for r in reqs}, counters
+
+
+def _first_divergence(a, b):
+    for rid in a:
+        for i, (x, y) in enumerate(zip(a[rid], b[rid])):
+            if x != y:
+                return f"request {rid} token {i}: {x} vs {y}"
+    return None
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_greedy_streams_match_jax_engine_f32(f32_models, mode):
+    jcfg, jparams, tcfg, tparams = f32_models
+    extra = PAGED if mode == "paged" else {}
+    jstreams, jcount = _serve(JEngine(jcfg, jparams, **ENGINE, **extra),
+                              JRequest)
+    tstreams, tcount = _serve(TEngine(tcfg, tparams, device="cpu", **ENGINE,
+                                      **extra), TRequest)
+    assert tstreams == jstreams, _first_divergence(tstreams, jstreams)
+    assert tcount == jcount
+    if mode == "paged":
+        assert tcount["chunk_prefills"] > len(PROMPTS)   # multi-chunk ran
+
+
+def test_port_paged_equals_dense_bitwise(f32_models):
+    _, _, tcfg, tparams = f32_models
+    dense, _ = _serve(TEngine(tcfg, tparams, device="cpu", **ENGINE),
+                      TRequest)
+    eng = TEngine(tcfg, tparams, device="cpu", **ENGINE, **PAGED)
+    paged, _ = _serve(eng, TRequest)
+    assert paged == dense
+    assert eng.occupancy()["peak_blocks_in_use"] <= PAGED["kv_pool_blocks"]
+    eng._alloc.check_invariants()
+
+
+def test_make_prefill_matches_jax_f32(f32_models):
+    """Whole-prompt prefill: last-position logits and the bf16 KV cache."""
+    jcfg, jparams, tcfg, tparams = f32_models
+    B, S = 2, 12
+    toks = np.random.default_rng(3).integers(0, 250, (B, S)).astype(np.int32)
+    jprefill = jzoo.make_prefill(jcfg, JShape("serve", S, B, "decode"))
+    tprefill = tzoo.make_prefill(tcfg, TShape("serve", S, B, "decode"))
+    jlogits, jstate = jprefill(jparams, {"tokens": jnp.asarray(toks)})
+    tlogits, tstate = tprefill(tparams, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               rtol=1e-5, atol=1e-5)
+    # the cache is stored in bf16: float32 k/v that agree to ~1e-7 may
+    # straddle a bf16 rounding boundary: one bf16 ulp, at most 2^-7 relative
+    for key in ("k", "v"):
+        assert tstate.cache[key].shape == jstate.cache[key].shape
+        np.testing.assert_allclose(
+            tstate.cache[key].float().numpy(),
+            np.asarray(jstate.cache[key].astype(jnp.float32)),
+            rtol=2.0 ** -7, atol=1e-5)
+    assert tstate.cache_len.tolist() == np.asarray(jstate.cache_len).tolist()
+
+
+@pytest.mark.parametrize("gen", ["synthetic_requests",
+                                 "prefill_heavy_requests"])
+def test_workload_generators_match_jax(gen):
+    """Both packages draw the same requests from one seed."""
+    from repro.serving import workload as jwork
+    from repro_torch.serving import workload as twork
+    jreqs = getattr(jwork, gen)(5, 300, seed=7)
+    treqs = getattr(twork, gen)(5, 300, seed=7)
+    assert [(r.rid, r.prompt.tolist(), r.max_new_tokens) for r in treqs] == \
+        [(r.rid, r.prompt.tolist(), r.max_new_tokens) for r in jreqs]
+
+
+def _first_step_logits_jax(cfg, params, prompts, paged):
+    B, S, bs = len(prompts), 32, 8
+    shape = JShape("serve", S, B, "decode")
+    if paged:
+        nb = B * (S // bs)
+        state = jzoo.init_paged_decode_state(cfg, shape, bs, nb)
+        rows = np.arange(nb, dtype=np.int32)[::-1].reshape(B, S // bs)
+        state = state._replace(block_tables=jnp.asarray(rows))
+        step = jzoo.make_paged_serve_step(cfg, shape, bs, nb)
+        for slot, p in enumerate(prompts):
+            tok = np.zeros((1, 16), np.int32)
+            tok[0, :len(p) - 1] = p[:-1]
+            state = jzoo.make_paged_bulk_prefill(
+                cfg, shape, 16, bs, nb, first_chunk=True)(
+                params, state, jnp.asarray(tok), slot, 0, len(p) - 1)
+    else:
+        state = jzoo.init_decode_state(cfg, shape, fill_len=0)
+        step = jzoo.make_serve_step(cfg, shape)
+        for slot, p in enumerate(prompts):
+            tok = np.zeros((1, 16), np.int32)
+            tok[0, :len(p) - 1] = p[:-1]
+            state = jzoo.make_bulk_prefill(cfg, shape, 16)(
+                params, state, jnp.asarray(tok), slot, len(p) - 1)
+    last = np.array([[p[-1]] for p in prompts], np.int32)
+    logits, _ = step(params, state, {"tokens": jnp.asarray(last),
+                                     "active": jnp.ones(B, jnp.int32)})
+    return np.asarray(logits)
+
+
+def _first_step_logits_torch(cfg, params, prompts, paged):
+    B, S, bs = len(prompts), 32, 8
+    shape = TShape("serve", S, B, "decode")
+    if paged:
+        nb = B * (S // bs)
+        state = tzoo.init_paged_decode_state(cfg, shape, bs, nb, "cpu")
+        rows = np.arange(nb, dtype=np.int32)[::-1].reshape(B, S // bs)
+        state.block_tables.copy_(torch.from_numpy(rows.copy()))
+        step = tzoo.make_paged_serve_step(cfg, shape, bs, nb)
+        prefill = tzoo.make_paged_bulk_prefill(cfg, shape, 16, bs, nb,
+                                               first_chunk=True)
+    else:
+        state = tzoo.init_decode_state(cfg, shape, fill_len=0, device="cpu")
+        step = tzoo.make_serve_step(cfg, shape)
+        bulk = tzoo.make_bulk_prefill(cfg, shape, 16)
+
+        def prefill(params, state, tok, slot, off, n):
+            return bulk(params, state, tok, slot, n)
+    for slot, p in enumerate(prompts):
+        tok = np.zeros((1, 16), np.int32)
+        tok[0, :len(p) - 1] = p[:-1]
+        state = prefill(params, state, torch.from_numpy(tok), slot, 0,
+                        len(p) - 1)
+    last = torch.tensor([[int(p[-1])] for p in prompts], dtype=torch.int32)
+    logits, _ = step(params, state, last, torch.ones(B, dtype=torch.int32))
+    return logits.numpy()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_first_decode_logits_bf16(paged):
+    """Default bf16 compute.  Attention layers agree bit for bit; the MLP
+    does not: JAX's bf16 ``silu`` rounds to bf16 after each op of
+    ``1/(1+exp(-x))`` while torch's rounds once, so an MLP output element
+    may differ by one bf16 ulp, and that compounds over the layers.  Held
+    to 8 bf16 ulps (8 * 2^-8) of the largest logit, absolute, and to the
+    same greedy token (the reference's top-2 gaps are 0.33-0.84 here,
+    well above that tolerance)."""
+    jcfg, jparams, tcfg, tparams = _models()
+    prompts = _prompts(seed=5)[:3]
+    prompts = [p[:n] for p, n in zip(prompts, (5, 12, 16))]
+    V = tcfg.vocab_size
+    ref = _first_step_logits_jax(jcfg, jparams, prompts, paged)[..., :V]
+    out = _first_step_logits_torch(tcfg, tparams, prompts, paged)[..., :V]
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=8 * 2.0 ** -8 * np.abs(ref).max())
+    assert (out.argmax(-1) == ref.argmax(-1)).all()

@@ -1,0 +1,36 @@
+"""The port's serve launcher end to end on the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("cache_mode", ["paged", "dense"])
+def test_serve_cli_cpu(cache_mode):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--requests", "4", "--max-new", "4", "--cache-mode", cache_mode],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "served 4/4" in out.stdout, out.stdout
+    assert f"cache={cache_mode}" in out.stdout
+
+
+def test_serve_cli_refuses_missing_card():
+    """The default device is the card; without one the launcher fails
+    instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--requests", "1"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
