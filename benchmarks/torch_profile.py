@@ -2,10 +2,12 @@
 """Where a decode step of the port's paged engine spends its time, on one
 NVIDIA GPU.
 
-    python3 benchmarks/torch_profile.py [--layers 36] [--steps 8]
+    python3 benchmarks/torch_profile.py [--arch granite-8b] [--layers N]
+                                        [--steps 8]
 
-Builds ``granite-8b`` at its published width (depth ``--layers``, all 36
-by default) with random bf16 weights from seed 0, and a
+Builds ``--arch`` (``granite-8b``, ``mamba2-780m`` or ``zamba2-2.7b``)
+at its published width (depth ``--layers``, the published depth by
+default) with random bf16 weights from seed 0, and a
 ``ServingEngine(cache_mode="paged", batch_size=8, max_seq=1024,
 block_size=16)`` of ``repro_torch``.  It admits 8 requests of 500 prompt
 tokens (64 new each), decodes two windows to reach a steady state, then
@@ -15,11 +17,12 @@ over steady windows of ``--steps`` fused decode steps reports:
   synchronised), without the profiler;
 * under ``torch.profiler`` (CPU and CUDA activities): the device's busy
   time per step (the union of the kernels' intervals), its share of the
-  unprofiled wall time, kernel launches per step, the paged-attention kernel's
-  time per launch and per step, and the kernels that take the most
-  device time;
-* the step's least time on the card: the bf16 weights and the KV rows
-  the lanes read, over 3.35 TB/s.
+  unprofiled wall time, kernel launches per step, the paged-attention
+  kernel's time per launch and per step (where the model has attention),
+  and the kernels that take the most device time;
+* the step's least time on the card: the bf16 weights, the KV rows the
+  lanes read, and the recurrent state (float32 SSD state, bf16 conv
+  tail) each layer reads and writes back, over 3.35 TB/s.
 
 The card's name and power limit come first; the last line is one JSON
 object with every number.  Without a card it exits non-zero.
@@ -56,7 +59,10 @@ def busy_us(intervals):
 def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=36)
+    ap.add_argument("--arch", default="granite-8b",
+                    choices=("granite-8b", "mamba2-780m", "zamba2-2.7b"))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the published one)")
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -75,7 +81,13 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    cfg = get_config("granite-8b").with_(num_layers=args.layers)
+    cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = cfg.with_(num_layers=args.layers)
+    # paged-attention launches per decode step
+    attn_layers = (cfg.num_layers if cfg.family == "dense" else
+                   cfg.num_layers // cfg.attn_every
+                   if cfg.family == "hybrid" else 0)
     params = zoo.init_serving_params(cfg, seed=0, device="cuda")
     engine = ServingEngine(cfg, params, batch_size=8, max_seq=1024,
                            block_size=16, cache_mode="paged", device="cuda")
@@ -100,7 +112,7 @@ def main(argv=None) -> int:
         engine.step_many(n)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    assert kernel.launches - launches0 == cfg.num_layers * n
+    assert kernel.launches - launches0 == attn_layers * n
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = defaultdict(lambda: [0.0, 0])
@@ -118,11 +130,15 @@ def main(argv=None) -> int:
 
     kv_rows = int(engine.state.cache_len.sum())      # after the window
     weight_bytes = 2 * zoo.num_params(cfg)
-    kv_bytes = kv_rows * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 4
-    bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    kv_bytes = kv_rows * attn_layers * cfg.num_kv_heads * cfg.head_dim * 4
+    state_bytes = sum(2 * t.numel() * t.element_size()   # read + write
+                      for k, t in engine.state.cache.items()
+                      if k in ("ssm", "conv"))
+    bound_ms = ((weight_bytes + kv_bytes + state_bytes) / HBM_BYTES_PER_S
+                * 1e3)
     result = {
         "device": torch.cuda.get_device_name(0), "card": card,
-        "layers": cfg.num_layers, "lanes": 8, "steps": n,
+        "arch": cfg.name, "layers": cfg.num_layers, "lanes": 8, "steps": n,
         "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_profiled": prof_wall_ms,
         "device_busy_ms_per_step": busy_ms if kernels else None,

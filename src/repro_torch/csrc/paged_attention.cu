@@ -45,6 +45,12 @@
 //   distinct banks); one warp per head does the online-softmax update; in
 //   p.v each thread owns one column d for its heads, so a V element is read
 //   once for all of them.  No cross-lane reduction sits on the hot loop.
+// * D is a template parameter, one of 16, 32, 64, 80 and 128 (80 is
+//   zamba2-2.7b's shared attention).  A row is D / 8 (bf16) or D / 4
+//   (float32) 16-byte chunks and a padded shared row stays a multiple of
+//   16 bytes for all of them; only the p.v pass's thread-to-column map
+//   needs D to divide the CTA, and threads past the last whole multiple
+//   of D sit that pass out.
 // * No tensor cores and no TMA: those are for a later, faster version.
 //
 // The C entry launches on the caller's stream and returns
@@ -215,8 +221,12 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   };
 
-  const int d = tid % D;   // p.v pass: this thread's column ...
-  const int g0 = tid / D;  // ... for heads g0, g0 + kGStride, ...
+  // p.v pass: this thread's column d for heads g0, g0 + kGStride, ...
+  // When D does not divide the CTA (D = 80: 3 x 80 = 240 of 256 threads)
+  // the threads past kGStride * D get no head (g0 = kMaxGroup, so every
+  // g >= group) instead of repeating heads of the first threads.
+  const int d = tid % D;
+  const int g0 = tid < kGStride * D ? tid / D : kMaxGroup;
   float acc[kOutPer];
 #pragma unroll
   for (int i = 0; i < kOutPer; ++i) acc[i] = 0.f;
@@ -451,6 +461,7 @@ int launch_typed(const void* q, const void* k_pool, const void* v_pool,
     case 16: PA_LAUNCH(16);
     case 32: PA_LAUNCH(32);
     case 64: PA_LAUNCH(64);
+    case 80: PA_LAUNCH(80);
     case 128: PA_LAUNCH(128);
     default: return -2;
   }

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: zamba2-2.7b's shared attention
 MAX_GROUP = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,4 +1,6 @@
-"""Serving launcher: one continuous-batching engine over a dense --arch.
+"""Serving launcher: one continuous-batching engine over an --arch of the
+dense (granite-8b, llama3.2-3b, ...), ssm (mamba2-780m) or hybrid
+(zamba2-2.7b) family.
 
 On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
@@ -6,7 +8,7 @@ On the card (the default device):
 
 On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-      --requests 4 --max-new 4 --cache-mode paged
+      --arch mamba2-780m --requests 4 --max-new 4 --cache-mode paged
 
 Port of ``repro.launch.serve``'s single-engine mode.  The cluster mode
 comes with the layers above the engine (ROADMAP queue 1, item 9).

@@ -1,0 +1,198 @@
+"""Mamba2 (SSD — state-space duality, arXiv:2405.21060) block.
+
+Port of ``repro.models.mamba2``.  Prefill uses the chunked SSD form:
+within a chunk the output is a (masked) quadratic attention-like product;
+across chunks a small recurrent state (H heads x P head_dim x N
+ssm_state) is passed.  Decode is the O(1) per-token recurrence on that
+state.
+
+The intra-chunk half goes through ``kernels.ssd``: the hand-written CUDA
+kernel on a CUDA tensor, its plain version on a CPU tensor or with
+``impl="ref"``.  The inter-chunk recurrence (``lax.scan`` in the
+reference) is a Python loop over chunks.
+
+dtypes follow the reference exactly: ``dt`` and ``A`` are float32, the
+SSD core is float32 and its output is cast back to the compute dtype;
+``D``, ``conv_w`` and ``conv_b`` are in the compute dtype (``convert``
+stores them so), ``A_log`` and ``dt_bias`` stay float32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import dtype_of
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: F401
+from repro_torch.models import layers as L
+from repro_torch.models.schema import Spec
+
+
+def mamba2_dims(cfg: ModelConfig):
+    d_inner = cfg.d_inner
+    nheads = cfg.ssm_heads
+    conv_dim = d_inner + 2 * cfg.ssm_state  # x + B + C (single group)
+    d_in_proj = 2 * d_inner + 2 * cfg.ssm_state + nheads  # z,x,B,C,dt
+    return d_inner, nheads, conv_dim, d_in_proj
+
+
+def mamba2_schema(cfg: ModelConfig, stacked: Optional[tuple] = None,
+                  prefix: Tuple[str, ...] = ()):
+    """The reference's schema.  ``A_log`` and ``dt_bias`` carry a float32
+    dtype: the reference casts them up at use, so drawing (or storing)
+    them in a bf16 compute dtype would change ``dt`` and ``A``."""
+    st = tuple(stacked) if stacked is not None else ()
+    sa = tuple(prefix) if stacked is not None else ()
+    d = cfg.d_model
+    d_inner, nheads, conv_dim, d_in_proj = mamba2_dims(cfg)
+    return {
+        "norm": Spec(st + (d,), sa + (None,), "ones"),
+        "in_proj": Spec(st + (d, d_in_proj), sa + ("embed", "d_inner")),
+        "conv_w": Spec(st + (cfg.conv_width, conv_dim),
+                       sa + (None, "conv_dim")),
+        "conv_b": Spec(st + (conv_dim,), sa + (None,), "zeros"),
+        "A_log": Spec(st + (nheads,), sa + (None,), "ssm_a", "float32"),
+        "D": Spec(st + (nheads,), sa + (None,), "ones"),
+        "dt_bias": Spec(st + (nheads,), sa + (None,), "ssm_dt", "float32"),
+        "ssm_norm": Spec(st + (d_inner,), sa + (None,), "ones"),
+        "out_proj": Spec(st + (d_inner, d), sa + ("d_inner", "embed")),
+    }
+
+
+# ----------------------------------------------------------------- SSD core
+def ssd_chunked(x, dt, A, B, C, chunk: int, impl: str = "kernel",
+                init_state=None):
+    """Chunked SSD scan.
+
+    x:  (b, s, h, p)   — per-head inputs
+    dt: (b, s, h)      — positive step sizes
+    A:  (h,)           — negative decay rates (A = -exp(A_log))
+    B:  (b, s, n)      — input projection (single group, shared over heads)
+    C:  (b, s, n)      — output projection
+    ``init_state`` (b, h, p, n) seeds the inter-chunk recurrence (zeros
+    when None): prefilling ``s`` tokens from a carried state is exactly
+    equivalent to one longer prefill over history + chunk.
+    Returns y: (b, s, h, p) in x's dtype, final_state: (b, h, p, n) f32.
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+    # contiguous float32 copies: x, B and C are column slices of one
+    # projection, and the kernel takes dense tensors
+    xr = x.reshape(b, nc, chunk, h, p).to(f32).contiguous()
+    dtr = dt.reshape(b, nc, chunk, h).to(f32).contiguous()
+    Br = B.reshape(b, nc, chunk, n).to(f32).contiguous()
+    Cr = C.reshape(b, nc, chunk, n).to(f32).contiguous()
+    dA = dtr * A.to(f32)                          # (b,nc,l,h) negative
+    dA_cs = torch.cumsum(dA, dim=2)               # within-chunk cumsum
+
+    y_diag, chunk_states = ssd_ops.ssd_intra_chunk(xr, dtr, dA_cs, Br, Cr,
+                                                   impl=impl)
+
+    # inter-chunk recurrence on states: (b, nc, h, p, n)
+    chunk_decay = torch.exp(dA_cs[:, :, -1])      # (b,nc,h) total chunk decay
+    state = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+             if init_state is None else init_state.to(f32))
+    prev = []                                     # state *entering* chunk c
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    prev_states = torch.stack(prev, dim=1)        # (b,nc,h,p,n)
+
+    # contribution of the entering state to each position in the chunk
+    state_decay = torch.exp(dA_cs)                # (b,nc,l,h)
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cr, prev_states) \
+        * state_decay[..., None]
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(x.dtype), state
+
+
+# ----------------------------------------------------------------- block
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, written as JAX does."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_conv(xBC, conv_w, conv_b, conv_state=None):
+    """Depthwise causal conv1d, width W. xBC: (b, s, c); conv_w: (W, c).
+
+    With ``conv_state`` (b, W-1, c) the window continues from it (the
+    streaming decode form, and state-continued prefill); without it the
+    window starts from zeros.  Returns (silu(conv + b), the last W-1 rows
+    of the window) — the state a following step continues from.  A bf16
+    state meets float32 activations upcast, as JAX's concatenate promotes.
+    """
+    w = conv_w.shape[0]
+    if conv_state is not None:
+        window = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
+    else:
+        window = F.pad(xBC, (0, 0, w - 1, 0))
+    new_state = window[:, -(w - 1):]
+    s = xBC.shape[1]
+    out = window[:, 0:s] * conv_w[0][None, None]
+    for i in range(1, w):
+        out = out + window[:, i:i + s] * conv_w[i][None, None]
+    return F.silu(out + conv_b[None, None]), new_state
+
+
+def mamba2_block(p, x, cfg: ModelConfig, *, ssm_state=None, conv_state=None,
+                 impl: str = "kernel", active=None, init_ssm=None,
+                 init_conv=None):
+    """Full Mamba2 block. x: (b, s, d).
+
+    Prefill: ssm_state/conv_state None -> chunked SSD, seeded by
+    ``init_ssm`` (b,h,p,n) / ``init_conv`` (b,W-1,conv_dim) for
+    state-continued (multi-chunk) prefill.
+    Decode: states given (s == 1) -> the recurrent update; lanes whose
+    ``active`` is False keep their states.
+    Returns (out, (ssm_state, conv_state)): new tensors, the caller's
+    states untouched.
+    """
+    dt_c = dtype_of(cfg.compute_dtype)
+    b, s, d = x.shape
+    d_inner, nheads, conv_dim, _ = mamba2_dims(cfg)
+    n = cfg.ssm_state
+    hp = cfg.ssm_head_dim
+
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt_c)
+    proj = torch.matmul(h, p["in_proj"])
+    z, xBC, dt_raw = torch.split(proj, [d_inner, conv_dim, nheads], dim=-1)
+    dt = softplus(dt_raw.float() + p["dt_bias"].float())       # (b,s,h)
+
+    decoding = ssm_state is not None
+    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"],
+                                 conv_state if decoding else init_conv)
+    xs, B, C = torch.split(xBC, [d_inner, n, n], dim=-1)
+    xh = xs.reshape(b, s, nheads, hp)
+    A = -torch.exp(p["A_log"].float())                         # (h,)
+
+    if not decoding:
+        y, new_ssm = ssd_chunked(xh, dt, A, B, C, min(cfg.ssm_chunk, s),
+                                 impl=impl, init_state=init_ssm)
+    else:
+        # single-token recurrence: state (b,h,p,n)
+        dA = torch.exp(dt[:, 0] * A[None])                     # (b,h)
+        xdt = xh[:, 0].float() * dt[:, 0][..., None]           # (b,h,p)
+        upd = xdt[..., None] * B[:, 0].float()[:, None, None, :]
+        new_ssm = ssm_state * dA[..., None, None] + upd
+        if active is not None:
+            new_ssm = torch.where(active[:, None, None, None], new_ssm,
+                                  ssm_state)
+            new_conv = torch.where(active[:, None, None], new_conv,
+                                   conv_state.to(new_conv.dtype))
+        y = torch.einsum("bhpn,bn->bhp", new_ssm, C[:, 0].float())[:, None]
+        y = y.reshape(b, 1, nheads, hp).to(dt_c)
+
+    y = y + xh * p["D"][None, None, :, None]
+    y = y.reshape(b, s, d_inner)
+    y = y * F.silu(z)                                          # gated
+    y = L.rms_norm(y, p["ssm_norm"], cfg.norm_eps).to(dt_c)
+    out = x + torch.matmul(y, p["out_proj"])
+    return out, (new_ssm, new_conv)

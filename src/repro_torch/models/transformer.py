@@ -1,9 +1,9 @@
 """Decoder-only LM: parameter schemas, embedding and logits.
 
-Port of ``repro.models.transformer`` for the dense family.  Weights keep
-the reference's layouts (``wq (d, H, D)``, ``wo (H, D, d)``, ``lm_head
-(d, V)``), so the matmuls read the same on both sides.  The other
-families raise ``NotImplementedError``.
+Port of ``repro.models.transformer`` for the dense, ssm and hybrid
+families.  Weights keep the reference's layouts (``wq (d, H, D)``, ``wo
+(H, D, d)``, ``lm_head (d, V)``), so the matmuls read the same on both
+sides.  The other families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models.schema import Spec
 
 
@@ -61,12 +62,44 @@ def decoder_lm_schema(cfg: ModelConfig):
     return sch
 
 
+def hybrid_schema(cfg: ModelConfig):
+    """zamba2: periods of (attn_every mamba layers + 1 shared attn block)."""
+    if cfg.num_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.num_layers} layers are not whole periods of "
+                         f"{cfg.attn_every}")
+    periods = cfg.num_layers // cfg.attn_every
+    m = ssm_lib.mamba2_schema(cfg, stacked=(periods, cfg.attn_every),
+                              prefix=("periods", "stack"))
+    shared = {"attn": attn_schema(cfg, None), "mlp": mlp_schema(cfg, None)}
+    return {
+        "embed": Spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed_tp"),
+                      "embed"),
+        "final_norm": Spec((cfg.d_model,), (None,), "ones"),
+        "mamba": m,
+        "shared": shared,
+    }
+
+
+def ssm_lm_schema(cfg: ModelConfig):
+    return {
+        "embed": Spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed_tp"),
+                      "embed"),
+        "final_norm": Spec((cfg.d_model,), (None,), "ones"),
+        "layers": ssm_lib.mamba2_schema(cfg, stacked=(cfg.num_layers,),
+                                        prefix=("layers",)),
+    }
+
+
 def model_schema(cfg: ModelConfig):
     if cfg.family == "dense":
         return decoder_lm_schema(cfg)
+    if cfg.family == "hybrid":
+        return hybrid_schema(cfg)
+    if cfg.family == "ssm":
+        return ssm_lm_schema(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet: moe is ROADMAP queue 1 "
-        f"item 8, ssm/hybrid item 5, enc_dec/vlm item 11")
+        f"item 8, enc_dec/vlm item 11")
 
 
 # ============================================================== embedding / logits

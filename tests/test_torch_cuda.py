@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import ssd
 from repro_torch.kernels.paged_attention import kernel, paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -48,6 +49,7 @@ def cuda_device():
     (3, 8, 2, 16, 8, 12, 4, 4),
     (8, 32, 8, 128, 16, 200, 20, 20),    # granite-8b heads, 320 positions
     (2, 8, 8, 64, 4, 40, 10, 7),         # G = 1
+    (4, 32, 32, 80, 16, 64, 16, 16),     # zamba2-2.7b heads, D = 80
 ])
 def test_kernel_matches_plain_on_card(cuda_device, b, heads, kv_heads, d,
                                       bs, nb, mb, used, dtype):
@@ -62,3 +64,63 @@ def test_kernel_matches_plain_on_card(cuda_device, b, heads, kv_heads, d,
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **tol)
+
+
+def ssd_inputs(b, nc, l, h, p, n, seed=0):
+    """SSD intra-chunk inputs as ``tests/test_kernels.py`` draws them:
+    x, B, C standard normal, dt = softplus(normal), dA = -|normal| / 10."""
+    rng = np.random.default_rng(seed)
+    xr = rng.standard_normal((b, nc, l, h, p)).astype(np.float32)
+    dtr = np.log1p(np.exp(rng.standard_normal((b, nc, l, h)))).astype(
+        np.float32)
+    dA = -np.abs(rng.standard_normal((b, nc, l, h))).astype(np.float32) * 0.1
+    dA_cs = np.cumsum(dA, axis=2, dtype=np.float32)
+    Br = rng.standard_normal((b, nc, l, n)).astype(np.float32)
+    Cr = rng.standard_normal((b, nc, l, n)).astype(np.float32)
+    return xr, dtr, dA_cs, Br, Cr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,l,h,p,n", [
+    (1, 2, 16, 2, 8, 16),                # tests/test_kernels.py shapes
+    (2, 1, 32, 4, 16, 8),
+    (1, 3, 8, 1, 4, 4),
+    (1, 1, 64, 2, 32, 16),
+    (1, 4, 16, 8, 16, 16),               # reduced mamba2-780m, 64 tokens
+    (2, 1, 100, 3, 128, 256),            # ragged l, p and n at their limits
+])
+def test_ssd_kernel_matches_plain_on_card(cuda_device, b, nc, l, h, p, n):
+    """The reference's tolerance, 1e-4 absolute (float32, sums in another
+    order)."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in ssd_inputs(b, nc, l, h, p, n)]
+    before = ssd.kernel.launches
+    y, st = ssd.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd.kernel.launches == before + 1
+    y_ref, st_ref = ssd.ssd_intra_chunk_ref(*args)
+    atol = 1e-4 if max(l, n) <= 64 else 1e-5 * float(y_ref.abs().max())
+    np.testing.assert_allclose(y.cpu().numpy(), y_ref.cpu().numpy(),
+                               rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(st.cpu().numpy(), st_ref.cpu().numpy(),
+                               rtol=1e-4, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [16, 64, 256])
+@pytest.mark.parametrize("h,p,n", [(48, 64, 128), (80, 64, 64)],
+                         ids=["mamba2-780m", "zamba2-2.7b"])
+def test_ssd_kernel_full_shapes_on_card(cuda_device, l, h, p, n):
+    """Full-width prefill chunks (b = nc = 1).  Sums of up to l * n
+    float32 products taken in another order: held to 1e-5 of the largest
+    output, and 1e-4 relative."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in ssd_inputs(1, 1, l, h, p, n, seed=l)]
+    y, st = ssd.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd.ssd_intra_chunk_ref(*args)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    for out, ref in ((y, y_ref), (st, st_ref)):
+        np.testing.assert_allclose(
+            out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
+            atol=1e-5 * float(ref.abs().max()))

@@ -23,6 +23,20 @@ def test_serve_cli_cpu(cache_mode):
     assert f"cache={cache_mode}" in out.stdout
 
 
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_serve_cli_cpu_recurrent(arch):
+    """The ssm and hybrid families through the launcher, paged cache."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", arch, "--requests", "4", "--max-new", "4",
+         "--cache-mode", "paged"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert f"arch={arch} cache=paged" in out.stdout, out.stdout
+    assert "served 4/4" in out.stdout, out.stdout
+
+
 def test_serve_cli_refuses_missing_card():
     """The default device is the card; without one the launcher fails
     instead of falling back to the CPU."""
