@@ -37,7 +37,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    one serve step; logits (and the recurrent state) within a stated
    tolerance;
 7. reduced granite-8b, mamba2-780m and zamba2-2.7b in float32: the dense
-   and paged engines on the card give the same greedy streams.
+   and paged engines on the card give the same greedy streams;
+8. Jacobi stencil kernel vs plain version, bit for bit, at the 5 shapes of
+   ``tests/test_kernels.py`` in float32 and bf16 and at 16384^2 and
+   32768^2 in float32, with kernel, plain, library (``F.conv2d`` of the
+   grid padded outside the timing, with the 5-point cross weights) and
+   HBM-bound times; then the tile form at full size after a load balance
+   moved tiles, one PE's launch against its plain version;
+9. the stencil app at full size (16384^2 float32, 4 PEs), its launch count
+   set to 0 just before each run and read just after: ``run_jacobi`` with
+   500 us message latency at odf 1, 4 and 8 (C1), then ``run_lulesh``
+   on rates [1, 0.9, 0.4, 1] without and with rate-aware GreedyRefine
+   every 6 steps (C2); times per iteration, accounted and exposed times,
+   the LB improvement, migrations and peak memory are printed, not
+   asserted;
+10. the app's correctness on the card, asserted: 6 tiled steps equal
+   ``reference_jacobi`` (plain) and 6 global kernel sweeps bit for bit; a
+   run whose tiles the balancer (and then a hand-set assignment) moved
+   equals an unmoved one; a 4 -> 2 PE checkpoint/restore continues
+   bit-identically; launches = PEs holding tiles per step plus the
+   untimed warm-ups; one host sync per step (the timing read), with any
+   other sync an error;
+11. ``TileRuntimeDriver`` on the ``EventLoop`` with a ``FaultTrace``, at
+   full size: a checkpoint at the notice, a rebalance at the
+   recommendation.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -88,6 +111,13 @@ F32_PREFILL_TOL = dict(rel_l2=1e-4, state_rel_l2=1e-4, argmax_agree=1.0)
 PATHS = (("granite-8b", 36, 0), ("mamba2-780m", 0, 48),
          ("zamba2-2.7b", 9, 54))
 PROMPT_LENS = [40, 63, 100, 200, 267, 450, 600, 700]
+# The Jacobi kernel: tests/test_kernels.py's shapes, then full grids.
+JACOBI_SHAPES = [(64, 64), (128, 64), (64, 128), (256, 32), (32, 32)]
+JACOBI_FULL = (16384, 32768)
+# The stencil app: a 16384^2 float32 grid (1 GiB, 2 GiB double-buffered)
+# on 4 PEs, the paper's C1 odf sweep and C2 heterogeneous rates.
+STENCIL_N, STENCIL_PES, STENCIL_ODFS = 16384, 4, (1, 4, 8)
+C1_ITERS, C2_ITERS, C2_RATES = 20, 24, [1.0, 0.9, 0.4, 1.0]
 
 
 def log(msg):
@@ -288,6 +318,282 @@ def ssd_kernel_phase(dev, flush):
             "library_ms": None, "at_shapes": rows}
 
 
+def jacobi_kernel_phase(dev, flush):
+    """The Jacobi kernel vs its plain version, bit for bit, and its times
+    at the full grids; returns the record at 16384^2 float32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.jacobi import jacobi_step_ref, kernel
+    g = torch.Generator(dev).manual_seed(4)
+    err = 0.0
+    for H, W in JACOBI_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            grid = torch.randn(H, W, generator=g, device=dev).to(dtype)
+            out = kernel.jacobi_step(grid)
+            torch.cuda.synchronize()
+            ref = jacobi_step_ref(grid)
+            assert out.dtype == dtype and out.shape == ref.shape
+            # both round after every op, in the same order: equal bits
+            assert torch.equal(out, ref), (H, W, dtype, max_err(out, ref))
+            err = max(err, max_err(out, ref))
+        log(f"  {H}x{W} float32 and bf16: kernel == plain (max_abs_err 0)")
+    rows = []
+    for n in JACOBI_FULL:
+        grid = torch.randn(n, n, generator=g, device=dev)
+        out = kernel.jacobi_step(grid)
+        torch.cuda.synchronize()
+        assert torch.equal(out, jacobi_step_ref(grid)), n
+        ms = cuda_ms(lambda: kernel.jacobi_step(grid), 20, flush)
+        plain_ms = cuda_ms(lambda: jacobi_step_ref(grid), 5, flush)
+        library_ms = None
+        if n == STENCIL_N:
+            # the yardstick: one cuDNN convolution (float32, TF32 off) of
+            # the grid padded with its boundary, padding outside the timing
+            padded = F.pad(grid, (1, 1, 1, 1))
+            padded[0, 1:-1] = 1.0
+            padded = padded[None, None]
+            cross = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
+                                  [0.0, 0.25, 0.0]], device=dev)[None, None]
+            assert_close(F.conv2d(padded, cross)[0, 0], out,
+                         dict(rtol=1e-5, atol=1e-5),
+                         f"{n}^2 conv2d (library) vs kernel")
+            library_ms = cuda_ms(lambda: F.conv2d(padded, cross), 10, flush)
+            del padded
+        del out, grid
+        torch.cuda.empty_cache()
+        nbytes, flops = 2 * n * n * 4, 4 * n * n
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"  {n}^2 float32: kernel == plain; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, conv2d {lib}, bound {bound_ms:.4f} ms "
+            f"(bytes: {nbytes} B; {flops} flop); {bound_ms / ms:.1%} of "
+            f"the HBM rate")
+        rows.append({"n": n, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "max_abs_err": 0.0})
+    main = rows[0]
+    return {"name": "jacobi", "route": "cuda",
+            "source": "src/repro_torch/csrc/jacobi.cu",
+            "replaces": "src/repro/kernels/jacobi/kernel.py:40",
+            "launches": None, "max_abs_err": err,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "at_shapes": rows}
+
+
+def stencil_runtime(dev, odf, n_pes=STENCIL_PES, **kw):
+    """A full-size tile runtime: 16384^2 float32 over ``n_pes * odf``
+    near-square tiles."""
+    from repro_torch.core.overdecomp import (HostTileRuntime, TileGrid,
+                                             choose_tiling)
+    tr, tc = choose_tiling(n_pes * odf)
+    return HostTileRuntime(TileGrid(STENCIL_N, STENCIL_N, tr, tc), n_pes,
+                           odf=odf, device=dev, **kw)
+
+
+def slow_pe_balance(rt, pe=2) -> int:
+    """Rate-aware GreedyRefine on a fresh monitor that read ``pe`` 4x
+    slower: moves tiles whatever the card measured."""
+    from repro_torch.core.rates import RateMonitor
+    secs = [1.0] * rt.n_pes
+    secs[pe] = 4.0
+    rt.monitor = RateMonitor(rt.n_pes)
+    rt.monitor.record_step([float(rt.odf)] * rt.n_pes, secs)
+    return rt.load_balance("greedy_refine").migrations
+
+
+def pes_holding(rt) -> int:
+    import numpy as np
+    return int((np.bincount(rt.assignment, minlength=rt.n_pes) > 0).sum())
+
+
+def tile_form_phase(dev, flush):
+    """One PE's tile launch at full size, after a load balance moved
+    tiles onto it, against the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.jacobi import jacobi_tiles, jacobi_tiles_ref
+    rt = stencil_runtime(dev, 4)
+    rt.tiles.uniform_(generator=torch.Generator(dev).manual_seed(6))
+    moved = slow_pe_balance(rt)
+    assert moved > 0
+    home = np.arange(rt.grid.n_tiles) % rt.n_pes
+    pe = int(rt.assignment[np.nonzero(rt.assignment != home)[0][0]])
+    ids = rt.pe_ids(pe)
+    out = torch.full_like(rt.tiles, float("nan"))
+    jacobi_tiles(rt.tiles, ids, rt.nbr, out)
+    torch.cuda.synchronize()
+    ref = jacobi_tiles_ref(rt.tiles, ids, rt.nbr)
+    assert torch.equal(out[ids.long()], ref)
+    others = [t for t in range(rt.grid.n_tiles) if rt.assignment[t] != pe]
+    assert torch.isnan(out[others]).all()      # nothing else written
+    ms = cuda_ms(lambda: jacobi_tiles(rt.tiles, ids, rt.nbr, out), 20, flush)
+    plain_ms = cuda_ms(lambda: jacobi_tiles_ref(rt.tiles, ids, rt.nbr), 5,
+                       flush)
+    h, w = rt.grid.tile_shape
+    bound_ms = 2 * len(ids) * h * w * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"  {moved} tiles moved; PE {pe} holds {len(ids)} tiles of {h}x{w}:"
+        f" kernel == plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms")
+    return {"moved": moved, "tiles": len(ids), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def stencil_app_phase(dev):
+    """C1 and C2 at full size through the app's entry points; returns the
+    Jacobi kernel's launches by run."""
+    import numpy as np
+    import torch
+    from repro_torch.apps.jacobi2d import run_jacobi
+    from repro_torch.apps.lulesh_proxy import run_lulesh
+    from repro_torch.kernels.jacobi import kernel as jk
+    launches = {}
+    for odf in STENCIL_ODFS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        jk.launches = 0
+        t0 = time.perf_counter()
+        out = run_jacobi(grid_size=STENCIL_N, n_pes=STENCIL_PES, odf=odf,
+                         iters=C1_ITERS, comm_latency_s=500e-6, device=dev)
+        wall = time.perf_counter() - t0
+        launches[f"jacobi2d odf={odf}"] = jk.launches
+        # one launch per PE per step, plus the first shape's warm-up
+        assert jk.launches == C1_ITERS * STENCIL_PES + 1, jk.launches
+        steps = out.per_iter
+        compute = np.mean([m["compute_max"] for m in steps])
+        exposed = np.mean([m["comm_exposed_max"] for m in steps])
+        log(f"[C1] {STENCIL_N}^2 f32, {STENCIL_PES} PEs, odf {odf}, 500 us "
+            f"latency: time/iter {out.time_per_iter * 1e3:.4f} ms, "
+            f"accounted {out.accounted_time_per_iter * 1e3:.4f} ms, "
+            f"compute max {compute * 1e3:.4f} ms, exposed comm "
+            f"{exposed * 1e3:.4f} ms (means over {len(steps)} steps); "
+            f"{jk.launches} launches; "
+            f"{C1_ITERS} iters in {wall:.2f} s wall incl. set-up; peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    res = {}
+    for strat, aware in ((None, False), ("greedy_refine", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run_lulesh(grid_size=STENCIL_N, n_pes=STENCIL_PES, odf=4,
+                         iters=C2_ITERS, pe_rate_multipliers=C2_RATES,
+                         lb_strategy=strat, lb_every=6, rate_aware=aware,
+                         device=dev)
+        wall = time.perf_counter() - t0
+        tail = out.per_iter[-8:]
+        res[strat] = float(np.median([m["accounted_time_per_iter"]
+                                      for m in tail]))
+        log(f"[C2] lulesh {STENCIL_N}^2 f32, rates {C2_RATES}, lb {strat}: "
+            f"time/iter {out.time_per_iter * 1e3:.3f} ms, accounted "
+            f"{out.accounted_time_per_iter * 1e3:.3f} ms, tail median "
+            f"accounted {res[strat] * 1e3:.3f} ms, migrations "
+            f"{[e['migrations'] for e in out.lb_events]}; {C2_ITERS} iters "
+            f"in {wall:.2f} s wall; peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[C2] rate-aware GreedyRefine vs no LB: improvement "
+        f"{1 - res['greedy_refine'] / res[None]:.4f} (accounted, tail "
+        f"median)")
+    return launches
+
+
+def stencil_checks_phase(dev):
+    """The app's correctness on the card, asserted."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spmd_stencil import reference_jacobi
+    from repro_torch.kernels.jacobi import jacobi
+    from repro_torch.kernels.jacobi import kernel as jk
+    a, b = stencil_runtime(dev, 4), stencil_runtime(dev, 4)
+    a.tiles.uniform_(generator=torch.Generator(dev).manual_seed(7))
+    b.tiles.copy_(a.tiles)
+    g0 = a.device_grid()
+    jk.launches = 0
+    want = 0
+    for i in range(6):
+        if i == 2:
+            assert slow_pe_balance(b) > 0
+        if i == 4:
+            b.assignment = np.random.default_rng(0).integers(0, 3, 16)
+        a.step()
+        b.step()
+        want += pes_holding(a) + pes_holding(b)
+    torch.cuda.synchronize()
+    warm = a.warm_launches + b.warm_launches
+    assert jk.launches == want + warm, (jk.launches, want, warm)
+    assert a.host_syncs == b.host_syncs == 6
+    assert torch.equal(a.tiles, b.tiles)
+    ref = reference_jacobi(g0, 6)
+    assert torch.equal(a.device_grid(), ref)
+    swept = g0
+    for _ in range(6):
+        swept = jacobi(swept)
+    assert torch.equal(swept, ref)
+    del b, ref, swept, g0
+    h, w = a.grid.tile_shape
+    log(f"[stencil] 6 steps, 4 PEs x 4 tiles of {h}x{w}: tiled == "
+        f"reference_jacobi (plain) == 6 global kernel sweeps, bit for bit; "
+        f"moved run == unmoved; launches {want} + {warm} warm-up")
+    # a steady window: one host sync a step, any other sync an error
+    syncs, n0 = a.host_syncs, jk.launches
+    busy = 0.0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            a.step()               # ends in its sync: the host clock holds
+            busy += float(a.last_pe_compute.sum())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    wall = time.perf_counter() - t0
+    assert a.host_syncs - syncs == 4 and jk.launches - n0 == 16
+    log(f"[stencil] steady step, 4 PEs x 4 tiles: {wall / 4 * 1e3:.4f} ms "
+        f"wall, kernels {busy / 4 * 1e3:.4f} ms of it (device busy "
+        f"{busy / wall:.1%})")
+    # equal work on every PE: the measured rates show the timing's bias
+    log(f"[stencil] per-PE rates the monitor measured on equal work "
+        f"(EWMA, mean 1): {[round(float(r), 4) for r in a.monitor.rates()]};"
+        f" the last step's per-PE device ms "
+        f"{[round(float(x) * 1e3, 4) for x in a.last_pe_compute]}")
+    # shrink 4 -> 2 PEs through a host checkpoint, continue
+    snap = a.checkpoint()
+    c = stencil_runtime(dev, 8, n_pes=2)
+    c.restore(snap, n_pes=2)
+    assert torch.equal(c.tiles, a.tiles)
+    for _ in range(3):
+        a.step()
+        c.step()
+    assert torch.equal(c.tiles, a.tiles) and c.iteration == a.iteration
+    log("[stencil] steady steps under sync_debug_mode=error: 1 host sync "
+        "each (the timing read); 4 -> 2 PE checkpoint/restore continues "
+        "bit-identically")
+
+
+def stencil_driver_phase(dev):
+    """``TileRuntimeDriver`` with a ``FaultTrace`` at full size; returns
+    its Jacobi launches."""
+    from repro_torch.core.overdecomp import TileRuntimeDriver
+    from repro_torch.kernels.jacobi import kernel as jk
+    from repro_torch.runtime import EventLoop, FaultTrace
+    rt = stencil_runtime(dev, 4)
+    loop = EventLoop()
+    trace = FaultTrace(rebalance_lead=2.0, notice_deadline=2.0)
+    trace.inject(3.0, 0)
+    jk.launches = 0
+    drv = TileRuntimeDriver(rt, loop, iters=10, step_interval=1.0,
+                            lb_interval=4.0, trace=trace)
+    loop.run()
+    launches = jk.launches
+    assert rt.iteration == 10 and pes_holding(rt) == STENCIL_PES
+    assert launches == 10 * STENCIL_PES + rt.warm_launches, launches
+    assert [t for t, _ in drv.checkpoints] == [5.0]
+    # at t = 5.0 the notice (bound first) is dispatched before the step
+    assert drv.checkpoints[0][1]["iteration"] == 4
+    assert any(t == 3.0 and msg.startswith("lb") for t, msg in drv.timeline)
+    log(f"[driver] 10 steps on the event loop: checkpoint at t=5.0 (the "
+        f"notice), timeline {drv.timeline}; {launches} launches")
+    return launches
+
+
 def requests(cfg, lens, max_new, seed, start=0):
     import numpy as np
     from repro_torch.serving.engine import Request
@@ -476,6 +782,12 @@ def main() -> int:
     # 4. SSD intra-chunk vs plain
     log("[kernel] ssd_intra_chunk vs plain at full prefill-chunk shapes")
     ssd = ssd_kernel_phase(dev, flush)
+
+    # 8. Jacobi stencil vs plain, then its tile form at full size
+    log("[kernel] jacobi vs plain (5 test shapes, 16384^2, 32768^2)")
+    jac = jacobi_kernel_phase(dev, flush)
+    log("[kernel] jacobi tile form at 16384^2, 4 PEs x odf 4, after LB")
+    jac["tile_form"] = tile_form_phase(dev, flush)
     del flush_buf
     torch.cuda.empty_cache()
 
@@ -533,8 +845,15 @@ def main() -> int:
         log(f"[small] reduced {arch} f32: dense and paged (kernel) engines "
             f"give identical greedy streams")
 
+    # 9-11. the stencil app: C1 and C2, correctness, the event driver
+    by_run = stencil_app_phase(dev)
+    stencil_checks_phase(dev)
+    by_run["driver"] = stencil_driver_phase(dev)
+    jac["launches_by_path"] = by_run
+    jac["launches"] = sum(by_run.values())
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s on {card}")
-    print(json.dumps({"kernels": [paged, ssd]}), flush=True)
+    print(json.dumps({"kernels": [paged, ssd, jac]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

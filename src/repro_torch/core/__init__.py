@@ -1,0 +1,8 @@
+"""The paper's runtime, ported: the stencil half (C1, C2).
+
+- overdecomp:    chare-style tile runtime on the card (C1)
+- rates:         measured per-PE rate EWMA
+- loadbalance:   Greedy / GreedyRefine, rate-aware (C2)
+- spmd_stencil:  the single-grid oracle (the multi-device path waits for
+                 ``torch.distributed``)
+"""

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ssd
+from repro_torch.kernels import jacobi, ssd
 from repro_torch.kernels.paged_attention import kernel, paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -124,3 +124,53 @@ def test_ssd_kernel_full_shapes_on_card(cuda_device, l, h, p, n):
         np.testing.assert_allclose(
             out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
             atol=1e-5 * float(ref.abs().max()))
+
+
+# ----------------------------------------------------------------- jacobi
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(64, 64), (128, 64), (64, 128), (256, 32),
+                                 (32, 32)])               # test_kernels.py
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jacobi_kernel_matches_plain_on_card(cuda_device, H, W, dtype):
+    """Bit for bit: both round after every op, in the same order."""
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (H, W)).astype(np.float32)).to(cuda_device, dtype)
+    before = jacobi.kernel.launches
+    out = jacobi.jacobi(g)
+    torch.cuda.synchronize()
+    assert jacobi.kernel.launches == before + 1
+    ref = jacobi.jacobi(g, impl="ref")
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_runtime_on_card_after_migration(cuda_device, dtype):
+    """The card's runtime (one kernel launch per PE per step) equals the
+    CPU's plain version bit for bit, across a load-balancer migration and
+    an assignment changed by hand; launches = PEs holding tiles per step
+    plus one untimed warm-up launch per tile count."""
+    from repro_torch.core.overdecomp import HostTileRuntime, TileGrid
+    from repro_torch.core.rates import RateMonitor
+    grid = TileGrid(96, 160, 3, 4)
+    card = HostTileRuntime(grid, 4, odf=3, dtype=dtype, device=cuda_device)
+    host = HostTileRuntime(grid, 4, odf=3, dtype=dtype, device="cpu")
+    before = jacobi.kernel.launches
+    expected = 0
+    for i in range(9):
+        if i == 3:
+            for rt in (card, host):       # PE 2 measured 4x slower
+                rt.monitor = RateMonitor(4)
+                rt.monitor.record_step([3.0] * 4, [1.0, 1.0, 4.0, 1.0])
+                assert rt.load_balance("greedy_refine").migrations > 0
+        if i == 6:
+            moved = np.random.default_rng(1).integers(0, 3, 12)
+            card.assignment, host.assignment = moved, moved.copy()
+        card.step()
+        host.step()
+        expected += int((np.bincount(card.assignment, minlength=4) > 0)
+                        .sum())
+    torch.cuda.synchronize()
+    assert card.host_syncs == 9
+    assert jacobi.kernel.launches - before == expected + card.warm_launches
+    assert torch.equal(card.tiles.cpu(), host.tiles)

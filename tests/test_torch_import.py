@@ -16,7 +16,10 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 def test_import_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.serving.engine, "
-            "repro_torch.launch.serve, repro_torch.kernels.paged_attention\n"
+            "repro_torch.launch.serve, repro_torch.kernels.paged_attention, "
+            "repro_torch.apps.jacobi2d, repro_torch.apps.lulesh_proxy, "
+            "repro_torch.core.overdecomp, repro_torch.core.spmd_stencil, "
+            "repro_torch.runtime, repro_torch.kernels.jacobi\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))\n"

@@ -1,0 +1,221 @@
+"""The port's tile runtime, apps and event driver against JAX's.
+
+* ``HostTileRuntime`` on a 32 x 32 grid of 4 x 4 tiles and 4 PEs: the
+  global grid after 6 steps equals JAX's bit for bit, and equals the
+  single-grid oracle; tiles moved by the load balancer or by hand give the
+  same bits as unmoved ones (the cached per-PE ids follow the move).
+* A JAX checkpoint restores into the port at 2 PEs, and a port checkpoint
+  into JAX; each continues equal to the run it came from.
+* ``choose_tiling``, the comm model's exposure shrinking with odf, and the
+  paper's C1 and C2 claims (``tests/test_system.py:18-48``) on the port.
+* ``TileRuntimeDriver`` and JAX's, handed the same ``FaultTrace``: the
+  same checkpoint times, iterations and tiles, the same timeline times and
+  event kinds (the ``lb migrations=`` counts follow measured rates and are
+  not compared).
+* Entry points default to the card and raise without one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.overdecomp import HostTileRuntime as JaxRuntime
+from repro.core.overdecomp import TileGrid as JaxGrid
+from repro.core.overdecomp import TileRuntimeDriver as JaxDriver
+from repro.runtime import EventLoop as JaxLoop
+from repro.runtime import FaultTrace as JaxTrace
+from repro_torch.apps.jacobi2d import run_jacobi
+from repro_torch.apps.lulesh_proxy import run_lulesh
+from repro_torch.core.overdecomp import (CommModel, HostTileRuntime,
+                                         TileGrid, TileRuntimeDriver,
+                                         choose_tiling)
+from repro_torch.core.rates import RateMonitor
+from repro_torch.core.spmd_stencil import reference_jacobi
+from repro_torch.kernels.jacobi import kernel
+from repro_torch.runtime import EventLoop, FaultTrace
+
+torch.set_num_threads(1)
+
+GRID = (32, 32, 4, 4)
+
+
+def _port(n_pes=4, odf=4, **kw):
+    return HostTileRuntime(TileGrid(*GRID), n_pes, odf=odf, device="cpu",
+                           **kw)
+
+
+def _jax(n_pes=4, odf=4, **kw):
+    return JaxRuntime(JaxGrid(*GRID), n_pes=n_pes, odf=odf, **kw)
+
+
+def _force_slow_pe(rt, pe=2):
+    """A fresh monitor whose first reading has ``pe`` 4x slower, so the
+    balancer's input does not depend on the host's timing."""
+    secs = [1.0] * rt.n_pes
+    secs[pe] = 4.0
+    rt.monitor = RateMonitor(rt.n_pes)
+    rt.monitor.record_step([4.0] * rt.n_pes, secs)
+
+
+def test_runtime_matches_jax_and_the_oracle():
+    before = kernel.launches
+    port, ref = _port(), _jax()
+    g0 = torch.from_numpy(port.global_grid()).float()
+    np.testing.assert_array_equal(port.global_grid(), ref.global_grid())
+    for _ in range(6):
+        port.step()
+        ref.step()
+    assert port.iteration == ref.iteration == 6
+    np.testing.assert_array_equal(port.global_grid(), ref.global_grid())
+    np.testing.assert_array_equal(
+        port.global_grid(), reference_jacobi(g0, 6).double().numpy())
+    assert kernel.launches == before and port.host_syncs == 0   # plain
+
+
+def test_lb_preserves_solution_and_moves_tiles():
+    a, b = _port(), _port(pe_rate_multipliers=[1, 1, 0.5, 1])
+    ref = _jax()
+    moved = 0
+    for i in range(8):
+        a.step()
+        b.step()
+        ref.step()
+        if i == 3:
+            _force_slow_pe(b)
+            moved = b.load_balance("greedy_refine").migrations
+    assert moved > 0
+    assert np.bincount(b.assignment, minlength=4)[2] < 4
+    np.testing.assert_array_equal(a.global_grid(), b.global_grid())
+    np.testing.assert_array_equal(b.global_grid(), ref.global_grid())
+
+
+def test_assignment_set_by_hand_is_followed():
+    """The per-PE id cache is rebuilt whenever the assignment changes."""
+    a, b = _port(), _port()
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        if i % 2:
+            b.assignment = rng.integers(0, 3, 16)   # PE 3 left empty
+        a.step()
+        b.step()
+    np.testing.assert_array_equal(a.global_grid(), b.global_grid())
+
+
+def test_jax_checkpoint_restores_into_port_and_back():
+    ref = _jax()
+    for _ in range(3):
+        ref.step()
+    port = _port(n_pes=2, odf=8)
+    port.restore(ref.checkpoint(), n_pes=2)        # shrink 4 -> 2 PEs
+    np.testing.assert_array_equal(port.global_grid(), ref.global_grid())
+    assert port.assignment.max() < 2 and port.iteration == 3
+    back = _jax(n_pes=2, odf=8)
+    for _ in range(3):
+        ref.step()
+        port.step()
+    back.restore(port.checkpoint(), n_pes=2)
+    np.testing.assert_array_equal(port.global_grid(), ref.global_grid())
+    np.testing.assert_array_equal(back.global_grid(), ref.global_grid())
+    snap = port.checkpoint()
+    assert sorted(snap["tiles"]) == list(range(16))
+    assert snap["tiles"][0].dtype == np.float32 and snap["iteration"] == 6
+    back.step()
+    ref.step()
+    np.testing.assert_array_equal(back.global_grid(), ref.global_grid())
+
+
+def test_bf16_checkpoint_round_trip_is_exact():
+    rt = _port(dtype=torch.bfloat16)
+    for _ in range(3):
+        rt.step()
+    twin = _port(n_pes=2, odf=8, dtype=torch.bfloat16)
+    twin.restore(rt.checkpoint(), n_pes=2)
+    assert torch.equal(twin.tiles, rt.tiles)
+    rt.step()
+    twin.step()
+    assert torch.equal(twin.tiles, rt.tiles)
+
+
+def test_choose_tiling():
+    assert choose_tiling(16) == (4, 4)
+    assert choose_tiling(8) == (2, 4)
+    assert choose_tiling(7) == (1, 7)
+    assert choose_tiling(32) == (4, 8)
+
+
+def test_comm_model_exposure_shrinks_with_odf():
+    res = {}
+    for odf in (1, 8):
+        tr, tc = choose_tiling(4 * odf)
+        rt = HostTileRuntime(TileGrid(64, 64, tr, tc), 4, odf=odf,
+                             comm=CommModel(latency_s=5e-3), device="cpu")
+        m = [rt.step() for _ in range(4)][-1]
+        res[odf] = m["comm_exposed_max"]
+    assert res[8] <= res[1]
+
+
+def test_c1_overdecomposition_hides_latency():
+    """``tests/test_system.py`` C1 on the port: odf 4 beats odf 1 in
+    accounted time under 500 us per-message latency."""
+    t = {}
+    for odf in (1, 4):
+        out = run_jacobi(grid_size=512, n_pes=4, odf=odf, iters=14,
+                         comm_latency_s=500e-6, device="cpu")
+        t[odf] = out.accounted_time_per_iter
+    assert t[4] < t[1], t
+
+
+def test_c2_rate_aware_lb_beats_none():
+    """``tests/test_system.py`` C2 on the port: rate-aware GreedyRefine
+    beats no LB by more than 5% on heterogeneous PEs (LULESH proxy)."""
+    rates = [1.0, 0.9, 0.4, 1.0]
+    res = {}
+    for strat, aware in ((None, False), ("greedy_refine", True)):
+        out = run_lulesh(grid_size=768, n_pes=4, odf=4, iters=24,
+                         pe_rate_multipliers=rates, lb_strategy=strat,
+                         lb_every=6, rate_aware=aware, device="cpu")
+        tail = out.per_iter[-8:]
+        res[strat] = float(np.median([m["accounted_time_per_iter"]
+                                      for m in tail]))
+    improvement = 1 - res["greedy_refine"] / res[None]
+    assert improvement > 0.05, res
+
+
+def _drive(runtime, driver, loop, trace):
+    trace.inject(3.0, 0)
+    drv = driver(runtime, loop, iters=10, step_interval=1.0,
+                 lb_interval=4.0, trace=trace)
+    loop.run()
+    return drv
+
+
+def test_driver_matches_jax_on_one_trace():
+    port = _drive(_port(), TileRuntimeDriver, EventLoop(),
+                  FaultTrace(rebalance_lead=2.0, notice_deadline=2.0))
+    ref = _drive(_jax(), JaxDriver, JaxLoop(),
+                 JaxTrace(rebalance_lead=2.0, notice_deadline=2.0))
+    assert port.rt.iteration == ref.rt.iteration == 10
+    assert len(port.per_iter) == len(ref.per_iter) == 10
+    assert [t for t, _ in port.checkpoints] == [5.0]
+    assert [t for t, _ in port.checkpoints] == \
+        [t for t, _ in ref.checkpoints]
+    for (_, a), (_, b) in zip(port.checkpoints, ref.checkpoints):
+        assert a["iteration"] == b["iteration"] > 0
+        for t in range(16):
+            np.testing.assert_array_equal(a["tiles"][t], b["tiles"][t])
+
+    def kinds(timeline):
+        return [(t, msg.split()[0]) for t, msg in timeline]
+    assert kinds(port.timeline) == kinds(ref.timeline)
+    assert (3.0, "lb") in kinds(port.timeline)   # proactive, at the rec.
+    np.testing.assert_array_equal(port.rt.global_grid(),
+                                  ref.rt.global_grid())
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_jacobi(grid_size=64, iters=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HostTileRuntime(TileGrid(*GRID), 4)
