@@ -38,27 +38,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    tolerance;
 7. reduced granite-8b, mamba2-780m and zamba2-2.7b in float32: the dense
    and paged engines on the card give the same greedy streams;
-8. Jacobi stencil kernel vs plain version, bit for bit, at the 5 shapes of
+8. the tile runtime at full size (16384^2 float32, 4 PEs x 4 tiles),
+   fresh, in a process that has not loaded the Jacobi kernel yet: its
+   first step's per-PE device times against their medians over a steady
+   window of 400 steps, one host sync each (any other sync an error),
+   with the window's wall and device-busy time per step and their
+   spread; then the LULESH proxy's first timed step (its first run at a
+   tile count is kept out of the timing) against its next 5;
+9. Jacobi stencil kernel vs plain version, bit for bit, at the 5 shapes of
    ``tests/test_kernels.py`` in float32 and bf16 and at 16384^2 and
    32768^2 in float32, with kernel, plain, library (``F.conv2d`` of the
    grid padded outside the timing, with the 5-point cross weights) and
-   HBM-bound times; then the tile form at full size after a load balance
-   moved tiles, one PE's launch against its plain version;
-9. the stencil app at full size (16384^2 float32, 4 PEs), its launch count
+   HBM-bound times at both full grids; then the tile form at full size
+   after a load balance moved tiles, one PE's launch against its plain
+   version;
+10. the stencil app at full size (16384^2 float32, 4 PEs), its launch count
    set to 0 just before each run and read just after: ``run_jacobi`` with
    500 us message latency at odf 1, 4 and 8 (C1), then ``run_lulesh``
    on rates [1, 0.9, 0.4, 1] without and with rate-aware GreedyRefine
    every 6 steps (C2); times per iteration, accounted and exposed times,
    the LB improvement, migrations and peak memory are printed, not
    asserted;
-10. the app's correctness on the card, asserted: 6 tiled steps equal
+11. the app's correctness on the card, asserted: 6 tiled steps equal
    ``reference_jacobi`` (plain) and 6 global kernel sweeps bit for bit; a
    run whose tiles the balancer (and then a hand-set assignment) moved
    equals an unmoved one; a 4 -> 2 PE checkpoint/restore continues
-   bit-identically; launches = PEs holding tiles per step plus the
-   untimed warm-ups; one host sync per step (the timing read), with any
-   other sync an error;
-11. ``TileRuntimeDriver`` on the ``EventLoop`` with a ``FaultTrace``, at
+   bit-identically; launches = PEs holding tiles per step; one host sync
+   per step;
+12. ``TileRuntimeDriver`` on the ``EventLoop`` with a ``FaultTrace``, at
    full size: a checkpoint at the notice, a rebalance at the
    recommendation.
 
@@ -118,6 +125,7 @@ JACOBI_FULL = (16384, 32768)
 # on 4 PEs, the paper's C1 odf sweep and C2 heterogeneous rates.
 STENCIL_N, STENCIL_PES, STENCIL_ODFS = 16384, 4, (1, 4, 8)
 C1_ITERS, C2_ITERS, C2_RATES = 20, 24, [1.0, 0.9, 0.4, 1.0]
+STEADY_STEPS = 400
 
 
 def log(msg):
@@ -345,27 +353,24 @@ def jacobi_kernel_phase(dev, flush):
         assert torch.equal(out, jacobi_step_ref(grid)), n
         ms = cuda_ms(lambda: kernel.jacobi_step(grid), 20, flush)
         plain_ms = cuda_ms(lambda: jacobi_step_ref(grid), 5, flush)
-        library_ms = None
-        if n == STENCIL_N:
-            # the yardstick: one cuDNN convolution (float32, TF32 off) of
-            # the grid padded with its boundary, padding outside the timing
-            padded = F.pad(grid, (1, 1, 1, 1))
-            padded[0, 1:-1] = 1.0
-            padded = padded[None, None]
-            cross = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
-                                  [0.0, 0.25, 0.0]], device=dev)[None, None]
-            assert_close(F.conv2d(padded, cross)[0, 0], out,
-                         dict(rtol=1e-5, atol=1e-5),
-                         f"{n}^2 conv2d (library) vs kernel")
-            library_ms = cuda_ms(lambda: F.conv2d(padded, cross), 10, flush)
-            del padded
-        del out, grid
+        # the yardstick: one cuDNN convolution (float32, TF32 off) of the
+        # grid padded with its boundary, padding outside the timing
+        padded = F.pad(grid, (1, 1, 1, 1))
+        padded[0, 1:-1] = 1.0
+        padded = padded[None, None]
+        cross = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
+                              [0.0, 0.25, 0.0]], device=dev)[None, None]
+        assert_close(F.conv2d(padded, cross)[0, 0], out,
+                     dict(rtol=1e-5, atol=1e-5),
+                     f"{n}^2 conv2d (library) vs kernel")
+        library_ms = cuda_ms(lambda: F.conv2d(padded, cross), 10, flush)
+        del padded, out, grid
         torch.cuda.empty_cache()
         nbytes, flops = 2 * n * n * 4, 4 * n * n
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-        lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"  {n}^2 float32: kernel == plain; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, conv2d {lib}, bound {bound_ms:.4f} ms "
+            f"{plain_ms:.4f} ms, conv2d {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms "
             f"(bytes: {nbytes} B; {flops} flop); {bound_ms / ms:.1%} of "
             f"the HBM rate")
         rows.append({"n": n, "ms": ms, "plain_ms": plain_ms,
@@ -457,8 +462,7 @@ def stencil_app_phase(dev):
                          iters=C1_ITERS, comm_latency_s=500e-6, device=dev)
         wall = time.perf_counter() - t0
         launches[f"jacobi2d odf={odf}"] = jk.launches
-        # one launch per PE per step, plus the first shape's warm-up
-        assert jk.launches == C1_ITERS * STENCIL_PES + 1, jk.launches
+        assert jk.launches == C1_ITERS * STENCIL_PES, jk.launches
         steps = out.per_iter
         compute = np.mean([m["compute_max"] for m in steps])
         exposed = np.mean([m["comm_exposed_max"] for m in steps])
@@ -496,6 +500,75 @@ def stencil_app_phase(dev):
     return launches
 
 
+def spread(xs, scale=1e3) -> str:
+    """Median [p10, p90] (min-max) of ``xs`` times ``scale``."""
+    import numpy as np
+    p10, med, p90 = np.percentile(xs, [10, 50, 90]) * scale
+    return (f"{med:.4f} [p10 {p10:.4f}, p90 {p90:.4f}] (min "
+            f"{min(xs) * scale:.4f}, max {max(xs) * scale:.4f})")
+
+
+def stencil_steady_phase(dev):
+    """A fresh full-size runtime in a process that has not loaded the
+    Jacobi kernel: the first step's per-PE device times against their
+    medians over a steady window, and the window's wall and busy time per
+    step; then the LULESH proxy's first timed step (after its untimed
+    first run) against its next ones.
+    Returns the Jacobi kernel's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.jacobi import kernel as jk
+    assert jk._fn is None, "the Jacobi kernel is loaded already"
+    jk.launches = 0
+    rt = stencil_runtime(dev, 4)
+    rt.step()                       # loads the kernel before its timing
+    first = rt.last_pe_compute.copy()
+    walls, busy, per_pe = [], [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(STEADY_STEPS):
+            t0 = time.perf_counter()
+            rt.step()               # ends in its sync: the host clock holds
+            walls.append(time.perf_counter() - t0)
+            busy.append(float(rt.last_pe_compute.sum()))
+            per_pe.append(rt.last_pe_compute.copy())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = jk.launches
+    assert rt.host_syncs == STEADY_STEPS + 1
+    assert launches == (STEADY_STEPS + 1) * STENCIL_PES, launches
+    med = np.median(per_pe, axis=0)
+    log(f"[stencil] fresh runtime, 4 PEs x 4 tiles: step 1 per-PE device "
+        f"ms {[round(float(x) * 1e3, 4) for x in first]} (PE 0 launched "
+        f"first) against the window's per-PE medians "
+        f"{[round(float(x) * 1e3, 4) for x in med]}: ratios "
+        f"{[round(float(x), 4) for x in first / med]}")
+    host = [w - b for w, b in zip(walls, busy)]
+    log(f"[stencil] steady window, {STEADY_STEPS} steps, 1 host sync each "
+        f"(sync_debug_mode=error): wall ms/step {spread(walls)}; kernels "
+        f"ms/step {spread(busy)}; host ms/step (wall - kernels) "
+        f"{spread(host)}; device busy share "
+        f"{spread([b / w for b, w in zip(busy, walls)], 1)}; mean wall "
+        f"{np.mean(walls) * 1e3:.4f} ms")
+    # equal work on every PE: the measured rates show the timing's bias
+    log(f"[stencil] per-PE rates the monitor measured on equal work "
+        f"(EWMA, mean 1): {[round(float(r), 4) for r in rt.monitor.rates()]}")
+    del rt
+    lu = stencil_runtime(dev, 4, kernel="lulesh")
+    steps = []
+    for _ in range(6):
+        lu.step()
+        steps.append(lu.last_pe_compute.copy())
+    med = np.median(steps[1:], axis=0)
+    log(f"[stencil] fresh LULESH runtime: timed step 1 per-PE device ms "
+        f"{[round(float(x) * 1e3, 3) for x in steps[0]]} against the "
+        f"medians of steps 2-6 {[round(float(x) * 1e3, 3) for x in med]}: "
+        f"ratios {[round(float(x), 4) for x in steps[0] / med]}")
+    del lu
+    torch.cuda.empty_cache()
+    return launches
+
+
 def stencil_checks_phase(dev):
     """The app's correctness on the card, asserted."""
     import numpy as np
@@ -518,8 +591,7 @@ def stencil_checks_phase(dev):
         b.step()
         want += pes_holding(a) + pes_holding(b)
     torch.cuda.synchronize()
-    warm = a.warm_launches + b.warm_launches
-    assert jk.launches == want + warm, (jk.launches, want, warm)
+    assert jk.launches == want, (jk.launches, want)
     assert a.host_syncs == b.host_syncs == 6
     assert torch.equal(a.tiles, b.tiles)
     ref = reference_jacobi(g0, 6)
@@ -532,28 +604,7 @@ def stencil_checks_phase(dev):
     h, w = a.grid.tile_shape
     log(f"[stencil] 6 steps, 4 PEs x 4 tiles of {h}x{w}: tiled == "
         f"reference_jacobi (plain) == 6 global kernel sweeps, bit for bit; "
-        f"moved run == unmoved; launches {want} + {warm} warm-up")
-    # a steady window: one host sync a step, any other sync an error
-    syncs, n0 = a.host_syncs, jk.launches
-    busy = 0.0
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for _ in range(4):
-            a.step()               # ends in its sync: the host clock holds
-            busy += float(a.last_pe_compute.sum())
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    wall = time.perf_counter() - t0
-    assert a.host_syncs - syncs == 4 and jk.launches - n0 == 16
-    log(f"[stencil] steady step, 4 PEs x 4 tiles: {wall / 4 * 1e3:.4f} ms "
-        f"wall, kernels {busy / 4 * 1e3:.4f} ms of it (device busy "
-        f"{busy / wall:.1%})")
-    # equal work on every PE: the measured rates show the timing's bias
-    log(f"[stencil] per-PE rates the monitor measured on equal work "
-        f"(EWMA, mean 1): {[round(float(r), 4) for r in a.monitor.rates()]};"
-        f" the last step's per-PE device ms "
-        f"{[round(float(x) * 1e3, 4) for x in a.last_pe_compute]}")
+        f"moved run == unmoved; {want} launches, 1 host sync a step")
     # shrink 4 -> 2 PEs through a host checkpoint, continue
     snap = a.checkpoint()
     c = stencil_runtime(dev, 8, n_pes=2)
@@ -563,9 +614,7 @@ def stencil_checks_phase(dev):
         a.step()
         c.step()
     assert torch.equal(c.tiles, a.tiles) and c.iteration == a.iteration
-    log("[stencil] steady steps under sync_debug_mode=error: 1 host sync "
-        "each (the timing read); 4 -> 2 PE checkpoint/restore continues "
-        "bit-identically")
+    log("[stencil] 4 -> 2 PE checkpoint/restore continues bit-identically")
 
 
 def stencil_driver_phase(dev):
@@ -584,7 +633,7 @@ def stencil_driver_phase(dev):
     loop.run()
     launches = jk.launches
     assert rt.iteration == 10 and pes_holding(rt) == STENCIL_PES
-    assert launches == 10 * STENCIL_PES + rt.warm_launches, launches
+    assert launches == 10 * STENCIL_PES, launches
     assert [t for t, _ in drv.checkpoints] == [5.0]
     # at t = 5.0 the notice (bound first) is dispatched before the step
     assert drv.checkpoints[0][1]["iteration"] == 4
@@ -783,7 +832,10 @@ def main() -> int:
     log("[kernel] ssd_intra_chunk vs plain at full prefill-chunk shapes")
     ssd = ssd_kernel_phase(dev, flush)
 
-    # 8. Jacobi stencil vs plain, then its tile form at full size
+    # 8. the tile runtime's first steps and a steady window
+    steady_launches = stencil_steady_phase(dev)
+
+    # 9. Jacobi stencil vs plain, then its tile form at full size
     log("[kernel] jacobi vs plain (5 test shapes, 16384^2, 32768^2)")
     jac = jacobi_kernel_phase(dev, flush)
     log("[kernel] jacobi tile form at 16384^2, 4 PEs x odf 4, after LB")
@@ -845,8 +897,8 @@ def main() -> int:
         log(f"[small] reduced {arch} f32: dense and paged (kernel) engines "
             f"give identical greedy streams")
 
-    # 9-11. the stencil app: C1 and C2, correctness, the event driver
-    by_run = stencil_app_phase(dev)
+    # 10-12. the stencil app: C1 and C2, correctness, the event driver
+    by_run = {"steady window": steady_launches, **stencil_app_phase(dev)}
     stencil_checks_phase(dev)
     by_run["driver"] = stencil_driver_phase(dev)
     jac["launches_by_path"] = by_run

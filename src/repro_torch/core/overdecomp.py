@@ -17,7 +17,12 @@ The port of ``repro/core/overdecomp.py``.  What differs inside:
 * **Per-PE seconds are device time** on the card: CUDA events around each
   PE's launch, read after one synchronisation at the end of the step (the
   step's only host sync; ``host_syncs`` counts them).  On the CPU they
-  come from ``time.perf_counter``.
+  come from ``time.perf_counter``.  The reference keeps each PE step's
+  first run at a new tile count out of the timing, for XLA's compile.
+  Here only a step of plain torch ops does (the LULESH proxy, and Jacobi
+  on the CPU): its first run loads the ops' kernels and grows the
+  allocator.  The stencil kernel is loaded onto the card with its
+  library and timed from its first launch.
 * **The host-facing forms stay host numpy**: ``checkpoint()``,
   ``restore()`` and ``global_grid()`` take and give the reference's form
   (a dict of numpy tiles, the assignment, the iteration), so a snapshot
@@ -34,13 +39,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import loadbalance as lb
 from repro_torch.core.rates import RateMonitor
 from repro_torch.device import resolve_device
 from repro_torch.kernels.jacobi import prepare_jacobi_tiles
-from repro_torch.kernels.jacobi.ref import tile_halos
+from repro_torch.kernels.jacobi.ref import (  # noqa: F401
+    jacobi_tile_step, neighbour_sum, tile_halos)
 from repro_torch.runtime import EventLoop, FaultTrace
 
 
@@ -82,24 +87,8 @@ def choose_tiling(n_tiles: int) -> Tuple[int, int]:
 
 
 # --------------------------------------------------------------- tile kernels
-def _padded(tile, up, down, left, right):
-    """``tile (..., h, w)`` framed by its halos (..., w) and (..., h)."""
-    padded = F.pad(tile, (1, 1, 1, 1))
-    padded[..., 0, 1:-1] = up
-    padded[..., -1, 1:-1] = down
-    padded[..., 1:-1, 0] = left
-    padded[..., 1:-1, -1] = right
-    return padded
-
-
-def jacobi_tile_step(tile, up, down, left, right):
-    """5-point Jacobi update for tiles given neighbor halo rows/cols.
-
-    tile: (..., h, w); up/down: (..., w); left/right: (..., h).
-    """
-    padded = _padded(tile, up, down, left, right)
-    return 0.25 * (padded[..., :-2, 1:-1] + padded[..., 2:, 1:-1]
-                   + padded[..., 1:-1, :-2] + padded[..., 1:-1, 2:])
+# ``jacobi_tile_step`` (imported above) is the 5-point update of tiles
+# (..., h, w) given their halo rows and columns.
 
 
 def lulesh_tile_step(tile, up, down, left, right, *, inner_iters: int = 8):
@@ -110,9 +99,7 @@ def lulesh_tile_step(tile, up, down, left, right, *, inner_iters: int = 8):
     Plain torch ops, as the reference's is XLA-compiled jnp (it has no
     Pallas kernel).  The neighbour sum does not change across the inner
     rounds; it is computed once."""
-    padded = _padded(tile, up, down, left, right)
-    nsum = (padded[..., :-2, 1:-1] + padded[..., 2:, 1:-1]
-            + padded[..., 1:-1, :-2] + padded[..., 1:-1, 2:])
+    nsum = neighbour_sum(tile, up, down, left, right)
     x = tile
     for _ in range(inner_iters):
         lap = nsum - 4.0 * x
@@ -168,18 +155,14 @@ class HostTileRuntime:
     def __init__(self, grid: TileGrid, n_pes: int, *, kernel: str = "jacobi",
                  odf: Optional[int] = None, dtype=torch.float32,
                  pe_rate_multipliers: Optional[Sequence[float]] = None,
-                 comm: Optional[CommModel] = None,
-                 rng: Optional[np.random.Generator] = None,
-                 device="cuda"):
+                 comm: Optional[CommModel] = None, device="cuda"):
         assert grid.n_tiles % n_pes == 0, (grid.n_tiles, n_pes)
         assert dtype in (torch.float32, torch.bfloat16), dtype
         self.device = resolve_device(device)
         self.grid = grid
         self.n_pes = n_pes
         self.odf = odf or grid.n_tiles // n_pes
-        self.kernel_name = kernel
         self.comm = comm or CommModel()
-        self.rng = rng or np.random.default_rng(0)
         h, w = grid.tile_shape
         self.dtype = dtype
         self.tiles = torch.zeros((grid.n_tiles, h, w), dtype=dtype,
@@ -204,10 +187,11 @@ class HostTileRuntime:
         self._objs: List[List[int]] = []
         self._ids: List[Optional[torch.Tensor]] = []
         self._events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
-        self._warm = set()
+        # tile counts whose first run is done, or None: nothing to warm
+        self._warm = None if kernel == "jacobi" and \
+            self.device.type == "cuda" else set()
         self.iteration = 0
         self.host_syncs = 0       # one per step on a card: the timing read
-        self.warm_launches = 0    # untimed first launches, one per shape
         self.last_pe_compute = np.zeros(n_pes)   # seconds, the last step
 
     # ----------------------------------------------------------- placement
@@ -276,9 +260,8 @@ class HostTileRuntime:
             last = pe
             pe_ntiles[pe] = len(objs)
             run = self._prepare(self.tiles, ids, self.nbr, self._next)
-            if len(objs) not in self._warm:   # first launch of a shape
-                run()
-                self.warm_launches += 1
+            if self._warm is not None and len(objs) not in self._warm:
+                run()                 # untimed first run at this count
                 self._warm.add(len(objs))
             if on_card:
                 start, end = self._events[pe]

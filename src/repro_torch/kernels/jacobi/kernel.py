@@ -3,13 +3,13 @@
 The kernel (``csrc/jacobi.cu``, sm_90a) replaces the Pallas TPU kernel
 ``repro/kernels/jacobi/kernel.py:22,42``.  It is built with ``nvcc`` on
 first use (``kernels.build``) and called through ctypes on the current
-CUDA stream.  This wrapper takes CUDA tensors only: it checks device,
-dtype, shape, contiguity, alignment and that the output does not overlap
-the input, launches, and raises if the launch failed.  The values of
-``ids`` and ``nbr`` are not read on the host (that would synchronise):
-ids must lie in ``[0, T)`` and neighbours in ``[-1, T)``, as the tile
-runtime builds them.  ``launches`` counts successful launches and
-nothing else.
+CUDA stream.  This wrapper takes CUDA tensors on the current device
+only: it checks device, dtype, shape, contiguity, alignment and that the
+output does not overlap the input, launches, and raises if the launch
+failed.  The values of ``ids`` and ``nbr`` are not read on the host
+(that would synchronise): ids must lie in ``[0, T)`` and neighbours in
+``[-1, T)``, as the tile runtime builds them.  ``launches`` counts
+successful launches and nothing else.
 """
 
 from __future__ import annotations
@@ -29,10 +29,15 @@ _fn = None
 
 def _lib():
     """The C entry, its signature declared once: every pointer and the
-    stream as ``c_void_p`` (a bare Python int would be cut to 32 bits)."""
+    stream as ``c_void_p`` (a bare Python int would be cut to 32 bits).
+    The kernel is loaded onto the card here, not at its first launch."""
     global _fn
     if _fn is None:
-        fn = build.load("jacobi").jacobi_tiles_launch
+        lib = build.load("jacobi")
+        rc = lib.jacobi_tiles_load()
+        if rc != 0:
+            raise RuntimeError(f"loading the jacobi kernel failed (code {rc})")
+        fn = lib.jacobi_tiles_launch
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -89,12 +94,12 @@ def _launcher(src, out, ids, nbr, n, h, w):
     """The launch as a function of no arguments.  The host's work (the
     library, the stream, the arguments as ctypes values) is done here,
     before it is called, so that events recorded around the call time
-    the kernel, not the host's preparation of it.  Where the tensors'
-    device is not the current one, the call switches to it (the stream
-    is that device's)."""
+    the kernel, not the host's preparation of it."""
+    if src.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {src.device}, but the current device "
+                         f"is cuda:{torch.cuda.current_device()}")
     fn = _lib()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
+    stream = torch.cuda.current_stream().cuda_stream
     ptrs = (src.data_ptr(), out.data_ptr(),
             None if ids is None else ids.data_ptr(),
             None if nbr is None else nbr.data_ptr())
@@ -109,13 +114,7 @@ def _launcher(src, out, ids, nbr, n, h, w):
             raise RuntimeError(f"jacobi kernel launch failed (code {rc})")
         launches += 1
         return out
-    if src.device.index == torch.cuda.current_device():
-        return launch
-
-    def on_device():
-        with torch.cuda.device(src.device):
-            return launch()
-    return on_device
+    return launch
 
 
 def prepare_tiles(src, ids, nbr, out):

@@ -1,5 +1,5 @@
 """Jacobi stencil entry points (the tile runtime's per-PE step calls
-``jacobi_tiles``).
+``prepare_jacobi_tiles``).
 
 Dispatch follows the tensor, never a fallback:
 
@@ -7,9 +7,9 @@ Dispatch follows the tensor, never a fallback:
   raises on arguments it does not take;
 * a CPU tensor runs the plain version (``ref.py``).
 
-``impl="ref"`` asks for the plain version explicitly, wherever the
-tensors are: only tests and ``chip_smoke.py`` use it, to hold the kernel
-against its plain version on the card.
+``jacobi(..., impl="ref")`` asks for the plain version explicitly,
+wherever the grid is: only tests use it, to hold the kernel against its
+plain version on the card.
 """
 from __future__ import annotations
 
@@ -17,20 +17,16 @@ from repro_torch.kernels.jacobi import kernel
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref, jacobi_tiles_ref
 
 
-def _plain(t, impl) -> bool:
-    if impl not in (None, "ref"):
-        raise ValueError(f"unknown impl {impl!r}")
-    return impl == "ref" or t.device.type == "cpu"
-
-
 def jacobi(grid, *, impl=None):
     """One 5-point sweep of ``grid (H, W)``; top halo 1.0, others 0.0."""
-    if _plain(grid, impl):
+    if impl not in (None, "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "ref" or grid.device.type == "cpu":
         return jacobi_step_ref(grid)
     return kernel.jacobi_step(grid)
 
 
-def prepare_jacobi_tiles(tiles, ids, nbr, out, *, impl=None):
+def prepare_jacobi_tiles(tiles, ids, nbr, out):
     """One sweep of the tiles ``ids`` (int32, n) of ``tiles (T, h, w)``,
     written into the same tiles of ``out`` (a second buffer: the halos
     are read from ``tiles``); the neighbour table ``nbr (T, 4)`` holds
@@ -38,7 +34,7 @@ def prepare_jacobi_tiles(tiles, ids, nbr, out, *, impl=None):
     of no arguments that computes it and returns ``out``: on a card the
     arguments are checked and the launch prepared before the call, so
     that events around the call time the kernel."""
-    if _plain(tiles, impl):
+    if tiles.device.type == "cpu":
         def plain():
             out[ids.long()] = jacobi_tiles_ref(tiles, ids, nbr)
             return out
@@ -46,7 +42,7 @@ def prepare_jacobi_tiles(tiles, ids, nbr, out, *, impl=None):
     return kernel.prepare_tiles(tiles, ids, nbr, out)
 
 
-def jacobi_tiles(tiles, ids, nbr, out, *, impl=None):
+def jacobi_tiles(tiles, ids, nbr, out):
     """``prepare_jacobi_tiles(...)()``: one sweep of the tiles ``ids``
     into ``out``; returns ``out``."""
-    return prepare_jacobi_tiles(tiles, ids, nbr, out, impl=impl)()
+    return prepare_jacobi_tiles(tiles, ids, nbr, out)()

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the Jacobi stencil kernel.
 
-Both evaluate ``0.25 * (((up + down) + left) + right)``, rounding after
-every op in the tensor's dtype, as ``repro/kernels/jacobi/ref.py`` and
-``repro/core/overdecomp.py::jacobi_tile_step`` do: in float32 and bf16
-they give the JAX package's bits.
+Every form evaluates ``0.25 * (((up + down) + left) + right)``, rounding
+after every op in the tensor's dtype, as ``repro/kernels/jacobi/ref.py``
+and ``repro/core/overdecomp.py::jacobi_tile_step`` do: in float32 and
+bf16 they give the JAX package's bits.
 
 The tile form works on a whole tile tensor ``(T, h, w)`` with a
 neighbour table ``nbr (T, 4)`` (up, down, left, right; -1 is the
@@ -11,23 +11,31 @@ boundary).  A missing up-neighbour gives the hot edge, 1.0; any other
 missing neighbour gives 0.0.
 """
 import torch
-import torch.nn.functional as F
-
-UP, DOWN, LEFT, RIGHT = range(4)
 
 
-def _five_point(up, down, left, right):
-    return 0.25 * (up + down + left + right)
+def neighbour_sum(cur, up, down, left, right):
+    """``((up + down) + left) + right`` at every point of the tiles
+    ``cur (..., h, w)``, given their halo rows ``up, down (..., w)`` and
+    halo columns ``left, right (..., h)``."""
+    return (torch.cat([up[..., None, :], cur[..., :-1, :]], dim=-2)
+            + torch.cat([cur[..., 1:, :], down[..., None, :]], dim=-2)
+            + torch.cat([left[..., None], cur[..., :-1]], dim=-1)
+            + torch.cat([cur[..., 1:], right[..., None]], dim=-1))
+
+
+def jacobi_tile_step(tile, up, down, left, right):
+    """5-point Jacobi update for tiles given neighbor halo rows/cols.
+
+    tile: (..., h, w); up/down: (..., w); left/right: (..., h).
+    """
+    return 0.25 * neighbour_sum(tile, up, down, left, right)
 
 
 def jacobi_step_ref(grid):
     """One 5-point Jacobi sweep of ``(H, W)``; top halo 1.0, others 0.0."""
-    W = grid.shape[1]
-    up = torch.cat([grid.new_ones((1, W)), grid[:-1]], dim=0)
-    down = torch.cat([grid[1:], grid.new_zeros((1, W))], dim=0)
-    left = F.pad(grid[:, :-1], (1, 0))
-    right = F.pad(grid[:, 1:], (0, 1))
-    return _five_point(up, down, left, right)
+    H, W = grid.shape
+    return jacobi_tile_step(grid, grid.new_ones(W), grid.new_zeros(W),
+                            grid.new_zeros(H), grid.new_zeros(H))
 
 
 def tile_halos(tiles, ids, nbr):
@@ -50,8 +58,4 @@ def tile_halos(tiles, ids, nbr):
 def jacobi_tiles_ref(tiles, ids, nbr):
     """One Jacobi sweep of the tiles ``ids``: ``(n, h, w)``, tile ``i``
     the update of ``tiles[ids[i]]`` with its neighbours' halos."""
-    cur, up, down, left, right = tile_halos(tiles, ids, nbr)
-    return _five_point(torch.cat([up[:, None], cur[:, :-1]], dim=1),
-                       torch.cat([cur[:, 1:], down[:, None]], dim=1),
-                       torch.cat([left[:, :, None], cur[:, :, :-1]], dim=2),
-                       torch.cat([cur[:, :, 1:], right[:, :, None]], dim=2))
+    return jacobi_tile_step(*tile_halos(tiles, ids, nbr))
