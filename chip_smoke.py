@@ -67,7 +67,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    per step;
 12. ``TileRuntimeDriver`` on the ``EventLoop`` with a ``FaultTrace``, at
    full size: a checkpoint at the notice, a rebalance at the
-   recommendation.
+   recommendation;
+13. flash-attention kernel vs plain version (``flash_attention_ref``) at
+   the 5 shapes of ``tests/test_kernels.py``, causal and not, in float32
+   and bf16 (bf16 also against ``flash_ref`` at the reference's 3e-2);
+   then at granite-8b's prefill shape (S=16384, H=32, KV=8, D=128) and
+   zamba2-2.7b's (H=KV=32, D=80), bf16, causal, read through the
+   (B, S, H, D) layout the model gives it, with kernel, plain, library
+   (``scaled_dot_product_attention`` on KV repeated outside the timing, a
+   yardstick the port never calls) and bound times;
+14. the long-prompt path, its flash launch count set to 0 just before and
+   read just after: ``ServingEngine(cache_mode="dense")`` on full-width
+   granite-8b (random bf16 weights from seed 0, max_seq 16640, buckets
+   up to 16384) serves prompts of 9000, 12500, 16000, 40 and 200 tokens,
+   16 new tokens each; flash launches = 36 x the bulk prefills at the
+   16384 bucket; then one 16384-token bulk prefill's wall time, and under
+   the profiler its device-busy share and the kernel's share of it;
+15. kernel vs plain at full depth: one 16384-token ``make_prefill`` with
+   ``impl="kernel"`` and ``impl="ref"`` from the same tokens, last-position
+   logits in bf16 and float32 within a stated tolerance;
+16. reduced granite-8b in float32 with a bucket of 8704: the dense engine
+   (flash kernel) and the paged engine give the same greedy streams for
+   a prompt of 8300 tokens and two short ones.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -84,6 +105,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "benchmarks"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor peak
@@ -126,6 +148,27 @@ JACOBI_FULL = (16384, 32768)
 STENCIL_N, STENCIL_PES, STENCIL_ODFS = 16384, 4, (1, 4, 8)
 C1_ITERS, C2_ITERS, C2_RATES = 20, 24, [1.0, 0.9, 0.4, 1.0]
 STEADY_STEPS = 400
+# The flash kernel: tests/test_kernels.py's (b, h, kv, s, d, bq, bkv), then
+# the full prefill shapes (model, H, KV, D) at LONG_S tokens.
+FLASH_SHAPES = [(1, 4, 2, 128, 32, 32, 32), (2, 8, 8, 64, 16, 32, 16),
+                (1, 4, 4, 128, 64, 64, 64), (1, 6, 3, 96, 32, 32, 32),
+                (1, 2, 1, 64, 16, 16, 32)]
+FLASH_FULL = (("granite-8b", 32, 8, 128), ("zamba2-2.7b", 32, 32, 80))
+# The long-prompt path: a dense engine whose largest bucket is past 8192.
+LONG_S, LONG_MAX_SEQ = 16384, 16640
+LONG_BUCKETS = (16, 64, 256, LONG_S)
+LONG_PROMPTS = [9000, 12500, 16000, 40, 200]
+# One full-depth 16384-token prefill of granite-8b, kernel vs plain
+# (``blockwise_attention``'s plain form), last-position logits: relative
+# L2 and whether the greedy token agrees.  bf16: the plain form rounds
+# the softmax weights to bf16 before p.v (as the reference does) and the
+# kernel keeps them in float32, so every attention output differs by
+# about one bf16 ulp, and 36 layers of random weights amplify that, as in
+# the decode step (BF16_STEP_TOL); random logits have near ties, so the
+# greedy token is not held.  float32: the two differ in the order of
+# summation only (~1e-7 relative per attention output).
+BF16_LONG_TOL = dict(rel_l2=0.1, argmax_agree=0.0)
+F32_LONG_TOL = dict(rel_l2=1e-4, argmax_agree=1.0)
 
 
 def log(msg):
@@ -782,6 +825,238 @@ def prefill_step_vs_plain(cfg, params, dev, tol):
     assert agree >= tol["argmax_agree"]
 
 
+def flash_bound(S, H, KV, D, elem_bytes, peak):
+    """(flops, bytes, bound ms) of one causal call: q.k and p.v over the
+    S (S + 1) / 2 attended pairs of each head, 2 operations a
+    multiply-add; q, k and v read once and the output written once."""
+    flops = 4 * H * D * S * (S + 1) // 2
+    nbytes = elem_bytes * D * S * (2 * H + 2 * KV)
+    return flops, nbytes, max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def flash_kernel_phase(dev, flush):
+    """The flash kernel vs its plain version at the test shapes and at
+    both full prefill shapes; returns the record at granite-8b's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_ref,
+                                                     flash_ref, kernel)
+    g = torch.Generator(dev).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    err = 0.0
+    for b, h, kv, s, d, bq, bkv in FLASH_SHAPES:
+        for causal in (True, False):
+            q, k, v = randn(b, h, s, d), randn(b, kv, s, d), randn(b, kv, s, d)
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                args = [t.to(dtype) for t in (q, k, v)]
+                out = kernel.flash_attention(*args, causal=causal)
+                torch.cuda.synchronize()
+                ref = flash_attention_ref(*args, causal=causal, block_q=bq,
+                                          block_kv=bkv)
+                assert out.dtype == dtype and torch.isfinite(out).all()
+                assert_close(out, ref, tol, f"{(b, h, kv, s, d)} causal="
+                             f"{causal} {dtype} kernel vs plain")
+                err = max(err, max_err(out, ref))
+                if dtype == torch.bfloat16:
+                    full = max_err(out, flash_ref(*args, causal=causal))
+                    assert full < 3e-2, full
+    rows = []
+    for model, H, KV, D in FLASH_FULL:
+        S = LONG_S
+        # the model's (B, S, H, D) tensors, seen heads-major
+        q = randn(1, S, H, D).bfloat16().transpose(1, 2)
+        k = randn(1, S, KV, D).bfloat16().transpose(1, 2)
+        v = randn(1, S, KV, D).bfloat16().transpose(1, 2)
+        out = kernel.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=True)
+        assert torch.isfinite(out).all() and out.transpose(1, 2)\
+            .is_contiguous()
+        assert_close(out, ref, BF16_TOL, f"{model} S={S} bf16 kernel vs "
+                     f"plain")
+        e = max_err(out, ref)
+        kr = k.repeat_interleave(H // KV, 1)      # outside the timing
+        vr = v.repeat_interleave(H // KV, 1)
+
+        def library():
+            return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+        lib_err = max_err(library(), ref)
+        assert lib_err < 3e-2, lib_err
+        ms = cuda_ms(lambda: kernel.flash_attention(q, k, v, causal=True), 5,
+                     flush)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                           2, flush)
+        library_ms = cuda_ms(library, 10, flush)
+        flops, nbytes, bound_ms = flash_bound(S, H, KV, D, 2, BF16_FLOPS)
+        row = {"model": model, "S": S, "H": H, "KV": KV, "D": D,
+               "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "operations", "flops": flops, "bytes": nbytes,
+               "max_abs_err": e, "library_max_abs_err": lib_err}
+        if model == "granite-8b":
+            # the float32 prefill path's call (FFMA, no TF32), kernel only
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            row["f32_ms"] = cuda_ms(lambda: kernel.flash_attention(
+                q32, k32, v32, causal=True), 3, flush)
+            row["f32_bound_ms"] = flash_bound(S, H, KV, D, 4, F32_FLOPS)[2]
+            del q32, k32, v32
+        log(f"  {model} S={S} H={H} KV={KV} D={D} bf16 causal: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (operations: "
+            f"{flops} flop, {nbytes} B); {flops / ms / 1e9:.2f} TFLOP/s"
+            + (f"; float32 kernel {row['f32_ms']:.4f} ms, bound "
+               f"{row['f32_bound_ms']:.4f} ms" if "f32_ms" in row else ""))
+        rows.append(row)
+        del q, k, v, out, ref, kr, vr
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+            "launches": None, "max_abs_err": max(err, main["max_abs_err"]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "at_shapes": rows}
+
+
+def long_prompt_phase(dev):
+    """The long-prompt path on full-width granite-8b; returns (params,
+    flash launches on the path)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch_profile import busy_us
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("granite-8b")
+    params = zoo.init_serving_params(cfg, seed=0, device=dev)
+    engine = ServingEngine(cfg, params, batch_size=4, max_seq=LONG_MAX_SEQ,
+                           prefill_buckets=LONG_BUCKETS, cache_mode="dense",
+                           device=dev)
+    reqs = requests(cfg, LONG_PROMPTS, 16, seed=5)
+    for r in reqs:
+        engine.submit(r)
+    long_prefills = sum(engine._pick_chunk(len(r.prompt) - 1)[0] == LONG_S
+                        for r in reqs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches = 0
+    stats = engine.run_until_idle()
+    torch.cuda.synchronize()
+    launches = fk.launches
+    for r in reqs:
+        assert r.done and len(r.out_tokens) == 16, (r.rid, r.out_tokens)
+        assert all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+    assert long_prefills == 3 and engine.chunk_prefills == len(reqs)
+    assert launches == cfg.num_layers * long_prefills, launches
+    log(f"[long] granite-8b dense engine, prompts {LONG_PROMPTS}: served "
+        f"{len(reqs)}/{len(reqs)}, {stats['tokens']} tokens, "
+        f"{stats['steps']} decode steps, {stats['seconds']:.2f} s; flash "
+        f"launches {launches} = {cfg.num_layers} x {long_prefills} bulk "
+        f"prefills at {LONG_S}; peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # one more 16384-token bulk prefill (the 16000-token prompt into slot
+    # 0 of the idle engine): wall time, then under the profiler the
+    # device's busy share and the kernel's part of it
+    bulk = zoo.make_bulk_prefill(cfg, engine.shape, LONG_S)
+    n_real = len(reqs[2].prompt) - 1
+    toks = engine._chunk_tokens(reqs[2], 0, LONG_S, n_real)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bulk(params, engine.state, toks, 0, n_real)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bulk(params, engine.state, toks, 0, n_real)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us([(e.time_range.start, e.time_range.end)
+                    for e in kernels]) / 1e3
+    flash = [e for e in kernels if "flash_attention_kernel" in e.name]
+    flash_ms = sum(e.time_range.elapsed_us() for e in flash) / 1e3
+    wall_ms = walls[-1] * 1e3
+    log(f"[long] one {LONG_S}-token bulk prefill at full depth: wall "
+        f"{walls[0] * 1e3:.1f} / {wall_ms:.1f} ms (two runs); profiled: "
+        f"device busy {busy:.1f} ms ({busy / wall_ms:.1%} of the unprofiled "
+        f"wall), flash kernel {flash_ms:.1f} ms in {len(flash)} launches "
+        f"({flash_ms / busy:.1%} of busy), the rest {busy - flash_ms:.1f} ms "
+        f"in {len(kernels) - len(flash)} kernels")
+    del engine
+    torch.cuda.empty_cache()
+    return params, launches
+
+
+def long_prefill_vs_plain(cfg, params, dev, tol):
+    """One 16384-token ``make_prefill`` with the kernel and with
+    ``impl="ref"`` from the same tokens: the last-position logits."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model_zoo as zoo
+    g = torch.Generator(dev).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_S), generator=g,
+                         device=dev, dtype=torch.int32)
+    shape = ShapeConfig("long", LONG_S, 1, "prefill")
+    outs, secs = {}, {}
+    for impl in ("kernel", "ref"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = zoo.make_prefill(cfg, shape, impl=impl)(
+            params, {"tokens": toks})
+        outs[impl] = logits[0, -1, :cfg.vocab_size].float()
+        torch.cuda.synchronize()
+        secs[impl] = time.perf_counter() - t0
+        del logits, state
+        torch.cuda.empty_cache()
+    a, b = outs["kernel"], outs["ref"]
+    assert torch.isfinite(a).all() and a.shape == b.shape
+    rel = rel_l2(a, b)
+    agree = float(a.argmax() == b.argmax())
+    log(f"[long prefill {cfg.compute_dtype}] {LONG_S} tokens at full depth, "
+        f"kernel vs plain: rel_l2={rel:.3e} max_abs={max_err(a, b):.3e} "
+        f"argmax agreement {agree:.0f} (tol {tol}); {secs['kernel']:.2f} s "
+        f"vs {secs['ref']:.2f} s")
+    assert rel <= tol["rel_l2"] and agree >= tol["argmax_agree"]
+
+
+def small_long_parity(dev):
+    """Reduced granite-8b, float32, a bucket of 8704: the dense engine
+    (the flash kernel in its bulk prefill) and the paged engine give the
+    same greedy streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serving.engine import ServingEngine
+    small = get_config("granite-8b").reduced().with_(compute_dtype="float32")
+    sp = zoo.init_serving_params(small, seed=0, device=dev)
+    streams, launches = [], {}
+    for mode in ("dense", "paged"):
+        eng = ServingEngine(small, sp, batch_size=3, max_seq=9216,
+                            prefill_buckets=(16, 64, 256, 8704),
+                            cache_mode=mode, block_size=16, device=dev)
+        rs = requests(small, [8300, 30, 200], 8, seed=13)
+        for r in rs:
+            eng.submit(r)
+        before = fk.launches
+        eng.run_until_idle()
+        launches[mode] = fk.launches - before
+        assert all(r.done and len(r.out_tokens) == 8 for r in rs)
+        streams.append([r.out_tokens for r in rs])
+    assert launches == {"dense": small.num_layers, "paged": 0}, launches
+    assert streams[0] == streams[1], streams
+    log(f"[small] reduced granite-8b f32, an 8300-token prompt in the 8704 "
+        f"bucket: dense (flash kernel, {launches['dense']} launches) and "
+        f"paged engines give identical greedy streams")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -832,6 +1107,11 @@ def main() -> int:
     log("[kernel] ssd_intra_chunk vs plain at full prefill-chunk shapes")
     ssd = ssd_kernel_phase(dev, flush)
 
+    # 13. flash attention vs plain
+    log("[kernel] flash_attention vs plain (5 test shapes, then S=16384 "
+        "at granite-8b and zamba2-2.7b shapes)")
+    flash = flash_kernel_phase(dev, flush)
+
     # 8. the tile runtime's first steps and a steady window
     steady_launches = stencil_steady_phase(dev)
 
@@ -873,6 +1153,19 @@ def main() -> int:
             prefill_step_vs_plain(cfg32, params32, dev, F32_PREFILL_TOL)
         del params32
         torch.cuda.empty_cache()
+    # 14-15. the long-prompt path, then kernel vs plain at full depth
+    params, long_launches = long_prompt_phase(dev)
+    cfg = get_config("granite-8b")
+    long_prefill_vs_plain(cfg, params, dev, BF16_LONG_TOL)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.with_(compute_dtype="float32")
+    params32 = zoo.init_serving_params(cfg32, seed=0, device=dev)
+    long_prefill_vs_plain(cfg32, params32, dev, F32_LONG_TOL)
+    del params32
+    torch.cuda.empty_cache()
+    flash["launches_by_path"] = {"granite-8b long prompts": long_launches}
+    flash["launches"] = long_launches
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}
@@ -897,6 +1190,9 @@ def main() -> int:
         log(f"[small] reduced {arch} f32: dense and paged (kernel) engines "
             f"give identical greedy streams")
 
+    # 16. the same at a bucket past 8192
+    small_long_parity(dev)
+
     # 10-12. the stencil app: C1 and C2, correctness, the event driver
     by_run = {"steady window": steady_launches, **stencil_app_phase(dev)}
     stencil_checks_phase(dev)
@@ -905,7 +1201,7 @@ def main() -> int:
     jac["launches"] = sum(by_run.values())
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s on {card}")
-    print(json.dumps({"kernels": [paged, ssd, jac]}), flush=True)
+    print(json.dumps({"kernels": [paged, ssd, flash, jac]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

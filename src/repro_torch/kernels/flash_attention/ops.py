@@ -1,0 +1,40 @@
+"""Flash-attention entry point (model layout: (B, S, H, D)).
+
+Dispatch follows the tensor, never a fallback:
+
+* a CUDA tensor launches the hand-written kernel (``kernel.py``), which
+  raises on arguments it does not take;
+* a CPU tensor runs the plain version ``flash_attention_ref``.
+
+``impl="ref"`` asks for the plain version explicitly, wherever the
+tensors are: only tests and ``chip_smoke.py`` use it, to hold the kernel
+against its plain version on the card.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models.layers import attention_blocks
+
+
+def attention(q, k, v, *, causal=True, block_q=512, block_kv=512,
+              impl: str = "kernel"):
+    """q: (B, S, H, D); k/v: (B, S, KV, D) -> (B, S, H, D).
+
+    The reference's contract holds on both routes: after ``min(block,
+    S)``, ``Sq % block_q == 0`` and ``Sk % block_kv == 0``, else
+    ``ValueError``.  The plain version computes block by block with these
+    sizes; the CUDA kernel tiles with its own (64 query rows by 64 key
+    rows) and reads the (B, S, H, D) layout through strides, without a
+    transpose.  Its result depends on the block sizes only through the
+    order of rounding."""
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    bq, bkv = attention_blocks(q.shape[1], k.shape[1], block_q, block_kv)
+    qm, km, vm = (t.transpose(1, 2) for t in (q, k, v))
+    if impl == "ref" or q.device.type == "cpu":
+        out = flash_attention_ref(qm, km, vm, causal=causal, block_q=bq,
+                                  block_kv=bkv)
+    else:
+        out = kernel.flash_attention(qm, km, vm, causal=causal)
+    return out.transpose(1, 2)

@@ -120,10 +120,89 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def attention_blocks(sq: int, sk: int, block_q: int, block_kv: int):
+    """The blockwise contract: ``(min(block_q, sq), min(block_kv, sk))``,
+    which must divide ``sq`` and ``sk`` (the reference asserts it);
+    ``ValueError`` otherwise."""
+    bq, bkv = min(block_q, sq), min(block_kv, sk)
+    if bq <= 0 or bkv <= 0 or sq % bq or sk % bkv:
+        raise ValueError(f"blocks ({block_q}, {block_kv}) must be positive "
+                         f"and, cut to the lengths ({sq}, {sk}), divide "
+                         f"them")
+    return bq, bkv
+
+
+def blockwise_attention(q, k, v, *, causal: bool, block_q: int,
+                        block_kv: int, impl: str = "kernel"):
+    """Memory-O(S*block) attention (online softmax), the prefill path past
+    8192 tokens.  q: (B, Sq, H, D); k/v: (B, Sk, KV, D) -> (B, Sq, H, D).
+
+    On a CUDA tensor this is the flash-attention kernel
+    (``kernels.flash_attention.ops.attention``), which computes the same
+    function.  On a CPU tensor, or with ``impl="ref"``, it is the plain
+    form of ``repro/models/layers.py:85-146`` transcribed: for each q
+    block an online softmax from ``m = -inf`` over the kv blocks below
+    the causal bound ``n_valid`` (the index clamped to the last block, as
+    ``dynamic_index_in_dim`` clamps it), ``p`` rounded to v's dtype
+    before ``p @ v`` with float32 accumulation, output
+    ``acc / max(l, 1e-30)``.  In bf16 that rounding is where the plain
+    form and the kernel (which keeps ``p`` in float32) differ."""
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "kernel" and q.device.type != "cpu":
+        from repro_torch.kernels.flash_attention import attention
+        return attention(q, k, v, causal=causal, block_q=block_q,
+                         block_kv=block_kv)
+    b, sq, h, d = q.shape
+    kv_heads, sk = k.shape[2], k.shape[1]
+    g = h // kv_heads
+    block_q, block_kv = attention_blocks(sq, sk, block_q, block_kv)
+    nq, nk = sq // block_q, sk // block_kv
+    scale = d ** -0.5
+    dev = q.device
+    qr = q.reshape(b, nq, block_q, kv_heads, g, d).float()
+    kr = k.reshape(b, nk, block_kv, kv_heads, d).float()
+    vr = v.reshape(b, nk, block_kv, kv_heads, d)
+    outs = []
+    for iq in range(nq):
+        qi = qr[:, iq]
+        qpos = iq * block_q + torch.arange(block_q, device=dev)
+        acc = torch.zeros((b, kv_heads, g, block_q, d), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, kv_heads, g, block_q), -torch.inf,
+                       dtype=torch.float32, device=dev)
+        l = torch.zeros_like(m)
+        n_valid = (((iq + 1) * block_q + block_kv - 1) // block_kv
+                   if causal else nk)
+        for ik in range(n_valid):
+            ki, vi = kr[:, min(ik, nk - 1)], vr[:, min(ik, nk - 1)]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qi, ki) * scale
+            if causal:
+                kpos = ik * block_kv + torch.arange(block_kv, device=dev)
+                s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(v.dtype).float(), vi.float())
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs, dim=3)               # (B, KV, G, nq, bq, D)
+    out = out.reshape(b, kv_heads, g, sq, d).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
 # ----------------------------------------------------------------------------- attention layer
-def attention_block(p, x, cfg, *, causal=True, positions=None):
+def attention_block(p, x, cfg, *, causal=True, positions=None,
+                    impl: str = "kernel"):
     """Pre-norm attention block with rotary + GQA, prefill mode: attends
-    within ``x`` and returns ``(out, (k, v))``."""
+    within ``x`` and returns ``(out, (k, v))``.
+
+    The attention core is the reference's choice: ``cfg.attn_impl``, with
+    ``"auto"`` taking ``blockwise_attention`` for ``s > 8192`` and
+    ``full_attention`` otherwise.  ``impl`` goes to
+    ``blockwise_attention`` (``"ref"``: its plain form on the card)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if positions is None:
@@ -131,14 +210,15 @@ def attention_block(p, x, cfg, *, causal=True, positions=None):
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    impl = cfg.attn_impl
-    if impl == "auto":
-        impl = "blockwise" if s > 8192 else "full"
-    if impl != "full":
-        raise NotImplementedError(
-            "blockwise attention (prefill > 8192 tokens) is not ported yet "
-            "(ROADMAP queue 1, item 7)")
-    out = full_attention(q, k, v, causal=causal)
+    attn = cfg.attn_impl
+    if attn == "auto":
+        attn = "blockwise" if s > 8192 else "full"
+    if attn == "blockwise":
+        out = blockwise_attention(q, k, v, causal=causal,
+                                  block_q=cfg.flash_block_q,
+                                  block_kv=cfg.flash_block_kv, impl=impl)
+    else:
+        out = full_attention(q, k, v, causal=causal)
     return x + _proj_out(out, p["wo"]), (k, v)
 
 

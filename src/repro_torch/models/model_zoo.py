@@ -141,19 +141,20 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig,
 
 
 # -------------------------------------------------------------- prefill
-def _decoder_prefill(params, tokens, cfg: ModelConfig):
+def _decoder_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
     """tokens (B, S) -> (final hidden (B, S, d), per-layer bf16 k, v)."""
     h = T.embed_tokens(params, tokens, cfg)
     ks, vs = [], []
     for lp in params["layers"]:
-        h, (k, v) = L.attention_block(lp["attn"], h, cfg, causal=True)
+        h, (k, v) = L.attention_block(lp["attn"], h, cfg, causal=True,
+                                      impl=impl)
         h = L.swiglu_block(lp["mlp"], h, cfg)
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
     return h, ks, vs
 
 
-def _ssm_prefill(params, tokens, cfg: ModelConfig):
+def _ssm_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
     """tokens (B, S) -> (final hidden, cache): per-layer SSD states
     (float32) and conv tails (bf16), stacked as the cache leaves are, and
     for hybrid the shared block's bf16 k, v per period."""
@@ -162,12 +163,12 @@ def _ssm_prefill(params, tokens, cfg: ModelConfig):
     sts, convs, ks, vs = [], [], [], []
     for _, layers in _mamba_layers(params, cfg):
         for _, lp in layers:
-            h, (st, conv) = ssm_lib.mamba2_block(lp, h, cfg)
+            h, (st, conv) = ssm_lib.mamba2_block(lp, h, cfg, impl=impl)
             sts.append(st.float())
             convs.append(conv.to(torch.bfloat16))
         if shared is not None:
             h, (k, v) = L.attention_block(shared["attn"], h, cfg,
-                                          causal=True)
+                                          causal=True, impl=impl)
             h = L.swiglu_block(shared["mlp"], h, cfg)
             ks.append(k.to(torch.bfloat16))
             vs.append(v.to(torch.bfloat16))
@@ -180,16 +181,21 @@ def _ssm_prefill(params, tokens, cfg: ModelConfig):
     return h, cache
 
 
-def make_prefill(cfg: ModelConfig, shape: ShapeConfig):
-    """Returns fn(params, batch) -> (last_logits, DecodeState)."""
+def make_prefill(cfg: ModelConfig, shape: ShapeConfig, impl: str = "kernel"):
+    """Returns fn(params, batch) -> (last_logits, DecodeState).
+
+    Past 8192 tokens (or with ``cfg.attn_impl="blockwise"``) attention is
+    ``blockwise_attention``: the flash-attention kernel on the card.
+    Every kernel on the way (flash attention, SSD) runs its plain version
+    on the CPU, or with ``impl="ref"``."""
     _ported(cfg)
 
     def prefill(params, batch):
         if cfg.family == "dense":
-            h, ks, vs = _decoder_prefill(params, batch["tokens"], cfg)
+            h, ks, vs = _decoder_prefill(params, batch["tokens"], cfg, impl)
             cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
         else:
-            h, cache = _ssm_prefill(params, batch["tokens"], cfg)
+            h, cache = _ssm_prefill(params, batch["tokens"], cfg, impl)
         logits = T.lm_logits(params, h[:, -1:], cfg)
         cache_len = torch.full((shape.global_batch,), shape.seq_len,
                                dtype=torch.int32, device=h.device)
@@ -198,7 +204,8 @@ def make_prefill(cfg: ModelConfig, shape: ShapeConfig):
     return prefill
 
 
-def make_bulk_prefill(cfg: ModelConfig, shape: ShapeConfig, chunk: int):
+def make_bulk_prefill(cfg: ModelConfig, shape: ShapeConfig, chunk: int,
+                      impl: str = "kernel"):
     """Chunked bulk prefill into one slot of a batched decode cache.
 
     Returns ``fn(params, state, tokens, slot, n_real) -> DecodeState``:
@@ -206,10 +213,12 @@ def make_bulk_prefill(cfg: ModelConfig, shape: ShapeConfig, chunk: int):
     columns into row ``slot`` (positions ``[0, chunk)`` of k/v; whole-row
     replacement of the recurrent ssm/conv leaves) and sets
     ``cache_len[slot] = n_real``.  ``slot`` and ``n_real`` are host ints.
+    A chunk past 8192 tokens runs the flash-attention kernel on the card
+    (``make_prefill``; ``impl="ref"``: the plain versions).
     """
     _ported(cfg)
     prefill = make_prefill(cfg, ShapeConfig(f"prefill_chunk{chunk}", chunk,
-                                            1, "prefill"))
+                                            1, "prefill"), impl)
 
     def bulk_prefill(params, state: DecodeState, tokens, slot: int,
                      n_real: int):

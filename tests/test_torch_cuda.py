@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import jacobi, ssd
+from repro_torch.kernels import flash_attention, jacobi, ssd
 from repro_torch.kernels.paged_attention import kernel, paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -173,3 +173,117 @@ def test_tile_runtime_on_card_after_migration(cuda_device, dtype):
     assert card.host_syncs == 9
     assert jacobi.kernel.launches - before == expected
     assert torch.equal(card.tiles.cpu(), host.tiles)
+
+
+# ------------------------------------------------------------------ flash
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,kv,s,d,bq,bkv", [
+    (1, 4, 2, 128, 32, 32, 32),          # tests/test_kernels.py shapes
+    (2, 8, 8, 64, 16, 32, 16),
+    (1, 4, 4, 128, 64, 64, 64),
+    (1, 6, 3, 96, 32, 32, 32),
+    (1, 2, 1, 64, 16, 16, 32),
+    (1, 32, 8, 320, 128, 64, 64),        # granite-8b heads
+    (2, 4, 4, 200, 80, 512, 512),        # D = 80, a ragged last tile
+    (1, 4, 1, 48, 48, 48, 16),           # one partial tile, G = 4
+])
+def test_flash_kernel_matches_plain_on_card(cuda_device, b, h, kv, s, d,
+                                            bq, bkv, causal, dtype):
+    """``ops.attention`` on (B, S, H, D) tensors: one launch that reads and
+    writes that layout through strides, against the plain version
+    (``impl="ref"``).  float32: sums in another order; bf16: both keep
+    ``p`` in float32 and round the output once, so an output near a
+    rounding boundary may land on the other neighbour."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, dtype)
+        for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+    before = flash_attention.kernel.launches
+    out = flash_attention.attention(q, k, v, causal=causal, block_q=bq,
+                                    block_kv=bkv)
+    torch.cuda.synchronize()
+    assert flash_attention.kernel.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    ref = flash_attention.attention(q, k, v, causal=causal, block_q=bq,
+                                    block_kv=bkv, impl="ref")
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    """``check_args`` raises ``ValueError``, and nothing is launched."""
+    fk = flash_attention.kernel
+
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=cuda_device)
+
+    q, k = t(1, 4, 64, 32), t(1, 2, 64, 32)
+    flat = torch.zeros(4 * 64 * 32 + 1, device=cuda_device)
+    bad = {
+        "head_dim 24": (t(1, 4, 64, 24), t(1, 2, 64, 24), t(1, 2, 64, 24)),
+        "head_dim 144": (t(1, 4, 8, 144), t(1, 2, 8, 144), t(1, 2, 8, 144)),
+        "3 heads on 2": (t(1, 3, 64, 32), k, k),
+        "k and v differ": (q, k, t(1, 2, 32, 32)),
+        "batch differs": (q, t(2, 2, 64, 32), t(2, 2, 64, 32)),
+        "empty": (t(1, 4, 0, 32), t(1, 2, 0, 32), t(1, 2, 0, 32)),
+        "mixed dtypes": (q, k, t(1, 2, 64, 32, dtype=torch.bfloat16)),
+        "float16": (q.half(), k.half(), k.half()),
+        "a CPU tensor": (q, k.cpu(), k),
+        "head_dim strided": (t(1, 4, 32, 64).transpose(2, 3), k, k),
+        "misaligned": (flat[1:].view(1, 4, 64, 32), k, k),
+        "rank 3": (q[0], k[0], k[0]),
+    }
+    before = fk.launches
+    for what, args in bad.items():
+        with pytest.raises(ValueError):
+            fk.flash_attention(*args)
+            pytest.fail(what)
+    assert fk.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blockwise_bulk_prefill_kernel_matches_plain_on_card(cuda_device,
+                                                             dtype):
+    """A 256-token dense bulk prefill of reduced granite-8b with
+    ``attn_impl="blockwise"`` (blocks of 64): one flash launch per layer,
+    and the same cache as ``impl="ref"`` (the plain ``blockwise_attention``
+    form).  The cache is bf16: float32 k/v that differ in the order of
+    summation may straddle a rounding boundary, one bf16 ulp (2^-7
+    relative).  In bf16 compute the plain form also rounds ``p`` to bf16,
+    about one bf16 ulp (2^-9 relative) on each attention output, which
+    reaches the second layer's k/v through the residual stream: held to
+    2% relative L2 over the cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model_zoo as zoo
+    cfg = get_config("granite-8b").reduced().with_(
+        compute_dtype=dtype, attn_impl="blockwise", flash_block_q=64,
+        flash_block_kv=64)
+    params = zoo.init_serving_params(cfg, seed=0, device=cuda_device)
+    shape = ShapeConfig("serve", 320, 2, "decode")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, 256)).astype(np.int32)).to(cuda_device)
+    caches = {}
+    for impl in ("kernel", "ref"):
+        state = zoo.init_decode_state(cfg, shape, fill_len=0,
+                                      device=cuda_device)
+        before = flash_attention.kernel.launches
+        state = zoo.make_bulk_prefill(cfg, shape, 256, impl=impl)(
+            params, state, toks, 1, 250)
+        torch.cuda.synchronize()
+        launched = flash_attention.kernel.launches - before
+        assert launched == (cfg.num_layers if impl == "kernel" else 0)
+        assert state.cache_len.tolist() == [0, 250]
+        caches[impl] = state.cache
+    for key in ("k", "v"):
+        a, b = caches["kernel"][key].float(), caches["ref"][key].float()
+        if dtype == "float32":
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=2.0 ** -7, atol=1e-5)
+        else:
+            assert float((a - b).norm() / b.norm()) < 2e-2

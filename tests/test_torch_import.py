@@ -19,7 +19,8 @@ def test_import_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.kernels.paged_attention, "
             "repro_torch.apps.jacobi2d, repro_torch.apps.lulesh_proxy, "
             "repro_torch.core.overdecomp, repro_torch.core.spmd_stencil, "
-            "repro_torch.runtime, repro_torch.kernels.jacobi\n"
+            "repro_torch.runtime, repro_torch.kernels.jacobi, "
+            "repro_torch.kernels.flash_attention\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))\n"
