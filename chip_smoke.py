@@ -75,17 +75,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    zamba2-2.7b's (H=KV=32, D=80), bf16, causal, read through the
    (B, S, H, D) layout the model gives it, with kernel, plain, library
    (``scaled_dot_product_attention`` on KV repeated outside the timing, a
-   yardstick the port never calls) and bound times;
+   yardstick the port never calls) and bound times; at the full shapes
+   each bf16 output is held to one bf16 ulp of itself (``FLASH_FULL_TOL``)
+   and the whole to 1e-3 relative L2;
 14. the long-prompt path, its flash launch count set to 0 just before and
    read just after: ``ServingEngine(cache_mode="dense")`` on full-width
    granite-8b (random bf16 weights from seed 0, max_seq 16640, buckets
    up to 16384) serves prompts of 9000, 12500, 16000, 40 and 200 tokens,
    16 new tokens each; flash launches = 36 x the bulk prefills at the
    16384 bucket; then one 16384-token bulk prefill's wall time, and under
-   the profiler its device-busy share and the kernel's share of it;
-15. kernel vs plain at full depth: one 16384-token ``make_prefill`` with
-   ``impl="kernel"`` and ``impl="ref"`` from the same tokens, last-position
-   logits in bf16 and float32 within a stated tolerance;
+   the profiler its device-busy share and the kernel's share of it; then
+   the hybrid route, likewise counted and timed: a dense engine on
+   full-width zamba2-2.7b bulk-prefills 16384 tokens of a 16400-token
+   prompt (its shared attention, head_dim 80: flash launches = 9, SSD
+   launches = 54 x its 2 bulk prefills) beside a 40-token one;
+15. kernel vs plain at full depth: one 16384-token ``make_prefill`` of
+   granite-8b and of zamba2-2.7b with ``impl="kernel"`` and
+   ``impl="ref"`` from the same tokens, last-position logits in bf16 and
+   float32 within a stated tolerance;
 16. reduced granite-8b in float32 with a bucket of 8704: the dense engine
    (flash kernel) and the paged engine give the same greedy streams for
    a prompt of 8300 tokens and two short ones.
@@ -105,7 +112,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT / "benchmarks"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor peak
@@ -154,17 +160,37 @@ FLASH_SHAPES = [(1, 4, 2, 128, 32, 32, 32), (2, 8, 8, 64, 16, 32, 16),
                 (1, 4, 4, 128, 64, 64, 64), (1, 6, 3, 96, 32, 32, 32),
                 (1, 2, 1, 64, 16, 16, 32)]
 FLASH_FULL = (("granite-8b", 32, 8, 128), ("zamba2-2.7b", 32, 32, 80))
+# The flash kernel vs its plain version at the full shapes, bf16.  Both
+# keep p in float32 and round each output to bf16 once, so they differ
+# only where the two float32 sums (in another order, ~1e-7 relative)
+# straddle a rounding boundary: by one bf16 ulp, at most 2^-7 of |x|.
+# BF16_TOL's 1.6e-2 would exceed the outputs themselves here (averages
+# over up to 16384 keys: mean |x| ~ 2e-2), so each element is held to
+# 2^-7 of its own size (atol 1e-5 for outputs that cancel to near zero,
+# where the order of summation weighs more), and the whole output to
+# 1e-3 relative L2 (one ulp on every element would give ~5e-3).
+FLASH_FULL_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+FLASH_FULL_REL_L2 = 1e-3
 # The long-prompt path: a dense engine whose largest bucket is past 8192.
 LONG_S, LONG_MAX_SEQ = 16384, 16640
 LONG_BUCKETS = (16, 64, 256, LONG_S)
 LONG_PROMPTS = [9000, 12500, 16000, 40, 200]
-# One full-depth 16384-token prefill of granite-8b, kernel vs plain
-# (``blockwise_attention``'s plain form), last-position logits: relative
-# L2 and whether the greedy token agrees.  bf16: the plain form rounds
-# the softmax weights to bf16 before p.v (as the reference does) and the
-# kernel keeps them in float32, so every attention output differs by
-# about one bf16 ulp, and 36 layers of random weights amplify that, as in
-# the decode step (BF16_STEP_TOL); random logits have near ties, so the
+# The hybrid route into the kernel: zamba2-2.7b's shared attention
+# (head_dim 80) in a dense engine's bulk prefill at the 16384 bucket.  A
+# recurrent model's bucket is the largest one its prompt fills, so the
+# long prompt is past 16384 tokens and its last 15 tokens stream.
+HYBRID_PROMPTS = [16400, 40]
+# (model, prompts, batch size, prompts bulk-prefilled at LONG_S)
+LONG_PATHS = (("granite-8b", LONG_PROMPTS, 4, 3),
+              ("zamba2-2.7b", HYBRID_PROMPTS, 2, 1))
+# One full-depth 16384-token prefill of granite-8b or zamba2-2.7b, kernel
+# vs plain (``blockwise_attention``'s plain form), last-position logits:
+# relative L2 and whether the greedy token agrees.  bf16: the plain form
+# rounds the softmax weights to bf16 before p.v (as the reference does)
+# and the kernel keeps them in float32, so every attention output differs
+# by about one bf16 ulp, and 36 (54) layers of random weights amplify
+# that, as in the decode step (BF16_STEP_TOL); random logits have near
+# ties, so the
 # greedy token is not held.  float32: the two differ in the order of
 # summation only (~1e-7 relative per attention output).
 BF16_LONG_TOL = dict(rel_l2=0.1, argmax_agree=0.0)
@@ -213,6 +239,19 @@ def max_err(a, b) -> float:
 
 def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def busy_us(intervals):
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
 
 
 def assert_close(a, b, tol, what):
@@ -834,6 +873,26 @@ def flash_bound(S, H, KV, D, elem_bytes, peak):
     return flops, nbytes, max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
+def assert_within_ulp(out, ref, what):
+    """bf16 kernel vs plain at a full shape, held to FLASH_FULL_TOL per
+    element and FLASH_FULL_REL_L2 over the whole output; logs the
+    readings beside the limits and returns (max_abs_err, rel_l2)."""
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    limit = FLASH_FULL_TOL["atol"] + FLASH_FULL_TOL["rtol"] * b.abs()
+    ok = bool((diff <= limit).all())
+    rel, e = rel_l2(a, b), float(diff.max())
+    worst = float((diff / limit).max())     # <= 1 within the limit
+    differ = float((diff > 0).float().mean())
+    log(f"  {what}: max_abs_err={e:.3e}, largest |diff| / limit "
+        f"{worst:.3f}, rel_l2={rel:.3e}, {differ:.2e} of elements differ, "
+        f"mean |ref|={float(b.abs().mean()):.3e}; tol {FLASH_FULL_TOL} per "
+        f"element, rel_l2 <= {FLASH_FULL_REL_L2}; ok={ok}")
+    if not ok or rel > FLASH_FULL_REL_L2:
+        raise AssertionError(f"{what} outside tolerance")
+    return e, rel
+
+
 def flash_kernel_phase(dev, flush):
     """The flash kernel vs its plain version at the test shapes and at
     both full prefill shapes; returns the record at granite-8b's."""
@@ -875,9 +934,8 @@ def flash_kernel_phase(dev, flush):
         ref = flash_attention_ref(q, k, v, causal=True)
         assert torch.isfinite(out).all() and out.transpose(1, 2)\
             .is_contiguous()
-        assert_close(out, ref, BF16_TOL, f"{model} S={S} bf16 kernel vs "
-                     f"plain")
-        e = max_err(out, ref)
+        e, rel = assert_within_ulp(out, ref, f"{model} S={S} bf16 kernel "
+                                   f"vs plain")
         kr = k.repeat_interleave(H // KV, 1)      # outside the timing
         vr = v.repeat_interleave(H // KV, 1)
 
@@ -895,7 +953,8 @@ def flash_kernel_phase(dev, flush):
                "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": "operations", "flops": flops, "bytes": nbytes,
-               "max_abs_err": e, "library_max_abs_err": lib_err}
+               "max_abs_err": e, "rel_l2": rel,
+               "library_max_abs_err": lib_err}
         if model == "granite-8b":
             # the float32 prefill path's call (FFMA, no TF32), kernel only
             q32, k32, v32 = q.float(), k.float(), v.float()
@@ -922,50 +981,64 @@ def flash_kernel_phase(dev, flush):
             "library_ms": main["library_ms"], "at_shapes": rows}
 
 
-def long_prompt_phase(dev):
-    """The long-prompt path on full-width granite-8b; returns (params,
+def long_engine_phase(arch, prompts, batch_size, dev):
+    """A dense engine on full-width ``arch`` (buckets up to 16384) serves
+    ``prompts`` with 16 new tokens each, the flash and SSD launch counts
+    set to 0 just before and read just after: flash = the attention
+    layers x the bulk prefills at 16384, SSD = the Mamba2 layers x every
+    bulk prefill.  Returns (engine, params, the long prompts' requests,
     flash launches on the path)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from torch_profile import busy_us
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.models import model_zoo as zoo
     from repro_torch.serving.engine import ServingEngine
-    cfg = get_config("granite-8b")
+    cfg = get_config(arch)
     params = zoo.init_serving_params(cfg, seed=0, device=dev)
-    engine = ServingEngine(cfg, params, batch_size=4, max_seq=LONG_MAX_SEQ,
-                           prefill_buckets=LONG_BUCKETS, cache_mode="dense",
-                           device=dev)
-    reqs = requests(cfg, LONG_PROMPTS, 16, seed=5)
+    engine = ServingEngine(cfg, params, batch_size=batch_size,
+                           max_seq=LONG_MAX_SEQ, prefill_buckets=LONG_BUCKETS,
+                           cache_mode="dense", device=dev)
+    reqs = requests(cfg, prompts, 16, seed=5)
     for r in reqs:
         engine.submit(r)
-    long_prefills = sum(engine._pick_chunk(len(r.prompt) - 1)[0] == LONG_S
-                        for r in reqs)
+    long = [r for r in reqs
+            if engine._pick_chunk(len(r.prompt) - 1)[0] == LONG_S]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fk.launches = 0
+    fk.launches = sk.launches = 0
     stats = engine.run_until_idle()
     torch.cuda.synchronize()
-    launches = fk.launches
+    launches = {"flash_attention": fk.launches, "ssd_intra_chunk": sk.launches}
     for r in reqs:
         assert r.done and len(r.out_tokens) == 16, (r.rid, r.out_tokens)
         assert all(0 <= t < cfg.vocab_size for t in r.out_tokens)
-    assert long_prefills == 3 and engine.chunk_prefills == len(reqs)
-    assert launches == cfg.num_layers * long_prefills, launches
-    log(f"[long] granite-8b dense engine, prompts {LONG_PROMPTS}: served "
+    attn = zoo._attn_layers(cfg)
+    mamba = 0 if cfg.family == "dense" else cfg.num_layers
+    want = {"flash_attention": attn * len(long),
+            "ssd_intra_chunk": mamba * engine.chunk_prefills}
+    assert long and engine.chunk_prefills == len(reqs)
+    assert launches == want, (launches, want)
+    log(f"[long] {arch} dense engine, prompts {prompts}: served "
         f"{len(reqs)}/{len(reqs)}, {stats['tokens']} tokens, "
-        f"{stats['steps']} decode steps, {stats['seconds']:.2f} s; flash "
-        f"launches {launches} = {cfg.num_layers} x {long_prefills} bulk "
-        f"prefills at {LONG_S}; peak mem "
+        f"{stats['steps']} decode steps, {stats['seconds']:.2f} s; launches "
+        f"{launches} = {attn} x {len(long)} bulk prefills at {LONG_S}, "
+        f"{mamba} x {engine.chunk_prefills} bulk prefills; peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return engine, params, long, launches["flash_attention"]
 
-    # one more 16384-token bulk prefill (the 16000-token prompt into slot
-    # 0 of the idle engine): wall time, then under the profiler the
-    # device's busy share and the kernel's part of it
+
+def long_prefill_profile(engine, params, req):
+    """One more 16384-token bulk prefill of ``req`` into slot 0 of the idle
+    engine: wall time, then under the profiler the device's busy share
+    and the kernel's part of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model_zoo as zoo
+    cfg = engine.cfg
     bulk = zoo.make_bulk_prefill(cfg, engine.shape, LONG_S)
-    n_real = len(reqs[2].prompt) - 1
-    toks = engine._chunk_tokens(reqs[2], 0, LONG_S, n_real)
+    n_real = min(len(req.prompt) - 1, LONG_S)
+    toks = engine._chunk_tokens(req, 0, LONG_S, n_real)
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -984,15 +1057,13 @@ def long_prompt_phase(dev):
     flash = [e for e in kernels if "flash_attention_kernel" in e.name]
     flash_ms = sum(e.time_range.elapsed_us() for e in flash) / 1e3
     wall_ms = walls[-1] * 1e3
-    log(f"[long] one {LONG_S}-token bulk prefill at full depth: wall "
+    log(f"[long] {cfg.name}: one {LONG_S}-token bulk prefill at full "
+        f"depth: wall "
         f"{walls[0] * 1e3:.1f} / {wall_ms:.1f} ms (two runs); profiled: "
         f"device busy {busy:.1f} ms ({busy / wall_ms:.1%} of the unprofiled "
         f"wall), flash kernel {flash_ms:.1f} ms in {len(flash)} launches "
         f"({flash_ms / busy:.1%} of busy), the rest {busy - flash_ms:.1f} ms "
         f"in {len(kernels) - len(flash)} kernels")
-    del engine
-    torch.cuda.empty_cache()
-    return params, launches
 
 
 def long_prefill_vs_plain(cfg, params, dev, tol):
@@ -1020,7 +1091,8 @@ def long_prefill_vs_plain(cfg, params, dev, tol):
     assert torch.isfinite(a).all() and a.shape == b.shape
     rel = rel_l2(a, b)
     agree = float(a.argmax() == b.argmax())
-    log(f"[long prefill {cfg.compute_dtype}] {LONG_S} tokens at full depth, "
+    log(f"[long prefill {cfg.name} {cfg.compute_dtype}] {LONG_S} tokens at "
+        f"full depth, "
         f"kernel vs plain: rel_l2={rel:.3e} max_abs={max_err(a, b):.3e} "
         f"argmax agreement {agree:.0f} (tol {tol}); {secs['kernel']:.2f} s "
         f"vs {secs['ref']:.2f} s")
@@ -1153,19 +1225,28 @@ def main() -> int:
             prefill_step_vs_plain(cfg32, params32, dev, F32_PREFILL_TOL)
         del params32
         torch.cuda.empty_cache()
-    # 14-15. the long-prompt path, then kernel vs plain at full depth
-    params, long_launches = long_prompt_phase(dev)
-    cfg = get_config("granite-8b")
-    long_prefill_vs_plain(cfg, params, dev, BF16_LONG_TOL)
-    del params
-    torch.cuda.empty_cache()
-    cfg32 = cfg.with_(compute_dtype="float32")
-    params32 = zoo.init_serving_params(cfg32, seed=0, device=dev)
-    long_prefill_vs_plain(cfg32, params32, dev, F32_LONG_TOL)
-    del params32
-    torch.cuda.empty_cache()
-    flash["launches_by_path"] = {"granite-8b long prompts": long_launches}
-    flash["launches"] = long_launches
+    # 14-15. the long-prompt paths (granite-8b, then the hybrid route
+    # through zamba2-2.7b's shared attention), then each model's
+    # 16384-token prefill, kernel vs plain at full depth
+    flash["launches_by_path"] = {}
+    for arch, prompts, batch_size, n_long in LONG_PATHS:
+        engine, params, long, launches = long_engine_phase(
+            arch, prompts, batch_size, dev)
+        assert len(long) == n_long, len(long)
+        flash["launches_by_path"][f"{arch} long prompts"] = launches
+        long_prefill_profile(engine, params, long[-1])
+        del engine
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        long_prefill_vs_plain(cfg, params, dev, BF16_LONG_TOL)
+        del params
+        torch.cuda.empty_cache()
+        cfg32 = cfg.with_(compute_dtype="float32")
+        params32 = zoo.init_serving_params(cfg32, seed=0, device=dev)
+        long_prefill_vs_plain(cfg32, params32, dev, F32_LONG_TOL)
+        del params32
+        torch.cuda.empty_cache()
+    flash["launches"] = sum(flash["launches_by_path"].values())
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}
