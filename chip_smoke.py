@@ -105,6 +105,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -171,6 +172,15 @@ FLASH_FULL = (("granite-8b", 32, 8, 128), ("zamba2-2.7b", 32, 32, 80))
 # 1e-3 relative L2 (one ulp on every element would give ~5e-3).
 FLASH_FULL_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 FLASH_FULL_REL_L2 = 1e-3
+# The bf16 flash kernel splits p into two bf16 terms (hi + lo) so that
+# p.v keeps p to 2^-16: its p.v does twice the tensor-core work, so its
+# own floor is 1.5 x the bound (q.k once, p.v twice).
+SPLIT_P_WORK = 1.5
+# bf16 instantiations of the flash kernel on the main paths (granite-8b's
+# and zamba2-2.7b's head_dim): their SASS must hold tensor-core
+# instructions and ptxas must report no spills.
+FLASH_MAIN_DIMS = (128, 80)
+TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 # The long-prompt path: a dense engine whose largest bucket is past 8192.
 LONG_S, LONG_MAX_SEQ = 16384, 16640
 LONG_BUCKETS = (16, 64, 256, LONG_S)
@@ -873,24 +883,115 @@ def flash_bound(S, H, KV, D, elem_bytes, peak):
     return flops, nbytes, max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
-def assert_within_ulp(out, ref, what):
-    """bf16 kernel vs plain at a full shape, held to FLASH_FULL_TOL per
-    element and FLASH_FULL_REL_L2 over the whole output; logs the
-    readings beside the limits and returns (max_abs_err, rel_l2)."""
+def assert_scaled(out, ref, tol, rel_l2_max, what):
+    """Kernel vs plain, each element held to ``atol + rtol * |ref|`` and
+    the whole output to ``rel_l2_max`` relative L2; logs the readings
+    beside the limits and returns (max_abs_err, rel_l2)."""
     a, b = out.float(), ref.float()
     diff = (a - b).abs()
-    limit = FLASH_FULL_TOL["atol"] + FLASH_FULL_TOL["rtol"] * b.abs()
+    limit = tol["atol"] + tol["rtol"] * b.abs()
     ok = bool((diff <= limit).all())
     rel, e = rel_l2(a, b), float(diff.max())
     worst = float((diff / limit).max())     # <= 1 within the limit
     differ = float((diff > 0).float().mean())
     log(f"  {what}: max_abs_err={e:.3e}, largest |diff| / limit "
         f"{worst:.3f}, rel_l2={rel:.3e}, {differ:.2e} of elements differ, "
-        f"mean |ref|={float(b.abs().mean()):.3e}; tol {FLASH_FULL_TOL} per "
-        f"element, rel_l2 <= {FLASH_FULL_REL_L2}; ok={ok}")
-    if not ok or rel > FLASH_FULL_REL_L2:
+        f"mean |ref|={float(b.abs().mean()):.3e}; tol {tol} per element, "
+        f"rel_l2 <= {rel_l2_max}; ok={ok}")
+    if not ok or rel > rel_l2_max:
         raise AssertionError(f"{what} outside tolerance")
     return e, rel
+
+
+def assert_within_ulp(out, ref, what):
+    """bf16 flash kernel vs plain at a full shape: FLASH_FULL_TOL per
+    element, FLASH_FULL_REL_L2 over the whole output."""
+    return assert_scaled(out, ref, FLASH_FULL_TOL, FLASH_FULL_REL_L2, what)
+
+
+def demangle(names):
+    """C++ names of mangled symbols (``c++filt``), or the names as they
+    are where the tool is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return list(names)
+    return out if len(out) == len(names) else list(names)
+
+
+def ptxas_report(log_text):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from a
+    ``ptxas -v`` report, kernels by their C++ names."""
+    rows, name, spill = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows[name] = (int(m.group(1)), *spill)
+            name = None
+    return dict(zip(demangle(list(rows)), rows.values()))
+
+
+def sass_op_counts(lib_path, ops):
+    """{kernel: {op: count}} over the SASS of a built library
+    (``cuobjdump -sass``), kernels by their C++ names."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = dict.fromkeys(ops, 0)
+        elif cur is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
+    return dict(zip(demangle(list(counts)), counts.values()))
+
+
+def flash_build_phase():
+    """The flash kernel's instantiations as built: ptxas registers and
+    spills of each (when this process built it), and the tensor-core
+    instructions in the SASS of the bf16 ones on the main paths, which
+    must hold some and, per ptxas, spill nothing."""
+    from repro_torch.kernels import build
+    report = ptxas_report(build.build_log.get("flash_attention", {})
+                          .get("ptxas", ""))
+    if not report:
+        log("  flash_attention: ptxas report not available (library built "
+            "before this process)")
+    for name, (regs, st, ld) in sorted(report.items()):
+        log(f"  ptxas {name}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+    counts = sass_op_counts(build.library_path("flash_attention"),
+                            TENSOR_CORE_OPS)
+    found = {}
+    for d in FLASH_MAIN_DIMS:
+        tag = f"flash_attention_bf16_kernel<{d}>"
+        names = [n for n in counts if tag in n]
+        assert len(names) == 1, (tag, sorted(counts))
+        ops = counts[names[0]]
+        log(f"  SASS {names[0]}: " + ", ".join(f"{op} {n}" for op, n in
+                                               ops.items()))
+        assert sum(ops.values()) > 0, f"{tag}: no tensor-core instruction"
+        spills = [v for n, v in report.items() if tag in n]
+        assert all(st == ld == 0 for _, st, ld in spills), (tag, spills)
+        found[d] = {**ops, "ptxas": spills[0] if spills else None}
+    return found
 
 
 def flash_kernel_phase(dev, flush):
@@ -962,10 +1063,18 @@ def flash_kernel_phase(dev, flush):
                 q32, k32, v32, causal=True), 3, flush)
             row["f32_bound_ms"] = flash_bound(S, H, KV, D, 4, F32_FLOPS)[2]
             del q32, k32, v32
+        floor_ms = SPLIT_P_WORK * bound_ms
+        row.update(tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms,
+                   split_p_floor_ms=floor_ms,
+                   share_of_split_p_floor=floor_ms / ms,
+                   ratio_to_library=ms / library_ms)
         log(f"  {model} S={S} H={H} KV={KV} D={D} bf16 causal: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) "
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (operations: "
-            f"{flops} flop, {nbytes} B); {flops / ms / 1e9:.2f} TFLOP/s"
+            f"{flops} flop, {nbytes} B); {row['tflops']:.2f} TFLOP/s, "
+            f"{row['share_of_bound']:.3f} of the bound, split-p floor "
+            f"{floor_ms:.4f} ms ({row['share_of_split_p_floor']:.3f} of it), "
+            f"{row['ratio_to_library']:.3f}x SDPA in this call"
             + (f"; float32 kernel {row['f32_ms']:.4f} ms, bound "
                f"{row['f32_bound_ms']:.4f} ms" if "f32_ms" in row else ""))
         rows.append(row)
@@ -1183,6 +1292,8 @@ def main() -> int:
     log("[kernel] flash_attention vs plain (5 test shapes, then S=16384 "
         "at granite-8b and zamba2-2.7b shapes)")
     flash = flash_kernel_phase(dev, flush)
+    log("[kernel] flash_attention as built: ptxas and SASS")
+    flash["tensor_core_ops"] = flash_build_phase()
 
     # 8. the tile runtime's first steps and a steady window
     steady_launches = stencil_steady_phase(dev)

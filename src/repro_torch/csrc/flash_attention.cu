@@ -28,28 +28,26 @@
 // (H 32, KV 8, D 128, bf16) 2.2e12 flop against 0.34 GB, about 2.2 ms at
 // the 989 TFLOP/s of bf16 tensor cores and 0.1 ms at 3.35 TB/s.
 //
-// What this first, simple design does about it:
+// float32 (the first design, kept for the float32 prefill path):
 // * One CTA of 256 threads per (b, h, 64-row query tile); the key rows
-//   go through shared memory in 64-row tiles.  The TPU kernel carries
-//   its softmax state in VMEM from one grid step to the next; here the
-//   key tiles are a loop inside the CTA and the state (m, l and a 4-row
-//   slice of acc per thread) lives in registers.
-// * GQA is an index: a CTA reads its kv head h / (H / KV) directly, and
-//   no repeated K / V is ever materialised.
-// * Causal key tiles past the diagonal are skipped, not masked (the loop
-//   ends at the query tile's own index); the diagonal tile is masked.
-//   CTAs of the longest query tiles are issued first.
-// * Products are float32 FFMA in both types: bf16 inputs are widened as
-//   they are copied into shared memory, so p stays float32 in p.v as in
-//   the TPU kernel, and float32 never goes through TF32.  Each thread
-//   owns a 4 x 4 block of the 64 x 64 score tile, fed by two 16-byte
-//   shared reads per 16 FFMAs; the probabilities go back through shared
-//   memory, transposed, into the space of the key tile (no longer read
-//   by then), and each thread accumulates its 4 rows at D / 16 columns.
-// * Row max and row sum are reduced across the 16 threads of a row with
-//   warp shuffles.
-// * Tensor cores (mma / wgmma with bf16 operands), TMA and a pipeline
-//   of key tiles are for a later, faster version.
+//   go through shared memory in 64-row tiles, the softmax state (m, l
+//   and a 4-row slice of acc per thread) lives in registers.
+// * Products are float32 FFMA (never TF32).  Each thread owns a 4 x 4
+//   block of the 64 x 64 score tile; the probabilities go back through
+//   shared memory, transposed, into the space of the key tile.
+//
+// bf16 (tensor cores, mma.sync m16n8k16): one CTA of 4 warps per
+// (b, h, 64-row query tile), 16 rows a warp, q fragments in registers;
+// 64-row K and V tiles in two cp.async stages; s = q.k^T and the online
+// softmax in registers; p stays float32 and is split into two bf16
+// terms, hi = bf16(p) and lo = bf16(p - hi), both multiplied against v
+// into one float32 accumulator, so p.v keeps p to 2^-16 (the TPU kernel
+// and the plain version keep p float32; one bf16 rounding of p would
+// be 1.6e-2 off them).
+//
+// Both: GQA is an index (a CTA reads its kv head h / (H / KV)); causal
+// key tiles past the diagonal are skipped, the diagonal tile is masked,
+// and CTAs of the longest query tiles are issued first.
 //
 // The C entry launches on the caller's stream and returns
 // cudaGetLastError(); it allocates nothing and does not synchronise.
@@ -316,20 +314,289 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-int launch(const Params& p, int heads, int batch, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
-  static bool configured = false;  // one attribute call per instantiation
+// ------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums)
+// ------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;                  // 16 query rows each
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRows = 16 * kMmaWarps;      // query rows of a CTA
+constexpr int kMmaKeys = 64;                  // key rows of a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A shared row of D bf16, padded by 16 bytes: an odd number of 16-byte
+// chunks, so the 8 rows one ldmatrix reads fall on distinct banks.
+template <int D>
+__host__ __device__ constexpr int mma_ld() {
+  return D + 8;
+}
+template <int D>
+constexpr int mma_smem_bytes() {  // Q, two stages of K and of V
+  return (kMmaRows + 4 * kMmaKeys) * mma_ld<D>() * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a . b: one m16n8k16 product, a 4 and b 2 registers of bf16 pairs.
+__device__ __forceinline__ void mma16816(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two float32 weights as two bf16 pairs: hi = bf16(p), lo = bf16(p - hi)
+// (p - hi is exact in float32), so |p - (hi + lo)| <= 2^-16 p.
+__device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
+                                        uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Rows r0 .. r0+R-1 of a (rows, D) bf16 matrix with row stride rs into
+// shared [R][mma_ld<D>()] by 16-byte cp.async; rows past `rows` are 0.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long rs, int r0, int rows) {
+  constexpr int C = D / 8;
+  for (int e = threadIdx.x; e < R * C; e += kMmaThreads) {
+    const int rr = e / C, c = e % C;
+    const int r = r0 + rr;
+    const bool valid = r < rows;
+    cp_async16(dst + rr * mma_ld<D>() + c * 8,
+               src + (valid ? r * rs : 0) + c * 8, valid);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_attention_bf16_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = mma_ld<D>();
+  constexpr int KD = D / 16;           // k-steps of q.k
+  constexpr int ND = D / 8;            // n-tiles of the output
+  constexpr int NS = kMmaKeys / 8;     // n-tiles of a score tile
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + kMmaRows * LD;       // [2][kMmaKeys][LD]
+  __nv_bfloat16* Vs = Ks + 2 * kMmaKeys * LD;   // [2][kMmaKeys][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // fragment row and column pair
+  const int it = p.n_qtiles - 1 - blockIdx.x;   // longest first
+  const int hh = blockIdx.y, bb = blockIdx.z, kvh = hh / p.group;
+  const int i0 = it * kMmaRows;
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(p.q) + bb * p.q_b + hh * p.q_h;
+  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.k_b + kvh * p.k_h;
+  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.v_b + kvh * p.v_h;
+  bf16* o = static_cast<bf16*>(p.o) + bb * p.o_b + hh * p.o_h;
+
+  int n_kt = (p.sk + kMmaKeys - 1) / kMmaKeys;
+  if (p.causal) n_kt = min(n_kt, (i0 + kMmaRows - 1) / kMmaKeys + 1);
+
+  load_tile<D, kMmaRows>(Qs, q, p.q_s, i0, p.sq);
+  load_tile<D, kMmaKeys>(Ks, k, p.k_s, 0, p.sk);
+  load_tile<D, kMmaKeys>(Vs, v, p.v_s, 0, p.sk);
+  cp_async_commit();
+
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sl2 = p.scale * kLog2e;   // scores in log2 units
+
+  for (int jt = 0; jt < n_kt; ++jt) {
+    const int st = jt & 1;
+    if (jt + 1 < n_kt) {
+      const int nx = (st ^ 1) * kMmaKeys * LD;
+      load_tile<D, kMmaKeys>(Ks + nx, k, p.k_s, (jt + 1) * kMmaKeys, p.sk);
+      load_tile<D, kMmaKeys>(Vs + nx, v, p.v_s, (jt + 1) * kMmaKeys, p.sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (jt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(qf[kk], Qs + (warp * 16 + lane % 8 + 8 * ((lane / 8) % 2)) *
+                                 LD + kk * 16 + 8 * (lane / 16));
+    }
+    const bf16* Kt = Ks + st * kMmaKeys * LD;
+    const bf16* Vt = Vs + st * kMmaKeys * LD;
+
+    // s = q . k^T on the warp's 16 rows and the tile's 64 keys
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int pp = 0; pp < NS / 2; ++pp) {
+        uint32_t b[4];
+        ldsm_x4(b, Kt + (16 * pp + lane % 8 + 8 * (lane / 16)) * LD +
+                       16 * kk + 8 * ((lane / 8) % 2));
+        mma16816(s[2 * pp], qf[kk], b[0], b[1]);
+        mma16816(s[2 * pp + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // scale to log2 units, mask (the diagonal tile; keys past Sk), then
+    // the online softmax of rows g (h = 0) and g + 8 (h = 1); a row's 64
+    // scores sit on the 4 threads of a quad
+    const int j0 = jt * kMmaKeys;
+    const bool edge = (p.causal && j0 + kMmaKeys - 1 > i0) ||
+                      j0 + kMmaKeys > p.sk;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + warp * 16 + g + 8 * h;
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[n][2 * h + e] * sl2;
+          if (edge) {
+            const int j = j0 + 8 * n + 2 * t + e;
+            if ((p.causal && j > i) || j >= p.sk) x = kNegInf;
+          }
+          s[n][2 * h + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      const float alpha = exp2f(m[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pe = exp2f(s[n][2 * h + e] - m_new);
+          s[n][2 * h + e] = pe;
+          sum += pe;
+        }
+      l[h] = l[h] * alpha + sum;   // this thread's columns; summed at the end
+      m[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * h] *= alpha;
+        acc[n][2 * h + 1] *= alpha;
+      }
+    }
+
+    // acc += p . v, p split into hi + lo, each a bf16 A fragment of 16
+    // keys (the score fragments of two n-tiles), v by transposed ldmatrix
+#pragma unroll
+    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_p(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      split_p(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int pp = 0; pp < ND / 2; ++pp) {
+        uint32_t b[4];
+        ldsm_x4_t(b, Vt + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD +
+                         16 * pp + 8 * (lane / 16));
+        mma16816(acc[2 * pp], hi, b[0], b[1]);
+        mma16816(acc[2 * pp], lo, b[0], b[1]);
+        mma16816(acc[2 * pp + 1], hi, b[2], b[3]);
+        mma16816(acc[2 * pp + 1], lo, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // this stage is read: the next loads may refill it
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int i = i0 + warp * 16 + g + 8 * h;
+    if (i >= p.sq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    bf16* orow = o + i * p.o_s + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * h] / denom,
+                                acc[n][2 * h + 1] / denom);
+  }
+}
+
+// One cudaFuncSetAttribute per kernel instantiation, then the launch.
+template <typename Kernel>
+int launch_kernel(Kernel kernel, int bytes, dim3 grid, int threads,
+                  const Params& p, cudaStream_t stream, bool& configured) {
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid(p.n_qtiles, heads, batch);
-  flash_attention_kernel<T, D><<<grid, dim3(kThreads), bytes, stream>>>(p);
+  kernel<<<grid, dim3(threads), bytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch(Params p, int heads, int batch, cudaStream_t stream) {
+  static bool configured = false;
+  if constexpr (sizeof(T) == 4) {
+    p.n_qtiles = (p.sq + kTile - 1) / kTile;
+    return launch_kernel(flash_attention_kernel<float, D>,
+                         smem_floats<D>() * (int)sizeof(float),
+                         dim3(p.n_qtiles, heads, batch), kThreads, p, stream,
+                         configured);
+  } else {
+    p.n_qtiles = (p.sq + kMmaRows - 1) / kMmaRows;
+    return launch_kernel(flash_attention_bf16_kernel<D>, mma_smem_bytes<D>(),
+                         dim3(p.n_qtiles, heads, batch), kMmaThreads, p,
+                         stream, configured);
+  }
 }
 
 template <typename T>
@@ -384,7 +651,6 @@ extern "C" int flash_attention_launch(
   p.group = h / kv;
   p.sq = sq;
   p.sk = sk;
-  p.n_qtiles = (sq + kTile - 1) / kTile;
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

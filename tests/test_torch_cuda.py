@@ -219,6 +219,42 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, h, kv, s, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
+    (1, 4, 2, 300, 300, 128, True),      # ragged against 128-row tiles
+    (1, 4, 2, 1000, 1000, 80, True),
+    (1, 2, 1, 1000, 1000, 128, False),
+    (1, 4, 2, 200, 333, 64, False),      # Sq != Sk
+    (2, 4, 4, 384, 130, 128, False),
+    (1, 8, 2, 256, 256, 128, True),      # G = 4 at D = 128
+    (1, 4, 4, 256, 256, 128, True),      # G = 1 at D = 128
+    (1, 4, 1, 4096, 4096, 128, True),    # the key-tile ring wraps many times
+    (1, 4, 4, 4096, 4096, 80, True),
+    *[(1, 4, 2, 192, 192, d, True) for d in flash_attention.kernel.HEAD_DIMS],
+])
+def test_flash_kernel_bf16_tiles_on_card(cuda_device, b, h, kv, sq, sk, d,
+                                         causal):
+    """The bf16 tensor-core kernel at shapes that cut its tiles: ragged
+    query and key tiles, Sq != Sk, GQA groups of 1 and 4, long rings, and
+    every head_dim; held to one bf16 ulp of the plain version (blocks as
+    large as the lengths allow, so the plain version takes any length)."""
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+        for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+    bq, bkv = (512 if sq % 512 == 0 else sq), (512 if sk % 512 == 0 else sk)
+    before = flash_attention.kernel.launches
+    out = flash_attention.attention(q, k, v, causal=causal, block_q=bq,
+                                    block_kv=bkv)
+    torch.cuda.synchronize()
+    assert flash_attention.kernel.launches == before + 1
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    ref = flash_attention.attention(q, k, v, causal=causal, block_q=bq,
+                                    block_kv=bkv, impl="ref")
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **BF16_ULP_TOL)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     """``check_args`` raises ``ValueError``, and nothing is launched."""
     fk = flash_attention.kernel

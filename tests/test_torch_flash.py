@@ -154,6 +154,55 @@ def test_attention_refuses_what_the_reference_asserts(block_q, block_kv):
         attention(tq, tk, tv, block_q=32, block_kv=32, impl="auto")
 
 
+# The shapes of tests/test_torch_cuda.py::test_flash_kernel_matches_plain_on_card
+CUDA_FLASH_SHAPES = FLASH_SHAPES + [
+    (1, 32, 8, 320, 128, 64, 64),
+    (2, 4, 4, 200, 80, 512, 512),
+    (1, 4, 1, 48, 48, 48, 16),
+    (1, 4, 2, 128, 96, 64, 64),
+    (2, 2, 1, 80, 112, 16, 16),
+]
+BF16_ULP_TOL = dict(rtol=2.0 ** -7, atol=1e-5)  # one bf16 ulp of each |x|
+
+
+def _split_p_attention(q, k, v, causal):
+    """Attention as the bf16 CUDA kernel computes it, in plain float32:
+    q.k^T of bf16 inputs (products exact in float32), the softmax weights
+    p in float32, and p.v with p split into two bf16 terms
+    ``hi = bf16(p)``, ``lo = bf16(p - hi)`` against v in bf16.  Heads-major
+    (B, H, S, D) in, (output float32, p, hi + lo) out."""
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    sc = torch.matmul(q.float(), kf.transpose(-1, -2)) * d ** -0.5
+    if causal:
+        sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1),
+                            -1e30)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    out = torch.matmul(hi + lo, vf) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out, p, hi + lo
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,bq,bkv", CUDA_FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_p_keeps_the_bf16_kernel_within_one_ulp(b, h, kv, s, d, bq,
+                                                      bkv, causal):
+    """The bf16 kernel's numerical argument, on the CPU: p as two bf16
+    terms is within 2^-16 of p, and attention with that p rounds to
+    within one bf16 ulp of the plain version, which keeps p in float32."""
+    q, k, v = [torch.from_numpy(a).bfloat16()
+               for a in _qkv(b, h, kv, s, s, d, seed=s + d)]
+    out, p, split = _split_p_attention(q, k, v, causal)
+    assert bool(((p - split).abs() <= 2.0 ** -16 * p).all())
+    ref = flash_attention_ref(q, k, v, causal=causal, block_q=bq,
+                              block_kv=bkv)
+    np.testing.assert_allclose(_f32(out.bfloat16()), _f32(ref),
+                               **BF16_ULP_TOL)
+
+
 # -------------------------------------------------- blockwise_attention
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,h,kv,s,d,bq,bkv,causal", [
