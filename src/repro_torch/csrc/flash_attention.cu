@@ -14,44 +14,70 @@
 //   online softmax over key tiles: running max m (from -1e30), sum l and
 //   accumulator acc, all float32; per tile m' = max(m, max_j s_j),
 //   p_j = exp(s_j - m'), l = l * exp(m - m') + sum_j p_j,
-//   acc = acc * exp(m - m') + sum_j p_j v_j (p stays float32)
+//   acc = acc * exp(m - m') + sum_j p_j v_j (p float32, as in the TPU
+//   kernel and the plain version)
 //   o_i = acc / max(l, 1e-30), cast to the input type
 //
 //   q (B, H, Sq, D), k and v (B, KV, Sk, D), o (B, H, Sq, D), each read
 //   through its own (batch, seq, head) strides with D contiguous, so the
 //   model's (B, S, H, D) tensors are read and written without a
-//   transpose.  T = float or __nv_bfloat16; D a multiple of 16 up to 128.
+//   transpose.  float or bf16; D a multiple of 16 up to 128.
 //
 // Bound: operations.  A call does 4 * D flops per (query row, key row)
-// pair it attends (q.k and p.v), over S^2 / 2 pairs when causal, against
-// 2 (Sq H + Sk KV) D elements moved: at granite-8b's 16384-token prefill
-// (H 32, KV 8, D 128, bf16) 2.2e12 flop against 0.34 GB, about 2.2 ms at
-// the 989 TFLOP/s of bf16 tensor cores and 0.1 ms at 3.35 TB/s.
+// pair it attends (q.k and p.v), over S (S + 1) / 2 pairs a head when
+// causal, against 2 (Sq H + Sk KV) D elements moved: at granite-8b's
+// 16384-token prefill (H 32, KV 8, D 128, bf16) 2.2e12 flop against
+// 0.34 GB, 2.2236 ms at the 989 TFLOP/s of the bf16 tensor cores and
+// 0.1 ms at 3.35 TB/s.
 //
-// float32 (the first design, kept for the float32 prefill path):
-// * One CTA of 256 threads per (b, h, 64-row query tile); the key rows
-//   go through shared memory in 64-row tiles, the softmax state (m, l
-//   and a 4-row slice of acc per thread) lives in registers.
-// * Products are float32 FFMA (never TF32).  Each thread owns a 4 x 4
-//   block of the 64 x 64 score tile; the probabilities go back through
-//   shared memory, transposed, into the space of the key tile.
+// Why p is split.  wgmma multiplies bf16 operands, and p.v with p
+// rounded to bf16 once (as SDPA does) is 1.6e-2 off the TPU kernel's
+// float32 p.  So p is split into hi = bf16(p) and lo = bf16(p - hi)
+// (p - hi is exact in float32), both multiplied against v into one
+// float32 accumulator: |p - (hi + lo)| <= 2^-16 p, below a bf16 ulp,
+// and the output stays within one bf16 ulp of the plain version.  q.k
+// loses nothing (bf16 products are exact in float32).  The price is
+// p.v twice: 1.5x the tensor-core work, a floor of 1.5 x 2.2236 = 3.34
+// ms at granite-8b's shape.
 //
-// bf16 (tensor cores, mma.sync m16n8k16): one CTA of 4 warps per
-// (b, h, 64-row query tile), 16 rows a warp, q fragments in registers;
-// 64-row K and V tiles in two cp.async stages; s = q.k^T and the online
-// softmax in registers; p stays float32 and is split into two bf16
-// terms, hi = bf16(p) and lo = bf16(p - hi), both multiplied against v
-// into one float32 accumulator, so p.v keeps p to 2^-16 (the TPU kernel
-// and the plain version keep p float32; one bf16 rounding of p would
-// be 1.6e-2 off them).
+// bf16, what the design does about the bound:
+// * Tensor cores for both products: s = q.k^T is wgmma m64n128k16 with
+//   both operands in shared memory (K-major); o += p.v is wgmma with p
+//   from registers (the score accumulator after the softmax, converted in
+//   place into the bf16 A fragments hi and lo, two wgmma into the same
+//   accumulator, so rescaling by alpha touches one accumulator) and v as
+//   a transposed (MN-major) B operand in its stored (key, D) layout.
+// * One CTA of three warpgroups per (b, h, 128-row query tile): one
+//   thread of warpgroup 0 issues every copy, warpgroups 1 and 2 each own
+//   64 query rows; setmaxnreg moves the producer's registers to them
+//   (240 a consumer thread: s, o and hi/lo fit without spills).
+// * K and V tiles of 128 rows come by TMA into a ring of 2 stages with
+//   full and empty mbarriers; q by TMA once per CTA.  The tensor maps
+//   address the (B, S, H, D) tensors through their strides, are built on
+//   the host (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint,
+//   no -lcuda) and passed as __grid_constant__ parameters.  TMA
+//   zero-fills rows past Sq and Sk; keys past Sk and past the diagonal
+//   still get -1e30.
+// * Shared tiles are cut into slabs of W columns, each row one swizzle
+//   span: 128 B where D is a multiple of 64 (D = 128), 64 B where of 32,
+//   else 32 B (D = 80: five 16-column slabs).
+// * The softmax runs in registers on the accumulator layout (a row's
+//   scores on the 4 threads of a quad, reduced by two shuffles), in log2
+//   units (scale * log2 e folded into exp2f, within float32 rounding).
+// * GQA is an index (a CTA reads its kv head h / (H / KV)); causal key
+//   tiles past the diagonal are skipped, the diagonal tile is masked, and
+//   CTAs of the longest query tiles are issued first.
 //
-// Both: GQA is an index (a CTA reads its kv head h / (H / KV)); causal
-// key tiles past the diagonal are skipped, the diagonal tile is masked,
-// and CTAs of the longest query tiles are issued first.
+// float32 (the first design, kept for the float32 prefill path: TF32
+// would not hold its 2e-5 tolerance): one CTA of 256 threads per (b, h,
+// 64-row query tile), 64-row key tiles through shared memory, float32
+// FFMA, each thread a 4 x 4 block of the score tile, the probabilities
+// back through shared memory into the key tile's space.
 //
 // The C entry launches on the caller's stream and returns
 // cudaGetLastError(); it allocates nothing and does not synchronise.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,7 +106,7 @@ struct Params {
   float scale;
 };
 
-// 16 bytes of T as floats: 4 (float) or 8 (bf16).
+// 16 bytes of T as floats.
 template <typename T>
 struct Vec;
 
@@ -96,25 +122,7 @@ struct Vec<float> {
   }
 };
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
 __device__ __forceinline__ void store(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -315,68 +323,345 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums)
+// bf16: wgmma on bf16 operands with float32 sums, K and V by TMA
 // ------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;                  // 16 query rows each
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRows = 16 * kMmaWarps;      // query rows of a CTA
-constexpr int kMmaKeys = 64;                  // key rows of a tile
+constexpr int kRowsWg = 64;                   // query rows of a consumer
+constexpr int kConsumers = 2;                 // consumer warpgroups
+constexpr int kBlockM = kRowsWg * kConsumers; // query rows of a CTA
+constexpr int kBlockN = 128;                  // key rows of a tile
+constexpr int kStages = 2;                    // K and V tiles in flight
+constexpr int kWgThreads = 128 * (1 + kConsumers);
 constexpr float kLog2e = 1.4426950408889634f;
+// setmaxnreg: the producer warpgroup gives its registers to the
+// consumers; 168 a thread at launch (65536 / 384), 24 x 128 + 240 x 256
+// = 168 x 384 after.
+#define FLASH_PRODUCER_REGS "24"
+#define FLASH_CONSUMER_REGS "240"
 
-// A shared row of D bf16, padded by 16 bytes: an odd number of 16-byte
-// chunks, so the 8 rows one ldmatrix reads fall on distinct banks.
+// A D-wide bf16 tile in shared memory is cut into slabs of W columns;
+// a slab row is one swizzle span (W * 2 bytes): 128 B where D is a
+// multiple of 64, 64 B where of 32, else 32 B (D = 80: five 16-column
+// slabs).  TMA writes the swizzle and wgmma reads it through the same
+// layout type.
 template <int D>
-__host__ __device__ constexpr int mma_ld() {
-  return D + 8;
-}
+struct Swizzle {
+  static constexpr int W = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
+  static constexpr int kRowBytes = 2 * W;
+  static constexpr int kLayout = W == 64 ? 1 : (W == 32 ? 2 : 3);
+  static constexpr CUtensorMapSwizzle kTma =
+      W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+              : (W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                         : CU_TENSOR_MAP_SWIZZLE_32B);
+};
+
+// Byte offsets from a 1024-aligned base: Q, the K ring, the V ring, the
+// barriers (q full; k full, v full and k/v empty per stage).
 template <int D>
-constexpr int mma_smem_bytes() {  // Q, two stages of K and of V
-  return (kMmaRows + 4 * kMmaKeys) * mma_ld<D>() * 2;
-}
+struct Smem {
+  static constexpr int kTile = kBlockN * D * 2;
+  static constexpr int kK = kBlockM * D * 2;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, or 16 zero bytes where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Wait for the completion of the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// One TMA box of a (D, S, heads, batch) tensor map into shared memory,
+// completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads of a wgmma result above the wait.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+// d (64 x N, float32, N / 2 registers a thread) = [d +] a . b, a and b
+// K-major in shared memory (scale_d = 0: d = a . b).
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                         int scale_d);
+// d += a . b with a (64 x 16) from registers (4 bf16 pairs a thread) and
+// b MN-major in shared memory (the stored (key, D) layout of v).
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// c += a . b: one m16n8k16 product, a 4 and b 2 registers of bf16 pairs.
-__device__ __forceinline__ void mma16816(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // Two float32 weights as two bf16 pairs: hi = bf16(p), lo = bf16(p - hi)
@@ -390,227 +675,310 @@ __device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// Rows r0 .. r0+R-1 of a (rows, D) bf16 matrix with row stride rs into
-// shared [R][mma_ld<D>()] by 16-byte cp.async; rows past `rows` are 0.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long rs, int r0, int rows) {
-  constexpr int C = D / 8;
-  for (int e = threadIdx.x; e < R * C; e += kMmaThreads) {
-    const int rr = e / C, c = e % C;
-    const int r = r0 + rr;
-    const bool valid = r < rows;
-    cp_async16(dst + rr * mma_ld<D>() + c * 8,
-               src + (valid ? r * rs : 0) + c * 8, valid);
+// One CTA per (query tile of kBlockM rows, head, batch): warpgroup 0 is
+// the producer (one thread issues every TMA copy), warpgroups 1 and 2
+// the consumers, 64 query rows each.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const Params p) {
+  using Sw = Swizzle<D>;
+  using L = Smem<D>;
+  constexpr int RB = Sw::kRowBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_k = bar_q + 8;                  // [kStages]
+  const uint32_t bar_v = bar_k + 8 * kStages;        // [kStages]
+  const uint32_t bar_e = bar_v + 8 * kStages;        // [kStages]
+
+  const int it = p.n_qtiles - 1 - blockIdx.x;        // longest first
+  const int hh = blockIdx.y, bb = blockIdx.z, kvh = hh / p.group;
+  const int i0 = it * kBlockM;
+  // causal: key tiles past the query tile's last row are skipped
+  int n_kt = (p.sk + kBlockN - 1) / kBlockN;
+  if (p.causal) n_kt = min(n_kt, (i0 + kBlockM - 1) / kBlockN + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: Q once, then the K and V tiles through the ring; a stage
+    // is refilled once all 256 consumer threads have released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 " FLASH_PRODUCER_REGS
+                 ";\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, kBlockM * D * 2);
+      for (int s = 0; s < D / Sw::W; ++s)
+        tma_load(base + s * kBlockM * RB, &tm_q, bar_q, s * Sw::W, i0, hh,
+                 bb);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(bar_e + 8 * st, ((kt / kStages) & 1) ^ 1);
+        const uint32_t kd = base + L::kK + st * L::kTile;
+        const uint32_t vd = base + L::kV + st * L::kTile;
+        mbar_expect_tx(bar_k + 8 * st, L::kTile);
+        for (int s = 0; s < D / Sw::W; ++s)
+          tma_load(kd + s * kBlockN * RB, &tm_k, bar_k + 8 * st, s * Sw::W,
+                   kt * kBlockN, kvh, bb);
+        mbar_expect_tx(bar_v + 8 * st, L::kTile);
+        for (int s = 0; s < D / Sw::W; ++s)
+          tma_load(vd + s * kBlockN * RB, &tm_v, bar_v + 8 * st, s * Sw::W,
+                   kt * kBlockN, kvh, bb);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 " FLASH_CONSUMER_REGS
+                 ";\n");
+    const int c = threadIdx.x / 128 - 1;             // rows 64c .. 64c+63
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;            // fragment row, pair
+    constexpr int NS = kBlockN / 2;                  // score registers
+    constexpr int NO = D / 2;                        // output registers
+    constexpr int KP = kBlockN / 16;                 // k-steps of p.v
+    float o[NO];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[n] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    const float sl2 = p.scale * kLog2e;              // log2 units
+    const int r0 = i0 + c * kRowsWg + warp * 16 + g; // row of h = 0
+    const uint32_t q0 = base + c * kRowsWg * RB;
+    mbar_wait(bar_q, 0);
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % kStages;
+      const uint32_t par = (kt / kStages) & 1;
+      const uint32_t kb = base + L::kK + st * L::kTile;
+      const uint32_t vb = base + L::kV + st * L::kTile;
+
+      // s = q . k^T: the warpgroup's 64 rows against 128 keys, both
+      // K-major, 16 columns of D a step
+      float s[NS];
+      mbar_wait(bar_k + 8 * st, par);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int slab = kk * 16 / Sw::W, col = kk * 16 % Sw::W;
+        wgmma_ss<kBlockN>(
+            s, wg_desc(q0 + slab * kBlockM * RB + col * 2, 0, 8 * RB,
+                       Sw::kLayout),
+            wg_desc(kb + slab * kBlockN * RB + col * 2, 0, 8 * RB,
+                    Sw::kLayout),
+            kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+
+      // scale to log2 units, mask (the diagonal tile; keys past Sk), and
+      // the online softmax of rows g (h = 0) and g + 8 (h = 1); a row's
+      // scores sit on the 4 threads of a quad
+      const int j0 = kt * kBlockN;
+      const bool edge =
+          (p.causal && j0 + kBlockN - 1 > i0 + c * kRowsWg) ||
+          j0 + kBlockN > p.sk;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = r0 + 8 * h;
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < kBlockN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = s[4 * n + 2 * h + e] * sl2;
+            if (edge) {
+              const int j = j0 + 8 * n + 2 * t + e;
+              if ((p.causal && j > i) || j >= p.sk) x = kNegInf;
+            }
+            s[4 * n + 2 * h + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        const float alpha = exp2f(m[h] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kBlockN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pe = exp2f(s[4 * n + 2 * h + e] - m_new);
+            s[4 * n + 2 * h + e] = pe;
+            sum += pe;
+          }
+        l[h] = l[h] * alpha + sum;   // this thread's columns; summed at end
+        m[h] = m_new;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n + 2 * h] *= alpha;
+          o[4 * n + 2 * h + 1] *= alpha;
+        }
+      }
+
+      // p as hi + lo A fragments (the accumulator layout of two 8-key
+      // column groups is the A layout of 16 keys), then o += hi . v +
+      // lo . v into the one accumulator; v is read MN-major (transposed
+      // B), 16 key rows a step, slab to slab by the leading byte offset
+      uint32_t hi[KP][4], lo[KP][4];
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_p(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], hi[kk][r],
+                  lo[kk][r]);
+      mbar_wait(bar_v + 8 * st, par);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk) {
+        const uint64_t vdesc = wg_desc(vb + kk * 16 * RB, kBlockN * RB,
+                                       8 * RB, Sw::kLayout);
+        wgmma_rs<D>(o, hi[kk], vdesc);
+        wgmma_rs<D>(o, lo[kk], vdesc);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(o);
+      mbar_arrive(bar_e + 8 * st);
+    }
+
+    // o / max(l, 1e-30), rounded to bf16 once
+    using bf16 = __nv_bfloat16;
+    bf16* out = static_cast<bf16*>(p.o) + bb * p.o_b + hh * p.o_h;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int i = r0 + 8 * h;
+      if (i >= p.sq) continue;
+      const float denom = fmaxf(l[h], 1e-30f);
+      bf16* orow = out + i * p.o_s + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+            __floats2bfloat162_rn(o[4 * n + 2 * h] / denom,
+                                  o[4 * n + 2 * h + 1] / denom);
+    }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_attention_bf16_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = mma_ld<D>();
-  constexpr int KD = D / 16;           // k-steps of q.k
-  constexpr int ND = D / 8;            // n-tiles of the output
-  constexpr int NS = kMmaKeys / 8;     // n-tiles of a score tile
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kMmaRows * LD;       // [2][kMmaKeys][LD]
-  __nv_bfloat16* Vs = Ks + 2 * kMmaKeys * LD;   // [2][kMmaKeys][LD]
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;   // fragment row and column pair
-  const int it = p.n_qtiles - 1 - blockIdx.x;   // longest first
-  const int hh = blockIdx.y, bb = blockIdx.z, kvh = hh / p.group;
-  const int i0 = it * kMmaRows;
-  using bf16 = __nv_bfloat16;
-  const bf16* q = static_cast<const bf16*>(p.q) + bb * p.q_b + hh * p.q_h;
-  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.k_b + kvh * p.k_h;
-  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.v_b + kvh * p.v_h;
-  bf16* o = static_cast<bf16*>(p.o) + bb * p.o_b + hh * p.o_h;
-
-  int n_kt = (p.sk + kMmaKeys - 1) / kMmaKeys;
-  if (p.causal) n_kt = min(n_kt, (i0 + kMmaRows - 1) / kMmaKeys + 1);
-
-  load_tile<D, kMmaRows>(Qs, q, p.q_s, i0, p.sq);
-  load_tile<D, kMmaKeys>(Ks, k, p.k_s, 0, p.sk);
-  load_tile<D, kMmaKeys>(Vs, v, p.v_s, 0, p.sk);
-  cp_async_commit();
-
-  uint32_t qf[KD][4];
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const float sl2 = p.scale * kLog2e;   // scores in log2 units
-
-  for (int jt = 0; jt < n_kt; ++jt) {
-    const int st = jt & 1;
-    if (jt + 1 < n_kt) {
-      const int nx = (st ^ 1) * kMmaKeys * LD;
-      load_tile<D, kMmaKeys>(Ks + nx, k, p.k_s, (jt + 1) * kMmaKeys, p.sk);
-      load_tile<D, kMmaKeys>(Vs + nx, v, p.v_s, (jt + 1) * kMmaKeys, p.sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (jt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(qf[kk], Qs + (warp * 16 + lane % 8 + 8 * ((lane / 8) % 2)) *
-                                 LD + kk * 16 + 8 * (lane / 16));
-    }
-    const bf16* Kt = Ks + st * kMmaKeys * LD;
-    const bf16* Vt = Vs + st * kMmaKeys * LD;
-
-    // s = q . k^T on the warp's 16 rows and the tile's 64 keys
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int pp = 0; pp < NS / 2; ++pp) {
-        uint32_t b[4];
-        ldsm_x4(b, Kt + (16 * pp + lane % 8 + 8 * (lane / 16)) * LD +
-                       16 * kk + 8 * ((lane / 8) % 2));
-        mma16816(s[2 * pp], qf[kk], b[0], b[1]);
-        mma16816(s[2 * pp + 1], qf[kk], b[2], b[3]);
-      }
-    }
-
-    // scale to log2 units, mask (the diagonal tile; keys past Sk), then
-    // the online softmax of rows g (h = 0) and g + 8 (h = 1); a row's 64
-    // scores sit on the 4 threads of a quad
-    const int j0 = jt * kMmaKeys;
-    const bool edge = (p.causal && j0 + kMmaKeys - 1 > i0) ||
-                      j0 + kMmaKeys > p.sk;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + warp * 16 + g + 8 * h;
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = s[n][2 * h + e] * sl2;
-          if (edge) {
-            const int j = j0 + 8 * n + 2 * t + e;
-            if ((p.causal && j > i) || j >= p.sk) x = kNegInf;
-          }
-          s[n][2 * h + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx);
-      const float alpha = exp2f(m[h] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pe = exp2f(s[n][2 * h + e] - m_new);
-          s[n][2 * h + e] = pe;
-          sum += pe;
-        }
-      l[h] = l[h] * alpha + sum;   // this thread's columns; summed at the end
-      m[h] = m_new;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][2 * h] *= alpha;
-        acc[n][2 * h + 1] *= alpha;
-      }
-    }
-
-    // acc += p . v, p split into hi + lo, each a bf16 A fragment of 16
-    // keys (the score fragments of two n-tiles), v by transposed ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_p(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split_p(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-#pragma unroll
-      for (int pp = 0; pp < ND / 2; ++pp) {
-        uint32_t b[4];
-        ldsm_x4_t(b, Vt + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD +
-                         16 * pp + 8 * (lane / 16));
-        mma16816(acc[2 * pp], hi, b[0], b[1]);
-        mma16816(acc[2 * pp], lo, b[0], b[1]);
-        mma16816(acc[2 * pp + 1], hi, b[2], b[3]);
-        mma16816(acc[2 * pp + 1], lo, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // this stage is read: the next loads may refill it
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
+}
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int i = i0 + warp * 16 + g + 8 * h;
-    if (i >= p.sq) continue;
-    const float denom = fmaxf(l[h], 1e-30f);
-    bf16* orow = o + i * p.o_s + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * h] / denom,
-                                acc[n][2 * h + 1] / denom);
+// A bf16 (batch, seq, heads, D) view with D contiguous, as a 4-d tensor
+// map (D, seq, heads, batch) whose box is W columns by `rows` rows; rows
+// past `seq` read as zero.  A dimension of size 1 gets a packed stride
+// (it is never stepped).  Returns 0, or -2 if the driver refuses it.
+int make_map(CUtensorMap* map, const void* ptr, int d, int seq, int heads,
+             int batch, long long s_s, long long s_h, long long s_b,
+             int rows, int w, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  const long long size[3] = {seq, heads, batch};
+  long long stride[3] = {s_s, s_h, s_b};
+  long long packed = d;
+  for (int i = 0; i < 3; ++i) {
+    if (size[i] == 1) stride[i] = packed;
+    packed = stride[i] * size[i] > packed ? stride[i] * size[i] : packed;
   }
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)seq,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)stride[0] * 2,
+                                 (cuuint64_t)stride[1] * 2,
+                                 (cuuint64_t)stride[2] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)w, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
 }
 
 // One cudaFuncSetAttribute per kernel instantiation, then the launch.
-template <typename Kernel>
+template <typename Kernel, typename... Args>
 int launch_kernel(Kernel kernel, int bytes, dim3 grid, int threads,
-                  const Params& p, cudaStream_t stream, bool& configured) {
+                  cudaStream_t stream, bool& configured, Args... args) {
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  kernel<<<grid, dim3(threads), bytes, stream>>>(p);
+  kernel<<<grid, dim3(threads), bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(Params p, int heads, int batch, cudaStream_t stream) {
+int launch(Params p, int heads, int kv, int batch, cudaStream_t stream) {
   static bool configured = false;
   if constexpr (sizeof(T) == 4) {
     p.n_qtiles = (p.sq + kTile - 1) / kTile;
     return launch_kernel(flash_attention_kernel<float, D>,
                          smem_floats<D>() * (int)sizeof(float),
-                         dim3(p.n_qtiles, heads, batch), kThreads, p, stream,
-                         configured);
+                         dim3(p.n_qtiles, heads, batch), kThreads, stream,
+                         configured, p);
   } else {
-    p.n_qtiles = (p.sq + kMmaRows - 1) / kMmaRows;
-    return launch_kernel(flash_attention_bf16_kernel<D>, mma_smem_bytes<D>(),
-                         dim3(p.n_qtiles, heads, batch), kMmaThreads, p,
-                         stream, configured);
+    using Sw = Swizzle<D>;
+    CUtensorMap tq, tk, tv;
+    if (make_map(&tq, p.q, D, p.sq, heads, batch, p.q_s, p.q_h, p.q_b,
+                 kBlockM, Sw::W, Sw::kTma) ||
+        make_map(&tk, p.k, D, p.sk, kv, batch, p.k_s, p.k_h, p.k_b, kBlockN,
+                 Sw::W, Sw::kTma) ||
+        make_map(&tv, p.v, D, p.sk, kv, batch, p.v_s, p.v_h, p.v_b, kBlockN,
+                 Sw::W, Sw::kTma))
+      return -2;
+    p.n_qtiles = (p.sq + kBlockM - 1) / kBlockM;
+    return launch_kernel(flash_attention_bf16_kernel<D>, Smem<D>::kBytes,
+                         dim3(p.n_qtiles, heads, batch), kWgThreads, stream,
+                         configured, tq, tk, tv, p);
   }
 }
 
 template <typename T>
-int launch_d(int d, const Params& p, int heads, int batch,
+int launch_d(int d, const Params& p, int heads, int kv, int batch,
              cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(p, heads, batch, stream);
-    case 32: return launch<T, 32>(p, heads, batch, stream);
-    case 48: return launch<T, 48>(p, heads, batch, stream);
-    case 64: return launch<T, 64>(p, heads, batch, stream);
-    case 80: return launch<T, 80>(p, heads, batch, stream);
-    case 96: return launch<T, 96>(p, heads, batch, stream);
-    case 112: return launch<T, 112>(p, heads, batch, stream);
-    case 128: return launch<T, 128>(p, heads, batch, stream);
+    case 16: return launch<T, 16>(p, heads, kv, batch, stream);
+    case 32: return launch<T, 32>(p, heads, kv, batch, stream);
+    case 48: return launch<T, 48>(p, heads, kv, batch, stream);
+    case 64: return launch<T, 64>(p, heads, kv, batch, stream);
+    case 80: return launch<T, 80>(p, heads, kv, batch, stream);
+    case 96: return launch<T, 96>(p, heads, kv, batch, stream);
+    case 112: return launch<T, 112>(p, heads, kv, batch, stream);
+    case 128: return launch<T, 128>(p, heads, kv, batch, stream);
     default: return -1;
   }
 }
@@ -619,9 +987,9 @@ int launch_d(int d, const Params& p, int heads, int batch,
 
 // dtype 0 = float, 1 = bf16.  Strides in elements, (batch, seq, head) for
 // each of q, k, v and o.  Returns 0 on success, a cudaError_t from the
-// launch, or -1 for arguments the kernel does not take (empty or too large
+// launch, -1 for arguments the kernel does not take (empty or too large
 // dimensions, H not a multiple of KV, D not a multiple of 16 in [16, 128],
-// an unknown dtype).
+// an unknown dtype), or -2 where the driver refuses a TMA descriptor.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* o, int b,
     int h, int kv, int sq, int sk, int d, long long q_b, long long q_s,
@@ -654,7 +1022,7 @@ extern "C" int flash_attention_launch(
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(d, p, h, b, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(d, p, h, b, s);
+  if (dtype == 0) return launch_d<float>(d, p, h, kv, b, s);
+  if (dtype == 1) return launch_d<__nv_bfloat16>(d, p, h, kv, b, s);
   return -1;
 }

@@ -1,7 +1,9 @@
 """Wrapper of the hand-written CUDA flash-attention kernel.
 
 The kernel (``csrc/flash_attention.cu``, sm_90a) replaces the Pallas TPU
-kernel ``repro/kernels/flash_attention/kernel.py:25,69``.  It is built
+kernel ``repro/kernels/flash_attention/kernel.py:25,69``: bf16 on the
+tensor cores (wgmma, K and V by TMA; the checks below also make every
+stride and base fit a TMA descriptor), float32 by FFMA.  It is built
 with ``nvcc`` on first use (``kernels.build``) and called through ctypes
 on the current CUDA stream.  This wrapper takes CUDA tensors only: it
 checks device, dtype, shape, strides and alignment, allocates the output

@@ -24,10 +24,10 @@ def attention(q, k, v, *, causal=True, block_q=512, block_kv=512,
     The reference's contract holds on both routes: after ``min(block,
     S)``, ``Sq % block_q == 0`` and ``Sk % block_kv == 0``, else
     ``ValueError``.  The plain version computes block by block with these
-    sizes; the CUDA kernel tiles with its own (64 query rows by 64 key
-    rows) and reads the (B, S, H, D) layout through strides, without a
-    transpose.  Its result depends on the block sizes only through the
-    order of rounding."""
+    sizes; the CUDA kernel tiles with its own (bf16: 128 query rows by
+    128 key rows on the tensor cores; float32: 64 by 64) and reads the
+    (B, S, H, D) layout through strides, without a transpose.  Its result
+    depends on the block sizes only through the order of rounding."""
     if impl not in ("kernel", "ref"):
         raise ValueError(f"unknown impl {impl!r}")
     bq, bkv = attention_blocks(q.shape[1], k.shape[1], block_q, block_kv)
