@@ -403,8 +403,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One TMA box of a (D, S, heads, batch) tensor map into shared memory,
-// completing `bytes` on `bar`.
+// One TMA box of a (D, S, heads, batch) tensor map into shared memory;
+// its bytes complete on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
                                          int c3) {

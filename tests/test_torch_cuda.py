@@ -15,8 +15,15 @@ from repro_torch.kernels.paged_attention import kernel, paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
-BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)    # 2 bf16 ulps at |x| ~ 1-2
 BF16_ULP_TOL = dict(rtol=2.0 ** -7, atol=1e-5)  # one bf16 ulp of each |x|
+# The paged kernel keeps the softmax weights float32 where its plain
+# version rounds them to bf16, so a bf16 output differs by a share of its
+# (lane, head) row's size: held to one ulp of itself plus 2^-7 of the
+# row's RMS (readings on an H100 at these shapes, seeds 0-2: at most
+# 6.4e-3 of the RMS), the whole to 4e-3 relative L2 (readings 1.2e-3 to
+# 2.8e-3).  An absolute 1.6e-2 was ~20% of an output at 320 positions.
+PAGED_BF16_RTOL = PAGED_BF16_ROW_ATOL = 2.0 ** -7
+PAGED_BF16_REL_L2 = 4e-3
 
 
 def paged_inputs(b, heads, kv_heads, d, bs, nb, mb, blocks_used, seed=0,
@@ -62,9 +69,15 @@ def test_kernel_matches_plain_on_card(cuda_device, b, heads, kv_heads, d,
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     ref = paged_attention_ref(q, k, v, bt, kl)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               ref.float().cpu().numpy(), **tol)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   **F32_TOL)
+        return
+    a, r = out.float(), ref.float()
+    row_rms = r.pow(2).mean(-1, keepdim=True).sqrt()
+    excess = (a - r).abs() - PAGED_BF16_RTOL * r.abs()
+    assert float((excess / row_rms).max()) <= PAGED_BF16_ROW_ATOL
+    assert float((a - r).norm() / r.norm()) <= PAGED_BF16_REL_L2
 
 
 def ssd_inputs(b, nc, l, h, p, n, seed=0):

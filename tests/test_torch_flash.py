@@ -13,6 +13,10 @@ JAX parameters of the reduced models are carried across with
 * ``make_prefill`` (dense and hybrid) and the dense engine with
   ``attn_impl="blockwise"``; a dense engine whose bucket is past 8192.
 
+Beside them, the bf16 CUDA kernel's numerical argument in plain float32
+(no JAX): p split into two bf16 terms keeps attention within one bf16
+ulp of ``flash_attention_ref``.
+
 Tolerances.  Float32: both sides compute the same float32 operations and
 sum in another order; the largest differences seen are 7.2e-7
 (ops.attention against the Pallas kernel) and 5.1e-7 (blockwise), so the
@@ -154,7 +158,7 @@ def test_attention_refuses_what_the_reference_asserts(block_q, block_kv):
         attention(tq, tk, tv, block_q=32, block_kv=32, impl="auto")
 
 
-# The shapes of tests/test_torch_cuda.py::test_flash_kernel_matches_plain_on_card
+# The shapes of test_torch_cuda.py::test_flash_kernel_matches_plain_on_card
 CUDA_FLASH_SHAPES = FLASH_SHAPES + [
     (1, 32, 8, 320, 128, 64, 64),
     (2, 4, 4, 200, 80, 512, 512),
