@@ -131,10 +131,11 @@ BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)   # 2 bf16 ulps at |x| ~ 1-2
 # kernel keeps them float32 (csrc/paged_attention.cu:298), so an output
 # differs by a share of its (lane, head) row's size, whatever its own: at
 # most 5.8e-3 of the row's RMS beyond one bf16 ulp of itself, rel. L2
-# 1.19e-3 and 1.20e-3 over the phase's outputs (NVIDIA H100, D = 128 and
-# 80).  Each element is held to one ulp of itself plus 2^-7 of its row's
-# RMS, the whole to 2e-3 relative L2.  (BF16_TOL's absolute 1.6e-2 was
-# ~40% of an output at the 640-1000-position lanes, mean |x| ~ 4e-2.)
+# 1.19e-3 and 1.20e-3 over the phase's outputs (D = 128 and 80, on an
+# H100, benchmarks/paged_bf16_readings.py).  Each element is held to one
+# ulp of itself plus 2^-7 of its row's RMS, the whole to 2e-3 relative
+# L2.  (BF16_TOL's absolute 1.6e-2 was ~40% of an output at the
+# 640-1000-position lanes, mean |x| ~ 4e-2.)
 PAGED_BF16_TOL = dict(rtol=2.0 ** -7, atol_of_row_rms=2.0 ** -7)
 PAGED_BF16_REL_L2 = 2e-3
 F32_TOL = dict(rtol=2e-5, atol=2e-5)        # order of summation only
@@ -292,15 +293,12 @@ def assert_close(a, b, tol, what):
         raise AssertionError(f"{what} outside tolerance {tol}")
 
 
-def paged_kernel_phase(dev, flush, H, KV, D):
-    """Paged-attention kernel vs plain at decode shapes (B=8, bs=16, 64
-    table columns, pool of 512 blocks); returns the measured numbers."""
+def paged_phase_inputs(dev, H, KV, D):
+    """bf16 decode inputs at the main path's geometry (8 lanes, max_seq
+    1024, pool of 8 x 64 blocks of 16): (q, k_pool, v_pool,
+    block_tables, kv_len) on permuted pool rows, with sentinel table
+    entries and garbage in unreferenced blocks."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import kernel
-    from repro_torch.kernels.paged_attention.ref import (gather_pages,
-                                                         paged_attention_ref)
-    # the main path's geometry: 8 lanes, max_seq 1024, pool of 8 x 64
     B, bs, mb, NB = 8, 16, 64, 512
     kv_len_host = [1, 16, 33, 250, 267, 640, 997, 1000]   # 1, boundary, ragged
     g = torch.Generator(dev).manual_seed(1)
@@ -317,10 +315,22 @@ def paged_kernel_phase(dev, flush, H, KV, D):
         for r in rows:
             k_pool[r] = torch.randn(bs, KV, D, generator=g, device=dev)
             v_pool[r] = torch.randn(bs, KV, D, generator=g, device=dev)
-    k_pool, v_pool = k_pool.bfloat16(), v_pool.bfloat16()
-    bt = bt.to(dev)
     kv_len = torch.tensor(kv_len_host, dtype=torch.int32, device=dev)
-    args = (q, k_pool, v_pool, bt, kv_len)
+    return q, k_pool.bfloat16(), v_pool.bfloat16(), bt.to(dev), kv_len
+
+
+def paged_kernel_phase(dev, flush, H, KV, D):
+    """Paged-attention kernel vs plain at decode shapes (B=8, bs=16, 64
+    table columns, pool of 512 blocks); returns the measured numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                         paged_attention_ref)
+    args = paged_phase_inputs(dev, H, KV, D)
+    q, k_pool, v_pool, bt, kv_len = args
+    B, mb, bs = q.shape[0], bt.shape[1], k_pool.shape[1]
+    kv_len_host = kv_len.tolist()
 
     out = kernel.paged_attention(*args)
     torch.cuda.synchronize()
@@ -910,16 +920,20 @@ def assert_scaled(out, ref, tol, rel_l2_max, what):
     the readings beside the limits and returns (max_abs_err, rel_l2)."""
     a, b = out.float(), ref.float()
     diff = (a - b).abs()
-    atol = tol.get("atol", 0.0)
+    atol, row = tol.get("atol", 0.0), ""
     if "atol_of_row_rms" in tol:
-        atol = tol["atol_of_row_rms"] * b.pow(2).mean(-1, keepdim=True).sqrt()
+        rms = b.pow(2).mean(-1, keepdim=True).sqrt()
+        atol = tol["atol_of_row_rms"] * rms
+        excess = float(((diff - tol["rtol"] * b.abs()) / rms).max())
+        row = f"largest (|diff| - rtol |ref|) / row RMS {excess:.3e}, "
     limit = atol + tol["rtol"] * b.abs()
     ok = bool((diff <= limit).all())
     rel, e = rel_l2(a, b), float(diff.max())
     worst = float((diff / limit).max())     # <= 1 within the limit
     differ = float((diff > 0).float().mean())
     log(f"  {what}: max_abs_err={e:.3e}, largest |diff| / limit "
-        f"{worst:.3f}, rel_l2={rel:.3e}, {differ:.2e} of elements differ, "
+        f"{worst:.3f}, {row}rel_l2={rel:.3e}, {differ:.2e} of elements "
+        f"differ, "
         f"mean |ref|={float(b.abs().mean()):.3e}; tol {tol} per element, "
         f"rel_l2 <= {rel_l2_max}; ok={ok}")
     if not ok or rel > rel_l2_max:

@@ -19,9 +19,10 @@ BF16_ULP_TOL = dict(rtol=2.0 ** -7, atol=1e-5)  # one bf16 ulp of each |x|
 # The paged kernel keeps the softmax weights float32 where its plain
 # version rounds them to bf16, so a bf16 output differs by a share of its
 # (lane, head) row's size: held to one ulp of itself plus 2^-7 of the
-# row's RMS (readings on an H100 at these shapes, seeds 0-2: at most
-# 6.4e-3 of the RMS), the whole to 4e-3 relative L2 (readings 1.2e-3 to
-# 2.8e-3).  An absolute 1.6e-2 was ~20% of an output at 320 positions.
+# row's RMS (at most 6.4e-3 of it at these shapes, seeds 0-2, on an H100:
+# benchmarks/paged_bf16_readings.py), the whole to 4e-3 relative L2
+# (readings 1.2e-3 to 2.8e-3).  An absolute 1.6e-2 was ~20% of an output
+# at 320 positions.
 PAGED_BF16_RTOL = PAGED_BF16_ROW_ATOL = 2.0 ** -7
 PAGED_BF16_REL_L2 = 4e-3
 
