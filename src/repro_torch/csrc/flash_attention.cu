@@ -51,13 +51,19 @@
 //   thread of warpgroup 0 issues every copy, warpgroups 1 and 2 each own
 //   64 query rows; setmaxnreg moves the producer's registers to them
 //   (240 a consumer thread: s, o and hi/lo fit without spills).
+// * A consumer issues q.k of key tile n and p.v of tile n - 1 together
+//   and runs the softmax of tile n while p.v holds the tensor cores, so
+//   the exp2 and split work overlaps its own products (and the other
+//   consumer's).
 // * K and V tiles of 128 rows come by TMA into a ring of 2 stages with
-//   full and empty mbarriers; q by TMA once per CTA.  The tensor maps
-//   address the (B, S, H, D) tensors through their strides, are built on
-//   the host (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint,
-//   no -lcuda) and passed as __grid_constant__ parameters.  TMA
-//   zero-fills rows past Sq and Sk; keys past Sk and past the diagonal
-//   still get -1e30.
+//   full and empty mbarriers, K and V apart: a K stage is refilled once
+//   its q.k is done, a V stage once its p.v is, so the next tiles are
+//   in flight a whole iteration ahead; q by TMA once per CTA.  The
+//   tensor maps address the (B, S, H, D) tensors through their strides,
+//   are built on the host (cuTensorMapEncodeTiled through
+//   cudaGetDriverEntryPoint, no -lcuda) and passed as __grid_constant__
+//   parameters.  TMA zero-fills rows past Sq and Sk; keys past Sk and
+//   past the diagonal still get -1e30.
 // * Shared tiles are cut into slabs of W columns, each row one swizzle
 //   span: 128 B where D is a multiple of 64 (D = 128), 64 B where of 32,
 //   else 32 B (D = 80: five 16-column slabs).
@@ -356,14 +362,14 @@ struct Swizzle {
 };
 
 // Byte offsets from a 1024-aligned base: Q, the K ring, the V ring, the
-// barriers (q full; k full, v full and k/v empty per stage).
+// barriers (q full; k full, v full, k empty and v empty per stage).
 template <int D>
 struct Smem {
   static constexpr int kTile = kBlockN * D * 2;
   static constexpr int kK = kBlockM * D * 2;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -430,8 +436,10 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keeps the compiler from moving reads of a wgmma result above the wait.
 template <int N>
@@ -467,16 +475,18 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
@@ -491,8 +501,8 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -507,9 +517,10 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -525,10 +536,11 @@ __device__ __forceinline__ void wgmma_rs<48>(float (&d)[24],
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23"
       "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -545,11 +557,12 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
@@ -568,13 +581,14 @@ __device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
       "%24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39"
       "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -593,14 +607,16 @@ __device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
       "%32, %33, %34, %35, %36, %37, %38, %39,"
       "%40, %41, %42, %43, %44, %45, %46, %47"
       "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -620,16 +636,18 @@ __device__ __forceinline__ void wgmma_rs<112>(float (&d)[56],
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55"
       "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -650,16 +668,18 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
@@ -673,6 +693,109 @@ __device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
   const __nv_bfloat162 r = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// s = q . k^T: a warpgroup's 64 query rows (from q0) against the keys of
+// a K tile (from kb), both K-major, 16 columns of D a step.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBlockN / 2],
+                                         uint32_t q0, uint32_t kb) {
+  using Sw = Swizzle<D>;
+  constexpr int RB = Sw::kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int slab = kk * 16 / Sw::W, col = kk * 16 % Sw::W;
+    wgmma_ss<kBlockN>(
+        s, wg_desc(q0 + slab * kBlockM * RB + col * 2, 0, 8 * RB,
+                   Sw::kLayout),
+        wg_desc(kb + slab * kBlockN * RB + col * 2, 0, 8 * RB, Sw::kLayout),
+        kk > 0);
+  }
+}
+
+// o += hi . v + lo . v into the one accumulator; v (from vb) is read
+// MN-major (transposed B), 16 key rows a step, slab to slab by the
+// leading byte offset.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&hi)[kBlockN / 16][4],
+                                         const uint32_t (&lo)[kBlockN / 16][4],
+                                         uint32_t vb) {
+  using Sw = Swizzle<D>;
+  constexpr int RB = Sw::kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    const uint64_t vdesc =
+        wg_desc(vb + kk * 16 * RB, kBlockN * RB, 8 * RB, Sw::kLayout);
+    wgmma_rs<D>(o, hi[kk], vdesc);
+    wgmma_rs<D>(o, lo[kk], vdesc);
+  }
+}
+
+// The online softmax of one score tile in registers: scale to log2 units,
+// mask keys past Sk and (causal) past row i, then for rows g (h = 0) and
+// g + 8 (h = 1), whose scores sit on the 4 threads of a quad, the new
+// max, p = exp2(s - m) in place, l (this thread's columns, summed at the
+// end) and the rescale factor alpha.
+__device__ __forceinline__ void softmax_tile(float (&s)[kBlockN / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float sl2,
+                                             bool edge, int r0, int j0,
+                                             int t, int sk, int causal) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r0 + 8 * h;
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < kBlockN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = s[4 * n + 2 * h + e] * sl2;
+        if (edge) {
+          const int j = j0 + 8 * n + 2 * t + e;
+          if ((causal && j > i) || j >= sk) x = kNegInf;
+        }
+        s[4 * n + 2 * h + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx);
+    alpha[h] = exp2f(m[h] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < kBlockN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pe = exp2f(s[4 * n + 2 * h + e] - m_new);
+        s[4 * n + 2 * h + e] = pe;
+        sum += pe;
+      }
+    l[h] = l[h] * alpha[h] + sum;
+    m[h] = m_new;
+  }
+}
+
+// o *= alpha per row (p.v of the tiles before is in it), then p as hi + lo
+// A fragments (the accumulator layout of two 8-key column groups is the
+// A layout of 16 keys).
+template <int D>
+__device__ __forceinline__ void rescale_split(
+    float (&o)[D / 2], const float (&alpha)[2], const float (&s)[kBlockN / 2],
+    uint32_t (&hi)[kBlockN / 16][4], uint32_t (&lo)[kBlockN / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      o[4 * n + 2 * h] *= alpha[h];
+      o[4 * n + 2 * h + 1] *= alpha[h];
+    }
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_p(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], hi[kk][r],
+              lo[kk][r]);
 }
 
 // One CTA per (query tile of kBlockM rows, head, batch): warpgroup 0 is
@@ -692,7 +815,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const uint32_t bar_q = base + L::kBar;
   const uint32_t bar_k = bar_q + 8;                  // [kStages]
   const uint32_t bar_v = bar_k + 8 * kStages;        // [kStages]
-  const uint32_t bar_e = bar_v + 8 * kStages;        // [kStages]
+  const uint32_t bar_ke = bar_v + 8 * kStages;       // [kStages]
+  const uint32_t bar_ve = bar_ke + 8 * kStages;      // [kStages]
 
   const int it = p.n_qtiles - 1 - blockIdx.x;        // longest first
   const int hh = blockIdx.y, bb = blockIdx.z, kvh = hh / p.group;
@@ -706,15 +830,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_e + 8 * s, 128 * kConsumers);
+      mbar_init(bar_ke + 8 * s, 128 * kConsumers);
+      mbar_init(bar_ve + 8 * s, 128 * kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer: Q once, then the K and V tiles through the ring; a stage
-    // is refilled once all 256 consumer threads have released it
+    // producer: Q once, then the K and V tiles through the ring; a K
+    // stage is refilled once all 256 consumer threads have finished its
+    // q.k, a V stage once they have finished its p.v
     asm volatile("setmaxnreg.dec.sync.aligned.u32 " FLASH_PRODUCER_REGS
                  ";\n");
     if (threadIdx.x == 0) {
@@ -724,13 +850,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                  bb);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % kStages;
-        mbar_wait(bar_e + 8 * st, ((kt / kStages) & 1) ^ 1);
+        const uint32_t prev = ((kt / kStages) & 1) ^ 1;
         const uint32_t kd = base + L::kK + st * L::kTile;
         const uint32_t vd = base + L::kV + st * L::kTile;
+        mbar_wait(bar_ke + 8 * st, prev);
         mbar_expect_tx(bar_k + 8 * st, L::kTile);
         for (int s = 0; s < D / Sw::W; ++s)
           tma_load(kd + s * kBlockN * RB, &tm_k, bar_k + 8 * st, s * Sw::W,
                    kt * kBlockN, kvh, bb);
+        mbar_wait(bar_ve + 8 * st, prev);
         mbar_expect_tx(bar_v + 8 * st, L::kTile);
         for (int s = 0; s < D / Sw::W; ++s)
           tma_load(vd + s * kBlockN * RB, &tm_v, bar_v + 8 * st, s * Sw::W,
@@ -755,101 +883,57 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const uint32_t q0 = base + c * kRowsWg * RB;
     mbar_wait(bar_q, 0);
 
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int st = kt % kStages;
-      const uint32_t par = (kt / kStages) & 1;
-      const uint32_t kb = base + L::kK + st * L::kTile;
-      const uint32_t vb = base + L::kV + st * L::kTile;
-
-      // s = q . k^T: the warpgroup's 64 rows against 128 keys, both
-      // K-major, 16 columns of D a step
-      float s[NS];
-      mbar_wait(bar_k + 8 * st, par);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int slab = kk * 16 / Sw::W, col = kk * 16 % Sw::W;
-        wgmma_ss<kBlockN>(
-            s, wg_desc(q0 + slab * kBlockM * RB + col * 2, 0, 8 * RB,
-                       Sw::kLayout),
-            wg_desc(kb + slab * kBlockN * RB + col * 2, 0, 8 * RB,
-                    Sw::kLayout),
-            kk > 0);
-      }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(s);
-
-      // scale to log2 units, mask (the diagonal tile; keys past Sk), and
-      // the online softmax of rows g (h = 0) and g + 8 (h = 1); a row's
-      // scores sit on the 4 threads of a quad
+    // Iteration kt issues q.k of tile kt and p.v of tile kt - 1 as two
+    // wgmma groups, then runs the softmax of tile kt while p.v still
+    // holds the tensor cores; the rescale by alpha waits for p.v.
+    float s[NS], alpha[2];
+    uint32_t hi[KP][4], lo[KP][4];
+    const auto stage = [](int kt) { return kt % kStages; };
+    const auto parity = [](int kt) { return (uint32_t)((kt / kStages) & 1); };
+    const auto kbuf = [&](int kt) {
+      return base + L::kK + stage(kt) * L::kTile;
+    };
+    const auto vbuf = [&](int kt) {
+      return base + L::kV + stage(kt) * L::kTile;
+    };
+    const auto edge = [&](int kt) {   // the diagonal tile; keys past Sk
       const int j0 = kt * kBlockN;
-      const bool edge =
-          (p.causal && j0 + kBlockN - 1 > i0 + c * kRowsWg) ||
-          j0 + kBlockN > p.sk;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = r0 + 8 * h;
-        float mx = kNegInf;
-#pragma unroll
-        for (int n = 0; n < kBlockN / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float x = s[4 * n + 2 * h + e] * sl2;
-            if (edge) {
-              const int j = j0 + 8 * n + 2 * t + e;
-              if ((p.causal && j > i) || j >= p.sk) x = kNegInf;
-            }
-            s[4 * n + 2 * h + e] = x;
-            mx = fmaxf(mx, x);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[h], mx);
-        const float alpha = exp2f(m[h] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < kBlockN / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float pe = exp2f(s[4 * n + 2 * h + e] - m_new);
-            s[4 * n + 2 * h + e] = pe;
-            sum += pe;
-          }
-        l[h] = l[h] * alpha + sum;   // this thread's columns; summed at end
-        m[h] = m_new;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          o[4 * n + 2 * h] *= alpha;
-          o[4 * n + 2 * h + 1] *= alpha;
-        }
-      }
-
-      // p as hi + lo A fragments (the accumulator layout of two 8-key
-      // column groups is the A layout of 16 keys), then o += hi . v +
-      // lo . v into the one accumulator; v is read MN-major (transposed
-      // B), 16 key rows a step, slab to slab by the leading byte offset
-      uint32_t hi[KP][4], lo[KP][4];
-#pragma unroll
-      for (int kk = 0; kk < KP; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          split_p(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], hi[kk][r],
-                  lo[kk][r]);
-      mbar_wait(bar_v + 8 * st, par);
+      return (p.causal && j0 + kBlockN - 1 > i0 + c * kRowsWg) ||
+             j0 + kBlockN > p.sk;
+    };
+    mbar_wait(bar_k, 0);
+    wg_fence();
+    issue_qk<D>(s, q0, kbuf(0));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    mbar_arrive(bar_ke);
+    softmax_tile(s, m, l, alpha, sl2, edge(0), r0, 0, t, p.sk, p.causal);
+    rescale_split<D>(o, alpha, s, hi, lo);
+    for (int kt = 1; kt < n_kt; ++kt) {
+      mbar_wait(bar_k + 8 * stage(kt), parity(kt));
+      mbar_wait(bar_v + 8 * stage(kt - 1), parity(kt - 1));
       wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < KP; ++kk) {
-        const uint64_t vdesc = wg_desc(vb + kk * 16 * RB, kBlockN * RB,
-                                       8 * RB, Sw::kLayout);
-        wgmma_rs<D>(o, hi[kk], vdesc);
-        wgmma_rs<D>(o, lo[kk], vdesc);
-      }
+      issue_qk<D>(s, q0, kbuf(kt));
       wg_commit();
-      wg_wait_all();
+      issue_pv<D>(o, hi, lo, vbuf(kt - 1));
+      wg_commit();
+      wg_wait<1>();                    // q.k of tile kt is done
+      fence_regs(s);
+      mbar_arrive(bar_ke + 8 * stage(kt));
+      softmax_tile(s, m, l, alpha, sl2, edge(kt), r0, kt * kBlockN, t, p.sk,
+                   p.causal);
+      wg_wait<0>();                    // p.v of tile kt - 1 is done
       fence_regs(o);
-      mbar_arrive(bar_e + 8 * st);
+      mbar_arrive(bar_ve + 8 * stage(kt - 1));
+      rescale_split<D>(o, alpha, s, hi, lo);
     }
+    mbar_wait(bar_v + 8 * stage(n_kt - 1), parity(n_kt - 1));
+    wg_fence();
+    issue_pv<D>(o, hi, lo, vbuf(n_kt - 1));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
 
     // o / max(l, 1e-30), rounded to bf16 once
     using bf16 = __nv_bfloat16;
