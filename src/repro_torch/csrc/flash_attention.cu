@@ -984,7 +984,7 @@ EncodeTiled encode_tiled() {
 // A bf16 (batch, seq, heads, D) view with D contiguous, as a 4-d tensor
 // map (D, seq, heads, batch) whose box is W columns by `rows` rows; rows
 // past `seq` read as zero.  A dimension of size 1 gets a packed stride
-// (it is never stepped).  Returns 0, or -2 if the driver refuses it.
+// (it is never stepped).  Returns 0, or -2 if the encoder refuses it.
 int make_map(CUtensorMap* map, const void* ptr, int d, int seq, int heads,
              int batch, long long s_s, long long s_h, long long s_b,
              int rows, int w, CUtensorMapSwizzle swizzle) {
@@ -1073,7 +1073,8 @@ int launch_d(int d, const Params& p, int heads, int kv, int batch,
 // each of q, k, v and o.  Returns 0 on success, a cudaError_t from the
 // launch, -1 for arguments the kernel does not take (empty or too large
 // dimensions, H not a multiple of KV, D not a multiple of 16 in [16, 128],
-// an unknown dtype), or -2 where the driver refuses a TMA descriptor.
+// an unknown dtype), or -2 where cuTensorMapEncodeTiled refuses a TMA
+// descriptor.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* o, int b,
     int h, int kv, int sq, int sk, int d, long long q_b, long long q_s,
