@@ -125,6 +125,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor peak
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+TF32X3_FLOPS = 495e12 / 3      # float32 products as 3 TF32 tensor products
 BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)   # 2 bf16 ulps at |x| ~ 1-2
 # The paged kernel vs its plain version, bf16.  The plain version rounds
 # the softmax weights p to bf16 before p.v (as the reference does) and the
@@ -142,6 +143,13 @@ F32_TOL = dict(rtol=2e-5, atol=2e-5)        # order of summation only
 # SSD kernel vs plain, float32: sums of up to l * n products in another
 # order, held to 1e-5 of the largest output and 1e-4 relative.
 SSD_RTOL, SSD_ATOL_OF_MAX = 1e-4, 1e-5
+# The SSD kernel's shapes: (model, b * nc, l, (h, p, n)).  The chunk
+# prefills of the main paths (b * nc = 1 at the buckets 16, 64 and 256),
+# then zamba2-2.7b's 16384-token prefill (chunk 256: b * nc = 64).
+SSD_MODELS = (("mamba2-780m", (48, 64, 128)), ("zamba2-2.7b", (80, 64, 64)))
+SSD_SHAPES = tuple((m, 1, l, dims) for m, dims in SSD_MODELS
+                   for l in (16, 64, 256)) + (
+    ("zamba2-2.7b", 64, 256, (80, 64, 64)),)
 # One full-depth serve step, kernel vs plain, on the same state: relative
 # L2 of the logits, and the share of lanes whose greedy token agrees.
 # bf16: the plain version rounds the softmax weights to bf16 before p.v
@@ -377,65 +385,97 @@ def paged_kernel_phase(dev, flush, H, KV, D):
             "library_ms": library_ms}
 
 
-def ssd_bound(l, h, p, n):
-    """(flops, bytes, bound ms) of one intra-chunk call (b = nc = 1): the
-    causal half of C.B^T once (B and C are shared by the heads), per head
-    the causal half of att @ xdt and the (p, n) state product, 2
-    operations per multiply-add; each input read and output written once
-    in float32."""
+def ssd_bound(l, h, p, n, bc=1):
+    """(flops, bytes, bound ms, FFMA bound ms) of one intra-chunk call over
+    ``bc`` = b * nc chunks: per chunk the causal half of C.B^T once (B and
+    C are shared by the heads), per head the causal half of att @ xdt and
+    the (p, n) state product, 2 operations per multiply-add; each input
+    read and output written once in float32.  The bound is the kernel's
+    route (3xTF32 on the tensor cores); the FFMA bound stands beside it."""
     tri = l * (l + 1) // 2
-    flops = 2 * (tri * n + h * tri * p + h * l * p * n)
-    bytes_moved = 4 * (2 * l * h * p + 2 * l * h + 2 * l * n + h * p * n)
-    ms = max(flops / F32_FLOPS, bytes_moved / HBM_BYTES_PER_S) * 1e3
-    return flops, bytes_moved, ms
+    flops = 2 * bc * (tri * n + h * tri * p + h * l * p * n)
+    bytes_moved = 4 * bc * (2 * l * h * p + 2 * l * h + 2 * l * n + h * p * n)
+    hbm = bytes_moved / HBM_BYTES_PER_S
+    return (flops, bytes_moved, max(flops / TF32X3_FLOPS, hbm) * 1e3,
+            max(flops / F32_FLOPS, hbm) * 1e3)
+
+
+def ssd_phase_inputs(dev, bc, l, h, p, n, seed):
+    """float32 intra-chunk inputs on the card, b = 1 and nc = bc: x, B, C
+    standard normal, dt = softplus(normal), dAcs the cumsum over the chunk
+    of -|normal| / 10; (xr, dtr, dA_cs, Br, Cr)."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    xr = randn(1, bc, l, h, p)
+    dtr = torch.nn.functional.softplus(randn(1, bc, l, h))
+    dA_cs = torch.cumsum(-randn(1, bc, l, h).abs() * 0.1, dim=2)
+    return xr, dtr, dA_cs, randn(1, bc, l, n), randn(1, bc, l, n)
+
+
+def ssd_check(args, what):
+    """The SSD kernel vs its plain version on ``args``, y and the state
+    each to ``SSD_RTOL`` and ``SSD_ATOL_OF_MAX`` of its largest output;
+    returns the largest absolute error."""
+    import torch
+    from repro_torch.kernels.ssd import kernel, ssd_intra_chunk_ref
+    y, st = kernel.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd_intra_chunk_ref(*args)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    err = 0.0
+    for name, a, b in (("y", y, y_ref), ("state", st, st_ref)):
+        tol = dict(rtol=SSD_RTOL, atol=SSD_ATOL_OF_MAX * float(b.abs().max()))
+        assert_close(a, b, tol, f"{what} {name} kernel vs plain")
+        err = max(err, max_err(a, b))
+    return err
+
+
+def empty_launch_ms(dev, flush):
+    """An empty kernel launched through the SSD library's ctypes path,
+    timed as ``ssd_kernel_phase`` times the kernel: (cold, warm) ms."""
+    from repro_torch.kernels.ssd import kernel
+    return (cuda_ms(lambda: kernel.empty_launch(dev), 50, flush),
+            cuda_ms(lambda: kernel.empty_launch(dev), 50))
 
 
 def ssd_kernel_phase(dev, flush):
-    """SSD kernel vs plain (float32) at the full models' prefill chunks;
-    returns the record of mamba2-780m's 256-token chunk with every shape
-    measured beside it."""
-    import torch
+    """SSD kernel vs plain (float32) at the full models' prefill chunks
+    and at zamba2-2.7b's long prefill (b * nc = 64); returns the record of
+    mamba2-780m's 256-token chunk with every shape measured beside it."""
     from repro_torch.kernels.ssd import kernel, ssd_intra_chunk_ref
+    empty_ms, empty_warm_ms = empty_launch_ms(dev, flush)
+    log(f"  empty launch through the same ctypes path: {empty_ms:.4f} ms "
+        f"(L2 flushed), {empty_warm_ms:.4f} ms warm")
     rows = []
-    g = torch.Generator(dev).manual_seed(2)
-    for model, (h, p, n) in (("mamba2-780m", (48, 64, 128)),
-                             ("zamba2-2.7b", (80, 64, 64))):
-        for l in (16, 64, 256):
-            def randn(*shape):
-                return torch.randn(shape, generator=g, device=dev)
-            xr = randn(1, 1, l, h, p)
-            dtr = torch.nn.functional.softplus(randn(1, 1, l, h))
-            dA_cs = torch.cumsum(-randn(1, 1, l, h).abs() * 0.1, dim=2)
-            args = (xr, dtr, dA_cs, randn(1, 1, l, n), randn(1, 1, l, n))
-            y, st = kernel.ssd_intra_chunk(*args)
-            torch.cuda.synchronize()
-            y_ref, st_ref = ssd_intra_chunk_ref(*args)
-            assert torch.isfinite(y).all() and torch.isfinite(st).all()
-            err = 0.0
-            for what, a, b in (("y", y, y_ref), ("state", st, st_ref)):
-                tol = dict(rtol=SSD_RTOL,
-                           atol=SSD_ATOL_OF_MAX * float(b.abs().max()))
-                assert_close(a, b, tol, f"{model} l={l} {what} kernel vs "
-                             f"plain")
-                err = max(err, max_err(a, b))
-            ms = cuda_ms(lambda: kernel.ssd_intra_chunk(*args), 50, flush)
-            # the same calls with the inputs left in L2: how much of the
-            # time is a cold start rather than the work
-            warm_ms = cuda_ms(lambda: kernel.ssd_intra_chunk(*args), 50)
-            plain_ms = cuda_ms(lambda: ssd_intra_chunk_ref(*args), 20,
-                               flush)
-            flops, nbytes, bound_ms = ssd_bound(l, h, p, n)
-            bound_by = ("operations" if flops / F32_FLOPS
-                        >= nbytes / HBM_BYTES_PER_S else "bytes")
-            log(f"  {model} l={l} (h={h} p={p} n={n}): kernel {ms:.4f} ms "
-                f"({warm_ms:.4f} ms with warm L2), plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.5f} ms ({bound_by}: {flops} flop, "
-                f"{nbytes} B)")
-            rows.append({"model": model, "l": l, "h": h, "p": p, "n": n,
-                         "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "flops": flops, "bytes": nbytes,
-                         "max_abs_err": err})
+    for model, bc, l, (h, p, n) in SSD_SHAPES:
+        args = ssd_phase_inputs(dev, bc, l, h, p, n, seed=l + bc)
+        err = ssd_check(args, f"{model} b*nc={bc} l={l}")
+        ms = cuda_ms(lambda: kernel.ssd_intra_chunk(*args), 50, flush)
+        # the same calls with the inputs left in L2: how much of the time
+        # is a cold start rather than the work
+        warm_ms = cuda_ms(lambda: kernel.ssd_intra_chunk(*args), 50)
+        plain_ms = cuda_ms(lambda: ssd_intra_chunk_ref(*args), 20, flush)
+        flops, nbytes, bound_ms, ffma_ms = ssd_bound(l, h, p, n, bc)
+        bound_by = ("operations" if flops / TF32X3_FLOPS
+                    >= nbytes / HBM_BYTES_PER_S else "bytes")
+        tflops = flops / ms / 1e9
+        log(f"  {model} b*nc={bc} l={l} (h={h} p={p} n={n}): kernel "
+            f"{ms:.4f} ms ({warm_ms:.4f} ms with warm L2; empty launch "
+            f"{empty_ms:.4f} / {empty_warm_ms:.4f}), plain {plain_ms:.4f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by}: {flops} flop, "
+            f"{nbytes} B; 3xTF32 at {TF32X3_FLOPS / 1e12:.0f} TFLOP/s), FFMA "
+            f"bound {ffma_ms:.5f} ms; {tflops:.2f} TFLOP/s, "
+            f"{bound_ms / ms:.3f} of the bound, {ffma_ms / ms:.3f} of the "
+            f"FFMA bound")
+        rows.append({"model": model, "bc": bc, "l": l, "h": h, "p": p,
+                     "n": n, "ms": ms, "warm_ms": warm_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "ffma_bound_ms": ffma_ms, "bound_by": bound_by,
+                     "tflops": tflops, "flops": flops, "bytes": nbytes,
+                     "max_abs_err": err})
     main = next(r for r in rows
                 if r["model"] == "mamba2-780m" and r["l"] == 256)
     return {"name": "ssd_intra_chunk", "route": "cuda",
@@ -445,7 +485,48 @@ def ssd_kernel_phase(dev, flush):
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "at_shapes": rows}
+            "ffma_bound_ms": main["ffma_bound_ms"],
+            "library_ms": None, "empty_launch_ms": empty_ms,
+            "empty_launch_warm_ms": empty_warm_ms, "at_shapes": rows}
+
+
+def ssd_build_phase():
+    """The SSD kernel's instantiations as built: ptxas registers and
+    spills of each (when this process built the library), and the
+    tensor-core instructions (HMMA) in the SASS of each, which must hold
+    some and, per ptxas, spill nothing."""
+    from repro_torch.kernels import build
+    report = ptxas_report(build.build_log.get("ssd", {}).get("ptxas", ""))
+    if not report:
+        log("  ssd: ptxas report not available (library built before this "
+            "process)")
+    for name, (regs, st, ld) in sorted(report.items()):
+        log(f"  ptxas {name}: {regs} registers, spill stores {st} B, spill "
+            f"loads {ld} B")
+    counts = sass_op_counts(build.library_path("ssd"), "HMMA")
+    found = {}
+    for pg in (1, 2):
+        tag = f"ssd_intra_chunk_kernel<{pg}>"
+        names = [k for k in counts if tag in k]
+        assert len(names) == 1, (tag, sorted(counts))
+        hmma = counts[names[0]]
+        log(f"  SASS {names[0]}: HMMA {hmma}")
+        assert hmma > 0, f"{tag}: no tensor-core instruction"
+        spills = [v for k, v in report.items() if tag in k]
+        assert all(st == ld == 0 for _, st, ld in spills), (tag, spills)
+        found[pg] = {"HMMA": hmma, "ptxas": spills[0] if spills else None}
+    return found
+
+
+def ssd_per_layer_ms(rows, arch, by_len, mamba_layers):
+    """The SSD kernel's device ms per Mamba2 layer over the main path's
+    chunk prefills: each length's count per layer times the phase-4 time
+    of ``arch`` at that length (b * nc = 1)."""
+    ms = {r["l"]: r["ms"] for r in rows if r["model"] == arch and r["bc"] == 1}
+    per_layer = sum(c // mamba_layers * ms[k] for k, c in by_len.items())
+    log(f"  {arch}: SSD kernel {per_layer:.4f} ms per Mamba2 layer over the "
+        f"path's chunk prefills (phase-4 times at each length)")
+    return per_layer
 
 
 def jacobi_kernel_phase(dev, flush):
@@ -778,7 +859,8 @@ def serve_path(arch, attn_layers, mamba_layers, dev):
     """One main path: a paged engine at full width and depth serves 8
     requests, every launch count set to 0 just before and read just
     after; then a steady window with zero host syncs.  Returns (engine,
-    params, launches by kernel)."""
+    params, launches by kernel, the steady requests, SSD launches by
+    chunk length)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import kernel as pa
@@ -799,10 +881,13 @@ def serve_path(arch, attn_layers, mamba_layers, dev):
     for r in reqs:
         engine.submit(r)
     pa.launches = ssd.launches = 0
+    ssd.launches_by_len.clear()
     stats = engine.run_until_idle()
     torch.cuda.synchronize()
     launches = {"paged_attention": pa.launches,
                 "ssd_intra_chunk": ssd.launches}
+    by_len = dict(sorted(ssd.launches_by_len.items()))
+    assert sum(by_len.values()) == ssd.launches, (by_len, ssd.launches)
     for r in reqs:
         assert r.done and len(r.out_tokens) == 32, (r.rid, r.out_tokens)
         assert all(0 <= t < cfg.vocab_size for t in r.out_tokens)
@@ -816,6 +901,11 @@ def serve_path(arch, attn_layers, mamba_layers, dev):
         f"{mamba_layers} x {engine.chunk_prefills} chunk prefills; "
         f"host_syncs {engine.host_syncs}, peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if mamba_layers:
+        assert all(c % mamba_layers == 0 for c in by_len.values()), by_len
+        log(f"  SSD launches by chunk length {by_len}: chunk prefills per "
+            f"Mamba2 layer by length "
+            f"{ {k: c // mamba_layers for k, c in by_len.items()} }")
 
     steady = requests(cfg, [20] * 8, 64, seed=1, start=100)
     for r in steady:
@@ -835,7 +925,7 @@ def serve_path(arch, attn_layers, mamba_layers, dev):
     log(f"[steady] {arch}: 8 fused steps x 8 lanes under "
         f"sync_debug_mode=error: 0 host syncs, {dt * 1e3 / 8:.2f} ms/step, "
         f"{window['emitted'] / dt:.1f} decode tok/s")
-    return engine, params, launches, steady
+    return engine, params, launches, steady, by_len
 
 
 def step_vs_plain(cfg, params, shape, pool_blocks, saved, tol):
@@ -1168,11 +1258,12 @@ def long_engine_phase(arch, prompts, batch_size, dev):
 def long_prefill_profile(engine, params, req):
     """One more 16384-token bulk prefill of ``req`` into slot 0 of the idle
     engine: wall time, then under the profiler the device's busy share
-    and the kernel's part of it (as many kernel launches in the trace as
-    the prefill counted)."""
+    and the flash and SSD kernels' parts of it (as many launches of each
+    in the trace as the prefill counted).  Returns those readings."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.models import model_zoo as zoo
     cfg = engine.cfg
     bulk = zoo.make_bulk_prefill(cfg, engine.shape, LONG_S)
@@ -1185,7 +1276,7 @@ def long_prefill_profile(engine, params, req):
         bulk(params, engine.state, toks, 0, n_real)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    before = fk.launches
+    before, ssd_before = fk.launches, sk.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         bulk(params, engine.state, toks, 0, n_real)
@@ -1198,14 +1289,22 @@ def long_prefill_profile(engine, params, req):
     flash = [e for e in kernels if "flash_attention_" in e.name]
     assert len(flash) == launched > 0, (len(flash), launched)
     flash_ms = sum(e.time_range.elapsed_us() for e in flash) / 1e3
+    ssd = [e for e in kernels if "ssd_intra_chunk_kernel" in e.name]
+    assert len(ssd) == sk.launches - ssd_before, (len(ssd), sk.launches)
+    ssd_ms = sum(e.time_range.elapsed_us() for e in ssd) / 1e3
     wall_ms = walls[-1] * 1e3
+    rest = len(kernels) - len(flash) - len(ssd)
     log(f"[long] {cfg.name}: one {LONG_S}-token bulk prefill at full "
         f"depth: wall "
         f"{walls[0] * 1e3:.1f} / {wall_ms:.1f} ms (two runs); profiled: "
         f"device busy {busy:.1f} ms ({busy / wall_ms:.1%} of the unprofiled "
         f"wall), flash kernel {flash_ms:.1f} ms in {len(flash)} launches "
-        f"({flash_ms / busy:.1%} of busy), the rest {busy - flash_ms:.1f} ms "
-        f"in {len(kernels) - len(flash)} kernels")
+        f"({flash_ms / busy:.1%} of busy), SSD kernel {ssd_ms:.1f} ms in "
+        f"{len(ssd)} launches ({ssd_ms / busy:.1%} of busy), the rest "
+        f"{busy - flash_ms - ssd_ms:.1f} ms in {rest} kernels")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "flash_ms": flash_ms,
+            "ssd_ms": ssd_ms, "ssd_launches": len(ssd),
+            "ssd_share_of_busy": ssd_ms / busy}
 
 
 def long_prefill_vs_plain(cfg, params, dev, tol):
@@ -1317,9 +1416,12 @@ def main() -> int:
     log("[kernel] paged_attention vs plain at zamba2-2.7b shapes (D=80)")
     paged["at_d80"] = paged_kernel_phase(dev, flush, H=32, KV=32, D=80)
 
-    # 4. SSD intra-chunk vs plain
-    log("[kernel] ssd_intra_chunk vs plain at full prefill-chunk shapes")
+    # 4. SSD intra-chunk vs plain, then the kernel as built
+    log("[kernel] ssd_intra_chunk vs plain at full prefill-chunk shapes "
+        "and zamba2-2.7b's long prefill")
     ssd = ssd_kernel_phase(dev, flush)
+    log("[kernel] ssd_intra_chunk as built: ptxas and SASS")
+    ssd["sass_hmma"] = ssd_build_phase()
 
     # 13. flash attention vs plain
     log("[kernel] flash_attention vs plain (5 test shapes, then S=16384 "
@@ -1341,10 +1443,15 @@ def main() -> int:
 
     # 5-6. the main paths, then kernels vs plain at full width and depth
     by_path = {}
+    ssd["launches_by_len"], ssd["per_layer_ms"] = {}, {}
     for arch, attn_layers, mamba_layers in PATHS:
-        engine, params, launches, steady = serve_path(
+        engine, params, launches, steady, by_len = serve_path(
             arch, attn_layers, mamba_layers, dev)
         by_path[arch] = launches
+        if mamba_layers:
+            ssd["launches_by_len"][arch] = by_len
+            ssd["per_layer_ms"][arch] = ssd_per_layer_ms(
+                ssd["at_shapes"], arch, by_len, mamba_layers)
         cfg = engine.cfg
         if cfg.family == "dense":
             shape, pool_blocks = engine.shape, engine.pool_blocks
@@ -1378,7 +1485,9 @@ def main() -> int:
             arch, prompts, batch_size, dev)
         assert len(long) == n_long, len(long)
         flash["launches_by_path"][f"{arch} long prompts"] = launches
-        long_prefill_profile(engine, params, long[-1])
+        profiled = long_prefill_profile(engine, params, long[-1])
+        if profiled["ssd_launches"]:
+            ssd["long_prefill"] = {arch: profiled}
         del engine
         torch.cuda.empty_cache()
         cfg = get_config(arch)

@@ -1,12 +1,17 @@
 """Wrapper of the hand-written CUDA SSD intra-chunk kernel.
 
 The kernel (``csrc/ssd.cu``, sm_90a) replaces the Pallas TPU kernel
-``repro/kernels/ssd/kernel.py:25,54``.  It is built with ``nvcc`` on
-first use (``kernels.build``) and called through ctypes on the current
-CUDA stream.  This wrapper takes CUDA tensors only: it checks device,
-dtype, shape, contiguity and alignment, allocates both outputs with
-``torch.empty``, launches, and raises if the launch failed.
-``launches`` counts successful launches and nothing else.
+``repro/kernels/ssd/kernel.py:25,54``.  Its three products run on the
+tensor cores in 3xTF32 (each float32 operand split into two TF32 terms,
+three TF32 products per float32 one), which keeps float32 accuracy.  It
+is built with ``nvcc`` on first use (``kernels.build``) and called
+through ctypes on the current CUDA stream.  This wrapper takes CUDA
+tensors only: it checks device, dtype, shape, contiguity and alignment,
+allocates both outputs with ``torch.empty``, launches, and raises if the
+launch failed.  ``launches`` counts successful launches and nothing
+else; ``launches_by_len`` counts them by chunk length l.
+``empty_launch`` launches an empty kernel through the same C path (the
+floor of a timing harness) and counts nothing.
 """
 
 from __future__ import annotations
@@ -18,10 +23,12 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 128   # p: one or two 64-column groups
-MAX_STATE = 256      # n: two rows of (n, 68) floats must fit shared memory
+MAX_STATE = 256      # n: the C and B tiles, 64 rows of n + 4 floats each,
+                     # must fit shared memory beside the x and score tiles
 MAX_CHUNKS = 65535   # b * nc: the grid's z dimension
 
 launches = 0
+launches_by_len: dict = {}
 _fn = None
 
 
@@ -63,7 +70,8 @@ def check_args(xr, dtr, dA_cs, Br, Cr):
         if t.device != xr.device or t.device.type != "cuda":
             raise ValueError(f"all tensors must be on one CUDA device; got "
                              f"{[str(x.device) for x in tensors]}")
-        # the kernel reads single floats: 4-byte alignment is what it needs
+        # the kernel copies 16-byte pieces of rows that are 16-byte
+        # aligned and single floats otherwise: 4 bytes is all it needs
         if not t.is_contiguous() or t.data_ptr() % 4:
             raise ValueError("tensors must be contiguous and 4-byte aligned")
 
@@ -88,4 +96,17 @@ def ssd_intra_chunk(xr, dtr, dA_cs, Br, Cr):
     if rc != 0:
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed (code {rc})")
     launches += 1
+    launches_by_len[l] = launches_by_len.get(l, 0) + 1
     return y, states
+
+
+def empty_launch(device=None) -> None:
+    """One empty kernel on the current stream of ``device`` (a card),
+    launched through the same ctypes path as the SSD kernel."""
+    fn = build.load("ssd").ssd_empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed (code {rc})")

@@ -103,6 +103,14 @@ def ssd_inputs(b, nc, l, h, p, n, seed=0):
     (1, 1, 64, 2, 32, 16),
     (1, 4, 16, 8, 16, 16),               # reduced mamba2-780m, 64 tokens
     (2, 1, 100, 3, 128, 256),            # ragged l, p and n at their limits
+    (1, 64, 256, 80, 64, 64),            # zamba2-2.7b's long prefill: b*nc 64
+    (2, 1, 1, 4, 16, 16),                # l off the buckets: 1, 32, 100, 200
+    (1, 2, 32, 3, 16, 16),               # h = 3
+    (1, 1, 100, 5, 100, 64),             # h = 5, p = 100
+    (1, 1, 200, 50, 64, 128),            # h = 50
+    (1, 2, 64, 5, 128, 16),              # p = 128, n = 16
+    (1, 2, 16, 3, 16, 256),              # n = 256
+    (1, 2, 48, 3, 30, 18),               # rows of x, B, C not 16-byte sized
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, b, nc, l, h, p, n):
     """The reference's tolerance, 1e-4 absolute (float32, sums in another
@@ -110,15 +118,39 @@ def test_ssd_kernel_matches_plain_on_card(cuda_device, b, nc, l, h, p, n):
     args = [torch.from_numpy(a).to(cuda_device)
             for a in ssd_inputs(b, nc, l, h, p, n)]
     before = ssd.kernel.launches
+    before_l = ssd.kernel.launches_by_len.get(l, 0)
     y, st = ssd.ssd_intra_chunk(*args)
     torch.cuda.synchronize()
     assert ssd.kernel.launches == before + 1
+    assert ssd.kernel.launches_by_len[l] == before_l + 1
     y_ref, st_ref = ssd.ssd_intra_chunk_ref(*args)
     atol = 1e-4 if max(l, n) <= 64 else 1e-5 * float(y_ref.abs().max())
     np.testing.assert_allclose(y.cpu().numpy(), y_ref.cpu().numpy(),
                                rtol=1e-4, atol=atol)
     np.testing.assert_allclose(st.cpu().numpy(), st_ref.cpu().numpy(),
                                rtol=1e-4, atol=atol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_unaligned_rows_on_card(cuda_device):
+    """Tensors that start 4 bytes past a 16-byte boundary (views into a
+    larger buffer): the kernel copies single floats there, with the same
+    result as from aligned tensors."""
+    arrays = ssd_inputs(1, 2, 64, 3, 16, 32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    shifted = []
+    for a in args:
+        buf = torch.empty(a.numel() + 1, device=cuda_device)
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        shifted.append(view)
+    y, st = ssd.ssd_intra_chunk(*shifted)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd.ssd_intra_chunk_ref(*args)
+    for out, ref in ((y, y_ref), (st, st_ref)):
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,9 @@
   and two halves with the carried state equal one whole.
 * A CPU tensor runs the plain version and launches nothing; the kernel
   wrapper refuses CPU tensors, wrong dtypes and wrong shapes.
+* The kernel's 3xTF32 products, emulated here, keep the plain version's
+  float32 accuracy at the full models' 256-token chunks; single-pass TF32
+  does not.
 * Kernel vs plain version needs the card: ``test_torch_cuda.py``.
 """
 
@@ -165,3 +168,81 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="state 300"):
         ssd.kernel.ssd_intra_chunk(*big)
     assert ssd.kernel.launches == before
+
+
+# --------------------------------------------------------------- 3xTF32
+def tf32(a):
+    """``cvt.rna.tf32.f32`` in numpy: the float32 mantissa rounded to 10
+    bits, to nearest with ties away from zero (add half of the dropped
+    13 bits' weight to the magnitude, then clear them)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_product(eq, a, b, passes):
+    """``einsum(eq, a, b)`` as the kernel's tensor cores take it: each
+    operand split into big = tf32(a) and small = tf32(a - big), then
+    small.big + big.small + big.big (passes=3), or big.big alone (1)."""
+    def split(t):
+        big = tf32(t.numpy())
+        return torch.from_numpy(big), torch.from_numpy(tf32(t.numpy() - big))
+    (ab, as_), (bb, bs) = split(a), split(b)
+    out = torch.einsum(eq, ab, bb)
+    if passes == 3:
+        out = torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs) + out
+    return out
+
+
+def ssd_ref_tf32(xr, dtr, dA_cs, Br, Cr, passes):
+    """``ssd_intra_chunk_ref`` with its three products taken as the kernel
+    takes them (C.B^T, att @ xdt and xdt * w against B)."""
+    seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]
+    l = xr.shape[2]
+    mask = torch.tril(torch.ones(l, l, dtype=torch.bool))
+    decay = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0)
+    cb = tf32_product("bcin,bcjn->bcij", Cr, Br, passes)
+    att = cb[..., None] * decay
+    xdt = xr * dtr[..., None]
+    y = tf32_product("bcijh,bcjhp->bcihp", att, xdt, passes)
+    w = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)
+    st = tf32_product("bcln,bclhp->bchpn", Br, xdt * w[..., None], passes)
+    return y, st
+
+
+def share_of_limit(out, ref):
+    """Largest |out - ref| over the kernel's limit, 1e-4 relative plus
+    1e-5 of the largest output (<= 1 within it)."""
+    out, ref = out.numpy().astype(np.float64), ref.numpy().astype(np.float64)
+    limit = 1e-4 * np.abs(ref) + 1e-5 * np.abs(ref).max()
+    return float((np.abs(out - ref) / limit).max())
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    vals = np.array([one + ulp / 4, one + ulp / 2, one + 3 * ulp / 4,
+                     -(one + ulp / 2), one + ulp + ulp / 2], np.float32)
+    want = np.array([one, one + ulp, one + ulp, -(one + ulp),
+                     one + 2 * ulp], np.float32)
+    np.testing.assert_array_equal(tf32(vals), want)
+
+
+@pytest.mark.parametrize("h,p,n", [(48, 64, 128), (80, 64, 64)],
+                         ids=["mamba2-780m", "zamba2-2.7b"])
+def test_3xtf32_keeps_float32_accuracy_at_full_shapes(h, p, n):
+    """At a full model's 256-token chunk, the plain version with every
+    product split as the kernel splits it stays within the kernel's
+    limits (1e-4 relative, 1e-5 of the largest output) of the float32
+    plain version; single-pass TF32 lands outside them, which is why the
+    kernel splits.  Readings (seed 256): split, at most 0.031 of the
+    limit; single pass, 15.5 to 27.9 times it."""
+    args = [torch.from_numpy(a) for a in ssd_inputs(1, 1, 256, h, p, n,
+                                                    seed=256)]
+    y, st = ssd.ssd_intra_chunk_ref(*args)
+    y3, st3 = ssd_ref_tf32(*args, passes=3)
+    y1, st1 = ssd_ref_tf32(*args, passes=1)
+    split = max(share_of_limit(y3, y), share_of_limit(st3, st))
+    single = max(share_of_limit(y1, y), share_of_limit(st1, st))
+    assert split <= 1.0, split
+    assert single > 1.0, single
