@@ -504,17 +504,17 @@ def ssd_build_phase():
         log(f"  ptxas {name}: {regs} registers, spill stores {st} B, spill "
             f"loads {ld} B")
     counts = sass_op_counts(build.library_path("ssd"), "HMMA")
+    names = sorted(k for k in counts if "ssd_intra_chunk_kernel<" in k)
+    assert names, sorted(counts)
     found = {}
-    for pg in (1, 2):
-        tag = f"ssd_intra_chunk_kernel<{pg}>"
-        names = [k for k in counts if tag in k]
-        assert len(names) == 1, (tag, sorted(counts))
-        hmma = counts[names[0]]
-        log(f"  SASS {names[0]}: HMMA {hmma}")
-        assert hmma > 0, f"{tag}: no tensor-core instruction"
+    for name in names:
+        tag = name[name.index("ssd_intra_chunk_kernel<"):name.index(">") + 1]
+        log(f"  SASS {tag}: HMMA {counts[name]}")
+        assert counts[name] > 0, f"{tag}: no tensor-core instruction"
         spills = [v for k, v in report.items() if tag in k]
         assert all(st == ld == 0 for _, st, ld in spills), (tag, spills)
-        found[pg] = {"HMMA": hmma, "ptxas": spills[0] if spills else None}
+        found[tag] = {"HMMA": counts[name],
+                      "ptxas": spills[0] if spills else None}
     return found
 
 

@@ -93,6 +93,7 @@ struct Dims {
   int kn;        // n rounded up to the mma depth (8)
   int ldk;       // row stride of the C and B tiles: n rounded to 32, + 4
   int n_itiles;  // y tiles per (b, c, head)
+  int n_ptiles;  // state tiles along p
   int n_ntiles;  // state tiles along n
   int vx, vb;    // 16-byte copies for x rows / B and C rows
 };
@@ -121,26 +122,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // dst[r * ld + c] = src[r * stride + c] for r < rows and c < cols, zero
-// for rows < r < R and cols <= c < width.  With vec, every copy is 16
+// for rows <= r < R and cols <= c < width.  With vec, every copy is 16
 // bytes (cols, stride and width multiples of 4, src 16-byte aligned).
 // The copies are asynchronous: every thread issues all of its copies
-// before any of them has to land (cp_async_wait_all).
+// before any of them has to land (cp_async_wait).
 __device__ __forceinline__ void fill_rows(float* dst, int ld,
                                           const float* __restrict__ src,
                                           size_t stride, int R, int rows,
                                           int cols, int width, bool vec) {
-  if (vec) {
-    const int w4 = width / 4;
-    for (int e = threadIdx.x; e < R * w4; e += kThreads) {
-      const int r = e / w4, c = (e - r * w4) * 4;
-      const bool ok = r < rows && c < cols;
-      cp_async16(dst + r * ld + c, ok ? src + r * stride + c : src, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < R * width; e += kThreads) {
-      const int r = e / width, c = e - r * width;
-      const bool ok = r < rows && c < cols;
-      cp_async4(dst + r * ld + c, ok ? src + r * stride + c : src, ok);
+  const int step = vec ? 4 : 1;
+  const int w = width / step;  // copies per row
+  int r = threadIdx.x / w, c = threadIdx.x % w;
+  const int dr = kThreads / w, dc = kThreads % w;
+  while (r < R) {
+    const int cc = c * step;
+    const bool ok = r < rows && cc < cols;
+    const float* from = ok ? src + r * stride + cc : src;
+    if (vec)
+      cp_async16(dst + r * ld + cc, from, ok);
+    else
+      cp_async4(dst + r * ld + cc, from, ok);
+    c += dc;
+    r += dr;
+    if (c >= w) {
+      c -= w;
+      ++r;
     }
   }
 }
@@ -151,14 +157,15 @@ __device__ __forceinline__ void fill_rows(float* dst, int ld,
 // b0 (t, g), b1 (t + 4, g); C (16 x 8) c0 (g, 2t), c1 (g, 2t + 1),
 // c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
 
-// a = big + small, both TF32 (cvt.rna: to nearest, ties away from 0).
+// a = big + small: big = tf32(a), rounded to nearest with ties away from
+// zero (cvt.rna's rounding, done as two integer instructions: on this
+// card the conversion instruction itself takes ~4.5 cycles a warp), and
+// small = a - big, exact in float32, of which the tensor core reads the
+// TF32 part.  A NaN in a stays NaN in small.
 __device__ __forceinline__ void split_tf32(float a, uint32_t& big,
                                            uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(a));
-  big &= 0xffffe000u;
-  const float rest = a - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-  small &= 0xffffe000u;
+  big = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(a - __uint_as_float(big));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -169,75 +176,108 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a . b in float32 accuracy: small.big + big.small + big.big.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4],
-                                           const uint32_t (&bb)[2],
-                                           const uint32_t (&bs)[2]) {
-  mma_tf32(d, as, bb);
-  mma_tf32(d, ab, bs);
-  mma_tf32(d, ab, bb);
-}
-
-// The A fragment at (m0, k0) of a matrix whose element (m, k) sits at
-// src[m * sm + k * sk], split into big and small.
-__device__ __forceinline__ void load_a(const float* src, int sm, int sk,
-                                       int m0, int k0, uint32_t (&ab)[4],
-                                       uint32_t (&as)[4]) {
+// One warp's acc[q] += A (16 x kend) . B (kend x 8) for the NT n8 tiles q
+// of B, in 3xTF32: per k step small.big, big.small, big.big into each
+// accumulator, issued tile by tile (four tiles at a time) so that the
+// dependent products of one accumulator are four apart.  A's element (m, k) is A[m * am + k * ak],
+// times u[k] * v[k] (rounded in that order) when SCALED; B's (k, n) is
+// B[k * bk + n * bn], tile q starting at column 8 q.  kend is a multiple
+// of 8.
+template <int NT, bool SCALED = false>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* A,
+                                         int am, int ak, const float* B,
+                                         int bk, int bn, int kend,
+                                         const float* u = nullptr,
+                                         const float* v = nullptr) {
+  constexpr int NC = NT < 4 ? NT : 4;
+  static_assert(NT % NC == 0, "B tiles in groups of four");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* s = src + (m0 + g) * sm + (k0 + t) * sk;
-  split_tf32(s[0], ab[0], as[0]);
-  split_tf32(s[8 * sm], ab[1], as[1]);
-  split_tf32(s[4 * sk], ab[2], as[2]);
-  split_tf32(s[8 * sm + 4 * sk], ab[3], as[3]);
+  const float* a0 = A + g * am + t * ak;
+  const float* b0 = B + t * bk + g * bn;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kend; k0 += 8) {
+    const float* a = a0 + k0 * ak;
+    float av[4] = {a[0], a[8 * am], a[4 * ak], a[8 * am + 4 * ak]};
+    if (SCALED) {
+      const float s0 = u[k0 + t], s1 = v[k0 + t];
+      const float s2 = u[k0 + t + 4], s3 = v[k0 + t + 4];
+      av[0] = av[0] * s0 * s1;
+      av[1] = av[1] * s0 * s1;
+      av[2] = av[2] * s2 * s3;
+      av[3] = av[3] * s2 * s3;
+    }
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(av[e], ab[e], as[e]);
+    const float* b = b0 + k0 * bk;
+    // B tiles four at a time: their split halves stay in 16 registers
+#pragma unroll
+    for (int q0 = 0; q0 < NT; q0 += NC) {
+      uint32_t bb[NC][2], bs[NC][2];
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        split_tf32(b[(q0 + q) * 8 * bn], bb[q][0], bs[q][0]);
+        split_tf32(b[(q0 + q) * 8 * bn + 4 * bk], bb[q][1], bs[q][1]);
+      }
+#pragma unroll
+      for (int q = 0; q < NC; ++q) mma_tf32(acc[q0 + q], as, bb[q]);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) mma_tf32(acc[q0 + q], ab, bs[q]);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) mma_tf32(acc[q0 + q], ab, bb[q]);
+    }
+  }
 }
 
-// The B fragment at (k0, n0) of a matrix whose element (k, n) sits at
-// src[k * sk + n * sn], split into big and small.
-__device__ __forceinline__ void load_b(const float* src, int sk, int sn,
-                                       int k0, int n0, uint32_t (&bb)[2],
-                                       uint32_t (&bs)[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* s = src + (k0 + t) * sk + (n0 + g) * sn;
-  split_tf32(s[0], bb[0], bs[0]);
-  split_tf32(s[4 * sk], bb[1], bs[1]);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared-memory floats of a y tile and of a state tile; the launch takes
-// the larger.
+// Shared-memory floats of a y tile of G heads and of a state tile; the
+// launch takes the larger.
 __host__ __device__ inline int x_ld(int pg) { return pg * kTile + 8; }
-__host__ __device__ inline size_t y_floats(int ldk, int pg) {
-  return (size_t)2 * kTile * ldk + (size_t)kTile * x_ld(pg) +
-         (size_t)kTile * kAtLd + 3 * kTile;
+__host__ __device__ inline size_t y_floats(int ldk, int pg, int g) {
+  return (size_t)2 * kTile * ldk + (size_t)g * kTile * x_ld(pg) +
+         (size_t)kTile * kAtLd + (size_t)(3 * g + 1) * kTile;
 }
 __host__ __device__ inline size_t state_floats() {
   return (size_t)2 * kTile * x_ld(1) + 2 * kTile;
 }
 
-// y rows i0 .. i0+63 of head hh of chunk bc.  PG = 64-column groups of p.
-template <int PG>
+// y rows i0 .. i0+63 of heads h0 .. h0+G-1 of chunk bc (heads at or past
+// h are skipped).  PG = 64-column groups of p.  With `fused` (l <= 64:
+// the chunk is one tile) the same CTA then writes those heads' states
+// from the tiles it holds.
+template <int PG, int G>
 __device__ void y_tile(const float* __restrict__ x,
                        const float* __restrict__ dt,
                        const float* __restrict__ dacs,
                        const float* __restrict__ Bm,
                        const float* __restrict__ Cm, float* __restrict__ y,
-                       int bc, int hh, int it, const Dims& d, float* smem) {
-  constexpr int PW = PG * kTile;   // columns of the x tile
+                       float* __restrict__ st, int bc, int h0, int it,
+                       bool fused, const Dims& d, float* smem) {
+  constexpr int PW = PG * kTile;   // columns of an x tile
   constexpr int XLD = PW + 8;      // its row stride
   constexpr int NQ = PW / 16;      // n8 tiles of a warp's y columns
   const int l = d.l, h = d.h, p = d.p, n = d.n, ldk = d.ldk;
+  const int nh = min(G, h - h0);   // heads of this group
   float* Cs = smem;                // [kTile][ldk]  Cs[ii][k] = C[i0+ii][k]
   float* Bs = Cs + kTile * ldk;    // [kTile][ldk]  Bs[jj][k] = B[j0+jj][k]
-  float* Xs = Bs + kTile * ldk;    // [kTile][XLD]  x[j][hh][:] * dt[j][hh]
-  float* At = Xs + kTile * XLD;    // [kTile][kAtLd]  At[ii][jj] = att[i][j]
-  float* da_i = At + kTile * kAtLd;  // [kTile]
-  float* da_j = da_i + kTile;      // [kTile]
-  float* dt_j = da_j + kTile;      // [kTile]
+  float* Xs = Bs + kTile * ldk;    // [G][kTile][XLD]  x[j][h0+g][:]
+  float* At = Xs + G * kTile * XLD;  // [kTile][kAtLd]  att of one head
+  float* da_i = At + kTile * kAtLd;  // [G][kTile]
+  float* da_j = da_i + G * kTile;  // [G][kTile]
+  float* dt_j = da_j + G * kTile;  // [G][kTile]
+  float* w_j = dt_j + G * kTile;   // [kTile]  the state's decay weights
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int g8 = lane >> 2, t4 = lane & 3;
   const int rg = warp & 3, cg = warp >> 2;
   const int i0 = it * kTile;
   const size_t row0 = (size_t)bc * l;  // first position of the chunk
@@ -245,110 +285,167 @@ __device__ void y_tile(const float* __restrict__ x,
   // rows of the tile that exist, rounded up to a warp's 16
   const int ri = min(kTile, round_up(l - i0, 16));
   const bool live = rg * 16 < ri;
+  // the copies come in groups: C with the first B tile, then per j tile
+  // its x tiles, and the next B tile once S has read this one
   fill_rows(Cs, ldk, Cm + (row0 + i0) * n, n, ri, l - i0, n, d.kn, d.vb);
-  if (tid < kTile) {
-    const int i = i0 + tid;
-    da_i[tid] = i < l ? dacs[(row0 + i) * h + hh] : 0.f;
+  fill_rows(Bs, ldk, Bm + row0 * n, n, min(kTile, round_up(l, 16)),
+            min(kTile, l), n, d.kn, d.vb);
+  cp_async_commit();
+  for (int e = tid; e < G * kTile; e += kThreads) {
+    const int g = e / kTile, i = i0 + e % kTile;
+    da_i[e] = g < nh && i < l ? dacs[(row0 + i) * h + h0 + g] : 0.f;
   }
 
-  float acc[NQ][4];
+  float acc[G][NQ][4];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q)
+  for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][q][e] = 0.f;
 
+  int jn = 0;
   for (int jt = 0; jt <= it; ++jt) {
     const int j0 = jt * kTile;
-    const int jn = min(kTile, l - j0);
+    jn = min(kTile, l - j0);
     const int rj = min(kTile, round_up(jn, 16));
     const bool diag = jt == it;
-    __syncthreads();  // the previous j tile's Bs, Xs and At are consumed
-    fill_rows(Bs, ldk, Bm + (row0 + j0) * n, n, rj, jn, n, d.kn, d.vb);
-    fill_rows(Xs, XLD, x + ((row0 + j0) * h + hh) * p, (size_t)h * p, rj, jn,
-              p, PW, d.vx);
-    if (tid < kTile) {
-      const int j = j0 + tid;
-      const bool ok = j < l;
-      da_j[tid] = ok ? dacs[(row0 + j) * h + hh] : 0.f;
-      dt_j[tid] = ok ? dt[(row0 + j) * h + hh] : 0.f;
+    // x tiles (and dt, dAcs) of this j tile: free since the last head's
+    // product of the previous tile
+    for (int g = 0; g < nh; ++g)
+      fill_rows(Xs + g * kTile * XLD, XLD,
+                x + ((row0 + j0) * h + h0 + g) * p, (size_t)h * p, rj, jn, p,
+                PW, d.vx);
+    for (int e = tid; e < G * kTile; e += kThreads) {
+      const int g = e / kTile, jj = e % kTile;
+      const bool ok = g < nh && jj < jn;
+      const size_t pos = ok ? (row0 + j0 + jj) * h + h0 + g : 0;
+      cp_async4(da_j + e, dacs + pos, ok);
+      cp_async4(dt_j + e, dt + pos, ok);
     }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int e = tid; e < rj * PW; e += kThreads) {
-      const int jj = e / PW;
-      Xs[jj * XLD + e - jj * PW] *= dt_j[jj];
-    }
-    // the S tile of this warp: rows 16 rg .., columns 32 cg ..; on the
-    // diagonal, columns past the warp's last row are all masked
-    const int cmax = diag ? min(rj, rg * 16 + 16) : rj;
-    if (live) {
-      float s[4][4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[q][e] = 0.f;
-      for (int k0 = 0; k0 < d.kn; k0 += 8) {
-        uint32_t ab[4], as[4];
-        load_a(Cs, ldk, 1, rg * 16, k0, ab, as);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c0 = cg * 32 + q * 8;
-          if (c0 >= cmax) continue;
-          uint32_t bb[2], bs[2];
-          load_b(Bs, 1, ldk, k0, c0, bb, bs);
-          mma_3xtf32(s[q], ab, as, bb, bs);
-        }
-      }
-      // decay with the causal mask selected first; att into At[ii][jj]
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int jj = cg * 32 + q * 8 + 2 * t;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int ii = rg * 16 + g + half * 8;
-          const int i = i0 + ii;
-          float v[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = j0 + jj + e;
-            v[e] = (j <= i && i < l)
-                       ? s[q][half * 2 + e] * expf(da_i[ii] - da_j[jj + e])
-                       : 0.f;
-          }
-          *reinterpret_cast<float2*>(At + ii * kAtLd + jj) =
-              make_float2(v[0], v[1]);
-        }
-      }
-    }
+    cp_async_commit();
+    cp_async_wait<1>();  // C and this B tile have landed
     __syncthreads();
 
-    if (live) {
-      // y += att @ xdt on rows 16 rg .., columns cg * PW / 2 ..
-      const int kmax = round_up(diag ? min(jn, rg * 16 + 16) : jn, 8);
-      for (int k0 = 0; k0 < kmax; k0 += 8) {
-        uint32_t ab[4], as[4];
-        load_a(At, kAtLd, 1, rg * 16, k0, ab, as);
+    // S on this warp's 16 rows x 32 columns; on the diagonal a warp
+    // whose columns all lie past its last row skips it (all masked)
+    const int cmax = diag ? min(rj, rg * 16 + 16) : rj;
+    float s[4][4];
 #pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          uint32_t bb[2], bs[2];
-          load_b(Xs, XLD, 1, k0, cg * (PW / 2) + q * 8, bb, bs);
-          mma_3xtf32(acc[q], ab, as, bb, bs);
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[q][e] = 0.f;
+    if (live && cg * 32 < cmax)
+      warp_mma<4>(s, Cs + rg * 16 * ldk, ldk, 1, Bs + cg * 32 * ldk, 1, ldk,
+                  d.kn);
+    __syncthreads();  // S has read Bs: the next B tile may land there
+    if (!diag) {
+      const int jn1 = min(kTile, l - j0 - kTile);
+      fill_rows(Bs, ldk, Bm + (row0 + j0 + kTile) * n, n,
+                min(kTile, round_up(jn1, 16)), jn1, n, d.kn, d.vb);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // the x tiles have landed
+    __syncthreads();
+
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g >= nh) break;
+      const float* dai = da_i + g * kTile;
+      const float* daj = da_j + g * kTile;
+      const float* dtj = dt_j + g * kTile;
+      if (live) {
+        // the decay with the causal mask selected first, times dt_j
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int jj = cg * 32 + q * 8 + 2 * t4;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int ii = rg * 16 + g8 + half * 8;
+            const int i = i0 + ii;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = j0 + jj + e;
+              v[e] = (j <= i && i < l) ? s[q][half * 2 + e] *
+                                             __expf(dai[ii] - daj[jj + e]) *
+                                             dtj[jj + e]
+                                       : 0.f;
+            }
+            *reinterpret_cast<float2*>(At + ii * kAtLd + jj) =
+                make_float2(v[0], v[1]);
+          }
         }
       }
+      __syncthreads();
+      if (live) {
+        // y += att @ x on rows 16 rg .., columns cg * PW / 2 ..
+        const int kmax = round_up(diag ? min(jn, rg * 16 + 16) : jn, 8);
+        warp_mma<NQ>(acc[g], At + rg * 16 * kAtLd, kAtLd, 1,
+                     Xs + g * kTile * XLD + cg * (PW / 2), XLD, 1, kmax);
+      }
+      __syncthreads();  // At (and, after the last head, Xs) consumed
     }
   }
 
 #pragma unroll
-  for (int q = 0; q < NQ; ++q)
+  for (int g = 0; g < G; ++g) {
+    if (g >= nh) break;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = i0 + rg * 16 + g + half * 8;
-      if (i >= l) continue;
-      float* yrow = y + ((row0 + i) * h + hh) * p;
-      const int c = cg * (PW / 2) + q * 8 + 2 * t;
-      if (c < p) yrow[c] = acc[q][half * 2];
-      if (c + 1 < p) yrow[c + 1] = acc[q][half * 2 + 1];
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = i0 + rg * 16 + g8 + half * 8;
+        if (i >= l) continue;
+        float* yrow = y + ((row0 + i) * h + h0 + g) * p;
+        const int c = cg * (PW / 2) + q * 8 + 2 * t4;
+        if (c < p) yrow[c] = acc[g][q][half * 2];
+        if (c + 1 < p) yrow[c + 1] = acc[g][q][half * 2 + 1];
+      }
+  }
+  if (!fused) return;
+
+  // The states, from the tiles in shared memory (one j tile, jn rows):
+  // state[p][n] = sum_j (x[j][p] * dt_j * w_j) B[j][n].  A warp takes 16
+  // rows of p and, in turn, 32-column groups of n.
+  constexpr int RG = PW / 16;          // row groups of p
+  constexpr int WPR = 8 / RG;          // warps per row group
+  const int srg = warp % RG, scg = warp / RG;
+  const int kmax = round_up(jn, 8);
+  for (int g = 0; g < nh; ++g) {
+    const int hh = h0 + g;
+    if (tid < kTile) {
+      const float da_last = dacs[(row0 + l - 1) * h + hh];
+      w_j[tid] = tid < jn ? __expf(da_last - da_j[g * kTile + tid]) : 0.f;
     }
+    __syncthreads();
+    if (srg * 16 < p) {
+      const float* Xg = Xs + g * kTile * XLD;
+      for (int c0 = scg * 32; c0 < d.kn; c0 += 32 * WPR) {
+        float sacc[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[q][e] = 0.f;
+        // columns past kn (up to the next 32) hold stale floats and are
+        // not stored
+        warp_mma<4, true>(sacc, Xg + srg * 16, 1, XLD, Bs + c0, ldk, 1, kmax,
+                          dt_j + g * kTile, w_j);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int pp = srg * 16 + g8 + half * 8;
+            if (pp >= p) continue;
+            float* srow = st + (((size_t)bc * h + hh) * p + pp) * n;
+            const int nn = c0 + q * 8 + 2 * t4;
+            if (nn < n) srow[nn] = sacc[q][half * 2];
+            if (nn + 1 < n) srow[nn + 1] = sacc[q][half * 2 + 1];
+          }
+      }
+    }
+    __syncthreads();  // w_j consumed
+  }
 }
 
 // state[hh][p0 .. p0+63][n0 .. n0+63] of chunk bc, reduced over all l.
@@ -394,31 +491,17 @@ __device__ void state_tile(const float* __restrict__ x,
       if (j < l) {
         const size_t pos = (row0 + j) * h + hh;
         dtv = dt[pos];
-        w = expf(da_last - dacs[pos]);
+        w = __expf(da_last - dacs[pos]);
       }
       dt_s[tid] = dtv;
       w_s[tid] = w;
     }
     cp_async_wait_all();
     __syncthreads();
-    for (int e = tid; e < rj * kTile; e += kThreads) {
-      const int jj = e / kTile;
-      float* v = Xw + jj * LD + e - jj * kTile;
-      *v = *v * dt_s[jj] * w_s[jj];
-    }
-    __syncthreads();
-    // state rows p = 16 rg .., columns n = 32 cg ..; A (p, j) = Xw[j][p]
+    // state rows p = 16 rg .., columns n = 32 cg ..; A (p, j) = x * dt * w
     const int kmax = round_up(jn, 8);
-    for (int k0 = 0; k0 < kmax; k0 += 8) {
-      uint32_t ab[4], as[4];
-      load_a(Xw, 1, LD, rg * 16, k0, ab, as);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t bb[2], bs[2];
-        load_b(Bt, LD, 1, k0, cg * 32 + q * 8, bb, bs);
-        mma_3xtf32(acc[q], ab, as, bb, bs);
-      }
-    }
+    warp_mma<4, true>(acc, Xw + rg * 16, 1, LD, Bt + cg * 32, LD, 1, kmax,
+                      dt_s, w_s);
   }
 
 #pragma unroll
@@ -434,10 +517,12 @@ __device__ void state_tile(const float* __restrict__ x,
     }
 }
 
-// grid (h, n_itiles + state tiles, b * nc); blockIdx.y < n_itiles is a y
-// tile (heaviest first), the rest are state tiles.
-template <int PG>
-__global__ void __launch_bounds__(kThreads)
+// grid (head groups, n_itiles + state tiles, b * nc).  blockIdx.y <
+// n_itiles is a y tile of G heads (heaviest first); past them, when the
+// chunk has more than one tile, come the state tiles of each head of the
+// group.  A one-tile chunk has no state tiles: its y tile writes them.
+template <int PG, int G>
+__global__ void __launch_bounds__(kThreads, 2)
     ssd_intra_chunk_kernel(const float* __restrict__ x,
                            const float* __restrict__ dt,
                            const float* __restrict__ dacs,
@@ -446,38 +531,60 @@ __global__ void __launch_bounds__(kThreads)
                            float* __restrict__ y, float* __restrict__ st,
                            Dims d) {
   extern __shared__ __align__(16) float smem[];
-  const int hh = blockIdx.x;
+  const int h0 = blockIdx.x * G;
   const int bc = blockIdx.z;
   const int t = blockIdx.y;
-  if (t < d.n_itiles)
-    y_tile<PG>(x, dt, dacs, Bm, Cm, y, bc, hh, d.n_itiles - 1 - t, d, smem);
-  else
-    state_tile(x, dt, dacs, Bm, st, bc, hh, t - d.n_itiles, d, smem);
+  if (t < d.n_itiles) {
+    y_tile<PG, G>(x, dt, dacs, Bm, Cm, y, st, bc, h0, d.n_itiles - 1 - t,
+                  d.n_itiles == 1, d, smem);
+    return;
+  }
+  const int per_head = d.n_ptiles * d.n_ntiles;
+  const int hh = h0 + (t - d.n_itiles) / per_head;
+  if (hh < d.h)
+    state_tile(x, dt, dacs, Bm, st, bc, hh, (t - d.n_itiles) % per_head, d,
+               smem);
 }
 
-template <int PG>
+// Shared memory one CTA may hold for two to fit an SM (228 KB, 1 KB of it
+// reserved per CTA).
+constexpr size_t kTwoPerSm = 115 * 1024;
+
+template <int PG, int G>
 int launch(const float* x, const float* dt, const float* dacs,
            const float* Bm, const float* Cm, float* y, float* st, int bc,
            const Dims& d, cudaStream_t stream) {
-  static bool configured = false;  // one attribute call per instantiation
-  if (!configured) {
-    const size_t most = y_floats(kMaxN + 4, PG) > state_floats()
-                            ? y_floats(kMaxN + 4, PG)
-                            : state_floats();
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_intra_chunk_kernel<PG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(most * sizeof(float)));
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  size_t floats = y_floats(d.ldk, PG);
+  static size_t configured = 0;  // the attribute, raised as shapes need
+  size_t floats = y_floats(d.ldk, PG, G);
   if (state_floats() > floats) floats = state_floats();
-  const int n_ptiles = (d.p + kTile - 1) / kTile;
-  const dim3 grid(d.h, d.n_itiles + n_ptiles * d.n_ntiles, bc);
-  ssd_intra_chunk_kernel<PG><<<grid, dim3(kThreads), floats * sizeof(float),
-                               stream>>>(x, dt, dacs, Bm, Cm, y, st, d);
+  const size_t bytes = floats * sizeof(float);
+  if (bytes > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssd_intra_chunk_kernel<PG, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = bytes;
+  }
+  const int groups = (d.h + G - 1) / G;
+  const int states = d.n_itiles > 1 ? G * d.n_ptiles * d.n_ntiles : 0;
+  const dim3 grid(groups, d.n_itiles + states, bc);
+  ssd_intra_chunk_kernel<PG, G><<<grid, dim3(kThreads), bytes, stream>>>(
+      x, dt, dacs, Bm, Cm, y, st, d);
   return (int)cudaGetLastError();
+}
+
+// Heads per CTA, from the shapes: the largest G in {4, 2} whose y tile
+// still fits two CTAs an SM, keeps the accumulators to 64 registers
+// (G * PG <= 4) and leaves at least two y tiles per SM; otherwise 1.
+// Sharing S saves its work G - 1 times over but runs G heads' products
+// in one CTA, which only pays where the grid is large.
+int heads_per_cta(const Dims& d, int pg, int bc, int sms) {
+  for (int g = 4; g > 1; g /= 2) {
+    const size_t bytes = y_floats(d.ldk, pg, g) * sizeof(float);
+    const long tiles = (long)((d.h + g - 1) / g) * d.n_itiles * bc;
+    if (g * pg <= 4 && bytes <= kTwoPerSm && tiles >= 2L * sms) return g;
+  }
+  return 1;
 }
 
 __global__ void ssd_empty_kernel() {}
@@ -499,6 +606,14 @@ extern "C" int ssd_intra_chunk_launch(const void* x, const void* dt,
   if (batch_chunks <= 0 || l <= 0 || h <= 0 || p <= 0 || n <= 0 ||
       p > kMaxP || n > kMaxN || batch_chunks > 65535)
     return -1;
+  static int sms = 0;  // the card's SM count, read once
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
   Dims d;
   d.l = l;
   d.h = h;
@@ -507,10 +622,11 @@ extern "C" int ssd_intra_chunk_launch(const void* x, const void* dt,
   d.kn = round_up(n, 8);
   d.ldk = round_up(n, 32) + 4;
   d.n_itiles = (l + kTile - 1) / kTile;
+  d.n_ptiles = (p + kTile - 1) / kTile;
   d.n_ntiles = (n + kTile - 1) / kTile;
   d.vx = p % 4 == 0 && aligned16(x);
   d.vb = n % 4 == 0 && aligned16(B) && aligned16(C);
-  if (d.n_itiles + ((p + kTile - 1) / kTile) * d.n_ntiles > 65535) return -1;
+  if (d.n_itiles + 4 * d.n_ptiles * d.n_ntiles > 65535) return -1;
   const float* xp = static_cast<const float*>(x);
   const float* dtp = static_cast<const float*>(dt);
   const float* dap = static_cast<const float*>(dacs);
@@ -519,9 +635,19 @@ extern "C" int ssd_intra_chunk_launch(const void* x, const void* dt,
   float* yp = static_cast<float*>(y);
   float* sp = static_cast<float*>(states);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p <= kTile)
-    return launch<1>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
-  return launch<2>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
+  const int pg = p <= kTile ? 1 : 2;
+  switch (heads_per_cta(d, pg, batch_chunks, sms) * 10 + pg) {
+    case 41:
+      return launch<1, 4>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
+    case 21:
+      return launch<1, 2>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
+    case 22:
+      return launch<2, 2>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
+    case 11:
+      return launch<1, 1>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
+    default:
+      return launch<2, 1>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
+  }
 }
 
 // One empty kernel of one warp on the caller's stream.
