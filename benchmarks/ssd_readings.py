@@ -8,8 +8,10 @@ of each instantiation, then, at every shape of ``chip_smoke.py``'s SSD
 phase (the main path's chunk prefills of mamba2-780m and zamba2-2.7b at
 l = 16, 64 and 256, and zamba2-2.7b's 16384-token prefill at b * nc =
 64), holds the kernel to its plain version with ``chip_smoke.py``'s
-limits and on the same inputs (``chip_smoke.ssd_phase_inputs``), and
-times it cold (L2 flushed) and warm, beside an empty kernel launched
+limits and on the same inputs (``chip_smoke.ssd_phase_inputs``), prints
+how far the kernel and the plain float32 version each land from the
+plain version in float64 (relative L2 of y and of the state), and times
+the kernel cold (L2 flushed) and warm, beside an empty kernel launched
 through the same ctypes path.  The card's name and power limit come
 first.  Without a card it exits non-zero.
 
@@ -42,7 +44,7 @@ def main() -> int:
     # finds repro_torch already imported
     sys.path.insert(0, str(args.tree.resolve() / "src"))
     from repro_torch.kernels import build
-    from repro_torch.kernels.ssd import kernel
+    from repro_torch.kernels.ssd import kernel, ssd_intra_chunk_ref
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -63,6 +65,16 @@ def main() -> int:
     for model, bc, l, (h, p, n) in cs.SSD_SHAPES:
         inputs = cs.ssd_phase_inputs(dev, bc, l, h, p, n, seed=l + bc)
         err = cs.ssd_check(inputs, f"{model} b*nc={bc} l={l}")
+        y64, st64 = ssd_intra_chunk_ref(*[t.double() for t in inputs])
+        far = []
+        for out in (kernel.ssd_intra_chunk(*inputs),
+                    ssd_intra_chunk_ref(*inputs)):
+            far += [float((a.double() - b).norm() / b.norm())
+                    for a, b in zip(out, (y64, st64))]
+        del y64, st64
+        print(f"{model} b*nc={bc} l={l}: relative L2 from float64, kernel y "
+              f"{far[0]:.3e} state {far[1]:.3e}; plain float32 y "
+              f"{far[2]:.3e} state {far[3]:.3e}")
         ms = cs.cuda_ms(lambda: kernel.ssd_intra_chunk(*inputs), args.iters,
                         flush)
         warm_ms = cs.cuda_ms(lambda: kernel.ssd_intra_chunk(*inputs),

@@ -22,22 +22,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    attention (H=KV=32, D=80);
 4. SSD intra-chunk kernel vs plain version in float32 at the prefill
    chunks of mamba2-780m (h=48, p=64, n=128) and zamba2-2.7b (h=80,
-   p=64, n=64), l in {16, 64, 256}, with kernel, plain and bound times
-   (no single PyTorch call computes this function: no library time);
+   p=64, n=64), l in {16, 64, 256}, and at zamba2-2.7b's 16384-token
+   prefill (b * nc = 64, l = 256), with kernel (L2 flushed and warm),
+   plain and bound times beside an empty kernel launched through the same
+   ctypes path (no single PyTorch call computes this function: no library
+   time); TFLOP/s and the shares of the 3xTF32 and FFMA bounds are
+   logged; then the kernel as built: ``ptxas`` registers and spills and
+   the tensor-core instructions (``HMMA``) in the SASS of every
+   instantiation, which must hold some and spill nothing;
 5. the main paths, each with every launch count set to 0 just before it
    and read just after: ``ServingEngine(cache_mode="paged")`` at full
    width and depth (random bf16 weights from a seed) serving 8 requests
    of 40-700 prompt tokens and 32 new tokens each, for granite-8b (the
    paged kernel launched 36 x the decode steps), mamba2-780m (the SSD
    kernel 48 x the chunk prefills) and zamba2-2.7b (SSD 54 x the chunk
-   prefills, paged 9 x the decode steps); after each, a steady 8-step
+   prefills, paged 9 x the decode steps), the SSD launches counted by
+   chunk length and the kernel's ms per Mamba2 layer over that mix (from
+   phase 4's times); after each, a steady 8-step
    decode window under ``torch.cuda.set_sync_debug_mode("error")`` with
    zero host syncs;
 6. kernels vs plain versions on one state at full width and depth, in
    bf16 (the main path) and float32: for granite-8b one paged serve step;
    for mamba2-780m and zamba2-2.7b one 256-token paged chunk prefill plus
    one serve step; logits (and the recurrent state) within a stated
-   tolerance;
+   tolerance, in float32 measured from a third run whose SSD core is the
+   plain version in float64;
 7. reduced granite-8b, mamba2-780m and zamba2-2.7b in float32: the dense
    and paged engines on the card give the same greedy streams;
 8. the tile runtime at full size (16384^2 float32, 4 PEs x 4 tiles),
@@ -92,7 +101,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    up to 16384) serves prompts of 9000, 12500, 16000, 40 and 200 tokens,
    16 new tokens each; flash launches = 36 x the bulk prefills at the
    16384 bucket; then one 16384-token bulk prefill's wall time, and under
-   the profiler its device-busy share and the kernel's share of it; then
+   the profiler its device-busy share and the flash and SSD kernels'
+   shares of it; then
    the hybrid route, likewise counted and timed: a dense engine on
    full-width zamba2-2.7b bulk-prefills 16384 tokens of a 16400-token
    prompt (its shared attention, head_dim 80: flash launches = 9, SSD
@@ -111,6 +121,7 @@ The line before the last is the ``kernels`` JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -162,14 +173,22 @@ BF16_STEP_TOL = dict(rel_l2=0.1, argmax_agree=0.0)
 F32_STEP_TOL = dict(rel_l2=1e-4, argmax_agree=1.0)
 # One full-depth 256-token chunk prefill plus one serve step of
 # mamba2-780m / zamba2-2.7b, kernels vs plain versions: relative L2 of
-# the logits and of the final SSD state of every layer.  float32: the SSD
-# cores differ in summation order only (~1e-7 relative per output), as
-# does zamba2's paged attention.  bf16: the SSD core is float32 in both,
-# but its output is cast to bf16, and an output near a rounding boundary
-# lands on the other neighbour; 48-54 layers of random weights amplify
-# such one-ulp differences, as the attention's do in granite-8b.
+# the logits and of the final SSD state of every layer.  bf16: the SSD
+# core is float32 in both, but its output is cast to bf16, and an output
+# near a rounding boundary lands on the other neighbour; 48-54 layers of
+# random weights amplify such one-ulp differences, as the attention's do
+# in granite-8b.  float32: the SSD cores differ in summation order only
+# (~2e-7 relative per output, as far as the plain version lies from
+# float64), but 48-54 random layers amplify float32 rounding in the core
+# to ~1e-4 at the logits: the plain version itself lands 2.2e-4
+# (mamba2-780m) and 1.5e-4 (zamba2-2.7b) from a run whose SSD core is
+# float64 (this phase prints both).  Kernel and plain can then agree to
+# 1e-4 only by adding in the same order, as the FFMA kernel did bit for
+# bit.  So each float32 run is held to the float64-core run: the kernel
+# at most 1.5 times as far from it as the plain version, logits and
+# state, with the same greedy token in all three.
 BF16_PREFILL_TOL = dict(rel_l2=0.1, state_rel_l2=0.1, argmax_agree=0.0)
-F32_PREFILL_TOL = dict(rel_l2=1e-4, state_rel_l2=1e-4, argmax_agree=1.0)
+F32_PREFILL_TOL = dict(f64_ratio=1.5, argmax_agree=1.0)
 # The main paths: (arch, attention layers per decode step, Mamba2 layers
 # per chunk prefill).
 PATHS = (("granite-8b", 36, 0), ("mamba2-780m", 0, 48),
@@ -952,10 +971,30 @@ def step_vs_plain(cfg, params, shape, pool_blocks, saved, tol):
     assert rel <= tol["rel_l2"] and agree >= tol["argmax_agree"]
 
 
+@contextlib.contextmanager
+def float64_ssd_core():
+    """Every SSD core call computes the plain version in float64, its
+    outputs rounded once to float32: the most exact float32 core a run can
+    have, against which both float32 runs are measured."""
+    from repro_torch.kernels.ssd import ops, ssd_intra_chunk_ref
+    plain = ops.ssd_intra_chunk
+
+    def core(xr, dtr, dA_cs, Br, Cr, *, impl="kernel"):
+        y, st = ssd_intra_chunk_ref(
+            *[t.double() for t in (xr, dtr, dA_cs, Br, Cr)])
+        return y.float(), st.float()
+    ops.ssd_intra_chunk = core
+    try:
+        yield
+    finally:
+        ops.ssd_intra_chunk = plain
+
+
 def prefill_step_vs_plain(cfg, params, dev, tol):
     """A 256-token paged chunk prefill into lane 0 plus one serve step,
-    with the kernels and with ``impl="ref"``, from one fresh state each:
-    lane 0's logits and the SSD state of every layer."""
+    with the kernels and with ``impl="ref"`` (and, with ``f64_ratio`` in
+    ``tol``, with the plain SSD core in float64), from one fresh state
+    each: lane 0's logits and the SSD state of every layer."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import model_zoo as zoo
@@ -964,23 +1003,30 @@ def prefill_step_vs_plain(cfg, params, dev, tol):
     toks = torch.randint(0, cfg.vocab_size, (1, 257), generator=g,
                          device=dev, dtype=torch.int32)
     lane = 1 if cfg.family == "ssm" else 2      # lane axis of "ssm"
+    runs = [("kernel", "kernel"), ("ref", "ref")]
+    if "f64_ratio" in tol:
+        runs.append(("f64", "ref"))
     outs = {}
-    for impl in ("kernel", "ref"):
-        state = zoo.init_paged_decode_state(cfg, shape, bs, nb, dev)
-        state.block_tables[0, :17] = torch.arange(17, dtype=torch.int32,
-                                                  device=dev)
-        prefill = zoo.make_paged_bulk_prefill(cfg, shape, 256, bs, nb,
-                                              first_chunk=True, impl=impl)
-        state = prefill(params, state, toks[:, :256], 0, 0, 256)
-        step = zoo.make_paged_serve_step(cfg, shape, bs, nb, impl=impl)
-        tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
-        tok[0] = toks[0, 256]
-        active = torch.zeros(8, dtype=torch.int32, device=dev)
-        active[0] = 1
-        logits, state = step(params, state, tok, active)
-        outs[impl] = (logits[0, -1, :cfg.vocab_size].float(),
-                      state.cache["ssm"].select(lane, 0).clone())
-        del state
+    for name, impl in runs:
+        core = (float64_ssd_core() if name == "f64"
+                else contextlib.nullcontext())
+        with core:
+            state = zoo.init_paged_decode_state(cfg, shape, bs, nb, dev)
+            state.block_tables[0, :17] = torch.arange(17, dtype=torch.int32,
+                                                      device=dev)
+            prefill = zoo.make_paged_bulk_prefill(cfg, shape, 256, bs, nb,
+                                                  first_chunk=True,
+                                                  impl=impl)
+            state = prefill(params, state, toks[:, :256], 0, 0, 256)
+            step = zoo.make_paged_serve_step(cfg, shape, bs, nb, impl=impl)
+            tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+            tok[0] = toks[0, 256]
+            active = torch.zeros(8, dtype=torch.int32, device=dev)
+            active[0] = 1
+            logits, state = step(params, state, tok, active)
+            outs[name] = (logits[0, -1, :cfg.vocab_size].float(),
+                          state.cache["ssm"].select(lane, 0).clone())
+            del state
     torch.cuda.synchronize()
     (a, sa), (b, sb) = outs["kernel"], outs["ref"]
     assert torch.isfinite(a).all() and torch.isfinite(sa).all()
@@ -990,7 +1036,19 @@ def prefill_step_vs_plain(cfg, params, dev, tol):
         f"full depth: logits rel_l2={rel:.3e} max_abs={max_err(a, b):.3e}, "
         f"SSD state rel_l2={srel:.3e}, argmax agreement {agree:.0f} "
         f"(tol {tol})")
-    assert rel <= tol["rel_l2"] and srel <= tol["state_rel_l2"]
+    if "f64_ratio" in tol:
+        c, sc = outs["f64"]
+        far = {k: (rel_l2(o, c), rel_l2(so, sc))
+               for k, (o, so) in (("kernel", (a, sa)), ("plain", (b, sb)))}
+        agree = float(a.argmax() == b.argmax() == c.argmax())
+        log(f"  from the float64-core run: kernel logits {far['kernel'][0]:.3e}"
+            f" state {far['kernel'][1]:.3e}; plain logits "
+            f"{far['plain'][0]:.3e} state {far['plain'][1]:.3e}; argmax "
+            f"agreement of all three {agree:.0f}")
+        for i in (0, 1):
+            assert far["kernel"][i] <= tol["f64_ratio"] * far["plain"][i], far
+    else:
+        assert rel <= tol["rel_l2"] and srel <= tol["state_rel_l2"]
     assert agree >= tol["argmax_agree"]
 
 

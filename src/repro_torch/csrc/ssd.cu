@@ -28,46 +28,67 @@
 //
 // Why the products are split: TF32 keeps 10 bits of mantissa (~3 decimal
 // digits), and the reference's tests hold this kernel to 1e-4 relative
-// and 1e-5 of the largest output.  Each operand a is written as
-// big = tf32(a) (cvt.rna) plus small = tf32(a - big), and a product as
-// small.big + big.small + big.big, issued in that order into one float32
-// accumulator: what is dropped (small.small, and the rounding of small)
-// is ~2^-22 of the product, near float32's own 2^-24.
+// and 1e-5 of the largest output; one TF32 product per float32 one lands
+// 15-28 times outside those limits at the full models' chunks
+// (tests/test_torch_ssd.py).  Each operand a is written as big = tf32(a),
+// rounded to nearest with ties away from zero (cvt.rna's rounding), plus
+// small = a - big, and a product as small.big + big.small + big.big,
+// issued in that order into one float32 accumulator: what is dropped
+// (small.small, and the bits of small past TF32) is ~2^-21 of the
+// product, near float32's own 2^-24.  The tensor core's own float32
+// accumulation loses more than that over a long sum (it does not round
+// to nearest as an FADD does): accumulating all k steps in it left y
+// 1.0e-6 from a float64 reference at mamba2-780m's 256-token chunk, five
+// times the plain float32 version's 2.1e-7.  So each k step's three
+// products go into a fresh accumulator, added to the running sum with an
+// ordinary float32 add: y then lands 1.8e-7 from float64.
 //
 // What the design does about it:
 // * The TPU kernel keeps a whole l x l score matrix of one (b, c, h) in
 //   VMEM.  At l = 256 that is 256 KB of float32, more than an SM's shared
-//   memory.  Here one CTA (8 warps) takes one (b, c, head, 64-row tile of
-//   i) and streams the 64-column tiles of j up to the diagonal only
-//   (causal).  Each warp owns a 16-row by 32-column part of the S =
-//   C_i . B_j^T tile and a 16-row part of the y accumulator, both in
-//   mma.sync m16n8k8 TF32 fragments with float32 accumulators.  The
-//   decayed score tile goes through shared memory once (the accumulator's
-//   fragment is not the A operand's) and is multiplied by the tile's
-//   x * dt.  On the diagonal tile a warp skips the S columns and the j
-//   steps past its last row.
-// * The decay exp(dAcs_i - dAcs_j) is applied through a select on j <= i
-//   *before* it meets the score: above the diagonal the exponent is
-//   positive and can overflow, and inf * 0 would be NaN.
-// * The state product is a small GEMM (p x n, reduced over l); its
-//   64 x 64 tiles are extra CTAs of the same grid (blockIdx.y past the
-//   i tiles), so they run beside the y tiles in one launch.  The y tiles
-//   with the most j tiles are issued first.
-// * Every operand sits in shared memory in the row-major layout device
-//   memory has (C and B rows of n floats, x rows of p floats), filled
-//   with 16-byte cp.async.cg copies where rows are 16-byte aligned (n and
-//   p multiples of 4; 4-byte copies otherwise).  No tile is transposed:
-//   the fragment loads index the layouts they need, and row strides are
-//   padded so that a warp's fragment load hits 32 distinct banks (C, B:
-//   n rounded up to 32, plus 4 floats; x and the state's operands: 8
-//   floats past 64 or 128).  Tiles are filled only as far as l reaches,
-//   rounded up to 16 rows (at l = 16, 16 rows, not 64); the rows past l
-//   inside that are zero-filled.  x * dt (and the state's decay weight)
-//   are applied in shared memory after the copies land, in the plain
-//   version's order.
+//   memory.  Here one CTA (8 warps) takes one (b, c, 64-row tile of i)
+//   for a group of G heads and streams the 64-column tiles of j up to the
+//   diagonal only (causal).  Each warp owns a 16-row by 32-column part of
+//   the S = C_i . B_j^T tile and 16-row parts of the G heads' y
+//   accumulators, in mma.sync m16n8k8 TF32 fragments with float32
+//   accumulators.  S is computed once per j tile and used by the G heads
+//   in turn: its decayed copy (times dt_j) goes through shared memory
+//   once per head (the accumulator's fragment is not the A operand's)
+//   and is multiplied by the head's x tile.  On the diagonal tile a warp
+//   skips the S columns and the j steps past its last row.
+// * G is chosen at launch from b * nc, l and h, never by the caller: 1
+//   where a larger G would leave fewer than two y tiles per SM (the main
+//   path's chunk prefills, b * nc = 1), more where the grid is large (the
+//   hybrid model's long prefill, b * nc = 64, takes G = 2), as far as two
+//   CTAs still fit an SM.
+// * The decay exp(dAcs_i - dAcs_j) is selected on j <= i *before* the
+//   exp: above the diagonal the exponent is positive and can overflow,
+//   and inf * 0 would be NaN.  Both selects are branch-free (selp), so a
+//   thread's sixteen decays run side by side.
+// * The products run 3xTF32 throughout: per k step a warp splits its
+//   fragments in registers and issues the small.big, big.small and
+//   big.big products of four accumulators in turn, so that dependent
+//   products are four apart.  The split rounds with two integer
+//   instructions: on this card the conversion instruction costs ~4.5
+//   cycles a warp and would outrun the tensor core.
+// * Copies are asynchronous and come in groups that overlap the
+//   products: the next B tile lands while the heads' products run, the
+//   next x tiles while S runs.  Every operand sits in shared memory in
+//   the row-major layout device memory has (C and B rows of n floats, x
+//   rows of p floats), filled with 16-byte cp.async.cg copies where rows
+//   are 16-byte aligned (n and p multiples of 4; 4-byte copies
+//   otherwise).  No tile is transposed: the fragment loads index the
+//   layouts they need, and row strides are padded so that a warp's
+//   fragment load hits 32 distinct banks.  Tiles are filled only as far
+//   as l reaches, rounded up to 16 rows (at l = 16, 16 rows, not 64).
+// * A chunk of more than 64 positions has its state products (p x n,
+//   reduced over l) in 64 x 64 tiles, extra CTAs of the same grid
+//   (blockIdx.y past the i tiles), issued after the y tiles, heaviest
+//   first.  A chunk of at most 64 positions is one tile: its y tile's CTA
+//   then writes its heads' states from the x and B tiles it holds, so x
+//   and B are read once.
 // * Warps whose 16 rows all lie at or past l skip the products (at
 //   l = 16, six of eight).
-// * C.B^T is recomputed per head (as on the TPU).
 //
 // ssd_empty_launch launches an empty kernel through the same C path: the
 // floor that any kernel of this library reads in a timing harness.
@@ -177,9 +198,10 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // One warp's acc[q] += A (16 x kend) . B (kend x 8) for the NT n8 tiles q
-// of B, in 3xTF32: per k step small.big, big.small, big.big into each
-// accumulator, issued tile by tile (four tiles at a time) so that the
-// dependent products of one accumulator are four apart.  A's element (m, k) is A[m * am + k * ak],
+// of B, in 3xTF32: per k step small.big, big.small, big.big into a fresh
+// accumulator per tile, issued tile by tile (four tiles at a time) so
+// that the dependent products of one accumulator are four apart, then
+// added to acc[q] with an ordinary float32 add.  A's element (m, k) is A[m * am + k * ak],
 // times u[k] * v[k] (rounded in that order) when SCALED; B's (k, n) is
 // B[k * bk + n * bn], tile q starting at column 8 q.  kend is a multiple
 // of 8.
@@ -219,14 +241,33 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* A,
         split_tf32(b[(q0 + q) * 8 * bn], bb[q][0], bs[q][0]);
         split_tf32(b[(q0 + q) * 8 * bn + 4 * bk], bb[q][1], bs[q][1]);
       }
+      float part[NC][4];
 #pragma unroll
-      for (int q = 0; q < NC; ++q) mma_tf32(acc[q0 + q], as, bb[q]);
+      for (int q = 0; q < NC; ++q)
 #pragma unroll
-      for (int q = 0; q < NC; ++q) mma_tf32(acc[q0 + q], ab, bs[q]);
+        for (int e = 0; e < 4; ++e) part[q][e] = 0.f;
 #pragma unroll
-      for (int q = 0; q < NC; ++q) mma_tf32(acc[q0 + q], ab, bb[q]);
+      for (int q = 0; q < NC; ++q) mma_tf32(part[q], as, bb[q]);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) mma_tf32(part[q], ab, bs[q]);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) mma_tf32(part[q], ab, bb[q]);
+#pragma unroll
+      for (int q = 0; q < NC; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q0 + q][e] += part[q][e];
     }
   }
+}
+
+// p ? a : b without a branch: both sides are computed, and the one not
+// taken never reaches the result (inf * 0 included).
+__device__ __forceinline__ float select(bool p, float a, float b) {
+  float r;
+  asm("{\n .reg .pred q;\n setp.ne.u32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}\n"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"((unsigned)p));
+  return r;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -366,11 +407,10 @@ __device__ void y_tile(const float* __restrict__ x,
             float v[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int j = j0 + jj + e;
-              v[e] = (j <= i && i < l) ? s[q][half * 2 + e] *
-                                             __expf(dai[ii] - daj[jj + e]) *
-                                             dtj[jj + e]
-                                       : 0.f;
+              const bool ok = j0 + jj + e <= i && i < l;
+              const float xe = select(ok, dai[ii] - daj[jj + e], 0.f);
+              v[e] = select(ok, s[q][half * 2 + e] * __expf(xe) * dtj[jj + e],
+                            0.f);
             }
             *reinterpret_cast<float2*>(At + ii * kAtLd + jj) =
                 make_float2(v[0], v[1]);
@@ -574,15 +614,17 @@ int launch(const float* x, const float* dt, const float* dacs,
 }
 
 // Heads per CTA, from the shapes: the largest G in {4, 2} whose y tile
-// still fits two CTAs an SM, keeps the accumulators to 64 registers
-// (G * PG <= 4) and leaves at least two y tiles per SM; otherwise 1.
+// still fits two CTAs an SM and leaves at least two y tiles per SM;
+// otherwise 1.  Only for p <= 64: G heads keep 16 G accumulators a
+// thread, and at p = 128 two heads would spill past the 128 registers
+// two CTAs an SM allow.
 // Sharing S saves its work G - 1 times over but runs G heads' products
 // in one CTA, which only pays where the grid is large.
 int heads_per_cta(const Dims& d, int pg, int bc, int sms) {
   for (int g = 4; g > 1; g /= 2) {
     const size_t bytes = y_floats(d.ldk, pg, g) * sizeof(float);
     const long tiles = (long)((d.h + g - 1) / g) * d.n_itiles * bc;
-    if (g * pg <= 4 && bytes <= kTwoPerSm && tiles >= 2L * sms) return g;
+    if (pg == 1 && bytes <= kTwoPerSm && tiles >= 2L * sms) return g;
   }
   return 1;
 }
@@ -641,8 +683,6 @@ extern "C" int ssd_intra_chunk_launch(const void* x, const void* dt,
       return launch<1, 4>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
     case 21:
       return launch<1, 2>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
-    case 22:
-      return launch<2, 2>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
     case 11:
       return launch<1, 1>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
     default:

@@ -23,8 +23,9 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 128   # p: one or two 64-column groups
-MAX_STATE = 256      # n: the C and B tiles, 64 rows of n + 4 floats each,
-                     # must fit shared memory beside the x and score tiles
+MAX_STATE = 256      # n: the C and B tiles, 64 rows of n (rounded up to
+                     # 32) + 4 floats each, must fit shared memory beside
+                     # the x and score tiles
 MAX_CHUNKS = 65535   # b * nc: the grid's z dimension
 
 launches = 0
