@@ -102,6 +102,27 @@
 
 namespace {
 
+// Phase clocks, for benchmarks/ssd_phases.py only.  Built with
+// -DSSD_PHASE_CLOCKS, thread 0 of every y-tile CTA adds the SM cycles of
+// each phase of its j loop (0 waiting for C and B, 1 S, 2 waiting for x,
+// 3 the decay, 4 the y products) into ssd_phase_cycles[cta] and counts its
+// j tiles in slot 5; in the library the marks compile to nothing.
+#ifdef SSD_PHASE_CLOCKS
+__device__ long long ssd_phase_cycles[1 << 16][6];
+#define SSD_PHASE_START() long long ssd_clock = clock64()
+#define SSD_PHASE(k)                                                     \
+  if (threadIdx.x == 0) {                                                \
+    const long long now = clock64();                                     \
+    ssd_phase_cycles[blockIdx.x +                                        \
+                     gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)]  \
+                    [k] += now - ssd_clock;                              \
+    ssd_clock = now;                                                     \
+  }
+#else
+#define SSD_PHASE_START()
+#define SSD_PHASE(k)
+#endif
+
 constexpr int kThreads = 256;  // 8 warps: warp w has row group w % 4,
                                // column half w / 4
 constexpr int kTile = 64;      // rows and columns of every tile
@@ -346,6 +367,7 @@ __device__ void y_tile(const float* __restrict__ x,
       for (int e = 0; e < 4; ++e) acc[g][q][e] = 0.f;
 
   int jn = 0;
+  SSD_PHASE_START();
   for (int jt = 0; jt <= it; ++jt) {
     const int j0 = jt * kTile;
     jn = min(kTile, l - j0);
@@ -367,6 +389,7 @@ __device__ void y_tile(const float* __restrict__ x,
     cp_async_commit();
     cp_async_wait<1>();  // C and this B tile have landed
     __syncthreads();
+    SSD_PHASE(0);
 
     // S on this warp's 16 rows x 32 columns; on the diagonal a warp
     // whose columns all lie past its last row skips it (all masked)
@@ -380,6 +403,7 @@ __device__ void y_tile(const float* __restrict__ x,
       warp_mma<4>(s, Cs + rg * 16 * ldk, ldk, 1, Bs + cg * 32 * ldk, 1, ldk,
                   d.kn);
     __syncthreads();  // S has read Bs: the next B tile may land there
+    SSD_PHASE(1);
     if (!diag) {
       const int jn1 = min(kTile, l - j0 - kTile);
       fill_rows(Bs, ldk, Bm + (row0 + j0 + kTile) * n, n,
@@ -388,6 +412,7 @@ __device__ void y_tile(const float* __restrict__ x,
     cp_async_commit();
     cp_async_wait<1>();  // the x tiles have landed
     __syncthreads();
+    SSD_PHASE(2);
 
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -418,6 +443,7 @@ __device__ void y_tile(const float* __restrict__ x,
         }
       }
       __syncthreads();
+      SSD_PHASE(3);
       if (live) {
         // y += att @ x on rows 16 rg .., columns cg * PW / 2 ..
         const int kmax = round_up(diag ? min(jn, rg * 16 + 16) : jn, 8);
@@ -425,6 +451,7 @@ __device__ void y_tile(const float* __restrict__ x,
                      Xs + g * kTile * XLD + cg * (PW / 2), XLD, 1, kmax);
       }
       __syncthreads();  // At (and, after the last head, Xs) consumed
+      SSD_PHASE(4);
     }
   }
 
@@ -443,6 +470,12 @@ __device__ void y_tile(const float* __restrict__ x,
         if (c + 1 < p) yrow[c + 1] = acc[g][q][half * 2 + 1];
       }
   }
+#ifdef SSD_PHASE_CLOCKS
+  if (threadIdx.x == 0)
+    ssd_phase_cycles[blockIdx.x +
+                     gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)][5] =
+        it + 1;
+#endif
   if (!fused) return;
 
   // The states, from the tiles in shared memory (one j tile, jn rows):
@@ -691,6 +724,22 @@ extern "C" int ssd_intra_chunk_launch(const void* x, const void* dt,
 }
 
 // One empty kernel of one warp on the caller's stream.
+#ifdef SSD_PHASE_CLOCKS
+// The phase clocks: zeroed, or copied to host memory `out`
+// (long long[1 << 16][6]).
+extern "C" int ssd_phase_clear() {
+  void* p = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&p, ssd_phase_cycles);
+  return (int)(err != cudaSuccess
+                   ? err
+                   : cudaMemset(p, 0, sizeof(ssd_phase_cycles)));
+}
+extern "C" int ssd_phase_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, ssd_phase_cycles,
+                                   sizeof(ssd_phase_cycles));
+}
+#endif
+
 extern "C" int ssd_empty_launch(void* stream) {
   ssd_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
