@@ -54,7 +54,11 @@ def main() -> int:
     launch = lib.ssd_intra_chunk_launch
     launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    lib.ssd_phase_clear.argtypes = []
+    lib.ssd_phase_clear.restype = ctypes.c_int
     lib.ssd_phase_read.argtypes = [ctypes.c_void_p]
+    lib.ssd_phase_read.restype = ctypes.c_int
     dev = torch.device("cuda")
     for model, bc, l, (h, p, n) in cs.SSD_SHAPES:
         xr, dtr, dA_cs, Br, Cr = cs.ssd_phase_inputs(dev, bc, l, h, p, n,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The SSD intra-chunk kernel alone on one NVIDIA GPU: build, check, time.
 
-    python3 benchmarks/ssd_readings.py [--tree DIR] [--iters N]
+    python3 benchmarks/ssd_readings.py [--tree DIR]
 
 It builds only ``csrc/ssd.cu``, prints ``ptxas``'s registers and spills
 of each instantiation, then, at every shape of ``chip_smoke.py``'s SSD
@@ -34,7 +34,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="checkout whose kernel is timed (default: this)")
-    ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -75,10 +74,8 @@ def main() -> int:
         print(f"{model} b*nc={bc} l={l}: relative L2 from float64, kernel y "
               f"{far[0]:.3e} state {far[1]:.3e}; plain float32 y "
               f"{far[2]:.3e} state {far[3]:.3e}")
-        ms = cs.cuda_ms(lambda: kernel.ssd_intra_chunk(*inputs), args.iters,
-                        flush)
-        warm_ms = cs.cuda_ms(lambda: kernel.ssd_intra_chunk(*inputs),
-                             args.iters)
+        ms = cs.cuda_ms(lambda: kernel.ssd_intra_chunk(*inputs), 50, flush)
+        warm_ms = cs.cuda_ms(lambda: kernel.ssd_intra_chunk(*inputs), 50)
         flops, _, bound_ms, ffma_ms = cs.ssd_bound(l, h, p, n, bc)
         print(f"{model} b*nc={bc} l={l}: {ms:.4f} ms cold, {warm_ms:.4f} ms "
               f"warm; bound {bound_ms:.5f} ms (3xTF32), FFMA bound "

@@ -38,10 +38,11 @@
 // product, near float32's own 2^-24.  The tensor core's own float32
 // accumulation loses more than that over a long sum (it does not round
 // to nearest as an FADD does): accumulating all k steps in it left y
-// 1.0e-6 from a float64 reference at mamba2-780m's 256-token chunk, five
-// times the plain float32 version's 2.1e-7.  So each k step's three
-// products go into a fresh accumulator, added to the running sum with an
-// ordinary float32 add: y then lands 1.8e-7 from float64.
+// several times farther from a float64 reference than the plain float32
+// version.  So each k step's three products go into a fresh accumulator,
+// added to the running sum with an ordinary float32 add: y then lands as
+// near float64 as the plain float32 version does (~2e-7 relative L2,
+// benchmarks/ssd_readings.py).
 //
 // What the design does about it:
 // * The TPU kernel keeps a whole l x l score matrix of one (b, c, h) in
@@ -56,11 +57,11 @@
 //   once per head (the accumulator's fragment is not the A operand's)
 //   and is multiplied by the head's x tile.  On the diagonal tile a warp
 //   skips the S columns and the j steps past its last row.
-// * G is chosen at launch from b * nc, l and h, never by the caller: 1
-//   where a larger G would leave fewer than two y tiles per SM (the main
-//   path's chunk prefills, b * nc = 1), more where the grid is large (the
-//   hybrid model's long prefill, b * nc = 64, takes G = 2), as far as two
-//   CTAs still fit an SM.
+// * G is chosen at launch from b * nc, l, h, p and n, never by the
+//   caller: 1 where G = 2 would leave fewer than two y tiles per SM (the
+//   main path's chunk prefills, b * nc = 1), 2 where the grid is large
+//   (the hybrid model's long prefill, b * nc = 64) and two CTAs of two
+//   heads still fit an SM.
 // * The decay exp(dAcs_i - dAcs_j) is selected on j <= i *before* the
 //   exp: above the diagonal the exponent is positive and can overflow,
 //   and inf * 0 would be NaN.  Both selects are branch-free (selp), so a
@@ -69,8 +70,8 @@
 //   fragments in registers and issues the small.big, big.small and
 //   big.big products of four accumulators in turn, so that dependent
 //   products are four apart.  The split rounds with two integer
-//   instructions: on this card the conversion instruction costs ~4.5
-//   cycles a warp and would outrun the tensor core.
+//   instructions: the compiler expands cvt.rna.tf32 into several, and
+//   the splits, not the tensor core, bounded the first version.
 // * Copies are asynchronous and come in groups that overlap the
 //   products: the next B tile lands while the heads' products run, the
 //   next x tiles while S runs.  Every operand sits in shared memory in
@@ -200,10 +201,10 @@ __device__ __forceinline__ void fill_rows(float* dst, int ld,
 // c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
 
 // a = big + small: big = tf32(a), rounded to nearest with ties away from
-// zero (cvt.rna's rounding, done as two integer instructions: on this
-// card the conversion instruction itself takes ~4.5 cycles a warp), and
-// small = a - big, exact in float32, of which the tensor core reads the
-// TF32 part.  A NaN in a stays NaN in small.
+// zero (cvt.rna's rounding, done as two integer instructions, where the
+// compiler expands cvt.rna.tf32 into several), and small = a - big, exact
+// in float32, of which the tensor core reads the TF32 part.  A NaN in a
+// stays NaN in small.
 __device__ __forceinline__ void split_tf32(float a, uint32_t& big,
                                            uint32_t& small) {
   big = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
@@ -646,20 +647,16 @@ int launch(const float* x, const float* dt, const float* dacs,
   return (int)cudaGetLastError();
 }
 
-// Heads per CTA, from the shapes: the largest G in {4, 2} whose y tile
-// still fits two CTAs an SM and leaves at least two y tiles per SM;
-// otherwise 1.  Only for p <= 64: G heads keep 16 G accumulators a
-// thread, and at p = 128 two heads would spill past the 128 registers
-// two CTAs an SM allow.
-// Sharing S saves its work G - 1 times over but runs G heads' products
-// in one CTA, which only pays where the grid is large.
-int heads_per_cta(const Dims& d, int pg, int bc, int sms) {
-  for (int g = 4; g > 1; g /= 2) {
-    const size_t bytes = y_floats(d.ldk, pg, g) * sizeof(float);
-    const long tiles = (long)((d.h + g - 1) / g) * d.n_itiles * bc;
-    if (pg == 1 && bytes <= kTwoPerSm && tiles >= 2L * sms) return g;
-  }
-  return 1;
+// Heads per CTA (p <= 64), from the shapes: 2 where a y tile of two heads
+// still fits two CTAs an SM and the grid keeps at least two y tiles per
+// SM, otherwise 1.  Sharing S halves its work but runs two heads'
+// products in one CTA, which only pays where the grid is large.  (At
+// p = 128 two heads' accumulators would spill past the 128 registers a
+// thread that two CTAs an SM allow.)
+int heads_per_cta(const Dims& d, int bc, int sms) {
+  const size_t bytes = y_floats(d.ldk, 1, 2) * sizeof(float);
+  const long tiles = (long)((d.h + 1) / 2) * d.n_itiles * bc;
+  return bytes <= kTwoPerSm && tiles >= 2L * sms ? 2 : 1;
 }
 
 __global__ void ssd_empty_kernel() {}
@@ -701,7 +698,7 @@ extern "C" int ssd_intra_chunk_launch(const void* x, const void* dt,
   d.n_ntiles = (n + kTile - 1) / kTile;
   d.vx = p % 4 == 0 && aligned16(x);
   d.vb = n % 4 == 0 && aligned16(B) && aligned16(C);
-  if (d.n_itiles + 4 * d.n_ptiles * d.n_ntiles > 65535) return -1;
+  if (d.n_itiles + 2 * d.n_ptiles * d.n_ntiles > 65535) return -1;
   const float* xp = static_cast<const float*>(x);
   const float* dtp = static_cast<const float*>(dt);
   const float* dap = static_cast<const float*>(dacs);
@@ -710,17 +707,11 @@ extern "C" int ssd_intra_chunk_launch(const void* x, const void* dt,
   float* yp = static_cast<float*>(y);
   float* sp = static_cast<float*>(states);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pg = p <= kTile ? 1 : 2;
-  switch (heads_per_cta(d, pg, batch_chunks, sms) * 10 + pg) {
-    case 41:
-      return launch<1, 4>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
-    case 21:
-      return launch<1, 2>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
-    case 11:
-      return launch<1, 1>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
-    default:
-      return launch<2, 1>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
-  }
+  if (p > kTile)
+    return launch<2, 1>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
+  if (heads_per_cta(d, batch_chunks, sms) == 2)
+    return launch<1, 2>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
+  return launch<1, 1>(xp, dtp, dap, bp, cp, yp, sp, batch_chunks, d, s);
 }
 
 // One empty kernel of one warp on the caller's stream.

@@ -31,6 +31,7 @@ MAX_CHUNKS = 65535   # b * nc: the grid's z dimension
 launches = 0
 launches_by_len: dict = {}
 _fn = None
+_empty = None
 
 
 def _lib():
@@ -104,10 +105,12 @@ def ssd_intra_chunk(xr, dtr, dA_cs, Br, Cr):
 def empty_launch(device=None) -> None:
     """One empty kernel on the current stream of ``device`` (a card),
     launched through the same ctypes path as the SSD kernel."""
-    fn = build.load("ssd").ssd_empty_launch
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(stream)
+    global _empty
+    if _empty is None:
+        fn = build.load("ssd").ssd_empty_launch
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _empty = fn
+    rc = _empty(torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"empty kernel launch failed (code {rc})")

@@ -112,9 +112,9 @@ def ssd_inputs(b, nc, l, h, p, n, seed=0):
     (1, 2, 16, 3, 16, 256),              # n = 256
     (1, 2, 48, 3, 30, 18),               # rows of x, B, C not 16-byte sized
     # grids large enough for heads to share C.B^T (on a 132-SM card):
-    (1, 64, 192, 5, 32, 16),             # 4 heads a CTA, a group of 1
+    (1, 64, 192, 5, 32, 16),             # 2 heads a CTA, a group of 1
     (1, 80, 128, 3, 100, 32),            # large grid, p > 64: 1 head a CTA
-    (1, 300, 32, 6, 64, 16),             # one-tile chunks, 4 heads a CTA
+    (1, 300, 32, 6, 64, 16),             # one-tile chunks, 2 heads a CTA
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, b, nc, l, h, p, n):
     """The reference's tolerance, 1e-4 absolute (float32, sums in another
