@@ -37,16 +37,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    paged kernel launched 36 x the decode steps), mamba2-780m (the SSD
    kernel 48 x the chunk prefills) and zamba2-2.7b (SSD 54 x the chunk
    prefills, paged 9 x the decode steps), the SSD launches counted by
-   chunk length and the kernel's ms per Mamba2 layer over that mix (from
-   phase 4's times); after each, a steady 8-step
+   chunk length and an estimate of the kernel's ms per Mamba2 layer over
+   that mix, priced from phase 4's times; after each, a steady 8-step
    decode window under ``torch.cuda.set_sync_debug_mode("error")`` with
    zero host syncs;
 6. kernels vs plain versions on one state at full width and depth, in
    bf16 (the main path) and float32: for granite-8b one paged serve step;
    for mamba2-780m and zamba2-2.7b one 256-token paged chunk prefill plus
    one serve step; logits (and the recurrent state) within a stated
-   tolerance, in float32 measured from a third run whose SSD core is the
-   plain version in float64;
+   tolerance;
 7. reduced granite-8b, mamba2-780m and zamba2-2.7b in float32: the dense
    and paged engines on the card give the same greedy streams;
 8. the tile runtime at full size (16384^2 float32, 4 PEs x 4 tiles),
@@ -177,18 +176,22 @@ F32_STEP_TOL = dict(rel_l2=1e-4, argmax_agree=1.0)
 # core is float32 in both, but its output is cast to bf16, and an output
 # near a rounding boundary lands on the other neighbour; 48-54 layers of
 # random weights amplify such one-ulp differences, as the attention's do
-# in granite-8b.  float32: the SSD cores differ in summation order only
+# in granite-8b.  float32: the SSD cores differ in the order of summation
 # (~2e-7 relative per output, as far as the plain version lies from
-# float64), but 48-54 random layers amplify float32 rounding in the core
-# to ~1e-4 at the logits: the plain version itself lands 2.2e-4
-# (mamba2-780m) and 1.5e-4 (zamba2-2.7b) from a run whose SSD core is
-# float64 (this phase prints both).  Kernel and plain can then agree to
-# 1e-4 only by adding in the same order, as the FFMA kernel did bit for
-# bit.  So each float32 run is held to the float64-core run: the kernel
-# at most 1.5 times as far from it as the plain version, logits and
-# state, with the same greedy token in all three.
+# float64), and 48-54 random float32 layers amplify that to ~1e-4 at the
+# logits, more or less by chance: the plain version lands 1.5e-4
+# (zamba2-2.7b) to 2.2e-4 (mamba2-780m) from a run whose SSD core is
+# exact (float64), so a kernel-vs-plain limit of 1e-4 would refuse an
+# exact core.  Each float32 check runs three token sequences, and each
+# sequence four times: kernels, plain, an exact core, and a control core
+# in single-pass TF32.  Over the three (root mean square): kernel vs
+# plain within 3e-4 (the exact core reads up to 2.2e-4); the kernel at
+# most 1.5 times as far from the exact-core run as the plain version;
+# the control more than 1.5 times as far (the check refuses it); the
+# same greedy token in the kernel, plain and exact runs.
 BF16_PREFILL_TOL = dict(rel_l2=0.1, state_rel_l2=0.1, argmax_agree=0.0)
-F32_PREFILL_TOL = dict(f64_ratio=1.5, argmax_agree=1.0)
+F32_PREFILL_TOL = dict(rel_l2=3e-4, state_rel_l2=3e-4, f64_ratio=1.5,
+                       argmax_agree=1.0, seeds=(3, 4, 5))
 # The main paths: (arch, attention layers per decode step, Mamba2 layers
 # per chunk prefill).
 PATHS = (("granite-8b", 36, 0), ("mamba2-780m", 0, 48),
@@ -537,14 +540,15 @@ def ssd_build_phase():
     return found
 
 
-def ssd_per_layer_ms(rows, arch, by_len, mamba_layers):
-    """The SSD kernel's device ms per Mamba2 layer over the main path's
-    chunk prefills: each length's count per layer times the phase-4 time
-    of ``arch`` at that length (b * nc = 1)."""
+def ssd_per_layer_est_ms(rows, arch, by_len, mamba_layers):
+    """An estimate of the SSD kernel's device ms per Mamba2 layer over the
+    main path's chunk prefills, priced from phase 4: each length's count
+    per layer times the phase-4 time of ``arch`` at that length (one call,
+    L2 flushed, b * nc = 1).  Not measured inside the engine."""
     ms = {r["l"]: r["ms"] for r in rows if r["model"] == arch and r["bc"] == 1}
     per_layer = sum(c // mamba_layers * ms[k] for k, c in by_len.items())
-    log(f"  {arch}: SSD kernel {per_layer:.4f} ms per Mamba2 layer over the "
-        f"path's chunk prefills (phase-4 times at each length)")
+    log(f"  {arch}: SSD kernel ~{per_layer:.4f} ms per Mamba2 layer over the "
+        f"path's chunk prefills (an estimate: phase-4 times at each length)")
     return per_layer
 
 
@@ -972,84 +976,112 @@ def step_vs_plain(cfg, params, shape, pool_blocks, saved, tol):
 
 
 @contextlib.contextmanager
-def float64_ssd_core():
+def ssd_core(kind):
     """Every SSD core call computes the plain version in float64, its
-    outputs rounded once to float32: the most exact float32 core a run can
-    have, against which both float32 runs are measured."""
+    outputs rounded once to float32 (``"f64"``: the most exact core a
+    float32 run can have), or in single-pass TF32 (``"tf32"``: a control
+    core ~1e-3 off per output, which the float32 check must refuse)."""
+    import torch
     from repro_torch.kernels.ssd import ops, ssd_intra_chunk_ref
-    plain = ops.ssd_intra_chunk
+    saved = ops.ssd_intra_chunk
 
-    def core(xr, dtr, dA_cs, Br, Cr, *, impl="kernel"):
+    def f64(xr, dtr, dA_cs, Br, Cr, *, impl="kernel"):
         y, st = ssd_intra_chunk_ref(
             *[t.double() for t in (xr, dtr, dA_cs, Br, Cr)])
         return y.float(), st.float()
-    ops.ssd_intra_chunk = core
+
+    def tf32(xr, dtr, dA_cs, Br, Cr, *, impl="kernel"):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return ssd_intra_chunk_ref(xr, dtr, dA_cs, Br, Cr)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    ops.ssd_intra_chunk = {"f64": f64, "tf32": tf32}[kind]
     try:
         yield
     finally:
-        ops.ssd_intra_chunk = plain
+        ops.ssd_intra_chunk = saved
 
 
 def prefill_step_vs_plain(cfg, params, dev, tol):
     """A 256-token paged chunk prefill into lane 0 plus one serve step,
-    with the kernels and with ``impl="ref"`` (and, with ``f64_ratio`` in
-    ``tol``, with the plain SSD core in float64), from one fresh state
-    each: lane 0's logits and the SSD state of every layer."""
+    with the kernels and with ``impl="ref"`` (with ``f64_ratio`` in
+    ``tol``, also with the exact and the control SSD cores of
+    ``ssd_core``), from one fresh state each, for each token sequence of
+    ``tol["seeds"]`` (default one): lane 0's logits and the SSD state of
+    every layer, their relative L2 distances taken as the root mean square
+    over the sequences."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import model_zoo as zoo
     shape, bs, nb = ShapeConfig("serve", 1024, 8, "decode"), 16, 512
-    g = torch.Generator(dev).manual_seed(3)
-    toks = torch.randint(0, cfg.vocab_size, (1, 257), generator=g,
-                         device=dev, dtype=torch.int32)
     lane = 1 if cfg.family == "ssm" else 2      # lane axis of "ssm"
-    runs = [("kernel", "kernel"), ("ref", "ref")]
+    runs = [("kernel", "kernel"), ("plain", "ref")]
     if "f64_ratio" in tol:
-        runs.append(("f64", "ref"))
-    outs = {}
-    for name, impl in runs:
-        core = (float64_ssd_core() if name == "f64"
-                else contextlib.nullcontext())
-        with core:
-            state = zoo.init_paged_decode_state(cfg, shape, bs, nb, dev)
-            state.block_tables[0, :17] = torch.arange(17, dtype=torch.int32,
-                                                      device=dev)
-            prefill = zoo.make_paged_bulk_prefill(cfg, shape, 256, bs, nb,
-                                                  first_chunk=True,
-                                                  impl=impl)
-            state = prefill(params, state, toks[:, :256], 0, 0, 256)
-            step = zoo.make_paged_serve_step(cfg, shape, bs, nb, impl=impl)
-            tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
-            tok[0] = toks[0, 256]
-            active = torch.zeros(8, dtype=torch.int32, device=dev)
-            active[0] = 1
-            logits, state = step(params, state, tok, active)
-            outs[name] = (logits[0, -1, :cfg.vocab_size].float(),
-                          state.cache["ssm"].select(lane, 0).clone())
-            del state
-    torch.cuda.synchronize()
-    (a, sa), (b, sb) = outs["kernel"], outs["ref"]
-    assert torch.isfinite(a).all() and torch.isfinite(sa).all()
-    rel, srel = rel_l2(a, b), rel_l2(sa, sb)
-    agree = float(a.argmax() == b.argmax())
-    log(f"[prefill+step {cfg.name} {cfg.compute_dtype}] kernels vs plain at "
-        f"full depth: logits rel_l2={rel:.3e} max_abs={max_err(a, b):.3e}, "
-        f"SSD state rel_l2={srel:.3e}, argmax agreement {agree:.0f} "
-        f"(tol {tol})")
+        runs += [("f64", "ref"), ("tf32", "ref")]
+    seeds = tol.get("seeds", (3,))
+    sq = {}          # (a, b) -> sums of squared distances, logits and state
+    agree = 0.0
+    for seed in seeds:
+        g = torch.Generator(dev).manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab_size, (1, 257), generator=g,
+                             device=dev, dtype=torch.int32)
+        outs = {}
+        for name, impl in runs:
+            core = (ssd_core(name) if name in ("f64", "tf32")
+                    else contextlib.nullcontext())
+            with core:
+                state = zoo.init_paged_decode_state(cfg, shape, bs, nb, dev)
+                state.block_tables[0, :17] = torch.arange(
+                    17, dtype=torch.int32, device=dev)
+                prefill = zoo.make_paged_bulk_prefill(
+                    cfg, shape, 256, bs, nb, first_chunk=True, impl=impl)
+                state = prefill(params, state, toks[:, :256], 0, 0, 256)
+                step = zoo.make_paged_serve_step(cfg, shape, bs, nb,
+                                                 impl=impl)
+                tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+                tok[0] = toks[0, 256]
+                active = torch.zeros(8, dtype=torch.int32, device=dev)
+                active[0] = 1
+                logits, state = step(params, state, tok, active)
+                outs[name] = (logits[0, -1, :cfg.vocab_size].float(),
+                              state.cache["ssm"].select(lane, 0).clone())
+                del state
+        torch.cuda.synchronize()
+        a, sa = outs["kernel"]
+        assert torch.isfinite(a).all() and torch.isfinite(sa).all()
+        pairs = [("kernel", "plain")]
+        if "f64" in outs:
+            pairs += [(k, "f64") for k in ("kernel", "plain", "tf32")]
+        line = []
+        for x, y in pairs:
+            d = (rel_l2(outs[x][0], outs[y][0]),
+                 rel_l2(outs[x][1], outs[y][1]))
+            old = sq.get((x, y), (0.0, 0.0))
+            sq[(x, y)] = (old[0] + d[0] ** 2, old[1] + d[1] ** 2)
+            line.append(f"{x} vs {y} logits {d[0]:.3e} state {d[1]:.3e}")
+        tops = {int(o.argmax()) for k, (o, _) in outs.items()
+                if k != "tf32"}
+        agree += float(len(tops) == 1) / len(seeds)
+        log(f"[prefill+step {cfg.name} {cfg.compute_dtype} tokens "
+            f"{seed}] at full depth: {'; '.join(line)}; greedy tokens "
+            f"{'agree' if len(tops) == 1 else 'differ'}")
+    rms = {k: ((v[0] / len(seeds)) ** 0.5, (v[1] / len(seeds)) ** 0.5)
+           for k, v in sq.items()}
+    rel, srel = rms[("kernel", "plain")]
+    log(f"[prefill+step {cfg.name} {cfg.compute_dtype}] kernels vs plain "
+        f"over {len(seeds)} token sequence(s): logits rel_l2={rel:.3e}, SSD "
+        f"state rel_l2={srel:.3e}, argmax agreement {agree:.2f} (tol {tol})")
+    assert rel <= tol["rel_l2"] and srel <= tol["state_rel_l2"]
+    assert agree >= tol["argmax_agree"]
     if "f64_ratio" in tol:
-        c, sc = outs["f64"]
-        far = {k: (rel_l2(o, c), rel_l2(so, sc))
-               for k, (o, so) in (("kernel", (a, sa)), ("plain", (b, sb)))}
-        agree = float(a.argmax() == b.argmax() == c.argmax())
-        log(f"  from the float64-core run: kernel logits {far['kernel'][0]:.3e}"
-            f" state {far['kernel'][1]:.3e}; plain logits "
-            f"{far['plain'][0]:.3e} state {far['plain'][1]:.3e}; argmax "
-            f"agreement of all three {agree:.0f}")
+        far = {k: rms[(k, "f64")] for k in ("kernel", "plain", "tf32")}
+        log("  from the exact-core run: " + "; ".join(
+            f"{k} logits {v[0]:.3e} state {v[1]:.3e}"
+            for k, v in far.items()))
         for i in (0, 1):
             assert far["kernel"][i] <= tol["f64_ratio"] * far["plain"][i], far
-    else:
-        assert rel <= tol["rel_l2"] and srel <= tol["state_rel_l2"]
-    assert agree >= tol["argmax_agree"]
+            assert far["tf32"][i] > tol["f64_ratio"] * far["plain"][i], far
 
 
 def flash_bound(S, H, KV, D, elem_bytes, peak):
@@ -1501,14 +1533,14 @@ def main() -> int:
 
     # 5-6. the main paths, then kernels vs plain at full width and depth
     by_path = {}
-    ssd["launches_by_len"], ssd["per_layer_ms"] = {}, {}
+    ssd["launches_by_len"], ssd["per_layer_est_ms"] = {}, {}
     for arch, attn_layers, mamba_layers in PATHS:
         engine, params, launches, steady, by_len = serve_path(
             arch, attn_layers, mamba_layers, dev)
         by_path[arch] = launches
         if mamba_layers:
             ssd["launches_by_len"][arch] = by_len
-            ssd["per_layer_ms"][arch] = ssd_per_layer_ms(
+            ssd["per_layer_est_ms"][arch] = ssd_per_layer_est_ms(
                 ssd["at_shapes"], arch, by_len, mamba_layers)
         cfg = engine.cfg
         if cfg.family == "dense":

@@ -65,7 +65,10 @@
 // * The decay exp(dAcs_i - dAcs_j) is selected on j <= i *before* the
 //   exp: above the diagonal the exponent is positive and can overflow,
 //   and inf * 0 would be NaN.  Both selects are branch-free (selp), so a
-//   thread's sixteen decays run side by side.
+//   thread's sixteen decays run side by side.  Every exp is expf, as
+//   torch.exp computes it: the fast __expf loses ~1.2 ulp per unit of
+//   |x|, and the models' chunks reach steps of 20 and spans of several
+//   hundred in dAcs.
 // * The products run 3xTF32 throughout: per k step a warp splits its
 //   fragments in registers and issues the small.big, big.small and
 //   big.big products of four accumulators in turn, so that dependent
@@ -82,12 +85,11 @@
 //   layouts they need, and row strides are padded so that a warp's
 //   fragment load hits 32 distinct banks.  Tiles are filled only as far
 //   as l reaches, rounded up to 16 rows (at l = 16, 16 rows, not 64).
-// * A chunk of more than 64 positions has its state products (p x n,
-//   reduced over l) in 64 x 64 tiles, extra CTAs of the same grid
-//   (blockIdx.y past the i tiles), issued after the y tiles, heaviest
-//   first.  A chunk of at most 64 positions is one tile: its y tile's CTA
-//   then writes its heads' states from the x and B tiles it holds, so x
-//   and B are read once.
+// * The state products (p x n, reduced over l) run in 64 x 64 tiles,
+//   extra CTAs of the same grid (blockIdx.y past the i tiles), issued
+//   after the y tiles.  At l <= 64 they run beside the chunk's one y
+//   tile: writing the states from the y tile's CTA, which holds x and B
+//   already, was slower at l = 16 and 64 (benchmarks/ssd_readings.py).
 // * Warps whose 16 rows all lie at or past l skip the products (at
 //   l = 16, six of eight).
 //
@@ -102,27 +104,6 @@
 #include <stdint.h>
 
 namespace {
-
-// Phase clocks, for benchmarks/ssd_phases.py only.  Built with
-// -DSSD_PHASE_CLOCKS, thread 0 of every y-tile CTA adds the SM cycles of
-// each phase of its j loop (0 waiting for C and B, 1 S, 2 waiting for x,
-// 3 the decay, 4 the y products) into ssd_phase_cycles[cta] and counts its
-// j tiles in slot 5; in the library the marks compile to nothing.
-#ifdef SSD_PHASE_CLOCKS
-__device__ long long ssd_phase_cycles[1 << 16][6];
-#define SSD_PHASE_START() long long ssd_clock = clock64()
-#define SSD_PHASE(k)                                                     \
-  if (threadIdx.x == 0) {                                                \
-    const long long now = clock64();                                     \
-    ssd_phase_cycles[blockIdx.x +                                        \
-                     gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)]  \
-                    [k] += now - ssd_clock;                              \
-    ssd_clock = now;                                                     \
-  }
-#else
-#define SSD_PHASE_START()
-#define SSD_PHASE(k)
-#endif
 
 constexpr int kThreads = 256;  // 8 warps: warp w has row group w % 4,
                                // column half w / 4
@@ -306,24 +287,21 @@ __device__ __forceinline__ void cp_async_wait() {
 __host__ __device__ inline int x_ld(int pg) { return pg * kTile + 8; }
 __host__ __device__ inline size_t y_floats(int ldk, int pg, int g) {
   return (size_t)2 * kTile * ldk + (size_t)g * kTile * x_ld(pg) +
-         (size_t)kTile * kAtLd + (size_t)(3 * g + 1) * kTile;
+         (size_t)kTile * kAtLd + (size_t)3 * g * kTile;
 }
 __host__ __device__ inline size_t state_floats() {
   return (size_t)2 * kTile * x_ld(1) + 2 * kTile;
 }
 
 // y rows i0 .. i0+63 of heads h0 .. h0+G-1 of chunk bc (heads at or past
-// h are skipped).  PG = 64-column groups of p.  With `fused` (l <= 64:
-// the chunk is one tile) the same CTA then writes those heads' states
-// from the tiles it holds.
+// h are skipped).  PG = 64-column groups of p.
 template <int PG, int G>
 __device__ void y_tile(const float* __restrict__ x,
                        const float* __restrict__ dt,
                        const float* __restrict__ dacs,
                        const float* __restrict__ Bm,
                        const float* __restrict__ Cm, float* __restrict__ y,
-                       float* __restrict__ st, int bc, int h0, int it,
-                       bool fused, const Dims& d, float* smem) {
+                       int bc, int h0, int it, const Dims& d, float* smem) {
   constexpr int PW = PG * kTile;   // columns of an x tile
   constexpr int XLD = PW + 8;      // its row stride
   constexpr int NQ = PW / 16;      // n8 tiles of a warp's y columns
@@ -336,7 +314,6 @@ __device__ void y_tile(const float* __restrict__ x,
   float* da_i = At + kTile * kAtLd;  // [G][kTile]
   float* da_j = da_i + G * kTile;  // [G][kTile]
   float* dt_j = da_j + G * kTile;  // [G][kTile]
-  float* w_j = dt_j + G * kTile;   // [kTile]  the state's decay weights
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -367,11 +344,9 @@ __device__ void y_tile(const float* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[g][q][e] = 0.f;
 
-  int jn = 0;
-  SSD_PHASE_START();
   for (int jt = 0; jt <= it; ++jt) {
     const int j0 = jt * kTile;
-    jn = min(kTile, l - j0);
+    const int jn = min(kTile, l - j0);
     const int rj = min(kTile, round_up(jn, 16));
     const bool diag = jt == it;
     // x tiles (and dt, dAcs) of this j tile: free since the last head's
@@ -390,7 +365,6 @@ __device__ void y_tile(const float* __restrict__ x,
     cp_async_commit();
     cp_async_wait<1>();  // C and this B tile have landed
     __syncthreads();
-    SSD_PHASE(0);
 
     // S on this warp's 16 rows x 32 columns; on the diagonal a warp
     // whose columns all lie past its last row skips it (all masked)
@@ -404,7 +378,6 @@ __device__ void y_tile(const float* __restrict__ x,
       warp_mma<4>(s, Cs + rg * 16 * ldk, ldk, 1, Bs + cg * 32 * ldk, 1, ldk,
                   d.kn);
     __syncthreads();  // S has read Bs: the next B tile may land there
-    SSD_PHASE(1);
     if (!diag) {
       const int jn1 = min(kTile, l - j0 - kTile);
       fill_rows(Bs, ldk, Bm + (row0 + j0 + kTile) * n, n,
@@ -413,7 +386,6 @@ __device__ void y_tile(const float* __restrict__ x,
     cp_async_commit();
     cp_async_wait<1>();  // the x tiles have landed
     __syncthreads();
-    SSD_PHASE(2);
 
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -435,7 +407,7 @@ __device__ void y_tile(const float* __restrict__ x,
             for (int e = 0; e < 2; ++e) {
               const bool ok = j0 + jj + e <= i && i < l;
               const float xe = select(ok, dai[ii] - daj[jj + e], 0.f);
-              v[e] = select(ok, s[q][half * 2 + e] * __expf(xe) * dtj[jj + e],
+              v[e] = select(ok, s[q][half * 2 + e] * expf(xe) * dtj[jj + e],
                             0.f);
             }
             *reinterpret_cast<float2*>(At + ii * kAtLd + jj) =
@@ -444,7 +416,6 @@ __device__ void y_tile(const float* __restrict__ x,
         }
       }
       __syncthreads();
-      SSD_PHASE(3);
       if (live) {
         // y += att @ x on rows 16 rg .., columns cg * PW / 2 ..
         const int kmax = round_up(diag ? min(jn, rg * 16 + 16) : jn, 8);
@@ -452,7 +423,6 @@ __device__ void y_tile(const float* __restrict__ x,
                      Xs + g * kTile * XLD + cg * (PW / 2), XLD, 1, kmax);
       }
       __syncthreads();  // At (and, after the last head, Xs) consumed
-      SSD_PHASE(4);
     }
   }
 
@@ -470,55 +440,6 @@ __device__ void y_tile(const float* __restrict__ x,
         if (c < p) yrow[c] = acc[g][q][half * 2];
         if (c + 1 < p) yrow[c + 1] = acc[g][q][half * 2 + 1];
       }
-  }
-#ifdef SSD_PHASE_CLOCKS
-  if (threadIdx.x == 0)
-    ssd_phase_cycles[blockIdx.x +
-                     gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)][5] =
-        it + 1;
-#endif
-  if (!fused) return;
-
-  // The states, from the tiles in shared memory (one j tile, jn rows):
-  // state[p][n] = sum_j (x[j][p] * dt_j * w_j) B[j][n].  A warp takes 16
-  // rows of p and, in turn, 32-column groups of n.
-  constexpr int RG = PW / 16;          // row groups of p
-  constexpr int WPR = 8 / RG;          // warps per row group
-  const int srg = warp % RG, scg = warp / RG;
-  const int kmax = round_up(jn, 8);
-  for (int g = 0; g < nh; ++g) {
-    const int hh = h0 + g;
-    if (tid < kTile) {
-      const float da_last = dacs[(row0 + l - 1) * h + hh];
-      w_j[tid] = tid < jn ? __expf(da_last - da_j[g * kTile + tid]) : 0.f;
-    }
-    __syncthreads();
-    if (srg * 16 < p) {
-      const float* Xg = Xs + g * kTile * XLD;
-      for (int c0 = scg * 32; c0 < d.kn; c0 += 32 * WPR) {
-        float sacc[4][4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sacc[q][e] = 0.f;
-        // columns past kn (up to the next 32) hold stale floats and are
-        // not stored
-        warp_mma<4, true>(sacc, Xg + srg * 16, 1, XLD, Bs + c0, ldk, 1, kmax,
-                          dt_j + g * kTile, w_j);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int pp = srg * 16 + g8 + half * 8;
-            if (pp >= p) continue;
-            float* srow = st + (((size_t)bc * h + hh) * p + pp) * n;
-            const int nn = c0 + q * 8 + 2 * t4;
-            if (nn < n) srow[nn] = sacc[q][half * 2];
-            if (nn + 1 < n) srow[nn + 1] = sacc[q][half * 2 + 1];
-          }
-      }
-    }
-    __syncthreads();  // w_j consumed
   }
 }
 
@@ -565,7 +486,7 @@ __device__ void state_tile(const float* __restrict__ x,
       if (j < l) {
         const size_t pos = (row0 + j) * h + hh;
         dtv = dt[pos];
-        w = __expf(da_last - dacs[pos]);
+        w = expf(da_last - dacs[pos]);
       }
       dt_s[tid] = dtv;
       w_s[tid] = w;
@@ -592,9 +513,8 @@ __device__ void state_tile(const float* __restrict__ x,
 }
 
 // grid (head groups, n_itiles + state tiles, b * nc).  blockIdx.y <
-// n_itiles is a y tile of G heads (heaviest first); past them, when the
-// chunk has more than one tile, come the state tiles of each head of the
-// group.  A one-tile chunk has no state tiles: its y tile writes them.
+// n_itiles is a y tile of G heads (heaviest first); past them come the
+// state tiles of each head of the group.
 template <int PG, int G>
 __global__ void __launch_bounds__(kThreads, 2)
     ssd_intra_chunk_kernel(const float* __restrict__ x,
@@ -609,8 +529,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int bc = blockIdx.z;
   const int t = blockIdx.y;
   if (t < d.n_itiles) {
-    y_tile<PG, G>(x, dt, dacs, Bm, Cm, y, st, bc, h0, d.n_itiles - 1 - t,
-                  d.n_itiles == 1, d, smem);
+    y_tile<PG, G>(x, dt, dacs, Bm, Cm, y, bc, h0, d.n_itiles - 1 - t, d,
+                  smem);
     return;
   }
   const int per_head = d.n_ptiles * d.n_ntiles;
@@ -640,8 +560,7 @@ int launch(const float* x, const float* dt, const float* dacs,
     configured = bytes;
   }
   const int groups = (d.h + G - 1) / G;
-  const int states = d.n_itiles > 1 ? G * d.n_ptiles * d.n_ntiles : 0;
-  const dim3 grid(groups, d.n_itiles + states, bc);
+  const dim3 grid(groups, d.n_itiles + G * d.n_ptiles * d.n_ntiles, bc);
   ssd_intra_chunk_kernel<PG, G><<<grid, dim3(kThreads), bytes, stream>>>(
       x, dt, dacs, Bm, Cm, y, st, d);
   return (int)cudaGetLastError();
@@ -715,21 +634,6 @@ extern "C" int ssd_intra_chunk_launch(const void* x, const void* dt,
 }
 
 // One empty kernel of one warp on the caller's stream.
-#ifdef SSD_PHASE_CLOCKS
-// The phase clocks: zeroed, or copied to host memory `out`
-// (long long[1 << 16][6]).
-extern "C" int ssd_phase_clear() {
-  void* p = nullptr;
-  const cudaError_t err = cudaGetSymbolAddress(&p, ssd_phase_cycles);
-  return (int)(err != cudaSuccess
-                   ? err
-                   : cudaMemset(p, 0, sizeof(ssd_phase_cycles)));
-}
-extern "C" int ssd_phase_read(void* out) {
-  return (int)cudaMemcpyFromSymbol(out, ssd_phase_cycles,
-                                   sizeof(ssd_phase_cycles));
-}
-#endif
 
 extern "C" int ssd_empty_launch(void* stream) {
   ssd_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
