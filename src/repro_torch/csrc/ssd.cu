@@ -67,8 +67,8 @@
 //   and inf * 0 would be NaN.  Both selects are branch-free (selp), so a
 //   thread's sixteen decays run side by side.  Every exp is expf, as
 //   torch.exp computes it: the fast __expf loses ~1.2 ulp per unit of
-//   |x|, and the models' chunks reach steps of 20 and spans of several
-//   hundred in dAcs.
+//   |x|, and dAcs_i - dAcs_j reaches hundreds in a 256-position chunk
+//   (steps dt * A with A up to 16).
 // * The products run 3xTF32 throughout: per k step a warp splits its
 //   fragments in registers and issues the small.big, big.small and
 //   big.big products of four accumulators in turn, so that dependent
