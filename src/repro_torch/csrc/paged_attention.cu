@@ -66,7 +66,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGroup = 8;
-constexpr int kMaxSplits = 16;
+// Positions a CTA covers: a multiple of every tile (64 bf16, 32 float32).
+// Chosen from readings of this kernel at 64 / 128 / 256 on an H100 (ms
+// cold, benchmarks/paged_readings.py; skewed, uniform and one-lane mixes):
+// granite-8b 0.0281 / 0.0270 / 0.0306, 0.0290 / 0.0273 / 0.0279, 0.0189 /
+// 0.0194 / 0.0254; zamba2-2.7b (D = 80) 0.0430 / 0.0386 / 0.0382, 0.0475 /
+// 0.0444 / 0.0389, 0.0221 / 0.0203 / 0.0225.
+constexpr int kChunk = 128;
 
 // 16-byte chunks of a row: N elements of T, converted to float.
 template <typename T>
@@ -154,7 +160,8 @@ __global__ void __launch_bounds__(kThreads)
                            const int32_t* __restrict__ block_tables,
                            const int32_t* __restrict__ kv_len,
                            T* __restrict__ out,
-                           float* __restrict__ partial, int num_kv_heads,
+                           float* __restrict__ partial,
+                           int* __restrict__ counters, int num_kv_heads,
                            int group, int num_blocks, int block_size,
                            int max_blocks, float scale) {
   using L = Layout<T, D>;
@@ -166,6 +173,20 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kHeadsPer = (kMaxGroup + kSub - 1) / kSub;
   constexpr int kGStride = kThreads / D;         // p.v pass: head stride
   constexpr int kOutPer = (kMaxGroup + kGStride - 1) / kGStride;
+  static_assert(kChunk % TP == 0, "a chunk is whole tiles");
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int chunk = blockIdx.z;
+  int klen = kv_len[b];
+  klen = min(max(klen, 0), max_blocks * block_size);
+  // the lane's chunks that hold a position (one for an empty lane, which
+  // writes zeros); the others exit before loading anything
+  const int nch = max(1, (klen + kChunk - 1) / kChunk);
+  if (chunk >= nch) return;
+  const int pos0 = chunk * kChunk;
+  const int pos_end = min(pos0 + kChunk, klen);
+  const int ntiles = (max(pos_end - pos0, 0) + TP - 1) / TP;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* kv_s = reinterpret_cast<T*>(smem_raw);
@@ -175,10 +196,6 @@ __global__ void __launch_bounds__(kThreads)
   float* l_s = m_s + kMaxGroup;       // [G] running sum
   float* c_s = l_s + kMaxGroup;       // [G] this tile's rescale factor
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
   const int tid = threadIdx.x;
   const int num_heads = num_kv_heads * group;
   const T* q_row = q + ((size_t)b * num_heads + (size_t)h * group) * D;
@@ -188,24 +205,22 @@ __global__ void __launch_bounds__(kThreads)
     l_s[tid] = 0.f;
   }
 
-  int klen = kv_len[b];
-  klen = min(max(klen, 0), max_blocks * block_size);
-  const int ntiles = (klen + TP - 1) / TP;
   const int32_t* bt = block_tables + (size_t)b * max_blocks;
   const size_t pos_stride = (size_t)num_kv_heads * D;
 
-  // Copy tile t's K and V rows into stage `stage`; positions past klen
-  // are zero-filled (their weight is 0, and 0 * garbage could be NaN).
+  // Copy tile t's K and V rows into stage `stage`; positions past the
+  // chunk's end are zero-filled (their weight is 0, and 0 * garbage could
+  // be NaN).
   auto load_tile = [&](int t, int stage) {
     T* ks = kv_s + (size_t)stage * 2 * TP * ROW;
     T* vs = ks + TP * ROW;
     for (int c = tid; c < TP * CPR; c += kThreads) {
       const int p = c / CPR;
       const int part = c % CPR;
-      const int pos = t * TP + p;
+      const int pos = pos0 + t * TP + p;
       T* kd = ks + p * ROW + part * CN;
       T* vd = vs + p * ROW + part * CN;
-      if (pos < klen) {
+      if (pos < pos_end) {
         int phys = bt[pos / block_size];
         phys = min(max(phys, 0), num_blocks - 1);
         const size_t off =
@@ -231,13 +246,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kOutPer; ++i) acc[i] = 0.f;
 
-  // split z of the lane takes tiles z, z + splits, ...
-  if (split < ntiles) load_tile(split, 0);
+  if (ntiles > 0) load_tile(0, 0);
   __syncthreads();
-  for (int t = split, it = 0; t < ntiles; t += splits, ++it) {
-    const int stage = it & 1;
-    if (t + splits < ntiles) {
-      load_tile(t + splits, stage ^ 1);
+  for (int t = 0; t < ntiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < ntiles) {
+      load_tile(t + 1, stage ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -272,7 +286,7 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
       }
-      const bool valid = t * TP + p < klen;
+      const bool valid = pos0 + t * TP + p < pos_end;
 #pragma unroll
       for (int i = 0; i < kHeadsPer; ++i) {
         const int g = sub + i * kSub;
@@ -333,8 +347,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // this stage and p_s are rewritten after this
   }
 
-  if (splits == 1) {
-    T* out_row = out + ((size_t)b * num_heads + (size_t)h * group) * D;
+  T* out_row = out + ((size_t)b * num_heads + (size_t)h * group) * D;
+  if (nch == 1) {
 #pragma unroll
     for (int i = 0; i < kOutPer; ++i) {
       const int g = g0 + i * kGStride;
@@ -343,82 +357,59 @@ __global__ void __launch_bounds__(kThreads)
     }
     return;
   }
-  // this split's softmax state, merged by combine_kernel: acc
-  // [B][KV][splits][G][D], then (m, l) [B][KV][splits][G][2]
-  const size_t unit = ((size_t)b * num_kv_heads + h) * splits + split;
-  float* acc_out = partial + unit * group * D;
+  // This chunk's softmax state: acc [B][KV][chunks][G][D], then (m, l)
+  // [B][KV][chunks][G][2].  The last CTA of the (lane, kv head) to finish
+  // merges them all and writes the output.
+  const int chunks = gridDim.z;
+  const size_t unit0 = ((size_t)b * num_kv_heads + h) * chunks;
+  float* acc_ws = partial + unit0 * group * D;
+  float* ml_ws = partial + (size_t)gridDim.y * num_kv_heads * chunks *
+                               group * D + unit0 * group * 2;
 #pragma unroll
   for (int i = 0; i < kOutPer; ++i) {
     const int g = g0 + i * kGStride;
-    if (g < group) acc_out[g * D + d] = acc[i];
+    if (g < group) acc_ws[(size_t)chunk * group * D + g * D + d] = acc[i];
   }
-  float* ml_out = partial + (size_t)gridDim.y * num_kv_heads * splits *
-                                group * D + unit * group * 2;
   if (tid < group) {
-    ml_out[2 * tid] = m_s[tid];
-    ml_out[2 * tid + 1] = l_s[tid];
+    ml_ws[(chunk * group + tid) * 2] = m_s[tid];
+    ml_ws[(chunk * group + tid) * 2 + 1] = l_s[tid];
   }
-}
-
-// Merge the splits of each (kv head, lane): out = sum_s acc_s e^(m_s - M)
-// / max(sum_s l_s e^(m_s - M), 1e-30), M = max_s m_s.  A split that got
-// no tile has m = -inf and weighs 0; a lane with no position gives 0.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    combine_kernel(const float* __restrict__ partial, T* __restrict__ out,
-                   int batch, int num_kv_heads, int group, int head_dim,
-                   int splits) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t unit0 = ((size_t)b * num_kv_heads + h) * splits;
-  const float* acc = partial + unit0 * group * head_dim;
-  const float* ml = partial +
-                    (size_t)batch * num_kv_heads * splits * group * head_dim +
-                    unit0 * group * 2;
-  T* out_row =
-      out + ((size_t)b * num_kv_heads * group + (size_t)h * group) * head_dim;
-  for (int o = threadIdx.x; o < group * head_dim; o += blockDim.x) {
-    const int g = o / head_dim;
+  __threadfence();  // this CTA's state is visible before it is counted
+  __syncthreads();
+  __shared__ int last;
+  int* counter = counters + (size_t)b * num_kv_heads + h;
+  if (tid == 0) last = atomicAdd(counter, 1) == nch - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // out = sum_c acc_c e^(m_c - M) / max(sum_c l_c e^(m_c - M), 1e-30),
+  // M = max_c m_c; every chunk below nch holds a position, so m_c is
+  // finite.  Read through L2: other CTAs wrote these.
+  for (int o = tid; o < group * D; o += kThreads) {
+    const int g = o / D;
     float mx = -INFINITY;
-    for (int z = 0; z < splits; ++z) mx = fmaxf(mx, ml[(z * group + g) * 2]);
+    for (int z = 0; z < nch; ++z)
+      mx = fmaxf(mx, __ldcg(ml_ws + (z * group + g) * 2));
     float lsum = 0.f, a = 0.f;
-    if (mx != -INFINITY) {
-      for (int z = 0; z < splits; ++z) {
-        const float w = expf(ml[(z * group + g) * 2] - mx);
-        lsum += ml[(z * group + g) * 2 + 1] * w;
-        a += acc[(size_t)z * group * head_dim + o] * w;
-      }
+    for (int z = 0; z < nch; ++z) {
+      const float w = expf(__ldcg(ml_ws + (z * group + g) * 2) - mx);
+      lsum += __ldcg(ml_ws + (z * group + g) * 2 + 1) * w;
+      a += __ldcg(acc_ws + (size_t)z * group * D + o) * w;
     }
     store(a / fmaxf(lsum, 1e-30f), out_row + o);
   }
+  if (tid == 0) *counter = 0;  // ready for the next call
 }
 
-// Splits per lane: enough CTAs for about two per SM, but no more splits
-// than the table has tiles.  One rule for the launch and the workspace.
-int num_splits(int dtype, int batch, int num_kv_heads, int block_size,
-               int max_blocks) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || sms <= 0)
-      sms = 132;
-  }
-  const int tile = dtype == 0 ? Chunk<float>::kTile
-                              : Chunk<__nv_bfloat16>::kTile;
-  const int tiles = (max_blocks * block_size + tile - 1) / tile;
-  const int ctas = batch * num_kv_heads;
-  int splits = (2 * sms + ctas - 1) / ctas;
-  if (splits > tiles) splits = tiles;
-  if (splits > kMaxSplits) splits = kMaxSplits;
-  return splits < 1 ? 1 : splits;
+// Chunks of kChunk positions that cover the table: the grid's z.
+int num_chunks(int block_size, int max_blocks) {
+  return (int)(((long long)max_blocks * block_size + kChunk - 1) / kChunk);
 }
 
 template <typename T, int D>
 int launch_dim(const T* q, const T* k_pool, const T* v_pool,
                const int32_t* block_tables, const int32_t* kv_len, T* out,
-               float* partial, int splits, int batch, int num_kv_heads,
+               float* partial, int* counters, int batch, int num_kv_heads,
                int group, int num_blocks, int block_size, int max_blocks,
                float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<T, D>::kBytes;
@@ -430,21 +421,18 @@ int launch_dim(const T* q, const T* k_pool, const T* v_pool,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
+  const int chunks = num_chunks(block_size, max_blocks);
   paged_attention_kernel<T, D>
-      <<<dim3(num_kv_heads, batch, splits), dim3(kThreads), smem, stream>>>(
-          q, k_pool, v_pool, block_tables, kv_len, out, partial, num_kv_heads,
-          group, num_blocks, block_size, max_blocks, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  combine_kernel<T><<<dim3(num_kv_heads, batch), dim3(kThreads), 0, stream>>>(
-      partial, out, batch, num_kv_heads, group, D, splits);
+      <<<dim3(num_kv_heads, batch, chunks), dim3(kThreads), smem, stream>>>(
+          q, k_pool, v_pool, block_tables, kv_len, out, partial, counters,
+          num_kv_heads, group, num_blocks, block_size, max_blocks, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k_pool, const void* v_pool,
                  const void* block_tables, const void* kv_len, void* out,
-                 float* partial, int splits, int batch, int num_kv_heads,
+                 float* partial, int* counters, int batch, int num_kv_heads,
                  int group, int head_dim, int num_blocks, int block_size,
                  int max_blocks, float scale, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
@@ -453,10 +441,10 @@ int launch_typed(const void* q, const void* k_pool, const void* v_pool,
   const int32_t* bt = static_cast<const int32_t*>(block_tables);
   const int32_t* kl = static_cast<const int32_t*>(kv_len);
   T* op = static_cast<T*>(out);
-#define PA_LAUNCH(DIM)                                                      \
-  return launch_dim<T, DIM>(qp, kp, vp, bt, kl, op, partial, splits, batch, \
-                            num_kv_heads, group, num_blocks, block_size,    \
-                            max_blocks, scale, stream)
+#define PA_LAUNCH(DIM)                                                    \
+  return launch_dim<T, DIM>(qp, kp, vp, bt, kl, op, partial, counters,    \
+                            batch, num_kv_heads, group, num_blocks,       \
+                            block_size, max_blocks, scale, stream)
   switch (head_dim) {
     case 16: PA_LAUNCH(16);
     case 32: PA_LAUNCH(32);
@@ -470,53 +458,68 @@ int launch_typed(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// One empty kernel on `stream`, launched as paged_attention_launch
+// launches: the floor under a call's time.
+extern "C" int paged_attention_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+
 // Floats of workspace that paged_attention_launch needs for these
-// arguments (0 when a lane is not split), or -1 for bad geometry.
-extern "C" long long paged_attention_workspace(int dtype, int batch,
-                                               int num_heads, int num_kv_heads,
+// arguments (0 when the table fits one chunk), or -1 for bad geometry.
+extern "C" long long paged_attention_workspace(int batch, int num_heads,
+                                               int num_kv_heads,
                                                int head_dim, int block_size,
                                                int max_blocks) {
   if (batch <= 0 || num_kv_heads <= 0 || num_heads % num_kv_heads != 0 ||
       block_size <= 0 || max_blocks <= 0)
     return -1;
-  const int splits =
-      num_splits(dtype, batch, num_kv_heads, block_size, max_blocks);
-  if (splits == 1) return 0;
-  return (long long)batch * num_heads * splits * (head_dim + 2);
+  const int chunks = num_chunks(block_size, max_blocks);
+  if (chunks == 1) return 0;
+  return (long long)batch * num_heads * chunks * (head_dim + 2);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  `workspace` holds at least
-// paged_attention_workspace(...) floats (may be null when that is 0).
-// Returns 0 on success, a cudaError_t from a launch, or a negative code
-// for arguments the kernel does not take (-1 bad geometry, -2 unsupported
-// head_dim, -3 unsupported dtype, -4 missing workspace).
+// paged_attention_workspace(...) floats (may be null when that is 0);
+// `counters` holds batch * num_kv_heads int32 zeros, and the kernel
+// leaves them zero.  Calls that share `counters` must not overlap (one
+// stream).  Returns 0 on success, a cudaError_t from the launch, or a
+// negative code for arguments the kernel does not take (-1 bad geometry,
+// -2 unsupported head_dim, -3 unsupported dtype, -4 missing workspace or
+// counters).
 extern "C" int paged_attention_launch(int dtype, const void* q,
                                       const void* k_pool, const void* v_pool,
                                       const void* block_tables,
                                       const void* kv_len, void* out,
-                                      void* workspace, int batch,
-                                      int num_heads, int num_kv_heads,
-                                      int head_dim, int num_blocks,
-                                      int block_size, int max_blocks,
-                                      float scale, void* stream) {
+                                      void* workspace, void* counters,
+                                      int batch, int num_heads,
+                                      int num_kv_heads, int head_dim,
+                                      int num_blocks, int block_size,
+                                      int max_blocks, float scale,
+                                      void* stream) {
   if (batch <= 0 || num_kv_heads <= 0 || num_heads % num_kv_heads != 0 ||
       num_heads / num_kv_heads > kMaxGroup || num_blocks <= 0 ||
       block_size <= 0 || max_blocks <= 0)
     return -1;
   const int group = num_heads / num_kv_heads;
-  const int splits =
-      num_splits(dtype, batch, num_kv_heads, block_size, max_blocks);
-  if (splits > 1 && workspace == nullptr) return -4;
+  if (counters == nullptr ||
+      (num_chunks(block_size, max_blocks) > 1 && workspace == nullptr))
+    return -4;
   float* partial = static_cast<float*>(workspace);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_typed<float>(q, k_pool, v_pool, block_tables, kv_len, out,
-                               partial, splits, batch, num_kv_heads, group,
+                               partial, cnt, batch, num_kv_heads, group,
                                head_dim, num_blocks, block_size, max_blocks,
                                scale, s);
   if (dtype == 1)
     return launch_typed<__nv_bfloat16>(q, k_pool, v_pool, block_tables,
-                                       kv_len, out, partial, splits, batch,
+                                       kv_len, out, partial, cnt, batch,
                                        num_kv_heads, group, head_dim,
                                        num_blocks, block_size, max_blocks,
                                        scale, s);

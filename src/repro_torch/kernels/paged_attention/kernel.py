@@ -5,10 +5,16 @@ kernel ``repro/kernels/paged_attention/kernel.py:33,73``.  It is built
 with ``nvcc`` on first use (``kernels.build``) and called through ctypes
 on the current CUDA stream.  This wrapper takes CUDA tensors only: it
 checks device, dtype, shape, contiguity and alignment, allocates the
-output (and, where a lane's positions are split over several CTAs, the
+output (and, where the table spans several chunks of positions, the
 workspace of their softmax states) with ``torch.empty``, launches, and
-raises if the launch failed.  ``launches`` counts successful launches and
-nothing else.
+raises if the launch failed.  The kernel counts the chunks of each
+(lane, kv head) that have finished in an int32 buffer kept here per
+device: zeroed once, grown (zeroed) when a call has more lanes x kv heads
+than it holds, and left zero by every launch, so a call reads nothing on
+the host and allocates nothing that depends on ``kv_len``.  Calls on one
+device share it and must not overlap (one stream).  ``launches`` counts
+successful launches and nothing else.  ``empty_launch`` launches an
+empty kernel through the same C path (the floor under a call's time).
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 _fns = None
-_workspace_floats = {}   # geometry -> floats of split-softmax workspace
+_workspace_floats = {}   # geometry -> floats of chunk-softmax workspace
+_counters = {}           # device index -> int32 zeros, one per (lane, kv)
+_empty = None
 
 
 def _lib():
@@ -36,12 +44,12 @@ def _lib():
     if _fns is None:
         lib = build.load("paged_attention")
         launch = lib.paged_attention_launch
-        launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+        launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                            + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_void_p])
         launch.restype = ctypes.c_int
         workspace = lib.paged_attention_workspace
-        workspace.argtypes = [ctypes.c_int] * 7
+        workspace.argtypes = [ctypes.c_int] * 6
         workspace.restype = ctypes.c_longlong
         _fns = launch, workspace
     return _fns
@@ -96,22 +104,40 @@ def paged_attention(q, k_pool, v_pool, block_tables, kv_len):
     if b == 0:
         return out
     launch, workspace = _lib()
-    code = _DTYPE_CODE[q.dtype]
-    geom = (code, b, h, kv, d, bs, block_tables.shape[1])
+    geom = (b, h, kv, d, bs, block_tables.shape[1])
     if geom not in _workspace_floats:
         _workspace_floats[geom] = workspace(*geom)
     n = _workspace_floats[geom]
     if n < 0:
         raise ValueError(f"paged_attention: bad geometry {geom}")
     ws = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+    counters = _counters.get(q.device.index)
+    if counters is None or counters.numel() < b * kv:
+        counters = torch.zeros(b * kv, dtype=torch.int32, device=q.device)
+        _counters[q.device.index] = counters
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = launch(code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                    block_tables.data_ptr(), kv_len.data_ptr(),
-                    out.data_ptr(), None if ws is None else ws.data_ptr(),
-                    b, h, kv, d, nb, bs, block_tables.shape[1], d ** -0.5,
-                    stream)
+        rc = launch(_DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+                    v_pool.data_ptr(), block_tables.data_ptr(),
+                    kv_len.data_ptr(), out.data_ptr(),
+                    None if ws is None else ws.data_ptr(),
+                    counters.data_ptr(), b, h, kv, d, nb, bs,
+                    block_tables.shape[1], d ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
     launches += 1
     return out
+
+
+def empty_launch(device=None) -> None:
+    """One empty kernel on the current stream of ``device`` (a card),
+    launched through the same ctypes path as the paged kernel."""
+    global _empty
+    if _empty is None:
+        fn = build.load("paged_attention").paged_attention_empty_launch
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _empty = fn
+    rc = _empty(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed (code {rc})")
