@@ -5,7 +5,8 @@ check, time.
     python3 benchmarks/paged_readings.py [--tree DIR]
 
 It builds only ``csrc/paged_attention.cu`` and prints ``ptxas``'s
-registers and spills of each instantiation.  Then, at granite-8b's
+registers and spills and the tensor-core instructions (``HMMA``) of each
+instantiation.  Then, at granite-8b's
 decode shapes (H 32, KV 8, D 128) and zamba2-2.7b's shared attention (H
 32, KV 32, D 80), for each lane mix of ``chip_smoke.PAGED_MIXES`` (the
 skewed mix of ``chip_smoke.py``'s paged phase, 8 lanes of 500 positions,
@@ -60,6 +61,9 @@ def main() -> int:
             .items()):
         print(f"ptxas {name}: {regs} registers, spill stores {st} B, spill "
               f"loads {ld} B")
+    for name, n in sorted(cs.sass_op_counts(
+            build.library_path("paged_attention"), "HMMA").items()):
+        print(f"SASS {name.split('::')[-1].split('(')[0]}: HMMA {n}")
     dev = torch.device("cuda")
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_

@@ -121,11 +121,14 @@ def main(argv=None) -> int:
         by_name[e.name][1] += 1
     busy_ms = busy_us([(e.time_range.start, e.time_range.end)
                        for e in kernels]) / 1e3 / n
-    # the wrapper's launches: its main kernel and, when a lane is split,
-    # the merge kernel
+    # the wrapper's launches: one device kernel each, which merges its own
+    # chunks
     pa_n = kernel.launches - launches0
-    pa_us = sum(v[0] for k, v in by_name.items() if "paged_attention" in k
-                or "combine_kernel" in k)
+    pa_us = sum(v[0] for k, v in by_name.items() if "paged_attention" in k)
+    pa_kernels = sum(v[1] for k, v in by_name.items()
+                     if "paged_attention" in k)
+    if kernels:
+        assert pa_kernels == pa_n, (pa_kernels, pa_n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
 
     kv_rows = int(engine.state.cache_len.sum())      # after the window
@@ -147,6 +150,8 @@ def main(argv=None) -> int:
         "device_busy_share": busy_ms / wall_ms if kernels else None,
         "kernel_launches_per_step": len(kernels) / n,
         "paged_attention_us_per_launch": pa_us / pa_n if pa_n else None,
+        "paged_attention_device_kernels_per_launch":
+            pa_kernels / pa_n if pa_n and kernels else None,
         "paged_attention_ms_per_step": pa_us / 1e3 / n if pa_n else None,
         "bound_ms_per_step": bound_ms,
         "decode_tok_per_s": 8 * 1e3 / wall_ms,

@@ -10,7 +10,7 @@
 // block_tables[b, j] (clamped into [0, num_blocks) here, as the JAX entry
 // clamps it).  Softmax is online, with running max, sum and accumulator in
 // float32; positions >= kv_len get weight exactly zero; the output is
-// acc / max(l, 1e-30).
+// acc / max(l, 1e-30), so a lane with kv_len 0 writes zeros.
 //
 //   q            (B, H, D)            T
 //   k_pool/v_pool (NB, bs, KV, D)     T      T = float or __nv_bfloat16
@@ -22,40 +22,64 @@
 // (q.k and p.v) against 2 bytes read (bf16), far under the ~295 flop/byte
 // the H100 needs before its tensor cores are the limit, so the least time
 // is the KV the lanes own, sum_b kv_len_b * KV * D * 2 (k and v) * 2 B,
-// over 3.35 TB/s.
+// over 3.35 TB/s: 0.004-0.012 ms at the main path's shapes.  That is
+// about one empty launch (0.005-0.007 ms through this library's ctypes
+// path), so what a call costs is latency: the launch, the chain of
+// dependent loads before the first K row arrives, the longest walk of one
+// CTA over its positions, and the merge of the CTAs' softmax states.
 //
-// What the simple design does about it:
-// * One CTA (256 threads) per (kv head, lane, split) covers the whole GQA
-//   group G = H/KV, so each K/V row is read from HBM once for all G query
-//   heads (G = 4 for granite-8b), never once per q head.
-// * Each lane reads only the positions below kv_len, so only the blocks
-//   below ceil(kv_len/bs), read on the device: unallocated and sentinel
-//   blocks cost no bytes.
-// * The positions are walked in tiles (64 positions in bf16, 32 in
-//   float32).  A tile's K and V rows are copied into shared memory with
-//   16-byte cp.async, every thread issuing its share, and the CTA's next
-//   tile is in flight while the current one is computed (two stages).
-// * B * KV CTAs alone leave most SMs idle at decode batch sizes (64 CTAs
-//   at 8 lanes of granite-8b, 132 SMs), so each lane's tiles are dealt
-//   round-robin to `splits` CTAs (about two CTAs per SM in all); each
-//   split keeps its own softmax state and a second small kernel merges
-//   them.  At large batch there is one split and no merge.
-// * Scores are plain dot products, one thread per (position, head) from
-//   shared memory (rows padded by 16 bytes, so the threads of a warp hit
-//   distinct banks); one warp per head does the online-softmax update; in
-//   p.v each thread owns one column d for its heads, so a V element is read
-//   once for all of them.  No cross-lane reduction sits on the hot loop.
+// What the design does about it:
+// * Work is split by positions read on the device.  The grid is (KV, B,
+//   ceil(max_blocks * bs / kChunk)): each CTA takes one kv head of one lane
+//   and a fixed chunk of kChunk positions; a CTA whose chunk starts at or
+//   past its lane's kv_len exits before it loads anything.  The longest
+//   walk is one chunk whatever the lanes' skew (tiles dealt to a number
+//   of splits fixed by the table's width left a 1000-position lane
+//   walking 4-8 tiles in turn while the CTAs of short lanes sat idle).
+// * The chunks of a (lane, kv head) merge in the same launch: each writes
+//   its (m, l, acc) to the workspace and counts itself on a per-(lane, kv
+//   head) counter (one acq_rel atomic: release for its state, acquire for
+//   the others'); the last one merges them all, eight chunks' loads in
+//   flight at once, writes the output and sets the counter back to 0.  A
+//   lane of one chunk writes its output directly.  No second kernel,
+//   nothing read on the host, nothing allocated that depends on kv_len: a
+//   CUDA graph can replay a call.
+// * One CTA covers the whole GQA group G = H/KV, so each K/V row is read
+//   from HBM once for all G query heads.
+// * bf16, four warps a CTA, each walking its own 16-position pages (pages
+//   w, w + 4, ... of the chunk): the warp copies its pages' K and V rows
+//   into shared memory with 16-byte cp.async (zero-filled past kv_len),
+//   all of the chunk's pages in flight from the start (8 at kChunk 128:
+//   cp.async rather than TMA, because a page's rows come through the block
+//   table one row at a time for any block size, and cp.async's per-thread
+//   addresses cost nothing here, where a tensor map would need a box per
+//   page of one kv head).  Rows are padded by 16 bytes, so ldmatrix hits
+//   distinct banks.  The table entries are read beside kv_len and q, not
+//   after it.  A warp waits only for its own copies (__syncwarp): no CTA
+//   barrier until its pages are done.
+// * bf16 products on the tensor cores, mma.sync m16n8k16 with float32
+//   accumulation: S^T (16 positions x 8 heads) = K q^T, with the G query
+//   heads padded to 8 columns (the padding costs nothing that matters at
+//   4 flops per 2 bytes), K's fragments by ldmatrix and q's kept in
+//   registers for the CTA; then O^T (D x 8 heads) += V^T P^T, V's
+//   fragments by ldmatrix.trans.  The online softmax runs on S^T's
+//   accumulator fragments in registers (a column max over the positions by
+//   three shuffles); P^T's B fragments come from them by movmatrix.trans.
+//   p is kept to ~2^-16 as two bf16 terms (hi + lo), as the flash kernel
+//   keeps it, and both go through the p.v product: the Pallas kernel keeps
+//   p in float32.  At the end each warp writes its state over its own
+//   pages and the CTA merges the four after one barrier.
+// * float32, the same partition with a simpler tile body: 256 threads over
+//   tiles of 32 positions (two stages of cp.async), scores as float32 dot
+//   products through shared memory, one warp per head for the softmax,
+//   one column per thread in p.v.
 // * D is a template parameter, one of 16, 32, 64, 80 and 128 (80 is
-//   zamba2-2.7b's shared attention).  A row is D / 8 (bf16) or D / 4
-//   (float32) 16-byte chunks and a padded shared row stays a multiple of
-//   16 bytes for all of them; only the p.v pass's thread-to-column map
-//   needs D to divide the CTA, and threads past the last whole multiple
-//   of D sit that pass out.
-// * No tensor cores and no TMA: those are for a later, faster version.
+//   zamba2-2.7b's shared attention): all multiples of the 16 of an mma.
 //
 // The C entry launches on the caller's stream and returns
 // cudaGetLastError(); it allocates nothing (the caller passes the
-// workspace of the split softmax states) and does not synchronise.
+// workspace of the chunks' softmax states and the counters) and does not
+// synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,68 +88,26 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxGroup = 8;
-// Positions a CTA covers: a multiple of every tile (64 bf16, 32 float32).
-// Chosen from readings of this kernel at 64 / 128 / 256 on an H100 (ms
-// cold, benchmarks/paged_readings.py; skewed, uniform and one-lane mixes):
-// granite-8b 0.0281 / 0.0270 / 0.0306, 0.0290 / 0.0273 / 0.0279, 0.0189 /
-// 0.0194 / 0.0254; zamba2-2.7b (D = 80) 0.0430 / 0.0386 / 0.0382, 0.0475 /
-// 0.0444 / 0.0389, 0.0221 / 0.0203 / 0.0225.
+// Positions a CTA covers: a multiple of the float32 tile (32) and of four
+// warps' 16-position pages.  Chosen from readings at 64 / 128 / 256 on an
+// H100 of this partition with the float32 route's tile body for bf16 too
+// (ms cold, benchmarks/paged_readings.py; skewed, uniform and one-lane
+// mixes): granite-8b 0.0281 / 0.0270 / 0.0306, 0.0290 / 0.0273 / 0.0279,
+// 0.0189 / 0.0194 / 0.0254; zamba2-2.7b (D = 80) 0.0430 / 0.0386 /
+// 0.0382, 0.0475 / 0.0444 / 0.0389, 0.0221 / 0.0203 / 0.0225.
 constexpr int kChunk = 128;
+constexpr int kPage = 16;  // positions of one mma tile
+constexpr int kWarps = 4;  // bf16: warps a CTA
+constexpr int kPagesPerWarp = kChunk / kPage / kWarps;
+constexpr int kF32Threads = 256;
+constexpr int kF32Tile = 32;  // float32: positions a tile
+static_assert(kChunk % (kPage * kWarps) == 0 && kChunk % kF32Tile == 0,
+              "a chunk is whole pages of every warp and whole tiles");
 
-// 16-byte chunks of a row: N elements of T, converted to float.
-template <typename T>
-struct Chunk;
-
-template <>
-struct Chunk<float> {
-  static constexpr int N = 4;
-  static constexpr int kTile = 32;  // positions per tile
-  __device__ static void load(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-};
-
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static constexpr int kTile = 64;
-  __device__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float v, float* dst) { *dst = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -133,64 +115,494 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(gmem));
 }
+// 16 bytes, or 16 zero bytes (nothing read) where !valid.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// wait_group takes an immediate: n folds to a constant in unrolled loops.
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  static_assert(kPagesPerWarp <= 4, "one case per page a warp");
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
 }
 
-// Shared-memory layout, in one place for the kernel and the launch.
-template <typename T, int D>
-struct Layout {
-  static constexpr int kTile = Chunk<T>::kTile;
-  static constexpr int kRow = D + 16 / sizeof(T);  // padded row, elements
-  static constexpr int kKV = 2 * 2 * kTile * kRow;  // [stage][k|v][pos][row]
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+// The transpose of an 8x8 b16 fragment held by the warp.
+__device__ __forceinline__ unsigned movmatrix_trans(unsigned x) {
+  unsigned y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+// c += a b: a 16x16 (row), b 16x8 (col), bf16 in, float32 accumulated.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Two floats as bf16, `lo` in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A lane's chunks keep their softmax states in the workspace: acc
+// [B][KV][chunks][G][D], then (m, l) [B][KV][chunks][G][2].  These point
+// at this CTA's (lane, kv head).
+struct ChunkStates {
+  float* acc;  // [chunks][G][D]
+  float* ml;   // [chunks][G][2]
+};
+__device__ __forceinline__ ChunkStates chunk_states(float* partial, int n,
+                                                    int group,
+                                                    int num_kv_heads) {
+  const size_t unit0 =
+      ((size_t)blockIdx.y * num_kv_heads + blockIdx.x) * gridDim.z;
+  return {partial + unit0 * n,
+          partial + (size_t)gridDim.y * num_kv_heads * gridDim.z * n +
+              unit0 * group * 2};
+}
+
+// Called by every thread once the CTA has written its chunk's state:
+// counts the chunk on its (lane, kv head)'s counter, and the last of the
+// lane's nch chunks to count itself merges them all into the output,
+//   out = sum_c acc_c e^(m_c - M) / max(sum_c l_c e^(m_c - M), 1e-30),
+// M = max_c m_c, then sets the counter back to 0.  Every chunk below nch
+// holds a position, so every m_c is finite.
+template <typename T>
+__device__ void count_and_merge(ChunkStates st, int n, int head_dim,
+                                int group, int nch, T* out_row,
+                                int* counters, int num_kv_heads) {
+  const int tid = threadIdx.x;
+  __syncthreads();
+  __shared__ int last;
+  int* counter = counters + (size_t)blockIdx.y * num_kv_heads + blockIdx.x;
+  if (tid == 0) {
+    // release: the CTA's state (ordered before by the barrier) is visible
+    // before the count; acquire: the other chunks' states are, after it
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(counter)
+                 : "memory");
+    last = old == nch - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // Read through L2 (other CTAs wrote these), four outputs of one head a
+  // thread (D is a multiple of 16), eight chunks at a time: their loads
+  // all in flight together, and their weights independent of each other
+  // (one rescale per eight chunks).
+  constexpr int kZ = 8;
+  for (int e = 4 * tid; e < n; e += 4 * blockDim.x) {
+    const float* ml = st.ml + (e / head_dim) * 2;
+    float mx = -INFINITY, lsum = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z0 = 0; z0 < nch; z0 += kZ) {
+      float2 mz[kZ];
+      float4 v[kZ];
+      float gmax = mx;
+#pragma unroll
+      for (int j = 0; j < kZ; ++j) {
+        const int z = z0 + j;
+        mz[j] = z < nch ? __ldcg(reinterpret_cast<const float2*>(
+                              ml + (size_t)z * group * 2))
+                        : make_float2(-INFINITY, 0.f);
+        v[j] = z < nch ? __ldcg(reinterpret_cast<const float4*>(
+                             st.acc + (size_t)z * n + e))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        gmax = fmaxf(gmax, mz[j].x);
+      }
+      const float c = expf(mx - gmax);  // 0 on the first group
+      lsum *= c;
+      a.x *= c;
+      a.y *= c;
+      a.z *= c;
+      a.w *= c;
+#pragma unroll
+      for (int j = 0; j < kZ; ++j) {
+        const float w = expf(mz[j].x - gmax);  // 0 past nch
+        lsum += mz[j].y * w;
+        a.x += v[j].x * w;
+        a.y += v[j].y * w;
+        a.z += v[j].z * w;
+        a.w += v[j].w * w;
+      }
+      mx = gmax;
+    }
+    const float den = fmaxf(lsum, 1e-30f);
+    store(a.x / den, out_row + e);
+    store(a.y / den, out_row + e + 1);
+    store(a.z / den, out_row + e + 2);
+    store(a.w / den, out_row + e + 3);
+  }
+  if (tid == 0) *counter = 0;  // ready for the next call
+}
+
+// The lane's chunks that hold a position (one for an empty lane, which
+// writes zeros), from its kv_len clamped to the table.
+__device__ __forceinline__ int lane_chunks(int klen) {
+  return max(1, (klen + kChunk - 1) / kChunk);
+}
+
+// ---- bf16: tensor cores --------------------------------------------------
+
+template <int D>
+struct Bf16Layout {
+  static constexpr int kRow = D + 8;  // padded row, elements (+16 B)
+  static constexpr int kPageElems = kPage * kRow;  // one K or V page
+  static constexpr int kWarpElems = 2 * kPageElems * kPagesPerWarp;
   static constexpr size_t kBytes =
-      sizeof(T) * kKV +
-      sizeof(float) * (kMaxGroup * D + kMaxGroup * kTile + 3 * kMaxGroup);
+      sizeof(__nv_bfloat16) * kWarpElems * kWarps;
+  // a warp's state reuses its pages once it has read them
+  static_assert(sizeof(float) * kMaxGroup * D <=
+                    sizeof(__nv_bfloat16) * kWarpElems,
+                "a warp's state fits its pages");
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(const T* __restrict__ q,
-                           const T* __restrict__ k_pool,
-                           const T* __restrict__ v_pool,
-                           const int32_t* __restrict__ block_tables,
-                           const int32_t* __restrict__ kv_len,
-                           T* __restrict__ out,
-                           float* __restrict__ partial,
-                           int* __restrict__ counters, int num_kv_heads,
-                           int group, int num_blocks, int block_size,
-                           int max_blocks, float scale) {
-  using L = Layout<T, D>;
-  constexpr int TP = L::kTile;
-  constexpr int ROW = L::kRow;
-  constexpr int CN = Chunk<T>::N;
-  constexpr int CPR = D / CN;                    // chunks per row
-  constexpr int kSub = kThreads / TP;            // score pass: head groups
-  constexpr int kHeadsPer = (kMaxGroup + kSub - 1) / kSub;
-  constexpr int kGStride = kThreads / D;         // p.v pass: head stride
-  constexpr int kOutPer = (kMaxGroup + kGStride - 1) / kGStride;
-  static_assert(kChunk % TP == 0, "a chunk is whole tiles");
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k_pool,
+                                const __nv_bfloat16* __restrict__ v_pool,
+                                const int32_t* __restrict__ block_tables,
+                                const int32_t* __restrict__ kv_len,
+                                __nv_bfloat16* __restrict__ out,
+                                float* __restrict__ partial,
+                                int* __restrict__ counters, int num_kv_heads,
+                                int group, int num_blocks, int block_size,
+                                int max_blocks, float scale) {
+  using L = Bf16Layout<D>;
+  constexpr int kK = D / 16;     // k steps of S^T, d tiles of O^T
+  constexpr int kParts = D / 8;  // 16-byte parts of a row
+  // a page's K (or V) rows are kPage * kParts 16-byte parts: kK a lane
+  static_assert(kPage * kParts == 32 * kK, "copies a lane");
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int chunk = blockIdx.z;
-  int klen = kv_len[b];
-  klen = min(max(klen, 0), max_blocks * block_size);
-  // the lane's chunks that hold a position (one for an empty lane, which
-  // writes zeros); the others exit before loading anything
-  const int nch = max(1, (klen + kChunk - 1) / kChunk);
-  if (chunk >= nch) return;
-  const int pos0 = chunk * kChunk;
+  const int pos0 = blockIdx.z * kChunk;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int num_heads = num_kv_heads * group;
+
+  // Loads that need nothing else, issued together: kv_len, the table
+  // entries of this lane's copies, and q (issuing q after the exit test,
+  // beside the copies, read 0.0005 ms slower at granite-8b's shapes).
+  const int klen_raw = kv_len[b];
+  const int32_t* bt = block_tables + (size_t)b * max_blocks;
+  // With 16-position blocks (the engine's) a page is one block: one entry
+  // a page and no division; otherwise one entry per row copied.
+  const bool page_is_block = block_size == kPage;
+  int entry[kPagesPerWarp][kK];
+#pragma unroll
+  for (int i = 0; i < kPagesPerWarp; ++i) {
+    const int pstart = pos0 + (warp + i * kWarps) * kPage;
+    if (page_is_block) {
+      const int blk = pstart / kPage;
+      const int e = blk < max_blocks ? __ldg(bt + blk) : 0;
+#pragma unroll
+      for (int j = 0; j < kK; ++j) entry[i][j] = e;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kK; ++j) {
+        const int blk = (pstart + (lane + 32 * j) / kParts) / block_size;
+        entry[i][j] = blk < max_blocks ? __ldg(bt + blk) : 0;
+      }
+    }
+  }
+  // q as the B operand of S^T = K q^T: column n = lane / 4 is head n,
+  // k = 2 (lane % 4) + {0, 1} (b0) and + 8 (b1) within each k step
+  const int qn = lane / 4;
+  const __nv_bfloat16* q_row =
+      q + ((size_t)b * num_heads + (size_t)h * group + qn) * D +
+      2 * (lane % 4);
+  unsigned qf[kK][2];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+    qf[kk][0] = qn < group
+                    ? __ldg(reinterpret_cast<const unsigned*>(q_row + 16 * kk))
+                    : 0u;
+    qf[kk][1] = qn < group ? __ldg(reinterpret_cast<const unsigned*>(
+                                 q_row + 16 * kk + 8))
+                           : 0u;
+  }
+  const int klen = min(max(klen_raw, 0), max_blocks * block_size);
+  const int nch = lane_chunks(klen);
+  if ((int)blockIdx.z >= nch) return;
+  const int pos_end = min(pos0 + kChunk, klen);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* pages =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw) + warp * L::kWarpElems;
+
+  // Copy page i of this warp, one commit group a page (empty past
+  // kv_len), every page of the chunk in flight at once.
+  const size_t pos_stride = (size_t)num_kv_heads * D;
+  auto copy_page = [&](int i) {
+    const int pstart = pos0 + (warp + i * kWarps) * kPage;
+    if (pstart < pos_end) {
+      __nv_bfloat16* ks = pages + i * 2 * L::kPageElems;
+      __nv_bfloat16* vs = ks + L::kPageElems;
+#pragma unroll
+      for (int j = 0; j < kK; ++j) {
+        const int c = lane + 32 * j;
+        const int r = c / kParts;
+        const int part = c % kParts;
+        const int pos = pstart + r;
+        const bool valid = pos < pos_end;
+        const int phys = min(max(entry[i][j], 0), num_blocks - 1);
+        const int row = page_is_block ? r : pos % block_size;
+        const size_t off =
+            valid ? ((size_t)phys * block_size + row) * pos_stride +
+                        (size_t)h * D + part * 8
+                  : 0;
+        cp_async16_zfill(ks + r * L::kRow + part * 8, k_pool + off, valid);
+        cp_async16_zfill(vs + r * L::kRow + part * 8, v_pool + off, valid);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kPagesPerWarp; ++i) copy_page(i);
+
+  // This thread's heads are the columns c0 and c0 + 1 of S^T and O^T; its
+  // positions the rows r0 and r0 + 8 of S^T, its d the rows r0 and r0 + 8
+  // of each 16-row tile of O^T.
+  const int r0 = lane / 4;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float o[kK][4];
+#pragma unroll
+  for (int dt = 0; dt < kK; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  // ldmatrix rows: K (A of S^T, x4 = rows 0-7 / 8-15 at k 0-7, then at k
+  // 8-15) and V (A of O^T by .trans, x4 = d 0-7 / 8-15 at positions 0-7,
+  // then at positions 8-15)
+  const int k_row = (lane % 8) + ((lane / 8) & 1) * 8;
+  const int k_col = (lane / 16) * 8;
+  const int v_row = (lane % 8) + (lane / 16) * 8;
+  const int v_col = ((lane / 8) & 1) * 8;
+
+#pragma unroll
+  for (int i = 0; i < kPagesPerWarp; ++i) {
+    const int pstart = pos0 + (warp + i * kWarps) * kPage;
+    if (pstart >= pos_end) break;  // warp-uniform; later pages too
+    cp_async_wait_dyn(kPagesPerWarp - 1 - i);  // page i's group is done
+    __syncwarp();
+    const __nv_bfloat16* ks = pages + i * 2 * L::kPageElems;
+    const __nv_bfloat16* vs = ks + L::kPageElems;
+
+    // two accumulators over the k steps: half the dependent chain
+    float sk[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, ks + k_row * L::kRow + kk * 16 + k_col);
+      mma_bf16(sk[kk & 1], a, qf[kk][0], qf[kk][1]);
+    }
+    float s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] = sk[0][e] + sk[1][e];
+    // page row 0 is below pos_end, so each column's max is finite
+    const bool v0 = pstart + r0 < pos_end;
+    const bool v1 = pstart + r0 + 8 < pos_end;
+    s[0] = v0 ? s[0] * scale : -INFINITY;
+    s[1] = v0 ? s[1] * scale : -INFINITY;
+    s[2] = v1 ? s[2] * scale : -INFINITY;
+    s[3] = v1 ? s[3] * scale : -INFINITY;
+    float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    const float p0 = expf(s[0] - mn0), p1 = expf(s[1] - mn1);
+    const float p2 = expf(s[2] - mn0), p3 = expf(s[3] - mn1);
+    l0 = l0 * c0 + p0 + p2;  // this thread's rows; summed over rows at the end
+    l1 = l1 * c1 + p1 + p3;
+#pragma unroll
+    for (int dt = 0; dt < kK; ++dt) {
+      o[dt][0] *= c0;
+      o[dt][1] *= c1;
+      o[dt][2] *= c0;
+      o[dt][3] *= c1;
+    }
+    // P^T as the B operand, p = hi + lo in two bf16 terms: the accumulator
+    // holds rows (positions) r0, r0 + 8 and columns (heads) c0, c0 + 1;
+    // movmatrix.trans turns each 8x8 half into the B fragment
+    const float h0 = bf16_round(p0), h1 = bf16_round(p1);
+    const float h2 = bf16_round(p2), h3 = bf16_round(p3);
+    const unsigned bh0 = movmatrix_trans(pack_bf16(h0, h1));
+    const unsigned bh1 = movmatrix_trans(pack_bf16(h2, h3));
+    const unsigned bl0 = movmatrix_trans(pack_bf16(p0 - h0, p1 - h1));
+    const unsigned bl1 = movmatrix_trans(pack_bf16(p2 - h2, p3 - h3));
+#pragma unroll
+    for (int dt = 0; dt < kK; ++dt) {
+      unsigned a[4];
+      ldmatrix_x4_trans(a, vs + v_row * L::kRow + dt * 16 + v_col);
+      mma_bf16(o[dt], a, bh0, bh1);
+      mma_bf16(o[dt], a, bl0, bl1);
+    }
+  }
+
+  // Merge the warps: l over this thread's rows, then over the warp's rows
+  // (the lanes of one lane % 4 hold the same heads); each warp's state to
+  // shared memory over its own pages, which it has read (no CTA barrier
+  // until every warp's state is written).
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  __shared__ float wm[kWarps][kMaxGroup], wl[kWarps][kMaxGroup];
+  constexpr int kStateStride = L::kWarpElems / 2;  // floats a warp's pages
+  float* ws = reinterpret_cast<float*>(smem_raw);  // [warp][kMaxGroup][D]
+  const int hc = 2 * (lane % 4);
+  if (lane < 4) {
+    wm[warp][hc] = m0;
+    wm[warp][hc + 1] = m1;
+    wl[warp][hc] = l0;
+    wl[warp][hc + 1] = l1;
+  }
+  __syncwarp();  // every lane's ldmatrix of the warp's pages is done
+  float* w_o = ws + warp * kStateStride;
+#pragma unroll
+  for (int dt = 0; dt < kK; ++dt) {
+    const int d = dt * 16 + r0;
+    w_o[hc * D + d] = o[dt][0];
+    w_o[(hc + 1) * D + d] = o[dt][1];
+    w_o[hc * D + d + 8] = o[dt][2];
+    w_o[(hc + 1) * D + d + 8] = o[dt][3];
+  }
+  __syncthreads();
+  // The CTA's state, four outputs of one head a thread: the output where
+  // the lane has one chunk, else the chunk's state in the workspace.
+  const int n = group * D;
+  __nv_bfloat16* out_row =
+      out + ((size_t)b * num_heads + (size_t)h * group) * D;
+  const ChunkStates st = chunk_states(partial, n, group, num_kv_heads);
+  for (int e = 4 * tid; e < n; e += 4 * kWarps * 32) {
+    const int g = e / D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w][g]);
+    float lsum = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (mx != -INFINITY) {  // -inf only for a lane with no position
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float wt = expf(wm[w][g] - mx);
+        const float4 v =
+            *reinterpret_cast<const float4*>(ws + w * kStateStride + e);
+        lsum += wl[w][g] * wt;
+        a.x += v.x * wt;
+        a.y += v.y * wt;
+        a.z += v.z * wt;
+        a.w += v.w * wt;
+      }
+    }
+    if (nch == 1) {
+      const float den = fmaxf(lsum, 1e-30f);
+      store(a.x / den, out_row + e);
+      store(a.y / den, out_row + e + 1);
+      store(a.z / den, out_row + e + 2);
+      store(a.w / den, out_row + e + 3);
+    } else {
+      *reinterpret_cast<float4*>(st.acc + (size_t)blockIdx.z * n + e) = a;
+      if (e % D == 0)
+        *reinterpret_cast<float2*>(st.ml + (blockIdx.z * group + g) * 2) =
+            make_float2(mx, lsum);
+    }
+  }
+  if (nch > 1)
+    count_and_merge(st, n, D, group, nch, out_row, counters, num_kv_heads);
+}
+
+// ---- float32: FFMA ------------------------------------------------------
+
+template <int D>
+struct F32Layout {
+  static constexpr int kRow = D + 4;  // padded row, elements (+16 B)
+  static constexpr int kKV = 2 * 2 * kF32Tile * kRow;  // [stage][k|v][pos]
+  static constexpr size_t kBytes =
+      sizeof(float) * (kKV + kMaxGroup * D + kMaxGroup * kF32Tile +
+                       3 * kMaxGroup);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+    paged_attention_f32_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k_pool,
+                               const float* __restrict__ v_pool,
+                               const int32_t* __restrict__ block_tables,
+                               const int32_t* __restrict__ kv_len,
+                               float* __restrict__ out,
+                               float* __restrict__ partial,
+                               int* __restrict__ counters, int num_kv_heads,
+                               int group, int num_blocks, int block_size,
+                               int max_blocks, float scale) {
+  using L = F32Layout<D>;
+  constexpr int TP = kF32Tile;
+  constexpr int ROW = L::kRow;
+  constexpr int CPR = D / 4;                      // 16-byte chunks a row
+  constexpr int kSub = kF32Threads / TP;          // score pass: head groups
+  constexpr int kHeadsPer = (kMaxGroup + kSub - 1) / kSub;
+  constexpr int kGStride = kF32Threads / D;       // p.v pass: head stride
+  constexpr int kOutPer = (kMaxGroup + kGStride - 1) / kGStride;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int pos0 = blockIdx.z * kChunk;
+  const int klen = min(max(kv_len[b], 0), max_blocks * block_size);
+  const int nch = lane_chunks(klen);
+  if ((int)blockIdx.z >= nch) return;
   const int pos_end = min(pos0 + kChunk, klen);
   const int ntiles = (max(pos_end - pos0, 0) + TP - 1) / TP;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kv_s = reinterpret_cast<T*>(smem_raw);
-  float* q_s = reinterpret_cast<float*>(kv_s + L::kKV);  // [G][D]
+  float* kv_s = reinterpret_cast<float*>(smem_raw);
+  float* q_s = kv_s + L::kKV;         // [G][D]
   float* p_s = q_s + kMaxGroup * D;   // [G][TP] scores, then weights
   float* m_s = p_s + kMaxGroup * TP;  // [G] running max
   float* l_s = m_s + kMaxGroup;       // [G] running sum
@@ -198,8 +610,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x;
   const int num_heads = num_kv_heads * group;
-  const T* q_row = q + ((size_t)b * num_heads + (size_t)h * group) * D;
-  for (int i = tid; i < group * D; i += kThreads) q_s[i] = to_float(q_row[i]);
+  const float* q_row = q + ((size_t)b * num_heads + (size_t)h * group) * D;
+  for (int i = tid; i < group * D; i += kF32Threads) q_s[i] = q_row[i];
   if (tid < kMaxGroup) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -212,25 +624,25 @@ __global__ void __launch_bounds__(kThreads)
   // chunk's end are zero-filled (their weight is 0, and 0 * garbage could
   // be NaN).
   auto load_tile = [&](int t, int stage) {
-    T* ks = kv_s + (size_t)stage * 2 * TP * ROW;
-    T* vs = ks + TP * ROW;
-    for (int c = tid; c < TP * CPR; c += kThreads) {
+    float* ks = kv_s + (size_t)stage * 2 * TP * ROW;
+    float* vs = ks + TP * ROW;
+    for (int c = tid; c < TP * CPR; c += kF32Threads) {
       const int p = c / CPR;
       const int part = c % CPR;
       const int pos = pos0 + t * TP + p;
-      T* kd = ks + p * ROW + part * CN;
-      T* vd = vs + p * ROW + part * CN;
+      float* kd = ks + p * ROW + part * 4;
+      float* vd = vs + p * ROW + part * 4;
       if (pos < pos_end) {
         int phys = bt[pos / block_size];
         phys = min(max(phys, 0), num_blocks - 1);
         const size_t off =
             ((size_t)phys * block_size + pos % block_size) * pos_stride +
-            (size_t)h * D + part * CN;
+            (size_t)h * D + part * 4;
         cp_async16(kd, k_pool + off);
         cp_async16(vd, v_pool + off);
       } else {
-        *reinterpret_cast<uint4*>(kd) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(vd) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<float4*>(kd) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(vd) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
     cp_async_commit();
@@ -257,8 +669,8 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* ks = kv_s + (size_t)stage * 2 * TP * ROW;
-    const T* vs = ks + TP * ROW;
+    const float* ks = kv_s + (size_t)stage * 2 * TP * ROW;
+    const float* vs = ks + TP * ROW;
 
     // 1. scores: thread (p, sub) for heads sub, sub + kSub, ...
     {
@@ -269,20 +681,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kHeadsPer; ++i) dot[i] = 0.f;
 #pragma unroll 4
       for (int part = 0; part < CPR; ++part) {
-        float kf[CN];
-        Chunk<T>::load(ks + p * ROW + part * CN, kf);
+        const float4 kf =
+            *reinterpret_cast<const float4*>(ks + p * ROW + part * 4);
 #pragma unroll
         for (int i = 0; i < kHeadsPer; ++i) {
           const int g = sub + i * kSub;
           if (g < group) {
-            const float4* qg =
-                reinterpret_cast<const float4*>(q_s + g * D + part * CN);
-#pragma unroll
-            for (int e = 0; e < CN / 4; ++e) {
-              const float4 qv = qg[e];
-              dot[i] += qv.x * kf[4 * e] + qv.y * kf[4 * e + 1] +
-                        qv.z * kf[4 * e + 2] + qv.w * kf[4 * e + 3];
-            }
+            const float4 qv =
+                *reinterpret_cast<const float4*>(q_s + g * D + part * 4);
+            dot[i] += qv.x * kf.x + qv.y * kf.y + qv.z * kf.z + qv.w * kf.w;
           }
         }
       }
@@ -296,24 +703,24 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // 2. online softmax: one warp per head.  The tile holds at least one
-    // position below klen, so its max is finite and masked weights are 0.
+    // position below pos_end, so its max is finite and masked weights 0.
     {
       const int warp = tid / 32;
       const int lane = tid % 32;
-      for (int g = warp; g < group; g += kThreads / 32) {
+      for (int g = warp; g < group; g += kF32Threads / 32) {
         float* sg = p_s + g * TP;
-        float mx = -INFINITY;
-        for (int p = lane; p < TP; p += 32) mx = fmaxf(mx, sg[p]);
-        mx = warp_max(mx);
+        float mx = sg[lane];  // TP = 32: one position a lane
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
         const float m_old = m_s[g];
         const float m_new = fmaxf(m_old, mx);
-        float sum = 0.f;
-        for (int p = lane; p < TP; p += 32) {
-          const float w = expf(sg[p] - m_new);
-          sg[p] = w;
-          sum += w;
-        }
-        sum = warp_sum(sum);
+        const float w = expf(sg[lane] - m_new);
+        sg[lane] = w;
+        float sum = w;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
         if (lane == 0) {
           const float corr = expf(m_old - m_new);
           c_s[g] = corr;
@@ -331,10 +738,10 @@ __global__ void __launch_bounds__(kThreads)
       if (g < group) acc[i] *= c_s[g];
     }
     for (int p = 0; p < TP; p += 4) {
-      const float v0 = to_float(vs[(p + 0) * ROW + d]);
-      const float v1 = to_float(vs[(p + 1) * ROW + d]);
-      const float v2 = to_float(vs[(p + 2) * ROW + d]);
-      const float v3 = to_float(vs[(p + 3) * ROW + d]);
+      const float v0 = vs[(p + 0) * ROW + d];
+      const float v1 = vs[(p + 1) * ROW + d];
+      const float v2 = vs[(p + 2) * ROW + d];
+      const float v3 = vs[(p + 3) * ROW + d];
 #pragma unroll
       for (int i = 0; i < kOutPer; ++i) {
         const int g = g0 + i * kGStride;
@@ -347,58 +754,29 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // this stage and p_s are rewritten after this
   }
 
-  T* out_row = out + ((size_t)b * num_heads + (size_t)h * group) * D;
+  // The output where the lane has one chunk, else the chunk's state in
+  // the workspace (m_s and l_s are final: the barrier above).
+  float* out_row = out + ((size_t)b * num_heads + (size_t)h * group) * D;
   if (nch == 1) {
 #pragma unroll
     for (int i = 0; i < kOutPer; ++i) {
       const int g = g0 + i * kGStride;
-      if (g < group)
-        store(acc[i] / fmaxf(l_s[g], 1e-30f), out_row + g * D + d);
+      if (g < group) out_row[g * D + d] = acc[i] / fmaxf(l_s[g], 1e-30f);
     }
     return;
   }
-  // This chunk's softmax state: acc [B][KV][chunks][G][D], then (m, l)
-  // [B][KV][chunks][G][2].  The last CTA of the (lane, kv head) to finish
-  // merges them all and writes the output.
-  const int chunks = gridDim.z;
-  const size_t unit0 = ((size_t)b * num_kv_heads + h) * chunks;
-  float* acc_ws = partial + unit0 * group * D;
-  float* ml_ws = partial + (size_t)gridDim.y * num_kv_heads * chunks *
-                               group * D + unit0 * group * 2;
+  const int n = group * D;
+  const ChunkStates st = chunk_states(partial, n, group, num_kv_heads);
 #pragma unroll
   for (int i = 0; i < kOutPer; ++i) {
     const int g = g0 + i * kGStride;
-    if (g < group) acc_ws[(size_t)chunk * group * D + g * D + d] = acc[i];
+    if (g < group) st.acc[(size_t)blockIdx.z * n + g * D + d] = acc[i];
   }
   if (tid < group) {
-    ml_ws[(chunk * group + tid) * 2] = m_s[tid];
-    ml_ws[(chunk * group + tid) * 2 + 1] = l_s[tid];
+    st.ml[(blockIdx.z * group + tid) * 2] = m_s[tid];
+    st.ml[(blockIdx.z * group + tid) * 2 + 1] = l_s[tid];
   }
-  __threadfence();  // this CTA's state is visible before it is counted
-  __syncthreads();
-  __shared__ int last;
-  int* counter = counters + (size_t)b * num_kv_heads + h;
-  if (tid == 0) last = atomicAdd(counter, 1) == nch - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // out = sum_c acc_c e^(m_c - M) / max(sum_c l_c e^(m_c - M), 1e-30),
-  // M = max_c m_c; every chunk below nch holds a position, so m_c is
-  // finite.  Read through L2: other CTAs wrote these.
-  for (int o = tid; o < group * D; o += kThreads) {
-    const int g = o / D;
-    float mx = -INFINITY;
-    for (int z = 0; z < nch; ++z)
-      mx = fmaxf(mx, __ldcg(ml_ws + (z * group + g) * 2));
-    float lsum = 0.f, a = 0.f;
-    for (int z = 0; z < nch; ++z) {
-      const float w = expf(__ldcg(ml_ws + (z * group + g) * 2) - mx);
-      lsum += __ldcg(ml_ws + (z * group + g) * 2 + 1) * w;
-      a += __ldcg(acc_ws + (size_t)z * group * D + o) * w;
-    }
-    store(a / fmaxf(lsum, 1e-30f), out_row + o);
-  }
-  if (tid == 0) *counter = 0;  // ready for the next call
+  count_and_merge(st, n, D, group, nch, out_row, counters, num_kv_heads);
 }
 
 // Chunks of kChunk positions that cover the table: the grid's z.
@@ -406,60 +784,59 @@ int num_chunks(int block_size, int max_blocks) {
   return (int)(((long long)max_blocks * block_size + kChunk - 1) / kChunk);
 }
 
-template <typename T, int D>
-int launch_dim(const T* q, const T* k_pool, const T* v_pool,
-               const int32_t* block_tables, const int32_t* kv_len, T* out,
-               float* partial, int* counters, int batch, int num_kv_heads,
-               int group, int num_blocks, int block_size, int max_blocks,
-               float scale, cudaStream_t stream) {
-  constexpr size_t smem = Layout<T, D>::kBytes;
-  static bool configured = false;  // one attribute call per instantiation
+// One launch of kernel `fn` with `smem` dynamic bytes, the attribute set
+// once per instantiation.
+template <typename Fn, typename T>
+int launch(Fn fn, size_t smem, int threads, bool& configured, const T* q,
+           const T* k_pool, const T* v_pool, const int32_t* block_tables,
+           const int32_t* kv_len, T* out, float* partial, int* counters,
+           int batch, int num_kv_heads, int group, int num_blocks,
+           int block_size, int max_blocks, float scale,
+           cudaStream_t stream) {
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int chunks = num_chunks(block_size, max_blocks);
-  paged_attention_kernel<T, D>
-      <<<dim3(num_kv_heads, batch, chunks), dim3(kThreads), smem, stream>>>(
-          q, k_pool, v_pool, block_tables, kv_len, out, partial, counters,
-          num_kv_heads, group, num_blocks, block_size, max_blocks, scale);
+  fn<<<dim3(num_kv_heads, batch, num_chunks(block_size, max_blocks)),
+       dim3(threads), smem, stream>>>(q, k_pool, v_pool, block_tables,
+                                      kv_len, out, partial, counters,
+                                      num_kv_heads, group, num_blocks,
+                                      block_size, max_blocks, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_typed(const void* q, const void* k_pool, const void* v_pool,
-                 const void* block_tables, const void* kv_len, void* out,
-                 float* partial, int* counters, int batch, int num_kv_heads,
-                 int group, int head_dim, int num_blocks, int block_size,
-                 int max_blocks, float scale, cudaStream_t stream) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k_pool);
-  const T* vp = static_cast<const T*>(v_pool);
-  const int32_t* bt = static_cast<const int32_t*>(block_tables);
-  const int32_t* kl = static_cast<const int32_t*>(kv_len);
-  T* op = static_cast<T*>(out);
-#define PA_LAUNCH(DIM)                                                    \
-  return launch_dim<T, DIM>(qp, kp, vp, bt, kl, op, partial, counters,    \
-                            batch, num_kv_heads, group, num_blocks,       \
-                            block_size, max_blocks, scale, stream)
-  switch (head_dim) {
-    case 16: PA_LAUNCH(16);
-    case 32: PA_LAUNCH(32);
-    case 64: PA_LAUNCH(64);
-    case 80: PA_LAUNCH(80);
-    case 128: PA_LAUNCH(128);
-    default: return -2;
+template <int D>
+int launch_dim(int dtype, const void* q, const void* k_pool,
+               const void* v_pool, const int32_t* block_tables,
+               const int32_t* kv_len, void* out, float* partial,
+               int* counters, int batch, int num_kv_heads, int group,
+               int num_blocks, int block_size, int max_blocks, float scale,
+               cudaStream_t stream) {
+  if (dtype == 0) {
+    static bool configured = false;
+    return launch(paged_attention_f32_kernel<D>, F32Layout<D>::kBytes,
+                  kF32Threads, configured, static_cast<const float*>(q),
+                  static_cast<const float*>(k_pool),
+                  static_cast<const float*>(v_pool), block_tables, kv_len,
+                  static_cast<float*>(out), partial, counters, batch,
+                  num_kv_heads, group, num_blocks, block_size, max_blocks,
+                  scale, stream);
   }
-#undef PA_LAUNCH
+  static bool configured = false;
+  using B16 = __nv_bfloat16;
+  return launch(paged_attention_bf16_kernel<D>, Bf16Layout<D>::kBytes,
+                kWarps * 32, configured, static_cast<const B16*>(q),
+                static_cast<const B16*>(k_pool),
+                static_cast<const B16*>(v_pool), block_tables, kv_len,
+                static_cast<B16*>(out), partial, counters, batch,
+                num_kv_heads, group, num_blocks, block_size, max_blocks,
+                scale, stream);
 }
 
-}  // namespace
-
-namespace {
 __global__ void empty_kernel() {}
+
 }  // namespace
 
 // One empty kernel on `stream`, launched as paged_attention_launch
@@ -505,23 +882,27 @@ extern "C" int paged_attention_launch(int dtype, const void* q,
       num_heads / num_kv_heads > kMaxGroup || num_blocks <= 0 ||
       block_size <= 0 || max_blocks <= 0)
     return -1;
-  const int group = num_heads / num_kv_heads;
+  if (dtype != 0 && dtype != 1) return -3;
   if (counters == nullptr ||
       (num_chunks(block_size, max_blocks) > 1 && workspace == nullptr))
     return -4;
+  const int group = num_heads / num_kv_heads;
   float* partial = static_cast<float*>(workspace);
   int* cnt = static_cast<int*>(counters);
+  const int32_t* bt = static_cast<const int32_t*>(block_tables);
+  const int32_t* kl = static_cast<const int32_t*>(kv_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_typed<float>(q, k_pool, v_pool, block_tables, kv_len, out,
-                               partial, cnt, batch, num_kv_heads, group,
-                               head_dim, num_blocks, block_size, max_blocks,
-                               scale, s);
-  if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(q, k_pool, v_pool, block_tables,
-                                       kv_len, out, partial, cnt, batch,
-                                       num_kv_heads, group, head_dim,
-                                       num_blocks, block_size, max_blocks,
-                                       scale, s);
-  return -3;
+#define PA_LAUNCH(DIM)                                                   \
+  return launch_dim<DIM>(dtype, q, k_pool, v_pool, bt, kl, out, partial, \
+                         cnt, batch, num_kv_heads, group, num_blocks,    \
+                         block_size, max_blocks, scale, s)
+  switch (head_dim) {
+    case 16: PA_LAUNCH(16);
+    case 32: PA_LAUNCH(32);
+    case 64: PA_LAUNCH(64);
+    case 80: PA_LAUNCH(80);
+    case 128: PA_LAUNCH(128);
+    default: return -2;
+  }
+#undef PA_LAUNCH
 }

@@ -69,8 +69,16 @@ def test_kernel_matches_plain_on_card(cuda_device, b, heads, kv_heads, d,
     out = paged_attention(q, k, v, bt, kl)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    ref = paged_attention_ref(q, k, v, bt, kl)
-    if dtype == torch.float32:
+    hold_paged(out, paged_attention_ref(q, k, v, bt, kl))
+
+
+def hold_paged(out, ref):
+    """The kernel's output against the plain version's: float32 to
+    ``F32_TOL``; bf16 each element to one ulp of itself plus
+    ``PAGED_BF16_ROW_ATOL`` of its row's RMS, the whole to
+    ``PAGED_BF16_REL_L2``."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    if out.dtype == torch.float32:
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                    **F32_TOL)
         return
@@ -79,6 +87,107 @@ def test_kernel_matches_plain_on_card(cuda_device, b, heads, kv_heads, d,
     excess = (a - r).abs() - PAGED_BF16_RTOL * r.abs()
     assert float((excess / row_rms).max()) <= PAGED_BF16_ROW_ATOL
     assert float((a - r).norm() / r.norm()) <= PAGED_BF16_REL_L2
+
+
+def lane_inputs(kv_lens, heads, kv_heads, d, dtype, device, bs=16, mb=None,
+                seed=0):
+    """Decode inputs with one lane per entry of ``kv_lens``: each lane's
+    blocks on rows of a shuffled pool, the table's tail sentinels, and
+    the pool's unreferenced rows garbage (1e4)."""
+    rng = np.random.default_rng(seed)
+    blocks = [-(-n // bs) for n in kv_lens]
+    mb = mb or max(max(blocks), 1)
+    nb = sum(blocks) + 2
+    rows = rng.permutation(nb)
+    k_pool = np.full((nb, bs, kv_heads, d), 1e4, np.float32)
+    v_pool = np.full((nb, bs, kv_heads, d), 1e4, np.float32)
+    bt = np.full((len(kv_lens), mb), nb, np.int32)
+    used = 0
+    for i, n in enumerate(blocks):
+        bt[i, :n] = rows[used:used + n]
+        used += n
+    for r in rows[:used]:
+        k_pool[r] = rng.standard_normal((bs, kv_heads, d))
+        v_pool[r] = rng.standard_normal((bs, kv_heads, d))
+    q = rng.standard_normal((len(kv_lens), heads, d)).astype(np.float32)
+    kl = np.asarray(kv_lens, np.int32)
+    return [torch.from_numpy(x).to(device, dtype) for x in (q, k_pool, v_pool)] \
+        + [torch.from_numpy(x).to(device) for x in (bt, kl)]
+
+
+PAGED_LANE_CASES = {
+    # lanes of 1 and 1000 positions in one batch, sentinel tails
+    "short_and_long": dict(kv_lens=[1, 1000, 1, 1000], heads=32, kv_heads=8,
+                           d=128, mb=64),
+    # one lane of 1024 positions
+    "one_lane_1024": dict(kv_lens=[1024], heads=32, kv_heads=8, d=128),
+    # 64 lanes at G = 4: 512 (lane, kv head) pairs, many CTAs
+    "b64_g4": dict(kv_lens=list(range(7, 7 + 64 * 15, 15)), heads=16,
+                   kv_heads=4, d=64),
+    # zamba2-2.7b's shared attention, G = 1, D = 80
+    "d80_g1": dict(kv_lens=[5, 300, 129, 700], heads=32, kv_heads=32, d=80),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_LANE_CASES))
+def test_kernel_lane_mixes_on_card(cuda_device, case, dtype):
+    args = lane_inputs(dtype=dtype, device=cuda_device,
+                       **PAGED_LANE_CASES[case])
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    hold_paged(out, paged_attention_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_chunk_boundaries_on_card(cuda_device, dtype):
+    """kv_len one below, at and one above a multiple of the positions a
+    CTA covers (the source's kChunk; 64, 128 and 256 were read), and at
+    block sizes that do not divide it."""
+    lens = [63, 64, 65, 127, 128, 129, 255, 256, 257]
+    for bs in (16, 8, 48):
+        args = lane_inputs(lens, 8, 2, 32, dtype, cuda_device, bs=bs,
+                           seed=bs)
+        hold_paged(paged_attention(*args), paged_attention_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_empty_lane_writes_zeros_on_card(cuda_device, dtype):
+    """A lane with kv_len 0 writes zeros (acc / max(l, 1e-30)); the other
+    lanes of the batch are unaffected."""
+    args = lane_inputs([0, 200, 0, 1000, 1], 8, 2, 64, dtype, cuda_device)
+    out = paged_attention(*args)
+    ref = paged_attention_ref(*args)
+    assert torch.equal(out[[0, 2]], torch.zeros_like(out[[0, 2]]))
+    hold_paged(out[[1, 3, 4]], ref[[1, 3, 4]])
+
+
+@pytest.mark.cuda
+def test_kernel_back_to_back_calls_on_card(cuda_device):
+    """Calls that change geometry and lengths, launched one after another
+    on the stream with no sync between: the per-(lane, kv head) counters
+    come back to zero after each and their buffer grows (zeroed) for more
+    lanes x kv heads; each output matches the plain version."""
+    cases = [([1000, 3, 517], 8, 2, 128), ([129] * 40, 32, 8, 64),
+             ([1, 1000], 4, 4, 80), ([300] * 70, 16, 8, 32),
+             ([0, 640, 1024], 32, 8, 128)]
+    calls = [lane_inputs(lens, h, kv, d, torch.bfloat16, cuda_device,
+                         mb=64, seed=i)
+             for i, (lens, h, kv, d) in enumerate(cases)]
+    before = kernel.launches
+    outs = [paged_attention(*a) for a in calls]
+    torch.cuda.synchronize()
+    assert kernel.launches == before + len(cases)
+    counters = kernel._counters[cuda_device.index or 0]
+    assert counters.numel() >= 70 * 8
+    assert int(counters.abs().sum()) == 0
+    for a, out in zip(calls, outs):
+        lanes = a[4] > 0
+        hold_paged(out[lanes], paged_attention_ref(*a)[lanes])
+    assert torch.equal(outs[-1][0], torch.zeros_like(outs[-1][0]))
 
 
 def ssd_inputs(b, nc, l, h, p, n, seed=0):
