@@ -6,7 +6,7 @@ on one NVIDIA GPU: the readings its limits in ``chip_smoke.py`` and
     python3 benchmarks/paged_bf16_readings.py
 
 The plain version rounds the softmax weights to bf16 before p.v (as the
-reference does) and the kernel keeps them float32, so an output differs
+reference does) and the kernel keeps them to 2^-16, so an output differs
 by a share of its (lane, head) row's size.  For ``chip_smoke.py``'s
 paged phase (granite-8b and zamba2-2.7b decode shapes) and for the cuda
 tests' shapes (seeds 0-2), it prints the largest

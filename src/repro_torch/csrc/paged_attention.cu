@@ -110,11 +110,6 @@ __device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
 // 16 bytes, or 16 zero bytes (nothing read) where !valid.
 __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
                                                  bool valid) {
@@ -160,9 +155,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
 // The transpose of an 8x8 b16 fragment held by the warp.
 __device__ __forceinline__ unsigned movmatrix_trans(unsigned x) {
   unsigned y;
-  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
-               : "=r"(y)
-               : "r"(x));
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
   return y;
 }
 // c += a b: a 16x16 (row), b 16x8 (col), bf16 in, float32 accumulated.
@@ -630,20 +623,15 @@ __global__ void __launch_bounds__(kF32Threads)
       const int p = c / CPR;
       const int part = c % CPR;
       const int pos = pos0 + t * TP + p;
-      float* kd = ks + p * ROW + part * 4;
-      float* vd = vs + p * ROW + part * 4;
-      if (pos < pos_end) {
-        int phys = bt[pos / block_size];
-        phys = min(max(phys, 0), num_blocks - 1);
-        const size_t off =
-            ((size_t)phys * block_size + pos % block_size) * pos_stride +
-            (size_t)h * D + part * 4;
-        cp_async16(kd, k_pool + off);
-        cp_async16(vd, v_pool + off);
-      } else {
-        *reinterpret_cast<float4*>(kd) = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(vd) = make_float4(0.f, 0.f, 0.f, 0.f);
+      const bool valid = pos < pos_end;
+      size_t off = 0;
+      if (valid) {
+        const int phys = min(max(bt[pos / block_size], 0), num_blocks - 1);
+        off = ((size_t)phys * block_size + pos % block_size) * pos_stride +
+              (size_t)h * D + part * 4;
       }
+      cp_async16_zfill(ks + p * ROW + part * 4, k_pool + off, valid);
+      cp_async16_zfill(vs + p * ROW + part * 4, v_pool + off, valid);
     }
     cp_async_commit();
   };

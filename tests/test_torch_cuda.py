@@ -16,7 +16,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_ULP_TOL = dict(rtol=2.0 ** -7, atol=1e-5)  # one bf16 ulp of each |x|
-# The paged kernel keeps the softmax weights float32 where its plain
+# The paged kernel keeps the softmax weights to 2^-16 where its plain
 # version rounds them to bf16, so a bf16 output differs by a share of its
 # (lane, head) row's size: held to one ulp of itself plus 2^-7 of the
 # row's RMS (at most 6.4e-3 of it at these shapes, seeds 0-2, on an H100:
