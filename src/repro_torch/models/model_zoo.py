@@ -85,7 +85,7 @@ def _recurrent_cache(cfg: ModelConfig, B: int, dev) -> Dict[str, torch.Tensor]:
                             dtype=torch.bfloat16, device=dev)}
 
 
-def _lane_axis(cfg: ModelConfig) -> int:
+def lane_axis(cfg: ModelConfig) -> int:
     """The lane (batch) axis of the recurrent leaves."""
     return 1 if cfg.family == "ssm" else 2
 
@@ -228,7 +228,7 @@ def make_bulk_prefill(cfg: ModelConfig, shape: ShapeConfig, chunk: int,
             if key in ("k", "v"):            # (L, 1, chunk, KV, D)
                 leaf[:, slot, :chunk] = upd[:, 0]
             else:
-                ax = _lane_axis(cfg)
+                ax = lane_axis(cfg)
                 leaf.select(ax, slot).copy_(upd.select(ax, 0))
         state.cache_len[slot] = n_real
         return state

@@ -21,9 +21,17 @@ next request), chunked bulk prefill, greedy or temperature sampling.
   ``BlockAllocator`` reserves a slot's whole block budget at admission,
   so the fused decode window never allocates.
 
-Work-unit migration (``pack``/``unpack``/``preempt``/``resume``,
-``checkpoint_units``, ``resize``) is not ported yet: those methods raise
-``NotImplementedError`` naming ROADMAP queue 1, item 6.
+* **Migratable work units** — ``pack()`` captures each occupied slot
+  (request progress + that slot's cache columns, on the host) into a
+  self-contained ``WorkUnit``; ``unpack()`` admits units into any engine
+  built from the same ``(cfg, max_seq)``, dense or paged, of any block
+  size, including one of the JAX package.  ``preempt``/``resume`` are
+  the same checkpoint under pause semantics, ``checkpoint_units`` the
+  non-destructive one, and ``resize`` changes the lane count or the
+  pool in place through the same path.  A pack gathers only the packed
+  slots' rows or blocks on the device and copies them to the host in
+  one counted fetch; an install writes them back without waiting for
+  the device.
 
 In eager PyTorch there is no compile step to share between engines, so
 the reference's ``_LOOP_CACHE`` / ``_PREFILL_CACHE`` have no counterpart:
@@ -51,11 +59,6 @@ DEFAULT_PREFILL_BUCKETS: Tuple[int, ...] = (16, 64, 256)
 # Relative cost of one bulk-prefilled prompt token vs one decode step
 # (the router's and the cluster's load unit).
 DEFAULT_PREFILL_DISCOUNT = 0.35
-
-_NOT_PORTED = ("work-unit migration (pack/unpack/preempt/resume/"
-               "checkpoint_units/resize) is the next serving slice of the "
-               "port: ROADMAP queue 1, item 6")
-
 
 @dataclasses.dataclass
 class Request:
@@ -88,11 +91,64 @@ def request_cost(req: Request,
     return max(len(req.prompt) - 1, 0) * discount + req.max_new_tokens
 
 
+@dataclasses.dataclass
 class SlotSnapshot:
-    """A checkpointed in-flight request (not ported yet)."""
+    """A checkpointed in-flight request: enough to resume decode anywhere.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+    ``cache`` holds the slot's columns in ONE canonical layout — full
+    contiguous ``max_seq`` sequence axes — whatever cache mode produced
+    it: a paged engine gathers the slot's blocks through its table into
+    the contiguous column on ``pack`` and re-blocks into its own
+    geometry on ``unpack``, so snapshots move between dense and paged
+    engines and between block sizes bit for bit.
+
+    The columns are CPU torch tensors in the leaf's own dtype (bf16 kv
+    and conv, float32 ssm): numpy has no bfloat16 without
+    ``ml_dtypes``, and a CPU tensor holds bf16 exactly, can be pinned
+    for the copy back to the card, and is what the checkpoint stores
+    keep.  ``unpack`` also reads the JAX package's snapshots, whose
+    columns are numpy arrays (bf16 ones as ``ml_dtypes.bfloat16``, read
+    through an int16 view, see ``host_column``).
+
+    ``rng`` is the sampler's ``torch.Generator`` state at checkpoint
+    time (``get_state()``), stamped by ``checkpoint_units`` so that a
+    temperature > 0 stream resumed into an otherwise-empty engine replays
+    its lost tail bit for bit; migration snapshots leave it None (the
+    live generator keeps advancing).
+    """
+    request: Request
+    fed: int                    # prompt+generated tokens already in cache
+    next_tok: int               # next token to feed
+    cache_len: int
+    cache: Dict[str, Any]       # this slot's cache columns (host)
+    rng: Optional[Any] = None
+
+    @property
+    def remaining_tokens(self) -> int:
+        return max(self.request.total_tokens - self.fed, 1)
+
+    def remaining_cost(self,
+                       discount: float = DEFAULT_PREFILL_DISCOUNT) -> float:
+        """Remaining load with the not-yet-fed prefill part discounted."""
+        rem = self.remaining_tokens
+        rem_prefill = min(max(len(self.request.prompt) - 1 - self.fed, 0),
+                          rem)
+        return rem_prefill * discount + (rem - rem_prefill)
+
+
+def host_column(col) -> torch.Tensor:
+    """A snapshot column as a CPU tensor: the port's own columns pass
+    through; a numpy array (the JAX package's snapshots) is wrapped
+    without a copy, a ``bfloat16`` one through its int16 bits so that no
+    ``ml_dtypes`` import is needed."""
+    if isinstance(col, torch.Tensor):
+        return col
+    arr = np.ascontiguousarray(col)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class BlockAllocator:
@@ -216,6 +272,11 @@ class ServingEngine:
                                        dtype=torch.int32, device=self.device)
         self._slots: List[Optional[Request]] = [None] * batch_size
         self._queue: List[Request] = []
+        self._restore: List["WorkUnit"] = []
+        # per-slot provenance of restored units: slot -> (uid, hops,
+        # origin).  ``pack`` re-uses it so a unit keeps ONE identity and
+        # one hop history across any number of pack->unpack round trips.
+        self._unit_meta: Dict[int, Tuple[int, list, Optional[int]]] = {}
         self._completed: List[Request] = []
         # exact host mirrors of the device progress counters: advanced by
         # projection after every decode window, overwritten with device
@@ -228,6 +289,10 @@ class ServingEngine:
         self.processed_tokens = 0   # prefill + decode work units (rate feed)
         self.host_syncs = 0         # device->host fetches (poll/drain only)
         self.chunk_prefills = 0     # bulk prefill dispatches issued
+        self.preemptions = 0        # slots paused via preempt()
+        self.resumes = 0            # paused units re-admitted via resume()
+        self.resizes = 0            # in-place geometry changes via resize()
+        self.resize_evictions = 0   # slots evicted (paused) by a shrink
         self._peak_slots = 0        # high-water concurrent occupied slots
         self._chunk_tokens_pending = 0
         if prefill_mode == "chunked" and cfg.family in zoo.BULK_PREFILL_FAMILIES:
@@ -239,8 +304,17 @@ class ServingEngine:
             # no bulk path: every prompt token costs a full decode step,
             # so backlog must not discount prefill work
             self.prefill_discount = 1.0
+        # decode loops and prefill closures of the current geometry
+        # (they capture ``shape`` and ``pool_blocks``; ``resize`` drops
+        # them)
         self._loops: Dict[int, Any] = {}
         self._prefills: Dict[Tuple[int, bool], Any] = {}
+        # per-leaf batch axis of the cache (slot slicing/placement): the
+        # lane axis of dense k/v and of the recurrent leaves, and the
+        # block axis of a paged pool, which is axis 1 like dense k/v's
+        self._cache_axes = {
+            k: zoo.lane_axis(self.cfg) if k in ("ssm", "conv") else 1
+            for k in self.state.cache}
 
     # ------------------------------------------------------------- requests
     def submit(self, req: Request):
@@ -265,7 +339,7 @@ class ServingEngine:
 
     @property
     def n_queued(self) -> int:
-        return len(self._queue)
+        return len(self._queue) + len(self._restore)
 
     @property
     def free_slots(self) -> int:
@@ -279,9 +353,9 @@ class ServingEngine:
         return min(lanes, self._alloc.free_count // max(est, 1))
 
     def _est_blocks_per_request(self) -> int:
-        if self._queue:
-            need = [self._blocks_needed(self._req_maxfed(r))
-                    for r in self._queue]
+        reqs = [u.snapshot.request for u in self._restore] + self._queue
+        if reqs:
+            need = [self._blocks_needed(self._req_maxfed(r)) for r in reqs]
             return max(1, round(sum(need) / len(need)))
         owned = [len(self._alloc.owned(s)) for s, r in
                  enumerate(self._slots) if r is not None]
@@ -340,8 +414,15 @@ class ServingEngine:
         prefill-remaining tokens weighted by ``prefill_discount``."""
         d = self.prefill_discount
         load = sum(cost for _, cost in self.slot_costs())
+        load += sum(u.snapshot.remaining_cost(d) for u in self._restore)
         load += sum(request_cost(r, d) for r in self._queue)
         return load
+
+    def restore_costs(self, discount: Optional[float] = None) -> List[float]:
+        """Remaining discounted load per not-yet-admitted restore-queue
+        unit (they claim free slots ahead of fresh work)."""
+        d = self.prefill_discount if discount is None else discount
+        return [u.snapshot.remaining_cost(d) for u in self._restore]
 
     def slot_costs(self) -> List[Tuple[int, float]]:
         """Per occupied slot: (slot, remaining discounted load)."""
@@ -491,11 +572,20 @@ class ServingEngine:
             self._blocks_needed(self._req_maxfed(req)))
 
     def _admit(self):
-        """Fill free slots from the request queue."""
+        """Fill free slots from the restore queue, then the request queue."""
         for slot in range(self.batch):
             if self._slots[slot] is not None:
                 continue
-            if self._queue:
+            if self._restore:
+                if not self._can_admit(self._restore[0].snapshot.request):
+                    break
+                u = self._restore.pop(0)
+                self._install(u.snapshot, slot)
+                # keep the unit's identity alive on the slot: a later
+                # pack() re-emits the SAME uid and extends the same hop
+                # history (the list object is shared)
+                self._unit_meta[slot] = (u.uid, u.hops, u.origin)
+            elif self._queue:
                 if not self._can_admit(self._queue[0]):
                     break
                 self._admit_fresh(self._queue.pop(0), slot)
@@ -571,8 +661,8 @@ class ServingEngine:
         t0 = time.perf_counter()
         tokens = 0
         steps = 0
-        while (any(r is not None for r in self._slots) or self._queue) \
-                and steps < max_steps:
+        while (any(r is not None for r in self._slots) or self._queue
+               or self._restore) and steps < max_steps:
             block = min(self.decode_block, max_steps - steps)
             out = self.step_many(block)
             tokens += out["emitted"]
@@ -582,10 +672,17 @@ class ServingEngine:
                 "tok_per_s": tokens / max(dt, 1e-9)}
 
     # ----------------------------------------------------------- host sync
-    def _fetch(self, tensors):
-        """The ONLY device->host path in the engine (counted)."""
+    def _fetch(self, tensors) -> List[torch.Tensor]:
+        """The ONLY device->host path in the engine (counted): every
+        tensor is copied into pinned host memory, then the host waits
+        once.  On the CPU the tensors are handed back as they are."""
         self.host_syncs += 1
-        return [t.cpu().numpy() for t in tensors]
+        if self.device.type != "cuda":
+            return list(tensors)
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+               .copy_(t, non_blocking=True) for t in tensors]
+        torch.cuda.current_stream(self.device).synchronize()
+        return out
 
     def _poll(self):
         """Materialize device progress into the Request objects.  Called
@@ -594,9 +691,9 @@ class ServingEngine:
         occupied = [i for i, r in enumerate(self._slots) if r is not None]
         if not occupied:
             return
-        out_buf, fed, next_tok, active = self._fetch(
+        out_buf, fed, next_tok, active = (t.numpy() for t in self._fetch(
             (self.sample.out_buf, self.sample.fed, self.sample.next_tok,
-             self.sample.active))
+             self.sample.active)))
         for slot in occupied:
             req = self._slots[slot]
             self._fed[slot] = int(fed[slot])
@@ -611,27 +708,336 @@ class ServingEngine:
                 req.done = True
                 self._completed.append(req)
                 self._slots[slot] = None
+                self._unit_meta.pop(slot, None)
                 if self._alloc is not None:
                     self._release_blocks(slot)
 
-    # ----------------------------------------------- not ported yet
-    def pack(self, slots=None):
-        raise NotImplementedError(_NOT_PORTED)
+    # ----------------------------------------------- WorkUnit pack/unpack
+    #
+    # One verb set for every in-flight-request move (the paper's PUP
+    # interface): ``pack``/``unpack`` for migration and drain,
+    # ``preempt``/``resume`` for SLO-aware pausing, and the
+    # non-destructive ``checkpoint_units`` for periodic recovery
+    # checkpoints.
 
-    def unpack(self, units):
-        raise NotImplementedError(_NOT_PORTED)
+    def _install(self, snap: SlotSnapshot, slot: int):
+        """Write a snapshot's cache columns into ``slot`` and resume it.
 
-    def preempt(self, slots=None):
-        raise NotImplementedError(_NOT_PORTED)
+        Snapshots are canonical contiguous (full ``max_seq`` columns)
+        whatever the source engine's cache mode or block size: a paged
+        engine re-blocks them into its own geometry here.  Every write is
+        an asynchronous copy to the device or a device op, so an install
+        never waits for the device.
+        """
+        req = snap.request
+        maxfed = self._req_maxfed(req)
+        # recovery checkpoints carry the sampler state: restoring into an
+        # otherwise-empty sampled engine replays the exact draws of the
+        # lost tail (the generator is shared across slots, so a busy
+        # engine — or a greedy one, which never draws — keeps its own)
+        if (snap.rng is not None and self.temperature > 0
+                and self.n_active == 0):
+            if not (isinstance(snap.rng, torch.Tensor)
+                    and snap.rng.dtype == torch.uint8):
+                raise ValueError(
+                    "snapshot rng is not a torch.Generator state (a unit "
+                    "checkpointed by another package?); it cannot seed "
+                    "this engine's sampler")
+            self.sample.rng.set_state(snap.rng)
+        kv_keys = (set(zoo.paged_kv_keys(self.cfg))
+                   if self._alloc is not None else set())
+        blocks: Tuple[int, ...] = ()
+        if self._alloc is not None:
+            blocks = self._alloc.allocate(slot, self._blocks_needed(maxfed))
+            self._write_table_row(slot, blocks)
+            block_idx = self._to_device(np.asarray(blocks, np.int64))
+        for k, leaf in self.state.cache.items():
+            ax = self._cache_axes[k]
+            col = host_column(snap.cache[k]).to(self.device,
+                                                non_blocking=True)
+            if k in kv_keys:
+                # contiguous column -> (max_blocks, block_size) at the seq
+                # axis -> the reserved prefix scattered through the fresh
+                # table (dense batch axis == paged block axis)
+                sh = col.shape
+                blocked = col.reshape(sh[:ax] + (self.max_blocks,
+                                                 self.block_size)
+                                      + sh[ax + 1:])
+                leaf.index_copy_(ax, block_idx,
+                                 blocked.narrow(ax, 0, len(blocks))
+                                 .to(leaf.dtype))
+            else:
+                leaf.select(ax, slot).copy_(col)
+        self._set_cache_len(slot, snap.cache_len)
+        self._slots[slot] = req
+        self._out_read[slot] = len(req.out_tokens)
+        self._set_sample_row(slot, next_tok=snap.next_tok, fed=snap.fed,
+                             plen=len(req.prompt), maxfed=maxfed,
+                             prompt=req.prompt)
 
-    def resume(self, units):
-        raise NotImplementedError(_NOT_PORTED)
+    def _slot_cols(self, slot: int, kv_keys) -> Dict[str, torch.Tensor]:
+        """One slot's cache columns in the canonical contiguous layout,
+        gathered on the device: a paged engine merges the slot's owned
+        blocks (never the sink row) and pads to ``max_seq``, a dense one
+        copies the batch row.  Every column is a fresh tensor."""
+        cols = {}
+        for k, leaf in self.state.cache.items():
+            ax = self._cache_axes[k]
+            if k in kv_keys:
+                blocks = self._alloc.owned(slot)
+                idx = self._to_device(np.asarray(blocks, np.int64))
+                sh = leaf.shape
+                col = leaf.new_zeros(sh[:ax] + (self.max_seq,) + sh[ax + 2:])
+                blocked = col.view(sh[:ax] + (self.max_blocks,
+                                              self.block_size) + sh[ax + 2:])
+                blocked.narrow(ax, 0, len(blocks)).copy_(
+                    leaf.index_select(ax, idx))
+                cols[k] = col
+            else:
+                cols[k] = leaf.select(ax, slot).clone(
+                    memory_format=torch.contiguous_format)
+        return cols
 
-    def checkpoint_units(self):
-        raise NotImplementedError(_NOT_PORTED)
+    def _gather_slots(self, occupied: List[int]
+                      ) -> List[Dict[str, torch.Tensor]]:
+        """The canonical columns of ``occupied`` slots on the host: one
+        gather per slot and leaf on the device, then ONE counted fetch of
+        exactly those columns (the rest of the cache stays put)."""
+        kv_keys = (set(zoo.paged_kv_keys(self.cfg))
+                   if self._alloc is not None else set())
+        dev_cols = [self._slot_cols(slot, kv_keys) for slot in occupied]
+        keys = list(self.state.cache)
+        host = iter(self._fetch([c[k] for c in dev_cols for k in keys]))
+        return [{k: next(host) for k in keys} for _ in occupied]
 
-    def resize(self, **kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+    def _snapshot_slots(self, slots: Optional[List[int]] = None
+                        ) -> List[Tuple[int, SlotSnapshot]]:
+        """Checkpoint and release occupied slots (the PUP 'pack' step).
 
-    def _install(self, snap, slot: int):
-        raise NotImplementedError(_NOT_PORTED)
+        ``slots`` restricts the checkpoint to a subset; None takes every
+        occupied slot.  Works at any point in a request's life, including
+        right after a bulk prefill chunk, before the prompt is fully fed.
+        Returns ``(slot, snapshot)`` pairs so ``pack`` can look up
+        per-slot unit provenance.
+        """
+        self._poll()
+        occupied = [i for i, r in enumerate(self._slots)
+                    if r is not None and (slots is None or i in slots)]
+        if not occupied:
+            return []
+        snaps = []
+        for slot, cols in zip(occupied, self._gather_slots(occupied)):
+            snaps.append((slot, SlotSnapshot(
+                request=self._slots[slot],
+                fed=int(self._fed[slot]),
+                next_tok=int(self._next_tok_host[slot]),
+                cache_len=int(self._fed[slot]),
+                cache=cols,
+            )))
+            self._slots[slot] = None
+            if self._alloc is not None:
+                self._release_blocks(slot)
+            self.sample.active[slot] = 0      # a device write, no sync
+        return snaps
+
+    def pack(self, slots: Optional[List[int]] = None) -> List["WorkUnit"]:
+        """Checkpoint + release occupied slots as migratable ``WorkUnit``s.
+
+        A packed unit is self-contained: ``unpack`` admits it into any
+        engine built from the same ``(cfg, max_seq)`` and the greedy
+        stream continues bit-identically.  A slot that was itself
+        restored from a unit re-emits that unit's ``uid``, hop history
+        and origin.
+        """
+        from repro_torch.serving.workunit import WorkUnit
+        units = []
+        for slot, snap in self._snapshot_slots(slots):
+            meta = self._unit_meta.pop(slot, None)
+            if meta is None:
+                units.append(WorkUnit(snapshot=snap))
+            else:
+                uid, hops, origin = meta
+                units.append(WorkUnit(snapshot=snap, uid=uid, hops=hops,
+                                      origin=origin))
+        return units
+
+    def unpack(self, units: List["WorkUnit"]):
+        """Queue packed units for admission (cache written on admit),
+        ahead of fresh queued requests."""
+        self._restore.extend(units)
+
+    def slot_provenance(self) -> Dict[int, Tuple[int, Tuple["Hop", ...]]]:
+        """Per restored slot: ``(unit uid, hop history so far)``."""
+        return {slot: (uid, tuple(hops))
+                for slot, (uid, hops, _origin) in self._unit_meta.items()}
+
+    def preempt(self, slots: Optional[List[int]] = None) -> List["WorkUnit"]:
+        """Pause slots mid-stream: slot freed, snapshot retained.
+        Mechanically a ``pack``; the units come back ``PAUSED``."""
+        from repro_torch.serving.workunit import PAUSED
+        units = self.pack(slots)
+        for u in units:
+            u.state = PAUSED
+        self.preemptions += len(units)
+        return units
+
+    def resume(self, units: List["WorkUnit"]):
+        """Re-admit paused units (the other half of ``preempt``)."""
+        from repro_torch.serving.workunit import PACKED
+        for u in units:
+            u.state = PACKED
+        self.resumes += len(units)
+        self.unpack(units)
+
+    def drain_units(self) -> Tuple[List["WorkUnit"], List[Request]]:
+        """Empty the engine: packed in-flight work + the untouched queue.
+        Units still waiting in the restore queue ride along as they are
+        (same objects, same uids)."""
+        units = self.pack()
+        units.extend(self._restore)
+        self._restore = []
+        queued, self._queue = self._queue, []
+        return units, queued
+
+    def pending_units(self) -> Tuple["WorkUnit", ...]:
+        """Restore-queue units awaiting admission."""
+        return tuple(self._restore)
+
+    def checkpoint_units(self) -> List["WorkUnit"]:
+        """NON-destructive checkpoint of every occupied slot.
+
+        The slots keep decoding: the returned units hold a frozen copy of
+        each request (``out_tokens`` truncated to checkpoint progress)
+        plus the sampler's generator state (``get_state()``, a host read
+        of its seed and offset), so a lost replica's work restores from
+        its last checkpoint and re-decodes only the lost tail.  Unit
+        identity is copied, not shared.
+        """
+        from repro_torch.serving.workunit import WorkUnit
+        self._poll()
+        occupied = [i for i, r in enumerate(self._slots) if r is not None]
+        if not occupied:
+            return []
+        rng = self.sample.rng.get_state()
+        units = []
+        for slot, cols in zip(occupied, self._gather_slots(occupied)):
+            req = self._slots[slot]
+            frozen = dataclasses.replace(
+                req, out_tokens=list(req.out_tokens))
+            snap = SlotSnapshot(
+                request=frozen,
+                fed=int(self._fed[slot]),
+                next_tok=int(self._next_tok_host[slot]),
+                cache_len=int(self._fed[slot]),
+                cache=cols,
+                rng=rng.clone(),
+            )
+            meta = self._unit_meta.get(slot)
+            if meta is None:
+                units.append(WorkUnit(snapshot=snap))
+            else:
+                uid, hops, origin = meta
+                units.append(WorkUnit(snapshot=snap, uid=uid,
+                                      hops=list(hops), origin=origin))
+        return units
+
+    # ------------------------------------------------- vertical elasticity
+    @staticmethod
+    def _default_evict_key(u: "WorkUnit") -> Tuple:
+        """Keep-preference order under a shrink: most urgent SLO class
+        first (lowest priority number), then most progress, uid
+        tiebreak."""
+        prio = u.slo.priority if u.slo is not None else 1
+        return (prio, -u.snapshot.fed, u.uid)
+
+    def resize(self, *, batch_size: Optional[int] = None,
+               decode_block: Optional[int] = None,
+               kv_pool_blocks: Optional[int] = None,
+               evict_key=None) -> List["WorkUnit"]:
+        """In-place geometry change: repack every live slot through the
+        canonical ``SlotSnapshot`` path and rebuild the decode state at
+        the new ``(batch_size, kv_pool_blocks)``.
+
+        Surviving slots re-admit through ``_install`` (ahead of the
+        queue, re-blocked into the new pool, whose sink row is rebuilt
+        with it) so their streams continue bit-identically; the sampler's
+        generator object is carried across.  Slots that no longer fit
+        come back as ``PAUSED`` units.  ``evict_key`` orders
+        keep-preference (the default keeps the most urgent SLO classes).
+        The decode loops and prefill closures of the old geometry are
+        dropped.
+        """
+        from repro_torch.serving.workunit import PAUSED
+        new_batch = self.batch if batch_size is None else int(batch_size)
+        if new_batch < 1:
+            raise ValueError(f"batch_size must be >= 1, got {new_batch}")
+        if decode_block is not None:
+            self.decode_block = max(int(decode_block), 1)
+        new_pool = self.pool_blocks
+        if kv_pool_blocks is not None:
+            if self.cache_mode != "paged":
+                raise ValueError(
+                    "kv_pool_blocks only applies to cache_mode='paged'")
+            new_pool = int(kv_pool_blocks)
+            if new_pool < self.max_blocks:
+                raise ValueError(
+                    f"kv_pool_blocks={new_pool} cannot hold one full "
+                    f"request ({self.max_blocks} blocks) — admission "
+                    f"would wedge")
+        elif self.cache_mode == "paged" and batch_size is not None:
+            # the pool follows the lane count by default (the
+            # dense-equivalent memory budget at the new width)
+            new_pool = new_batch * self.max_blocks
+        if new_batch == self.batch and new_pool == self.pool_blocks:
+            return []              # decode_block-only change: no repack
+        units = self.pack()        # polls + harvests completions first
+        units.sort(key=evict_key or self._default_evict_key)
+        keep: List["WorkUnit"] = []
+        evicted: List["WorkUnit"] = []
+        lanes, blocks_free = new_batch, new_pool
+        for u in units:
+            need = (self._blocks_needed(self._req_maxfed(u.snapshot.request))
+                    if self.cache_mode == "paged" else 0)
+            if lanes > 0 and need <= blocks_free:
+                keep.append(u)
+                lanes -= 1
+                blocks_free -= need
+            else:
+                evicted.append(u)
+        rng = self.sample.rng      # the same generator, carried across
+        self.state = self.sample = self._prompt_buf = None
+        self.batch = new_batch
+        self.shape = ShapeConfig("serve", self.max_seq, new_batch, "decode")
+        if self.cache_mode == "paged":
+            self.pool_blocks = new_pool
+            self.state = zoo.init_paged_decode_state(
+                self.cfg, self.shape, self.block_size, new_pool, self.device)
+            self._alloc = BlockAllocator(new_pool)
+            self._tables = np.full((new_batch, self.max_blocks),
+                                   new_pool, np.int32)
+        else:
+            self.state = zoo.init_decode_state(self.cfg, self.shape,
+                                               fill_len=0,
+                                               device=self.device)
+        self.sample = zoo.init_sample_state(self.cfg, self.shape,
+                                            device=self.device)
+        self.sample.rng = rng
+        self._prompt_buf = torch.zeros((new_batch, self.max_seq),
+                                       dtype=torch.int32, device=self.device)
+        self._loops.clear()
+        self._prefills.clear()
+        self._slots = [None] * new_batch
+        self._unit_meta = {}
+        self._fed = np.zeros(new_batch, np.int64)
+        self._plen = np.ones(new_batch, np.int64)
+        self._maxfed = np.zeros(new_batch, np.int64)
+        self._next_tok_host = np.zeros(new_batch, np.int64)
+        self._out_read = np.zeros(new_batch, np.int64)
+        # survivors re-admit ahead of everything already waiting
+        self._restore = keep + self._restore
+        for u in evicted:
+            u.state = PAUSED
+        self.resizes += 1
+        self.resize_evictions += len(evicted)
+        self._admit()
+        return evicted
