@@ -230,7 +230,7 @@ def make_bulk_prefill(cfg: ModelConfig, shape: ShapeConfig, chunk: int,
             else:
                 ax = lane_axis(cfg)
                 leaf.select(ax, slot).copy_(upd.select(ax, 0))
-        state.cache_len[slot] = n_real
+        state.cache_len[slot].fill_(n_real)
         return state
 
     return bulk_prefill
@@ -509,7 +509,7 @@ def make_paged_bulk_prefill(cfg: ModelConfig, shape: ShapeConfig,
 
         _layer_stack(params, cache, h, cfg, attention, slot=slot,
                      fresh=first_chunk or off == 0, impl=impl)
-        state.cache_len[slot] = off + n_real
+        state.cache_len[slot].fill_(off + n_real)
         return state
 
     return paged_prefill

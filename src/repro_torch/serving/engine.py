@@ -474,7 +474,7 @@ class ServingEngine:
         return torch.from_numpy(arr).to(self.device, non_blocking=True)
 
     def _set_cache_len(self, slot: int, value: int):
-        self.state.cache_len[slot] = value
+        self.state.cache_len[slot].fill_(value)
 
     def _set_sample_row(self, slot: int, *, next_tok: int, fed: int,
                         plen: int, maxfed: int, prompt: np.ndarray,
@@ -482,12 +482,14 @@ class ServingEngine:
         row = np.zeros(self.max_seq, np.int32)
         row[:len(prompt)] = prompt
         s = self.sample
-        s.next_tok[slot, 0] = next_tok
-        s.active[slot] = active
-        s.fed[slot] = fed
-        s.plen[slot] = plen
-        s.maxfed[slot] = maxfed
-        s.out_buf[slot] = 0
+        # fill_ on a view: a Python number assigned by indexing is copied
+        # from the host with a stream sync
+        s.next_tok[slot, 0].fill_(next_tok)
+        s.active[slot].fill_(active)
+        s.fed[slot].fill_(fed)
+        s.plen[slot].fill_(plen)
+        s.maxfed[slot].fill_(maxfed)
+        s.out_buf[slot].zero_()
         self._prompt_buf[slot] = self._to_device(row)
         self._fed[slot] = fed
         self._plen[slot] = plen
@@ -837,7 +839,7 @@ class ServingEngine:
             self._slots[slot] = None
             if self._alloc is not None:
                 self._release_blocks(slot)
-            self.sample.active[slot] = 0      # a device write, no sync
+            self.sample.active[slot].zero_()   # a device write, no sync
         return snaps
 
     def pack(self, slots: Optional[List[int]] = None) -> List["WorkUnit"]:
