@@ -33,12 +33,13 @@ from repro.models import transformer as jtransformer
 from repro.models.schema import init_params as jinit_params
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
-from repro.serving.workload import SLOClass
 from repro_torch.configs import get_config
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import (Request, ServingEngine, SlotSnapshot,
                                         host_column)
+from repro_torch.serving.workload import (BATCH, INTERACTIVE, STANDARD,
+                                          SLOClass)
 from repro_torch.serving.workunit import PACKED, PAUSED, WorkUnit
 
 torch.set_num_threads(1)
@@ -590,7 +591,6 @@ def test_qos_shrink_evicts_best_effort_first(models):
     interactive stream has made less progress.  The key is the QoS
     layer's (``vertical.QoSPolicy.evict_key``: tier rank, then progress,
     then uid), spelled out here because ``vertical`` is not ported yet."""
-    from repro.serving.workload import BATCH, INTERACTIVE, STANDARD
     rank = {"interactive": 0, "standard": 1, "batch": 2}
 
     def evict_key(u):
