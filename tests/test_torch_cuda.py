@@ -524,3 +524,110 @@ def test_blockwise_bulk_prefill_kernel_matches_plain_on_card(cuda_device,
                                        **tol)
         else:
             assert float((a - b).norm() / b.norm()) < 2e-2, key
+
+
+def _migration_engine(cfg, params, dev, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    kw = dict(dict(batch_size=3, max_seq=96, prefill_buckets=(16, 64),
+                   cache_mode="paged", block_size=8), **kw)
+    return ServingEngine(cfg, params, device=dev, **kw)
+
+
+def _migration_requests(cfg):
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(11)
+    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=m)
+            for i, (n, m) in enumerate(((5, 9), (20, 7), (70, 8)))]
+
+
+def _migration_params(arch, dtype, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    cfg = get_config(arch).reduced().with_(compute_dtype=dtype)
+    return cfg, zoo.init_serving_params(cfg, seed=0, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b"])
+def test_pack_unpack_on_card_continues_stream(cuda_device, arch, dtype):
+    """Slots packed mid-decode on the card (columns gathered on the
+    device, one counted fetch) unpack into a second engine on the card,
+    and every stream equals the unmigrated run's; the window after the
+    unpack makes no host sync."""
+    cfg, params = _migration_params(arch, dtype, cuda_device)
+    ref_reqs = _migration_requests(cfg)
+    ref = _migration_engine(cfg, params, cuda_device)
+    for r in ref_reqs:
+        ref.submit(r)
+    ref.run_until_idle()
+    reqs = _migration_requests(cfg)
+    src = _migration_engine(cfg, params, cuda_device)
+    for r in reqs:
+        src.submit(r)
+    src.step_many(3)
+    syncs = src.host_syncs
+    units = src.pack()
+    assert src.host_syncs == syncs + 2 and len(units) == 3
+    for u in units:
+        assert all(t.device.type == "cpu" for t in u.snapshot.cache.values())
+    dst = _migration_engine(cfg, params, cuda_device)
+    dst.unpack(units)
+    syncs = dst.host_syncs
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dst.step_many(2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dst.host_syncs == syncs
+    dst.run_until_idle()
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b"])
+def test_resize_on_card_repacks_bitwise(cuda_device, arch):
+    """A resize on the card (3 -> 1 lanes, back to 3, then a larger
+    pool) packs through the device gather and re-installs what it keeps:
+    every unit's columns come back bit for bit, and the float32 streams
+    finish as an unmoved run's."""
+    cfg, params = _migration_params(arch, "float32", cuda_device)
+    ref_reqs = _migration_requests(cfg)
+    ref = _migration_engine(cfg, params, cuda_device)
+    for r in ref_reqs:
+        ref.submit(r)
+    ref.run_until_idle()
+    reqs = _migration_requests(cfg)
+    eng = _migration_engine(cfg, params, cuda_device)
+    for r in reqs:
+        eng.submit(r)
+    eng.step_many(3)
+    packed = eng.pack()
+    cols = {u.rid: u.snapshot.cache for u in packed}
+
+    def same(units):
+        for u in units:
+            for k, t in u.snapshot.cache.items():
+                assert torch.equal(t.view(torch.uint8),
+                                   cols[u.rid][k].view(torch.uint8)), k
+
+    eng.unpack(packed)
+    eng.step_many(0)                          # install, no decode step
+    evicted = eng.resize(batch_size=1)
+    assert len(evicted) == 2 and eng.n_active == 1
+    same(evicted)
+    kept = eng.pack()
+    same(kept)
+    assert eng.resize(batch_size=3) == []
+    eng.unpack(kept)
+    eng.resume(evicted)
+    eng.step_many(0)
+    assert eng.resize(kv_pool_blocks=eng.pool_blocks + 5) == []
+    assert eng.state.cache["k"].shape[1] == eng.pool_blocks + 1
+    again = eng.pack()
+    same(again)
+    eng.unpack(again)
+    eng.run_until_idle()
+    eng._alloc.check_invariants()
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]

@@ -1,4 +1,5 @@
-"""The port's import closure: torch only, never jax, never ``repro``."""
+"""The port's import closure: torch only, never jax, never ``repro``,
+never ``ml_dtypes`` (the card's machine has none)."""
 
 import ast
 import os
@@ -20,10 +21,13 @@ def test_import_loads_no_jax():
             "repro_torch.apps.jacobi2d, repro_torch.apps.lulesh_proxy, "
             "repro_torch.core.overdecomp, repro_torch.core.spmd_stencil, "
             "repro_torch.runtime, repro_torch.kernels.jacobi, "
-            "repro_torch.kernels.flash_attention\n"
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.serving.workunit, repro_torch.serving.simengine, "
+            "repro_torch.serving.workload, repro_torch.serving.shapes, "
+            "repro_torch.core.checkpointing\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
-            "or m.startswith('repro.'))\n"
+            "or m.startswith('repro.') or m == 'ml_dtypes')\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
@@ -47,4 +51,4 @@ def _imported_roots(path: Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, sorted(roots)
