@@ -1737,7 +1737,7 @@ def migration_path(arch, attn_layers, mamba_layers, dev):
     just before run B, read just after) are the layers times the decode
     steps (and chunk prefills) of the three engines.  Then the packed
     units install into a fresh engine and pack again bit for bit.
-    Returns (launches, numbers, params)."""
+    Returns (launches, numbers, params, run A's streams by rid)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import kernel as pa
@@ -1815,7 +1815,7 @@ def migration_path(arch, attn_layers, mamba_layers, dev):
         f"{pack_ms:.2f} ms/unit (into new pinned host memory: the first "
         f"units are still held)")
     return launches, {"unit_bytes": nbytes, "install_ms": install_ms,
-                      "pack_ms": pack_ms}, params
+                      "pack_ms": pack_ms}, params, want
 
 
 def link_yardstick(nbytes, dev, iters=5):
@@ -1866,28 +1866,20 @@ def store_timings(state, dev):
     return out
 
 
-def migration_geometry(params, dev):
+def migration_geometry(params, want, dev):
     """Phase 17, geometry changes on full-width granite-8b: all 8 slots
     packed two windows in (timed, with the link's yardstick and the
     stores beside it), then installed into a dense engine, a 32-position
     block engine and an engine resized 8 -> 4 -> 8 lanes.  Each install
     packs again before any step bit for bit; each first decode step's
     logits are held to the source geometry's (``MIGRATE_LOGITS_TOL``);
-    whether the streams still equal run A's is logged."""
+    whether the streams still equal run A's (``want``) is logged."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import ServingEngine
     cfg = get_config("granite-8b")
     geom = dict(batch_size=8, max_seq=1024, block_size=16,
                 cache_mode="paged", device=dev)
-    run_a = ServingEngine(cfg, params, **geom)
-    reqs_a = requests(cfg, PROMPT_LENS, 32, seed=0)
-    for r in reqs_a:
-        run_a.submit(r)
-    drive(run_a)
-    want = {r.rid: list(r.out_tokens) for r in reqs_a}
-    del run_a
-
     src = ServingEngine(cfg, params, **geom)
     for r in requests(cfg, PROMPT_LENS, 32, seed=0):
         src.submit(r)
@@ -1968,11 +1960,11 @@ def migration_phase(dev):
     import torch
     by_path, numbers = {}, {}
     for arch, attn_layers, mamba_layers in MIGRATE_PATHS:
-        launches, numbers[arch], params = migration_path(
+        launches, numbers[arch], params, want = migration_path(
             arch, attn_layers, mamba_layers, dev)
         by_path[f"{arch} migration"] = launches
         if arch == "granite-8b":
-            numbers["geometry"] = migration_geometry(params, dev)
+            numbers["geometry"] = migration_geometry(params, want, dev)
         del params
         torch.cuda.empty_cache()
     return by_path, numbers

@@ -139,8 +139,8 @@ class SlotSnapshot:
 def host_column(col) -> torch.Tensor:
     """A snapshot column as a CPU tensor: the port's own columns pass
     through; a numpy array (the JAX package's snapshots) is wrapped
-    without a copy, a ``bfloat16`` one through its int16 bits so that no
-    ``ml_dtypes`` import is needed."""
+    (copied only if read-only), a ``bfloat16`` one through its int16
+    bits so that no ``ml_dtypes`` import is needed."""
     if isinstance(col, torch.Tensor):
         return col
     arr = np.ascontiguousarray(col)
@@ -760,7 +760,9 @@ class ServingEngine:
             if k in kv_keys:
                 # contiguous column -> (max_blocks, block_size) at the seq
                 # axis -> the reserved prefix scattered through the fresh
-                # table (dense batch axis == paged block axis)
+                # table (dense batch axis == paged block axis); the whole
+                # column crosses in one contiguous copy and the prefix is
+                # taken on the device
                 sh = col.shape
                 blocked = col.reshape(sh[:ax] + (self.max_blocks,
                                                  self.block_size)
@@ -1007,6 +1009,7 @@ class ServingEngine:
             else:
                 evicted.append(u)
         rng = self.sample.rng      # the same generator, carried across
+        # the old geometry's buffers go before the new ones are allocated
         self.state = self.sample = self._prompt_buf = None
         self.batch = new_batch
         self.shape = ShapeConfig("serve", self.max_seq, new_batch, "decode")
