@@ -138,7 +138,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    engine, a 32-position block engine and an engine resized 8 -> 4 -> 8
    lanes: every column comes back bit for bit, the first step's logits
    agree with the source geometry's within ``MIGRATE_LOGITS_TOL``, and
-   whether the streams still equal run A's is logged.
+   whether the streams still equal run A's is logged;
+18. the serving cluster on the card: ``ServingCluster`` over a fleet of
+   paged full-width granite-8b replicas (one ``params`` shared, random
+   bf16 weights from seed 0, 8 lanes, 1024 positions, blocks of 16) of
+   speeds 2.0 (an accelerator host: ``DeviceEndpoint``), 2.0, 0.7 and
+   0.7 (``HostEndpoint``) serves 24 requests of 40-700 prompt tokens, 32
+   new each, through two spot interruptions (r0, r1) that drain slots
+   mid-decode; every stream equals a lone paged engine's of the same
+   geometry, the paged launches (zeroed just before, read just after)
+   are 36 x the decode steps summed over the replicas, and the run
+   repeated gives the same journal digest and summary (the wall-clock
+   keys left out).  Wall and virtual times, per-replica tokens and host
+   syncs, each drain's stage ms and bytes per unit by endpoint kind, the
+   install ms by where the columns lay and peak memory are logged.  One
+   unit staged through each endpoint kind installs into a decoding
+   engine in a window with no host sync.  Then a seeded chaos soup with
+   one hard kill of its own, survived through checkpoints, the failure
+   detector and the straggler policy (every stream again the lone
+   engine's), and ``repro_torch.launch.serve.main`` in cluster mode at
+   full width (16 of 16 served).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -260,6 +279,35 @@ MIGRATE_PACK, MIGRATE_PREEMPT = [1, 4, 6], [0, 3]
 # bf16 weights amplify that as in the kernel-vs-plain step
 # (BF16_STEP_TOL), so the same limit holds here; argmax agreement logged.
 MIGRATE_LOGITS_TOL = BF16_STEP_TOL
+# The serving cluster (phase 18): granite-8b replicas with paged caches
+# at the main path's geometry, a fleet of (name, speed, accelerator), 24
+# requests (the main path's prompt lengths three times, 32 new tokens
+# each) at t = 0, and spot interruptions (virtual t, replica) fixed so
+# that each drain catches slots mid-decode.  The event timeline follows
+# the token counts only, so the reduced model on the CPU gives the same
+# one.  The chaos run samples its soup from a fixed seed (its one hard
+# kill lands before the first checkpoint, so that replica's requests
+# replay from the prompt) and adds a hard kill (virtual t, replica) of
+# the accelerator replica after checkpoints, so that its units replay
+# from the device endpoint's store.
+CLUSTER_ARCH, CLUSTER_ATTN_LAYERS = "granite-8b", 36
+CLUSTER_FLEET = (("gpu.2x", 2.0, True), ("spot.2x", 2.0, False),
+                 ("spot.0.7x", 0.7, False), ("spot.0.7x", 0.7, False))
+CLUSTER_GEOMETRY = dict(batch_size=8, max_seq=1024, decode_block=8)
+CLUSTER_LENS = PROMPT_LENS * 3
+CLUSTER_INTERRUPTS = ((30.0, 0), (40.0, 1))
+CLUSTER_CHAOS = dict(rate=0.05, horizon=200.0, seed=0)
+CLUSTER_KILL = (100.0, 0)
+CLUSTER_CKPT_S = 30.0      # virtual seconds between recovery checkpoints
+CLUSTER_CLI = ["--cluster", "--arch", "granite-8b", "--no-reduced",
+               "--cache-mode", "paged", "--batch-size", "8", "--max-seq",
+               "1024", "--fleet", "2x2.0,2x0.7", "--router", "rate_aware",
+               "--requests", "16", "--interrupt-at", "4"]
+# The summary keys that hold real (wall-clock) store seconds; every other
+# key is virtual time and must repeat exactly.
+CLUSTER_WALL_KEYS = ("preempt_stage_s", "interruption_overhead_s",
+                     "recovery_restore_s", "checkpoint_stage_s",
+                     "resize_stage_s")
 # The Jacobi kernel: tests/test_kernels.py's shapes, then full grids.
 JACOBI_SHAPES = [(64, 64), (128, 64), (64, 128), (256, 32), (32, 32)]
 JACOBI_FULL = (16384, 32768)
@@ -1970,6 +2018,421 @@ def migration_phase(dev):
     return by_path, numbers
 
 
+# ------------------------------------------------------ the serving cluster
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def release(dev):
+    """Free what a finished cluster run held: its event loop's handlers
+    are bound methods of the cluster, a reference cycle that only the
+    cyclic collector breaks, so the engines' pools outlive ``del``."""
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def cluster_probes(dev):
+    """Class-level wrappers that measure one cluster run: the decode steps
+    every engine ran, each install's host ms and device ms (CUDA events,
+    no sync) by where its columns lay, each pack's (drains and moves) and
+    checkpoint's ms, and each endpoint round trip's kind, unit bytes and
+    stage seconds.  Restored on exit."""
+    import torch
+    from repro_torch.cluster.endpoint import MigrationEndpoint
+    from repro_torch.serving.engine import ServingEngine
+    rec = {"steps": 0, "installs": [], "stages": [], "packs": []}
+    step_many = ServingEngine.step_many
+    install = ServingEngine._install
+    roundtrip = MigrationEndpoint.roundtrip
+    packs = {verb: getattr(ServingEngine, verb)
+             for verb in ("pack", "checkpoint_units")}
+
+    def timed(verb):
+        def run(self, *a, **kw):
+            t0 = time.perf_counter()
+            units = packs[verb](self, *a, **kw)
+            if units:
+                rec["packs"].append((verb, len(units),
+                                     (time.perf_counter() - t0) * 1e3))
+            return units
+        return run
+
+    def counted_step_many(self, n_steps):
+        out = step_many(self, n_steps)
+        rec["steps"] += out["steps"]
+        return out
+
+    def timed_install(self, snap, slot):
+        where = next(iter(snap.cache.values())).device.type
+        ev = None
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t0 = time.perf_counter()
+        install(self, snap, slot)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if ev is not None:
+            ev[1].record()
+        rec["installs"].append((where, host_ms, ev))
+
+    def staged(self, units, name):
+        out = roundtrip(self, units, name)
+        rec["stages"].append((self.kind, [unit_bytes(u) for u in units],
+                              out))
+        return out
+
+    ServingEngine.step_many = counted_step_many
+    ServingEngine._install = timed_install
+    MigrationEndpoint.roundtrip = staged
+    for verb in packs:
+        setattr(ServingEngine, verb, timed(verb))
+    try:
+        yield rec
+    finally:
+        for verb, fn in packs.items():
+            setattr(ServingEngine, verb, fn)
+        ServingEngine.step_many = step_many
+        ServingEngine._install = install
+        MigrationEndpoint.roundtrip = roundtrip
+
+
+def peak_gib() -> float:
+    """``torch.cuda.max_memory_allocated`` since the last ``release``."""
+    import torch
+    if not torch.cuda.is_available():
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def pinned_stats() -> dict:
+    """The caching pinned-host allocator's counts (new page-locked
+    allocations against requests served from freed blocks), where this
+    torch reports them."""
+    import torch
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return {}
+    return {k: v for k, v in stats().items()
+            if isinstance(v, int) and ("alloc" in k or "free" in k)}
+
+
+def install_times(rec) -> dict:
+    """Installs by where their columns lay: count, mean host ms and mean
+    device ms (read after the run's last sync)."""
+    out = {}
+    for where, host_ms, ev in rec["installs"]:
+        row = out.setdefault(where, {"installs": 0, "host_ms": [],
+                                     "device_ms": []})
+        row["installs"] += 1
+        row["host_ms"].append(host_ms)
+        if ev is not None:
+            row["device_ms"].append(ev[0].elapsed_time(ev[1]))
+    for row in out.values():
+        for k in ("host_ms", "device_ms"):
+            row[k] = sum(row[k]) / len(row[k]) if row[k] else None
+    return out
+
+
+def cluster_engine():
+    import functools
+    from repro_torch.serving.engine import ServingEngine
+    return functools.partial(ServingEngine, cache_mode="paged",
+                             block_size=16)
+
+
+def lone_streams(cfg, params, dev) -> dict:
+    """The 24 requests through one paged engine of the replicas'
+    geometry: the streams every replica must give."""
+    eng = cluster_engine()(cfg, params, device=dev, **CLUSTER_GEOMETRY)
+    reqs = requests(cfg, CLUSTER_LENS, 32, seed=0)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    assert all(r.done and len(r.out_tokens) == 32 for r in reqs)
+    return {r.rid: list(r.out_tokens) for r in reqs}
+
+
+def cluster_run(cfg, params, dev, chaos=False):
+    """One fleet run through ``ServingCluster``: the spot interruptions of
+    ``CLUSTER_INTERRUPTS``, or (``chaos``) the seeded soup plus
+    ``CLUSTER_KILL`` with checkpoints, the failure detector and the
+    straggler policy.  The paged launch count is set to 0 just before
+    the run and read just after.  Returns (cluster, requests, summary,
+    wall s, probes, launches)."""
+    from repro_torch.cluster import (CheckpointPolicy, FailureDetector,
+                                     InstanceType, RateAwareRouter,
+                                     ServingCluster, StragglerPolicy)
+    from repro_torch.kernels.paged_attention import kernel as pa
+    from repro_torch.runtime import FaultTrace
+    from repro_torch.serving.workload import BatchArrivals
+    fleet = [InstanceType(name, speed, accelerator=acc)
+             for name, speed, acc in CLUSTER_FLEET]
+    kw = {}
+    if chaos:
+        trace = FaultTrace.chaos_sampled(
+            targets=len(fleet), rebalance_lead=6.0, notice_deadline=4.0,
+            **CLUSTER_CHAOS)
+        trace.inject_hard_kill(*CLUSTER_KILL)
+        kw = dict(checkpoint=CheckpointPolicy(interval=CLUSTER_CKPT_S),
+                  health=FailureDetector(),
+                  straggler=StragglerPolicy())
+    else:
+        trace = FaultTrace(rebalance_lead=6.0, notice_deadline=4.0)
+        for t, rid in CLUSTER_INTERRUPTS:
+            trace.inject(t, rid)
+    cl = ServingCluster(cfg, params, fleet, router=RateAwareRouter(),
+                        engine=cluster_engine(), dt=1.0, seed=0,
+                        trace=trace, device=dev, **CLUSTER_GEOMETRY, **kw)
+    reqs = requests(cfg, CLUSTER_LENS, 32, seed=0)
+    cl.attach_arrivals(BatchArrivals(reqs))
+    with cluster_probes(dev) as probe:
+        sync(dev)
+        pa.launches = 0
+        t0 = time.perf_counter()
+        out = cl.run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = pa.launches
+    return cl, reqs, out, wall, probe, launches
+
+
+def check_cluster_run(what, cl, reqs, out, probe, launches, want, dev):
+    """Everyone served, with the lone engine's streams; the paged kernel
+    launched 36 x the decode steps summed over the replicas."""
+    assert out["completed"] == out["submitted"] == len(reqs), (what, out)
+    assert out["dropped"] == 0, (what, out)
+    for r in reqs:
+        assert r.done and len(r.out_tokens) == 32, (what, r.rid)
+        assert r.out_tokens == want[r.rid], (what, r.rid, r.out_tokens,
+                                             want[r.rid])
+    if dev.type == "cuda":
+        assert launches == CLUSTER_ATTN_LAYERS * probe["steps"], \
+            (what, launches, probe["steps"])
+
+
+def log_cluster_run(what, cl, out, wall, probe, launches):
+    log(f"  {what}: {out['completed']}/{out['submitted']} served, "
+        f"{out['total_tokens']} tokens in {wall:.2f} s wall "
+        f"({out['total_tokens'] / wall:.1f} tok/s across the fleet); "
+        f"virtual makespan {out['virtual_seconds']:.1f} s, p50 "
+        f"{out['p50_latency']:.1f} s, p99 {out['p99_latency']:.1f} s; "
+        f"paged launches {launches} = {CLUSTER_ATTN_LAYERS} x "
+        f"{probe['steps']} decode steps summed over "
+        f"{len(cl.replicas)} replicas")
+    for rep in cl.replicas:
+        log(f"    r{rep.rid} {rep.itype.name} ({rep.endpoint.kind} "
+            f"endpoint, {rep.state.value}): {rep.tokens_total} tokens, "
+            f"host_syncs {rep.engine.host_syncs}")
+    for d in cl.metrics.drains:
+        log(f"    drain r{d.replica} at t={d.t:.1f} through the "
+            f"{d.endpoint} endpoint: {d.slots_migrated} slots, "
+            f"{d.queued_requeued} queued requeued, checkpoint "
+            f"{d.checkpoint_s * 1e3:.2f} ms, restore "
+            f"{d.restore_s * 1e3:.2f} ms")
+    for kind, nbytes, (ck, rs) in probe["stages"]:
+        if nbytes:
+            log(f"    {kind} stage: {len(nbytes)} units of "
+                f"{nbytes[0]} B, checkpoint {ck * 1e3 / len(nbytes):.2f} "
+                f"ms/unit, restore {rs * 1e3 / len(nbytes):.2f} ms/unit")
+    for where, row in install_times(probe).items():
+        dev_ms = ("n/a" if row["device_ms"] is None
+                  else f"{row['device_ms']:.2f}")
+        log(f"    installs from {where} columns: {row['installs']}, "
+            f"host {row['host_ms']:.2f} ms, device {dev_ms} ms each")
+    for verb in ("pack", "checkpoint_units"):
+        ms = [t / n for v, n, t in probe["packs"] if v == verb]
+        if ms:
+            half = max(len(ms) // 2, 1)
+            log(f"    {verb}: {len(ms)} calls, "
+                f"{sum(n for v, n, _ in probe['packs'] if v == verb)} "
+                f"units, ms/unit first half {spread(ms[:half], 1)}, "
+                f"second half {spread(ms[half:] or ms[:half], 1)}")
+    log(f"    peak memory allocated in the run {peak_gib():.2f} GiB; "
+        f"pinned host allocator (process totals) {pinned_stats()}")
+
+
+def endpoint_install_check(cfg, params, dev, want) -> dict:
+    """Two slots packed two windows in, one staged through a
+    ``DeviceEndpoint`` (its columns come back on the card) and one
+    through a ``HostEndpoint`` (unpinned host copies), unpacked into an
+    engine that is decoding: the window that installs them makes no host
+    sync, and both streams equal the lone engine's.  Returns the install
+    ms by endpoint kind."""
+    from repro_torch.cluster import DeviceEndpoint, HostEndpoint
+    from repro_torch.serving.engine import ServingEngine
+    make = cluster_engine()
+    src = make(cfg, params, device=dev, **CLUSTER_GEOMETRY)
+    dst = make(cfg, params, device=dev, **CLUSTER_GEOMETRY)
+    reqs = requests(cfg, CLUSTER_LENS[:8], 32, seed=0)
+    for r in reqs:
+        src.submit(r)
+    for r in requests(cfg, [20] * 4, 64, seed=1, start=100):
+        dst.submit(r)
+    for eng in (src, dst):
+        eng.step_many(eng.decode_block)
+        eng.step_many(eng.decode_block)
+    d_unit, h_unit = src.pack([1, 4])
+    ck = {}
+    for kind, ep, u in (("device", DeviceEndpoint(device=dev), d_unit),
+                        ("host", HostEndpoint(device=dev), h_unit)):
+        ck[kind] = ep.roundtrip([u], f"check_{kind}")
+        cols = u.snapshot.cache.values()
+        where = {t.device.type for t in cols}
+        assert u.residency == kind
+        assert where == ({dev.type} if kind == "device" else {"cpu"}), where
+        if kind == "host":
+            assert not any(t.is_pinned() for t in cols)
+    dst.unpack([d_unit, h_unit])
+    with cluster_probes(dev) as probe:
+        if dev.type == "cuda":
+            sync_free_window(dst, "after the endpoint installs")
+        else:
+            dst.step_many(dst.decode_block)
+        sync(dev)
+    times = {("host" if w == "cpu" else "device"): row
+             for w, row in install_times(probe).items()}
+    for eng in (src, dst):
+        drive(eng)
+    for r in reqs:
+        assert r.done and r.out_tokens == want[r.rid], r.rid
+    for kind, (c, rs) in ck.items():
+        row = times.get(kind, {})
+        log(f"  {kind} endpoint: a {unit_bytes(d_unit)} B unit staged in "
+            f"{c * 1e3:.2f} + {rs * 1e3:.2f} ms (checkpoint + restore); "
+            f"its install {row.get('host_ms', float('nan')):.2f} ms host, "
+            f"{row.get('device_ms') or float('nan'):.2f} ms device")
+    log("  the window that installs both makes 0 host syncs; both "
+        "streams equal the lone engine's")
+    return {k: dict(v, checkpoint_ms=ck[k][0] * 1e3,
+                    restore_ms=ck[k][1] * 1e3) for k, v in times.items()}
+
+
+def cluster_phase(dev):
+    """Phase 18: the serving cluster on the card.  Returns the paged
+    launches of each run by path, and the phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as pa
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    t_phase = time.perf_counter()
+    cfg = get_config(CLUSTER_ARCH)
+    params = zoo.init_serving_params(cfg, seed=0, device=dev)
+    want = lone_streams(cfg, params, dev)
+    release(dev)
+    log(f"[cluster] {CLUSTER_ARCH} at full width and depth, paged "
+        f"replicas {CLUSTER_GEOMETRY}, fleet {CLUSTER_FLEET}, "
+        f"{len(CLUSTER_LENS)} requests of {min(CLUSTER_LENS)}-"
+        f"{max(CLUSTER_LENS)} prompt tokens x 32 new, spot interruptions "
+        f"{CLUSTER_INTERRUPTS}")
+    by_path, numbers, repeat = {}, {}, []
+    for run in range(2):
+        cl, reqs, out, wall, probe, launches = cluster_run(cfg, params, dev)
+        check_cluster_run("fleet", cl, reqs, out, probe, launches, want,
+                          dev)
+        drains = cl.metrics.drains
+        assert out["drains"] == len(CLUSTER_INTERRUPTS), out["drains"]
+        assert all(d.slots_migrated >= 1 for d in drains), drains
+        assert sorted(d.endpoint for d in drains) == ["device", "host"]
+        repeat.append((cl.loop.journal_digest, cl.loop.dispatched,
+                       {k: v for k, v in out.items()
+                        if k not in CLUSTER_WALL_KEYS}))
+        if run == 0:
+            log_cluster_run("fleet run 1", cl, out, wall, probe, launches)
+            by_path[f"{CLUSTER_ARCH} cluster"] = {
+                "paged_attention": launches, "ssd_intra_chunk": 0}
+            numbers["fleet"] = {
+                "wall_s": wall, "tok_per_wall_s": out["total_tokens"] / wall,
+                "virtual_s": out["virtual_seconds"],
+                "p50_s": out["p50_latency"], "p99_s": out["p99_latency"],
+                "drains": [(d.endpoint, d.slots_migrated,
+                            d.checkpoint_s * 1e3, d.restore_s * 1e3)
+                           for d in drains],
+                "unit_bytes": next(b[0] for _, b, _ in probe["stages"]
+                                   if b),
+                "installs": install_times(probe),
+                "host_syncs": {r.rid: r.engine.host_syncs
+                               for r in cl.replicas},
+                "packs": probe["packs"]}
+        else:
+            log(f"  fleet run 2: {wall:.2f} s wall, launches {launches}")
+        numbers.setdefault("peak_gib", []).append(peak_gib())
+        del cl, reqs, probe
+        release(dev)
+    assert repeat[0] == repeat[1], "the repeated run moved"
+    log(f"  the repeated run gives the same journal digest "
+        f"({repeat[0][0]}, {repeat[0][1]} events) and the same summary "
+        f"(the {len(CLUSTER_WALL_KEYS)} wall-clock keys left out); every "
+        f"stream equals the lone paged engine's")
+    numbers["endpoint_installs"] = endpoint_install_check(cfg, params, dev,
+                                                          want)
+    release(dev)
+
+    cl, reqs, out, wall, probe, launches = cluster_run(cfg, params, dev,
+                                                      chaos=True)
+    check_cluster_run("chaos", cl, reqs, out, probe, launches, want, dev)
+    assert out["hard_kills"] >= 1 and out["checkpoints"] >= 1, out
+    assert out["requests_recovered"] >= 1, out
+    from_ckpt = sum(int(m.split(": ")[1].split()[0]) for _, m in cl.timeline
+                    if m.startswith("recover "))
+    assert from_ckpt >= 1, [m for _, m in cl.timeline if "recover" in m]
+    log(f"  chaos (soup {CLUSTER_CHAOS} plus a hard kill {CLUSTER_KILL}): "
+        f"hard_kills {out['hard_kills']}, checkpoints "
+        f"{out['checkpoints']} ({out['checkpointed_units']} units, "
+        f"{out['checkpoint_stage_s'] * 1e3:.1f} ms), recovered "
+        f"{out['requests_recovered']} ({from_ckpt} units from a "
+        f"checkpoint), replayed {out['replayed_tokens']} "
+        f"tokens, restore {out['recovery_restore_s'] * 1e3:.1f} ms, "
+        f"slowdowns {out['slowdowns']}, contention windows "
+        f"{out['contention_windows']}, endpoint faults "
+        f"{out['endpoint_faults']} ({out['endpoint_retries']} retries), "
+        f"quarantines {out['quarantines']}; every stream equals the lone "
+        f"engine's")
+    log_cluster_run("chaos run", cl, out, wall, probe, launches)
+    by_path[f"{CLUSTER_ARCH} cluster chaos"] = {
+        "paged_attention": launches, "ssd_intra_chunk": 0}
+    numbers["chaos"] = {k: out[k] for k in (
+        "hard_kills", "checkpoints", "requests_recovered",
+        "replayed_tokens", "virtual_seconds")}
+    numbers["chaos"].update(wall_s=wall, units_from_checkpoint=from_ckpt,
+                            packs=probe["packs"], pinned=pinned_stats())
+    numbers["peak_gib"].append(peak_gib())
+    del cl, reqs, probe, params
+    release(dev)
+
+    log(f"[cluster] repro_torch.launch.serve.main({CLUSTER_CLI})")
+    argv = CLUSTER_CLI + ([] if dev.type == "cuda" else
+                          ["--device", "cpu", "--reduced"])
+    with cluster_probes(dev) as probe:
+        pa.launches = 0
+        t0 = time.perf_counter()
+        cl, reqs, out = serve.main(argv)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = pa.launches
+    assert out["completed"] == out["submitted"] == len(reqs) == 16, out
+    assert all(r.done for r in reqs)
+    if dev.type == "cuda":
+        assert launches == CLUSTER_ATTN_LAYERS * probe["steps"], launches
+    log(f"  the launcher served {out['completed']}/{out['submitted']} on "
+        f"{cl.device} in {wall:.2f} s (the weights drawn included), paged "
+        f"launches {launches} = {CLUSTER_ATTN_LAYERS} x {probe['steps']}")
+    by_path[f"{CLUSTER_ARCH} cluster launcher"] = {
+        "paged_attention": launches, "ssd_intra_chunk": 0}
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    numbers["peak_gib"].append(peak_gib())
+    del cl, reqs
+    release(dev)
+    log(f"[cluster] phase 18 in {numbers['phase_s']:.1f} s")
+    return by_path, numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2132,11 +2595,16 @@ def main() -> int:
     # 17. work-unit migration on the card, full width
     migrated, migration = migration_phase(dev)
     by_path.update(migrated)
+    log(f"[migrate] numbers {json.dumps(migration)}")
+
+    # 18. the serving cluster on the card, full width
+    clustered, cluster = cluster_phase(dev)
+    by_path.update(clustered)
+    log(f"[cluster] numbers {json.dumps(cluster)}")
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}
         record["launches"] = sum(record["launches_by_path"].values())
-    log(f"[migrate] numbers {json.dumps(migration)}")
 
     # 16. the same at a bucket past 8192
     small_long_parity(dev)

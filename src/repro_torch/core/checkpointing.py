@@ -143,16 +143,20 @@ class DeviceStore:
     The copy stays in device memory (a distinct buffer), so a
     checkpoint/restore never crosses the host link -- mirroring the
     paper's observation that device-local daemon copies beat host
-    staging.
+    staging.  A store built for a ``device`` holds its copy there, host
+    leaves included, as the reference's ``save`` puts every leaf on its
+    device; ``device=None`` keeps each copy on its leaf's own device.
     """
 
-    def __init__(self):
+    def __init__(self, device=None):
+        self.device = None if device is None else resolve_device(device)
         self._data: Dict[str, Any] = {}
         self.timer = StageTimer()
 
     def save(self, name: str, state) -> float:
         with self.timer.time("checkpoint"):
-            snap = tree_map(torch.clone, state)
+            snap = tree_map(torch.clone if self.device is None else
+                            (lambda x: _to_device(x, self.device)), state)
             _sync(snap)
             self._data[name] = snap
         return self.timer.stages["checkpoint"]

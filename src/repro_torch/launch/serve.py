@@ -1,6 +1,6 @@
-"""Serving launcher: one continuous-batching engine over an --arch of the
-dense (granite-8b, llama3.2-3b, ...), ssm (mamba2-780m) or hybrid
-(zamba2-2.7b) family.
+"""Serving launcher: one continuous-batching engine, or a cluster of them,
+over an --arch of the dense (granite-8b, llama3.2-3b, ...), ssm
+(mamba2-780m) or hybrid (zamba2-2.7b) family.
 
 On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
@@ -10,18 +10,69 @@ On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch mamba2-780m --requests 4 --max-new 4 --cache-mode paged
 
-Port of ``repro.launch.serve``'s single-engine mode.  The cluster mode
-comes with the layers above the engine (ROADMAP queue 1, item 9).
+Cluster mode — replicated engines on a heterogeneous spot fleet, with
+rate-aware routing and a drained interruption (``--cache-mode paged``
+builds every replica with a paged cache):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --cluster --fleet 2x2.0,2x0.7 --router rate_aware --requests 24 \
+      --interrupt-at 4
+
+Chaos drill — seeded fault soup (hard kills, slowdowns, contention,
+endpoint failures) survived via checkpoints + heartbeat detection:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --cluster --fleet 2x1.0 --requests 10 --chaos 3 --chaos-rate 0.05 \
+      --checkpoint-every 3
+
+Port of ``repro.launch.serve``.  Market mode (``--market``,
+``--fallback``) and the vertical layer (``--vertical``, ``--qos``) keep
+the reference's choices but wait for ROADMAP item 9c: anything but
+their default is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import time
 
 from repro_torch.configs import ARCHS
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.workload import synthetic_requests
+
+
+def _make_requests(args, cfg):
+    from repro_torch.serving.workload import (classed_requests,
+                                              synthetic_requests)
+    if getattr(args, "slo_mix", None) is not None:
+        return classed_requests(args.requests, cfg.vocab_size,
+                                interactive_frac=args.slo_mix,
+                                seed=args.seed)
+    return synthetic_requests(
+        args.requests, cfg.vocab_size, seed=args.seed,
+        prompt_len=(3, min(12, args.max_seq // 2)), max_new=args.max_new)
+
+
+def _parse_fleet(spec: str):
+    """'2x2.0,2x0.7@0.5' -> two speed-2.0 replicas at the default $1/h +
+    two speed-0.7 replicas at $0.50/h (cost feeds the dollar metrics and
+    cost-aware scaling)."""
+    from repro_torch.cluster import InstanceType
+    fleet = []
+    try:
+        for part in spec.split(","):
+            count, speed = part.split("x")
+            speed, _, cost = speed.partition("@")
+            for _ in range(int(count)):
+                fleet.append(InstanceType(
+                    f"spot.{speed}x", float(speed),
+                    cost_per_hour=float(cost) if cost else 1.0))
+    except ValueError:
+        raise SystemExit(
+            f"bad --fleet spec {spec!r}: expected "
+            f"'<count>x<speed>[@<cost_per_hour>],...' like '2x2.0,2x0.7@0.5'")
+    if not fleet:
+        raise SystemExit("--fleet spec produced an empty fleet")
+    return fleet
 
 
 def run_single(args, cfg, params):
@@ -30,10 +81,9 @@ def run_single(args, cfg, params):
                            temperature=args.temperature, seed=args.seed,
                            prefill_mode=args.prefill_mode,
                            decode_block=args.decode_block,
-                           cache_mode=args.cache_mode, device=args.device)
-    reqs = synthetic_requests(
-        args.requests, cfg.vocab_size, seed=args.seed,
-        prompt_len=(3, min(12, args.max_seq // 2)), max_new=args.max_new)
+                           cache_mode=args.cache_mode,
+                           block_size=args.block_size, device=args.device)
+    reqs = _make_requests(args, cfg)
     for req in reqs:
         engine.submit(req)
     stats = engine.run_until_idle()
@@ -42,6 +92,124 @@ def run_single(args, cfg, params):
           f"served {done}/{len(reqs)} requests, "
           f"{stats['tokens']} tokens in {stats['seconds']:.2f}s "
           f"({stats['tok_per_s']:.1f} tok/s) host_syncs={engine.host_syncs}")
+
+
+def _refuse_unported(args):
+    """Market mode and the vertical layer wait for ROADMAP item 9c."""
+    unported = [flag for flag, on in (
+        ("--market", args.market != "off"),
+        ("--fallback", args.fallback != "on_demand"),
+        ("--vertical", args.vertical != "off"),
+        ("--qos", args.qos)) if on]
+    if unported:
+        raise SystemExit(
+            f"{', '.join(unported)}: repro_torch.market and "
+            f"repro_torch.vertical are not ported yet (ROADMAP item 9c)")
+
+
+def run_cluster(args, cfg, params):
+    """Serve ``args.requests`` over the ``args.fleet`` cluster and print
+    the reference's report; returns ``(cluster, requests, summary)``."""
+    from repro_torch.cluster import (CheckpointPolicy, FailureDetector,
+                                     PREEMPTION_POLICIES, ROUTERS,
+                                     SCALING_POLICIES, ServingCluster,
+                                     StragglerPolicy)
+    from repro_torch.runtime import FaultTrace
+    from repro_torch.serving.workload import make_arrivals
+    _refuse_unported(args)
+    fleet = _parse_fleet(args.fleet)
+    preemption = PREEMPTION_POLICIES[args.preemption]() \
+        if args.preemption != "none" else None
+    # --chaos SEED samples a mixed fault soup (hard kills, slowdowns,
+    # network contention, endpoint failures) and arms recovery: periodic
+    # checkpoints (--checkpoint-every), heartbeat failure detection, and
+    # straggler quarantine
+    trace = checkpoint = health = straggler = None
+    if args.chaos is not None:
+        trace = FaultTrace.chaos_sampled(
+            rate=args.chaos_rate, horizon=200.0, targets=len(fleet),
+            seed=args.chaos, rebalance_lead=args.rebalance_lead,
+            notice_deadline=args.notice_deadline)
+        health = FailureDetector()
+        straggler = StragglerPolicy()
+    if args.checkpoint_every is not None:
+        checkpoint = CheckpointPolicy(interval=args.checkpoint_every)
+    elif args.chaos is not None:
+        checkpoint = CheckpointPolicy()
+    scaling = None
+    if args.scaling == "cost_aware":
+        # the catalog is the distinct instance types in the fleet
+        catalog = sorted({it for it in fleet}, key=lambda it: it.name)
+        scaling = SCALING_POLICIES["cost_aware"](catalog)
+    engine = None
+    if args.cache_mode != "dense":
+        engine = functools.partial(ServingEngine, cache_mode=args.cache_mode,
+                                   block_size=args.block_size)
+    cl = ServingCluster(cfg, params, fleet,
+                        router=ROUTERS[args.router](),
+                        batch_size=args.batch_size, max_seq=args.max_seq,
+                        temperature=args.temperature,
+                        prefill_mode=args.prefill_mode,
+                        decode_block=args.decode_block,
+                        dt=1.0, seed=args.seed,
+                        rebalance_lead=args.rebalance_lead,
+                        notice_deadline=args.notice_deadline,
+                        admission=args.admission,
+                        rebalance_interval=args.migrate_every,
+                        preemption=preemption, scaling=scaling,
+                        trace=trace, checkpoint=checkpoint,
+                        health=health, straggler=straggler,
+                        engine=engine, device=args.device)
+    reqs = _make_requests(args, cfg)
+    cl.attach_arrivals(make_arrivals(args.arrival, reqs, seed=args.seed))
+    if args.interrupt_at is not None:
+        cl.inject_interruption(t=args.interrupt_at, replica_rid=0)
+    t0 = time.perf_counter()
+    out = cl.run()
+    wall = time.perf_counter() - t0
+    print(f"arch={cfg.name} router={args.router} fleet={args.fleet} "
+          f"cache={args.cache_mode} device={cl.device}")
+    print(f"  completed {out['completed']}/{out['submitted']} "
+          f"(dropped {out['dropped']}), {out['total_tokens']} tokens")
+    print(f"  virtual: makespan={out['virtual_seconds']:.0f}s "
+          f"p50={out['p50_latency']:.1f}s p99={out['p99_latency']:.1f}s "
+          f"agg={out['tok_per_s']:.2f} tok/s  (wall {wall:.1f}s)")
+    if out["drains"]:
+        print(f"  drains={out['drains']} migrated_slots="
+              f"{out['migrated_slots']} ckpt+restore="
+              f"{out['interruption_overhead_s']*1e3:.1f}ms")
+    if out["rebalance_migrations"]:
+        print(f"  rebalance_migrations={out['rebalance_migrations']}")
+    if out["preemptions"]:
+        print(f"  preemptions={out['preemptions']} "
+              f"resumes={out['resumes']}")
+    if out["hard_kills"] or out["checkpoints"]:
+        print(f"  chaos: hard_kills={out['hard_kills']} "
+              f"lost={out['requests_lost']} "
+              f"recovered={out['requests_recovered']} "
+              f"replayed_tokens={out['replayed_tokens']} "
+              f"checkpoints={out['checkpoints']} "
+              f"quarantines={out['quarantines']}")
+    if out["slowdowns"] or out["contention_windows"] \
+            or out["endpoint_faults"]:
+        print(f"  degraded: slowdowns={out['slowdowns']} "
+              f"contention_windows={out['contention_windows']} "
+              f"(+{out['contention_delay_s']:.1f}s staging) "
+              f"endpoint_faults={out['endpoint_faults']} "
+              f"retries={out['endpoint_retries']}")
+    print(f"  fleet_dollar_cost=${out['fleet_dollar_cost']:.4f}")
+    for k in sorted(out):
+        if k.startswith("attainment_"):
+            slo = k[len("attainment_"):]
+            print(f"  slo[{slo}]: attainment={out[k]:.3f} "
+                  f"p99={out.get(f'p99_latency_{slo}', 0.0):.1f}s "
+                  f"misses={out.get(f'misses_{slo}', 0)}")
+    for rs in cl.metrics.per_replica():
+        print(f"  replica r{rs['rid']} {rs['itype']}: {rs['tokens']} tok "
+              f"@ {rs['tok_per_s']:.2f} tok/s (measured)")
+    for t, msg in cl.timeline:
+        print(f"  [{t:7.1f}s] {msg}")
+    return cl, reqs, out
 
 
 def main(argv=None):
@@ -56,6 +224,8 @@ def main(argv=None):
                          "the kernels")
     ap.add_argument("--cache-mode", default="dense",
                     choices=("dense", "paged"))
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="positions per block of a paged cache")
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--requests", type=int, default=8)
@@ -68,12 +238,79 @@ def main(argv=None):
                          "baseline")
     ap.add_argument("--decode-block", type=int, default=8,
                     help="fused decode steps per window (sync-free)")
+    # cluster mode
+    ap.add_argument("--cluster", action="store_true",
+                    help="serve over a replicated heterogeneous fleet")
+    ap.add_argument("--fleet", default="2x2.0,2x0.7",
+                    help="fleet spec: '<count>x<speed>,...'")
+    ap.add_argument("--router", default="rate_aware",
+                    choices=("rate_aware", "round_robin", "slo_aware"))
+    ap.add_argument("--admission", default="fifo",
+                    choices=("fifo", "priority"),
+                    help="priority holds batch-class arrivals until the "
+                         "fleet has backlog headroom")
+    ap.add_argument("--preemption", default="none",
+                    choices=("none", "slo"),
+                    help="slo pauses batch-class slots (WorkUnit "
+                         "preempt/resume) when waiting interactive work "
+                         "would miss its deadline")
+    ap.add_argument("--scaling", default="backlog",
+                    choices=("backlog", "cost_aware"),
+                    help="cost_aware shops the fleet's instance types by "
+                         "speed per dollar on every scale-up/replacement")
+    ap.add_argument("--vertical", default="off",
+                    choices=("off", "fixed", "window"),
+                    help="in-place replica resize (not ported yet: "
+                         "ROADMAP item 9c)")
+    ap.add_argument("--qos", action="store_true",
+                    help="QoS-classed capacity (not ported yet: ROADMAP "
+                         "item 9c)")
+    ap.add_argument("--slo-mix", type=float, default=None,
+                    help="serve an interactive/batch SLO mix with this "
+                         "interactive fraction (default: class-less)")
+    ap.add_argument("--migrate-every", type=float, default=None,
+                    help="mid-stream migration pass interval in virtual "
+                         "seconds (default: off)")
+    ap.add_argument("--market", default="off",
+                    choices=("off", "naive", "adjusted"),
+                    help="buy replicas on priced spot markets (not ported "
+                         "yet: ROADMAP item 9c)")
+    ap.add_argument("--fallback", default="on_demand",
+                    choices=("on_demand", "different_market",
+                             "different_type", "queue_work",
+                             "scale_down"),
+                    help="replacement strategy on a spot rebalance "
+                         "recommendation (market mode only)")
+    ap.add_argument("--interrupt-at", type=float, default=None,
+                    help="inject a spot interruption on replica 0 at this "
+                         "virtual time")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="sample a seeded chaos soup (hard kills, "
+                         "slowdowns, network contention, endpoint "
+                         "failures) and arm heartbeat failure detection "
+                         "+ straggler quarantine + checkpoints")
+    ap.add_argument("--chaos-rate", type=float, default=0.02,
+                    help="chaos fault arrivals per virtual second "
+                         "(with --chaos)")
+    ap.add_argument("--checkpoint-every", type=float, default=None,
+                    metavar="S",
+                    help="periodic WorkUnit recovery checkpoints every S "
+                         "virtual seconds (default: on with --chaos at "
+                         "the policy's interval, else off)")
+    ap.add_argument("--rebalance-lead", type=float, default=6.0)
+    ap.add_argument("--notice-deadline", type=float, default=4.0)
+    ap.add_argument("--arrival", default="batch",
+                    help="offered load: batch | poisson:<rate> | "
+                         "trace:<file>")
     args = ap.parse_args(argv)
 
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = cfg.reduced()
+    _refuse_unported(args)
     params = zoo.init_serving_params(cfg, seed=args.seed, device=args.device)
+    if args.cluster:
+        return run_cluster(args, cfg, params)
     run_single(args, cfg, params)
 
 

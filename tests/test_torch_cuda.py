@@ -631,3 +631,115 @@ def test_resize_on_card_repacks_bitwise(cuda_device, arch):
     eng.run_until_idle()
     eng._alloc.check_invariants()
     assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+
+
+@pytest.mark.cuda
+def test_device_store_holds_host_leaves_on_card(cuda_device):
+    """A ``DeviceStore`` built for the card keeps its copy there, host
+    leaves included (pinned or not), and restores them bit for bit; one
+    built with no device keeps each copy on its leaf's device."""
+    from repro_torch.core.checkpointing import DeviceStore
+    host = torch.randn(4, 33).to(torch.bfloat16)
+    tree = {"pageable": host, "pinned": host.pin_memory(),
+            "card": host.to(cuda_device)}
+    store = DeviceStore(device=cuda_device)
+    store.save("x", tree)
+    assert all(t.device.type == "cuda" for t in store._data["x"].values())
+    assert store._data["x"]["card"].data_ptr() != tree["card"].data_ptr()
+    out = store.restore("x", device=cuda_device)
+    for k, t in out.items():
+        assert t.device.type == "cuda"
+        assert torch.equal(t.cpu().view(torch.int16), host.view(torch.int16))
+    plain = DeviceStore()
+    plain.save("x", tree)
+    assert plain._data["x"]["pageable"].device.type == "cpu"
+    assert plain._data["x"]["card"].device.type == "cuda"
+
+
+def _cluster_model(dev):
+    return _migration_params("granite-8b", "bfloat16", dev)
+
+
+@pytest.mark.cuda
+def test_device_endpoint_roundtrip_lands_on_card(cuda_device):
+    """A unit staged through a ``DeviceEndpoint`` comes back with its
+    columns on the card, bit for bit, stamped ``residency == "device"``;
+    the target engine's install is a device-to-device copy, the window
+    after it makes no host sync, and the stream continues exactly."""
+    from repro_torch.cluster import DeviceEndpoint
+    cfg, params = _cluster_model(cuda_device)
+    ref_reqs = _migration_requests(cfg)
+    ref = _migration_engine(cfg, params, cuda_device)
+    for r in ref_reqs:
+        ref.submit(r)
+    ref.run_until_idle()
+    reqs = _migration_requests(cfg)
+    src = _migration_engine(cfg, params, cuda_device)
+    for r in reqs:
+        src.submit(r)
+    src.step_many(3)
+    units = src.pack()
+    want = {u.rid: {k: t.clone() for k, t in u.snapshot.cache.items()}
+            for u in units}
+    ep = DeviceEndpoint(device=cuda_device)
+    ckpt_s, restore_s = ep.roundtrip(units, "drain_r0")
+    assert ckpt_s > 0 and restore_s > 0
+    for u in units:
+        assert u.residency == "device"
+        for k, t in u.snapshot.cache.items():
+            assert t.device.type == "cuda", k
+            assert torch.equal(t.cpu().view(torch.uint8),
+                               want[u.rid][k].view(torch.uint8)), k
+    dst = _migration_engine(cfg, params, cuda_device)
+    dst.unpack(units)
+    syncs = dst.host_syncs
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dst.step_many(2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dst.host_syncs == syncs
+    dst.run_until_idle()
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+
+
+@pytest.mark.cuda
+def test_small_paged_cluster_on_card_matches_lone_engine(cuda_device):
+    """Paged replicas on the card, drained through a device and a host
+    endpoint: every bf16 greedy stream equals a lone paged engine's of
+    the same geometry, and the paged kernel ran on every replica."""
+    import functools
+    from repro_torch.cluster import InstanceType, ServingCluster
+    from repro_torch.runtime import FaultTrace
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params = _cluster_model(cuda_device)
+    geometry = dict(batch_size=3, max_seq=96, decode_block=4)
+    engine = functools.partial(ServingEngine, cache_mode="paged",
+                               block_size=8, prefill_buckets=(16, 64))
+
+    def requests():
+        from repro_torch.serving.workload import synthetic_requests
+        return synthetic_requests(10, cfg.vocab_size, seed=3,
+                                  prompt_len=(3, 60), max_new=24)
+
+    lone_reqs = requests()
+    lone = engine(cfg, params, device=cuda_device, **geometry)
+    for r in lone_reqs:
+        lone.submit(r)
+    lone.run_until_idle()
+    trace = FaultTrace(rebalance_lead=2.0, notice_deadline=2.0)
+    trace.inject(1.0, 0)
+    trace.inject(2.0, 1)
+    fleet = [InstanceType("gpu.2x", 2.0, accelerator=True),
+             InstanceType("spot.2x", 2.0), InstanceType("spot.0.7x", 0.7)]
+    cl = ServingCluster(cfg, params, fleet, engine=engine, trace=trace,
+                        dt=1.0, device=cuda_device, **geometry)
+    reqs = requests()
+    for r in reqs:
+        cl.submit(r, at=0.0)
+    launches = kernel.launches
+    out = cl.run()
+    assert out["completed"] == 10 and out["drains"] == 2
+    assert out["migrated_slots"] > 0
+    assert kernel.launches > launches
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in lone_reqs]

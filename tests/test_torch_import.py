@@ -24,7 +24,7 @@ def test_import_loads_no_jax():
             "repro_torch.kernels.flash_attention, "
             "repro_torch.serving.workunit, repro_torch.serving.simengine, "
             "repro_torch.serving.workload, repro_torch.serving.shapes, "
-            "repro_torch.core.checkpointing\n"
+            "repro_torch.core.checkpointing, repro_torch.cluster\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.') or m == 'ml_dtypes')\n"

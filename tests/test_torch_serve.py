@@ -48,3 +48,46 @@ def test_serve_cli_refuses_missing_card():
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr
+
+
+@pytest.mark.parametrize("cache_mode", ["dense", "paged"])
+def test_serve_cluster_cli_cpu(cache_mode):
+    """``--cluster``: a heterogeneous fleet with a drained interruption
+    serves every request and prints the reference's report."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--cluster", "--fleet", "2x2.0,2x0.7", "--router", "rate_aware",
+         "--requests", "16", "--max-new", "24", "--batch-size", "2",
+         "--max-seq", "48", "--interrupt-at", "4", "--cache-mode",
+         cache_mode],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert f"cache={cache_mode} device=cpu" in out.stdout, out.stdout
+    assert "completed 16/16 (dropped 0)" in out.stdout, out.stdout
+    assert "drains=1" in out.stdout, out.stdout
+
+
+def test_serve_cluster_chaos_returns_cluster():
+    """``run_cluster`` hands back (cluster, requests, summary): the chaos
+    drill recovers its hard kills and serves everyone."""
+    from repro_torch.launch.serve import main
+    cl, reqs, out = main(["--device", "cpu", "--arch", "granite-8b",
+                          "--cluster", "--fleet", "2x1.0", "--requests",
+                          "6", "--max-new", "8", "--chaos", "3",
+                          "--chaos-rate", "0.05", "--checkpoint-every", "3"])
+    assert out["completed"] == out["submitted"] == len(reqs) == 6
+    assert all(r.done and len(r.out_tokens) == 8 for r in reqs)
+    assert out["hard_kills"] >= 1 and out["requests_recovered"] >= 1
+    assert cl.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("flags", [["--market", "naive"],
+                                   ["--fallback", "queue_work"],
+                                   ["--vertical", "window"], ["--qos"]])
+def test_serve_refuses_unported_layers(flags):
+    """Market mode and the vertical layer wait for ROADMAP item 9c; the
+    launcher refuses their flags instead of ignoring them."""
+    from repro_torch.launch.serve import main
+    with pytest.raises(SystemExit, match="item 9c"):
+        main(["--device", "cpu", "--cluster"] + flags)

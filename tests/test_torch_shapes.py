@@ -3,11 +3,10 @@
 The 13 cases of ``test_shapes.py`` on ``repro_torch.serving.shapes``:
 seeded determinism, stream invariants, per-segment rate fidelity, and a
 reduced matrix cell driven twice to the same event-journal digest.  The
-reference's cell runs a ``ServingCluster`` of ``SimEngine`` replicas;
-the cluster is not ported yet (ROADMAP item 9b), so the port's cell
-drives two ``SimEngine``s from the port's ``EventLoop`` directly: open
-arrivals that each schedule the next, a fixed step tick, least-backlog
-placement.  Then every shape, and every arrival process of
+cell runs the port's ``ServingCluster`` of ``SimEngine`` replicas, as
+the reference's does, and dispatches the reference cluster's events; a
+bare ``EventLoop`` + ``SimEngine`` loop replays the same arrivals
+without the cluster.  Then every shape, and every arrival process of
 ``workload.py``, yields the reference's seeded ``(t, rid, request)``
 stream.
 """
@@ -15,6 +14,8 @@ stream.
 import numpy as np
 import pytest
 
+import repro.cluster as jcluster
+import repro_torch.cluster as tcluster
 from repro.serving import shapes as jshapes
 from repro.serving import workload as jwork
 from repro.serving.engine import Request as JRequest
@@ -128,17 +129,74 @@ def test_base_class_is_abstract():
 
 
 # --------------------------------------------- reduced matrix cell smoke
-def _matrix_cell(journal=True, retain_records=True, seed=3):
-    """80 ``pulse_spikes`` arrivals onto two SimEngines (batch 8, max_seq
-    64, decode block 4) on one EventLoop: each arrival schedules the
-    next and lands on the engine with the least backlog; a step tick
-    every virtual second steps both engines and harvests completions.
-    Returns (loop, summary, per-request records)."""
+def _matrix_cell(journal=True, retain_traces=True, seed=3, lib=None):
+    """80 ``pulse_spikes`` arrivals onto a ``ServingCluster`` of two
+    ``SimEngine`` replicas (batch 8, max_seq 64, decode block 4), as the
+    reference drives its cell; ``lib`` runs the reference's cluster."""
+    if lib is None:
+        C, shapes, dev = tcluster, make_shape, {"device": "cpu"}
+    else:
+        C, shapes, dev = jcluster, jshapes.make_shape, {}
+    fleet = [C.InstanceType("std.1x", 4.0, spot=False) for _ in range(2)]
+    cl = C.ServingCluster(None, None, fleet, engine="sim",
+                          router=C.RateAwareRouter(place_cap=16),
+                          batch_size=8, max_seq=64, decode_block=4,
+                          seed=0, journal=journal,
+                          retain_traces=retain_traces, **dev)
+    cl.attach_arrivals(shapes("pulse_spikes", 80, rate=1.5,
+                              period=30.0, seed=seed))
+    summary = cl.run(max_time=50_000.0)
+    return cl, summary
+
+
+def test_matrix_cell_journal_bit_identical_across_runs():
+    cl1, s1 = _matrix_cell()
+    cl2, s2 = _matrix_cell()
+    assert cl1.loop.journal == cl2.loop.journal and cl1.loop.journal
+    assert cl1.loop.journal_digest == cl2.loop.journal_digest
+    assert s1["completed"] == s2["completed"] == 80
+    assert s1["tok_per_s"] == s2["tok_per_s"]
+    assert s1["p99_latency"] == s2["p99_latency"]
+
+
+def test_matrix_cell_digest_independent_of_journal_retention():
+    """The bounded-memory path (journal=False, streaming metrics) must
+    replay the exact same event timeline as the full-capture run."""
+    cl_full, s_full = _matrix_cell(journal=True, retain_traces=True)
+    cl_lean, s_lean = _matrix_cell(journal=False, retain_traces=False)
+    assert cl_lean.loop.journal == []
+    assert cl_lean.loop.journal_digest == cl_full.loop.journal_digest
+    assert s_lean["completed"] == s_full["completed"]
+    assert s_lean["tok_per_s"] == s_full["tok_per_s"]
+
+
+def test_streaming_cell_keeps_no_per_request_records():
+    cl, s = _matrix_cell(retain_traces=False)
+    assert s["completed"] == 80
+    assert len(cl.metrics.traces) == 0
+
+
+@pytest.mark.parametrize("retain", [True, False])
+def test_matrix_cell_matches_reference(retain):
+    """The port's cell dispatches the reference cluster's events and
+    reports its summary."""
+    cl, s = _matrix_cell(retain_traces=retain)
+    ref_cl, ref_s = _matrix_cell(retain_traces=retain, lib="jax")
+    assert cl.loop.journal == ref_cl.loop.journal
+    assert cl.loop.journal_digest == ref_cl.loop.journal_digest
+    assert cl.timeline == ref_cl.timeline
+    assert s == ref_s
+
+
+def _loop_cell(journal=True):
+    """The same 80 arrivals onto two bare ``SimEngine``s on one
+    ``EventLoop``, no cluster: each arrival schedules the next and lands
+    on the engine with the least backlog; a step tick every virtual
+    second steps both engines.  Returns (loop, summary)."""
     loop = EventLoop(journal=journal)
     engines = [SimEngine(batch_size=8, max_seq=64, decode_block=4)
                for _ in range(2)]
-    arrived, records = {}, []
-    summary = {"completed": 0, "tokens": 0, "latency_sum": 0.0}
+    summary = {"completed": 0, "tokens": 0}
 
     def schedule_next(it):
         for at, req in it:
@@ -146,9 +204,8 @@ def _matrix_cell(journal=True, retain_records=True, seed=3):
             return
 
     def on_arrival(ev, t):
-        req = ev.payload["request"]
-        arrived[req.rid] = t
-        min(engines, key=lambda e: e.backlog_tokens()).submit(req)
+        min(engines, key=lambda e: e.backlog_tokens()).submit(
+            ev.payload["request"])
         schedule_next(ev.payload["source"])
 
     def on_step(ev, t):
@@ -157,44 +214,26 @@ def _matrix_cell(journal=True, retain_records=True, seed=3):
             for req in eng.pop_completed():
                 summary["completed"] += 1
                 summary["tokens"] += len(req.out_tokens)
-                summary["latency_sum"] += t - arrived.pop(req.rid)
-                if retain_records:
-                    records.append((req.rid, t))
         if summary["completed"] < 80:
             loop.schedule(t + 1.0, "step")
 
     loop.register("arrival", on_arrival)
     loop.register("step", on_step)
     schedule_next(iter(make_shape("pulse_spikes", 80, rate=1.5,
-                                  period=30.0, seed=seed)))
+                                  period=30.0, seed=3)))
     loop.schedule(0.0, "step")
     loop.run(until=50_000.0)
-    return loop, summary, records
+    return loop, summary
 
 
-def test_matrix_cell_journal_bit_identical_across_runs():
-    l1, s1, r1 = _matrix_cell()
-    l2, s2, r2 = _matrix_cell()
-    assert l1.journal == l2.journal and l1.journal
-    assert l1.journal_digest == l2.journal_digest
-    assert s1 == s2 and s1["completed"] == 80
-    assert r1 == r2
-
-
-def test_matrix_cell_digest_independent_of_journal_retention():
-    """The bounded-memory path (journal=False, no per-request records)
-    replays the exact same event timeline as the full-capture run."""
-    full, s_full, _ = _matrix_cell(journal=True, retain_records=True)
-    lean, s_lean, _ = _matrix_cell(journal=False, retain_records=False)
-    assert lean.journal == []
-    assert lean.journal_digest == full.journal_digest
-    assert s_lean == s_full
-
-
-def test_streaming_cell_keeps_no_per_request_records():
-    _, s, records = _matrix_cell(retain_records=False)
-    assert s["completed"] == 80 and s["tokens"] > 0
-    assert records == []
+def test_event_loop_cell_replays_bit_identical():
+    full, s_full = _loop_cell()
+    again, s_again = _loop_cell()
+    lean, s_lean = _loop_cell(journal=False)
+    assert full.journal == again.journal and full.journal
+    assert full.journal_digest == again.journal_digest \
+        == lean.journal_digest
+    assert s_full == s_again == s_lean and s_full["completed"] == 80
 
 
 # ------------------------------------------------ against the reference
