@@ -155,8 +155,8 @@ class DeviceStore:
 
     def save(self, name: str, state) -> float:
         with self.timer.time("checkpoint"):
-            snap = tree_map(torch.clone if self.device is None else
-                            (lambda x: _to_device(x, self.device)), state)
+            snap = tree_map(lambda x: _to_device(x, self.device or x.device),
+                            state)
             _sync(snap)
             self._data[name] = snap
         return self.timer.stages["checkpoint"]

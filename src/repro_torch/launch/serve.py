@@ -81,8 +81,7 @@ def run_single(args, cfg, params):
                            temperature=args.temperature, seed=args.seed,
                            prefill_mode=args.prefill_mode,
                            decode_block=args.decode_block,
-                           cache_mode=args.cache_mode,
-                           block_size=args.block_size, device=args.device)
+                           cache_mode=args.cache_mode, device=args.device)
     reqs = _make_requests(args, cfg)
     for req in reqs:
         engine.submit(req)
@@ -116,7 +115,6 @@ def run_cluster(args, cfg, params):
                                      StragglerPolicy)
     from repro_torch.runtime import FaultTrace
     from repro_torch.serving.workload import make_arrivals
-    _refuse_unported(args)
     fleet = _parse_fleet(args.fleet)
     preemption = PREEMPTION_POLICIES[args.preemption]() \
         if args.preemption != "none" else None
@@ -143,8 +141,7 @@ def run_cluster(args, cfg, params):
         scaling = SCALING_POLICIES["cost_aware"](catalog)
     engine = None
     if args.cache_mode != "dense":
-        engine = functools.partial(ServingEngine, cache_mode=args.cache_mode,
-                                   block_size=args.block_size)
+        engine = functools.partial(ServingEngine, cache_mode=args.cache_mode)
     cl = ServingCluster(cfg, params, fleet,
                         router=ROUTERS[args.router](),
                         batch_size=args.batch_size, max_seq=args.max_seq,
@@ -224,8 +221,6 @@ def main(argv=None):
                          "the kernels")
     ap.add_argument("--cache-mode", default="dense",
                     choices=("dense", "paged"))
-    ap.add_argument("--block-size", type=int, default=16,
-                    help="positions per block of a paged cache")
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--requests", type=int, default=8)
