@@ -157,7 +157,37 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    one hard kill of its own, survived through checkpoints, the failure
    detector and the straggler policy (every stream again the lone
    engine's), and ``repro_torch.launch.serve.main`` in cluster mode at
-   full width (16 of 16 served).
+   full width (16 of 16 served), after phase 19;
+19. the market and vertical layers on the same ``params``, each run's
+   paged launches zeroed just before it and read just after (36 x the
+   decode steps summed over the replicas) and its peak memory logged.
+   The market A/B: the reference's ``cluster_spot_market`` scenario
+   (three std.1x replicas bought on a volatile and a steady market, the
+   different_market fallback, 30 classed requests at Poisson 2.0/s) at
+   the scenario's 2 lanes and decode block 4, naive once and adjusted
+   twice: every stream equals a lone engine's, naive is interrupted and
+   every drain moves a slot, adjusted saves more at no lower
+   interactive attainment, and the two adjusted runs give the same
+   digest and summary; per-market purchases, dollars and interruptions,
+   each buy's effective prices and the drains' stage ms are logged.
+   The vertical A/B: the reference's ``cluster_vertical`` scenario at 4
+   -> 8 lanes (two on-demand replicas, 8 batch requests and a surge of 6
+   interactive ones), the horizontal arm against
+   ``FixedThresholdVertical`` + ``QoSPolicy``: grows and shrinks through
+   the paged engine's ``resize`` (device ms and pool blocks logged), no
+   unit lost, evictions BestEffort first, the scenario's attainment at a
+   strictly lower fleet cost.  In bf16 the horizontal arm's streams
+   equal a 4-lane lone engine's, and a vertical stream may leave them
+   only at the token where an 8-lane lone engine does (cuBLAS rounds
+   otherwise at another M); then the A/B again in float32 at full width
+   (the bf16 weights freed first), where every stream equals the lone
+   engine's, and a QoS-keyed shrink of one 8-lane float32 engine from 8
+   to 4 lanes evicts its 4 BestEffort units, which resume to the lone
+   engine's streams.  Then the launcher at full width in three modes:
+   phase 18's drained interruption, ``--market adjusted --fallback
+   different_market --scaling cost_aware --slo-mix 0.5 --router
+   slo_aware``, and ``--vertical window --qos --slo-mix 0.5`` (16 of 16
+   served each, evictions BestEffort first).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -299,15 +329,53 @@ CLUSTER_INTERRUPTS = ((30.0, 0), (40.0, 1))
 CLUSTER_CHAOS = dict(rate=0.05, horizon=200.0, seed=0)
 CLUSTER_KILL = (100.0, 0)
 CLUSTER_CKPT_S = 30.0      # virtual seconds between recovery checkpoints
+# The cluster launcher at full width: the flags every call shares, then
+# each call's own (phase 18's drained interruption, phase 19's market and
+# vertical modes).
 CLUSTER_CLI = ["--cluster", "--arch", "granite-8b", "--no-reduced",
                "--cache-mode", "paged", "--batch-size", "8", "--max-seq",
-               "1024", "--fleet", "2x2.0,2x0.7", "--router", "rate_aware",
-               "--requests", "16", "--interrupt-at", "4"]
-# The summary keys that hold real (wall-clock) store seconds; every other
-# key is virtual time and must repeat exactly.
+               "1024", "--fleet", "2x2.0,2x0.7", "--requests", "16"]
+LAUNCHES = (
+    ("cluster launcher", ["--router", "rate_aware", "--interrupt-at", "4"]),
+    ("market launcher", ["--market", "adjusted", "--fallback",
+                         "different_market", "--scaling", "cost_aware",
+                         "--slo-mix", "0.5", "--router", "slo_aware"]),
+    ("vertical launcher", ["--vertical", "window", "--qos", "--slo-mix",
+                           "0.5"]))
+# The summary keys that hold real (wall-clock) seconds: the stores' stage
+# times and the market ledger's sum of the drains' stage times; every
+# other key is virtual time (or dollars over it) and must repeat exactly.
 CLUSTER_WALL_KEYS = ("preempt_stage_s", "interruption_overhead_s",
                      "recovery_restore_s", "checkpoint_stage_s",
-                     "resize_stage_s")
+                     "resize_stage_s", "spot_interruption_overhead_s")
+# Phase 19, the market A/B: the reference's ``cluster_spot_market``
+# scenario (benchmarks/run.py) on paged full-width granite-8b replicas of
+# the main path's geometry: three std.1x spot replicas bought on two
+# markets (name, base $/h, volatility, spikes, interruptions/h at base,
+# price power, seed), the different_market fallback, 30 classed requests
+# at Poisson 2.0/s.  The naive shopper buys the volatile market and is
+# interrupted in its spike; the adjusted one prices the spike in.
+MARKET_MARKETS = (
+    ("volatile", 0.25, 0.06, ((10.0, 400.0, 5.0),), 4.0, 3.0, 1),
+    ("steady", 0.45, 0.02, (), 0.05, 2.0, 2))
+MARKET_REPLICAS, MARKET_REQUESTS, MARKET_RATE = 3, 30, 2.0
+# The scenario's own lanes and decode block (2 and the cluster's default
+# 4).  At the main path's 8 lanes and decode block 8 (planned with the
+# reduced model, whose virtual timeline is the full model's), two of the
+# naive run's three drains find no live slot to move and the adjusted
+# shopper's interactive attainment falls below naive's (0.571 against
+# 0.714), so the A/B would show neither the drains nor the scenario's
+# claim.
+MARKET_GEOMETRY = dict(CLUSTER_GEOMETRY, batch_size=2, decode_block=4)
+MARKET_RUNS = (("naive", "naive"), ("adjusted", "adjusted"),
+               ("adjusted again", "adjusted"))
+# Phase 19, the vertical A/B: the reference's ``cluster_vertical``
+# scenario at 4 -> 8 lanes (its 2 -> 4 doubled): two on-demand std.1x
+# replicas, 8 batch-class requests at t = 0 and a surge of 6 interactive
+# ones at t = 6; the horizontal arm buys up to two more replicas of 4
+# lanes, the vertical arm grows each replica to 8 lanes in place.
+VERTICAL_LANES = (4, 8)
+VERTICAL_BATCH, VERTICAL_SURGE, VERTICAL_SURGE_T = 8, 6, 6.0
 # The Jacobi kernel: tests/test_kernels.py's shapes, then full grids.
 JACOBI_SHAPES = [(64, 64), (128, 64), (64, 128), (256, 32), (32, 32)]
 JACOBI_FULL = (16384, 32768)
@@ -2169,7 +2237,6 @@ def cluster_run(cfg, params, dev, chaos=False):
     from repro_torch.cluster import (CheckpointPolicy, FailureDetector,
                                      InstanceType, RateAwareRouter,
                                      ServingCluster, StragglerPolicy)
-    from repro_torch.kernels.paged_attention import kernel as pa
     from repro_torch.runtime import FaultTrace
     from repro_torch.serving.workload import BatchArrivals
     fleet = [InstanceType(name, speed, accelerator=acc)
@@ -2192,15 +2259,23 @@ def cluster_run(cfg, params, dev, chaos=False):
                         trace=trace, device=dev, **CLUSTER_GEOMETRY, **kw)
     reqs = requests(cfg, CLUSTER_LENS, 32, seed=0)
     cl.attach_arrivals(BatchArrivals(reqs))
+    return (cl, reqs) + counted_run(cl.run, dev)
+
+
+def counted_run(run, dev):
+    """``run()`` under ``cluster_probes``, the paged launch count set to 0
+    just before it and read just after.  Returns (its result, wall s,
+    probes, launches)."""
+    from repro_torch.kernels.paged_attention import kernel as pa
     with cluster_probes(dev) as probe:
         sync(dev)
         pa.launches = 0
         t0 = time.perf_counter()
-        out = cl.run()
+        out = run()
         sync(dev)
         wall = time.perf_counter() - t0
         launches = pa.launches
-    return cl, reqs, out, wall, probe, launches
+    return out, wall, probe, launches
 
 
 def check_cluster_run(what, cl, reqs, out, probe, launches, want, dev):
@@ -2314,16 +2389,11 @@ def endpoint_install_check(cfg, params, dev, want) -> dict:
                     restore_ms=ck[k][1] * 1e3) for k, v in times.items()}
 
 
-def cluster_phase(dev):
-    """Phase 18: the serving cluster on the card.  Returns the paged
-    launches of each run by path, and the phase's numbers."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.paged_attention import kernel as pa
-    from repro_torch.launch import serve
-    from repro_torch.models import model_zoo as zoo
+def cluster_phase(cfg, params, dev):
+    """Phase 18 up to the launcher: the serving cluster on the card.
+    Returns the paged launches of each run by path, and the phase's
+    numbers."""
     t_phase = time.perf_counter()
-    cfg = get_config(CLUSTER_ARCH)
-    params = zoo.init_serving_params(cfg, seed=0, device=dev)
     want = lone_streams(cfg, params, dev)
     release(dev)
     log(f"[cluster] {CLUSTER_ARCH} at full width and depth, paged "
@@ -2403,34 +2473,432 @@ def cluster_phase(dev):
     numbers["chaos"].update(wall_s=wall, units_from_checkpoint=from_ckpt,
                             packs=probe["packs"], pinned=pinned_stats())
     numbers["peak_gib"].append(peak_gib())
-    del cl, reqs, probe, params
+    del cl, reqs, probe
     release(dev)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"[cluster] phase 18's fleet and chaos runs in "
+        f"{numbers['phase_s']:.1f} s")
+    return by_path, numbers
 
-    log(f"[cluster] repro_torch.launch.serve.main({CLUSTER_CLI})")
-    argv = CLUSTER_CLI + ([] if dev.type == "cuda" else
-                          ["--device", "cpu", "--reduced"])
-    with cluster_probes(dev) as probe:
-        pa.launches = 0
-        t0 = time.perf_counter()
-        cl, reqs, out = serve.main(argv)
-        sync(dev)
-        wall = time.perf_counter() - t0
-        launches = pa.launches
+
+def launcher_run(what, flags, dev):
+    """``repro_torch.launch.serve.main`` in cluster mode at full width
+    (its own weights, drawn from seed 0), the paged launch count set to 0
+    just before and read just after: every request served, the paged
+    kernel launched 36 x the decode steps.  Returns (launches, summary,
+    wall s, peak GiB)."""
+    from repro_torch.launch import serve
+    argv = CLUSTER_CLI + flags + ([] if dev.type == "cuda" else
+                                  ["--device", "cpu", "--reduced"])
+    log(f"[cluster] {what}: repro_torch.launch.serve.main({argv})")
+    with resize_probe(dev) as resizes:
+        (cl, reqs, out), wall, probe, launches = counted_run(
+            lambda: serve.main(argv), dev)
     assert out["completed"] == out["submitted"] == len(reqs) == 16, out
-    assert all(r.done for r in reqs)
+    assert out["dropped"] == 0 and all(r.done for r in reqs), out
+    assert out["resumes"] >= out["vertical_evictions"], out
+    check_evictions(resizes)
     if dev.type == "cuda":
         assert launches == CLUSTER_ATTN_LAYERS * probe["steps"], launches
     log(f"  the launcher served {out['completed']}/{out['submitted']} on "
         f"{cl.device} in {wall:.2f} s (the weights drawn included), paged "
-        f"launches {launches} = {CLUSTER_ATTN_LAYERS} x {probe['steps']}")
-    by_path[f"{CLUSTER_ARCH} cluster launcher"] = {
-        "paged_attention": launches, "ssd_intra_chunk": 0}
-    numbers["phase_s"] = time.perf_counter() - t_phase
-    numbers["peak_gib"].append(peak_gib())
+        f"launches {launches} = {CLUSTER_ATTN_LAYERS} x {probe['steps']}; "
+        f"{len(resizes)} in-place resizes, evictions "
+        f"{out['vertical_evictions']}")
+    peak = peak_gib()
     del cl, reqs
     release(dev)
-    log(f"[cluster] phase 18 in {numbers['phase_s']:.1f} s")
+    return launches, out, wall, peak
+
+
+def market_requests(cfg):
+    from repro_torch.serving.workload import SLOClass, classed_requests
+    return classed_requests(
+        MARKET_REQUESTS, cfg.vocab_size, interactive_frac=0.5, seed=0,
+        interactive=SLOClass("interactive", 0, deadline=15.0),
+        batch=SLOClass("batch", 2, deadline=500.0, admit_lazily=True))
+
+
+def market_run(cfg, params, dev, mode, geometry):
+    """One ``cluster_spot_market`` run through ``ServingCluster(market=)``
+    with the exchange shopping in ``mode``.  Returns (cluster, requests,
+    summary, wall s, probes, launches)."""
+    from repro_torch.cluster import (DeadlineAwareRouter, InstanceType,
+                                     ServingCluster)
+    from repro_torch.market import MarketCatalog, SpotExchange, SpotMarket
+    from repro_torch.serving.workload import PoissonArrivals
+    fleet = [InstanceType("std.1x", 1.0, cost_per_hour=1.0)
+             for _ in range(MARKET_REPLICAS)]
+    cat = MarketCatalog()
+    for name, base, vol, spikes, ir, power, seed in MARKET_MARKETS:
+        cat.add_market(SpotMarket(name, base_rate=base, volatility=vol,
+                                  spikes=spikes, interruptions_per_hour=ir,
+                                  price_power=power, seed=seed))
+    for it in set(fleet):
+        cat.list_instance(it, markets=tuple(m[0] for m in MARKET_MARKETS))
+    exchange = SpotExchange(cat, seed=0, mode=mode, sample_until=500.0)
+    cl = ServingCluster(
+        cfg, params, fleet, router=DeadlineAwareRouter(),
+        engine=cluster_engine(), dt=1.0, seed=0, admission="priority",
+        batch_admit_headroom=24.0, rebalance_lead=6.0, notice_deadline=4.0,
+        market=exchange, fallback="different_market",
+        autoscaler_kw=dict(replacement_latency=10.0,
+                           scale_up_backlog=100_000.0,
+                           scale_down_idle=10_000.0),
+        device=dev, **geometry)
+    reqs = market_requests(cfg)
+    cl.attach_arrivals(PoissonArrivals(reqs, MARKET_RATE, seed=0))
+    return (cl, reqs) + counted_run(cl.run, dev)
+
+
+def lone_engine_streams(cfg, params, dev, reqs, geometry) -> dict:
+    """``reqs`` through one paged engine of ``geometry``: the streams a
+    fleet of such replicas must give."""
+    eng = cluster_engine()(cfg, params, device=dev, **geometry)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    assert all(r.done and len(r.out_tokens) == r.max_new_tokens
+               for r in reqs)
+    return {r.rid: list(r.out_tokens) for r in reqs}
+
+
+def check_served(what, reqs, out, probe, launches, want, dev):
+    """Everyone served with their token counts (and ``want``'s streams,
+    unless it is None); the paged kernel launched 36 x the decode steps
+    summed over the replicas."""
+    assert out["completed"] == out["submitted"] == len(reqs), (what, out)
+    assert out["dropped"] == 0, (what, out)
+    for r in reqs:
+        assert r.done and len(r.out_tokens) == r.max_new_tokens, \
+            (what, r.rid)
+        assert want is None or r.out_tokens == want[r.rid], \
+            (what, r.rid, r.out_tokens, want[r.rid])
+    if dev.type == "cuda":
+        assert launches == CLUSTER_ATTN_LAYERS * probe["steps"], \
+            (what, launches, probe["steps"])
+
+
+def log_market(cl, out):
+    """Per-market purchases, dollars and interruptions, the exchange's
+    overhead estimate, and each buy beside both markets' effective prices
+    at its time (under the run's final overhead estimate)."""
+    ex = cl.exchange
+    log(f"    market dollars {out['market_dollar_cost']:.6f} against "
+        f"{out['on_demand_dollar_cost']:.6f} on demand: savings "
+        f"{out['savings_pct']:.3f}%, {out['spot_interruptions']} spot "
+        f"interruptions, interactive attainment "
+        f"{out['attainment_interactive']:.3f}; estimated_overhead_s "
+        f"{ex.estimated_overhead_s():.6f}")
+    for m in ex.catalog.markets():
+        log(f"    {m.name}: {out[f'market_{m.name}_purchases']} purchases, "
+            f"${out[f'market_{m.name}_dollars']:.6f}, "
+            f"{out[f'market_{m.name}_interruptions']} interruptions")
+    for rec in ex.ledger.purchases:
+        it = ex.catalog.listing(rec.itype).itype
+        prices = {m.name: ex.effective_price(it, m.name, rec.t_buy)
+                  for m in ex.catalog.markets()}
+        log(f"    buy r{rec.rid} at t={rec.t_buy:.2f} ({rec.strategy}) @ "
+            f"{rec.market}; effective $/h "
+            + ", ".join(f"{k} {v:.6f}" for k, v in prices.items()))
+
+
+def market_phase(cfg, params, dev, geometry):
+    """Phase 19 (a): the market A/B, naive once and adjusted twice.
+    Returns the paged launches by run and the numbers."""
+    log(f"[market] {cfg.name} paged replicas {geometry}, "
+        f"{MARKET_REPLICAS} x std.1x on {[m[0] for m in MARKET_MARKETS]}, "
+        f"{MARKET_REQUESTS} classed requests at Poisson {MARKET_RATE}/s")
+    want = lone_engine_streams(cfg, params, dev, market_requests(cfg),
+                               geometry)
+    release(dev)
+    by_path, numbers, seen = {}, {}, {}
+    for tag, mode in MARKET_RUNS:
+        cl, reqs, out, wall, probe, launches = market_run(
+            cfg, params, dev, mode, geometry)
+        check_served(f"market {tag}", reqs, out, probe, launches, want, dev)
+        drains = cl.metrics.drains
+        assert all(d.slots_migrated >= 1 for d in drains), drains
+        if mode == "naive":
+            assert out["spot_interruptions"] > 0 and drains, out
+        log_cluster_run(f"market {tag}", cl, out, wall, probe, launches)
+        log_market(cl, out)
+        by_path[f"{CLUSTER_ARCH} market {tag}"] = {
+            "paged_attention": launches, "ssd_intra_chunk": 0}
+        seen[tag] = (cl.loop.journal_digest, cl.loop.dispatched,
+                     {k: v for k, v in out.items()
+                      if k not in CLUSTER_WALL_KEYS})
+        numbers[tag] = {
+            "wall_s": wall, "virtual_s": out["virtual_seconds"],
+            "savings_pct": out["savings_pct"],
+            "market_dollars": out["market_dollar_cost"],
+            "on_demand_dollars": out["on_demand_dollar_cost"],
+            "interruptions": out["spot_interruptions"],
+            "attainment_interactive": out["attainment_interactive"],
+            "estimated_overhead_s": cl.exchange.estimated_overhead_s(),
+            "drains": [(d.endpoint, d.slots_migrated, d.checkpoint_s * 1e3,
+                        d.restore_s * 1e3) for d in drains],
+            "installs": install_times(probe), "peak_gib": peak_gib()}
+        del cl, reqs, probe
+        release(dev)
+    assert seen["adjusted"] == seen["adjusted again"], \
+        "the repeated adjusted run moved"
+    naive, adjusted = seen["naive"][2], seen["adjusted"][2]
+    assert adjusted["savings_pct"] > naive["savings_pct"], (adjusted, naive)
+    assert adjusted["attainment_interactive"] \
+        >= naive["attainment_interactive"], (adjusted, naive)
+    log(f"  adjusted saves {adjusted['savings_pct']:.3f}% against naive's "
+        f"{naive['savings_pct']:.3f}% at interactive attainment "
+        f"{adjusted['attainment_interactive']:.3f} against "
+        f"{naive['attainment_interactive']:.3f}; the repeated adjusted run "
+        f"gives the same journal digest ({seen['adjusted'][0]}, "
+        f"{seen['adjusted'][1]} events) and summary; every stream equals "
+        f"the lone paged engine's")
     return by_path, numbers
+
+
+def vertical_requests(cfg):
+    """``cluster_vertical``'s arrivals: (t, request)."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.workload import SLOClass
+    interactive = SLOClass("interactive", 0, deadline=26.0)
+    batch = SLOClass("batch", 2, deadline=4000.0, admit_lazily=True)
+    rng = np.random.default_rng(11)
+    out = []
+    for rid in range(VERTICAL_BATCH + VERTICAL_SURGE):
+        surge = rid >= VERTICAL_BATCH
+        plen = rng.integers(3, 6) if surge else rng.integers(6, 10)
+        prompt = rng.integers(0, cfg.vocab_size, int(plen), dtype=np.int32)
+        new = rng.integers(4, 7) if surge else rng.integers(28, 36)
+        out.append((VERTICAL_SURGE_T if surge else 0.0, Request(
+            rid=rid, prompt=prompt, max_new_tokens=int(new),
+            slo=interactive if surge else batch)))
+    return out
+
+
+@contextlib.contextmanager
+def resize_probe(dev):
+    """Wraps ``ServingEngine.resize``: each in-place resize's lanes and
+    pool blocks before and after, its device ms (CUDA events), and the QoS
+    ranks of the units it evicted and of the slots it kept."""
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.vertical import qos_for
+    rec = []
+    resize = ServingEngine.resize
+
+    def timed(self, **kw):
+        before = (self.batch, self.pool_blocks)
+        ev = None
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        evicted = resize(self, **kw)
+        if ev is not None:
+            ev[1].record()
+        rec.append(dict(
+            lanes=(before[0], self.batch), pool=(before[1], self.pool_blocks),
+            ev=ev, evicted=[qos_for(u.slo).eviction_rank for u in evicted],
+            kept=[qos_for(r.slo).eviction_rank
+                  for _, r in self.slot_requests()]))
+        return evicted
+
+    ServingEngine.resize = timed
+    try:
+        yield rec
+    finally:
+        ServingEngine.resize = resize
+
+
+def device_ms(ev) -> float:
+    """The device ms between a pair of recorded CUDA events (nan on the
+    CPU, where none are recorded)."""
+    return float("nan") if ev is None else ev[0].elapsed_time(ev[1])
+
+
+def check_evictions(resizes):
+    """Every unit a resize evicted ranks at or after (QoS: BestEffort
+    first) every slot it kept."""
+    for rz in resizes:
+        if rz["evicted"]:
+            assert min(rz["evicted"]) >= max(rz["kept"], default=0), rz
+
+
+def vertical_run(cfg, params, dev, vertical: bool, geometry):
+    """One arm of ``cluster_vertical``: a pinned fleet resized in place by
+    ``FixedThresholdVertical`` + ``QoSPolicy``, or the horizontal arm.
+    Returns (cluster, requests, summary, wall s, probes, launches,
+    resizes)."""
+    from repro_torch.cluster import (DeadlineAwareRouter, InstanceType,
+                                     ServingCluster)
+    from repro_torch.vertical import FixedThresholdVertical, QoSPolicy
+    base, top = VERTICAL_LANES
+    fleet = [InstanceType("std.1x", 1.0, spot=False, cost_per_hour=1.0)
+             for _ in range(2)]
+    if vertical:
+        qos = QoSPolicy()
+        kw = dict(vertical=FixedThresholdVertical(
+                      min_batch=base, max_batch=top, step=top - base,
+                      grow_backlog=12.0, shrink_backlog=3.0, cooldown=4.0,
+                      qos=qos),
+                  qos=qos,
+                  autoscaler_kw=dict(scale_up_backlog=1e9,
+                                     slo_scale_up=False,
+                                     max_replicas=len(fleet)))
+    else:
+        kw = dict(autoscaler_kw=dict(scale_up_backlog=12.0 * base,
+                                     scale_up_patience=2.0,
+                                     replacement_latency=12.0,
+                                     max_replicas=len(fleet) + 2,
+                                     scale_down_idle=20.0,
+                                     slo_scale_up=True))
+    cl = ServingCluster(cfg, params, fleet, router=DeadlineAwareRouter(),
+                        engine=cluster_engine(), dt=1.0, seed=0,
+                        admission="priority", device=dev,
+                        **dict(geometry, batch_size=base), **kw)
+    timed = vertical_requests(cfg)
+    for at, r in timed:
+        cl.submit(r, at=at)
+    with resize_probe(dev) as resizes:
+        out, wall, probe, launches = counted_run(cl.run, dev)
+    return cl, [r for _, r in timed], out, wall, probe, launches, resizes
+
+
+def qos_shrink_check(cfg, params, dev, geometry):
+    """One paged engine of ``geometry``'s 8 lanes holding 4 interactive
+    (Guaranteed) and 4 batch-class (BestEffort) streams of the main
+    path's prompts, two windows in, shrunk to 4 lanes under
+    ``QoSPolicy.evict_key``: the 4 BestEffort units are evicted, the
+    Guaranteed ones kept; grown back to 8 lanes, the evicted units
+    resume and every stream runs to its 32 tokens, equal to a lone
+    engine's.  Returns the shrink's and grow's lanes, pool blocks and
+    device ms."""
+    from repro_torch.serving.workload import BATCH, INTERACTIVE
+    from repro_torch.vertical import QoSPolicy, qos_for
+    eng = cluster_engine()(cfg, params, device=dev, **geometry)
+    reqs = requests(cfg, PROMPT_LENS, 32, seed=0)
+    for r in reqs:
+        r.slo = BATCH if r.rid % 2 == 0 else INTERACTIVE
+        eng.submit(r)
+    eng.step_many(eng.decode_block)
+    eng.step_many(eng.decode_block)
+    with resize_probe(dev) as rz:
+        evicted = eng.resize(batch_size=geometry["batch_size"] // 2,
+                             evict_key=QoSPolicy.evict_key)
+        kept = [r.rid for _, r in eng.slot_requests()]
+        eng.step_many(eng.decode_block)
+        eng.resize(batch_size=geometry["batch_size"])
+        eng.resume(evicted)
+        drive(eng)
+        sync(dev)
+    assert sorted(u.snapshot.request.rid for u in evicted) == [0, 2, 4, 6]
+    assert sorted(kept) == [1, 3, 5, 7], kept
+    assert all(qos_for(u.slo).burst_only for u in evicted)
+    assert all(r.done and len(r.out_tokens) == 32 for r in reqs)
+    ms = [(x["lanes"], x["pool"], device_ms(x["ev"])) for x in rz]
+    log(f"  QoS-keyed shrink at full width: 8 -> 4 lanes evicts the 4 "
+        f"BestEffort units (rids 0, 2, 4, 6) and keeps the Guaranteed "
+        f"ones; grown back and resumed, all 8 streams run to 32 tokens; "
+        + "; ".join(f"{a[0]} -> {a[1]} lanes, pool {b[0]} -> {b[1]} "
+                    f"blocks, {t:.3f} ms device" for a, b, t in ms))
+    del eng, evicted
+    want = lone_engine_streams(cfg, params, dev,
+                               requests(cfg, PROMPT_LENS, 32, seed=0),
+                               geometry)
+    assert {r.rid: list(r.out_tokens) for r in reqs} == want
+    log(f"  every stream equals the lone {geometry['batch_size']}-lane "
+        f"engine's ({cfg.compute_dtype}); peak memory allocated "
+        f"{peak_gib():.2f} GiB")
+    release(dev)
+    return ms
+
+
+def vertical_phase(cfg, params, dev, geometry):
+    """Phase 19 (b): the vertical A/B.  Returns the paged launches by run
+    and the numbers."""
+    base, top = VERTICAL_LANES
+    log(f"[vertical] {cfg.name} ({cfg.compute_dtype}) paged replicas "
+        f"{dict(geometry, batch_size=base)}, {base} -> {top} lanes, "
+        f"{VERTICAL_BATCH} batch requests at t=0, {VERTICAL_SURGE} "
+        f"interactive at t={VERTICAL_SURGE_T}")
+    lone = {}
+    for lanes in VERTICAL_LANES:
+        lone[lanes] = lone_engine_streams(
+            cfg, params, dev, [r for _, r in vertical_requests(cfg)],
+            dict(geometry, batch_size=lanes))
+    release(dev)
+    by_path, numbers, arms = {}, {}, {}
+    for tag, vertical in (("horizontal", False), ("vertical", True)):
+        cl, reqs, out, wall, probe, launches, resizes = vertical_run(
+            cfg, params, dev, vertical, geometry)
+        check_served(f"vertical {tag}", reqs, out, probe, launches, None,
+                     dev)
+        arms[tag] = ({r.rid: list(r.out_tokens) for r in reqs}, out)
+        log_cluster_run(f"{tag} arm", cl, out, wall, probe, launches)
+        check_evictions(resizes)
+        for rz in resizes:
+            log(f"    resize {rz['lanes'][0]} -> {rz['lanes'][1]} lanes, "
+                f"pool {rz['pool'][0]} -> {rz['pool'][1]} blocks: "
+                f"{device_ms(rz['ev']):.3f} ms device, evicted QoS ranks "
+                f"{rz['evicted']}, kept {rz['kept']}")
+        log(f"    {tag}: interactive attainment "
+            f"{out['attainment_interactive']:.3f}, fleet dollars "
+            f"{out['fleet_dollar_cost']:.6f}, replicas {len(cl.replicas)}, "
+            f"grows {out['vertical_grows']}, shrinks "
+            f"{out['vertical_shrinks']}, evictions "
+            f"{out['vertical_evictions']}, resumes {out['resumes']}")
+        by_path[f"{CLUSTER_ARCH} {tag} ({cfg.compute_dtype})"] = {
+            "paged_attention": launches, "ssd_intra_chunk": 0}
+        numbers[tag] = {
+            "wall_s": wall, "virtual_s": out["virtual_seconds"],
+            "attainment_interactive": out["attainment_interactive"],
+            "fleet_dollars": out["fleet_dollar_cost"],
+            "replicas": len(cl.replicas), "grows": out["vertical_grows"],
+            "shrinks": out["vertical_shrinks"],
+            "evictions": out["vertical_evictions"],
+            "resize_ms": [device_ms(rz["ev"]) for rz in resizes],
+            "pools": [rz["pool"] for rz in resizes], "peak_gib": peak_gib()}
+        del cl, reqs, probe
+        release(dev)
+    (h_streams, h), (v_streams, v) = arms["horizontal"], arms["vertical"]
+    assert v["vertical_grows"] >= 1 and v["vertical_shrinks"] >= 1, v
+    assert h["vertical_grows"] == h["vertical_shrinks"] == 0, h
+    assert v["resumes"] >= v["vertical_evictions"], v
+    assert v["attainment_interactive"] >= h["attainment_interactive"], (v, h)
+    assert v["fleet_dollar_cost"] < h["fleet_dollar_cost"], (v, h)
+    log(f"  vertical: attainment {v['attainment_interactive']:.3f} against "
+        f"{h['attainment_interactive']:.3f}, fleet dollars "
+        f"{v['fleet_dollar_cost']:.6f} against {h['fleet_dollar_cost']:.6f}")
+    # the horizontal arm decodes at the lone engine's M throughout and
+    # must give its streams; a vertical stream that decoded at 8 lanes
+    # ran its GEMMs at another M, which in bf16 may round otherwise: it
+    # may leave the 4-lane lone engine's stream, but only at the token
+    # where the 8-lane lone engine leaves it (float32: nowhere)
+    assert h_streams == lone[base], "the horizontal arm's streams moved"
+    left = {}
+    for rid, toks in v_streams.items():
+        at = first_difference(toks, lone[base][rid])
+        if at is not None:
+            left[rid] = (at, first_difference(lone[top][rid],
+                                              lone[base][rid]))
+            log(f"    vertical r{rid} leaves the {base}-lane lone engine's "
+                f"stream at token {at}; the {top}-lane lone engine leaves "
+                f"it at {left[rid][1]}")
+    if cfg.compute_dtype == "float32":
+        assert not left, left
+    assert all(a == b for a, b in left.values()), left
+    log(f"  {cfg.compute_dtype}: the horizontal arm's streams equal the "
+        f"{base}-lane lone engine's; {len(left)} vertical streams leave "
+        f"them, each where the {top}-lane lone engine does")
+    numbers["left_at"] = left
+    return by_path, numbers
+
+
+def first_difference(a, b):
+    """The first index where two token lists differ (None if equal)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
 
 
 def main() -> int:
@@ -2597,10 +3065,41 @@ def main() -> int:
     by_path.update(migrated)
     log(f"[migrate] numbers {json.dumps(migration)}")
 
-    # 18. the serving cluster on the card, full width
-    clustered, cluster = cluster_phase(dev)
+    # 18. the serving cluster on the card, full width; 19. market and
+    # vertical A/Bs over the same params; then the launcher's three modes
+    cfg = get_config(CLUSTER_ARCH)
+    params = zoo.init_serving_params(cfg, seed=0, device=dev)
+    clustered, cluster = cluster_phase(cfg, params, dev)
     by_path.update(clustered)
     log(f"[cluster] numbers {json.dumps(cluster)}")
+    t_phase = time.perf_counter()
+    marketed, market = market_phase(cfg, params, dev, MARKET_GEOMETRY)
+    by_path.update(marketed)
+    log(f"[market] numbers {json.dumps(market)}")
+    resized, vertical = vertical_phase(cfg, params, dev, CLUSTER_GEOMETRY)
+    by_path.update(resized)
+    log(f"[vertical] numbers {json.dumps(vertical)}")
+    del params
+    release(dev)
+    # the vertical A/B and the QoS-keyed shrink again in float32, where
+    # every stream must equal the lone engine's
+    cfg32 = cfg.with_(compute_dtype="float32")
+    params32 = zoo.init_serving_params(cfg32, seed=0, device=dev)
+    resized, vertical = vertical_phase(cfg32, params32, dev,
+                                       CLUSTER_GEOMETRY)
+    by_path.update(resized)
+    log(f"[vertical] numbers {json.dumps(vertical)}")
+    qos_shrink_check(cfg32, params32, dev, CLUSTER_GEOMETRY)
+    del params32
+    release(dev)
+    for what, flags in LAUNCHES:
+        launches, out, wall, peak = launcher_run(what, flags, dev)
+        by_path[f"{CLUSTER_ARCH} {what}"] = {"paged_attention": launches,
+                                             "ssd_intra_chunk": 0}
+        log(f"  {what}: wall {wall:.2f} s, peak {peak:.2f} GiB, summary "
+            f"{json.dumps(out)}")
+    log(f"[market] phase 19 and the launchers in "
+        f"{time.perf_counter() - t_phase:.1f} s")
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}

@@ -11,7 +11,7 @@ are survived through periodic ``CheckpointPolicy`` snapshots, a
 heartbeat ``FailureDetector``, and ``StragglerPolicy`` quarantine.
 
 A copy of ``repro.cluster`` over the port's engine, stores and
-runtime, with the same names; market mode waits for ROADMAP item 9c.
+runtime, with the same names.
 """
 
 from repro_torch.serving.workunit import WorkUnit

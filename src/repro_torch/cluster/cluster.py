@@ -46,7 +46,7 @@ Port of ``repro.cluster.cluster``.  The fleet lives on one ``device``
 (the card unless the caller asks for ``"cpu"``), and every replica's
 engine and endpoint are built there.  ``engine=`` takes an engine class
 or factory (e.g. ``functools.partial(ServingEngine, cache_mode="paged",
-block_size=16)``) or ``"sim"``.  Market mode waits for ROADMAP item 9c.
+block_size=16)``) or ``"sim"``.
 """
 
 from __future__ import annotations
@@ -165,10 +165,13 @@ class ServingCluster:
             raise ValueError("a fallback strategy needs a market "
                              "exchange (pass market=SpotExchange(...))")
         if market is not None:
-            raise NotImplementedError(
-                "market mode needs repro_torch.market, which is not ported "
-                "yet (ROADMAP item 9c)")
-        self.fallback = None
+            from repro_torch.market.fallback import (OnDemandFallback,
+                                                     make_fallback)
+            self.fallback = make_fallback(fallback) or OnDemandFallback()
+            market.bind_metrics(self.metrics)
+            self.metrics.attach_ledger(market.ledger)
+        else:
+            self.fallback = None
         # chaos & recovery: periodic WorkUnit checkpoints, heartbeat
         # failure detection, straggler quarantine, and a cluster-wide
         # network-contention window inflating staging/heartbeat latency

@@ -23,10 +23,18 @@ endpoint failures) survived via checkpoints + heartbeat detection:
       --cluster --fleet 2x1.0 --requests 10 --chaos 3 --chaos-rate 0.05 \
       --checkpoint-every 3
 
-Port of ``repro.launch.serve``.  Market mode (``--market``,
-``--fallback``) and the vertical layer (``--vertical``, ``--qos``) keep
-the reference's choices but wait for ROADMAP item 9c: anything but
-their default is refused.
+Spot-market mode — replicas bought on two priced markets, a fallback
+on each spot notice, and the savings against all on-demand:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --cluster --fleet 2x2.0,2x0.7 --market adjusted \
+      --fallback different_market --scaling cost_aware --slo-mix 0.5 \
+      --router slo_aware --requests 12
+
+Vertical elasticity — in-place resize with QoS-classed capacity:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --cluster --vertical window --qos --slo-mix 0.5 --requests 12
+
+Port of ``repro.launch.serve``.
 """
 
 from __future__ import annotations
@@ -93,17 +101,25 @@ def run_single(args, cfg, params):
           f"({stats['tok_per_s']:.1f} tok/s) host_syncs={engine.host_syncs}")
 
 
-def _refuse_unported(args):
-    """Market mode and the vertical layer wait for ROADMAP item 9c."""
-    unported = [flag for flag, on in (
-        ("--market", args.market != "off"),
-        ("--fallback", args.fallback != "on_demand"),
-        ("--vertical", args.vertical != "off"),
-        ("--qos", args.qos)) if on]
-    if unported:
-        raise SystemExit(
-            f"{', '.join(unported)}: repro_torch.market and "
-            f"repro_torch.vertical are not ported yet (ROADMAP item 9c)")
+def _make_exchange(args, fleet):
+    """Default two-market exchange over the fleet's instance types: a
+    cheap-but-volatile market (scheduled price spike, spike-coupled
+    interruption intensity) and a pricier steady one, both priced
+    relative to the fleet's mean on-demand rate."""
+    from repro_torch.market import MarketCatalog, SpotExchange, SpotMarket
+    itypes = sorted({it for it in fleet}, key=lambda it: it.name)
+    od = sum(it.cost_per_hour for it in itypes) / len(itypes)
+    cat = MarketCatalog()
+    cat.add_market(SpotMarket(
+        "volatile", base_rate=0.25 * od, volatility=0.08,
+        spikes=((120.0, 360.0, 5.0),), interruptions_per_hour=2.0,
+        price_power=3.0, seed=args.seed + 1))
+    cat.add_market(SpotMarket(
+        "steady", base_rate=0.45 * od, volatility=0.02,
+        interruptions_per_hour=0.1, seed=args.seed + 2))
+    for it in itypes:
+        cat.list_instance(it, markets=("volatile", "steady"))
+    return SpotExchange(cat, seed=args.seed, mode=args.market)
 
 
 def run_cluster(args, cfg, params):
@@ -118,6 +134,9 @@ def run_cluster(args, cfg, params):
     fleet = _parse_fleet(args.fleet)
     preemption = PREEMPTION_POLICIES[args.preemption]() \
         if args.preemption != "none" else None
+    exchange = None
+    if args.market != "off":
+        exchange = _make_exchange(args, fleet)
     # --chaos SEED samples a mixed fault soup (hard kills, slowdowns,
     # network contention, endpoint failures) and arms recovery: periodic
     # checkpoints (--checkpoint-every), heartbeat failure detection, and
@@ -134,11 +153,28 @@ def run_cluster(args, cfg, params):
         checkpoint = CheckpointPolicy(interval=args.checkpoint_every)
     elif args.chaos is not None:
         checkpoint = CheckpointPolicy()
+    # --vertical arms an in-place resize recommender; --qos layers the
+    # Guaranteed/Burstable/BestEffort capacity contract on admission and
+    # shrink-eviction order (either works alone, they compose when both
+    # are set)
+    qos = vertical = None
+    if args.qos or args.vertical != "off":
+        from repro_torch.vertical import QoSPolicy, VERTICAL_POLICIES
+        if args.qos:
+            qos = QoSPolicy()
+        if args.vertical != "off":
+            vertical = VERTICAL_POLICIES[args.vertical](qos=qos)
     scaling = None
     if args.scaling == "cost_aware":
-        # the catalog is the distinct instance types in the fleet
-        catalog = sorted({it for it in fleet}, key=lambda it: it.name)
-        scaling = SCALING_POLICIES["cost_aware"](catalog)
+        if exchange is not None:
+            # market mode: shop (instance type, market) pairs by speed
+            # per interruption-adjusted effective dollar
+            from repro_torch.market import MarketAwareScaling
+            scaling = MarketAwareScaling(exchange)
+        else:
+            # the catalog is the distinct instance types in the fleet
+            catalog = sorted({it for it in fleet}, key=lambda it: it.name)
+            scaling = SCALING_POLICIES["cost_aware"](catalog)
     engine = None
     if args.cache_mode != "dense":
         engine = functools.partial(ServingEngine, cache_mode=args.cache_mode)
@@ -154,8 +190,11 @@ def run_cluster(args, cfg, params):
                         admission=args.admission,
                         rebalance_interval=args.migrate_every,
                         preemption=preemption, scaling=scaling,
+                        market=exchange,
+                        fallback=args.fallback if exchange else None,
                         trace=trace, checkpoint=checkpoint,
                         health=health, straggler=straggler,
+                        vertical=vertical, qos=qos,
                         engine=engine, device=args.device)
     reqs = _make_requests(args, cfg)
     cl.attach_arrivals(make_arrivals(args.arrival, reqs, seed=args.seed))
@@ -180,6 +219,16 @@ def run_cluster(args, cfg, params):
     if out["preemptions"]:
         print(f"  preemptions={out['preemptions']} "
               f"resumes={out['resumes']}")
+    if out["vertical_grows"] or out["vertical_shrinks"]:
+        print(f"  vertical: grows={out['vertical_grows']} "
+              f"shrinks={out['vertical_shrinks']} "
+              f"evictions={out['vertical_evictions']} "
+              f"stage={out['resize_stage_s']*1e3:.1f}ms")
+    if args.qos:
+        print(f"  qos slot-s: guaranteed="
+              f"{out['qos_guaranteed_slot_s']:.1f} "
+              f"burstable={out['qos_burstable_slot_s']:.1f} "
+              f"best_effort={out['qos_best_effort_slot_s']:.1f}")
     if out["hard_kills"] or out["checkpoints"]:
         print(f"  chaos: hard_kills={out['hard_kills']} "
               f"lost={out['requests_lost']} "
@@ -195,6 +244,20 @@ def run_cluster(args, cfg, params):
               f"endpoint_faults={out['endpoint_faults']} "
               f"retries={out['endpoint_retries']}")
     print(f"  fleet_dollar_cost=${out['fleet_dollar_cost']:.4f}")
+    if exchange is not None:
+        print(f"  market[{args.market}]: "
+              f"cost=${out['market_dollar_cost']:.4f} "
+              f"vs on-demand ${out['on_demand_dollar_cost']:.4f} "
+              f"-> savings {out['savings_pct']:.1f}% "
+              f"({out['spot_interruptions']} interruptions, "
+              f"fallback={args.fallback})")
+        for m in exchange.catalog.markets():
+            n = out.get(f"market_{m.name}_purchases", 0)
+            if n:
+                print(f"    {m.name}: {n} buys "
+                      f"${out[f'market_{m.name}_dollars']:.4f} "
+                      f"{out[f'market_{m.name}_interruptions']} "
+                      f"interruptions")
     for k in sorted(out):
         if k.startswith("attainment_"):
             slo = k[len("attainment_"):]
@@ -255,11 +318,15 @@ def main(argv=None):
                          "speed per dollar on every scale-up/replacement")
     ap.add_argument("--vertical", default="off",
                     choices=("off", "fixed", "window"),
-                    help="in-place replica resize (not ported yet: "
-                         "ROADMAP item 9c)")
+                    help="in-place replica resize: fixed reacts to "
+                         "instantaneous backlog per lane, window to a "
+                         "sliding-window mean (no drain; evicted slots "
+                         "park and resume)")
     ap.add_argument("--qos", action="store_true",
-                    help="QoS-classed capacity (not ported yet: ROADMAP "
-                         "item 9c)")
+                    help="QoS-classed capacity: interactive=Guaranteed "
+                         "(reserved), standard=Burstable, batch="
+                         "BestEffort (bursts into idle capacity, "
+                         "evicted first on shrink)")
     ap.add_argument("--slo-mix", type=float, default=None,
                     help="serve an interactive/batch SLO mix with this "
                          "interactive fraction (default: class-less)")
@@ -268,8 +335,9 @@ def main(argv=None):
                          "seconds (default: off)")
     ap.add_argument("--market", default="off",
                     choices=("off", "naive", "adjusted"),
-                    help="buy replicas on priced spot markets (not ported "
-                         "yet: ROADMAP item 9c)")
+                    help="buy replicas on priced spot markets; naive "
+                         "shops the cheapest rate right now, adjusted "
+                         "the interruption-adjusted effective price")
     ap.add_argument("--fallback", default="on_demand",
                     choices=("on_demand", "different_market",
                              "different_type", "queue_work",
@@ -302,7 +370,6 @@ def main(argv=None):
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = cfg.reduced()
-    _refuse_unported(args)
     params = zoo.init_serving_params(cfg, seed=args.seed, device=args.device)
     if args.cluster:
         return run_cluster(args, cfg, params)

@@ -22,25 +22,13 @@ rebalance pass; float32 granite-8b on dense engines and on paged ones
 request; and a chaos soup with checkpoints and the failure detector.
 """
 
-import dataclasses
 import functools
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-import repro.cluster as jcluster
-import repro.runtime as jruntime
-import repro.serving.engine as jengine
-import repro.serving.workload as jworkload
-import repro_torch.cluster as tcluster
-import repro_torch.runtime as truntime
-import repro_torch.serving.engine as tengine
 import repro_torch.serving.workload as tworkload
-from repro.configs import get_config as jax_config
-from repro.models import transformer as jtransformer
-from repro.models.schema import init_params as jinit_params
 from repro_torch.cluster import (CostAwareScaling, DeviceEndpoint,
                                  HostEndpoint, InstanceType,
                                  RateAwareRouter, Replica, ReplicaState,
@@ -50,7 +38,6 @@ from repro_torch.cluster.metrics import ClusterMetrics
 from repro_torch.configs import get_config
 from repro_torch.core import loadbalance as lb
 from repro_torch.models import model_zoo as zoo
-from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime import SpotEventFeed
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.simengine import SimEngine
@@ -580,45 +567,9 @@ def test_entry_points_default_to_the_card(model):
             make_endpoint(kind)
 
 
-def test_market_mode_waits_for_item_9c(model):
-    cfg, params = model
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        ServingCluster(cfg, None, [InstanceType("a", 1.0)], engine="sim",
-                       market=object(), device="cpu")
-
-
 # ------------------------------------------------- parity with repro
-import repro.launch.serve as jserve  # noqa: E402
-import repro_torch.launch.serve as tserve  # noqa: E402
-
-WALL_KEYS = ("preempt_stage_s", "interruption_overhead_s",
-             "recovery_restore_s", "checkpoint_stage_s", "resize_stage_s")
-
-
-@dataclasses.dataclass
-class _Pkg:
-    cluster: object
-    runtime: object
-    engine: object
-    workload: object
-    serve: object
-    dev: dict
-
-
-JAX = _Pkg(jcluster, jruntime, jengine, jworkload, jserve, {})
-TORCH = _Pkg(tcluster, truntime, tengine, tworkload, tserve,
-             {"device": "cpu"})
-
-
-def _virtual(summary):
-    """``summary()`` without the keys that hold real wall-clock seconds."""
-    return {k: v for k, v in summary.items() if k not in WALL_KEYS}
-
-
-def _record(cl, reqs, out):
-    return dict(digest=cl.loop.journal_digest, events=cl.loop.dispatched,
-                timeline=list(cl.timeline), summary=_virtual(out),
-                streams=[list(r.out_tokens) for r in reqs])
+from tests._torch_parity import JAX, TORCH, f32_models  # noqa: E402
+from tests._torch_parity import record as _record  # noqa: E402
 
 
 def _sim_run(p):
@@ -650,16 +601,7 @@ def test_sim_cluster_matches_reference():
 @pytest.fixture(scope="module")
 def f32():
     """Reduced float32 granite-8b with the JAX weights in both packages."""
-    jcfg = jax_config("granite-8b").reduced().with_(compute_dtype="float32")
-    tcfg = get_config("granite-8b").reduced().with_(compute_dtype="float32")
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    schema = jtransformer.model_schema(jcfg)
-    jparams = jax.jit(lambda key: jinit_params(schema, key,
-                                               jcfg.param_dtype))(
-        jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg,
-                                device="cpu")
-    return {"jax": (jcfg, jparams), "torch": (tcfg, tparams)}
+    return f32_models()
 
 
 def _cli_args(**kw):

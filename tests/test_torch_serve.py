@@ -82,12 +82,38 @@ def test_serve_cluster_chaos_returns_cluster():
     assert cl.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("flags", [["--market", "naive"],
-                                   ["--fallback", "queue_work"],
-                                   ["--vertical", "window"], ["--qos"]])
-def test_serve_refuses_unported_layers(flags):
-    """Market mode and the vertical layer wait for ROADMAP item 9c; the
-    launcher refuses their flags instead of ignoring them."""
+SMALL_CLUSTER = ["--device", "cpu", "--cluster", "--arch", "granite-8b",
+                 "--batch-size", "2", "--max-seq", "48"]
+
+
+@pytest.mark.parametrize("flags, want", [
+    (["--market", "naive", "--requests", "16", "--max-new", "24"],
+     ["market[naive]: cost=$", "(4 interruptions, fallback=on_demand)",
+      "    volatile: 4 buys $", "buy r0 spot.2.0x @ volatile"]),
+    (["--market", "adjusted", "--fallback", "different_market",
+      "--scaling", "cost_aware", "--slo-mix", "0.5", "--router",
+      "slo_aware", "--requests", "12"],
+     ["market[adjusted]: cost=$", "fallback=different_market)",
+      "    steady: 4 buys $", "slo[interactive]: attainment="]),
+    (["--market", "naive", "--fallback", "queue_work", "--interrupt-at",
+      "4", "--requests", "16", "--max-new", "24"],
+     ["drains=4 migrated_slots=2", "fallback=queue_work)",
+      "(4 interruptions"]),
+    (["--vertical", "window", "--qos", "--slo-mix", "0.5", "--requests",
+      "24"],
+     ["vertical: grows=5 shrinks=9 evictions=0",
+      "qos slot-s: guaranteed=", "slo[batch]: attainment=1.000"]),
+], ids=["market-naive", "market-adjusted", "queue-work", "vertical-qos"])
+def test_serve_cluster_market_and_vertical(flags, want, capsys):
+    """Market mode and the vertical layer through the launcher: every
+    request served, and the reference launcher's report lines (the
+    counts are the reference's for the same flags: the virtual timeline
+    follows token counts only)."""
     from repro_torch.launch.serve import main
-    with pytest.raises(SystemExit, match="item 9c"):
-        main(["--device", "cpu", "--cluster"] + flags)
+    cl, reqs, out = main(SMALL_CLUSTER + flags)
+    text = capsys.readouterr().out
+    assert out["completed"] == out["submitted"] == len(reqs), text
+    assert out["dropped"] == 0 and "(dropped 0)" in text
+    for line in want:
+        assert line in text, (line, text)
+    assert (cl.exchange is not None) == ("--market" in flags)

@@ -23,6 +23,7 @@ from repro_torch.serving.simengine import SimEngine, sim_token
 from repro_torch.serving.workload import (BATCH, INTERACTIVE, STANDARD,
                                           SLOClass)
 from repro_torch.serving.workunit import PAUSED, WorkUnit
+from repro_torch.vertical import QoSPolicy
 
 torch.set_num_threads(1)
 
@@ -106,15 +107,8 @@ def test_resize_interleaving_fixed_seeds():
 
 
 def test_qos_shrink_evicts_best_effort_first():
-    """A shrink keyed BestEffort-first takes batch work before
-    interactive even when the interactive stream has made less progress
-    (the QoS layer's key, ``vertical.QoSPolicy.evict_key``, spelled out:
-    ``vertical`` is not ported yet)."""
-    rank = {"interactive": 0, "standard": 1, "batch": 2}
-
-    def evict_key(u):
-        return (rank[u.slo_name], -u.snapshot.fed, u.uid)
-
+    """A QoS-keyed shrink takes batch work before interactive even when
+    the interactive stream has made less progress."""
     eng = SimEngine(batch_size=4, max_seq=64)
     slos = [BATCH, INTERACTIVE, BATCH, STANDARD]
     reqs = [Request(rid=i, prompt=np.arange(3, dtype=np.int32) + 1,
@@ -125,7 +119,7 @@ def test_qos_shrink_evicts_best_effort_first():
     eng.step()
     eng.submit(reqs[0])
     eng.step()
-    evicted = eng.resize(batch_size=2, evict_key=evict_key)
+    evicted = eng.resize(batch_size=2, evict_key=QoSPolicy.evict_key)
     assert [u.slo_name for u in evicted] == ["batch", "batch"]
     survivors = {r.slo.name for _, r in eng.slot_requests()}
     assert survivors == {"interactive", "standard"}

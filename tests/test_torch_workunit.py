@@ -41,6 +41,7 @@ from repro_torch.serving.engine import (Request, ServingEngine, SlotSnapshot,
 from repro_torch.serving.workload import (BATCH, INTERACTIVE, STANDARD,
                                           SLOClass)
 from repro_torch.serving.workunit import PACKED, PAUSED, WorkUnit
+from repro_torch.vertical import QoSPolicy
 
 torch.set_num_threads(1)
 
@@ -588,14 +589,8 @@ def test_resize_interleaving_conserves_blocks_paged(models):
 def test_qos_shrink_evicts_best_effort_first(models):
     """The engine-level half of the reference's QoS case: a shrink keyed
     BestEffort-first takes batch work before interactive, even when the
-    interactive stream has made less progress.  The key is the QoS
-    layer's (``vertical.QoSPolicy.evict_key``: tier rank, then progress,
-    then uid), spelled out here because ``vertical`` is not ported yet."""
-    rank = {"interactive": 0, "standard": 1, "batch": 2}
-
-    def evict_key(u):
-        return (rank[u.slo_name], -u.snapshot.fed, u.uid)
-
+    interactive stream has made less progress, under the QoS layer's
+    key (``QoSPolicy.evict_key``: tier rank, then progress, then uid)."""
     cfg, params = models["granite-8b"]
     eng = _engine(cfg, params, batch_size=4)
     slos = [BATCH, INTERACTIVE, BATCH, STANDARD]
@@ -606,7 +601,7 @@ def test_qos_shrink_evicts_best_effort_first(models):
     eng.step()
     eng.submit(reqs[0])          # a late batch stream (least fed)
     eng.step()
-    evicted = eng.resize(batch_size=2, evict_key=evict_key)
+    evicted = eng.resize(batch_size=2, evict_key=QoSPolicy.evict_key)
     assert [u.slo_name for u in evicted] == ["batch", "batch"]
     assert {r.slo.name for _, r in eng.slot_requests()} == {
         "interactive", "standard"}
