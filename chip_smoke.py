@@ -2215,16 +2215,32 @@ def cluster_engine():
                              block_size=16)
 
 
-def lone_streams(cfg, params, dev) -> dict:
-    """The 24 requests through one paged engine of the replicas'
-    geometry: the streams every replica must give."""
-    eng = cluster_engine()(cfg, params, device=dev, **CLUSTER_GEOMETRY)
-    reqs = requests(cfg, CLUSTER_LENS, 32, seed=0)
+def lone_engine_streams(cfg, params, dev, reqs, geometry) -> dict:
+    """``reqs`` through one paged engine of ``geometry``: the streams a
+    fleet of such replicas must give."""
+    eng = cluster_engine()(cfg, params, device=dev, **geometry)
     for r in reqs:
         eng.submit(r)
     eng.run_until_idle()
-    assert all(r.done and len(r.out_tokens) == 32 for r in reqs)
+    assert all(r.done and len(r.out_tokens) == r.max_new_tokens
+               for r in reqs)
     return {r.rid: list(r.out_tokens) for r in reqs}
+
+
+def check_served(what, reqs, out, probe, launches, want, dev):
+    """Everyone served with their token counts (and ``want``'s streams,
+    unless it is None); the paged kernel launched 36 x the decode steps
+    summed over the replicas."""
+    assert out["completed"] == out["submitted"] == len(reqs), (what, out)
+    assert out["dropped"] == 0, (what, out)
+    for r in reqs:
+        assert r.done and len(r.out_tokens) == r.max_new_tokens, \
+            (what, r.rid)
+        assert want is None or r.out_tokens == want[r.rid], \
+            (what, r.rid, r.out_tokens, want[r.rid])
+    if dev.type == "cuda":
+        assert launches == CLUSTER_ATTN_LAYERS * probe["steps"], \
+            (what, launches, probe["steps"])
 
 
 def cluster_run(cfg, params, dev, chaos=False):
@@ -2276,20 +2292,6 @@ def counted_run(run, dev):
         wall = time.perf_counter() - t0
         launches = pa.launches
     return out, wall, probe, launches
-
-
-def check_cluster_run(what, cl, reqs, out, probe, launches, want, dev):
-    """Everyone served, with the lone engine's streams; the paged kernel
-    launched 36 x the decode steps summed over the replicas."""
-    assert out["completed"] == out["submitted"] == len(reqs), (what, out)
-    assert out["dropped"] == 0, (what, out)
-    for r in reqs:
-        assert r.done and len(r.out_tokens) == 32, (what, r.rid)
-        assert r.out_tokens == want[r.rid], (what, r.rid, r.out_tokens,
-                                             want[r.rid])
-    if dev.type == "cuda":
-        assert launches == CLUSTER_ATTN_LAYERS * probe["steps"], \
-            (what, launches, probe["steps"])
 
 
 def log_cluster_run(what, cl, out, wall, probe, launches):
@@ -2394,7 +2396,9 @@ def cluster_phase(cfg, params, dev):
     Returns the paged launches of each run by path, and the phase's
     numbers."""
     t_phase = time.perf_counter()
-    want = lone_streams(cfg, params, dev)
+    want = lone_engine_streams(cfg, params, dev,
+                               requests(cfg, CLUSTER_LENS, 32, seed=0),
+                               CLUSTER_GEOMETRY)
     release(dev)
     log(f"[cluster] {CLUSTER_ARCH} at full width and depth, paged "
         f"replicas {CLUSTER_GEOMETRY}, fleet {CLUSTER_FLEET}, "
@@ -2404,8 +2408,7 @@ def cluster_phase(cfg, params, dev):
     by_path, numbers, repeat = {}, {}, []
     for run in range(2):
         cl, reqs, out, wall, probe, launches = cluster_run(cfg, params, dev)
-        check_cluster_run("fleet", cl, reqs, out, probe, launches, want,
-                          dev)
+        check_served("fleet", reqs, out, probe, launches, want, dev)
         drains = cl.metrics.drains
         assert out["drains"] == len(CLUSTER_INTERRUPTS), out["drains"]
         assert all(d.slots_migrated >= 1 for d in drains), drains
@@ -2446,7 +2449,7 @@ def cluster_phase(cfg, params, dev):
 
     cl, reqs, out, wall, probe, launches = cluster_run(cfg, params, dev,
                                                       chaos=True)
-    check_cluster_run("chaos", cl, reqs, out, probe, launches, want, dev)
+    check_served("chaos", reqs, out, probe, launches, want, dev)
     assert out["hard_kills"] >= 1 and out["checkpoints"] >= 1, out
     assert out["requests_recovered"] >= 1, out
     from_ckpt = sum(int(m.split(": ")[1].split()[0]) for _, m in cl.timeline
@@ -2549,34 +2552,6 @@ def market_run(cfg, params, dev, mode, geometry):
     reqs = market_requests(cfg)
     cl.attach_arrivals(PoissonArrivals(reqs, MARKET_RATE, seed=0))
     return (cl, reqs) + counted_run(cl.run, dev)
-
-
-def lone_engine_streams(cfg, params, dev, reqs, geometry) -> dict:
-    """``reqs`` through one paged engine of ``geometry``: the streams a
-    fleet of such replicas must give."""
-    eng = cluster_engine()(cfg, params, device=dev, **geometry)
-    for r in reqs:
-        eng.submit(r)
-    eng.run_until_idle()
-    assert all(r.done and len(r.out_tokens) == r.max_new_tokens
-               for r in reqs)
-    return {r.rid: list(r.out_tokens) for r in reqs}
-
-
-def check_served(what, reqs, out, probe, launches, want, dev):
-    """Everyone served with their token counts (and ``want``'s streams,
-    unless it is None); the paged kernel launched 36 x the decode steps
-    summed over the replicas."""
-    assert out["completed"] == out["submitted"] == len(reqs), (what, out)
-    assert out["dropped"] == 0, (what, out)
-    for r in reqs:
-        assert r.done and len(r.out_tokens) == r.max_new_tokens, \
-            (what, r.rid)
-        assert want is None or r.out_tokens == want[r.rid], \
-            (what, r.rid, r.out_tokens, want[r.rid])
-    if dev.type == "cuda":
-        assert launches == CLUSTER_ATTN_LAYERS * probe["steps"], \
-            (what, launches, probe["steps"])
 
 
 def log_market(cl, out):

@@ -41,17 +41,15 @@ OD_ONLY = InstanceType("ondemand.1x", 1.0, spot=False, cost_per_hour=1.0)
 
 
 def two_market_catalog(itypes=(STD,), *, spike=(120.0, 240.0, 5.0),
-                       market=None):
-    """The reference tests' two markets; ``market`` is the package whose
-    classes build them (the port's by default)."""
-    M = market or SimpleNamespace(MarketCatalog=MarketCatalog,
-                                  SpotMarket=SpotMarket)
-    cat = M.MarketCatalog()
-    cat.add_market(M.SpotMarket(
+                       market=TORCH.market):
+    """The reference tests' two markets, built by ``market``'s classes
+    (the port's by default)."""
+    cat = market.MarketCatalog()
+    cat.add_market(market.SpotMarket(
         "volatile", base_rate=0.25, volatility=0.06, spikes=(spike,),
         interruptions_per_hour=2.0, price_power=3.0, seed=1,
         horizon=600.0))
-    cat.add_market(M.SpotMarket(
+    cat.add_market(market.SpotMarket(
         "steady", base_rate=0.45, volatility=0.02,
         interruptions_per_hour=0.05, seed=2, horizon=600.0))
     for it in itypes:
