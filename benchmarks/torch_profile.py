@@ -5,8 +5,8 @@ NVIDIA GPU.
     python3 benchmarks/torch_profile.py [--arch granite-8b] [--layers N]
                                         [--steps 8]
 
-Builds ``--arch`` (``granite-8b``, ``mamba2-780m`` or ``zamba2-2.7b``)
-at its published width (depth ``--layers``, the published depth by
+Builds ``--arch`` (``granite-8b``, ``mamba2-780m``, ``zamba2-2.7b`` or
+``qwen2-moe-a2.7b``) at its published width (depth ``--layers``, the published depth by
 default) with random bf16 weights from seed 0, and a
 ``ServingEngine(cache_mode="paged", batch_size=8, max_seq=1024,
 block_size=16)`` of ``repro_torch``.  It admits 8 requests of 500 prompt
@@ -20,9 +20,11 @@ over steady windows of ``--steps`` fused decode steps reports:
   unprofiled wall time, kernel launches per step, the paged-attention
   kernel's time per launch and per step (where the model has attention),
   and the kernels that take the most device time;
-* the step's least time on the card: the bf16 weights, the KV rows the
-  lanes read, and the recurrent state (float32 SSD state, bf16 conv
-  tail) each layer reads and writes back, over 3.35 TB/s.
+* the step's least time on the card: the weights (bf16; norms, Mamba2's
+  ``A_log``/``dt_bias`` and the MoE router float32), each read once (the
+  MoE block multiplies every expert), the KV rows the lanes read, and
+  the recurrent state (float32 SSD state, bf16 conv tail) each layer
+  reads and writes back, over 3.35 TB/s.
 
 The card's name and power limit come first; the last line is one JSON
 object with every number.  Without a card it exits non-zero.
@@ -60,7 +62,8 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b",
-                    choices=("granite-8b", "mamba2-780m", "zamba2-2.7b"))
+                    choices=("granite-8b", "mamba2-780m", "zamba2-2.7b",
+                             "qwen2-moe-a2.7b"))
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: the published one)")
     ap.add_argument("--steps", type=int, default=8)
@@ -72,6 +75,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.core.checkpointing import tree_leaves
     from repro_torch.kernels.paged_attention import kernel
     from repro_torch.models import model_zoo as zoo
     from repro_torch.serving.engine import Request, ServingEngine
@@ -85,7 +89,7 @@ def main(argv=None) -> int:
     if args.layers is not None:
         cfg = cfg.with_(num_layers=args.layers)
     # paged-attention launches per decode step
-    attn_layers = (cfg.num_layers if cfg.family == "dense" else
+    attn_layers = (cfg.num_layers if cfg.family in ("dense", "moe") else
                    cfg.num_layers // cfg.attn_every
                    if cfg.family == "hybrid" else 0)
     params = zoo.init_serving_params(cfg, seed=0, device="cuda")
@@ -132,7 +136,7 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
 
     kv_rows = int(engine.state.cache_len.sum())      # after the window
-    weight_bytes = 2 * zoo.num_params(cfg)
+    weight_bytes = sum(t.nbytes for t in tree_leaves(params))
     kv_bytes = kv_rows * attn_layers * cfg.num_kv_heads * cfg.head_dim * 4
     state_bytes = sum(2 * t.numel() * t.element_size()   # read + write
                       for k, t in engine.state.cache.items()

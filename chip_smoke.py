@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    warm), the plain version, one library call (gather +
    ``scaled_dot_product_attention``, a yardstick the port never calls)
    and the HBM bound; then the same at zamba2-2.7b's shared attention
-   (H=KV=32, D=80); an empty launch through the same ctypes path; three
+   (H=KV=32, D=80) and at qwen2-moe-a2.7b's (H=KV=16, D=128: a GQA group
+   of 1, one query row of the 16 the tensor-core tile holds); an empty
+   launch through the same ctypes path; three
    calls back to back that change geometry and lengths, each held to its
    limits, the kernel's counters back to zero after them; then the
    kernel as built: ``ptxas`` registers and spills of every
@@ -43,19 +45,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    width and depth (random bf16 weights from a seed) serving 8 requests
    of 40-700 prompt tokens and 32 new tokens each, for granite-8b (the
    paged kernel launched 36 x the decode steps), mamba2-780m (the SSD
-   kernel 48 x the chunk prefills) and zamba2-2.7b (SSD 54 x the chunk
-   prefills, paged 9 x the decode steps), the SSD launches counted by
+   kernel 48 x the chunk prefills), zamba2-2.7b (SSD 54 x the chunk
+   prefills, paged 9 x the decode steps) and qwen2-moe-a2.7b (moe: 60
+   routed experts, top-4, 4 shared; paged 24 x the decode steps; 28.6 GB
+   of weights, the peak of their drawing logged), the SSD launches
+   counted by
    chunk length and an estimate of the kernel's ms per Mamba2 layer over
    that mix, priced from phase 4's times; after each, a steady 8-step
    decode window under ``torch.cuda.set_sync_debug_mode("error")`` with
-   zero host syncs;
+   zero host syncs; for qwen2-moe-a2.7b the device ms of one
+   ``moe_block`` at decode (8 lanes) and at one 256-token chunk beside
+   its bound (the block's weight bytes, every expert, over the HBM rate);
 6. kernels vs plain versions on one state at full width and depth, in
-   bf16 (the main path) and float32: for granite-8b one paged serve step;
+   bf16 (the main path) and float32: for granite-8b and qwen2-moe-a2.7b
+   one paged serve step (qwen2-moe in float32: 57 GB of weights, drawn
+   after the bf16 ones are freed);
    for mamba2-780m and zamba2-2.7b one 256-token paged chunk prefill plus
    one serve step; logits (and the recurrent state) within a stated
    tolerance;
-7. reduced granite-8b, mamba2-780m and zamba2-2.7b in float32: the dense
-   and paged engines on the card give the same greedy streams;
+7. reduced granite-8b, mamba2-780m, zamba2-2.7b and qwen2-moe-a2.7b in
+   float32: the dense and paged engines on the card give the same greedy
+   streams, and a second paged run gives them again bit for bit;
 8. the tile runtime at full size (16384^2 float32, 4 PEs x 4 tiles),
    fresh, in a process that has not loaded the Jacobi kernel yet: its
    first step's per-PE device times against their medians over a steady
@@ -121,8 +131,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 16. reduced granite-8b in float32 with a bucket of 8704: the dense engine
    (flash kernel) and the paged engine give the same greedy streams for
    a prompt of 8300 tokens and two short ones;
-17. work-unit migration on the card, after phase 7, for granite-8b and
-   zamba2-2.7b at full width and depth (phase 5's engine and requests):
+17. work-unit migration on the card, after phase 7, for granite-8b,
+   zamba2-2.7b and qwen2-moe-a2.7b at full width and depth (phase 5's
+   engine and requests):
    run A serves them unmigrated; run B, two decode windows in, packs 3
    slots into a second engine, preempts 2 and resumes them in place,
    checkpoints the rest and replays the checkpoint in a third engine;
@@ -131,7 +142,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    host sync, and the launch counts (zeroed just before run B) are the
    layers times the decode steps (and chunk prefills) of the three
    engines; the packed units install into a fresh engine and pack again
-   bit for bit (bytes, install and pack ms per unit).  granite-8b then
+   bit for bit (bytes, install and pack ms per unit).  qwen2-moe-a2.7b
+   then packs all 8 slots two windows in and unpacks them into a fresh
+   engine, whose streams equal run A's (bytes, pack and install ms per
+   unit).  granite-8b then
    packs all 8 slots two windows in (ms per unit beside pinned copies of
    the same bytes), times ``InMemoryStore`` and ``DeviceStore`` save and
    restore of the full decode state, and installs the units into a dense
@@ -187,10 +201,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    phase 18's drained interruption, ``--market adjusted --fallback
    different_market --scaling cost_aware --slo-mix 0.5 --router
    slo_aware``, and ``--vertical window --qos --slo-mix 0.5`` (16 of 16
-   served each, evictions BestEffort first).
+   served each, evictions BestEffort first); then qwen2-moe-a2.7b
+   through the launcher at full width, one paged engine (8 of 8 served)
+   and the drained cluster mode (16 of 16), each with paged launches =
+   24 x the decode steps.
 
-The line before the last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase's wall time is logged (``[time]``).  The line before the
+last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -292,14 +310,16 @@ F32_PREFILL_TOL = dict(rel_l2=3e-4, state_rel_l2=3e-4, f64_ratio=1.5,
                        argmax_agree=1.0, seeds=(3, 4, 5))
 # The main paths: (arch, attention layers per decode step, Mamba2 layers
 # per chunk prefill).
+MOE_ARCH, MOE_ATTN_LAYERS = "qwen2-moe-a2.7b", 24
 PATHS = (("granite-8b", 36, 0), ("mamba2-780m", 0, 48),
-         ("zamba2-2.7b", 9, 54))
+         ("zamba2-2.7b", 9, 54), (MOE_ARCH, MOE_ATTN_LAYERS, 0))
 PROMPT_LENS = [40, 63, 100, 200, 267, 450, 600, 700]
 # Work-unit migration (phase 17): the main path's 8 requests, two decode
 # windows in, then slots packed into a second engine of the same geometry
 # and slots preempted and resumed in place.  The paths: (arch, attention
 # layers per decode step, Mamba2 layers per chunk prefill).
-MIGRATE_PATHS = (("granite-8b", 36, 0), ("zamba2-2.7b", 9, 54))
+MIGRATE_PATHS = (("granite-8b", 36, 0), ("zamba2-2.7b", 9, 54),
+                 (MOE_ARCH, MOE_ATTN_LAYERS, 0))
 MIGRATE_PACK, MIGRATE_PREEMPT = [1, 4, 6], [0, 3]
 # The first decode step after an install into another geometry (a dense
 # cache, 32-position blocks, 4 lanes after a resize) against the same
@@ -332,9 +352,9 @@ CLUSTER_CKPT_S = 30.0      # virtual seconds between recovery checkpoints
 # The cluster launcher at full width: the flags every call shares, then
 # each call's own (phase 18's drained interruption, phase 19's market and
 # vertical modes).
-CLUSTER_CLI = ["--cluster", "--arch", "granite-8b", "--no-reduced",
-               "--cache-mode", "paged", "--batch-size", "8", "--max-seq",
-               "1024", "--fleet", "2x2.0,2x0.7", "--requests", "16"]
+CLUSTER_CLI = ["--cluster", "--no-reduced", "--cache-mode", "paged",
+               "--batch-size", "8", "--max-seq", "1024", "--fleet",
+               "2x2.0,2x0.7", "--requests", "16"]
 LAUNCHES = (
     ("cluster launcher", ["--router", "rate_aware", "--interrupt-at", "4"]),
     ("market launcher", ["--market", "adjusted", "--fallback",
@@ -439,6 +459,13 @@ F32_LONG_TOL = dict(rel_l2=1e-4, argmax_agree=1.0)
 
 def log(msg):
     print(msg, flush=True)
+
+
+def lap(what, t0) -> float:
+    """Log the wall seconds since ``t0`` under ``what``; returns now."""
+    now = time.perf_counter()
+    log(f"[time] {what}: {now - t0:.1f} s")
+    return now
 
 
 def gpu_line() -> str:
@@ -1162,18 +1189,23 @@ def serve_path(arch, attn_layers, mamba_layers, dev):
     chunk length)."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.checkpointing import tree_leaves
     from repro_torch.kernels.paged_attention import kernel as pa
     from repro_torch.kernels.ssd import kernel as ssd
     from repro_torch.models import model_zoo as zoo
     from repro_torch.serving.engine import ServingEngine
     cfg = get_config(arch)
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = zoo.init_serving_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
+    draw_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
+    weight_gb = sum(t.nbytes for t in tree_leaves(params)) / 1e9
     log(f"[engine] {arch} {cfg.num_layers} layers d={cfg.d_model} "
-        f"params={zoo.num_params(cfg)} drawn in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"params={zoo.num_params(cfg)} (active {zoo.active_params(cfg)}; "
+        f"{weight_gb:.2f} GB) drawn in {time.perf_counter() - t0:.1f} s, "
+        f"peak {draw_peak:.1f} GiB while drawing")
     engine = ServingEngine(cfg, params, batch_size=8, max_seq=1024,
                            block_size=16, cache_mode="paged", device=dev)
     reqs = requests(cfg, PROMPT_LENS, 32, seed=0)
@@ -1225,6 +1257,33 @@ def serve_path(arch, attn_layers, mamba_layers, dev):
         f"sync_debug_mode=error: 0 host syncs, {dt * 1e3 / 8:.2f} ms/step, "
         f"{window['emitted'] / dt:.1f} decode tok/s")
     return engine, params, launches, steady, by_len
+
+
+def moe_block_timing(cfg, params, dev):
+    """Device ms of one ``moe_block`` on layer 0's weights at decode (8
+    lanes of one token: one routing group, capacity 8) and at one
+    256-token chunk (16 groups of 16, capacity 8), beside its bound: the
+    block's weight bytes over the HBM rate (``_moe_grouped`` multiplies
+    every expert's whole capacity buffer, so it reads every expert)."""
+    import torch
+    from repro_torch.device import dtype_of
+    from repro_torch.models import moe as moe_lib
+    lp = params["layers"][0]["moe"]
+    nbytes = sum(t.nbytes for t in lp.values())
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    g = torch.Generator(dev).manual_seed(2)
+    out = {"weight_bytes": nbytes, "bound_ms": bound_ms}
+    for what, shape in (("decode", (8, 1)), ("chunk 256", (1, 256))):
+        x = torch.randn(*shape, cfg.d_model, generator=g, device=dev).to(
+            dtype_of(cfg.compute_dtype))
+        y, _ = moe_lib.moe_block(lp, x, cfg)
+        assert y.shape == x.shape and torch.isfinite(y).all()
+        ms = cuda_ms(lambda: moe_lib.moe_block(lp, x, cfg), 20)
+        log(f"  moe_block {what} ({shape[0] * shape[1]} tokens): {ms:.4f} ms "
+            f"device, bound {bound_ms:.4f} ms ({nbytes} B of weights at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {bound_ms / ms:.3f} of it")
+        out[what] = ms
+    return out
 
 
 def step_vs_plain(cfg, params, shape, pool_blocks, saved, tol):
@@ -1934,6 +1993,48 @@ def migration_path(arch, attn_layers, mamba_layers, dev):
                       "pack_ms": pack_ms}, params, want
 
 
+def migrate_all_slots(cfg, params, want, dev):
+    """Phase 17 on the moe path: all 8 slots packed two decode windows in
+    and unpacked into a fresh engine of the same geometry, whose window
+    after the install makes no host sync and whose streams equal run A's
+    (``want``).  Returns bytes, pack and install ms per unit."""
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+    geom = dict(batch_size=8, max_seq=1024, block_size=16,
+                cache_mode="paged", device=dev)
+    src = ServingEngine(cfg, params, **geom)
+    for r in requests(cfg, PROMPT_LENS, 32, seed=0):
+        src.submit(r)
+    for _ in range(2):
+        src.step_many(src.decode_block)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    units = src.pack()
+    pack_ms = (time.perf_counter() - t0) * 1e3 / len(units)
+    assert len(units) == 8
+    del src
+    dst = ServingEngine(cfg, params, **geom)
+    dst.unpack(units)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst._admit()            # the admission step_many would make first
+    torch.cuda.synchronize()
+    install_ms = (time.perf_counter() - t0) * 1e3 / len(units)
+    sync_free_window(dst, f"{cfg.name}: after unpacking all 8")
+    drive(dst)
+    for u in units:
+        req = u.snapshot.request
+        assert req.done and req.out_tokens == want[u.rid], (cfg.name, u.rid)
+    nbytes = unit_bytes(units[0])
+    log(f"[migrate] {cfg.name}: all 8 slots packed two windows in and "
+        f"unpacked into a fresh engine: 8/8 streams equal run A's, 0 host "
+        f"syncs in the window after the install; {nbytes} B a unit "
+        f"({nbytes / 2**20:.1f} MiB), pack {pack_ms:.2f} ms/unit, install "
+        f"{install_ms:.2f} ms/unit")
+    return {"unit_bytes": nbytes, "pack_ms": pack_ms,
+            "install_ms": install_ms}
+
+
 def link_yardstick(nbytes, dev, iters=5):
     """Pinned host <-> device copies of ``nbytes``: (D2H ms, H2D ms)."""
     import torch
@@ -2074,6 +2175,7 @@ def migration_phase(dev):
     """Phase 17: work-unit migration on the card.  Returns the launches
     of each same-geometry run B by path, and the phase's numbers."""
     import torch
+    from repro_torch.configs import get_config
     by_path, numbers = {}, {}
     for arch, attn_layers, mamba_layers in MIGRATE_PATHS:
         launches, numbers[arch], params, want = migration_path(
@@ -2081,6 +2183,9 @@ def migration_phase(dev):
         by_path[f"{arch} migration"] = launches
         if arch == "granite-8b":
             numbers["geometry"] = migration_geometry(params, want, dev)
+        if get_config(arch).family == "moe":
+            numbers[arch]["all slots"] = migrate_all_slots(
+                get_config(arch), params, want, dev)
         del params
         torch.cuda.empty_cache()
     return by_path, numbers
@@ -2484,15 +2589,16 @@ def cluster_phase(cfg, params, dev):
     return by_path, numbers
 
 
-def launcher_run(what, flags, dev):
+def launcher_run(what, flags, dev, arch=CLUSTER_ARCH,
+                 attn_layers=CLUSTER_ATTN_LAYERS):
     """``repro_torch.launch.serve.main`` in cluster mode at full width
     (its own weights, drawn from seed 0), the paged launch count set to 0
     just before and read just after: every request served, the paged
-    kernel launched 36 x the decode steps.  Returns (launches, summary,
-    wall s, peak GiB)."""
+    kernel launched ``attn_layers`` x the decode steps.  Returns
+    (launches, summary, wall s, peak GiB)."""
     from repro_torch.launch import serve
-    argv = CLUSTER_CLI + flags + ([] if dev.type == "cuda" else
-                                  ["--device", "cpu", "--reduced"])
+    argv = ["--arch", arch] + CLUSTER_CLI + flags + (
+        [] if dev.type == "cuda" else ["--device", "cpu", "--reduced"])
     log(f"[cluster] {what}: repro_torch.launch.serve.main({argv})")
     with resize_probe(dev) as resizes:
         (cl, reqs, out), wall, probe, launches = counted_run(
@@ -2502,16 +2608,43 @@ def launcher_run(what, flags, dev):
     assert out["resumes"] >= out["vertical_evictions"], out
     check_evictions(resizes)
     if dev.type == "cuda":
-        assert launches == CLUSTER_ATTN_LAYERS * probe["steps"], launches
+        assert launches == attn_layers * probe["steps"], launches
     log(f"  the launcher served {out['completed']}/{out['submitted']} on "
         f"{cl.device} in {wall:.2f} s (the weights drawn included), paged "
-        f"launches {launches} = {CLUSTER_ATTN_LAYERS} x {probe['steps']}; "
+        f"launches {launches} = {attn_layers} x {probe['steps']}; "
         f"{len(resizes)} in-place resizes, evictions "
         f"{out['vertical_evictions']}")
     peak = peak_gib()
     del cl, reqs
     release(dev)
     return launches, out, wall, peak
+
+
+def single_launcher_run(arch, attn_layers, dev):
+    """``repro_torch.launch.serve.main`` for one paged engine at full
+    width (8 requests, 32 new tokens each), the paged launch count set
+    to 0 just before and read just after: its report says every request
+    was served, and the paged kernel ran ``attn_layers`` x the decode
+    steps.  Returns the launches."""
+    import io
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--no-reduced", "--cache-mode", "paged",
+            "--batch-size", "8", "--max-seq", "1024", "--requests", "8",
+            "--max-new", "32"] + ([] if dev.type == "cuda" else
+                                  ["--device", "cpu", "--reduced"])
+    log(f"[launcher] repro_torch.launch.serve.main({argv})")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        _, wall, probe, launches = counted_run(lambda: serve.main(argv), dev)
+    report = text.getvalue().strip()
+    assert f"arch={arch} cache=paged" in report, report
+    assert "served 8/8 requests" in report, report
+    if dev.type == "cuda":
+        assert launches == attn_layers * probe["steps"], launches
+    log(f"  {report}; wall {wall:.2f} s (the weights drawn included), "
+        f"paged launches {launches} = {attn_layers} x {probe['steps']}")
+    release(dev)
+    return launches
 
 
 def market_requests(cfg):
@@ -2904,6 +3037,7 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = build.compile_all()
     log(f"[build] {sorted(paths)} in {time.perf_counter() - t0:.2f} s")
+    t_phase = time.perf_counter()
     for name, info in build.build_log.items():
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
@@ -2921,6 +3055,9 @@ def main() -> int:
              **paged_kernel_phase(dev, flush, H=32, KV=8, D=128)}
     log("[kernel] paged_attention vs plain at zamba2-2.7b shapes (D=80)")
     paged["at_d80"] = paged_kernel_phase(dev, flush, H=32, KV=32, D=80)
+    log("[kernel] paged_attention vs plain at qwen2-moe-a2.7b shapes "
+        "(H=KV=16, D=128: a GQA group of 1)")
+    paged["at_moe"] = paged_kernel_phase(dev, flush, H=16, KV=16, D=128)
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     paged["empty_launch_ms"] = cuda_ms(lambda: pa_kernel.empty_launch(dev),
                                        50, flush)
@@ -2930,6 +3067,7 @@ def main() -> int:
     paged_back_to_back(dev)
     log("[kernel] paged_attention as built: ptxas and SASS")
     paged["sass_hmma"] = paged_build_phase()
+    t_phase = lap("phase 3 (paged attention)", t_phase)
 
     # 4. SSD intra-chunk vs plain, then the kernel as built
     log("[kernel] ssd_intra_chunk vs plain at full prefill-chunk shapes "
@@ -2937,6 +3075,7 @@ def main() -> int:
     ssd = ssd_kernel_phase(dev, flush)
     log("[kernel] ssd_intra_chunk as built: ptxas and SASS")
     ssd["sass_hmma"] = ssd_build_phase()
+    t_phase = lap("phase 4 (SSD)", t_phase)
 
     # 13. flash attention vs plain
     log("[kernel] flash_attention vs plain (5 test shapes, then S=16384 "
@@ -2944,6 +3083,7 @@ def main() -> int:
     flash = flash_kernel_phase(dev, flush)
     log("[kernel] flash_attention as built: ptxas and SASS")
     flash["sass_hgmma"] = flash_build_phase()
+    t_phase = lap("phase 13 (flash attention)", t_phase)
 
     # 8. the tile runtime's first steps and a steady window
     steady_launches = stencil_steady_phase(dev)
@@ -2955,6 +3095,7 @@ def main() -> int:
     jac["tile_form"] = tile_form_phase(dev, flush)
     del flush_buf
     torch.cuda.empty_cache()
+    t_phase = lap("phases 8-9 (tile runtime, Jacobi)", t_phase)
 
     # 5-6. the main paths, then kernels vs plain at full width and depth
     by_path = {}
@@ -2968,7 +3109,10 @@ def main() -> int:
             ssd["per_layer_est_ms"][arch] = ssd_per_layer_est_ms(
                 ssd["at_shapes"], arch, by_len, mamba_layers)
         cfg = engine.cfg
-        if cfg.family == "dense":
+        if cfg.family == "moe":
+            moe_ms = moe_block_timing(cfg, params, dev)
+            log(f"[moe] numbers {json.dumps(moe_ms)}")
+        if cfg.family in ("dense", "moe"):
             shape, pool_blocks = engine.shape, engine.pool_blocks
             saved = (copy.deepcopy(engine.state),
                      engine.sample.next_tok.clone(),
@@ -2982,15 +3126,19 @@ def main() -> int:
         del engine, params
         torch.cuda.empty_cache()
         cfg32 = cfg.with_(compute_dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
         params32 = zoo.init_serving_params(cfg32, seed=0, device=dev)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             step_vs_plain(cfg32, params32, shape, pool_blocks, saved,
                           F32_STEP_TOL)
             del saved
         else:
             prefill_step_vs_plain(cfg32, params32, dev, F32_PREFILL_TOL)
+        log(f"  float32 check: peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         del params32
         torch.cuda.empty_cache()
+        t_phase = lap(f"phases 5-6 ({arch})", t_phase)
     # 14-15. the long-prompt paths (granite-8b, then the hybrid route
     # through zamba2-2.7b's shared attention), then each model's
     # 16384-token prefill, kernel vs plain at full depth
@@ -3015,13 +3163,14 @@ def main() -> int:
         del params32
         torch.cuda.empty_cache()
     flash["launches"] = sum(flash["launches_by_path"].values())
+    t_phase = lap("phases 14-15 (long prompts)", t_phase)
 
     # 7. small float32 parity on the card: dense vs paged engine
     for arch, _, _ in PATHS:
         small = get_config(arch).reduced().with_(compute_dtype="float32")
         sp = zoo.init_serving_params(small, seed=0, device=dev)
         streams = []
-        for mode in ("dense", "paged"):
+        for mode in ("dense", "paged", "paged"):
             eng = ServingEngine(small, sp, batch_size=3, max_seq=96,
                                 prefill_buckets=(16, 64), cache_mode=mode,
                                 block_size=8, device=dev)
@@ -3031,14 +3180,16 @@ def main() -> int:
             eng.run_until_idle()
             assert all(r.done for r in rs)
             streams.append([r.out_tokens for r in rs])
-        assert streams[0] == streams[1], streams
+        assert streams[0] == streams[1] == streams[2], streams
         log(f"[small] reduced {arch} f32: dense and paged (kernel) engines "
-            f"give identical greedy streams")
+            f"give identical greedy streams, and a second paged run again")
+    t_phase = lap("phase 7 (reduced float32 parity)", t_phase)
 
     # 17. work-unit migration on the card, full width
     migrated, migration = migration_phase(dev)
     by_path.update(migrated)
     log(f"[migrate] numbers {json.dumps(migration)}")
+    t_phase = lap("phase 17 (migration)", t_phase)
 
     # 18. the serving cluster on the card, full width; 19. market and
     # vertical A/Bs over the same params; then the launcher's three modes
@@ -3047,7 +3198,7 @@ def main() -> int:
     clustered, cluster = cluster_phase(cfg, params, dev)
     by_path.update(clustered)
     log(f"[cluster] numbers {json.dumps(cluster)}")
-    t_phase = time.perf_counter()
+    t_phase = lap("phase 18 (cluster)", t_phase)
     marketed, market = market_phase(cfg, params, dev, MARKET_GEOMETRY)
     by_path.update(marketed)
     log(f"[market] numbers {json.dumps(market)}")
@@ -3073,8 +3224,20 @@ def main() -> int:
                                              "ssd_intra_chunk": 0}
         log(f"  {what}: wall {wall:.2f} s, peak {peak:.2f} GiB, summary "
             f"{json.dumps(out)}")
-    log(f"[market] phase 19 and the launchers in "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    # the moe family through the launcher: one engine, then a cluster
+    # with a drained interruption
+    by_path[f"{MOE_ARCH} launcher"] = {
+        "paged_attention": single_launcher_run(MOE_ARCH, MOE_ATTN_LAYERS,
+                                               dev),
+        "ssd_intra_chunk": 0}
+    launches, out, wall, peak = launcher_run(
+        "moe cluster launcher", LAUNCHES[0][1], dev, MOE_ARCH,
+        MOE_ATTN_LAYERS)
+    by_path[f"{MOE_ARCH} cluster launcher"] = {"paged_attention": launches,
+                                               "ssd_intra_chunk": 0}
+    log(f"  moe cluster launcher: wall {wall:.2f} s, peak {peak:.2f} GiB, "
+        f"summary {json.dumps(out)}")
+    t_phase = lap("phase 19 and the launchers", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}
@@ -3082,6 +3245,7 @@ def main() -> int:
 
     # 16. the same at a bucket past 8192
     small_long_parity(dev)
+    t_phase = lap("phase 16 (long-bucket parity)", t_phase)
 
     # 10-12. the stencil app: C1 and C2, correctness, the event driver
     by_run = {"steady window": steady_launches, **stencil_app_phase(dev)}
@@ -3089,6 +3253,7 @@ def main() -> int:
     by_run["driver"] = stencil_driver_phase(dev)
     jac["launches_by_path"] = by_run
     jac["launches"] = sum(by_run.values())
+    lap("phases 10-12 (stencil app)", t_phase)
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": [paged, ssd, flash, jac]}), flush=True)

@@ -1,10 +1,14 @@
 """Serving launcher: one continuous-batching engine, or a cluster of them,
-over an --arch of the dense (granite-8b, llama3.2-3b, ...), ssm
-(mamba2-780m) or hybrid (zamba2-2.7b) family.
+over an --arch of the dense (granite-8b, llama3.2-3b, ...), moe
+(qwen2-moe-a2.7b, qwen3-moe-30b-a3b), ssm (mamba2-780m) or hybrid
+(zamba2-2.7b) family.
 
 On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --no-reduced --cache-mode paged --batch-size 8 --max-seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen2-moe-a2.7b --no-reduced --cache-mode paged \
+      --batch-size 8 --max-seq 1024
 
 On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \

@@ -14,9 +14,10 @@ its eager loops read:
   stays as it is;
 * matmul and embedding weights, and Mamba2's ``D``, ``conv_w`` and
   ``conv_b``, are cast to ``compute_dtype`` once, here;
-* norm weights, and Mamba2's ``A_log`` and ``dt_bias``, stay float32:
-  the reference upcasts them at use, and rounding ``A_log`` or
-  ``dt_bias`` to bf16 would change ``A`` and ``dt``.
+* norm weights, Mamba2's ``A_log`` and ``dt_bias`` and the MoE
+  ``router`` stay float32: the reference upcasts them at use, and
+  rounding ``A_log`` or ``dt_bias`` to bf16 would change ``A`` and
+  ``dt``, and rounding ``router`` would change the routing.
 
 Casting once at load gives the same values as the reference's per-use
 ``.astype(dt)``, value for value: both round the same float32 numbers
@@ -32,7 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of, resolve_device
 
 
-FLOAT32_KEYS = ("A_log", "dt_bias")
+FLOAT32_KEYS = ("A_log", "dt_bias", "router")
 
 
 def _keeps_float32(key: str) -> bool:
@@ -62,17 +63,18 @@ def _unstack(tree, i: int):
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
-    """A dense, ssm or hybrid parameter tree -> the port's params.
+    """A dense, moe, ssm or hybrid parameter tree -> the port's params.
 
     ``tree`` is the JAX parameter tree handed over as nested dicts of
     numpy arrays (``jax.tree.map(np.asarray, params)``), or the same tree
     of tensors as ``model_zoo.init_serving_params`` draws it.  ``layers``
-    (dense, ssm) becomes a list of ``cfg.num_layers`` per-layer dicts;
+    (dense, moe, ssm) becomes a list of ``cfg.num_layers`` per-layer dicts;
     ``mamba`` (hybrid) a list of ``periods`` lists of ``attn_every``
     dicts.  The dicts hold views of the stacked tensors."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1)")
+            f"family {cfg.family!r} is not ported yet: enc_dec and vlm are "
+            f"ROADMAP item 11")
     dev = resolve_device(device)
     params = _convert(tree, cfg, dev)
     if cfg.family == "hybrid":

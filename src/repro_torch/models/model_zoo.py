@@ -1,7 +1,7 @@
 """Task-level model API for serving: prefill, serve step, decode loops.
 
 Port of the serving half of ``repro.models.model_zoo`` for the dense,
-ssm (mamba2) and hybrid (zamba2) families.  ``lax.scan`` over layers is
+moe, ssm (mamba2) and hybrid (zamba2) families.  ``lax.scan`` over layers is
 a Python loop; the ``n_steps`` scan of the decode loop is a Python loop
 of device ops with no ``.item()``, no ``.cpu()``, no truth value of a
 tensor and no boolean-mask indexing inside it, so a decode window never
@@ -34,26 +34,31 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.schema import count_params, init_params
 
 # Families whose prefill needs only ``tokens`` (no frames / patch embeds)
-# and can therefore be bulk-prefilled by a serving engine.  The port runs
-# dense, ssm and hybrid; moe raises where a family is dispatched.
+# and can therefore be bulk-prefilled by a serving engine.
 BULK_PREFILL_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # Causal-attention families ignore a padded tail (position i never attends
 # to j > i), so a prompt chunk may be right-padded to a bucket size.
 # Recurrent families (ssm/hybrid) must never feed pad tokens through the
 # state recurrence; their chunks are always fully real.
 PAD_SAFE_FAMILIES = ("dense", "moe")
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+# Families with attention in every layer (no recurrent leaves): every layer
+# holds k/v, and the feed-forward half is a SwiGLU MLP (dense) or a MoE
+# block (moe).
+DECODER_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid")
 
 
 def _ported(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1)")
+            f"family {cfg.family!r} is not ported yet: enc_dec and vlm are "
+            f"ROADMAP item 11")
 
 
 def paged_kv_keys(cfg: ModelConfig):
@@ -91,8 +96,9 @@ def lane_axis(cfg: ModelConfig) -> int:
 
 
 def _attn_layers(cfg: ModelConfig) -> int:
-    """Leading extent of the k/v leaves: layers (dense), periods (hybrid)."""
-    return (cfg.num_layers if cfg.family == "dense"
+    """Leading extent of the k/v leaves: layers (dense, moe), periods
+    (hybrid)."""
+    return (cfg.num_layers if cfg.family in DECODER_FAMILIES
             else cfg.num_layers // cfg.attn_every)
 
 
@@ -103,8 +109,9 @@ def init_serving_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     Leaves are drawn in float32 and stored in ``compute_dtype`` leaf by
     leaf (the values the reference's per-use cast of its float32 params
     would give), so a full-width model never holds a float32 copy; norms
-    and Mamba2's ``A_log``/``dt_bias`` stay float32, as ``convert``
-    keeps them."""
+    stay float32, as ``convert`` keeps them, and Mamba2's
+    ``A_log``/``dt_bias`` and the MoE ``router`` are drawn and kept in
+    float32 (their schemas say so)."""
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
     tree = init_params(T.model_schema(cfg), gen, dev, cfg.compute_dtype)
@@ -113,6 +120,25 @@ def init_serving_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 def num_params(cfg: ModelConfig) -> int:
     return count_params(T.model_schema(cfg))
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: routed top_k of num_experts)."""
+    total = num_params(cfg)
+    if cfg.family != "moe":
+        return total
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    routed = cfg.num_layers * cfg.num_experts * per_expert
+    active = cfg.num_layers * cfg.top_k * per_expert
+    return total - routed + active
+
+
+def _feed_forward(lp, h, cfg: ModelConfig):
+    """A decoder layer's second half: the MoE block (its aux loss is
+    dropped, as serving drops it) or the SwiGLU MLP."""
+    if cfg.family == "moe":
+        return moe_lib.moe_block(lp["moe"], h, cfg)[0]
+    return L.swiglu_block(lp["mlp"], h, cfg)
 
 
 # ============================================================== serving
@@ -130,7 +156,8 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig,
     _ported(cfg)
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
-    cache = {} if cfg.family == "dense" else _recurrent_cache(cfg, B, dev)
+    cache = ({} if cfg.family in DECODER_FAMILIES
+             else _recurrent_cache(cfg, B, dev))
     if cfg.family != "ssm":
         kv = (_attn_layers(cfg), B, S, cfg.num_kv_heads, cfg.head_dim)
         cache.update({k: torch.zeros(kv, dtype=torch.bfloat16, device=dev)
@@ -148,7 +175,7 @@ def _decoder_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
     for lp in params["layers"]:
         h, (k, v) = L.attention_block(lp["attn"], h, cfg, causal=True,
                                       impl=impl)
-        h = L.swiglu_block(lp["mlp"], h, cfg)
+        h = _feed_forward(lp, h, cfg)
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
     return h, ks, vs
@@ -191,7 +218,7 @@ def make_prefill(cfg: ModelConfig, shape: ShapeConfig, impl: str = "kernel"):
     _ported(cfg)
 
     def prefill(params, batch):
-        if cfg.family == "dense":
+        if cfg.family in DECODER_FAMILIES:
             h, ks, vs = _decoder_prefill(params, batch["tokens"], cfg, impl)
             cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
         else:
@@ -332,18 +359,18 @@ def _layer_stack(params, cache, h, cfg: ModelConfig, attention, *,
                  impl: str = "kernel"):
     """The model's layers over ``h``, caches updated in place.  Every
     attention is ``attention(attn params, h, index of its k/v leaves) ->
-    h``: each dense layer's, and the hybrid shared block's at the end of
-    each period.
+    h``: each dense or moe layer's (then its MLP or MoE block), and the
+    hybrid shared block's at the end of each period.
 
     Mamba2 layers, decode (``slot`` None): one token per lane, each layer
     steps its lanes' states (lanes with ``act`` False keep theirs).  Chunk
     prefill (``slot`` given): the chunk continues lane ``slot``'s states,
     or starts from zeros when ``fresh``, and they are replaced whole.
     """
-    if cfg.family == "dense":
+    if cfg.family in DECODER_FAMILIES:
         for i, lp in enumerate(params["layers"]):
             h = attention(lp["attn"], h, i)
-            h = L.swiglu_block(lp["mlp"], h, cfg)
+            h = _feed_forward(lp, h, cfg)
         return h
     shared = params.get("shared")
     for period, layers in _mamba_layers(params, cfg):
@@ -421,7 +448,8 @@ def init_paged_decode_state(cfg: ModelConfig, shape: ShapeConfig,
     if S % block_size:
         raise ValueError(f"seq_len {S} not a multiple of {block_size}")
     mb = S // block_size
-    cache = {} if cfg.family == "dense" else _recurrent_cache(cfg, B, dev)
+    cache = ({} if cfg.family in DECODER_FAMILIES
+             else _recurrent_cache(cfg, B, dev))
     for key in paged_kv_keys(cfg):
         cache[key] = torch.zeros(
             (_attn_layers(cfg), num_blocks + 1, block_size,

@@ -1,9 +1,10 @@
 """Decoder-only LM: parameter schemas, embedding and logits.
 
-Port of ``repro.models.transformer`` for the dense, ssm and hybrid
+Port of ``repro.models.transformer`` for the dense, moe, ssm and hybrid
 families.  Weights keep the reference's layouts (``wq (d, H, D)``, ``wo
 (H, D, d)``, ``lm_head (d, V)``), so the matmuls read the same on both
-sides.  The other families raise ``NotImplementedError``.
+sides.  The enc_dec and vlm families raise ``NotImplementedError``
+(ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -15,7 +16,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.schema import Spec
+
+
+def _not_ported(cfg: ModelConfig):
+    return NotImplementedError(
+        f"family {cfg.family!r} is not ported yet: enc_dec and vlm are "
+        f"ROADMAP item 11")
 
 
 # ============================================================== schemas
@@ -45,17 +53,20 @@ def mlp_schema(cfg: ModelConfig, stacked: Optional[int], prefix="layers"):
 
 
 def decoder_lm_schema(cfg: ModelConfig):
-    """dense decoder-only LM."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1)")
+    """dense / moe decoder-only LM."""
+    if cfg.family not in ("dense", "moe"):
+        raise _not_ported(cfg)
     Lc = cfg.num_layers
     sch = {
         "embed": Spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed_tp"),
                       "embed"),
         "final_norm": Spec((cfg.d_model,), (None,), "ones"),
-        "layers": {"attn": attn_schema(cfg, Lc), "mlp": mlp_schema(cfg, Lc)},
+        "layers": {"attn": attn_schema(cfg, Lc)},
     }
+    if cfg.family == "moe":
+        sch["layers"]["moe"] = moe_lib.moe_schema(cfg, Lc)
+    else:
+        sch["layers"]["mlp"] = mlp_schema(cfg, Lc)
     if not cfg.tie_embeddings:
         sch["lm_head"] = Spec((cfg.d_model, cfg.padded_vocab),
                               ("embed", "vocab"))
@@ -91,15 +102,13 @@ def ssm_lm_schema(cfg: ModelConfig):
 
 
 def model_schema(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return decoder_lm_schema(cfg)
     if cfg.family == "hybrid":
         return hybrid_schema(cfg)
     if cfg.family == "ssm":
         return ssm_lm_schema(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: moe is ROADMAP queue 1 "
-        f"item 8, enc_dec/vlm item 11")
+    raise _not_ported(cfg)
 
 
 # ============================================================== embedding / logits

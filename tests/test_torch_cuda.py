@@ -59,6 +59,7 @@ def cuda_device():
     (8, 32, 8, 128, 16, 200, 20, 20),    # granite-8b heads, 320 positions
     (2, 8, 8, 64, 4, 40, 10, 7),         # G = 1
     (4, 32, 32, 80, 16, 64, 16, 16),     # zamba2-2.7b heads, D = 80
+    (8, 16, 16, 128, 16, 200, 20, 20),   # qwen2-moe-a2.7b heads: G = 1
 ])
 def test_kernel_matches_plain_on_card(cuda_device, b, heads, kv_heads, d,
                                       bs, nb, mb, used, dtype):
@@ -550,7 +551,8 @@ def _migration_params(arch, dtype, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b",
+                                  "qwen2-moe-a2.7b"])
 def test_pack_unpack_on_card_continues_stream(cuda_device, arch, dtype):
     """Slots packed mid-decode on the card (columns gathered on the
     device, one counted fetch) unpack into a second engine on the card,
@@ -583,6 +585,41 @@ def test_pack_unpack_on_card_continues_stream(cuda_device, arch, dtype):
     assert dst.host_syncs == syncs
     dst.run_until_idle()
     assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_decode_window_on_card(cuda_device, dtype):
+    """Reduced qwen2-moe on the card, paged: an 8-step decode window
+    makes no host sync under ``set_sync_debug_mode("error")`` (routing,
+    dispatch and combine included), a second run gives the same streams
+    bit for bit (the combine adds in a fixed order, no float atomics),
+    and in float32 the dense engine gives the paged one's streams."""
+    from repro_torch.serving.engine import Request
+    cfg, params = _migration_params("qwen2-moe-a2.7b", dtype, cuda_device)
+    streams = []
+    for mode in ("paged", "paged", "dense"):
+        eng = _migration_engine(cfg, params, cuda_device, cache_mode=mode,
+                                decode_block=8)
+        rng = np.random.default_rng(11)
+        reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n)
+                        .astype(np.int32), max_new_tokens=40)
+                for i, n in enumerate((5, 20, 40))]
+        for r in reqs:
+            eng.submit(r)
+        eng.step_many(8)                        # admit + first window
+        syncs = eng.host_syncs
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step_many(8)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert eng.host_syncs == syncs
+        eng.run_until_idle()
+        streams.append([list(r.out_tokens) for r in reqs])
+    assert streams[0] == streams[1]
+    if dtype == "float32":
+        assert streams[2] == streams[0]
 
 
 @pytest.mark.cuda

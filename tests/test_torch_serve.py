@@ -37,6 +37,27 @@ def test_serve_cli_cpu_recurrent(arch):
     assert "served 4/4" in out.stdout, out.stdout
 
 
+@pytest.mark.parametrize("mode", ["single", "cluster"])
+def test_serve_cli_cpu_moe(mode):
+    """The moe family through the launcher, paged cache: one engine, and
+    a cluster with a drained interruption."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    flags = (["--requests", "4", "--max-new", "4"] if mode == "single" else
+             ["--cluster", "--fleet", "2x2.0,2x0.7", "--requests", "8",
+              "--max-new", "8", "--batch-size", "2", "--max-seq", "48",
+              "--interrupt-at", "4"])
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "qwen2-moe-a2.7b", "--cache-mode", "paged", *flags],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "arch=qwen2-moe-a2.7b" in out.stdout, out.stdout
+    assert ("served 4/4" if mode == "single" else
+            "completed 8/8 (dropped 0)") in out.stdout, out.stdout
+    if mode == "cluster":
+        assert "drains=1" in out.stdout, out.stdout
+
+
 def test_serve_cli_refuses_missing_card():
     """The default device is the card; without one the launcher fails
     instead of falling back to the CPU."""

@@ -45,7 +45,7 @@ from repro_torch.vertical import QoSPolicy
 
 torch.set_num_threads(1)
 
-ARCHS = ["granite-8b", "mamba2-780m"]     # causal + ssm families
+ARCHS = ["granite-8b", "mamba2-780m", "qwen2-moe-a2.7b"]  # dense, ssm, moe
 
 
 @pytest.fixture(scope="module")
