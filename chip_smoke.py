@@ -204,7 +204,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    served each, evictions BestEffort first); then qwen2-moe-a2.7b
    through the launcher at full width, one paged engine (8 of 8 served)
    and the drained cluster mode (16 of 16), each with paged launches =
-   24 x the decode steps.
+   24 x the decode steps;
+20. training, after phase 19 (``training_phase``): (a)
+   ``ssd_intra_chunk`` under autograd at mamba2-780m's and zamba2-2.7b's
+   training chunks (b = 2, nc = 16, l = 256), through ``SSDIntraChunk``
+   (one launch forward, none backward): outputs against the plain
+   version, the five input gradients against autograd through it, the
+   forward kernel's and the backward's (the plain VJP's) ms; (b)
+   ``ElasticTrainer`` on full-width, full-depth mamba2-780m (train_4k's
+   4096-token sequences, the global batch cut to 8: 4 micro-batches of
+   2; remat full; float32 masters, bf16 compute; the test-scale
+   schedule), 6 steps, ``rescale(1)`` through the memory store, 4 more,
+   beside a twin of 10 straight steps (rescaled after, through the
+   device store): every loss finite, the last 3 below the first 3, the
+   two runs' losses equal bit for bit, SSD launches (zeroed just before,
+   read just after each run) = 48 x 4 x 2 x 10; s/step, tokens/s, peak
+   GiB and the four rescale stages logged; (c) one step's gradient
+   through the kernel and through the plain SSD, in bf16 and in float32
+   (float32 also with an exact float64 SSD core): loss, grad_norm and
+   every gradient leaf under ``TRAIN_ROUTE_TOL``; (d) granite-8b at full
+   width cut to 2 layers (4 x 4096 tokens), 2 steps, a rescale, 2 more,
+   then ``python -m repro_torch.launch.train --arch granite-8b --reduced
+   --steps 4`` as a subprocess.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -217,6 +238,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3003,6 +3025,400 @@ def vertical_phase(cfg, params, dev, geometry):
     return by_path, numbers
 
 
+# --------------------------------------------------------------- training
+# Phase 20: single-device training through the elastic runtime.
+# train_4k's 4096-token sequences, its global batch of 256 cut to 8 for
+# mamba2-780m (4 micro-batches of 2: one card, one call's time) and to 4
+# for granite-8b cut to 2 layers; the test-scale schedule of
+# tests/test_system.py (the default warms up over 100 steps); float32
+# masters, bf16 compute, remat full.
+TRAIN_HP = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_STEPS = "mamba2-780m", 8, (6, 4)
+DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS, DENSE_TRAIN_BATCH = "granite-8b", 2, 4
+DENSE_TRAIN_STEPS = (2, 2)
+# (a) the SSD Function at the models' training chunks, (b, nc, l, h, p, n):
+# a micro-batch of 2 sequences of 4096 tokens in chunks of 256
+SSD_TRAIN_SHAPES = (("mamba2-780m", (2, 16, 256, 48, 64, 128)),
+                    ("zamba2-2.7b", (2, 16, 256, 80, 64, 64)))
+# Outputs: the kernel against its plain version, as phase 4 holds it
+# (relative L2: ~2e-7 per output).  Input gradients: the Function's
+# backward *is* autograd through the plain version, so against a second
+# autograd pass through it they must agree to float32 summation order.
+SSD_TRAIN_OUT_REL_L2, SSD_TRAIN_GRAD_REL_L2 = 1e-5, 1e-6
+# (c) one train step's gradient, the kernel route against the plain one,
+# every leaf by relative L2.  float32: phase 6 found kernel and plain
+# 1-3e-4 apart at the logits, as far as the plain version is from an
+# exact core, so each leaf is held to 1e-3 and, over all leaves, the
+# kernel route may be at most 1.5 times as far from a run with an exact
+# (float64) SSD core as the plain route is.  bf16: the SSD output is
+# rounded to bf16, and a kernel ~2e-7 off flips some roundings, which 48
+# layers carry to the logits and back (on an H100 the leaves read
+# 1.2e-2 to 1.02e-1 apart; phase 6 holds bf16 logits to 0.1), so each
+# leaf is held to 0.25 (a gradient that lost the scan's share would be
+# off by its whole size) and, over all leaves, the kernel route may be
+# at most 1.5 times as far from the float32 plain route's gradient as
+# the bf16 plain route is.
+TRAIN_ROUTE_TOL = {
+    "float32": dict(loss_rel=1e-5, grad_norm_rel=1e-4, leaf_rel_l2=1e-3,
+                    exact_ratio=1.5),
+    "bfloat16": dict(loss_rel=1e-3, grad_norm_rel=1e-2, leaf_rel_l2=0.25,
+                     exact_ratio=1.5)}
+
+
+def train_cfg(arch, dev, **kw):
+    """The phase's model and shape: full width on the card, reduced on
+    the CPU (a rehearsal)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeConfig
+    cfg = get_config(arch).with_(**kw)
+    train_4k = SHAPES["train_4k"]
+    if dev.type != "cuda":
+        return cfg.reduced(), train_4k.reduced()
+    batch = TRAIN_BATCH if cfg.family == "ssm" else DENSE_TRAIN_BATCH
+    return cfg, ShapeConfig(train_4k.name, train_4k.seq_len, batch, "train")
+
+
+def ssd_train_inputs(dev, shape, seed):
+    """SSD inputs as a training step makes them: x, B, C standard normal;
+    dt = softplus(normal + dt_bias) with dt_bias drawn as the models draw
+    it (dt in [1e-3, 1e-1]); A in [-16, -1] per head, so dA_cs falls
+    thousands over a chunk and exp(seg) overflows above the diagonal."""
+    import math
+    import torch
+    b, nc, l, h, p, n = shape
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    def uniform(lo, hi, *s):
+        return lo + (hi - lo) * torch.rand(s, generator=g, device=dev)
+    dt0 = torch.exp(uniform(math.log(1e-3), math.log(1e-1), h))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dtr = torch.nn.functional.softplus(randn(b, nc, l, h) + dt_bias)
+    A = -uniform(1.0, 16.0, h)
+    dA_cs = torch.cumsum(dtr * A, dim=2)
+    return [randn(b, nc, l, h, p), dtr, dA_cs, randn(b, nc, l, n),
+            randn(b, nc, l, n)]
+
+
+def ssd_grad_phase(dev, flush):
+    """(a) ``ssd_intra_chunk`` under autograd at the training chunks:
+    through ``SSDIntraChunk`` (one launch forward, none backward), its
+    outputs against the plain version and the five input gradients
+    against autograd through the plain version; the forward kernel's
+    and the backward's (the plain VJP's) ms.  Returns the readings."""
+    import torch
+    from repro_torch.kernels.ssd import kernel, ops, ssd_intra_chunk_ref
+    out = {}
+    for model, shape in SSD_TRAIN_SHAPES:
+        args = [t.requires_grad_() for t in
+                ssd_train_inputs(dev, shape, seed=shape[3])]
+        g = torch.Generator(dev).manual_seed(1)
+        b, nc, l, h, p, n = shape
+        cot = (torch.randn((b, nc, l, h, p), generator=g, device=dev),
+               torch.randn((b, nc, h, p, n), generator=g, device=dev))
+        kernel.launches = 0
+        y, st = ops.ssd_intra_chunk(*args)
+        assert type(y.grad_fn).__name__.startswith("SSDIntraChunk"), \
+            y.grad_fn
+        grads = torch.autograd.grad((y, st), args, cot, retain_graph=True)
+        sync(dev)
+        assert kernel.launches == 1, kernel.launches
+        ref_args = [a.detach().clone().requires_grad_() for a in args]
+        y_ref, st_ref = ssd_intra_chunk_ref(*ref_args)
+        want = torch.autograd.grad((y_ref, st_ref), ref_args, cot)
+        row = {"out_rel_l2": max(rel_l2(y.detach(), y_ref.detach()),
+                                 rel_l2(st.detach(), st_ref.detach()))}
+        assert row["out_rel_l2"] <= SSD_TRAIN_OUT_REL_L2, row
+        names = ("xr", "dtr", "dA_cs", "Br", "Cr")
+        for name, a, w in zip(names, grads, want):
+            assert torch.isfinite(a).all(), name
+            row[f"d{name}_rel_l2"] = rel_l2(a, w)
+            assert row[f"d{name}_rel_l2"] <= SSD_TRAIN_GRAD_REL_L2, row
+        plain = [a.detach() for a in args]
+        row["forward_kernel_ms"] = cuda_ms(
+            lambda: kernel.ssd_intra_chunk(*plain), 20, flush)
+        row["backward_plain_vjp_ms"] = cuda_ms(
+            lambda: torch.autograd.grad((y, st), args, cot,
+                                        retain_graph=True), 5, flush)
+        row["plain_forward_ms"] = cuda_ms(
+            lambda: ssd_intra_chunk_ref(*plain), 5, flush)
+        row["forward_bound_ms"] = ssd_bound(l, h, p, n, b * nc)[2]
+        log(f"  {model} {shape}: outputs rel L2 {row['out_rel_l2']:.2e}, "
+            f"input gradients " + ", ".join(
+                f"d{k} {row[f'd{k}_rel_l2']:.1e}" for k in names)
+            + f" (limits {SSD_TRAIN_OUT_REL_L2}, {SSD_TRAIN_GRAD_REL_L2});"
+            f" forward kernel {row['forward_kernel_ms']:.4f} ms (bound "
+            f"{row['forward_bound_ms']:.4f}), backward "
+            f"(plain VJP, no kernel) {row['backward_plain_vjp_ms']:.3f} ms,"
+            f" plain forward {row['plain_forward_ms']:.3f} ms")
+        out[model] = row
+        del args, y, st, grads, ref_args, y_ref, st_ref, want, plain
+        release(dev)
+    return out
+
+
+def zero_launches():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.paged_attention import kernel as pa
+    from repro_torch.kernels.ssd import kernel as sk
+    fa.launches = pa.launches = sk.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.paged_attention import kernel as pa
+    from repro_torch.kernels.ssd import kernel as sk
+    return {"paged_attention": pa.launches, "ssd_intra_chunk": sk.launches,
+            "flash_attention": fa.launches}
+
+
+def timed_steps(trainer, n, dev) -> list:
+    """``n`` steps of ``trainer``, one at a time: wall seconds of each
+    (a step ends with its metrics read back, a wait for the card)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        trainer.train(1, log_every=0)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def trainer_run(cfg, shape, dev, store_kind, steps, rescale_after):
+    """An ``ElasticTrainer`` (seed 0) for ``sum(steps)`` steps with
+    ``rescale(1)`` after ``steps[0]`` (``rescale_after``: also after the
+    last), every launch count set to 0 just before the first step and
+    read just after the last.  Returns (trainer, launches, step seconds,
+    rescale events, peak GiB)."""
+    from repro_torch.launch.train import ElasticTrainer
+    from repro_torch.optim import adamw
+    release(dev)
+    tr = ElasticTrainer(cfg, shape, seed=0, store_kind=store_kind,
+                        hp=adamw.HParams(**TRAIN_HP), device=dev)
+    sync(dev)
+    zero_launches()
+    times = timed_steps(tr, steps[0], dev)
+    events = []
+    if len(steps) > 1:
+        events.append(tr.rescale(1))
+        times += timed_steps(tr, steps[1], dev)
+    sync(dev)
+    launches = read_launches()
+    if rescale_after:
+        events.append(tr.rescale(1))
+    return tr, launches, times, events, peak_gib()
+
+
+def log_trainer(what, cfg, shape, tr, launches, times, events, peak):
+    tokens = shape.global_batch * shape.seq_len
+    steady = sorted(times[1:])[len(times[1:]) // 2] if len(times) > 1 \
+        else times[0]
+    losses = [m["loss"] for m in tr.metrics_log]
+    log(f"  {what}: {len(times)} steps of {shape.global_batch} x "
+        f"{shape.seq_len} tokens, losses {[round(x, 6) for x in losses]}")
+    log(f"    s/step {spread(times, 1.0)}, median after the first "
+        f"{steady:.3f} s = {tokens / steady:.0f} tokens/s; peak "
+        f"{peak:.2f} GiB; launches {launches}")
+    for ev in events:
+        log(f"    rescale {ev.kind} {ev.from_devices}->{ev.to_devices} "
+            f"({type(tr.runtime.store).__name__}): " + ", ".join(
+                f"{k} {v * 1e3:.2f} ms" for k, v in ev.stages.items()))
+    return {"losses": losses, "step_s": times, "median_step_s": steady,
+            "tokens_per_s": tokens / steady, "peak_gib": peak,
+            "rescales": [{"store": type(tr.runtime.store).__name__,
+                          **{k: v * 1e3 for k, v in ev.stages.items()}}
+                         for ev in events]}
+
+
+def train_twin_phase(dev):
+    """(b) mamba2-780m at full width and depth: ``ElasticTrainer`` for
+    6 steps, ``rescale(1)`` (memory store), 4 more; a twin trainer 10
+    steps straight (device store; rescaled after, for its stage times).
+    Every loss finite, the last 3 below the first 3, the two runs' losses
+    equal bit for bit (one stream, cuBLAS deterministic there, the
+    embedding's backward sort-based, no float atomics on this path), SSD
+    launches = layers x micro-batches x 2 x steps.  Returns (launches by
+    run, numbers)."""
+    import math
+    from repro_torch.models import model_zoo as zoo
+    cfg, shape = train_cfg(TRAIN_ARCH, dev)
+    n = zoo.num_params(cfg)
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n / 1e9:.3f} B params, batch "
+        f"{shape.global_batch} x {shape.seq_len} in {cfg.num_microbatches} "
+        f"micro-batches, remat {cfg.remat}, {cfg.compute_dtype} compute, "
+        f"{cfg.param_dtype} masters")
+    want = cfg.num_layers * cfg.num_microbatches * 2 * sum(TRAIN_STEPS)
+    runs, numbers, losses = {}, {}, {}
+    for what, store, steps, after in (
+            ("rescaled", "memory", TRAIN_STEPS, False),
+            ("twin", "device", (sum(TRAIN_STEPS),), True)):
+        tr, launches, times, events, peak = trainer_run(
+            cfg, shape, dev, store, steps, after)
+        numbers[what] = log_trainer(f"{what} ({store} store)", cfg, shape,
+                                    tr, launches, times, events, peak)
+        losses[what] = numbers[what]["losses"]
+        runs[f"{cfg.name} training ({what})"] = launches
+        if dev.type == "cuda":
+            assert launches["ssd_intra_chunk"] == want, (launches, want)
+        ls = losses[what]
+        assert all(math.isfinite(x) for x in ls), ls
+        assert sum(ls[-3:]) < sum(ls[:3]), ls
+        del tr
+        release(dev)
+    a, b = losses["rescaled"], losses["twin"]
+    numbers["twin_max_abs_diff"] = max(abs(x - y) for x, y in zip(a, b))
+    log(f"  the rescaled run against the twin: max |loss difference| "
+        f"{numbers['twin_max_abs_diff']:.3e} (bit for bit: {a == b})")
+    assert a == b, (a, b)
+    return runs, numbers
+
+
+def route_grads(cfg, params, batch, impl, core=None):
+    """One train step's gradient half (``train_grads``) through ``impl``,
+    with an exact SSD core when ``core`` is "f64"."""
+    from repro_torch.models import model_zoo as zoo
+    with (ssd_core(core) if core else contextlib.nullcontext()):
+        grads, loss, _, _ = zoo.train_grads(params, batch, cfg, impl)
+    return grads, float(loss)
+
+
+def route_phase(dev):
+    """(c) one train step's gradient of (b)'s model from one state,
+    kernel route against plain route, in float32 (also against a run
+    with an exact float64 SSD core) and then in bf16 (both also against
+    the float32 plain route's gradient): loss, grad_norm and every
+    gradient leaf."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adamw
+    out, exact = {}, None
+    for dtype in ("float32", "bfloat16"):
+        tol = TRAIN_ROUTE_TOL[dtype]
+        cfg, shape = train_cfg(TRAIN_ARCH, dev, compute_dtype=dtype)
+        release(dev)
+        params = zoo.init_state(cfg, 0, dev).params
+        batch = to_device(SyntheticLM(cfg, shape).batch_at(0), dev)
+        runs = {"kernel": route_grads(cfg, params, batch, "kernel"),
+                "plain": route_grads(cfg, params, batch, "ref")}
+        if dtype == "float32":
+            runs["f64"] = route_grads(cfg, params, batch, "ref", "f64")
+        leaves = {k: adamw.flatten(g)[0] for k, (g, _) in runs.items()}
+        names = [n for n, _ in _leaf_names(params)]
+        per_leaf = {n: rel_l2(a, b) for n, a, b in
+                    zip(names, leaves["kernel"], leaves["plain"])}
+        gn = {k: float(adamw.global_norm(g)) for k, (g, _) in runs.items()}
+        row = {"loss": {k: v for k, (_, v) in runs.items()},
+               "grad_norm": gn, "leaf_rel_l2": per_leaf,
+               "max_leaf_rel_l2": max(per_leaf.values())}
+        loss_rel = abs(runs["kernel"][1] - runs["plain"][1]) / abs(
+            runs["plain"][1])
+        gn_rel = abs(gn["kernel"] - gn["plain"]) / gn["plain"]
+        log(f"  {dtype}: loss kernel {runs['kernel'][1]:.7f} plain "
+            f"{runs['plain'][1]:.7f} (rel {loss_rel:.2e}); grad_norm "
+            f"{gn['kernel']:.6f} / {gn['plain']:.6f} (rel {gn_rel:.2e}); "
+            f"gradient leaves kernel vs plain, rel L2 up to "
+            f"{row['max_leaf_rel_l2']:.2e} ({max(per_leaf, key=per_leaf.get)}"
+            f"); limits {tol}")
+        assert all(torch_finite(g) for g in leaves["kernel"])
+        assert loss_rel <= tol["loss_rel"] and gn_rel <= tol["grad_norm_rel"]
+        assert row["max_leaf_rel_l2"] <= tol["leaf_rel_l2"], per_leaf
+        # over all leaves, the distance from a more exact gradient: an
+        # exact SSD core (float32), the float32 plain route (bf16)
+        flat = {k: flat_cat(v) for k, v in leaves.items()}
+        ref = flat["f64"] if dtype == "float32" else exact
+        far_k, far_p = rel_l2(flat["kernel"], ref), rel_l2(flat["plain"], ref)
+        row["from_exact"] = {"kernel": far_k, "plain": far_p}
+        what = "exact-core" if dtype == "float32" else "float32 plain"
+        log(f"    from the {what} run (all leaves): kernel {far_k:.2e}, plain {far_p:.2e} "
+            f"(ratio {far_k / far_p:.2f}, limit {tol['exact_ratio']})")
+        assert far_k <= tol["exact_ratio"] * far_p, row["from_exact"]
+        if dtype == "float32":
+            exact = flat["plain"]
+        out[dtype] = row
+        del params, batch, runs, leaves, flat, ref
+        release(dev)
+    return out
+
+
+def _leaf_names(tree, prefix=""):
+    """(dotted name, leaf) pairs in ``adamw.flatten`` order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaf_names(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def torch_finite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def flat_cat(leaves):
+    import torch
+    return torch.cat([t.float().reshape(-1) for t in leaves])
+
+
+def dense_train_phase(dev):
+    """(d) granite-8b at full width, depth cut to 2 layers: 2 steps,
+    ``rescale(1)``, 2 steps; then the launcher as a subprocess."""
+    import math
+    from repro_torch.models import model_zoo as zoo
+    cfg, shape = train_cfg(DENSE_TRAIN_ARCH, dev)
+    if dev.type == "cuda":
+        cfg = cfg.with_(num_layers=DENSE_TRAIN_LAYERS)
+    log(f"[train] {cfg.name} cut to {cfg.num_layers} layers: "
+        f"{zoo.num_params(cfg) / 1e9:.3f} B params, batch "
+        f"{shape.global_batch} x {shape.seq_len}")
+    tr, launches, times, events, peak = trainer_run(
+        cfg, shape, dev, "memory", DENSE_TRAIN_STEPS, False)
+    numbers = log_trainer("granite-8b, 2 layers (memory store)", cfg, shape,
+                          tr, launches, times, events, peak)
+    ls = numbers["losses"]
+    assert all(math.isfinite(x) for x in ls), ls
+    assert not any(launches.values()), launches   # full_attention: no kernel
+    del tr
+    release(dev)
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            DENSE_TRAIN_ARCH, "--reduced", "--steps", "4"]
+    if dev.type != "cuda":
+        argv += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(argv, capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    assert run.returncode == 0, run.stderr[-4000:]
+    assert "done:" in run.stdout, run.stdout
+    log(f"  {' '.join(argv[1:])}: exit 0 in {wall:.1f} s; "
+        f"{run.stdout.strip().splitlines()[-1]}")
+    numbers["launcher_s"] = wall
+    return numbers
+
+
+def training_phase(dev, flush):
+    """Phase 20: (a) the SSD Function, (b) mamba2-780m trained across a
+    rescale beside a twin, (c) kernel against plain route, (d) granite-8b
+    at 2 layers and the launcher.  Returns (launches by run, numbers)."""
+    numbers = {}
+    log(f"[train] phase 20 on {gpu_line() if dev.type == 'cuda' else dev}")
+    if dev.type == "cuda":
+        log("[train] (a) ssd_intra_chunk through SSDIntraChunk at the "
+            "training chunks")
+        numbers["ssd_grad"] = ssd_grad_phase(dev, flush)
+    log("[train] (b) mamba2-780m across a rescale, and its twin")
+    runs, numbers["mamba2"] = train_twin_phase(dev)
+    log("[train] (c) one step's gradient, kernel route vs plain route")
+    numbers["routes"] = route_phase(dev)
+    log("[train] (d) granite-8b at 2 layers, then the launcher")
+    numbers["dense"] = dense_train_phase(dev)
+    return runs, numbers
+
+
 def first_difference(a, b):
     """The first index where two token lists differ (None if equal)."""
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -3238,6 +3654,14 @@ def main() -> int:
     log(f"  moe cluster launcher: wall {wall:.2f} s, peak {peak:.2f} GiB, "
         f"summary {json.dumps(out)}")
     t_phase = lap("phase 19 and the launchers", t_phase)
+
+    # 20. training: the SSD Function, mamba2-780m across a rescale and its
+    # twin, kernel route against plain, granite-8b at 2 layers
+    trained, training = training_phase(dev, flush)
+    by_path.update(trained)
+    ssd["training"] = training
+    log(f"[train] numbers {json.dumps(training)}")
+    t_phase = lap("phase 20 (training)", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}

@@ -11,6 +11,10 @@ with ``torch.empty_like(q)`` (q's strides, so a heads-major view of a
 (B, S, H, D) tensor gets a (B, S, H, D) output), launches, and raises if
 the launch failed.  ``launches`` counts successful launches and nothing
 else.
+
+A call that autograd would record (grad mode on, an input that
+requires grad) raises ``RuntimeError`` (``kernels.refuse_grad``): the
+output would be cut off from the graph.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)   # multiples of 16 to 128
 MAX_GRID_YZ = 65535                               # heads, batch
@@ -85,6 +89,8 @@ def flash_attention(q, k, v, *, causal=True):
     in any layout whose head_dim is contiguous.  Returns (B, H, Sq, D)
     with q's strides."""
     global launches
+    refuse_grad("flash_attention (no backward kernel: blockwise training "
+                "past 8192 tokens is ROADMAP work)", q, k, v)
     check_args(q, k, v)
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]

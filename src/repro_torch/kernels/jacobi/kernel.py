@@ -10,6 +10,10 @@ failed.  The values of ``ids`` and ``nbr`` are not read on the host
 (that would synchronise): ids must lie in ``[0, T)`` and neighbours in
 ``[-1, T)``, as the tile runtime builds them.  ``launches`` counts
 successful launches and nothing else.
+
+A call that autograd would record (grad mode on, an input that
+requires grad) raises ``RuntimeError`` (``kernels.refuse_grad``): the
+output would be cut off from the graph.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 ROWS_PER_CTA = 16       # kRows in csrc/jacobi.cu
 MAX_GRID_YZ = 65535     # tiles per launch, and row strips per tile
@@ -46,6 +50,7 @@ def _lib():
 
 
 def _check_grid(*tensors):
+    refuse_grad("jacobi (no backward)", *tensors)
     dtype = tensors[0].dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"want float32 or bfloat16; got {dtype}")

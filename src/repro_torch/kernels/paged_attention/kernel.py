@@ -15,6 +15,10 @@ the host and allocates nothing that depends on ``kv_len``.  Calls on one
 device share it and must not overlap (one stream).  ``launches`` counts
 successful launches and nothing else.  ``empty_launch`` launches an
 empty kernel through the same C path (the floor under a call's time).
+
+A call that autograd would record (grad mode on, an input that
+requires grad) raises ``RuntimeError`` (``kernels.refuse_grad``): the
+output would be cut off from the graph.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: zamba2-2.7b's shared attention
 MAX_GROUP = 8
@@ -97,6 +101,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, kv_len):
     kernel clamps them into the pool); kv_len: (B,) int32.
     Returns (B, H, D)."""
     global launches
+    refuse_grad("paged_attention (a decode kernel, no backward)", q,
+                k_pool, v_pool)
     check_args(q, k_pool, v_pool, block_tables, kv_len)
     b, h, d = q.shape
     nb, bs, kv, _ = k_pool.shape

@@ -12,6 +12,11 @@ launch failed.  ``launches`` counts successful launches and nothing
 else; ``launches_by_len`` counts them by chunk length l.
 ``empty_launch`` launches an empty kernel through the same C path (the
 floor of a timing harness) and counts nothing.
+
+A call that autograd would record raises ``RuntimeError``
+(``kernels.refuse_grad``); ``ops.ssd_intra_chunk`` sends such calls
+through ``ops.SSDIntraChunk``, which calls this wrapper with grad
+mode off.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 MAX_HEAD_DIM = 128   # p: one or two 64-column groups
 MAX_STATE = 256      # n: the C and B tiles, 64 rows of n (rounded up to
@@ -83,6 +88,8 @@ def ssd_intra_chunk(xr, dtr, dA_cs, Br, Cr):
     float32 on one card.  Returns y_diag (b,nc,l,h,p) and states
     (b,nc,h,p,n), float32."""
     global launches
+    refuse_grad("ssd_intra_chunk's kernel (a gradient goes through "
+                "kernels.ssd.ops.SSDIntraChunk)", xr, dtr, dA_cs, Br, Cr)
     check_args(xr, dtr, dA_cs, Br, Cr)
     b, nc, l, h, p = xr.shape
     n = Br.shape[-1]

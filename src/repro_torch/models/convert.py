@@ -22,6 +22,11 @@ its eager loops read:
 Casting once at load gives the same values as the reference's per-use
 ``.astype(dt)``, value for value: both round the same float32 numbers
 to ``compute_dtype`` with round-to-nearest-even.
+
+Training keeps the reference's own layout instead (``model_zoo.
+TrainState``: stacked, float32 masters, leaf for leaf the JAX tree) and
+reaches this one through ``compute_view``, a differentiable cast and
+unstack made once per micro-batch.
 """
 
 from __future__ import annotations
@@ -41,10 +46,11 @@ def _keeps_float32(key: str) -> bool:
 
 
 def _leaf(x, key: str, cfg: ModelConfig, device) -> torch.Tensor:
+    """``x`` cast by the rule above, on ``device`` (None: where it is)."""
     t = torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray) else x
     dt = (torch.float32 if _keeps_float32(key)
           else dtype_of(cfg.compute_dtype))
-    return t.to(device=device, dtype=dt)
+    return t.to(device=device or t.device, dtype=dt)
 
 
 def _convert(tree, cfg: ModelConfig, device):
@@ -57,9 +63,32 @@ def _convert(tree, cfg: ModelConfig, device):
     return out
 
 
-def _unstack(tree, i: int):
-    return {k: _unstack(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unbind(tree, n: int):
+    """A tree stacked on a leading axis of ``n`` -> ``n`` trees of views.
+
+    Each leaf is unbound once (``Tensor.unbind``), so that a gradient
+    into the views goes back to the stacked leaf in one stack (an index
+    per layer would scatter a zero-filled copy of the whole leaf per
+    layer)."""
+    split = {k: _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _layout(params, cfg: ModelConfig):
+    """The stacked tree -> the eager layout (see ``params_from_numpy``)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: enc_dec and vlm are "
+            f"ROADMAP item 11")
+    params = dict(params)
+    if cfg.family == "hybrid":
+        periods = cfg.num_layers // cfg.attn_every
+        params["mamba"] = [_unbind(p, cfg.attn_every)
+                           for p in _unbind(params.pop("mamba"), periods)]
+    else:
+        params["layers"] = _unbind(params.pop("layers"), cfg.num_layers)
+    return params
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
@@ -71,20 +100,24 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     (dense, moe, ssm) becomes a list of ``cfg.num_layers`` per-layer dicts;
     ``mamba`` (hybrid) a list of ``periods`` lists of ``attn_every``
     dicts.  The dicts hold views of the stacked tensors."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: enc_dec and vlm are "
-            f"ROADMAP item 11")
-    dev = resolve_device(device)
-    params = _convert(tree, cfg, dev)
-    if cfg.family == "hybrid":
-        stacked = params.pop("mamba")
-        periods = cfg.num_layers // cfg.attn_every
-        params["mamba"] = [
-            [_unstack(_unstack(stacked, i), j) for j in range(cfg.attn_every)]
-            for i in range(periods)]
-    else:
-        stacked = params.pop("layers")
-        params["layers"] = [_unstack(stacked, i)
-                            for i in range(cfg.num_layers)]
-    return params
+    return _layout(_convert(tree, cfg, resolve_device(device)), cfg)
+
+
+def compute_view(params, cfg: ModelConfig):
+    """The training layout -> the layout every layer function reads.
+
+    ``params`` is a ``TrainState``'s tree: the reference's stacked tree,
+    leaf for leaf and in ``param_dtype`` (float32 masters).  Returns
+    ``params_from_numpy``'s layout on the same device, through
+    differentiable ops only (a cast per leaf by this module's rule, then
+    views), so a loss over it sends each gradient back to its float32
+    master through the cast, as the reference's per-use ``.astype(dt)``
+    does.  A tied embedding is used twice in the reference, each use
+    with its own cast, and JAX sums the two float32 cotangents; so here
+    the output projection gets a cast of its own (``lm_head``, a
+    transposed view), and the two cotangents meet in float32 at the
+    master, not in the compute dtype.  Called once per micro-batch."""
+    view = _convert(params, cfg, None)
+    if cfg.tie_embeddings:
+        view["lm_head"] = _leaf(params["embed"], "embed", cfg, None).t()
+    return _layout(view, cfg)

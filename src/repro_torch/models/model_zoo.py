@@ -1,11 +1,24 @@
-"""Task-level model API for serving: prefill, serve step, decode loops.
+"""Task-level model API: batches, loss and train step; prefill, serve
+step, decode loops.
 
-Port of the serving half of ``repro.models.model_zoo`` for the dense,
-moe, ssm (mamba2) and hybrid (zamba2) families.  ``lax.scan`` over layers is
-a Python loop; the ``n_steps`` scan of the decode loop is a Python loop
-of device ops with no ``.item()``, no ``.cpu()``, no truth value of a
-tensor and no boolean-mask indexing inside it, so a decode window never
-waits for the host.
+Port of ``repro.models.model_zoo`` for the dense, moe, ssm (mamba2) and
+hybrid (zamba2) families.
+
+Training keeps the reference's state: ``TrainState(step, params, opt)``
+with ``params`` the reference's stacked tree in ``param_dtype`` (float32
+masters, leaf for leaf and shape for shape the JAX tree, so m and v line
+up with the reference's and a state can cross packages through
+``state_from_numpy`` / ``state_to_numpy``).  The loss reads it through
+``convert.compute_view``, made once per micro-batch.  Micro-batches
+accumulate as the reference's scan does: ``backward`` per micro-batch
+into the float32 ``.grad`` of the masters, in micro-batch order, then
+the division by ``n_micro``, then the ``grad_reduce_dtype`` cast.
+
+Serving: ``lax.scan`` over layers is a Python loop; the ``n_steps``
+scan of the decode loop is a Python loop of device ops with no
+``.item()``, no ``.cpu()``, no truth value of a tensor and no
+boolean-mask indexing inside it, so a decode window never waits for the
+host.
 
 Caches are updated in place: a serve step, decode loop or prefill
 mutates the state it is given and returns it.  The KV cache is bf16
@@ -26,8 +39,9 @@ the decode loop's carry check, whose conv leaf comes back float32
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -36,8 +50,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as T
-from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.convert import compute_view, params_from_numpy
 from repro_torch.models.schema import count_params, init_params
+from repro_torch.optim import adamw
 
 # Families whose prefill needs only ``tokens`` (no frames / patch embeds)
 # and can therefore be bulk-prefilled by a serving engine.
@@ -139,6 +154,179 @@ def _feed_forward(lp, h, cfg: ModelConfig):
     if cfg.family == "moe":
         return moe_lib.moe_block(lp["moe"], h, cfg)[0]
     return L.swiglu_block(lp["mlp"], h, cfg)
+
+
+# ============================================================== batches
+class ArraySpec(NamedTuple):
+    """One input of a batch: its shape and numpy dtype."""
+    shape: tuple
+    dtype: np.dtype
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ArraySpec]:
+    """The input batch of a (arch x shape) cell, as the reference's
+    ``batch_spec`` gives it for the ported families: ``(shape, dtype)``
+    pairs, int32 throughout."""
+    _ported(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    i32 = np.dtype(np.int32)
+    if shape.kind == "train":
+        return {"tokens": ArraySpec((B, S), i32),
+                "labels": ArraySpec((B, S), i32)}
+    if shape.kind == "prefill":
+        return {"tokens": ArraySpec((B, S), i32)}
+    if shape.kind == "decode":
+        return {"tokens": ArraySpec((B, 1), i32),
+                "active": ArraySpec((B,), i32)}
+    raise ValueError(shape.kind)
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+               device="cuda") -> Dict[str, torch.Tensor]:
+    """A random batch matching ``batch_spec`` (smoke tests): tokens and
+    labels uniform over the vocabulary from a seeded CPU generator,
+    ``active`` all ones."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in batch_spec(cfg, shape).items():
+        if k == "active":
+            t = torch.ones(v.shape, dtype=torch.int32)
+        else:
+            t = torch.randint(0, cfg.vocab_size, v.shape, generator=gen,
+                              dtype=torch.int32)
+        out[k] = t.to(dev)
+    return out
+
+
+# ============================================================== loss
+def lm_loss(params, batch, cfg: ModelConfig, *, impl: str = "kernel"):
+    """Causal-LM cross-entropy (mean over tokens) + MoE aux loss.
+
+    ``params``: a ``TrainState``'s tree (stacked, float32 masters), read
+    through ``convert.compute_view``.  Returns ``(loss, {"nll", "aux"})``,
+    float32 scalars."""
+    _ported(cfg)
+    view = compute_view(params, cfg)
+    h, aux = T.decoder_forward(view, batch["tokens"], cfg, impl=impl)
+    logits = T.lm_logits(view, h, cfg)        # (B, S, V) float32
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    loss = nll.mean() + aux
+    return loss, {"nll": nll.mean(), "aux": aux}
+
+
+# ============================================================== train state
+class TrainState(NamedTuple):
+    step: torch.Tensor          # () int32
+    params: Any                 # the reference's stacked tree, float32
+    opt: adamw.AdamWState
+
+
+def init_state(cfg: ModelConfig, seed: int = 0,
+               device="cuda") -> TrainState:
+    """Random float32 masters for ``cfg`` (``schema.init_params`` from a
+    seeded generator on ``device``; its values are not JAX's, see
+    ``state_from_numpy``), zero moments, step 0."""
+    dev = resolve_device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = init_params(T.model_schema(cfg), gen, dev, cfg.param_dtype)
+    return TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                      params, adamw.init(params))
+
+
+def state_from_numpy(state, device="cuda") -> TrainState:
+    """A JAX ``TrainState`` handed over as numpy (``jax.tree.map(
+    np.asarray, state)``; any object with ``step``, ``params`` and
+    ``opt.m`` / ``opt.v``) -> the port's, leaf for leaf on ``device``."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(dev)
+    return TrainState(t(state.step), adamw.tree_map(t, state.params),
+                      adamw.AdamWState(adamw.tree_map(t, state.opt.m),
+                                       adamw.tree_map(t, state.opt.v)))
+
+
+def state_to_numpy(state: TrainState) -> TrainState:
+    """The port's state -> the same tree of numpy arrays (host copies);
+    ``repro.models.model_zoo.TrainState(step, params, AdamWState(m, v))``
+    of them (as ``jnp`` arrays) is the reference's state."""
+    def n(x):
+        return x.detach().cpu().numpy()
+    return TrainState(n(state.step), adamw.tree_map(n, state.params),
+                      adamw.AdamWState(adamw.tree_map(n, state.opt.m),
+                                       adamw.tree_map(n, state.opt.v)))
+
+
+# ============================================================== train step
+def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel"):
+    """The gradient half of a train step: ``(grads, loss, nll, aux)``.
+
+    The batch splits into ``cfg.num_microbatches`` consecutive row
+    blocks; each block's loss is back-propagated into the float32
+    ``.grad`` of detached copies of the masters (``params`` is left as
+    it is), in block order, as the reference's scan adds them; then the
+    sum is divided by ``n_micro`` and, with ``grad_reduce_dtype ==
+    "bfloat16"``, cast to bf16.  ``loss`` is the summed loss over
+    ``n_micro``; ``nll`` and ``aux`` the means of the blocks' values."""
+    n_micro = max(cfg.num_microbatches, 1)
+    leaves, rebuild = adamw.flatten(params)
+    masters = [p.detach().requires_grad_() for p in leaves]
+    tree = rebuild(masters)
+    b = batch["tokens"].shape[0]
+    if b % n_micro:
+        raise ValueError(f"batch {b} is not a multiple of {n_micro} "
+                         f"micro-batches")
+    bm = b // n_micro
+    lsum = torch.zeros((), dtype=torch.float32,
+                       device=batch["tokens"].device)
+    nlls, auxs = [], []
+    with torch.enable_grad():
+        for i in range(n_micro):
+            mb = {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
+            loss, metrics = lm_loss(tree, mb, cfg, impl=impl)
+            loss.backward()
+            lsum = lsum + loss.detach()
+            nlls.append(metrics["nll"].detach())
+            auxs.append(metrics["aux"].detach())
+    grads = [p.grad for p in masters]
+    if cfg.grad_schedule == "overlapped":
+        grads = adamw.flatten(_scatter_grads(rebuild(grads), cfg))[0]
+    grads = [g / n_micro for g in grads]
+    if cfg.grad_reduce_dtype == "bfloat16":
+        grads = [g.to(torch.bfloat16) for g in grads]
+    return (rebuild(grads), lsum / n_micro, torch.stack(nlls).mean(),
+            torch.stack(auxs).mean())
+
+
+def make_train_step(cfg: ModelConfig, hp: Optional[adamw.HParams] = None,
+                    impl: str = "kernel"):
+    """``fn(state, batch) -> (new_state, metrics)``: ``train_grads``, then
+    one AdamW update.  ``metrics``: ``loss``, ``nll``, ``aux`` and
+    ``grad_norm`` (of the gradient the update gets), 0-d float32
+    tensors on the state's device.  ``impl`` goes to ``mamba2_block``
+    only (``"ref"``: the plain SSD route on the card)."""
+    _ported(cfg)
+    hp = hp or adamw.HParams()
+
+    def train_step(state: TrainState, batch):
+        grads, loss, nll, aux = train_grads(state.params, batch, cfg, impl)
+        params, opt = adamw.update(state.params, grads, state.opt,
+                                   state.step, hp)
+        metrics = {"loss": loss, "nll": nll, "aux": aux,
+                   "grad_norm": adamw.global_norm(grads)}
+        return TrainState(state.step + 1, params, opt), metrics
+
+    return train_step
+
+
+def _scatter_grads(grads, cfg: ModelConfig):
+    """The reference constrains the gradient to the ZeRO-1 shardings
+    under an active mesh and returns it as it is without one
+    (``model_zoo.py:236-237``).  The port has no mesh yet (ROADMAP item
+    13): the identity."""
+    return grads
 
 
 # ============================================================== serving

@@ -1,10 +1,11 @@
-"""Decoder-only LM: parameter schemas, embedding and logits.
+"""Decoder-only LM: parameter schemas, embedding, logits, the stack.
 
 Port of ``repro.models.transformer`` for the dense, moe, ssm and hybrid
-families.  Weights keep the reference's layouts (``wq (d, H, D)``, ``wo
-(H, D, d)``, ``lm_head (d, V)``), so the matmuls read the same on both
-sides.  The enc_dec and vlm families raise ``NotImplementedError``
-(ROADMAP item 11).
+families.  ``decoder_forward`` is the training forward; the serving
+paths walk the layers themselves (``model_zoo``).  Weights keep the
+reference's layouts (``wq (d, H, D)``, ``wo (H, D, d)``, ``lm_head (d,
+V)``), so the matmuls read the same on both sides.  The enc_dec and vlm
+families raise ``NotImplementedError`` (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -129,3 +131,65 @@ def lm_logits(params, h: torch.Tensor, cfg: ModelConfig):
     if cfg.padded_vocab != cfg.vocab_size:  # mask padded slots
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+# ============================================================== decoder stacks
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``jax.checkpoint``'s counterpart: with ``cfg.remat == "full"``,
+    ``fn`` keeps only its inputs for the backward pass and recomputes its
+    insides there.  The recompute replays the same ops, so a kernel
+    inside ``fn`` launches once more."""
+    if cfg.remat != "full":
+        return fn
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return remat
+
+
+def decoder_forward(params, tokens, cfg: ModelConfig, *,
+                    impl: str = "kernel"):
+    """tokens (B, S) -> (final hidden states (B, S, d), aux_total).
+
+    ``params`` is in the eager layout (``convert.compute_view`` of a
+    training state, or serving params).  ``aux_total`` (float32) sums the
+    MoE blocks' aux losses; 0 for the other families.  Remat wraps the
+    reference's bodies: each layer (dense, moe, ssm), each period of the
+    hybrid (its Mamba2 layers, then the shared attention and MLP).
+    ``impl`` goes to ``mamba2_block`` only (``"ref"``: the plain SSD on
+    the card)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise _not_ported(cfg)
+    h = embed_tokens(params, tokens, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in ("dense", "moe"):
+        def body(x, aux_acc, lp):
+            x, _ = L.attention_block(lp["attn"], x, cfg, causal=True)
+            if cfg.family == "moe":
+                x, aux = moe_lib.moe_block(lp["moe"], x, cfg)
+                aux_acc = aux_acc + aux
+            else:
+                x = L.swiglu_block(lp["mlp"], x, cfg)
+            return x, aux_acc
+        body = _maybe_remat(body, cfg)
+        for lp in params["layers"]:
+            h, aux_total = body(h, aux_total, lp)
+    elif cfg.family == "ssm":
+        def body(x, lp):
+            return ssm_lib.mamba2_block(lp, x, cfg, impl=impl)[0]
+        body = _maybe_remat(body, cfg)
+        for lp in params["layers"]:
+            h = body(h, lp)
+    else:
+        shared = params["shared"]
+
+        def period_body(x, period):
+            for lp in period:
+                x = ssm_lib.mamba2_block(lp, x, cfg, impl=impl)[0]
+            x, _ = L.attention_block(shared["attn"], x, cfg, causal=True)
+            return L.swiglu_block(shared["mlp"], x, cfg)
+        period_body = _maybe_remat(period_body, cfg)
+        for period in params["mamba"]:
+            h = period_body(h, period)
+    return h, aux_total

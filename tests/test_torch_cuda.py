@@ -317,6 +317,120 @@ def test_ssd_kernel_at_model_decays_on_card(cuda_device, nc, l, h, p, n):
             atol=1e-5 * float(ref.abs().max()))
 
 
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,l,h,p,n", [
+    (1, 2, 16, 2, 8, 16),
+    (2, 4, 256, 48, 64, 128),            # mamba2-780m's training chunk
+    (2, 2, 256, 80, 64, 64),             # zamba2-2.7b's
+])
+def test_ssd_function_gradients_match_plain_on_card(cuda_device, b, nc, l, h,
+                                                   p, n):
+    """Under autograd a CUDA call goes through ``SSDIntraChunk``: one
+    kernel launch forward, none backward, outputs to the kernel's
+    limits and all five input gradients equal to autograd's through the
+    plain version (the backward *is* that VJP; limit 1e-6 relative L2)."""
+    arrays = ssd_inputs(b, nc, l, h, p, n, seed=l + h)
+    args = [torch.from_numpy(a).to(cuda_device).requires_grad_()
+            for a in arrays]
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    g_y = torch.randn((b, nc, l, h, p), generator=gen, device=cuda_device)
+    g_s = torch.randn((b, nc, h, p, n), generator=gen, device=cuda_device)
+    before = ssd.kernel.launches
+    y, st = ssd.ssd_intra_chunk(*args)
+    assert "SSDIntraChunk" in type(y.grad_fn).__name__
+    assert ssd.kernel.launches == before + 1
+    got = torch.autograd.grad((y, st), args, (g_y, g_s))
+    torch.cuda.synchronize()
+    assert ssd.kernel.launches == before + 1
+    ref_args = [a.detach().clone().requires_grad_() for a in args]
+    y_ref, st_ref = ssd.ssd_intra_chunk_ref(*ref_args)
+    want = torch.autograd.grad((y_ref, st_ref), ref_args, (g_y, g_s))
+    for out, ref in ((y, y_ref), (st, st_ref)):
+        assert rel_l2(out.detach(), ref.detach()) <= 1e-6
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert rel_l2(a, w) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_ssd_serving_calls_launch_the_kernel_directly_on_card(cuda_device):
+    """No grad mode, or no input that requires grad: the wrapper itself,
+    one launch, no graph."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in ssd_inputs(1, 2, 16, 2, 8, 16)]
+    before = ssd.kernel.launches
+    y, _ = ssd.ssd_intra_chunk(*args)
+    assert y.grad_fn is None
+    with torch.no_grad():
+        y, _ = ssd.ssd_intra_chunk(*[a.requires_grad_() for a in args])
+    assert y.grad_fn is None
+    assert ssd.kernel.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention",
+                                  "jacobi"])
+def test_kernels_without_backward_refuse_grad_on_card(cuda_device, name):
+    """A call autograd would record raises and launches nothing; the same
+    call under no_grad launches."""
+    dev = cuda_device
+    if name == "flash_attention":
+        mod = flash_attention.kernel
+        q = torch.randn(1, 2, 64, 32, device=dev)
+        args = (q, q[:, :1].contiguous(), q[:, :1].contiguous())
+        call = mod.flash_attention
+    elif name == "paged_attention":
+        mod = kernel
+        args = tuple(lane_inputs([5, 40], 4, 2, 64, torch.float32, dev))
+        call = mod.paged_attention
+    else:
+        mod = jacobi.kernel
+        args = (torch.zeros(64, 64, device=dev),)
+        call = mod.jacobi_step
+    grad_args = tuple(a.clone().requires_grad_() if a.is_floating_point()
+                      else a for a in args)
+    before = mod.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(*grad_args)
+    assert mod.launches == before
+    with torch.no_grad():
+        call(*grad_args)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_reduced_mamba2_train_step_kernel_vs_plain_on_card(cuda_device):
+    """A float32 train step of reduced mamba2-780m through the kernel and
+    through the plain SSD: SSD launches = layers x micro-batches x 2
+    (forward and remat recompute; none backward), and every gradient
+    leaf within 1e-4 relative L2 of the plain route's (3xTF32 against
+    float32: ~2e-7 a call)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adamw
+    cfg = get_config("mamba2-780m").reduced().with_(compute_dtype="float32")
+    state = zoo.init_state(cfg, 0, device=cuda_device)
+    batch = zoo.make_batch(cfg, SHAPES["train_4k"].reduced(), seed=1,
+                           device=cuda_device)
+    before = ssd.kernel.launches
+    k = zoo.train_grads(state.params, batch, cfg, impl="kernel")
+    torch.cuda.synchronize()
+    assert ssd.kernel.launches - before == \
+        cfg.num_layers * cfg.num_microbatches * 2
+    r = zoo.train_grads(state.params, batch, cfg, impl="ref")
+    assert ssd.kernel.launches - before == \
+        cfg.num_layers * cfg.num_microbatches * 2
+    assert float(k[1]) == pytest.approx(float(r[1]), rel=1e-5)
+    for a, b in zip(adamw.flatten(k[0])[0], adamw.flatten(r[0])[0]):
+        assert rel_l2(a, b) <= 1e-4
+
+
 # ----------------------------------------------------------------- jacobi
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,W", [(64, 64), (128, 64), (64, 128), (256, 32),

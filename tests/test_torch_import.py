@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_profile.py"]
+    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_profile.py",
+    ROOT / "benchmarks" / "train_readings.py"]
 
 
 def test_import_loads_no_jax():
@@ -24,7 +25,9 @@ def test_import_loads_no_jax():
             "repro_torch.kernels.flash_attention, "
             "repro_torch.serving.workunit, repro_torch.serving.simengine, "
             "repro_torch.serving.workload, repro_torch.serving.shapes, "
-            "repro_torch.core.checkpointing, repro_torch.cluster\n"
+            "repro_torch.core.checkpointing, repro_torch.cluster, "
+            "repro_torch.optim.adamw, repro_torch.data.pipeline, "
+            "repro_torch.core.elastic, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.') or m == 'ml_dtypes')\n"
