@@ -7,6 +7,12 @@ same batches as the reference, bit for bit: ``SyntheticLM.batch_at`` is
 the reference's numpy code (sorted keys, ``SeedSequence([seed, step,
 i])`` per key, the same shapes and dtypes); (c) prefetchable.
 
+numpy has no bf16 without ``ml_dtypes``, so a bf16 leaf (an enc_dec
+model's ``frames``, a vlm model's ``patch_embeds``) comes back as a CPU
+``torch.bfloat16`` tensor: the reference's float32 numpy draw rounded to
+bf16 by torch, round-to-nearest-even as ``ml_dtypes`` rounds it, so its
+bits are the reference's.  Integer leaves stay numpy arrays.
+
 The "dataset" is a deterministic token stream keyed by (seed, step): a
 counter-mode PRNG, so batch(step) never depends on history.
 """
@@ -15,7 +21,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Union
 
 import numpy as np
 import torch
@@ -34,17 +40,20 @@ class SyntheticLM:
         self.seed = seed
         self.spec = batch_spec(cfg, shape)
 
-    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+    def batch_at(self, step: int) -> Dict[str, Union[np.ndarray,
+                                                     torch.Tensor]]:
+        """Integer leaves as numpy int32, bf16 leaves as CPU bf16 tensors
+        (see the module's docstring)."""
         out = {}
         for i, (k, v) in enumerate(sorted(self.spec.items())):
             rng = np.random.default_rng(
                 np.random.SeedSequence([self.seed, step, i]))
-            if np.issubdtype(v.dtype, np.integer):
+            if v.dtype == torch.int32:
                 out[k] = rng.integers(0, self.cfg.vocab_size, v.shape,
                                       dtype=np.int32)
             else:
-                out[k] = rng.standard_normal(v.shape, dtype=np.float32) \
-                    .astype(v.dtype)
+                out[k] = torch.from_numpy(rng.standard_normal(
+                    v.shape, dtype=np.float32)).to(v.dtype)
         return out
 
     def iterate(self, start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
@@ -92,7 +101,7 @@ class Prefetcher:
         while not self._stop.is_set():
             batch = self.source.batch_at(step)
             if pin:
-                batch = {k: torch.from_numpy(v).pin_memory()
+                batch = {k: torch.as_tensor(v).pin_memory()
                          for k, v in batch.items()}
             try:
                 self._q.put((step, batch), timeout=0.5)

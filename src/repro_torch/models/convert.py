@@ -11,7 +11,8 @@ its eager loops read:
   Python loop over layers replaces ``lax.scan``); the hybrid family's
   ``mamba`` tree, stacked ``(periods, attn_every)``, becomes a list of
   ``periods`` lists of ``attn_every`` dicts, and its ``shared`` block
-  stays as it is;
+  stays as it is; the enc_dec family's ``enc_layers`` and
+  ``dec_layers`` become two such lists;
 * matmul and embedding weights, and Mamba2's ``D``, ``conv_w`` and
   ``conv_b``, are cast to ``compute_dtype`` once, here;
 * norm weights, Mamba2's ``A_log`` and ``dt_bias`` and the MoE
@@ -77,29 +78,33 @@ def _unbind(tree, n: int):
 
 def _layout(params, cfg: ModelConfig):
     """The stacked tree -> the eager layout (see ``params_from_numpy``)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: enc_dec and vlm are "
-            f"ROADMAP item 11")
     params = dict(params)
     if cfg.family == "hybrid":
         periods = cfg.num_layers // cfg.attn_every
         params["mamba"] = [_unbind(p, cfg.attn_every)
                            for p in _unbind(params.pop("mamba"), periods)]
+    elif cfg.family == "enc_dec":
+        params["enc_layers"] = _unbind(params.pop("enc_layers"),
+                                       cfg.enc_layers)
+        params["dec_layers"] = _unbind(params.pop("dec_layers"),
+                                       cfg.dec_layers)
     else:
         params["layers"] = _unbind(params.pop("layers"), cfg.num_layers)
     return params
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
-    """A dense, moe, ssm or hybrid parameter tree -> the port's params.
+    """A parameter tree of any family -> the port's params.
 
     ``tree`` is the JAX parameter tree handed over as nested dicts of
     numpy arrays (``jax.tree.map(np.asarray, params)``), or the same tree
     of tensors as ``model_zoo.init_serving_params`` draws it.  ``layers``
-    (dense, moe, ssm) becomes a list of ``cfg.num_layers`` per-layer dicts;
-    ``mamba`` (hybrid) a list of ``periods`` lists of ``attn_every``
-    dicts.  The dicts hold views of the stacked tensors."""
+    (dense, vlm, moe, ssm) becomes a list of ``cfg.num_layers`` per-layer
+    dicts; ``mamba`` (hybrid) a list of ``periods`` lists of
+    ``attn_every`` dicts; ``enc_layers`` and ``dec_layers`` (enc_dec)
+    lists of ``cfg.enc_layers`` dicts (``attn``, ``mlp``) and
+    ``cfg.dec_layers`` dicts (``self_attn``, ``cross_attn``, ``mlp``).
+    The dicts hold views of the stacked tensors."""
     return _layout(_convert(tree, cfg, resolve_device(device)), cfg)
 
 
@@ -116,8 +121,10 @@ def compute_view(params, cfg: ModelConfig):
     with its own cast, and JAX sums the two float32 cotangents; so here
     the output projection gets a cast of its own (``lm_head``, a
     transposed view), and the two cotangents meet in float32 at the
-    master, not in the compute dtype.  Called once per micro-batch."""
+    master, not in the compute dtype.  An enc_dec model has an
+    ``lm_head`` of its own whatever ``tie_embeddings`` says, and keeps
+    it.  Called once per micro-batch."""
     view = _convert(params, cfg, None)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and "lm_head" not in view:
         view["lm_head"] = _leaf(params["embed"], "embed", cfg, None).t()
     return _layout(view, cfg)

@@ -1,8 +1,13 @@
 """Task-level model API: batches, loss and train step; prefill, serve
 step, decode loops.
 
-Port of ``repro.models.model_zoo`` for the dense, moe, ssm (mamba2) and
-hybrid (zamba2) families.
+Port of ``repro.models.model_zoo`` for every family: dense, moe, ssm
+(mamba2), hybrid (zamba2), vlm (internvl2) and enc_dec (seamless-m4t).
+As in the reference, vlm and enc_dec have neither a bulk (chunked)
+prefill nor a paged cache: a serving engine feeds their prompts token by
+token through the dense cache's decode step, text only (an enc_dec lane's
+cross cache stays zero, a vlm lane gets no patches); frames and patch
+embeddings enter through ``make_prefill`` and ``lm_loss``.
 
 Training keeps the reference's state: ``TrainState(step, params, opt)``
 with ``params`` the reference's stacked tree in ``param_dtype`` (float32
@@ -62,24 +67,25 @@ BULK_PREFILL_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # Recurrent families (ssm/hybrid) must never feed pad tokens through the
 # state recurrence; their chunks are always fully real.
 PAD_SAFE_FAMILIES = ("dense", "moe")
-# Families with attention in every layer (no recurrent leaves): every layer
-# holds k/v, and the feed-forward half is a SwiGLU MLP (dense) or a MoE
-# block (moe).
-DECODER_FAMILIES = ("dense", "moe")
-PORTED_FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid")
-
-
-def _ported(cfg: ModelConfig):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: enc_dec and vlm are "
-            f"ROADMAP item 11")
+# Decoder-only families with attention in every layer (no recurrent
+# leaves): every layer holds k/v, and the feed-forward half is a SwiGLU
+# MLP (dense, vlm) or a MoE block (moe).
+DECODER_FAMILIES = ("dense", "vlm", "moe")
+# Families with a paged cache (the serving engine's paged admission path).
+PAGED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def paged_kv_keys(cfg: ModelConfig):
-    """Cache keys stored in the block pool (vs. per-lane recurrent)."""
-    _ported(cfg)
+    """Cache keys stored in the block pool (vs. per-lane recurrent);
+    ``ValueError`` for a family without a paged cache (vlm, enc_dec)."""
+    if cfg.family not in PAGED_FAMILIES:
+        raise ValueError(cfg.family)
     return () if cfg.family == "ssm" else ("k", "v")
+
+
+def _paged(cfg: ModelConfig):
+    if cfg.family not in PAGED_FAMILIES:
+        raise ValueError(f"paged cache unsupported for {cfg.family}")
 
 
 def _mamba_layers(params, cfg: ModelConfig):
@@ -111,10 +117,13 @@ def lane_axis(cfg: ModelConfig) -> int:
 
 
 def _attn_layers(cfg: ModelConfig) -> int:
-    """Leading extent of the k/v leaves: layers (dense, moe), periods
-    (hybrid)."""
-    return (cfg.num_layers if cfg.family in DECODER_FAMILIES
-            else cfg.num_layers // cfg.attn_every)
+    """Leading extent of the k/v leaves: layers (dense, vlm, moe), decoder
+    layers (enc_dec), periods (hybrid)."""
+    if cfg.family in DECODER_FAMILIES:
+        return cfg.num_layers
+    if cfg.family == "enc_dec":
+        return cfg.dec_layers
+    return cfg.num_layers // cfg.attn_every
 
 
 def init_serving_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -158,23 +167,35 @@ def _feed_forward(lp, h, cfg: ModelConfig):
 
 # ============================================================== batches
 class ArraySpec(NamedTuple):
-    """One input of a batch: its shape and numpy dtype."""
+    """One input of a batch: its shape and torch dtype.
+
+    The dtype is a ``torch.dtype`` (``torch.int32`` or ``torch.bfloat16``),
+    where the reference's ``ShapeDtypeStruct`` holds a numpy one: numpy
+    has no bf16 without ``ml_dtypes``.  ``torch.bfloat16`` stands for the
+    reference's ``jnp.bfloat16``, ``torch.int32`` for ``int32``."""
     shape: tuple
-    dtype: np.dtype
+    dtype: torch.dtype
 
 
 def batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ArraySpec]:
     """The input batch of a (arch x shape) cell, as the reference's
-    ``batch_spec`` gives it for the ported families: ``(shape, dtype)``
-    pairs, int32 throughout."""
-    _ported(cfg)
+    ``batch_spec`` gives it: ``(shape, dtype)`` pairs.  Tokens and labels
+    are int32; an enc_dec model's ``frames`` (B, S, d) and a vlm model's
+    ``patch_embeds`` (B, frontend_seq, d) are bf16, and a vlm model's
+    tokens fill the S - frontend_seq positions after the patches."""
     B, S = shape.global_batch, shape.seq_len
-    i32 = np.dtype(np.int32)
-    if shape.kind == "train":
-        return {"tokens": ArraySpec((B, S), i32),
-                "labels": ArraySpec((B, S), i32)}
-    if shape.kind == "prefill":
-        return {"tokens": ArraySpec((B, S), i32)}
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind in ("train", "prefill"):
+        st = S - cfg.frontend_seq if cfg.family == "vlm" else S
+        out = {"tokens": ArraySpec((B, st), i32)}
+        if shape.kind == "train":
+            out["labels"] = ArraySpec((B, st), i32)
+        if cfg.family == "enc_dec":
+            out["frames"] = ArraySpec((B, S, cfg.d_model), bf16)
+        elif cfg.family == "vlm":
+            out["patch_embeds"] = ArraySpec(
+                (B, cfg.frontend_seq, cfg.d_model), bf16)
+        return out
     if shape.kind == "decode":
         return {"tokens": ArraySpec((B, 1), i32),
                 "active": ArraySpec((B,), i32)}
@@ -184,17 +205,20 @@ def batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ArraySpec]:
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
                device="cuda") -> Dict[str, torch.Tensor]:
     """A random batch matching ``batch_spec`` (smoke tests): tokens and
-    labels uniform over the vocabulary from a seeded CPU generator,
-    ``active`` all ones."""
+    labels uniform over the vocabulary and bf16 leaves (frames, patch
+    embeddings) standard normal, from a seeded CPU generator; ``active``
+    all ones."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     out = {}
     for k, v in batch_spec(cfg, shape).items():
         if k == "active":
             t = torch.ones(v.shape, dtype=torch.int32)
-        else:
+        elif v.dtype == torch.int32:
             t = torch.randint(0, cfg.vocab_size, v.shape, generator=gen,
                               dtype=torch.int32)
+        else:
+            t = torch.randn(v.shape, generator=gen).to(v.dtype)
         out[k] = t.to(dev)
     return out
 
@@ -204,11 +228,20 @@ def lm_loss(params, batch, cfg: ModelConfig, *, impl: str = "kernel"):
     """Causal-LM cross-entropy (mean over tokens) + MoE aux loss.
 
     ``params``: a ``TrainState``'s tree (stacked, float32 masters), read
-    through ``convert.compute_view``.  Returns ``(loss, {"nll", "aux"})``,
-    float32 scalars."""
-    _ported(cfg)
+    through ``convert.compute_view``.  enc_dec runs ``enc_dec_forward``
+    over the batch's ``frames``; vlm puts ``patch_embeds`` in front of
+    the tokens and takes the loss on the text positions only.  Returns
+    ``(loss, {"nll", "aux"})``, float32 scalars."""
     view = compute_view(params, cfg)
-    h, aux = T.decoder_forward(view, batch["tokens"], cfg, impl=impl)
+    if cfg.family == "enc_dec":
+        h = T.enc_dec_forward(view, batch["frames"], batch["tokens"], cfg,
+                              impl=impl)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    else:
+        h, aux = T.decoder_forward(view, batch["tokens"], cfg,
+                                   patch_embeds=batch.get("patch_embeds"),
+                                   impl=impl)
+        h = h[:, cfg.frontend_seq:] if cfg.family == "vlm" else h
     logits = T.lm_logits(view, h, cfg)        # (B, S, V) float32
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
@@ -307,7 +340,6 @@ def make_train_step(cfg: ModelConfig, hp: Optional[adamw.HParams] = None,
     ``grad_norm`` (of the gradient the update gets), 0-d float32
     tensors on the state's device.  ``impl`` goes to ``mamba2_block``
     only (``"ref"``: the plain SSD route on the card)."""
-    _ported(cfg)
     hp = hp or adamw.HParams()
 
     def train_step(state: TrainState, batch):
@@ -333,7 +365,10 @@ def _scatter_grads(grads, cfg: ModelConfig):
 @dataclasses.dataclass
 class DecodeState:
     """Dense decode state.  cache: {"k", "v"} of (L, B, S, KV, D) bf16
-    (dense); {"ssm", "conv"} (ssm); both, k/v per period (hybrid)."""
+    (dense, vlm, moe); {"ssm", "conv"} (ssm); both, k/v per period
+    (hybrid); {"k", "v", "xk", "xv"} of (dec_layers, B, S, KV, D) bf16
+    (enc_dec: self attention's cache and cross attention's k/v of the
+    encoder output)."""
     cache: Dict[str, torch.Tensor]
     cache_len: torch.Tensor  # (B,) int32 filled positions
 
@@ -341,24 +376,28 @@ class DecodeState:
 def init_decode_state(cfg: ModelConfig, shape: ShapeConfig,
                       fill_len: Optional[int] = None,
                       device="cuda") -> DecodeState:
-    _ported(cfg)
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
-    cache = ({} if cfg.family in DECODER_FAMILIES
+    cache = ({} if cfg.family in DECODER_FAMILIES + ("enc_dec",)
              else _recurrent_cache(cfg, B, dev))
     if cfg.family != "ssm":
         kv = (_attn_layers(cfg), B, S, cfg.num_kv_heads, cfg.head_dim)
+        keys = ("k", "v", "xk", "xv") if cfg.family == "enc_dec" else (
+            "k", "v")
         cache.update({k: torch.zeros(kv, dtype=torch.bfloat16, device=dev)
-                      for k in ("k", "v")})
+                      for k in keys})
     fl = S - 1 if fill_len is None else fill_len
     return DecodeState(cache, torch.full((B,), fl, dtype=torch.int32,
                                          device=dev))
 
 
 # -------------------------------------------------------------- prefill
-def _decoder_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
-    """tokens (B, S) -> (final hidden (B, S, d), per-layer bf16 k, v)."""
-    h = T.embed_tokens(params, tokens, cfg)
+def _decoder_prefill(params, batch, cfg: ModelConfig, impl: str = "kernel"):
+    """tokens (B, S) -> (final hidden (B, S', d), per-layer bf16 k, v);
+    a vlm model's ``patch_embeds`` go in front (S' = frontend_seq + S)."""
+    h = T.embed_tokens(params, batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        h = T.prepend_patches(h, batch["patch_embeds"])
     ks, vs = [], []
     for lp in params["layers"]:
         h, (k, v) = L.attention_block(lp["attn"], h, cfg, causal=True,
@@ -367,6 +406,24 @@ def _decoder_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
     return h, ks, vs
+
+
+def _encdec_prefill(params, batch, cfg: ModelConfig, impl: str = "kernel"):
+    """frames (B, S, d), tokens (B, S) -> (the decoder's final hidden,
+    cache): per decoder layer the self attention's bf16 k, v and the
+    cross attention's bf16 xk, xv (the encoder output's projections)."""
+    enc_out = T.encoder_forward(params, batch["frames"], cfg, impl=impl)
+    h = T.embed_tokens(params, batch["tokens"], cfg)
+    cols = {k: [] for k in ("k", "v", "xk", "xv")}
+    for lp in params["dec_layers"]:
+        h, (k, v) = L.attention_block(lp["self_attn"], h, cfg, causal=True,
+                                      impl=impl)
+        xk, xv = T.cross_kv(lp["cross_attn"], enc_out, cfg)
+        h = T.cross_attention(lp["cross_attn"], h, xk, xv, cfg)
+        h = L.swiglu_block(lp["mlp"], h, cfg)
+        for key, t in zip(cols, (k, v, xk, xv)):
+            cols[key].append(t.to(torch.bfloat16))
+    return h, {k: torch.stack(ts) for k, ts in cols.items()}
 
 
 def _ssm_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
@@ -399,16 +456,21 @@ def _ssm_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
 def make_prefill(cfg: ModelConfig, shape: ShapeConfig, impl: str = "kernel"):
     """Returns fn(params, batch) -> (last_logits, DecodeState).
 
-    Past 8192 tokens (or with ``cfg.attn_impl="blockwise"``) attention is
-    ``blockwise_attention``: the flash-attention kernel on the card.
-    Every kernel on the way (flash attention, SSD) runs its plain version
-    on the CPU, or with ``impl="ref"``."""
-    _ported(cfg)
+    ``batch`` is ``batch_spec``'s prefill batch: ``tokens``, and an
+    enc_dec model's ``frames`` or a vlm model's ``patch_embeds``.  Past
+    8192 positions (or with ``cfg.attn_impl="blockwise"``) attention is
+    ``blockwise_attention``: the flash-attention kernel on the card (the
+    encoder's non-causal, the decoders' causal; enc_dec cross attention
+    stays ``full_attention``).  Every kernel on the way (flash attention,
+    SSD) runs its plain version on the CPU, or with ``impl="ref"``.
+    ``cache_len`` is ``shape.seq_len``, as in the reference."""
 
     def prefill(params, batch):
         if cfg.family in DECODER_FAMILIES:
-            h, ks, vs = _decoder_prefill(params, batch["tokens"], cfg, impl)
+            h, ks, vs = _decoder_prefill(params, batch, cfg, impl)
             cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        elif cfg.family == "enc_dec":
+            h, cache = _encdec_prefill(params, batch, cfg, impl)
         else:
             h, cache = _ssm_prefill(params, batch["tokens"], cfg, impl)
         logits = T.lm_logits(params, h[:, -1:], cfg)
@@ -429,9 +491,11 @@ def make_bulk_prefill(cfg: ModelConfig, shape: ShapeConfig, chunk: int,
     replacement of the recurrent ssm/conv leaves) and sets
     ``cache_len[slot] = n_real``.  ``slot`` and ``n_real`` are host ints.
     A chunk past 8192 tokens runs the flash-attention kernel on the card
-    (``make_prefill``; ``impl="ref"``: the plain versions).
+    (``make_prefill``; ``impl="ref"``: the plain versions).  Only the
+    ``BULK_PREFILL_FAMILIES`` have one: ``ValueError`` otherwise.
     """
-    _ported(cfg)
+    if cfg.family not in BULK_PREFILL_FAMILIES:
+        raise ValueError(f"no bulk prefill for {cfg.family}")
     prefill = make_prefill(cfg, ShapeConfig(f"prefill_chunk{chunk}", chunk,
                                             1, "prefill"), impl)
 
@@ -547,8 +611,10 @@ def _layer_stack(params, cache, h, cfg: ModelConfig, attention, *,
                  impl: str = "kernel"):
     """The model's layers over ``h``, caches updated in place.  Every
     attention is ``attention(attn params, h, index of its k/v leaves) ->
-    h``: each dense or moe layer's (then its MLP or MoE block), and the
-    hybrid shared block's at the end of each period.
+    h``: each dense, vlm or moe layer's (then its MLP or MoE block), each
+    enc_dec decoder layer's self attention (then its cross attention over
+    the whole ``xk``/``xv`` and its MLP), and the hybrid shared block's
+    at the end of each period.
 
     Mamba2 layers, decode (``slot`` None): one token per lane, each layer
     steps its lanes' states (lanes with ``act`` False keep theirs).  Chunk
@@ -559,6 +625,13 @@ def _layer_stack(params, cache, h, cfg: ModelConfig, attention, *,
         for i, lp in enumerate(params["layers"]):
             h = attention(lp["attn"], h, i)
             h = _feed_forward(lp, h, cfg)
+        return h
+    if cfg.family == "enc_dec":
+        for i, lp in enumerate(params["dec_layers"]):
+            h = attention(lp["self_attn"], h, i)
+            h = T.cross_attention(lp["cross_attn"], h, cache["xk"][i],
+                                  cache["xv"][i], cfg)
+            h = L.swiglu_block(lp["mlp"], h, cfg)
         return h
     shared = params.get("shared")
     for period, layers in _mamba_layers(params, cfg):
@@ -585,7 +658,6 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig):
     """Returns fn(params, DecodeState, tokens (B,1), active (B,)) ->
     (logits, DecodeState): one new token per sequence against a cache
     of ``shape.seq_len``."""
-    _ported(cfg)
 
     def serve_step(params, state: DecodeState, tokens, active=None):
         if active is None:
@@ -630,7 +702,7 @@ class PagedDecodeState:
 def init_paged_decode_state(cfg: ModelConfig, shape: ShapeConfig,
                             block_size: int, num_blocks: int,
                             device="cuda") -> PagedDecodeState:
-    _ported(cfg)
+    _paged(cfg)
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
     if S % block_size:
@@ -656,7 +728,7 @@ def make_paged_serve_step(cfg: ModelConfig, shape: ShapeConfig,
     the dense step; the attention core is the CUDA kernel on the card
     and the plain version on the CPU (or with ``impl="ref"``).  In the
     hybrid family the shared block's attention is the step's only one."""
-    _ported(cfg)
+    _paged(cfg)
 
     def serve_step(params, state: PagedDecodeState, tokens, active=None):
         if active is None:
@@ -709,7 +781,7 @@ def make_paged_bulk_prefill(cfg: ModelConfig, shape: ShapeConfig,
     ``slot``/``off``/``n_real`` are host ints, so the ``off == 0`` choice
     is a Python branch with no sync.
     """
-    _ported(cfg)
+    _paged(cfg)
 
     def paged_prefill(params, state: PagedDecodeState, tokens, slot: int,
                       off: int, n_real: int):

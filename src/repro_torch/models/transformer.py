@@ -1,11 +1,15 @@
-"""Decoder-only LM: parameter schemas, embedding, logits, the stack.
+"""Decoder-only LM (dense / vlm / moe / ssm / hybrid) and
+encoder-decoder: parameter schemas, embedding, logits, the stacks.
 
-Port of ``repro.models.transformer`` for the dense, moe, ssm and hybrid
-families.  ``decoder_forward`` is the training forward; the serving
-paths walk the layers themselves (``model_zoo``).  Weights keep the
-reference's layouts (``wq (d, H, D)``, ``wo (H, D, d)``, ``lm_head (d,
-V)``), so the matmuls read the same on both sides.  The enc_dec and vlm
-families raise ``NotImplementedError`` (ROADMAP item 11).
+Port of ``repro.models.transformer``.  ``decoder_forward`` and
+``enc_dec_forward`` are the training forwards; the serving paths walk
+the layers themselves (``model_zoo``).  Weights keep the reference's
+layouts (``wq (d, H, D)``, ``wo (H, D, d)``, ``lm_head (d, V)``), so the
+matmuls read the same on both sides.
+
+The frontends are the reference's stubs: a vlm model takes precomputed
+``patch_embeds`` in front of its token embeddings, an enc_dec model
+takes precomputed ``frames`` as its encoder input.
 """
 
 from __future__ import annotations
@@ -16,16 +20,11 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.schema import Spec
-
-
-def _not_ported(cfg: ModelConfig):
-    return NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: enc_dec and vlm are "
-        f"ROADMAP item 11")
 
 
 # ============================================================== schemas
@@ -55,9 +54,7 @@ def mlp_schema(cfg: ModelConfig, stacked: Optional[int], prefix="layers"):
 
 
 def decoder_lm_schema(cfg: ModelConfig):
-    """dense / moe decoder-only LM."""
-    if cfg.family not in ("dense", "moe"):
-        raise _not_ported(cfg)
+    """dense / vlm / moe decoder-only LM."""
     Lc = cfg.num_layers
     sch = {
         "embed": Spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed_tp"),
@@ -73,6 +70,27 @@ def decoder_lm_schema(cfg: ModelConfig):
         sch["lm_head"] = Spec((cfg.d_model, cfg.padded_vocab),
                               ("embed", "vocab"))
     return sch
+
+
+def enc_dec_schema(cfg: ModelConfig):
+    """The encoder's and the decoder's stacks; ``lm_head`` is always
+    there, whatever ``tie_embeddings`` says (as in the reference)."""
+    return {
+        "embed": Spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed_tp"),
+                      "embed"),
+        "enc_layers": {
+            "attn": attn_schema(cfg, cfg.enc_layers),
+            "mlp": mlp_schema(cfg, cfg.enc_layers),
+        },
+        "enc_norm": Spec((cfg.d_model,), (None,), "ones"),
+        "dec_layers": {
+            "self_attn": attn_schema(cfg, cfg.dec_layers),
+            "cross_attn": attn_schema(cfg, cfg.dec_layers),
+            "mlp": mlp_schema(cfg, cfg.dec_layers),
+        },
+        "final_norm": Spec((cfg.d_model,), (None,), "ones"),
+        "lm_head": Spec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab")),
+    }
 
 
 def hybrid_schema(cfg: ModelConfig):
@@ -104,13 +122,15 @@ def ssm_lm_schema(cfg: ModelConfig):
 
 
 def model_schema(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         return decoder_lm_schema(cfg)
+    if cfg.family == "enc_dec":
+        return enc_dec_schema(cfg)
     if cfg.family == "hybrid":
         return hybrid_schema(cfg)
     if cfg.family == "ssm":
         return ssm_lm_schema(cfg)
-    raise _not_ported(cfg)
+    raise ValueError(cfg.family)
 
 
 # ============================================================== embedding / logits
@@ -148,22 +168,35 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return remat
 
 
+def prepend_patches(h, patch_embeds):
+    """The vision stub: patch embeddings (B, P, d), cast to ``h``'s dtype,
+    in front of the token embeddings ``h`` (B, S, d) -> (B, P + S, d);
+    positions then count over both."""
+    return torch.cat([patch_embeds.to(h.dtype), h], dim=1)
+
+
 def decoder_forward(params, tokens, cfg: ModelConfig, *,
-                    impl: str = "kernel"):
-    """tokens (B, S) -> (final hidden states (B, S, d), aux_total).
+                    patch_embeds=None, impl: str = "kernel"):
+    """tokens (B, S) -> (final hidden states (B, S', d), aux_total).
 
     ``params`` is in the eager layout (``convert.compute_view`` of a
-    training state, or serving params).  ``aux_total`` (float32) sums the
-    MoE blocks' aux losses; 0 for the other families.  Remat wraps the
-    reference's bodies: each layer (dense, moe, ssm), each period of the
-    hybrid (its Mamba2 layers, then the shared attention and MLP).
-    ``impl`` goes to ``mamba2_block`` only (``"ref"``: the plain SSD on
-    the card)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise _not_ported(cfg)
+    training state, or serving params).  A vlm model takes
+    ``patch_embeds`` (B, frontend_seq, d) in front of its tokens, so
+    S' = frontend_seq + S; S' = S otherwise.  ``aux_total`` (float32)
+    sums the MoE blocks' aux losses; 0 for the other families.  Remat
+    wraps the reference's bodies: each layer (dense, vlm, moe, ssm), each
+    period of the hybrid (its Mamba2 layers, then the shared attention
+    and MLP).  ``impl`` goes to ``mamba2_block`` only (``"ref"``: the
+    plain SSD on the card)."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        raise ValueError(cfg.family)
     h = embed_tokens(params, tokens, cfg)
+    if cfg.frontend == "vision":
+        if patch_embeds is None:
+            raise ValueError(f"{cfg.name} takes patch_embeds")
+        h = prepend_patches(h, patch_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         def body(x, aux_acc, lp):
             x, _ = L.attention_block(lp["attn"], x, cfg, causal=True)
             if cfg.family == "moe":
@@ -193,3 +226,62 @@ def decoder_forward(params, tokens, cfg: ModelConfig, *,
         for period in params["mamba"]:
             h = period_body(h, period)
     return h, aux_total
+
+
+def encoder_forward(params, frames, cfg: ModelConfig, *,
+                    impl: str = "kernel"):
+    """The audio stub's frames (B, S, d), cast to the compute dtype, through
+    the encoder: each layer a non-causal ``attention_block`` (rotary over
+    the frame positions; ``blockwise_attention`` past 8192 frames, the
+    flash kernel on the card) and a SwiGLU MLP, then ``enc_norm``.
+    Remat wraps each layer.  ``impl`` goes to ``attention_block``
+    (``"ref"``: the plain blockwise form on the card)."""
+    h = frames.to(dtype_of(cfg.compute_dtype))
+
+    def body(x, lp):
+        x, _ = L.attention_block(lp["attn"], x, cfg, causal=False, impl=impl)
+        return L.swiglu_block(lp["mlp"], x, cfg)
+    body = _maybe_remat(body, cfg)
+    for lp in params["enc_layers"]:
+        h = body(h, lp)
+    return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """Cross attention's k and v (B, S_enc, KV, D) from the encoder output:
+    projections only, no rotary."""
+    e = enc_out.to(dtype_of(cfg.compute_dtype))
+    return L._proj(e, p["wk"]), L._proj(e, p["wv"])
+
+
+def cross_attention(p, x, xk, xv, cfg: ModelConfig):
+    """x (B, S, d) attends to all of ``xk``/``xv`` (B, S_enc, KV, D): an
+    RMS-normed q (no rotary) through ``full_attention(causal=False)``,
+    at any length (the reference never takes it blockwise), plus the
+    residual."""
+    dt = dtype_of(cfg.compute_dtype)
+    hn = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
+    att = L.full_attention(L._proj(hn, p["wq"]), xk.to(dt), xv.to(dt),
+                           causal=False)
+    return x + L._proj_out(att, p["wo"])
+
+
+def enc_dec_forward(params, frames, tokens, cfg: ModelConfig, *,
+                    impl: str = "kernel"):
+    """frames (B, S_enc, d), tokens (B, S) -> the decoder's final hidden
+    states (B, S, d).  Each decoder layer: causal self attention, cross
+    attention over the encoder output, SwiGLU MLP; remat wraps each layer
+    (and each encoder layer).  ``impl`` as in ``encoder_forward``."""
+    enc_out = encoder_forward(params, frames, cfg, impl=impl)
+    h = embed_tokens(params, tokens, cfg)
+
+    def body(x, enc, lp):
+        x, _ = L.attention_block(lp["self_attn"], x, cfg, causal=True,
+                                 impl=impl)
+        x = cross_attention(lp["cross_attn"], x,
+                            *cross_kv(lp["cross_attn"], enc, cfg), cfg)
+        return L.swiglu_block(lp["mlp"], x, cfg)
+    body = _maybe_remat(body, cfg)
+    for lp in params["dec_layers"]:
+        h = body(h, enc_out, lp)
+    return h

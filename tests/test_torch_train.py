@@ -4,7 +4,9 @@ Cross-package parity: the same float32 masters (the port's
 ``init_state``, carried to JAX as numpy) and the same ``SyntheticLM``
 batches go through ``repro.models.model_zoo.make_train_step`` (jitted) and the
 port's for reduced granite-8b (dense), qwen2-moe-a2.7b (moe),
-mamba2-780m (ssm) and zamba2-2.7b (hybrid), 3 steps with a test-scale
+mamba2-780m (ssm), zamba2-2.7b (hybrid), seamless-m4t-medium (enc_dec:
+bf16 frames into the encoder) and internvl2-26b (vlm: bf16 patch
+embeddings, the loss on the text positions), 3 steps with a test-scale
 schedule (``schedule(0)`` is 0: the first step moves nothing).
 
 Tolerances:
@@ -63,11 +65,8 @@ torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 PARITY_ARCHS = ("granite-8b", "qwen2-moe-a2.7b", "mamba2-780m",
-                "zamba2-2.7b")
-PORTED = sorted(n for n, c in ARCHS.items()
-                if c.family in ("dense", "moe", "ssm", "hybrid"))
-NOT_PORTED = sorted(n for n, c in ARCHS.items()
-                    if c.family in ("enc_dec", "vlm"))
+                "zamba2-2.7b", "seamless-m4t-medium", "internvl2-26b")
+PORTED = sorted(ARCHS)
 HP = dict(lr=1e-3, warmup_steps=2, total_steps=100)
 STEPS = 3
 F32_METRIC = 1e-5
@@ -128,7 +127,7 @@ def torch_run(arch, dtype, init):
     data = SyntheticLM(cfg, SHAPES["train_4k"].reduced(), seed=0)
     metrics = []
     for i in range(STEPS):
-        batch = {k: torch.from_numpy(v) for k, v in data.batch_at(i).items()}
+        batch = {k: torch.as_tensor(v) for k, v in data.batch_at(i).items()}
         state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
     return metrics, tzoo.state_to_numpy(state)
@@ -271,15 +270,6 @@ def test_arch_train_step(name):
     assert len(p0) == len(p1)
     assert all(a.shape == b.shape for a, b in zip(p0, p1))
     assert any(float((a - b).abs().max()) > 0 for a, b in zip(p0, p1))
-
-
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_unported_families_raise_in_training(name):
-    cfg = ARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tzoo.init_state(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tzoo.make_train_step(cfg)
 
 
 def test_grad_accum_matches_single_batch():
