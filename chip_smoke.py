@@ -101,7 +101,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and bf16 (bf16 to one bf16 ulp, and against ``flash_ref`` at the
    reference's 3e-2);
    then at granite-8b's prefill shape (S=16384, H=32, KV=8, D=128) and
-   zamba2-2.7b's (H=KV=32, D=80), bf16, causal, read through the
+   zamba2-2.7b's (H=KV=32, D=80), bf16, causal, and at phase 21's two
+   (S=8704): the seamless-m4t-medium encoder's (H=KV=16, D=64,
+   non-causal) and internvl2-26b's (H=48, KV=8, D=128, causal: a GQA
+   group of 6), read through the
    (B, S, H, D) layout the model gives it, with kernel, plain, library
    (``scaled_dot_product_attention`` on KV repeated outside the timing, a
    yardstick the port never calls) and bound times; at the full shapes
@@ -225,7 +228,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    every gradient leaf under ``TRAIN_ROUTE_TOL``; (d) granite-8b at full
    width cut to 2 layers (4 x 4096 tokens), 2 steps, a rescale, 2 more,
    then ``python -m repro_torch.launch.train --arch granite-8b --reduced
-   --steps 4`` as a subprocess.
+   --steps 4`` as a subprocess;
+21. the enc_dec and vlm families, after phase 20 (``frontend_phase``):
+   seamless-m4t-medium (1.96 GB) and internvl2-26b (39.7 GB, the peak
+   while its weights are drawn logged) at full width and depth, random
+   bf16 weights from seed 0, each launch count set to 0 just before each
+   run and read just after.  For each: ``ServingEngine(cache_mode=
+   "dense")``, 8 lanes, max_seq 512, serves 8 requests of 40-300 prompt
+   tokens, 16 new each (every prompt token a decode step: neither family
+   has a bulk prefill, ``chunk_prefills`` 0, no kernel launched), then a
+   steady 8-step window with zero host syncs under ``set_sync_debug_mode
+   ("error")``, its decode tok/s beside the weight-read bound;
+   ``cache_mode="paged"`` raises ``ValueError``; one 8704-position
+   ``make_prefill`` (seamless: frames and 8704 tokens, flash launches 24,
+   12 encoder layers non-causal and 12 decoder self attentions causal;
+   internvl2: 256 patch embeddings and 8448 tokens, flash launches 48)
+   with the kernel, again for its warm wall time, and with
+   ``impl="ref"``: the last logits in bf16 within ``BF16_LONG_TOL``, and
+   in float32 (seamless at full depth, 3.9 GB; internvl2 at 4 layers,
+   10.9 GB) within ``F32_LONG_TOL`` with the same greedy token.
+   seamless-m4t-medium also trains 3 steps (train_4k sequences, the
+   global batch cut to 8 in 4 micro-batches of 2; no kernel: 4096 <
+   8192; s/step, tokens/s, peak GiB, finite losses) and runs ``python -m
+   repro_torch.launch.serve --arch seamless-m4t-medium --no-reduced
+   --cache-mode dense`` as a subprocess.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -431,7 +457,14 @@ STEADY_STEPS = 400
 FLASH_SHAPES = [(1, 4, 2, 128, 32, 32, 32), (2, 8, 8, 64, 16, 32, 16),
                 (1, 4, 4, 128, 64, 64, 64), (1, 6, 3, 96, 32, 32, 32),
                 (1, 2, 1, 64, 16, 16, 32)]
-FLASH_FULL = (("granite-8b", 32, 8, 128), ("zamba2-2.7b", 32, 32, 80))
+# (model, S, H, KV, D, causal): the 16384-token prefills of phases 14-15,
+# then the two shapes of phase 21's 8704-position prefills (the
+# seamless-m4t-medium encoder, non-causal; internvl2-26b's decoder, a GQA
+# group of 6).
+FLASH_FULL = (("granite-8b", 16384, 32, 8, 128, True),
+              ("zamba2-2.7b", 16384, 32, 32, 80, True),
+              ("seamless-m4t-medium encoder", 8704, 16, 16, 64, False),
+              ("internvl2-26b", 8704, 48, 8, 128, True))
 # The flash kernel vs its plain version in bf16, at the test shapes and
 # the full ones.  The plain version keeps p in float32 and the kernel to
 # 2^-16 of it (two bf16 terms); both round each output to bf16 once, so
@@ -1441,11 +1474,12 @@ def prefill_step_vs_plain(cfg, params, dev, tol):
             assert far["tf32"][i] > tol["f64_ratio"] * far["plain"][i], far
 
 
-def flash_bound(S, H, KV, D, elem_bytes, peak):
-    """(flops, bytes, bound ms) of one causal call: q.k and p.v over the
-    S (S + 1) / 2 attended pairs of each head, 2 operations a
+def flash_bound(S, H, KV, D, elem_bytes, peak, causal=True):
+    """(flops, bytes, bound ms) of one call: q.k and p.v over the attended
+    pairs of each head (S (S + 1) / 2 causal, S^2 not), 2 operations a
     multiply-add; q, k and v read once and the output written once."""
-    flops = 4 * H * D * S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * H * D * pairs
     nbytes = elem_bytes * D * S * (2 * H + 2 * KV)
     return flops, nbytes, max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
 
@@ -1590,34 +1624,38 @@ def flash_kernel_phase(dev, flush):
                     full = max_err(out, flash_ref(*args, causal=causal))
                     assert full < 3e-2, full
     rows = []
-    for model, H, KV, D in FLASH_FULL:
-        S = LONG_S
+    for model, S, H, KV, D, causal in FLASH_FULL:
         # the model's (B, S, H, D) tensors, seen heads-major
         q = randn(1, S, H, D).bfloat16().transpose(1, 2)
         k = randn(1, S, KV, D).bfloat16().transpose(1, 2)
         v = randn(1, S, KV, D).bfloat16().transpose(1, 2)
-        out = kernel.flash_attention(q, k, v, causal=True)
+        out = kernel.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        ref = flash_attention_ref(q, k, v, causal=True)
+        ref = flash_attention_ref(q, k, v, causal=causal)
         assert torch.isfinite(out).all() and out.transpose(1, 2)\
             .is_contiguous()
         e, rel = assert_scaled(out, ref, FLASH_FULL_TOL, FLASH_FULL_REL_L2,
-                               f"{model} S={S} bf16 kernel vs plain")
+                               f"{model} S={S} causal={causal} bf16 kernel "
+                               f"vs plain")
         kr = k.repeat_interleave(H // KV, 1)      # outside the timing
         vr = v.repeat_interleave(H // KV, 1)
 
         def library():
-            return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+            return F.scaled_dot_product_attention(q, kr, vr,
+                                                  is_causal=causal)
         lib_err = max_err(library(), ref)
         assert lib_err < 3e-2, lib_err
-        ms = cuda_ms(lambda: kernel.flash_attention(q, k, v, causal=True), 5,
-                     flush)
-        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+        ms = cuda_ms(lambda: kernel.flash_attention(q, k, v, causal=causal),
+                     5, flush)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v,
+                                                       causal=causal),
                            2, flush)
         library_ms = cuda_ms(library, 10, flush)
-        flops, nbytes, bound_ms = flash_bound(S, H, KV, D, 2, BF16_FLOPS)
+        flops, nbytes, bound_ms = flash_bound(S, H, KV, D, 2, BF16_FLOPS,
+                                              causal)
         row = {"model": model, "S": S, "H": H, "KV": KV, "D": D,
-               "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+               "causal": causal, "dtype": "bfloat16", "ms": ms,
+               "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": "operations", "flops": flops, "bytes": nbytes,
                "max_abs_err": e, "rel_l2": rel,
@@ -1634,7 +1672,8 @@ def flash_kernel_phase(dev, flush):
                    split_p_floor_ms=floor_ms,
                    share_of_split_p_floor=floor_ms / ms,
                    ratio_to_library=ms / library_ms)
-        log(f"  {model} S={S} H={H} KV={KV} D={D} bf16 causal: kernel "
+        log(f"  {model} S={S} H={H} KV={KV} D={D} bf16 causal={causal}: "
+            f"kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) "
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (operations: "
             f"{flops} flop, {nbytes} B); {row['tflops']:.2f} TFLOP/s, "
@@ -3419,6 +3458,252 @@ def training_phase(dev, flush):
     return runs, numbers
 
 
+# ------------------------------------------- phase 21: enc_dec and vlm
+# Phase 21: seamless-m4t-medium (enc_dec) and internvl2-26b (vlm) at full
+# width and depth, random bf16 weights from seed 0.  Neither family has a
+# bulk prefill or a paged cache (as in the reference), so the dense engine
+# feeds every prompt token through a decode step, text only.  (model,
+# flash launches of one FRONTEND_S-position prefill: 12 encoder layers
+# non-causal and 12 decoder self attentions causal; 48 layers causal.)
+FRONTEND_PATHS = (("seamless-m4t-medium", 24), ("internvl2-26b", 48))
+FRONTEND_LENS, FRONTEND_NEW = [40, 63, 100, 150, 200, 240, 270, 300], 16
+FRONTEND_MAX_SEQ = 512
+# One long prefill of 8704 positions (17 blocks of 512, past the 8192
+# switch): seamless's frames and tokens, internvl2's 256 patch embeddings
+# and 8448 tokens.  Cross attention stays full_attention: float32 logits
+# of 16 x 8704^2 (4.85 GB a layer), so the length stays far below the
+# reference's prefill_32k.
+FRONTEND_S = 8704
+# internvl2-26b in float32 is 79.5 GB at full depth: 4 layers (10.9 GB)
+FRONTEND_F32_LAYERS = 4
+# seamless-m4t-medium's train steps: train_4k sequences, the global batch
+# cut to 8 (4 micro-batches of 2, the config's own), as phase 20 cuts it
+FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_STEPS = 8, 3
+
+
+def frontend_setup(arch, dev):
+    """(cfg, prefill positions): full width and depth on the card; on the
+    CPU (a rehearsal) the reduced model, blockwise attention at blocks of
+    32 (the flash kernel's plain version) and 64 positions."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if dev.type == "cuda":
+        return cfg, FRONTEND_S
+    return cfg.reduced().with_(attn_impl="blockwise", flash_block_q=32,
+                               flash_block_kv=32), 64
+
+
+def frontend_engine(cfg, params, dev):
+    """The dense engine, 8 lanes, serves 8 requests of FRONTEND_LENS prompt
+    tokens, FRONTEND_NEW new each, every launch count set to 0 just
+    before and read just after (none runs: decode attention is
+    ``full_attention``); then a steady 8-step window with zero host
+    syncs, its decode tok/s beside the bound of reading every weight once
+    a step; then ``cache_mode="paged"`` must raise ``ValueError``."""
+    import torch
+    from repro_torch.core.checkpointing import tree_leaves
+    from repro_torch.serving.engine import ServingEngine
+    engine = ServingEngine(cfg, params, batch_size=8,
+                           max_seq=FRONTEND_MAX_SEQ, cache_mode="dense",
+                           device=dev)
+    reqs = requests(cfg, FRONTEND_LENS, FRONTEND_NEW, seed=0)
+    for r in reqs:
+        engine.submit(r)
+    sync(dev)
+    zero_launches()
+    stats = engine.run_until_idle()
+    sync(dev)
+    launches = read_launches()
+    for r in reqs:
+        assert r.done and len(r.out_tokens) == FRONTEND_NEW, r.rid
+        assert all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+    assert engine.chunk_prefills == 0 and not any(launches.values()), (
+        engine.chunk_prefills, launches)
+    log(f"  dense engine served {len(reqs)}/{len(reqs)}: {stats['tokens']} "
+        f"tokens, {stats['steps']} decode steps (every prompt token one), "
+        f"{stats['seconds']:.2f} s, chunk_prefills 0, launches {launches}, "
+        f"host_syncs {engine.host_syncs}")
+    steady = requests(cfg, [4] * 8, 64, seed=1, start=100)
+    for r in steady:
+        engine.submit(r)
+    engine.step_many(8)                 # admit + the first window
+    syncs = engine.host_syncs
+    sync(dev)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        window = engine.step_many(8)
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    assert window["steps"] == 8 and engine.host_syncs == syncs, window
+    weight_bytes = sum(t.nbytes for t in tree_leaves(params))
+    bound = 8 * HBM_BYTES_PER_S / weight_bytes
+    tok_s = window["emitted"] / dt
+    log(f"  steady window: 8 fused steps x 8 lanes under sync_debug_mode="
+        f"error, 0 host syncs, {dt * 1e3 / 8:.2f} ms/step, {tok_s:.1f} "
+        f"decode tok/s against {bound:.0f} tok/s (8 lanes over "
+        f"{weight_bytes / 1e9:.2f} GB of weights read a step at the HBM "
+        f"rate)")
+    try:
+        ServingEngine(cfg, params, batch_size=8, max_seq=FRONTEND_MAX_SEQ,
+                      cache_mode="paged", device=dev)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{cfg.name}: a paged engine was built")
+    log(f"  cache_mode=paged refused: ValueError({refused!r})")
+    return {"served": len(reqs), "steps": stats["steps"],
+            "serve_s": stats["seconds"], "host_syncs": engine.host_syncs,
+            "steady_ms_per_step": dt * 1e3 / 8, "decode_tok_s": tok_s,
+            "decode_bound_tok_s": bound, "paged_refused": refused}
+
+
+def frontend_batch(cfg, S, dev, seed=9):
+    """A prefill batch of ``S`` positions: tokens and bf16 ``frames``
+    (enc_dec), or bf16 ``patch_embeds`` and S - frontend_seq tokens."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    vlm = cfg.family == "vlm"
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (1, S - cfg.frontend_seq if vlm else S),
+        generator=g, device=dev, dtype=torch.int32)}
+    key, n = ("patch_embeds", cfg.frontend_seq) if vlm else ("frames", S)
+    batch[key] = torch.randn((1, n, cfg.d_model), generator=g,
+                             device=dev).bfloat16()
+    return batch
+
+
+def frontend_prefill_vs_plain(cfg, params, S, dev, tol, want):
+    """One S-position ``make_prefill`` with the kernel (flash launches set
+    to 0 just before and read just after: ``want``), again for its warm
+    wall time, and with ``impl="ref"``: the last-position logits, kernel
+    against plain, within ``tol``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model_zoo as zoo
+    shape = ShapeConfig("long", S, 1, "prefill")
+    batch = frontend_batch(cfg, S, dev)
+    outs, secs, launches = {}, {}, {}
+    for run in ("kernel", "kernel again", "ref"):
+        sync(dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        logits, state = zoo.make_prefill(cfg, shape, impl=run.split()[0])(
+            params, batch)
+        sync(dev)
+        secs[run] = time.perf_counter() - t0
+        launches[run] = read_launches()["flash_attention"]
+        outs[run] = logits[0, -1, :cfg.vocab_size].float()
+        assert state.cache_len.tolist() == [S], state.cache_len
+        del logits, state
+        release(dev)
+    a, b = outs["kernel"], outs["ref"]
+    assert torch.isfinite(a).all() and a.shape == b.shape
+    if dev.type == "cuda":
+        assert launches == {"kernel": want, "kernel again": want, "ref": 0}, \
+            launches
+    rel = rel_l2(a, b)
+    agree = float(a.argmax() == b.argmax())
+    log(f"  {S}-position prefill, {cfg.num_layers} layers, "
+        f"{cfg.compute_dtype}: kernel vs plain last logits rel_l2={rel:.3e} "
+        f"max_abs={max_err(a, b):.3e} argmax agreement {agree:.0f} (tol "
+        f"{tol}); flash launches {launches['kernel']}; wall "
+        f"{secs['kernel'] * 1e3:.1f} ms cold, "
+        f"{secs['kernel again'] * 1e3:.1f} ms warm, plain "
+        f"{secs['ref'] * 1e3:.1f} ms")
+    assert rel <= tol["rel_l2"] and agree >= tol["argmax_agree"]
+    return {"S": S, "layers": cfg.num_layers, "dtype": cfg.compute_dtype,
+            "rel_l2": rel, "argmax_agree": agree,
+            "launches": launches["kernel"], "wall_ms": secs["kernel again"] * 1e3,
+            "cold_ms": secs["kernel"] * 1e3, "plain_ms": secs["ref"] * 1e3}
+
+
+def frontend_train(cfg, dev):
+    """seamless-m4t-medium trained: FRONTEND_TRAIN_STEPS steps of
+    ``ElasticTrainer`` on train_4k sequences at a global batch of 8 (no
+    kernel runs: 4096 < 8192 positions), every loss finite."""
+    import math
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    train_4k = SHAPES["train_4k"]
+    shape = (ShapeConfig(train_4k.name, train_4k.seq_len,
+                         FRONTEND_TRAIN_BATCH, "train")
+             if dev.type == "cuda" else train_4k.reduced())
+    tr, launches, times, events, peak = trainer_run(
+        cfg, shape, dev, "memory", (FRONTEND_TRAIN_STEPS,), False)
+    numbers = log_trainer(f"{cfg.name} ({cfg.num_microbatches} "
+                          f"micro-batches)", cfg, shape, tr, launches,
+                          times, events, peak)
+    assert all(math.isfinite(x) for x in numbers["losses"])
+    assert not any(launches.values()), launches
+    del tr
+    release(dev)
+    return numbers
+
+
+def frontend_launcher(arch, dev):
+    """``python -m repro_torch.launch.serve --arch <arch> --no-reduced
+    --cache-mode dense`` as a subprocess: exit 0, every request served."""
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+            "--no-reduced", "--cache-mode", "dense"]
+    if dev.type != "cuda":
+        argv += ["--device", "cpu", "--reduced"]
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                         cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    assert run.returncode == 0, run.stderr[-4000:]
+    report = run.stdout.strip().splitlines()[-1]
+    assert "cache=dense" in report and "served 8/8" in report, run.stdout
+    log(f"  {' '.join(argv[1:])}: exit 0 in {wall:.1f} s; {report}")
+    return wall
+
+
+def frontend_phase(dev):
+    """Phase 21.  Returns (flash launches by path, numbers)."""
+    from repro_torch.core.checkpointing import tree_leaves
+    from repro_torch.models import model_zoo as zoo
+    launches, numbers = {}, {}
+    for arch, want in FRONTEND_PATHS:
+        cfg, S = frontend_setup(arch, dev)
+        release(dev)
+        t0 = time.perf_counter()
+        params = zoo.init_serving_params(cfg, seed=0, device=dev)
+        sync(dev)
+        rec = {"weight_gb": sum(t.nbytes for t in tree_leaves(params)) / 1e9,
+               "draw_peak_gib": peak_gib()}
+        log(f"[frontend] {arch} ({cfg.family}): {zoo.num_params(cfg)} params "
+            f"({rec['weight_gb']:.2f} GB bf16) drawn in "
+            f"{time.perf_counter() - t0:.1f} s, peak "
+            f"{rec['draw_peak_gib']:.2f} GiB while drawing")
+        rec["engine"] = frontend_engine(cfg, params, dev)
+        rec["prefill_bf16"] = frontend_prefill_vs_plain(
+            cfg, params, S, dev, BF16_LONG_TOL, want)
+        launches[f"{arch} prefill"] = rec["prefill_bf16"]["launches"]
+        if cfg.family == "enc_dec":
+            rec["launcher_s"] = frontend_launcher(arch, dev)
+        del params
+        release(dev)
+        if cfg.family == "enc_dec":
+            rec["train"] = frontend_train(cfg, dev)
+        cfg32, want32 = cfg.with_(compute_dtype="float32"), want
+        if cfg.family == "vlm" and dev.type == "cuda":
+            cfg32 = cfg32.with_(num_layers=FRONTEND_F32_LAYERS)
+            want32 = FRONTEND_F32_LAYERS
+        params32 = zoo.init_serving_params(cfg32, seed=0, device=dev)
+        rec["prefill_f32"] = frontend_prefill_vs_plain(
+            cfg32, params32, S, dev, F32_LONG_TOL, want32)
+        del params32
+        release(dev)
+        numbers[arch] = rec
+    return launches, numbers
+
+
 def first_difference(a, b):
     """The first index where two token lists differ (None if equal)."""
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -3495,7 +3780,8 @@ def main() -> int:
 
     # 13. flash attention vs plain
     log("[kernel] flash_attention vs plain (5 test shapes, then S=16384 "
-        "at granite-8b and zamba2-2.7b shapes)")
+        "at granite-8b and zamba2-2.7b shapes, S=8704 at the "
+        "seamless-m4t-medium encoder's and internvl2-26b's)")
     flash = flash_kernel_phase(dev, flush)
     log("[kernel] flash_attention as built: ptxas and SASS")
     flash["sass_hgmma"] = flash_build_phase()
@@ -3662,6 +3948,12 @@ def main() -> int:
     ssd["training"] = training
     log(f"[train] numbers {json.dumps(training)}")
     t_phase = lap("phase 20 (training)", t_phase)
+    # 21. the enc_dec and vlm families at full width and depth
+    prefilled, frontend = frontend_phase(dev)
+    flash["launches_by_path"].update(prefilled)
+    flash["launches"] = sum(flash["launches_by_path"].values())
+    log(f"[frontend] numbers {json.dumps(frontend)}")
+    t_phase = lap("phase 21 (enc_dec and vlm)", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}

@@ -1,7 +1,10 @@
 """Serving launcher: one continuous-batching engine, or a cluster of them,
 over an --arch of the dense (granite-8b, llama3.2-3b, ...), moe
-(qwen2-moe-a2.7b, qwen3-moe-30b-a3b), ssm (mamba2-780m) or hybrid
-(zamba2-2.7b) family.
+(qwen2-moe-a2.7b, qwen3-moe-30b-a3b), ssm (mamba2-780m), hybrid
+(zamba2-2.7b), enc_dec (seamless-m4t-medium) or vlm (internvl2-26b)
+family.  The enc_dec and vlm families serve text only through the dense
+cache, every prompt token a decode step, as in the reference:
+``--cache-mode paged`` raises ``ValueError`` for them.
 
 On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
@@ -9,6 +12,8 @@ On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen2-moe-a2.7b --no-reduced --cache-mode paged \
       --batch-size 8 --max-seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-medium --no-reduced --cache-mode dense
 
 On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \

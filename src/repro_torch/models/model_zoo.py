@@ -75,17 +75,17 @@ DECODER_FAMILIES = ("dense", "vlm", "moe")
 PAGED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def paged_kv_keys(cfg: ModelConfig):
-    """Cache keys stored in the block pool (vs. per-lane recurrent);
-    ``ValueError`` for a family without a paged cache (vlm, enc_dec)."""
-    if cfg.family not in PAGED_FAMILIES:
-        raise ValueError(cfg.family)
-    return () if cfg.family == "ssm" else ("k", "v")
-
-
 def _paged(cfg: ModelConfig):
+    """``ValueError`` for a family without a paged cache (vlm, enc_dec),
+    as the reference raises it."""
     if cfg.family not in PAGED_FAMILIES:
         raise ValueError(f"paged cache unsupported for {cfg.family}")
+
+
+def paged_kv_keys(cfg: ModelConfig):
+    """Cache keys stored in the block pool (vs. per-lane recurrent)."""
+    _paged(cfg)
+    return () if cfg.family == "ssm" else ("k", "v")
 
 
 def _mamba_layers(params, cfg: ModelConfig):

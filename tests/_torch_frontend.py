@@ -17,11 +17,15 @@ import numpy as np
 import torch
 
 from repro.configs import get_config as jax_config
+from repro.configs.base import ShapeConfig as JShape
+from repro.models import model_zoo as jzoo
 from repro.models import transformer as jtransformer
 from repro.models.schema import init_params as jinit_params
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro_torch.configs import get_config as torch_config
+from repro_torch.configs.base import ShapeConfig as TShape
+from repro_torch.models import model_zoo as tzoo
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TEngine
@@ -89,11 +93,77 @@ def f32(x) -> np.ndarray:
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-def bits(x) -> np.ndarray:
-    """The raw bits of a bf16 array, either package's (int16 view)."""
-    if isinstance(x, torch.Tensor):
-        return x.view(torch.int16).numpy()
-    return np.asarray(x).view(np.int16)
+def column_bits(col) -> np.ndarray:
+    """A cache column of either package as comparable numpy: bf16 (a torch
+    tensor or ``ml_dtypes``) as its int16 bits, anything else as it is."""
+    if isinstance(col, torch.Tensor):
+        return (col.view(torch.int16) if col.dtype == torch.bfloat16
+                else col).numpy()
+    col = np.asarray(col)
+    return col.view(np.int16) if col.dtype == ml_dtypes.bfloat16 else col
+
+
+def schema_shapes(schema, prefix=""):
+    """``{"/path/to/leaf": shape}`` of either package's schema."""
+    if hasattr(schema, "shape"):
+        return {prefix: tuple(schema.shape)}
+    out = {}
+    for k in sorted(schema):
+        out.update(schema_shapes(schema[k], f"{prefix}/{k}"))
+    return out
+
+
+def prefills(jcfg, jparams, tcfg, tparams, B, S):
+    """Both packages' ``make_prefill`` of one ``prefill_batch``."""
+    jb, tb = both(prefill_batch(tcfg, B, S))
+    jout = jzoo.make_prefill(jcfg, JShape("p", S, B, "prefill"))(jparams, jb)
+    tout = tzoo.make_prefill(tcfg, TShape("p", S, B, "prefill"))(tparams, tb)
+    return jout, tout
+
+
+def assert_prefill_close(jout, tout, keys):
+    """Float32 last-position logits within 1e-5; every bf16 cache leaf
+    (``keys``) of the reference's shape and within one bf16 ulp; the same
+    ``cache_len``."""
+    (jlogits, jstate), (tlogits, tstate) = jout, tout
+    np.testing.assert_allclose(f32(tlogits), f32(jlogits), **F32)
+    assert set(tstate.cache) == set(jstate.cache) == set(keys)
+    for key, jleaf in jstate.cache.items():
+        tleaf = tstate.cache[key]
+        assert tleaf.dtype == torch.bfloat16
+        assert tuple(tleaf.shape) == tuple(jleaf.shape), key
+        np.testing.assert_allclose(f32(tleaf), f32(jleaf), **BF16_ULP)
+    assert tstate.cache_len.tolist() == np.asarray(jstate.cache_len).tolist()
+
+
+def serve_steps_agree(arch, P, S=32, B=2, steps=4):
+    """A ``P``-position prefill written into an ``S``-position decode state
+    (the same bf16 bits in both packages), then ``steps`` serve steps:
+    float32 logits within 1e-5 at each step, the caches within one bf16
+    ulp after them."""
+    jcfg, jparams, tcfg, tparams = models(arch, compute_dtype="float32")
+    _, (_, pre) = prefills(jcfg, jparams, tcfg, tparams, B=B, S=P)
+    tstate = tzoo.init_decode_state(tcfg, TShape("s", S, B, "decode"),
+                                    fill_len=P, device="cpu")
+    for key, leaf in tstate.cache.items():
+        leaf[:, :, :P] = pre.cache[key]
+    jstate = jzoo.init_decode_state(jcfg, JShape("s", S, B, "decode"),
+                                    fill_len=P)
+    jstate = jstate._replace(cache={
+        k: jnp.asarray(column_bits(v).view(ml_dtypes.bfloat16))
+        for k, v in tstate.cache.items()})
+    jstep = jax.jit(jzoo.make_serve_step(jcfg, JShape("s", S, B, "decode")))
+    tstep = tzoo.make_serve_step(tcfg, TShape("s", S, B, "decode"))
+    rng = np.random.default_rng(7)
+    for _ in range(steps):
+        tok = rng.integers(0, 250, (B, 1)).astype(np.int32)
+        jlogits, jstate = jstep(jparams, jstate, {"tokens": jnp.asarray(tok)})
+        tlogits, tstate = tstep(tparams, tstate, torch.from_numpy(tok))
+        np.testing.assert_allclose(f32(tlogits), f32(jlogits), **F32)
+    for key, leaf in tstate.cache.items():
+        np.testing.assert_allclose(f32(leaf), f32(jstate.cache[key]),
+                                   **BF16_ULP)
+    assert tstate.cache_len.tolist() == [P + steps] * B
 
 
 def assert_bf16_logits_close(out, ref, vocab):
@@ -158,54 +228,38 @@ def packed_mid_decode(engine, request_cls):
 def jax_columns(cols):
     """The port's columns as the JAX engine reads them: numpy, bf16 as
     ``ml_dtypes.bfloat16``."""
-    return {k: (t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return {k: (column_bits(t).view(ml_dtypes.bfloat16)
                 if t.dtype == torch.bfloat16 else t.numpy())
             for k, t in cols.items()}
-
-
-def fill_columns(units, seed):
-    """Random bf16 values in every bf16 column of ``units`` (an enc_dec
-    lane's cross cache is zero in a served engine), so that a crossing
-    that moved nothing could not pass."""
-    rng = np.random.default_rng(seed)
-    for u in units:
-        for k, t in u.snapshot.cache.items():
-            if t.dtype == torch.bfloat16:
-                t.copy_(torch.from_numpy(rng.standard_normal(
-                    tuple(t.shape)).astype(np.float32)))
 
 
 def units_cross(arch, direction):
     """Units packed mid-decode by one package unpack into the other's
     dense engine and pack back with every column bit for bit (k, v and,
     for enc_dec, the cross cache xk, xv), and the unpacked requests run
-    to their token counts."""
+    to their token counts.  Every bf16 column is first filled with random
+    values (an enc_dec lane's cross cache is zero in a served engine), so
+    that a crossing that moved nothing could not pass."""
     jcfg, jparams, tcfg, tparams = models(arch, compute_dtype="float32")
     geometry = dict(batch_size=3, max_seq=32, cache_mode="dense")
     if direction == "port_to_jax":
         units = packed_mid_decode(
             TEngine(tcfg, tparams, device="cpu", **geometry), TRequest)
-        fill_columns(units, seed=5)
-        want = {u.rid: {k: bits(t) if t.dtype == torch.bfloat16
-                        else t.numpy() for k, t in u.snapshot.cache.items()}
-                for u in units}
         for u in units:
             u.snapshot.cache = jax_columns(u.snapshot.cache)
         dst = JEngine(jcfg, jparams, **geometry)
     else:
         units = packed_mid_decode(JEngine(jcfg, jparams, **geometry),
                                   JRequest)
-        rng = np.random.default_rng(5)
-        for u in units:
-            u.snapshot.cache = {
-                k: (rng.standard_normal(v.shape).astype(ml_dtypes.bfloat16)
-                    if v.dtype == ml_dtypes.bfloat16 else v)
-                for k, v in u.snapshot.cache.items()}
-        want = {u.rid: {k: bits(v) if v.dtype == ml_dtypes.bfloat16
-                        else np.asarray(v)
-                        for k, v in u.snapshot.cache.items()}
-                for u in units}
         dst = TEngine(tcfg, tparams, device="cpu", **geometry)
+    rng = np.random.default_rng(5)
+    for u in units:
+        u.snapshot.cache = {
+            k: (rng.standard_normal(v.shape).astype(ml_dtypes.bfloat16)
+                if v.dtype == ml_dtypes.bfloat16 else v)
+            for k, v in u.snapshot.cache.items()}
+    want = {u.rid: {k: column_bits(v) for k, v in u.snapshot.cache.items()}
+            for u in units}
     keys = {"k", "v", "xk", "xv"} if arch == ENC_DEC else {"k", "v"}
     assert set(units[0].snapshot.cache) == keys
     dst.unpack(units)
@@ -214,10 +268,8 @@ def units_cross(arch, direction):
     assert sorted(u.rid for u in back) == sorted(want)
     for u in back:
         for k, col in u.snapshot.cache.items():
-            got = (bits(col) if str(col.dtype) in ("bfloat16",
-                                                    "torch.bfloat16")
-                   else np.asarray(col))
-            assert np.array_equal(got, want[u.rid][k]), (u.rid, k)
+            assert np.array_equal(column_bits(col), want[u.rid][k]), (u.rid,
+                                                                       k)
     dst.unpack(back)
     dst.run_until_idle()
     done = dst.pop_completed()

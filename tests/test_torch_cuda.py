@@ -591,6 +591,103 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [512, 640])
+@pytest.mark.parametrize("h,kv,d,causal", [
+    (16, 16, 64, False),   # the seamless-m4t-medium encoder
+    (48, 8, 128, True),    # internvl2-26b: a GQA group of 6
+])
+def test_flash_kernel_at_frontend_model_heads_on_card(cuda_device, h, kv, d,
+                                                      causal, s, dtype):
+    """The heads the enc_dec and vlm prefills give the kernel, at short
+    lengths (640 cuts the 128-row tiles): one launch, held to the plain
+    version as ``test_flash_kernel_matches_plain_on_card`` holds it."""
+    rng = np.random.default_rng(h + d + s)
+    q, k, v = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, dtype)
+        for shape in ((1, s, h, d), (1, s, kv, d), (1, s, kv, d))]
+    before = flash_attention.kernel.launches
+    out = flash_attention.attention(q, k, v, causal=causal, block_q=128,
+                                    block_kv=128)
+    torch.cuda.synchronize()
+    assert flash_attention.kernel.launches == before + 1
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    ref = flash_attention.attention(q, k, v, causal=causal, block_q=128,
+                                    block_kv=128, impl="ref")
+    tol = F32_TOL if dtype == torch.float32 else BF16_ULP_TOL
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
+
+
+def _frontend_batch(cfg, S, dev, seed=7):
+    """A prefill batch: tokens and frames (enc_dec), or patch embeddings
+    and S - frontend_seq tokens (vlm)."""
+    rng = np.random.default_rng(seed)
+    vlm = cfg.family == "vlm"
+    st = S - cfg.frontend_seq if vlm else S
+    extra = ("patch_embeds", cfg.frontend_seq) if vlm else ("frames", S)
+    return {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, st)).astype(np.int32)).to(dev),
+            extra[0]: torch.from_numpy(rng.standard_normal(
+                (1, extra[1], cfg.d_model)).astype(np.float32)).to(
+                dev, torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
+def test_frontend_models_on_card_match_cpu_f32(cuda_device, arch):
+    """Reduced seamless-m4t-medium and internvl2-26b in float32, on the
+    card against the port on the CPU with the same weights: a 256-position
+    prefill with ``attn_impl="blockwise"`` (blocks of 64: one flash launch
+    per encoder and decoder attention layer) within 1e-4, and the dense
+    engine's greedy streams equal (every prompt token a decode step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.schema import init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config(arch).reduced().with_(
+        compute_dtype="float32", attn_impl="blockwise", flash_block_q=64,
+        flash_block_kv=64)
+    cpu = torch.device("cpu")
+    # one draw on the CPU (a card's generator gives another stream)
+    tree = init_params(transformer.model_schema(cfg),
+                       torch.Generator().manual_seed(0), cpu)
+    params = {dev.type: params_from_numpy(tree, cfg, dev)
+              for dev in (cpu, cuda_device)}
+    shape = ShapeConfig("p", 256, 1, "prefill")
+    logits = {}
+    for dev in (cpu, cuda_device):
+        before = flash_attention.kernel.launches
+        out, state = zoo.make_prefill(cfg, shape)(
+            params[dev.type], _frontend_batch(cfg, 256, dev))
+        torch.cuda.synchronize()
+        launched = flash_attention.kernel.launches - before
+        want = cfg.num_layers if dev.type == "cuda" else 0
+        assert launched == want, (dev, launched)
+        logits[dev.type] = out.cpu().numpy()
+    np.testing.assert_allclose(logits["cuda"], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    streams = {}
+    for dev in (cpu, cuda_device):
+        eng = ServingEngine(cfg, params[dev.type], batch_size=3, max_seq=96,
+                            cache_mode="dense", device=dev)
+        rng = np.random.default_rng(11)
+        reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n)
+                        .astype(np.int32), max_new_tokens=m)
+                for i, (n, m) in enumerate(((5, 9), (20, 7), (40, 8),
+                                            (3, 6)))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        assert all(r.done for r in reqs) and eng.chunk_prefills == 0
+        streams[dev.type] = [list(r.out_tokens) for r in reqs]
+    assert streams["cuda"] == streams["cpu"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b"])
 def test_blockwise_bulk_prefill_kernel_matches_plain_on_card(cuda_device,

@@ -18,12 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_frontend import (BF16_ULP, ENC_DEC, F32, assert_bf16_logits_close,
-                             both, configs, engines_agree, f32, models,
-                             prefill_batch, units_cross)
+from _torch_frontend import (ENC_DEC, F32, assert_bf16_logits_close,
+                             assert_prefill_close, both, configs,
+                             engines_agree, f32, models, prefill_batch,
+                             prefills, schema_shapes, serve_steps_agree,
+                             units_cross)
 from repro.configs import get_config as jax_config
 from repro.configs.base import SHAPES as JSHAPES
-from repro.configs.base import ShapeConfig as JShape
 from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.models import model_zoo as jzoo
 from repro.models import transformer as JT
@@ -40,22 +41,13 @@ torch.set_num_threads(1)
 ARCH = ENC_DEC
 
 
-def _shapes(schema, prefix=""):
-    if hasattr(schema, "shape"):
-        return {prefix: tuple(schema.shape)}
-    out = {}
-    for k in sorted(schema):
-        out.update(_shapes(schema[k], f"{prefix}/{k}"))
-    return out
-
-
 @pytest.mark.parametrize("tie", [False, True])
 def test_schema_matches_reference(tie):
     """Leaf names and shapes; ``lm_head`` stays whatever
     ``tie_embeddings`` says."""
     jcfg, tcfg = configs(ARCH, tie_embeddings=tie)
-    got = _shapes(TT.model_schema(tcfg))
-    assert got == _shapes(JT.model_schema(jcfg))
+    got = schema_shapes(TT.model_schema(tcfg))
+    assert got == schema_shapes(JT.model_schema(jcfg))
     assert "/lm_head" in got and "/enc_layers/attn/wq" in got
 
 
@@ -96,31 +88,12 @@ def test_enc_dec_forward_matches_reference_bf16():
     assert_bf16_logits_close(f32(tl), f32(jl), tcfg.vocab_size)
 
 
-def _prefills(jcfg, jparams, tcfg, tparams, B, S):
-    jb, tb = both(prefill_batch(tcfg, B, S))
-    jout = jzoo.make_prefill(jcfg, JShape("p", S, B, "prefill"))(jparams, jb)
-    tout = tzoo.make_prefill(tcfg, TShape("p", S, B, "prefill"))(tparams, tb)
-    return jout, tout
-
-
-def _assert_prefill_close(jout, tout):
-    (jlogits, jstate), (tlogits, tstate) = jout, tout
-    np.testing.assert_allclose(f32(tlogits), f32(jlogits), **F32)
-    assert set(tstate.cache) == set(jstate.cache) == {"k", "v", "xk", "xv"}
-    for key, jleaf in jstate.cache.items():
-        tleaf = tstate.cache[key]
-        assert tleaf.dtype == torch.bfloat16
-        assert tuple(tleaf.shape) == tuple(jleaf.shape), key
-        np.testing.assert_allclose(f32(tleaf), f32(jleaf), **BF16_ULP)
-    assert tstate.cache_len.tolist() == np.asarray(jstate.cache_len).tolist()
-
-
 def test_make_prefill_with_frames_matches_reference_f32():
     """Last-position logits within 1e-5; the bf16 caches (self attention's
     k, v and cross attention's xk, xv) within one bf16 ulp; cache_len is
     the shape's seq_len."""
-    jout, tout = _prefills(*models(ARCH, compute_dtype="float32"), B=2, S=12)
-    _assert_prefill_close(jout, tout)
+    jout, tout = prefills(*models(ARCH, compute_dtype="float32"), B=2, S=12)
+    assert_prefill_close(jout, tout, ("k", "v", "xk", "xv"))
     assert tout[1].cache["xk"].shape == (2, 2, 12, 2, 16)
     assert tout[1].cache_len.tolist() == [12, 12]
 
@@ -144,39 +117,16 @@ def test_blockwise_routes_match_reference_f32(S, monkeypatch):
         return blockwise(q, k, v, **kw)
 
     monkeypatch.setattr(TL, "blockwise_attention", spy)
-    jout, tout = _prefills(*models(ARCH, **BLOCKWISE), B=2, S=S)
+    jout, tout = prefills(*models(ARCH, **BLOCKWISE), B=2, S=S)
     assert seen == [(S, False)] * 2 + [(S, True)] * 2
-    _assert_prefill_close(jout, tout)
+    assert_prefill_close(jout, tout, ("k", "v", "xk", "xv"))
 
 
 def test_serve_steps_over_a_prefilled_cross_cache_f32():
     """A 12-position prefill (frames and tokens) written into a 32-position
     decode state, then 4 serve steps: float32 logits within 1e-5 at each
     step, and the same cache after them."""
-    jcfg, jparams, tcfg, tparams = models(ARCH, compute_dtype="float32")
-    B, P, S = 2, 12, 32
-    _, (_, pre) = _prefills(jcfg, jparams, tcfg, tparams, B=B, S=P)
-    tstate = tzoo.init_decode_state(tcfg, TShape("s", S, B, "decode"),
-                                    fill_len=P, device="cpu")
-    for key, leaf in tstate.cache.items():
-        leaf[:, :, :P] = pre.cache[key]
-    jstate = jzoo.init_decode_state(jcfg, JShape("s", S, B, "decode"),
-                                    fill_len=P)
-    jstate = jstate._replace(cache={
-        k: jnp.asarray(v.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
-        for k, v in tstate.cache.items()})
-    jstep = jax.jit(jzoo.make_serve_step(jcfg, JShape("s", S, B, "decode")))
-    tstep = tzoo.make_serve_step(tcfg, TShape("s", S, B, "decode"))
-    rng = np.random.default_rng(7)
-    for _ in range(4):
-        tok = rng.integers(0, 250, (B, 1)).astype(np.int32)
-        jlogits, jstate = jstep(jparams, jstate, {"tokens": jnp.asarray(tok)})
-        tlogits, tstate = tstep(tparams, tstate, torch.from_numpy(tok))
-        np.testing.assert_allclose(f32(tlogits), f32(jlogits), **F32)
-    for key in ("k", "v", "xk", "xv"):
-        np.testing.assert_allclose(f32(tstate.cache[key]),
-                                   f32(jstate.cache[key]), **BF16_ULP)
-    assert tstate.cache_len.tolist() == [P + 4] * B
+    serve_steps_agree(ARCH, P=12)
 
 
 def test_lm_loss_matches_reference_f32():

@@ -13,17 +13,17 @@ parity is in ``test_torch_train.py``.
 
 import jax
 import jax.numpy as jnp
-import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
-from _torch_frontend import (BF16_ULP, F32, VLM, assert_bf16_logits_close,
-                             both, configs, engines_agree, f32, models,
-                             prefill_batch, units_cross)
+from _torch_frontend import (F32, VLM, assert_bf16_logits_close,
+                             assert_prefill_close, both, configs,
+                             engines_agree, f32, models, prefill_batch,
+                             prefills, schema_shapes, serve_steps_agree,
+                             units_cross)
 from repro.configs import get_config as jax_config
 from repro.configs.base import SHAPES as JSHAPES
-from repro.configs.base import ShapeConfig as JShape
 from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.models import model_zoo as jzoo
 from repro.models import transformer as JT
@@ -40,19 +40,10 @@ torch.set_num_threads(1)
 ARCH = VLM
 
 
-def _shapes(schema, prefix=""):
-    if hasattr(schema, "shape"):
-        return {prefix: tuple(schema.shape)}
-    out = {}
-    for k in sorted(schema):
-        out.update(_shapes(schema[k], f"{prefix}/{k}"))
-    return out
-
-
 def test_schema_matches_reference():
     jcfg, tcfg = configs(ARCH)
-    got = _shapes(TT.model_schema(tcfg))
-    assert got == _shapes(JT.model_schema(jcfg))
+    got = schema_shapes(TT.model_schema(tcfg))
+    assert got == schema_shapes(JT.model_schema(jcfg))
     assert "/lm_head" in got and "/layers/mlp/w_gate" in got
 
 
@@ -95,30 +86,11 @@ def test_decoder_forward_needs_patches():
                            torch.zeros((1, 4), dtype=torch.int32), tcfg)
 
 
-def _prefills(jcfg, jparams, tcfg, tparams, B, S):
-    jb, tb = both(prefill_batch(tcfg, B, S))
-    jout = jzoo.make_prefill(jcfg, JShape("p", S, B, "prefill"))(jparams, jb)
-    tout = tzoo.make_prefill(tcfg, TShape("p", S, B, "prefill"))(tparams, tb)
-    return jout, tout
-
-
-def _assert_prefill_close(jout, tout):
-    (jlogits, jstate), (tlogits, tstate) = jout, tout
-    np.testing.assert_allclose(f32(tlogits), f32(jlogits), **F32)
-    assert set(tstate.cache) == set(jstate.cache) == {"k", "v"}
-    for key, jleaf in jstate.cache.items():
-        tleaf = tstate.cache[key]
-        assert tleaf.dtype == torch.bfloat16
-        assert tuple(tleaf.shape) == tuple(jleaf.shape), key
-        np.testing.assert_allclose(f32(tleaf), f32(jleaf), **BF16_ULP)
-    assert tstate.cache_len.tolist() == np.asarray(jstate.cache_len).tolist()
-
-
 def test_make_prefill_with_patches_matches_reference_f32():
     """8 patch positions then 12 tokens: last-position logits within 1e-5,
     k and v (over all 20 positions) within one bf16 ulp, cache_len 20."""
-    jout, tout = _prefills(*models(ARCH, compute_dtype="float32"), B=2, S=20)
-    _assert_prefill_close(jout, tout)
+    jout, tout = prefills(*models(ARCH, compute_dtype="float32"), B=2, S=20)
+    assert_prefill_close(jout, tout, ("k", "v"))
     assert tout[1].cache["k"].shape == (2, 2, 20, 2, 16)
     assert tout[1].cache_len.tolist() == [20, 20]
 
@@ -140,36 +112,16 @@ def test_blockwise_route_matches_reference_f32(S, monkeypatch):
         return blockwise(q, k, v, **kw)
 
     monkeypatch.setattr(TL, "blockwise_attention", spy)
-    jout, tout = _prefills(*models(ARCH, **BLOCKWISE), B=2, S=S)
+    jout, tout = prefills(*models(ARCH, **BLOCKWISE), B=2, S=S)
     assert seen == [(S, 2, True)] * 2
-    _assert_prefill_close(jout, tout)
+    assert_prefill_close(jout, tout, ("k", "v"))
 
 
 def test_serve_steps_after_a_patch_prefill_f32():
     """A 20-position prefill (8 patches, 12 tokens) written into a
     32-position decode state, then 4 serve steps: float32 logits within
     1e-5 at each step."""
-    jcfg, jparams, tcfg, tparams = models(ARCH, compute_dtype="float32")
-    B, P, S = 2, 20, 32
-    _, (_, pre) = _prefills(jcfg, jparams, tcfg, tparams, B=B, S=P)
-    tstate = tzoo.init_decode_state(tcfg, TShape("s", S, B, "decode"),
-                                    fill_len=P, device="cpu")
-    for key, leaf in tstate.cache.items():
-        leaf[:, :, :P] = pre.cache[key]
-    jstate = jzoo.init_decode_state(jcfg, JShape("s", S, B, "decode"),
-                                    fill_len=P)
-    jstate = jstate._replace(cache={
-        k: jnp.asarray(v.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
-        for k, v in tstate.cache.items()})
-    jstep = jax.jit(jzoo.make_serve_step(jcfg, JShape("s", S, B, "decode")))
-    tstep = tzoo.make_serve_step(tcfg, TShape("s", S, B, "decode"))
-    rng = np.random.default_rng(7)
-    for _ in range(4):
-        tok = rng.integers(0, 250, (B, 1)).astype(np.int32)
-        jlogits, jstate = jstep(jparams, jstate, {"tokens": jnp.asarray(tok)})
-        tlogits, tstate = tstep(tparams, tstate, torch.from_numpy(tok))
-        np.testing.assert_allclose(f32(tlogits), f32(jlogits), **F32)
-    assert tstate.cache_len.tolist() == [P + 4] * B
+    serve_steps_agree(ARCH, P=20)
 
 
 def test_lm_loss_on_text_positions_matches_reference_f32():
