@@ -30,6 +30,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import batch_spec
 
+# a host batch's leaf: numpy int32, or a CPU bf16 tensor
+Leaf = Union[np.ndarray, torch.Tensor]
+
 
 class SyntheticLM:
     """Counter-mode synthetic batches matching ``batch_spec(cfg, shape)``."""
@@ -40,8 +43,7 @@ class SyntheticLM:
         self.seed = seed
         self.spec = batch_spec(cfg, shape)
 
-    def batch_at(self, step: int) -> Dict[str, Union[np.ndarray,
-                                                     torch.Tensor]]:
+    def batch_at(self, step: int) -> Dict[str, Leaf]:
         """Integer leaves as numpy int32, bf16 leaves as CPU bf16 tensors
         (see the module's docstring)."""
         out = {}
@@ -56,7 +58,7 @@ class SyntheticLM:
                     v.shape, dtype=np.float32)).to(v.dtype)
         return out
 
-    def iterate(self, start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def iterate(self, start_step: int = 0) -> Iterator[Dict[str, Leaf]]:
         step = start_step
         while True:
             yield self.batch_at(step)

@@ -378,8 +378,8 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig,
                       device="cuda") -> DecodeState:
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
-    cache = ({} if cfg.family in DECODER_FAMILIES + ("enc_dec",)
-             else _recurrent_cache(cfg, B, dev))
+    cache = (_recurrent_cache(cfg, B, dev) if cfg.family in ("ssm", "hybrid")
+             else {})
     if cfg.family != "ssm":
         kv = (_attn_layers(cfg), B, S, cfg.num_kv_heads, cfg.head_dim)
         keys = ("k", "v", "xk", "xv") if cfg.family == "enc_dec" else (
