@@ -56,7 +56,8 @@ from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import compute_view, params_from_numpy
-from repro_torch.models.schema import count_params, init_params
+from repro_torch.models.schema import (abstract_params, count_params,
+                                       init_params)
 from repro_torch.optim import adamw
 
 # Families whose prefill needs only ``tokens`` (no frames / patch embeds)
@@ -268,6 +269,14 @@ def init_state(cfg: ModelConfig, seed: int = 0,
                       params, adamw.init(params))
 
 
+def abstract_state(cfg: ModelConfig) -> TrainState:
+    """``init_state``'s leaves as meta tensors (shape and dtype, no
+    storage), the reference's ``abstract_state``."""
+    params = abstract_params(T.model_schema(cfg), cfg.param_dtype)
+    return TrainState(torch.empty((), dtype=torch.int32, device="meta"),
+                      params, adamw.init(params))
+
+
 def state_from_numpy(state, device="cuda") -> TrainState:
     """A JAX ``TrainState`` handed over as numpy (``jax.tree.map(
     np.asarray, state)``; any object with ``step``, ``params`` and
@@ -376,7 +385,37 @@ class DecodeState:
 def init_decode_state(cfg: ModelConfig, shape: ShapeConfig,
                       fill_len: Optional[int] = None,
                       device="cuda") -> DecodeState:
-    dev = resolve_device(device)
+    return _decode_state(cfg, shape, fill_len, resolve_device(device))
+
+
+def abstract_decode_state(cfg: ModelConfig,
+                          shape: ShapeConfig) -> DecodeState:
+    """``init_decode_state``'s leaves as meta tensors (shape and dtype, no
+    storage), the reference's ``abstract_decode_state``."""
+    return _decode_state(cfg, shape, None, torch.device("meta"))
+
+
+def decode_state_logical_axes(cfg: ModelConfig) -> DecodeState:
+    """Logical axes of the decode state's leaves (for shardings)."""
+    kv4 = (None, "cache_batch", "cache_seq", "kv_heads", None)
+    if cfg.family in DECODER_FAMILIES:
+        cache = {"k": kv4, "v": kv4}
+    elif cfg.family == "enc_dec":
+        cache = {"k": kv4, "v": kv4, "xk": kv4, "xv": kv4}
+    elif cfg.family == "ssm":
+        cache = {"ssm": (None, "cache_batch", "ssm_heads", None, None),
+                 "conv": (None, "cache_batch", None, "conv_dim")}
+    elif cfg.family == "hybrid":
+        cache = {"ssm": (None, None, "cache_batch", "ssm_heads", None, None),
+                 "conv": (None, None, "cache_batch", None, "conv_dim"),
+                 "k": kv4, "v": kv4}
+    else:
+        raise ValueError(cfg.family)
+    return DecodeState(cache, ("cache_batch",))
+
+
+def _decode_state(cfg: ModelConfig, shape: ShapeConfig,
+                  fill_len: Optional[int], dev) -> DecodeState:
     B, S = shape.global_batch, shape.seq_len
     cache = (_recurrent_cache(cfg, B, dev) if cfg.family in ("ssm", "hybrid")
              else {})

@@ -50,10 +50,12 @@ def _leaves(schema):
         yield from _leaves(schema[k])
 
 
-def _map(fn, schema):
+def map_specs(fn, schema):
+    """``fn`` over every spec of ``schema``: the schema's nested dict with
+    its results in place of the specs (sorted-key order)."""
     if is_spec(schema):
         return fn(schema)
-    return {k: _map(fn, schema[k]) for k in sorted(schema)}
+    return {k: map_specs(fn, schema[k]) for k in sorted(schema)}
 
 
 def _fan_in(spec: Spec) -> int:
@@ -105,7 +107,15 @@ def init_params(schema, generator: torch.Generator, device="cuda",
     dev = resolve_device(device)
     if torch.device(generator.device).type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
-    return _map(lambda s: init_one(s, generator, dev, dtype), schema)
+    return map_specs(lambda s: init_one(s, generator, dev, dtype), schema)
+
+
+def abstract_params(schema, dtype="float32"):
+    """The params ``init_params`` would draw, as meta tensors (shape and
+    dtype, no storage): the counterpart of the reference's
+    ``ShapeDtypeStruct`` tree."""
+    return map_specs(lambda s: torch.empty(
+        s.shape, dtype=dtype_of(s.dtype or dtype), device="meta"), schema)
 
 
 def count_params(schema) -> int:

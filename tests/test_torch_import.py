@@ -27,7 +27,9 @@ def test_import_loads_no_jax():
             "repro_torch.serving.workload, repro_torch.serving.shapes, "
             "repro_torch.core.checkpointing, repro_torch.cluster, "
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
-            "repro_torch.core.elastic, repro_torch.launch.train\n"
+            "repro_torch.core.elastic, repro_torch.launch.train, "
+            "repro_torch.launch.dist, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding, repro_torch.launch.specs\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.') or m == 'ml_dtypes')\n"
