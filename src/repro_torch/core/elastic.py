@@ -4,34 +4,46 @@ Port of ``repro.core.elastic``.  Charm++'s rescaling protocol, step for
 step:
 
   1. migrate work away from departing PEs   (the state moves whole)
-  2. checkpoint                             -> ``store.save`` (host RAM,
-                                               a device copy or a file)
-  3. restart with the new PE count          -> a new device list and a
-                                               new step function
-  4. restore state                          -> ``store.restore`` onto the
-                                               new list's first device
-  5. load balance                           -> a synchronize on the
-                                               restored state's device
+  2. checkpoint                             -> gather the state whole
+                                               (ZeRO-1 blocks included),
+                                               ``store.save`` on rank 0
+  3. restart with the new PE count          -> a new mesh of the first
+                                               ``n`` ranks (or device
+                                               list) and step function
+  4. restore state                          -> ``store.restore`` on rank
+                                               0, a broadcast to the new
+                                               members, each keeping its
+                                               blocks (``place``)
+  5. load balance                           -> a barrier over the world
+                                               and a synchronize
 
 Each rescale records the paper's four timed stages (checkpoint / load
 balance / restart / restore, Figures 5-6).  A stage that copies on the
 card ends with a synchronize (the stores do it), so its time covers the
 copies.  "Restart" has no compile to redo: eager PyTorch has no AOT
-step, so the stage is the rebuild of the device list and the step
-function, and is small beside the reference's re-jit.
+step, so the stage is the rebuild of the mesh (its process groups) and
+the step function, and is small beside the reference's re-jit.
 
-One device only: ``devices_for(n)`` is the first ``n`` devices of the
-runtime's device type, and ``n > 1`` (or more than are present) raises:
-data parallelism over ``torch.distributed`` is ROADMAP item 13.
+Two settings, chosen by whether a ``torch.distributed`` process group is
+initialised:
+
+* none: one device, ``devices_for(1)`` is ``[device]`` and more raises;
+* a group (``launch.dist``): ``devices_for(n)`` is the ``DeviceMesh`` of
+  the first ``n`` ranks of the world (``launch.mesh.make_mesh((n, 1),
+  ("data", "model"))``).  Ranks outside it hold no state and skip steps.
+  Every rank of the world calls ``step``, ``rescale_to`` and the
+  constructor, so that the program stays SPMD: building a mesh is a
+  collective over the world.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.checkpointing import InMemoryStore, tree_map
 from repro_torch.device import resolve_device
@@ -49,74 +61,151 @@ class RescaleEvent:
         return sum(self.stages.values())
 
 
-def devices_for(n: int, device="cuda") -> List[torch.device]:
-    """The first ``n`` devices of ``device``'s type.  One is all the port
-    runs: ``n > 1`` raises (ROADMAP item 13), whatever is present."""
+def distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def devices_for(n: int, device="cuda"):
+    """Without a process group: ``[device]`` for ``n == 1``, and more
+    raises.  With one: the ``("data", "model")`` ``DeviceMesh`` of shape
+    ``(n, 1)`` over the first ``n`` ranks (every rank of the world must
+    call this; a rank outside the mesh gets it with ``get_coordinate()
+    is None``)."""
     dev = resolve_device(device)
     if n < 1:
         raise ValueError(f"{n} devices asked for")
+    if distributed():
+        from repro_torch.launch.mesh import make_mesh
+        return make_mesh((n, 1), ("data", "model"), device=dev)
     if n > 1:
-        present = torch.cuda.device_count() if dev.type == "cuda" else 1
-        raise NotImplementedError(
-            f"{n} {dev.type} devices asked for ({present} present): the "
-            f"port trains on one device; data parallelism over "
-            f"torch.distributed is ROADMAP item 13")
+        raise RuntimeError(
+            f"{n} devices asked for without a torch.distributed process "
+            f"group: start {n} ranks (python -m repro_torch.launch.train "
+            f"--n-devices {n}, torchrun, or launch.dist.process_group) and "
+            f"build the runtime in each")
     return [dev]
 
 
+def is_member(mesh) -> bool:
+    """Whether this process holds a share of ``mesh``'s work."""
+    return isinstance(mesh, list) or mesh.get_coordinate() is not None
+
+
 class ElasticRuntime:
-    """Owns the device list (``mesh``: ``devices_for(n)``), the step
-    function and the state, and runs the five-step rescale protocol
-    (``rescale_to``).  ``step_factory(devices)`` returns ``fn(state,
-    batch) -> (state, out)``; the state lives on ``devices[0]``.
+    """Owns the mesh (``devices_for(n)``), the step function and the
+    state, and runs the five-step rescale protocol (``rescale_to``).
+
+    ``step_factory(mesh)`` returns ``fn(state, batch) -> (state, out)``.
+    ``shardings_factory(mesh)`` (the reference's name) returns the
+    state's layout on a ``DeviceMesh``, an object with ``place(whole) ->
+    local`` and ``gather_state(local) -> whole`` (``model_zoo.
+    DataParallel``); without it the state is whole on every member.
+    ``init_state`` is the whole state, the same on every rank.
     """
 
     def __init__(self, *, step_factory: Callable, init_state,
-                 n_devices: int, store=None, device="cuda"):
-        self.device_type = resolve_device(device).type
+                 n_devices: int, store=None, device="cuda",
+                 shardings_factory: Optional[Callable] = None):
+        self.device = resolve_device(device)
+        self.device_type = self.device.type
         self.step_factory = step_factory
+        self.shardings_factory = shardings_factory
         self.store = store or InMemoryStore()
         self.events: List[RescaleEvent] = []
         self.n_devices = n_devices
-        self.mesh = devices_for(n_devices, self.device_type)
-        self._step = step_factory(self.mesh)
-        self.state = tree_map(lambda t: t.to(self.mesh[0]), init_state)
+        # shapes and dtypes of the whole state: a new member's buffers
+        self._skeleton = tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            init_state)
+        self._restart(n_devices)
+        self.state = (self._place(tree_map(lambda t: t.to(self.device),
+                                           init_state))
+                      if self.member else None)
 
+    # ------------------------------------------------------------ layout
+    @property
+    def member(self) -> bool:
+        return is_member(self.mesh)
+
+    def _restart(self, n_devices: int):
+        self.mesh = devices_for(n_devices, self.device)
+        member = self.member
+        if isinstance(self.mesh, list):       # one device, no group
+            self.device, self.layout = self.mesh[0], None
+        else:
+            self.layout = (self.shardings_factory(self.mesh)
+                           if member and self.shardings_factory else None)
+        self._step = self.step_factory(self.mesh) if member else None
+
+    def _place(self, whole):
+        return self.layout.place(whole) if self.layout else whole
+
+    def gathered_state(self):
+        """The whole state on every member (a collective over the mesh:
+        every member calls it); ``None`` elsewhere."""
+        if not self.member:
+            return None
+        return (self.layout.gather_state(self.state) if self.layout
+                else self.state)
+
+    def _broadcast_whole(self, whole):
+        """Rank 0's whole state (``whole``; ``None`` on the other
+        members) to every member of the current mesh."""
+        if whole is None:
+            whole = tree_map(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, device=self.device), self._skeleton)
+        group = self.mesh.get_group("data")
+        tree_map(lambda t: dist.broadcast(t, src=0, group=group), whole)
+        return whole
+
+    # ------------------------------------------------------------ protocol
     def step(self, batch):
+        """One step on the members; ``None`` on a rank outside the mesh."""
+        if not self.member:
+            return None
         self.state, out = self._step(self.state, batch)
         return out
 
     def rescale_to(self, n_devices: int) -> RescaleEvent:
         kind = "shrink" if n_devices < self.n_devices else "expand"
         stages: Dict[str, float] = {}
+        on_world = distributed()
+        rank = dist.get_rank() if on_world else 0
 
         t0 = time.perf_counter()
-        self.store.save("elastic", self.state)
+        whole = self.gathered_state()
+        if rank == 0:
+            self.store.save("elastic", whole)
         stages["checkpoint"] = time.perf_counter() - t0
-        self.state = None             # the departing devices' copy
+        self.state = whole = None     # the departing devices' copy
 
-        # "restart": drop the old step function, rebuild the device list
-        # and the step function for it
+        # "restart": drop the old step function, rebuild the mesh (its
+        # process groups) and the step function for it
         t0 = time.perf_counter()
         del self._step
-        self.mesh = devices_for(n_devices, self.device_type)
-        self._step = self.step_factory(self.mesh)
+        self._restart(n_devices)
         stages["restart"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        self.state = self.store.restore("elastic", device=self.mesh[0])
+        if rank == 0:
+            whole = self.store.restore("elastic", device=self.device)
+        if on_world and self.member:
+            whole = self._broadcast_whole(whole)
+        if self.member:
+            self.state = self._place(whole)
         stages["restore"] = time.perf_counter() - t0
 
-        # post-expand LB step (§II-B): one device holds the whole state,
-        # so the pass is the wait for it, as the reference's
+        # post-expand LB step (§II-B): every member holds its share, so
+        # the pass is the wait for all of them, as the reference's
         # block_until_ready
         t0 = time.perf_counter()
-        if self.mesh[0].type == "cuda":
-            torch.cuda.synchronize(self.mesh[0])
+        if on_world:
+            dist.barrier()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         stages["loadbalance"] = time.perf_counter() - t0
 
         ev = RescaleEvent(kind, self.n_devices, n_devices, stages)
         self.n_devices = n_devices
         self.events.append(ev)
         return ev
-

@@ -1,14 +1,25 @@
 """Training launcher: data pipeline + model zoo + elastic adaptive runtime.
 
-Port of ``repro.launch.train``.  ``ElasticTrainer`` owns the device
-list, the train step, the data pipeline and the shrink/expand protocol
-(``core.elastic.ElasticRuntime``), on one device (ROADMAP item 13 for
-more).  Each step copies its host batch to the device on the caller's
-stream and reads the step's metrics back to the host (one wait a step).
+Port of ``repro.launch.train``.  ``ElasticTrainer`` owns the mesh, the
+train step, the data pipeline and the shrink/expand protocol
+(``core.elastic.ElasticRuntime``).  Without a ``torch.distributed``
+process group it trains on one device.  With one (``launch.dist``) it
+trains data parallel over the first ``n_devices`` ranks of the world
+(``models.model_zoo.DataParallel``: the batch split by rows, the
+gradient reduced over the ranks, ZeRO-1 with ``cfg.zero1``), and every
+rank of the world builds it and calls ``train`` and ``rescale``: ranks
+outside the current mesh skip the steps.  Each step copies its host
+batch to the device on the caller's stream and reads the step's metrics
+back to the host (one wait a step).  Tensor parallelism (``model_par >
+1``) is ROADMAP item 13a, third step.
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch granite-8b --reduced --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --reduced --n-devices 2 --steps 2     # spawns 2 gloo ranks
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --reduced --n-devices 2 --steps 4     # 2 NCCL ranks on 2 cards
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
       --reduced --steps 4                                  # on the card
 """
@@ -19,12 +30,16 @@ import argparse
 import time
 from typing import Dict, List, Optional
 
+import torch
+
 from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.checkpointing import make_store
-from repro_torch.core.elastic import ElasticRuntime, RescaleEvent
+from repro_torch.core.elastic import (ElasticRuntime, RescaleEvent,
+                                      distributed)
 from repro_torch.data.pipeline import SyntheticLM, to_device
 from repro_torch.device import resolve_device
+from repro_torch.launch import dist as launch_dist
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import adamw
 
@@ -36,8 +51,10 @@ class ElasticTrainer:
                  hp: Optional[adamw.HParams] = None, device="cuda"):
         if model_par != 1:
             raise NotImplementedError(
-                f"model_par {model_par}: model parallelism (DeviceMesh / "
-                f"DTensor) is ROADMAP item 13")
+                f"model_par {model_par}: tensor parallelism over the mesh's "
+                f"'model' axis (with the models' constrain calls) is "
+                f"ROADMAP item 13a, third step; the port trains data "
+                f"parallel")
         self.cfg = cfg
         self.shape = shape
         self.device = resolve_device(device)
@@ -45,13 +62,15 @@ class ElasticTrainer:
         self.step_idx = 0
         self.metrics_log: List[Dict[str, float]] = []
         self.model_par = model_par
-        # the reference defaults to every device present; the port runs
-        # on one (core.elastic.devices_for)
-        n_devices = n_devices or 1
+        # as the reference defaults to every device present: every rank
+        # of the process group, or the one device without a group
+        n_devices = n_devices or (torch.distributed.get_world_size()
+                                  if distributed() else 1)
         init = zoo.init_state(cfg, seed, self.device)
 
-        def step_factory(devices):
-            return zoo.make_train_step(cfg, hp=hp)
+        def step_factory(mesh):
+            return zoo.make_train_step(
+                cfg, hp=hp, mesh=None if isinstance(mesh, list) else mesh)
 
         self.runtime = ElasticRuntime(
             step_factory=step_factory,
@@ -59,36 +78,66 @@ class ElasticTrainer:
             n_devices=n_devices,
             store=make_store(store_kind),
             device=self.device,
+            shardings_factory=lambda mesh: zoo.DataParallel(cfg, mesh),
         )
 
     # ------------------------------------------------------------- training
     def train(self, n_steps: int, log_every: int = 10) -> Dict[str, float]:
+        """``n_steps`` steps; a rank outside the current mesh skips them
+        (and logs nothing) but keeps its place in the data stream."""
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            host = self.data.batch_at(self.step_idx)
-            batch = to_device(host, self.runtime.mesh[0])
-            metrics = self.runtime.step(batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
-            metrics["step"] = self.step_idx
-            self.metrics_log.append(metrics)
-            if log_every and self.step_idx % log_every == 0:
-                print(f"step {self.step_idx:5d} loss {metrics['loss']:.4f} "
-                      f"gnorm {metrics['grad_norm']:.3f}", flush=True)
+            if self.runtime.member:
+                host = self.data.batch_at(self.step_idx)
+                batch = to_device(host, self.runtime.device)
+                metrics = self.runtime.step(batch)
+                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics["step"] = self.step_idx
+                self.metrics_log.append(metrics)
+                if log_every and self.step_idx % log_every == 0:
+                    print(f"step {self.step_idx:5d} loss "
+                          f"{metrics['loss']:.4f} "
+                          f"gnorm {metrics['grad_norm']:.3f}", flush=True)
             self.step_idx += 1
         return {"seconds": time.perf_counter() - t0,
-                "final_loss": self.metrics_log[-1]["loss"]}
+                "final_loss": (self.metrics_log[-1]["loss"]
+                               if self.metrics_log else None)}
 
     # ------------------------------------------------------------- elastic
     def rescale(self, n_devices: int) -> RescaleEvent:
         ev = self.runtime.rescale_to(n_devices)
-        print(f"[elastic] {ev.kind} {ev.from_devices}->{ev.to_devices} "
-              + " ".join(f"{k}={v*1e3:.1f}ms" for k, v in ev.stages.items()),
-              flush=True)
+        if _rank() == 0:
+            print(f"[elastic] {ev.kind} {ev.from_devices}->{ev.to_devices} "
+                  + " ".join(f"{k}={v*1e3:.1f}ms"
+                             for k, v in ev.stages.items()), flush=True)
         return ev
 
     @property
     def state(self):
         return self.runtime.state
+
+
+def _rank() -> int:
+    return torch.distributed.get_rank() if distributed() else 0
+
+
+def _train(args):
+    """Build the trainer from the command line's flags and train; on a
+    rank of a process group, rank 0 alone prints."""
+    cfg = ARCHS[args.arch]
+    shape = SHAPES[args.shape]
+    if args.reduced:
+        cfg, shape = cfg.reduced(), shape.reduced()
+    trainer = ElasticTrainer(cfg, shape, n_devices=args.n_devices,
+                             model_par=args.model_par, seed=args.seed,
+                             device=args.device)
+    out = trainer.train(args.steps, log_every=10 if _rank() == 0 else 0)
+    if _rank() == 0:
+        print(f"done: {out}", flush=True)
+
+
+def _spawned(rank, world, device, args):
+    _train(args)
 
 
 def main(argv=None):
@@ -98,7 +147,11 @@ def main(argv=None):
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=False, help="CPU-scale reduced config")
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--n-devices", type=int, default=None)
+    ap.add_argument("--n-devices", type=int, default=None,
+                    help="ranks to train on: under torchrun, the first "
+                         "n of its world (default all); otherwise n > 1 "
+                         "spawns n ranks (nccl on cuda, one card each; "
+                         "gloo on cpu)")
     ap.add_argument("--model-par", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -106,15 +159,16 @@ def main(argv=None):
                          "the kernels")
     args = ap.parse_args(argv)
 
-    cfg = ARCHS[args.arch]
-    shape = SHAPES[args.shape]
-    if args.reduced:
-        cfg, shape = cfg.reduced(), shape.reduced()
-    trainer = ElasticTrainer(cfg, shape, n_devices=args.n_devices,
-                             model_par=args.model_par, seed=args.seed,
-                             device=args.device)
-    out = trainer.train(args.steps)
-    print(f"done: {out}")
+    ranks = launch_dist.torchrun_env()
+    if ranks is not None:
+        with launch_dist.process_group(*ranks, "env://", args.device):
+            _train(args)
+    elif (args.n_devices or 1) > 1:
+        # by its import name: spawned ranks import the function afresh
+        from repro_torch.launch.train import _spawned as fn
+        launch_dist.spawn(fn, args.n_devices, args, device=args.device)
+    else:
+        _train(args)
 
 
 if __name__ == "__main__":

@@ -48,6 +48,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
@@ -302,7 +303,8 @@ def state_to_numpy(state: TrainState) -> TrainState:
 
 
 # ============================================================== train step
-def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel"):
+def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
+                dp: Optional["DataParallel"] = None):
     """The gradient half of a train step: ``(grads, loss, nll, aux)``.
 
     The batch splits into ``cfg.num_microbatches`` consecutive row
@@ -311,19 +313,36 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel"):
     it is), in block order, as the reference's scan adds them; then the
     sum is divided by ``n_micro`` and, with ``grad_reduce_dtype ==
     "bfloat16"``, cast to bf16.  ``loss`` is the summed loss over
-    ``n_micro``; ``nll`` and ``aux`` the means of the blocks' values."""
-    n_micro = max(cfg.num_microbatches, 1)
+    ``n_micro``; ``nll`` and ``aux`` the means of the blocks' values.
+
+    With ``dp`` (a ``DataParallel`` layout) the rank takes its rows of
+    the global batch in ``dp.micro_batches`` blocks, and the gradient is
+    summed over the data ranks and divided by ``n_micro`` times their
+    number: the gradient of the reference's global token mean.
+    ``grad_schedule == "overlapped"`` reduce-scatters each block's
+    gradient as it is made (``_scatter_grads``), in float32; ``"fused"``
+    reduces once, after the ``grad_reduce_dtype`` cast.  The gradient
+    comes back in the layout the update takes: with ``cfg.zero1`` each
+    leaf's ZeRO-1 block, else whole.  The metrics are the global ones
+    (means over the data ranks)."""
     leaves, rebuild = adamw.flatten(params)
     masters = [p.detach().requires_grad_() for p in leaves]
     tree = rebuild(masters)
-    b = batch["tokens"].shape[0]
-    if b % n_micro:
-        raise ValueError(f"batch {b} is not a multiple of {n_micro} "
-                         f"micro-batches")
+    if dp is None:
+        n_micro, size = max(cfg.num_microbatches, 1), 1
+        b = batch["tokens"].shape[0]
+        if b % n_micro:
+            raise ValueError(f"batch {b} is not a multiple of {n_micro} "
+                             f"micro-batches")
+    else:
+        batch = dp.rows(batch)
+        b = batch["tokens"].shape[0]
+        n_micro, size = dp.micro_batches(b), dp.size
+    per_micro = dp is not None and cfg.grad_schedule == "overlapped"
     bm = b // n_micro
     lsum = torch.zeros((), dtype=torch.float32,
                        device=batch["tokens"].device)
-    nlls, auxs = [], []
+    nlls, auxs, acc = [], [], None
     with torch.enable_grad():
         for i in range(n_micro):
             mb = {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
@@ -332,42 +351,222 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel"):
             lsum = lsum + loss.detach()
             nlls.append(metrics["nll"].detach())
             auxs.append(metrics["aux"].detach())
-    grads = [p.grad for p in masters]
-    if cfg.grad_schedule == "overlapped":
-        grads = adamw.flatten(_scatter_grads(rebuild(grads), cfg))[0]
-    grads = [g / n_micro for g in grads]
+            if per_micro:
+                g = _scatter_grads([p.grad for p in masters], dp)
+                acc = g if acc is None else [a + x for a, x in zip(acc, g)]
+                for p in masters:
+                    p.grad = None
+    grads = acc if per_micro else [p.grad for p in masters]
+    grads = [g / (n_micro * size) for g in grads]
     if cfg.grad_reduce_dtype == "bfloat16":
         grads = [g.to(torch.bfloat16) for g in grads]
-    return (rebuild(grads), lsum / n_micro, torch.stack(nlls).mean(),
-            torch.stack(auxs).mean())
+    out = (lsum / n_micro, torch.stack(nlls).mean(), torch.stack(auxs).mean())
+    if dp is not None:
+        if per_micro and not dp.zero1:
+            grads = [dp.gather(g, i) for i, g in enumerate(grads)]
+        elif not per_micro:
+            grads = (_scatter_grads(grads, dp) if dp.zero1 else
+                     [dp.reduce(g, i, scatter=False)
+                      for i, g in enumerate(grads)])
+        out = tuple(dp.mean(torch.stack(out)).unbind(0))
+    return (rebuild(grads),) + out
 
 
 def make_train_step(cfg: ModelConfig, hp: Optional[adamw.HParams] = None,
-                    impl: str = "kernel"):
+                    impl: str = "kernel", mesh=None):
     """``fn(state, batch) -> (new_state, metrics)``: ``train_grads``, then
     one AdamW update.  ``metrics``: ``loss``, ``nll``, ``aux`` and
     ``grad_norm`` (of the gradient the update gets), 0-d float32
     tensors on the state's device.  ``impl`` goes to ``mamba2_block``
-    only (``"ref"``: the plain SSD route on the card)."""
+    only (``"ref"``: the plain SSD route on the card).
+
+    ``mesh``: a ``DeviceMesh`` (``launch.mesh``) this rank belongs to;
+    the step is then data parallel over its ``data`` axis
+    (``DataParallel``), takes the global batch and a state laid out by
+    ``DataParallel.place``, and every rank of the mesh must call it.
+    With ``cfg.zero1`` the update runs on each leaf's ZeRO-1 block (m
+    and v are those blocks) and the new parameters are all-gathered."""
     hp = hp or adamw.HParams()
+    dp = None if mesh is None else DataParallel(cfg, mesh)
 
     def train_step(state: TrainState, batch):
-        grads, loss, nll, aux = train_grads(state.params, batch, cfg, impl)
-        params, opt = adamw.update(state.params, grads, state.opt,
-                                   state.step, hp)
-        metrics = {"loss": loss, "nll": nll, "aux": aux,
-                   "grad_norm": adamw.global_norm(grads)}
+        grads, loss, nll, aux = train_grads(state.params, batch, cfg, impl,
+                                            dp)
+        if dp is not None and dp.zero1:
+            gnorm = dp.norm(grads)
+            blocks, opt = adamw.update(dp.blocks(state.params), grads,
+                                       state.opt, state.step, hp, gnorm)
+            params = dp.gather_tree(blocks)
+        else:
+            gnorm = adamw.global_norm(grads)
+            params, opt = adamw.update(state.params, grads, state.opt,
+                                       state.step, hp, gnorm)
+        metrics = {"loss": loss, "nll": nll, "aux": aux, "grad_norm": gnorm}
         return TrainState(state.step + 1, params, opt), metrics
 
     return train_step
 
 
-def _scatter_grads(grads, cfg: ModelConfig):
-    """The reference constrains the gradient to the ZeRO-1 shardings
-    under an active mesh and returns it as it is without one
-    (``model_zoo.py:236-237``).  The port has no mesh yet (ROADMAP item
-    13): the identity."""
-    return grads
+def _scatter_grads(grads, dp: Optional["DataParallel"]):
+    """The reference constrains the gradient to the ZeRO-1 shardings under
+    an active mesh (``model_zoo.py:229-241``), so GSPMD lowers its
+    reduction as a reduce-scatter, and returns it as it is without one.
+    The port, given a ``DataParallel`` layout: each leaf summed over the
+    data ranks into its ZeRO-1 block, a reduce-scatter along the
+    dimension ``zero1_extend`` picks (a leaf it leaves whole: an
+    all-reduce); without one (a single device), the identity."""
+    if dp is None:
+        return grads
+    return [dp.reduce(g, i, scatter=True) for i, g in enumerate(grads)]
+
+
+# ============================================================== data parallelism
+def _shard_dim(placement) -> Optional[int]:
+    from torch.distributed.tensor import Shard
+    return placement.dim if isinstance(placement, Shard) else None
+
+
+class DataParallel:
+    """A train state's layout over the ``data`` axis of a ``DeviceMesh``
+    (``launch.mesh``) and the collectives of a data-parallel step.
+
+    The layout is the reference's (``launch.specs.state_shardings``,
+    ``batch_shardings``):
+
+    * the global batch splits by rows over ``data`` where it divides
+      (``rows``); where it does not, every rank takes all of it, as the
+      reference replicates it;
+    * parameters are whole on every rank: the mesh's ``model`` axis has
+      size 1 (tensor parallelism is ROADMAP item 13a, third step);
+    * with ``cfg.zero1``, m and v are the ZeRO-1 shardings' blocks: leaf
+      ``i`` split in ``size`` along ``dims[i]`` (the ``Shard`` of its
+      placements on ``data``), rank ``r`` keeping block ``r``; a leaf
+      with no such dimension (``None``) stays whole on every rank.
+
+    Parameters, gradients and activations are plain tensors on each rank
+    (never a DTensor: the kernels take plain tensors); the placements say
+    which block is whose.  The moe family raises at more than one rank:
+    its aux loss is a product of batch statistics and its capacity
+    couples a token to its batch (``repro/models/moe.py:66``), so a mean
+    of per-rank values is not the reference's loss."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        from repro_torch.launch.sharding import (ShardingRules, axis_names,
+                                                 axis_sizes, zero1_shardings)
+        names, sizes = axis_names(mesh), axis_sizes(mesh)
+        if set(names) - {"data", "model"} or sizes.get("model", 1) != 1:
+            raise NotImplementedError(
+                f"a {sizes} mesh: the port trains data parallel only; "
+                f"tensor parallelism over 'model' is ROADMAP item 13a "
+                f"(third step)")
+        self.size = sizes["data"]
+        if cfg.family == "moe" and self.size > 1:
+            raise NotImplementedError(
+                f"{cfg.name} over {self.size} data ranks: the moe aux loss "
+                f"and capacity are batch statistics, and reducing them over "
+                f"the data ranks is ROADMAP item 13a (third step)")
+        self.cfg, self.mesh, self.zero1 = cfg, mesh, cfg.zero1
+        self.rules = ShardingRules(mesh)
+        self.group = mesh.get_group("data")
+        self.rank = mesh.get_local_rank("data")
+        axis = names.index("data")
+        self.dims = [_shard_dim(s.placements[axis]) for s in adamw.flatten(
+            zero1_shardings(self.rules, T.model_schema(cfg)))[0]]
+
+    # ------------------------------------------------------------ batches
+    def rows(self, batch):
+        """This rank's rows of the global batch (every leaf's dim 0)."""
+        B = batch["tokens"].shape[0]
+        if self.rules.spec(("batch",), (B,))[0] is None:
+            return batch
+        b = B // self.size
+        return {k: v[self.rank * b:(self.rank + 1) * b]
+                for k, v in batch.items()}
+
+    def micro_batches(self, b: int) -> int:
+        """Micro-batches of a rank's ``b`` rows: ``cfg.num_microbatches``
+        where it divides ``b``.  A rank with fewer rows than that (global
+        batch 4 in 2 micro-batches over 4 ranks) takes one row a block:
+        every row holds the same number of loss tokens and no family that
+        reaches here has an aux loss, so the global token mean, and its
+        gradient, are the reference's.  Anything else raises."""
+        n = max(self.cfg.num_microbatches, 1)
+        if b % n == 0:
+            return n
+        if n % b == 0:
+            return b
+        raise ValueError(
+            f"{b} rows a rank do not split into {n} micro-batches, nor "
+            f"{n} into one-row blocks: the gradient would not be the "
+            f"reference's")
+
+    # ------------------------------------------------------------ leaves
+    def _block(self, t, i):
+        d = self.dims[i]
+        return t if d is None else t.chunk(self.size, d)[self.rank]
+
+    def reduce(self, g, i, scatter: bool):
+        """Leaf ``i``'s ``g`` summed over the data ranks: its ZeRO-1 block
+        (a reduce-scatter) with ``scatter``, else whole (an all-reduce)."""
+        d = self.dims[i] if scatter else None
+        if d is None:
+            dist.all_reduce(g, group=self.group)
+            return g
+        parts = [c.contiguous() for c in g.chunk(self.size, d)]
+        out = torch.empty_like(parts[self.rank])
+        dist.reduce_scatter(out, parts, group=self.group)
+        return out
+
+    def gather(self, t, i):
+        """Leaf ``i`` whole from its blocks (an all-gather)."""
+        d = self.dims[i]
+        if d is None:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts, d)
+
+    def blocks(self, tree):
+        leaves, rebuild = adamw.flatten(tree)
+        return rebuild([self._block(t, i) for i, t in enumerate(leaves)])
+
+    def gather_tree(self, tree):
+        leaves, rebuild = adamw.flatten(tree)
+        return rebuild([self.gather(t, i) for i, t in enumerate(leaves)])
+
+    def norm(self, grads) -> torch.Tensor:
+        """The global norm of a gradient given as ZeRO-1 blocks: the
+        blocks' squares summed over the ranks, the whole leaves' once."""
+        leaves = adamw.flatten(grads)[0]
+
+        def sq(keep):
+            return sum(torch.sum(torch.square(g.float()))
+                       for g, d in zip(leaves, self.dims)
+                       if (d is None) != keep)
+        split, whole = sq(True), sq(False)
+        if isinstance(split, torch.Tensor):
+            dist.all_reduce(split, group=self.group)
+        return torch.sqrt(split + whole)
+
+    def mean(self, t):
+        dist.all_reduce(t, group=self.group)
+        return t / self.size
+
+    # ------------------------------------------------------------ state
+    def place(self, state: TrainState) -> TrainState:
+        """A whole state (every rank holds the same) -> this rank's: m and
+        v cut to their ZeRO-1 blocks with ``cfg.zero1``."""
+        if not self.zero1:
+            return state
+        return TrainState(state.step, state.params, adamw.AdamWState(
+            self.blocks(state.opt.m), self.blocks(state.opt.v)))
+
+    def gather_state(self, state: TrainState) -> TrainState:
+        """``place``'s inverse: the whole state, on every rank."""
+        if not self.zero1:
+            return state
+        return TrainState(state.step, state.params, adamw.AdamWState(
+            self.gather_tree(state.opt.m), self.gather_tree(state.opt.v)))
 
 
 # ============================================================== serving

@@ -15,7 +15,7 @@ read.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,10 +87,14 @@ def schedule(step: torch.Tensor, hp: HParams) -> torch.Tensor:
 
 @torch.no_grad()
 def update(params, grads, state: AdamWState, step: torch.Tensor,
-           hp: HParams):
+           hp: HParams, gnorm: Optional[torch.Tensor] = None):
     """One AdamW step.  Returns ``(new_params, AdamWState(m, v))``, new
-    trees; the arguments are not modified."""
-    gnorm = global_norm(grads)
+    trees; the arguments are not modified.  ``gnorm``: the gradient's
+    global norm when ``grads`` holds only this rank's ZeRO-1 blocks of
+    it (``model_zoo.DataParallel.norm``); by default ``global_norm(
+    grads)``.  The update is elementwise, so on blocks of the params, m
+    and v it computes those blocks of the whole update."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(hp.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(step, hp)

@@ -109,15 +109,19 @@ def test_rescale_records_four_stages_and_restores_the_state(kind, tmp_path,
 
 
 def test_more_than_one_device_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    """Without a process group the port trains on one device: more
+    raises, naming how to start the ranks (the multi-rank paths are
+    ``tests/test_torch_multirank.py``'s); tensor parallelism raises with
+    or without one."""
+    with pytest.raises(RuntimeError, match="process group"):
         devices_for(2, "cpu")
     with pytest.raises(ValueError):
         devices_for(0, "cpu")
     cfg = ARCHS["granite-8b"].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(RuntimeError, match="process group"):
         ElasticTrainer(cfg, SHAPES["train_4k"].reduced(), n_devices=2,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13a"):
         ElasticTrainer(cfg, SHAPES["train_4k"].reduced(), model_par=2,
                        device="cpu")
 
