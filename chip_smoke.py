@@ -252,6 +252,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    8192; s/step, tokens/s, peak GiB, finite losses) and runs ``python -m
    repro_torch.launch.serve --arch seamless-m4t-medium --no-reduced
    --cache-mode dense`` as a subprocess.
+22. data-parallel training over ``torch.distributed`` ranks, after
+   phase 21 (``dp_phase``): (a) one NCCL rank (a world of 1, a
+   ``file://`` rendezvous) trains phase 20's full-width mamba2-780m
+   through ``ElasticTrainer(n_devices=1)``'s data-parallel path with
+   ZeRO-1 for 3 steps, its losses equal to phase 20's single-device
+   twin's first 3 bit for bit, SSD launches 48 x 4 x 2 x 3 (the counts
+   set to 0 just before and read just after), s/step, tokens/s, peak
+   GiB, then one 1 -> 1 rescale (device store: the four stage ms, the
+   gathered state bit for bit across it); (b) two gloo ranks spawned on
+   the one card (NCCL cannot put two ranks on one card) probe the
+   collectives the step needs on CUDA tensors, then train granite-8b at
+   full width and 2 layers with ZeRO-1 (off, the log naming why, if gloo
+   refused one) beside an unrescaled twin of 3 steps: 1 step, rescale
+   2 -> 1, 1 step (rank 1 sits out), rescale 1 -> 2, 1 step; losses
+   within 5e-4 of the twin's, the state gathered bit for bit across
+   each rescale, the stage ms and s/step logged.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -3704,6 +3720,228 @@ def frontend_phase(dev):
     return launches, numbers
 
 
+# ------------------------------------------- phase 22: data parallel training
+# Phase 22: training over torch.distributed ranks.  (a) one NCCL rank (a
+# world of 1) trains phase 20's mamba2-780m (full width and depth, the
+# global batch cut to TRAIN_BATCH) with ZeRO-1 through the data-parallel
+# path, DP_STEPS steps, then one 1 -> 1 rescale; (b) DP_RANKS gloo ranks
+# share the card (NCCL cannot put two ranks on one card) and train
+# granite-8b cut to DENSE_TRAIN_LAYERS layers, as phase 20's (d) sizes
+# it, with ZeRO-1 across a 2 -> 1 -> 2 rescale, beside an unrescaled
+# twin.
+DP_STEPS, DP_RANKS = 3, 2
+DP_ELASTIC_LOSS = 5e-4      # tests/test_multidevice.py:106
+# what a data-parallel step and a rescale call on a gloo group
+DP_COLLECTIVES = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
+
+
+def state_leaves(st):
+    from repro_torch.optim import adamw
+    return [t for tree in (st.params, st.opt.m, st.opt.v)
+            for t in adamw.flatten(tree)[0]] + [st.step]
+
+
+def state_kept(tr, rank, dev):
+    """After a rescale: whether the state, gathered whole over the new
+    mesh (its ZeRO-1 blocks; a collective, so every member calls this),
+    equals bit for bit the whole state the rescale's checkpoint gathered
+    before it (restored from rank 0's store).  With one member the local
+    state is whole and nothing is gathered.  ``None`` off rank 0."""
+    rt = tr.runtime
+    if not rt.member:
+        return None
+    whole = rt.gathered_state() if rt.layout.size > 1 else rt.state
+    if rank != 0:
+        return None
+    saved = rt.store.restore("elastic", device=dev)
+    return bit_equal(state_leaves(saved), state_leaves(whole))
+
+
+def bit_equal(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def dp_one_rank_phase(dev, twin_losses):
+    """(a) a world of one rank (NCCL on the card, gloo on the CPU):
+    ``ElasticTrainer(n_devices=1)`` through the data-parallel path with
+    ZeRO-1, ``DP_STEPS`` steps, its losses equal to phase 20's twin's
+    first ones (the single-device trainer, the same seed) bit for bit,
+    SSD launches = layers x micro-batches x 2 x steps; then one 1 -> 1
+    rescale (device store) with the gathered state bit-equal across it.
+    Returns (launches, numbers)."""
+    import tempfile
+    from repro_torch.launch import dist as launch_dist
+    from repro_torch.launch.train import ElasticTrainer
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adamw
+    cfg, shape = train_cfg(TRAIN_ARCH, dev, zero1=True)
+    release(dev)
+    with tempfile.TemporaryDirectory() as tmp, launch_dist.process_group(
+            0, 1, launch_dist.file_rendezvous(tmp), dev) as rank_dev:
+        backend = torch_dist_backend()
+        tr = ElasticTrainer(cfg, shape, seed=0, store_kind="device",
+                            hp=adamw.HParams(**TRAIN_HP), device=rank_dev)
+        layout = tr.runtime.layout
+        assert isinstance(layout, zoo.DataParallel) and layout.zero1
+        sync(dev)
+        zero_launches()
+        times = timed_steps(tr, DP_STEPS, dev)
+        launches = read_launches()
+        peak = peak_gib()
+        ev = tr.rescale(1)
+        same = state_kept(tr, 0, rank_dev)
+        numbers = log_trainer(
+            f"{cfg.name}, one {backend} rank, ZeRO-1 (device store)", cfg,
+            shape, tr, launches, times, [ev], peak)
+        del tr
+    release(dev)
+    losses = numbers["losses"]
+    want = cfg.num_layers * cfg.num_microbatches * 2 * DP_STEPS
+    log(f"  against phase 20's single-device twin: {losses} vs "
+        f"{twin_losses[:DP_STEPS]} (bit for bit: "
+        f"{losses == twin_losses[:DP_STEPS]}); state across the rescale "
+        f"bit for bit: {same}; SSD launches {launches['ssd_intra_chunk']} "
+        f"(want {want} on the card)")
+    assert losses == twin_losses[:DP_STEPS], (losses, twin_losses)
+    assert same
+    if dev.type == "cuda":
+        assert launches["ssd_intra_chunk"] == want, (launches, want)
+    numbers.update(backend=backend, state_bit_equal=same)
+    return launches, numbers
+
+
+def torch_dist_backend() -> str:
+    import torch.distributed as dist
+    return dist.get_backend()
+
+
+def gloo_probe(dev, world) -> dict:
+    """Each collective the step needs, once on a small tensor of ``dev``
+    in the current gloo group: "ok" or the error it raised."""
+    import torch
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    calls = {
+        "all_reduce": lambda t: dist.all_reduce(t),
+        "reduce_scatter": lambda t: dist.reduce_scatter(
+            torch.empty(2, device=dev), list(t.reshape(world, 2).unbind(0))),
+        "all_gather": lambda t: dist.all_gather(
+            [torch.empty_like(t) for _ in range(world)], t),
+        "broadcast": lambda t: dist.broadcast(t, 0)}
+    out = {}
+    for name in DP_COLLECTIVES:
+        t = torch.arange(2 * world, dtype=torch.float32, device=dev) + rank
+        try:
+            calls[name](t)
+            sync(dev)
+            out[name] = "ok"
+        except RuntimeError as e:       # gloo refusing a CUDA tensor
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def dp_gloo_rank(rank, world, dev, out_path):
+    """A rank of (b): probe the collectives; a twin trainer over both
+    ranks for 3 steps (then dropped); a trainer of 1 step, ``rescale(1)``
+    (rank 1 sits out), 1 step, ``rescale(2)``, 1 step, the state
+    bit-equal across each rescale (``state_kept``).  Rank 0 writes the
+    readings to ``out_path`` as JSON."""
+    import torch
+    from repro_torch.launch.train import ElasticTrainer
+    from repro_torch.optim import adamw
+    probe = gloo_probe(dev, world)
+    zero1 = all(v == "ok" for v in probe.values())
+    cfg, shape = train_cfg(DENSE_TRAIN_ARCH, dev, zero1=zero1)
+    if dev.type == "cuda":
+        cfg = cfg.with_(num_layers=DENSE_TRAIN_LAYERS)
+
+    def trainer():
+        return ElasticTrainer(cfg, shape, n_devices=world, seed=0,
+                              store_kind="device",
+                              hp=adamw.HParams(**TRAIN_HP), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    twin = trainer()
+    twin_times = timed_steps(twin, 3, dev)
+    twin_losses = [m["loss"] for m in twin.metrics_log]
+    del twin
+    release(dev)        # the card is shared: hand the twin's memory back
+    tr = trainer()
+    times, events, same = timed_steps(tr, 1, dev), [], []
+    for n in (1, world):
+        events.append(tr.rescale(n))
+        same.append(state_kept(tr, rank, dev))
+        release(dev)    # a rank that left the mesh frees its share
+        times += timed_steps(tr, 1, dev)
+    if rank == 0:
+        out = {"probe": probe, "zero1": zero1, "layers": cfg.num_layers,
+               "batch": shape.global_batch, "seq": shape.seq_len,
+               "twin_losses": twin_losses, "twin_step_s": twin_times,
+               "losses": [m["loss"] for m in tr.metrics_log],
+               "step_s": times, "state_bit_equal": same,
+               "peak_gib_rank0": peak_gib(),
+               "rescales": [{"kind": e.kind, "from": e.from_devices,
+                             "to": e.to_devices,
+                             **{k: v * 1e3 for k, v in e.stages.items()}}
+                            for e in events]}
+        Path(out_path).write_text(json.dumps(out))
+
+
+def dp_gloo_phase(dev):
+    """(b) ``DP_RANKS`` gloo ranks spawned on ``dev`` (sharing one card):
+    granite-8b at 2 layers with ZeRO-1 (off if gloo refused a collective
+    the step needs: the log names it) across 2 -> 1 -> 2, the losses
+    within ``DP_ELASTIC_LOSS`` of the unrescaled twin's, the state
+    bit-equal across each rescale.  Returns the readings."""
+    import tempfile
+    from repro_torch.launch import dist as launch_dist
+    release(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = Path(tmp) / "dp_gloo.json"
+        t0 = time.perf_counter()
+        launch_dist.spawn(dp_gloo_rank, DP_RANKS, str(out_path),
+                          device=dev.type, backend="gloo")
+        wall = time.perf_counter() - t0
+        out = json.loads(out_path.read_text())
+    out["wall_s"] = wall
+    refused = {k: v for k, v in out["probe"].items() if v != "ok"}
+    log(f"  gloo on {dev.type} tensors: " + (
+        "every collective the step needs accepted" if not refused else
+        f"refused {refused}: ZeRO-1 off"))
+    log(f"  granite-8b, {out['layers']} layers, batch {out['batch']} x "
+        f"{out['seq']}, ZeRO-1 {out['zero1']}, {DP_RANKS} gloo ranks: twin "
+        f"losses {out['twin_losses']} (s/step {spread(out['twin_step_s'], 1.0)}"
+        f"); rescaled {out['losses']} (s/step {spread(out['step_s'], 1.0)});"
+        f" state across each rescale bit for bit: {out['state_bit_equal']};"
+        f" rank 0 peak {out['peak_gib_rank0']:.2f} GiB; {wall:.1f} s with "
+        f"the spawn")
+    for ev in out["rescales"]:
+        log(f"    rescale {ev['kind']} {ev['from']}->{ev['to']}: " + ", ".join(
+            f"{k} {ev[k]:.2f} ms" for k in ("checkpoint", "restart",
+                                            "restore", "loadbalance")))
+    diffs = [abs(a - b) for a, b in zip(out["twin_losses"], out["losses"])]
+    out["max_loss_diff"] = max(diffs)
+    assert len(diffs) == 3 and out["max_loss_diff"] < DP_ELASTIC_LOSS, out
+    assert out["state_bit_equal"] == [True, True], out
+    assert [e["kind"] for e in out["rescales"]] == ["shrink", "expand"]
+    assert all(e["restart"] > 0 for e in out["rescales"])
+    return out
+
+
+def dp_phase(dev, twin_losses):
+    """Phase 22.  Returns (SSD launches by run, numbers)."""
+    log(f"[dp] phase 22 on {gpu_line() if dev.type == 'cuda' else dev}")
+    log(f"[dp] (a) {TRAIN_ARCH} over one rank with ZeRO-1")
+    launches, one = dp_one_rank_phase(dev, twin_losses)
+    log(f"[dp] (b) {DENSE_TRAIN_ARCH} over {DP_RANKS} gloo ranks on one "
+        f"device across a rescale")
+    gloo = dp_gloo_phase(dev)
+    return ({f"{TRAIN_ARCH} data parallel (1 rank)": launches},
+            {"one_rank": one, "gloo": gloo})
+
+
 def first_difference(a, b):
     """The first index where two token lists differ (None if equal)."""
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -3954,6 +4192,11 @@ def main() -> int:
     flash["launches"] = sum(flash["launches_by_path"].values())
     log(f"[frontend] numbers {json.dumps(frontend)}")
     t_phase = lap("phase 21 (enc_dec and vlm)", t_phase)
+    # 22. data-parallel training over torch.distributed ranks
+    dp_runs, dp = dp_phase(dev, training["mamba2"]["twin"]["losses"])
+    by_path.update(dp_runs)
+    log(f"[dp] numbers {json.dumps(dp)}")
+    t_phase = lap("phase 22 (data parallel)", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}

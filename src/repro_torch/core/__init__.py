@@ -7,6 +7,7 @@ the CloudManager.
 - checkpointing: memory / device / filesystem stores (C3, C5)
 - cloud:         CloudManager, the spot-fleet simulation of the
                  filesystem / reactive / proactive modes (C4, C5)
-- spmd_stencil:  the single-grid oracle (the multi-device path waits for
-                 ``torch.distributed``)
+- spmd_stencil:  the single-grid oracle (the multi-device path is ROADMAP
+                 item 13a, third step)
+- elastic:       shrink / expand over devices or torch.distributed ranks
 """

@@ -2,9 +2,9 @@
 
 The reference's ``make_jacobi_spmd_step`` shards the grid by row blocks
 over a mesh and exchanges halo rows with ``ppermute`` inside
-``shard_map``.  Its port needs ``torch.distributed`` (ROADMAP queue 1,
-item 13) and raises until then; the single-device oracle and the
-row-block tile update are here.
+``shard_map``.  Its port, a halo exchange over ``torch.distributed``
+(ROADMAP item 13a, third step), raises until then; the single-device
+oracle and the row-block tile update are here.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ def _tile_step(tile, up_row, down_row):
 def make_jacobi_spmd_step(*args, **kwargs):
     raise NotImplementedError(
         "the multi-device Jacobi step (shard_map + ppermute halo exchange "
-        "in the reference) waits for torch.distributed: ROADMAP queue 1, "
-        "item 13")
+        "in the reference) waits for a halo exchange over "
+        "torch.distributed: ROADMAP item 13a, third step")
 
 
 def reference_jacobi(grid, n_iters: int):

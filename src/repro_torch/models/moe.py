@@ -1,10 +1,11 @@
 """GShard/Switch-style top-k MoE with capacity-bounded dispatch.
 
 Port of ``repro.models.moe`` without ``_moe_explicit_ep`` (its
-``shard_map`` expert parallelism waits for the port's meshes, ROADMAP
-item 13): the port has no mesh, so ``moe_block`` takes the reference's
-own path without one, ``_moe_grouped`` (``moe_impl`` "auto" or
-"grouped"), or the one-hot formulation (``moe_impl="onehot"``).
+``shard_map`` expert parallelism over the mesh's ``model`` axis is
+ROADMAP item 13a, third step): the port's meshes are data parallel
+only, so ``moe_block`` takes the reference's own path without a model
+axis, ``_moe_grouped`` (``moe_impl`` "auto" or "grouped"), or the
+one-hot formulation (``moe_impl="onehot"``).
 
 Routing is float32, from a float32 router, whatever the compute dtype;
 the expert weights are stored in compute dtype by ``convert``.  Every

@@ -11,6 +11,8 @@ through the test's ``file://`` rendezvous, runs the scenario's programs
 on the CPU with reduced models, and writes what the test checks to
 ``OUT_DIR/<scenario>-<rank>.pt``.  It imports torch and the port only,
 never JAX: the test process holds the results against the reference.
+The ``cuda_one`` scenario is ``tests/test_torch_cuda.py``'s: one NCCL
+rank on the card.
 """
 
 import datetime
@@ -142,12 +144,58 @@ def scenario_four(world):
             "elastic": elastic(cfg_of("granite-8b", zero1=True), world)}
 
 
+def scenario_cuda_one(world):
+    """One NCCL rank on the card: a data-parallel step (plain and ZeRO-1)
+    against the single-device step from one state, for reduced
+    granite-8b and mamba2-780m (the SSD kernel); and every ZeRO-1 leaf's
+    placements through ``distribute_tensor`` on a CUDA mesh of 1."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import ShardingRules
+    from repro_torch.launch.specs import state_shardings
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    out = {}
+    for arch in ("granite-8b", "mamba2-780m"):
+        for zero1 in (False, True):
+            cfg = cfg_of(arch, zero1=zero1)
+            batch = zoo.make_batch(cfg, SHAPE, seed=1, device=dev)
+            runs = []
+            for m in (None, mesh):
+                state = zoo.init_state(cfg, 0, device=dev)
+                step = zoo.make_train_step(cfg, adamw.HParams(**HP), mesh=m)
+                if m is not None:
+                    state = zoo.DataParallel(cfg, m).place(state)
+                state, metrics = step(state, batch)
+                if m is not None:
+                    state = zoo.DataParallel(cfg, m).gather_state(state)
+                runs.append(({k: float(v) for k, v in metrics.items()},
+                             leaves(state)))
+            (m1, s1), (m2, s2) = runs
+            out[(arch, zero1)] = m1 == m2 and all(
+                torch.equal(a, b) for a, b in zip(s1, s2))
+    cfg = cfg_of("granite-8b", zero1=True)
+    sh = adamw.flatten(state_shardings(cfg, ShardingRules(mesh)).opt.m)[0]
+    gen = torch.Generator(dev).manual_seed(3)
+    same = []
+    for s, leaf in zip(sh, adamw.flatten(zoo.abstract_state(cfg).params)[0]):
+        whole = torch.randn(leaf.shape, generator=gen, device=dev)
+        d = distribute_tensor(whole, mesh, s.placements)
+        same.append(d.to_local().is_cuda and torch.equal(d.to_local(), whole)
+                    and torch.equal(d.full_tensor(), whole))
+    out["placements"] = same
+    return out
+
+
 def main():
     scenario, rank, world, init, out_dir = sys.argv[1:6]
     rank, world = int(rank), int(world)
-    with launch_dist.process_group(rank, world, init, "cpu",
+    run = {"two": scenario_two, "four": scenario_four,
+           "cuda_one": scenario_cuda_one}[scenario]
+    device = "cuda" if scenario.startswith("cuda") else "cpu"
+    with launch_dist.process_group(rank, world, init, device,
                                    timeout=datetime.timedelta(seconds=60)):
-        out = {"two": scenario_two, "four": scenario_four}[scenario](world)
+        out = run(world)
     torch.save(out, Path(out_dir) / f"{scenario}-{rank}.pt")
 
 

@@ -991,3 +991,31 @@ def test_small_paged_cluster_on_card_matches_lone_engine(cuda_device):
     assert out["migrated_slots"] > 0
     assert kernel.launches > launches
     assert [r.out_tokens for r in reqs] == [r.out_tokens for r in lone_reqs]
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_data_parallel_step_on_card(cuda_device, tmp_path):
+    """One NCCL rank (a world of 1, in a child process: this process
+    opens no process group): the data-parallel step of reduced
+    granite-8b and mamba2-780m (the SSD kernel), plain and ZeRO-1, gives
+    the single-device step's metrics and state bit for bit (NCCL's
+    collectives over one rank copy); every ZeRO-1 leaf of reduced
+    granite-8b goes through ``distribute_tensor`` with its
+    ``ShardingRules`` placements on a CUDA mesh of 1 and comes back
+    whole."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    run = subprocess.run(
+        [sys.executable, str(root / "tests" / "_torch_ranks.py"), "cuda_one",
+         "0", "1", f"file://{tmp_path / 'rendezvous'}", str(tmp_path)],
+        env=env, cwd=root, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    out = torch.load(tmp_path / "cuda_one-0.pt", weights_only=False)
+    placements = out.pop("placements")
+    assert placements and all(placements), placements
+    assert out == {(a, z): True for a in ("granite-8b", "mamba2-780m")
+                   for z in (False, True)}, out
