@@ -3772,6 +3772,7 @@ def dp_one_rank_phase(dev, twin_losses):
     rescale (device store) with the gathered state bit-equal across it.
     Returns (launches, numbers)."""
     import tempfile
+    import torch
     from repro_torch.launch import dist as launch_dist
     from repro_torch.launch.train import ElasticTrainer
     from repro_torch.models import model_zoo as zoo
@@ -3780,7 +3781,7 @@ def dp_one_rank_phase(dev, twin_losses):
     release(dev)
     with tempfile.TemporaryDirectory() as tmp, launch_dist.process_group(
             0, 1, launch_dist.file_rendezvous(tmp), dev) as rank_dev:
-        backend = torch_dist_backend()
+        backend = torch.distributed.get_backend()
         tr = ElasticTrainer(cfg, shape, seed=0, store_kind="device",
                             hp=adamw.HParams(**TRAIN_HP), device=rank_dev)
         layout = tr.runtime.layout
@@ -3810,11 +3811,6 @@ def dp_one_rank_phase(dev, twin_losses):
         assert launches["ssd_intra_chunk"] == want, (launches, want)
     numbers.update(backend=backend, state_bit_equal=same)
     return launches, numbers
-
-
-def torch_dist_backend() -> str:
-    import torch.distributed as dist
-    return dist.get_backend()
 
 
 def gloo_probe(dev, world) -> dict:

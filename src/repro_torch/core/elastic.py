@@ -86,11 +86,6 @@ def devices_for(n: int, device="cuda"):
     return [dev]
 
 
-def is_member(mesh) -> bool:
-    """Whether this process holds a share of ``mesh``'s work."""
-    return isinstance(mesh, list) or mesh.get_coordinate() is not None
-
-
 class ElasticRuntime:
     """Owns the mesh (``devices_for(n)``), the step function and the
     state, and runs the five-step rescale protocol (``rescale_to``).
@@ -125,7 +120,9 @@ class ElasticRuntime:
     # ------------------------------------------------------------ layout
     @property
     def member(self) -> bool:
-        return is_member(self.mesh)
+        """Whether this process holds a share of the mesh's work."""
+        return (isinstance(self.mesh, list)
+                or self.mesh.get_coordinate() is not None)
 
     def _restart(self, n_devices: int):
         self.mesh = devices_for(n_devices, self.device)

@@ -362,12 +362,11 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
         grads = [g.to(torch.bfloat16) for g in grads]
     out = (lsum / n_micro, torch.stack(nlls).mean(), torch.stack(auxs).mean())
     if dp is not None:
-        if per_micro and not dp.zero1:
+        if not per_micro:
+            grads = [dp.reduce(g, i, scatter=dp.zero1)
+                     for i, g in enumerate(grads)]
+        elif not dp.zero1:
             grads = [dp.gather(g, i) for i, g in enumerate(grads)]
-        elif not per_micro:
-            grads = (_scatter_grads(grads, dp) if dp.zero1 else
-                     [dp.reduce(g, i, scatter=False)
-                      for i, g in enumerate(grads)])
         out = tuple(dp.mean(torch.stack(out)).unbind(0))
     return (rebuild(grads),) + out
 

@@ -124,6 +124,19 @@ def scenario_two(world):
            "mamba2": trained(cfg_of("mamba2-780m", compute_dtype="float32"),
                              world),
            "placements": placements_of((world, 1), granite)}
+    from repro_torch.launch import mesh as launch_mesh
+    host = launch_mesh.make_host_mesh(world, 1, device="cpu")
+    out["host_mesh"] = (tuple(host.shape), host.mesh_dim_names,
+                        tuple(host.get_coordinate()))
+    for key, make in (("too_big", lambda: launch_mesh.make_mesh(
+            (2 * world, 1), ("data", "model"), device="cpu")),
+            ("production", lambda: launch_mesh.make_production_mesh(
+                device="cpu"))):
+        try:
+            make()
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
     for key, cfg, error in (
             ("moe", cfg_of("qwen2-moe-a2.7b"), NotImplementedError),
             ("micro3", granite.with_(num_microbatches=3), ValueError)):

@@ -51,6 +51,8 @@ from repro.launch.sharding import use_rules as juse_rules
 from repro.models import model_zoo as jzoo
 from repro.optim import adamw as jadamw
 from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dist as launch_dist
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch.train import ElasticTrainer
 from repro_torch.models import model_zoo as tzoo
 from repro_torch.optim import adamw
@@ -345,3 +347,38 @@ def test_launcher_spawns_two_ranks():
     logged = [line.split() for line in lines if line.startswith("step")]
     assert [(w[1], w[2], w[4]) for w in logged] == [("0", "loss", "gnorm")]
     assert abs(float(logged[0][3]) - tr.metrics_log[0]["loss"]) < BF16_LOSS
+
+
+def test_meshes_over_the_process_group(two):
+    """``make_host_mesh`` over the world's ranks; a mesh larger than the
+    world, and the production (16, 16) mesh on 2 ranks, raise."""
+    for r, out in enumerate(two):
+        assert out["host_mesh"] == ((2, 1), ("data", "model"), (r, 0))
+    assert "needs 4 ranks" in two[0]["too_big"], two[0]["too_big"]
+    assert "needs 256 ranks" in two[0]["production"]
+
+
+def test_no_process_group_here(tmp_path, monkeypatch):
+    """In this worker (no process group): a mesh raises naming the
+    missing group; ``torchrun_env`` reads torchrun's variables only when
+    all four are set; a rendezvous file is used once."""
+    with pytest.raises(RuntimeError, match="process group"):
+        launch_mesh.make_mesh((1, 1), ("data", "model"), device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        launch_mesh.make_production_mesh(device="cpu")
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    assert launch_dist.torchrun_env() is None
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    assert launch_dist.torchrun_env() is None
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    assert launch_dist.torchrun_env() == (1, 2)
+    assert launch_dist.backend_for("cpu") == "gloo"
+    assert launch_dist.backend_for("cuda") == "nccl"
+    init = launch_dist.file_rendezvous(tmp_path)
+    assert init == f"file://{tmp_path / 'rendezvous'}"
+    (tmp_path / "rendezvous").touch()
+    with pytest.raises(FileExistsError):
+        launch_dist.file_rendezvous(tmp_path)
