@@ -3892,16 +3892,30 @@ def dp_gloo_phase(dev):
     within ``DP_ELASTIC_LOSS`` of the unrescaled twin's, the state
     bit-equal across each rescale.  Returns the readings."""
     import tempfile
+    import torch
     from repro_torch.launch import dist as launch_dist
     release(dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        out_path = Path(tmp) / "dp_gloo.json"
-        t0 = time.perf_counter()
-        launch_dist.spawn(dp_gloo_rank, DP_RANKS, str(out_path),
-                          device=dev.type, backend="gloo")
-        wall = time.perf_counter() - t0
-        out = json.loads(out_path.read_text())
-    out["wall_s"] = wall
+    held = (torch.cuda.memory_reserved(dev) / 2**30 if dev.type == "cuda"
+            else 0.0)
+    log(f"  this process holds {held:.2f} GiB of the card's memory")
+    # the ranks share the card: segments that grow in place keep a rank's
+    # freed blocks usable by its next, larger requests
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = Path(tmp) / "dp_gloo.json"
+            t0 = time.perf_counter()
+            launch_dist.spawn(dp_gloo_rank, DP_RANKS, str(out_path),
+                              device=dev.type, backend="gloo")
+            wall = time.perf_counter() - t0
+            out = json.loads(out_path.read_text())
+    finally:
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    out["wall_s"], out["main_process_gib"] = wall, held
     refused = {k: v for k, v in out["probe"].items() if v != "ok"}
     log(f"  gloo on {dev.type} tensors: " + (
         "every collective the step needs accepted" if not refused else
@@ -3931,6 +3945,12 @@ def dp_phase(dev, twin_losses):
     log(f"[dp] phase 22 on {gpu_line() if dev.type == 'cuda' else dev}")
     log(f"[dp] (a) {TRAIN_ARCH} over one rank with ZeRO-1")
     launches, one = dp_one_rank_phase(dev, twin_losses)
+    if dev.type == "cuda":
+        import torch
+        log(f"  after (a): {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+            f"GiB allocated, {torch.cuda.memory_reserved(dev) / 2**30:.2f} "
+            f"reserved, {torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} free "
+            f"on the card")
     log(f"[dp] (b) {DENSE_TRAIN_ARCH} over {DP_RANKS} gloo ranks on one "
         f"device across a rescale")
     gloo = dp_gloo_phase(dev)
