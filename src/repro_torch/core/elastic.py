@@ -186,7 +186,7 @@ class ElasticRuntime:
         t0 = time.perf_counter()
         if rank == 0:
             whole = self.store.restore("elastic", device=self.device)
-        if on_world and self.member:
+        if on_world and self.member and self.mesh.size() > 1:
             whole = self._broadcast_whole(whole)
         if self.member:
             self.state = self._place(whole)

@@ -264,3 +264,43 @@ def test_placements_follow_the_mesh_order():
     assert NamedSharding(pod, (("pod", "data"), "model")).placements == \
         (Shard(0), Shard(0), Shard(1))
     assert NamedSharding(pod, ()).placements == (Replicate(),) * 3
+
+
+@pytest.mark.parametrize("cell", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("name", ["granite-8b", "mamba2-780m",
+                                  "internvl2-26b", "seamless-m4t-medium"])
+def test_input_specs_equal_the_references(name, cell):
+    """``input_specs`` on a real (4, 2) host mesh: the abstract args'
+    shapes and dtypes and every in / out sharding's spec are the
+    reference's, leaf for leaf; ``cell_fn`` gives the cell's function."""
+    from repro_torch.launch.specs import cell_fn, input_specs
+    cfg, jcfg = ARCHS[name], JARCHS[name]
+    got = input_specs(cfg, SHAPES[cell], ShardingRules(
+        MeshShape.of((4, 2), ("data", "model"))))
+    want = jspecs.input_specs(jcfg, JSHAPES[cell], JShardingRules(
+        jmake_mesh((4, 2), ("data", "model"))))
+    assert got["kind"] == want["kind"] == SHAPES[cell].kind
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in flat(tree[k])]
+        if isinstance(tree, (tuple, list)) and not isinstance(
+                tree, NamedSharding) and not hasattr(tree, "shape"):
+            return [x for t in tree for x in flat(t)]
+        if hasattr(tree, "cache"):          # a DecodeState
+            return flat(tree.cache) + flat(tree.cache_len)
+        return [tree]
+
+    def jflat(tree):
+        return jax.tree.leaves(tree, is_leaf=lambda x: isinstance(
+            x, jax.sharding.NamedSharding))
+    for key in ("in_shardings", "out_shardings"):
+        g, w = flat(got[key]), jflat(want[key])
+        assert len(g) == len(w) > 1
+        assert [s.spec for s in g] == [_jax_spec(s.spec) for s in w], key
+    g, w = flat(got["args"]), jax.tree.leaves(want["args"])
+    assert len(g) == len(w) > 1
+    assert [tuple(a.shape) for a in g] == [tuple(a.shape) for a in w]
+    assert [str(a.dtype).replace("torch.", "") for a in g] == \
+        [str(a.dtype) for a in w]
+    assert callable(cell_fn(cfg, SHAPES[cell]))
