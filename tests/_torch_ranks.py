@@ -121,6 +121,8 @@ def scenario_two(world):
            "bf16": trained(cfg_of("granite-8b"), world),
            "zero1": trained(granite.with_(zero1=True,
                                           grad_schedule="overlapped"), world),
+           "bf16_reduce": trained(granite.with_(
+               zero1=True, grad_reduce_dtype="bfloat16"), world),
            "mamba2": trained(cfg_of("mamba2-780m", compute_dtype="float32"),
                              world),
            "placements": placements_of((world, 1), granite)}

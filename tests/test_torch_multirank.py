@@ -129,13 +129,13 @@ def state_leaves(state):
             for x in jax.tree.leaves(tree)]
 
 
-def reference(arch, dtype, n_data):
+def reference(arch, dtype, n_data, **kw):
     """The reference's 3 steps of reduced ``arch``, jitted with
     ``in_shardings`` on a real (n_data, 1) host mesh: (metrics per step,
     final state leaves).  Cached for the module."""
-    key = ("jax", arch, dtype, n_data)
+    key = ("jax", arch, dtype, n_data, tuple(sorted(kw.items())))
     if key not in _RUNS:
-        cfg = jax_config(arch).reduced().with_(compute_dtype=dtype)
+        cfg = jax_config(arch).reduced().with_(compute_dtype=dtype, **kw)
         shape = JSHAPES["train_4k"].reduced()
         mesh = jmake_mesh((n_data, 1), ("data", "model"))
         rules = JShardingRules(mesh)
@@ -255,6 +255,29 @@ def test_zero1_matches_data_parallel_and_shards_moments(world, two, four):
             assert ranks[0]["zero1"]["local_m"][i].numel() * world == \
                 whole[n + i].numel()
     assert split == n     # every leaf of reduced granite-8b divides
+
+
+def test_bf16_gradient_reduce_matches_reference(two):
+    """``grad_reduce_dtype="bfloat16"`` with ZeRO-1 over 2 ranks (the
+    reduce-scatter in bf16: half the bytes) against the reference's bf16
+    reduce on a (2, 1) mesh (without ZeRO-1, which moves the state's
+    layout, not its arithmetic).  The two round once each, the port each
+    rank's share and the reference the sum, so the gradient differs by
+    about one bf16 rounding (2^-8): grad_norm within 2^-8 relative, loss
+    and nll within float32 tolerance, params within 1e-3 relative L2 per
+    leaf, m and v within 2e-2 (v squares the rounding; read on the CPU:
+    9.3e-5, 7.2e-5, 5.5e-3)."""
+    (gm, gs) = run_of(two[0]["bf16_reduce"])
+    wm, ws = reference("granite-8b", "float32", 2,
+                       grad_reduce_dtype="bfloat16")
+    for g, w in zip(gm, wm):
+        for k in ("loss", "nll"):
+            assert g[k] == pytest.approx(w[k], rel=F32_METRIC), (k, g, w)
+        assert g["grad_norm"] == pytest.approx(w["grad_norm"],
+                                               rel=2.0 ** -8), (g, w)
+    n = len(gs) // 3
+    for i, (a, b) in enumerate(zip(gs, ws)):
+        assert rel_l2(b, a) <= (1e-3 if i < n else 2e-2), i
 
 
 def test_elastic_shrink_expand_4_2_4(four):
