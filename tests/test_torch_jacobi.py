@@ -10,7 +10,8 @@
 * ``lulesh_tile_step`` is within 1e-5 of JAX's over 8 inner rounds
   (float32 transcendentals of two libraries).
 * ``reference_jacobi`` and the row-block ``_tile_step`` equal JAX's bit
-  for bit.
+  for bit (the multi-rank ``make_jacobi_spmd_step`` is
+  ``test_torch_multirank.py``'s).
 * A CPU tensor runs the plain version and launches nothing; the kernel
   wrapper refuses CPU tensors, wrong dtypes, shapes and overlapping
   buffers.  Kernel vs plain version needs the card: ``test_torch_cuda.py``.
@@ -153,7 +154,10 @@ def test_row_block_tile_step_matches_jax():
 
 
 def test_spmd_step_waits_for_torch_distributed():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """The SPMD step runs over a ``DeviceMesh`` of torch.distributed
+    ranks (held against the reference in ``test_torch_multirank.py``):
+    without a mesh and a process group it raises, naming them."""
+    with pytest.raises(RuntimeError, match="process group"):
         make_jacobi_spmd_step(None, odf=4)
 
 
