@@ -28,9 +28,11 @@ Two settings, chosen by whether a ``torch.distributed`` process group is
 initialised:
 
 * none: one device, ``devices_for(1)`` is ``[device]`` and more raises;
-* a group (``launch.dist``): ``devices_for(n)`` is the ``DeviceMesh`` of
-  the first ``n`` ranks of the world (``launch.mesh.make_mesh((n, 1),
-  ("data", "model"))``).  Ranks outside it hold no state and skip steps.
+* a group (``launch.dist``): ``devices_for(n, model_par)`` is the
+  ``DeviceMesh`` of the first ``n`` ranks of the world
+  (``launch.mesh.make_mesh((n // model_par, model_par), ("data",
+  "model"))``, the reference's ``_mesh_for``).  Ranks outside it hold no
+  state and skip steps.
   Every rank of the world calls ``step``, ``rescale_to`` and the
   constructor, so that the program stays SPMD: building a mesh is a
   collective over the world.
@@ -65,24 +67,29 @@ def distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def devices_for(n: int, device="cuda"):
-    """Without a process group: ``[device]`` for ``n == 1``, and more
-    raises.  With one: the ``("data", "model")`` ``DeviceMesh`` of shape
-    ``(n, 1)`` over the first ``n`` ranks (every rank of the world must
-    call this; a rank outside the mesh gets it with ``get_coordinate()
-    is None``)."""
+def devices_for(n: int, device="cuda", model_par: int = 1):
+    """Without a process group: ``[device]`` for ``n == 1`` (and
+    ``model_par == 1``), and more raises.  With one: the ``("data",
+    "model")`` ``DeviceMesh`` of shape ``(n // model_par, model_par)``
+    over the first ``n`` ranks (every rank of the world must call this;
+    a rank outside the mesh gets it with ``get_coordinate() is None``)."""
     dev = resolve_device(device)
-    if n < 1:
-        raise ValueError(f"{n} devices asked for")
+    if n < 1 or model_par < 1:
+        raise ValueError(f"{n} devices asked for, in model groups of "
+                         f"{model_par}")
     if distributed():
+        if n % model_par:
+            raise ValueError(f"{n} devices do not split into model groups "
+                             f"of {model_par}")
         from repro_torch.launch.mesh import make_mesh
-        return make_mesh((n, 1), ("data", "model"), device=dev)
-    if n > 1:
+        return make_mesh((n // model_par, model_par), ("data", "model"),
+                         device=dev)
+    if n > 1 or model_par > 1:
         raise RuntimeError(
-            f"{n} devices asked for without a torch.distributed process "
-            f"group: start {n} ranks (python -m repro_torch.launch.train "
-            f"--n-devices {n}, torchrun, or launch.dist.process_group) and "
-            f"build the runtime in each")
+            f"{n} devices (model axis {model_par}) asked for without a "
+            f"torch.distributed process group: start the ranks (python -m "
+            f"repro_torch.launch.train --n-devices N, torchrun, or "
+            f"launch.dist.process_group) and build the runtime in each")
     return [dev]
 
 
@@ -96,11 +103,14 @@ class ElasticRuntime:
     local`` and ``gather_state(local) -> whole`` (``model_zoo.
     DataParallel``); without it the state is whole on every member.
     ``init_state`` is the whole state, the same on every rank.
+    ``model_par`` is the mesh's model axis, kept across rescales.
     """
 
     def __init__(self, *, step_factory: Callable, init_state,
                  n_devices: int, store=None, device="cuda",
-                 shardings_factory: Optional[Callable] = None):
+                 shardings_factory: Optional[Callable] = None,
+                 model_par: int = 1):
+        self.model_par = model_par
         self.device = resolve_device(device)
         self.device_type = self.device.type
         self.step_factory = step_factory
@@ -125,7 +135,8 @@ class ElasticRuntime:
                 or self.mesh.get_coordinate() is not None)
 
     def _restart(self, n_devices: int):
-        self.mesh = devices_for(n_devices, self.device)
+        self.mesh = devices_for(n_devices, self.device,
+                                self.model_par)
         member = self.member
         if isinstance(self.mesh, list):       # one device, no group
             self.device, self.layout = self.mesh[0], None
@@ -147,12 +158,20 @@ class ElasticRuntime:
 
     def _broadcast_whole(self, whole):
         """Rank 0's whole state (``whole``; ``None`` on the other
-        members) to every member of the current mesh."""
+        members) to every member of the current mesh: over the data
+        group of model coordinate 0, then over each model group from
+        its coordinate-0 rank."""
         if whole is None:
             whole = tree_map(lambda t: torch.empty(
                 t.shape, dtype=t.dtype, device=self.device), self._skeleton)
-        group = self.mesh.get_group("data")
-        tree_map(lambda t: dist.broadcast(t, src=0, group=group), whole)
+        d, m = self.mesh.get_coordinate()
+        if m == 0 and self.mesh.shape[0] > 1:
+            group = self.mesh.get_group("data")
+            tree_map(lambda t: dist.broadcast(t, src=0, group=group), whole)
+        if self.mesh.shape[1] > 1:
+            group = self.mesh.get_group("model")
+            src = int(self.mesh.mesh[d, 0])
+            tree_map(lambda t: dist.broadcast(t, src=src, group=group), whole)
         return whole
 
     # ------------------------------------------------------------ protocol

@@ -24,12 +24,62 @@ The rules read a mesh through its axis sizes and names only: a
 MeshShape``, the reference's ``FakeMesh``), so the specs of a production
 mesh can be worked out with no process group.
 
-The port keeps parameters and activations as plain tensors on each rank:
-the data axis splits the batch and, with ZeRO-1, the optimizer state
-(``models.model_zoo.DataParallel``).  So ``constrain`` is a no-op, with
-rules or without, and the 26 ``constrain`` calls inside the reference's
-models have no counterpart yet: they wait for tensor parallelism over
-the ``model`` axis (ROADMAP item 13a, third step).
+The port keeps parameters and activations as plain tensors on each rank
+(never a DTensor: the kernels take plain tensors).  The data axis splits
+the batch and, with ZeRO-1, the optimizer state
+(``models.model_zoo.DataParallel``).  The model axis is tensor
+parallelism: each model rank holds the block of every leaf that its
+``NamedSharding`` gives it (``model_block``; ``gather_model_block`` is
+the inverse), and the blocks compute with the two autograd-aware
+collectives of Megatron-style tensor parallelism over the active rules'
+``model`` group, ``copy_to_model`` (f: identity forward, all-reduce
+backward) at the entry of a column-parallel region and
+``reduce_from_model`` (g: all-reduce forward, identity backward) at the
+exit of a row-parallel one.  Both are identities without rules or at a
+model axis of 1, where every model runs as before.  ``constrain`` itself
+stays a no-op (after the reference's rank check): GSPMD turns the
+reference's constraints into collectives, while the port's blocks call
+those collectives where its layout needs them.  The reference's 26
+sites, and what the port does at each:
+
+=====================================  ====================================
+reference site                         port
+=====================================  ====================================
+layers.py:166 ``q`` (heads)            ``attention_block``: f on the normed
+                                       input, q/k/v column-parallel over
+                                       the rank's contiguous heads and KV
+                                       heads (all KV heads, f on wk/wv,
+                                       where ``kv_heads`` does not divide)
+layers.py:198 attention out (heads)    nothing: the heads stay local
+layers.py:200 block out (embed)        g after ``wo`` (row-parallel), in
+                                       the block's dtype
+layers.py:357 ``act`` (ff)             ``swiglu_block``: f, then gate/up
+                                       column-parallel over ``ff``
+layers.py:359 block out (embed)        g after ``w_down``
+mamba2.py:174 ``proj`` (d_inner)       raises at a model axis above 1
+mamba2.py:215 block out (embed)        (ssm, hybrid: ROADMAP item 13c)
+model_zoo.py:344 patch embeds          vlm at a model axis above 1 raises
+transformer.py:170 patch embeds        (item 13c); replicated otherwise
+transformer.py:227 encoder frames      enc_dec raises likewise (item 13c)
+transformer.py:131 embedding (embed)   ``embed_tokens``: vocab-parallel
+                                       lookup (out-of-block ids give zero
+                                       rows), then g
+transformer.py:141 logits (vocab)      ``lm_logits``: f, the rank's vocab
+                                       block; ``model_zoo.lm_loss``
+                                       reduces max, sum of exps and the
+                                       target logit over the group
+moe.py:215 explicit-EP out (embed)     ``_moe_explicit_ep``: one float32
+                                       g of the routed experts' combine,
+                                       g after the shared experts
+moe.py:231, 263, 264 routing (batch)   nothing: each rank routes its rows
+moe.py:272, 277, 280 (experts)         ``_moe_grouped`` at a model axis
+moe.py:287, 299 combine, out           above 1 raises (item 13c); over
+                                       data ranks its router statistics
+                                       are all-reduced (``sum_over_data``)
+moe.py:330, 334, 336, 349 (one-hot)    raises past one rank (item 13c)
+model_zoo.py:241 ``_scatter_grads``    ``DataParallel.reduce``: a
+                                       reduce-scatter over data
+=====================================  ====================================
 """
 
 from __future__ import annotations
@@ -194,6 +244,201 @@ def constrain(x, *logical_axes):
         raise ValueError(f"{len(logical_axes)} logical axes for a tensor of "
                          f"shape {tuple(x.shape)}")
     return x
+
+
+# ------------------------------------------------------------ the model axis
+class Axis(NamedTuple):
+    """One mesh axis of the active rules, as this rank sees it."""
+    group: object     # its ProcessGroup
+    rank: int         # this rank's coordinate on it
+    size: int
+
+
+def _mesh_axis(name: str) -> Optional[Axis]:
+    """``name``'s axis of the active rules' ``DeviceMesh``; ``None``
+    without rules, on a shape-only mesh, or where the axis is missing or
+    has size 1."""
+    rules = active_rules()
+    if rules is None or name not in rules.axes:
+        return None
+    mesh = rules.mesh
+    if getattr(mesh, "mesh_dim_names", None) is None:
+        return None
+    size = axis_sizes(mesh)[name]
+    if size == 1:
+        return None
+    return Axis(mesh.get_group(name), mesh.get_local_rank(name), size)
+
+
+def model_axis() -> Optional[Axis]:
+    """The active rules' ``model`` axis above size 1, else ``None``."""
+    return _mesh_axis("model")
+
+
+def data_axis() -> Optional[Axis]:
+    """The active rules' ``data`` axis above size 1, else ``None``."""
+    return _mesh_axis("data")
+
+
+def model_split(logical: str, size: int) -> int:
+    """How many blocks the active rules cut a ``size`` dimension named
+    ``logical`` into over the model axis: its size where they shard it
+    over ``model`` alone, else 1 (replicated)."""
+    tp = model_axis()
+    if tp is None:
+        return 1
+    return tp.size if active_rules().mesh_axes_for(logical, size) == \
+        "model" else 1
+
+
+def _all_reduce(x, group, op=None):
+    import torch.distributed as dist
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _autograd_collectives():
+    """The three autograd Functions, made at first use (``torch`` is not
+    imported by the rules)."""
+    global _Functions
+    if _Functions is None:
+        import torch
+
+        class CopyToGroup(torch.autograd.Function):
+            """f: identity forward, all-reduce of the gradient backward."""
+            @staticmethod
+            def forward(ctx, x, group):
+                ctx.group = group
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                return _all_reduce(g, ctx.group), None
+
+        class ReduceFromGroup(torch.autograd.Function):
+            """g: all-reduce forward, identity backward."""
+            @staticmethod
+            def forward(ctx, x, group):
+                return _all_reduce(x, group)
+
+            @staticmethod
+            def backward(ctx, g):
+                return g, None
+
+        class SumOverGroup(torch.autograd.Function):
+            """All-reduce forward, and its adjoint, all-reduce, backward:
+            for a sum over ranks whose every copy enters the loss."""
+            @staticmethod
+            def forward(ctx, x, group):
+                ctx.group = group
+                return _all_reduce(x, group)
+
+            @staticmethod
+            def backward(ctx, g):
+                return _all_reduce(g, ctx.group), None
+
+        class ScaleGrad(torch.autograd.Function):
+            """Identity forward, the gradient times ``scale`` backward."""
+            @staticmethod
+            def forward(ctx, x, scale):
+                ctx.scale = scale
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                return g * ctx.scale, None
+
+        _Functions = (CopyToGroup, ReduceFromGroup, SumOverGroup, ScaleGrad)
+    return _Functions
+
+
+_Functions = None
+
+
+def copy_to_model(x):
+    """Entry of a column-parallel region (Megatron's f): ``x`` forward;
+    backward, the gradient all-reduced over the model group, so that the
+    ranks' partial gradients (each through its block of the weights)
+    sum to the whole one.  The identity without a model axis."""
+    tp = model_axis()
+    if tp is None:
+        return x
+    return _autograd_collectives()[0].apply(x, tp.group)
+
+
+def reduce_from_model(x):
+    """Exit of a row-parallel region (Megatron's g): the ranks' partial
+    sums all-reduced over the model group, in ``x``'s dtype; backward the
+    identity (the output is the same on every model rank, and each
+    rank's copy of the loss counts once).  The identity without a model
+    axis."""
+    tp = model_axis()
+    if tp is None:
+        return x
+    return _autograd_collectives()[1].apply(x, tp.group)
+
+
+def max_over_model(x):
+    """The element-wise maximum over the model group, with no gradient
+    (for a shift that cancels, such as a softmax's)."""
+    tp = model_axis()
+    if tp is None:
+        return x
+    import torch.distributed as dist
+    return _all_reduce(x.detach(), tp.group, dist.ReduceOp.MAX)
+
+
+def sum_over_data(x):
+    """``x`` summed over the data group, with the adjoint gradient (an
+    all-reduce): every data rank's loss holds the sum, and the data
+    ranks' gradients are summed.  The identity without a data axis."""
+    ax = data_axis()
+    if ax is None:
+        return x
+    return _autograd_collectives()[2].apply(x, ax.group)
+
+
+def scale_grad(x, scale: float):
+    """``x`` forward, its gradient times ``scale`` backward."""
+    if scale == 1:
+        return x
+    return _autograd_collectives()[3].apply(x, scale)
+
+
+def _model_dim(sharding: NamedSharding) -> Optional[int]:
+    """The dimension that ``sharding`` splits over the ``model`` axis of
+    its mesh (from its placements), or ``None``."""
+    names = axis_names(sharding.mesh)
+    if "model" not in names:
+        return None
+    place = sharding.placements[names.index("model")]
+    return getattr(place, "dim", None)
+
+
+def model_block(t, sharding: NamedSharding, rank: int):
+    """A whole leaf ``t`` -> model rank ``rank``'s block of it: its
+    ``Shard(dim)`` placement on the ``model`` axis cut into equal blocks,
+    or ``t`` itself where that placement is ``Replicate()``."""
+    dim = _model_dim(sharding)
+    if dim is None:
+        return t
+    n = axis_sizes(sharding.mesh)["model"]
+    return t.chunk(n, dim)[rank]
+
+
+def gather_model_block(t, sharding: NamedSharding, group):
+    """``model_block``'s inverse: the whole leaf from the model ranks'
+    blocks (an all-gather over ``group``, the mesh's model group)."""
+    import torch
+    import torch.distributed as dist
+    dim = _model_dim(sharding)
+    if dim is None:
+        return t
+    n = axis_sizes(sharding.mesh)["model"]
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim)
 
 
 def param_shardings(rules: ShardingRules, schema):

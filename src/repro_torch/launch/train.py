@@ -8,16 +8,22 @@ trains data parallel over the first ``n_devices`` ranks of the world
 (``models.model_zoo.DataParallel``: the batch split by rows, the
 gradient reduced over the ranks, ZeRO-1 with ``cfg.zero1``), and every
 rank of the world builds it and calls ``train`` and ``rescale``: ranks
-outside the current mesh skip the steps.  Each step copies its host
-batch to the device on the caller's stream and reads the step's metrics
-back to the host (one wait a step).  Tensor parallelism (``model_par >
-1``) is ROADMAP item 13a, third step.
+outside the current mesh skip the steps.  ``model_par`` is the mesh's
+model axis, as in the reference's ``_mesh_for``: the mesh is ``(n //
+model_par, model_par)``, and over a model axis above 1 the dense and moe
+families train tensor parallel (the others raise: ROADMAP item 13c).  A
+rescale gathers the state over both axes for its checkpoint and places
+it on the new mesh.  Each step copies its host batch to the device on
+the caller's stream and reads the step's metrics back to the host (one
+wait a step).
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch granite-8b --reduced --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --reduced --n-devices 2 --steps 2     # spawns 2 gloo ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --reduced --n-devices 2 --model-par 2 --steps 2   # tensor parallel
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --reduced --n-devices 2 --steps 4     # 2 NCCL ranks on 2 cards
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
@@ -49,12 +55,7 @@ class ElasticTrainer:
                  n_devices: Optional[int] = None, model_par: int = 1,
                  seed: int = 0, store_kind: str = "memory",
                  hp: Optional[adamw.HParams] = None, device="cuda"):
-        if model_par != 1:
-            raise NotImplementedError(
-                f"model_par {model_par}: tensor parallelism over the mesh's "
-                f"'model' axis (with the models' constrain calls) is "
-                f"ROADMAP item 13a, third step; the port trains data "
-                f"parallel")
+        zoo.refuse_model_axis(cfg, model_par)
         self.cfg = cfg
         self.shape = shape
         self.device = resolve_device(device)
@@ -79,6 +80,7 @@ class ElasticTrainer:
             store=make_store(store_kind),
             device=self.device,
             shardings_factory=lambda mesh: zoo.DataParallel(cfg, mesh),
+            model_par=model_par,
         )
 
     # ------------------------------------------------------------- training
@@ -152,7 +154,9 @@ def main(argv=None):
                          "n of its world (default all); otherwise n > 1 "
                          "spawns n ranks (nccl on cuda, one card each; "
                          "gloo on cpu)")
-    ap.add_argument("--model-par", type=int, default=1)
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="the mesh's model axis (tensor parallelism); "
+                         "--n-devices counts every rank")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the plain versions of "

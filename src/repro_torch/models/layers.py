@@ -19,6 +19,20 @@ JAX's implicit index rules are explicit here:
 Cache and pool updates are in place (``index_copy_`` into the caller's
 tensors), where the reference returns updated copies: the functions still
 return the (mutated) cache tensors so the call sites read the same.
+
+Under sharding rules with a model axis above 1 (training over a
+``("data", "model")`` mesh), ``attention_block`` and ``swiglu_block``
+are tensor parallel, the counterparts of the reference's constraints at
+``layers.py:166, 198, 200, 357, 359``: each model rank holds its
+contiguous block of ``heads``, ``kv_heads`` and ``ff`` where the rules
+shard them, q/k/v and gate/up are column-parallel after
+``copy_to_model`` (f), and ``wo`` / ``w_down`` row-parallel, their
+partial sums all-reduced in the block's dtype (``reduce_from_model``,
+g).  Contiguous head blocks keep GQA local (query head ``h`` reads KV
+head ``h // group`` on the same rank).  Where the rules replicate
+``kv_heads`` while they shard ``heads``, a rank holds all KV heads and
+reads those its query heads need.  A dimension the rules replicate is
+computed whole, with no collective.
 """
 
 from __future__ import annotations
@@ -27,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import dtype_of
+from repro_torch.launch.sharding import (copy_to_model, model_axis,
+                                         model_split, reduce_from_model)
 
 NEG_INF = -1e30
 
@@ -81,6 +97,26 @@ def _qkv(p, x, cfg):
     dt = dtype_of(cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
     return _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
+
+
+def _qkv_tp(p, x, cfg):
+    """q, k, v of this model rank's heads: its contiguous block of the
+    query heads (``p["wq"]`` is that block), and of the KV heads, either
+    its block (``kv_heads`` sharded) or, where the rules replicate them,
+    the KV head of each of its query heads, taken from all of them."""
+    dt = dtype_of(cfg.compute_dtype)
+    h = copy_to_model(rms_norm(x, p["norm"], cfg.norm_eps).to(dt))
+    q = _proj(h, p["wq"])
+    if model_split("kv_heads", cfg.num_kv_heads) > 1:
+        return q, _proj(h, p["wk"]), _proj(h, p["wv"])
+    # all KV heads on every rank: their weights' gradients are partial
+    # (each rank reads some heads), so f sums them over the ranks
+    group = cfg.num_heads // cfg.num_kv_heads
+    n = q.shape[2]
+    heads = (model_axis().rank * n + torch.arange(n, device=x.device)) // group
+    k = _proj(h, copy_to_model(p["wk"])).index_select(2, heads)
+    v = _proj(h, copy_to_model(p["wv"])).index_select(2, heads)
+    return q, k, v
 
 
 # ----------------------------------------------------------------------------- attention cores
@@ -204,7 +240,8 @@ def attention_block(p, x, cfg, *, causal=True, positions=None,
     ``full_attention`` otherwise.  ``impl`` goes to
     ``blockwise_attention`` (``"ref"``: its plain form on the card)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = (_qkv(p, x, cfg) if model_split("heads", cfg.num_heads) == 1
+               else _qkv_tp(p, x, cfg))
     if positions is None:
         positions = torch.arange(s, device=x.device)
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
@@ -219,7 +256,10 @@ def attention_block(p, x, cfg, *, causal=True, positions=None,
                                   block_kv=cfg.flash_block_kv, impl=impl)
     else:
         out = full_attention(q, k, v, causal=causal)
-    return x + _proj_out(out, p["wo"]), (k, v)
+    out = _proj_out(out, p["wo"])
+    if model_split("heads", cfg.num_heads) > 1:
+        out = reduce_from_model(out)
+    return x + out, (k, v)
 
 
 def decode_attention(p, x, cfg, *, cache_k, cache_v, cache_len,
@@ -356,8 +396,14 @@ def paged_chunk_attention(p, x, cfg, *, pool_k, pool_v, bt_row, off: int,
 
 # ----------------------------------------------------------------------------- MLP
 def swiglu_block(p, x, cfg):
+    """Pre-norm SwiGLU MLP; tensor parallel over ``ff`` where the active
+    rules shard it over a model axis (see the module's docstring)."""
     dt = dtype_of(cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
+    tp = model_split("ff", cfg.d_ff) > 1
+    if tp:
+        h = copy_to_model(h)
     g = torch.matmul(h, p["w_gate"])
     u = torch.matmul(h, p["w_up"])
-    return x + torch.matmul(F.silu(g) * u, p["w_down"])
+    out = torch.matmul(F.silu(g) * u, p["w_down"])
+    return x + (reduce_from_model(out) if tp else out)

@@ -52,6 +52,8 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import (max_over_model, reduce_from_model,
+                                         use_rules)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
@@ -245,10 +247,32 @@ def lm_loss(params, batch, cfg: ModelConfig, *, impl: str = "kernel"):
                                    impl=impl)
         h = h[:, cfg.frontend_seq:] if cfg.family == "vlm" else h
     logits = T.lm_logits(view, h, cfg)        # (B, S, V) float32
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    if T.vocab_block(cfg) is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1,
+                            batch["labels"].long()[..., None])[..., 0]
+    else:
+        nll = _vocab_parallel_nll(logits, batch["labels"], cfg)
     loss = nll.mean() + aux
     return loss, {"nll": nll.mean(), "aux": aux}
+
+
+def _vocab_parallel_nll(logits, labels, cfg: ModelConfig):
+    """The cross entropy of logits sharded by vocabulary blocks over the
+    model axis (this rank's block ``logits``, float32): the maximum, the
+    sum of exps and the target logit are reduced over the model group,
+    so no rank holds the whole vocabulary.  ``log(sum exp(l - max)) -
+    (l_target - max)``, the reference's ``log_softmax`` and gather."""
+    lo, size = T.vocab_block(cfg)
+    shift = max_over_model(logits.amax(dim=-1, keepdim=True))
+    shifted = logits - shift
+    sumexp = reduce_from_model(torch.exp(shifted).sum(dim=-1))
+    ids = labels.long() - lo
+    inside = (ids >= 0) & (ids < size)
+    target = shifted.gather(-1, ids.clamp(0, size - 1)[..., None])[..., 0]
+    target = reduce_from_model(torch.where(inside, target,
+                                           target.new_zeros(())))
+    return torch.log(sumexp) - target
 
 
 # ============================================================== train state
@@ -316,15 +340,19 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
     ``n_micro``; ``nll`` and ``aux`` the means of the blocks' values.
 
     With ``dp`` (a ``DataParallel`` layout) the rank takes its rows of
-    the global batch in ``dp.micro_batches`` blocks, and the gradient is
-    summed over the data ranks and divided by ``n_micro`` times their
-    number: the gradient of the reference's global token mean.
+    each micro-batch of the global batch (``dp.micro_blocks``) and runs
+    the model under the layout's sharding rules: over a model axis above
+    1 the blocks are tensor parallel on this rank's blocks of the
+    parameters (``params`` holds them), and the gradient of each leaf is
+    this rank's block of the whole gradient.  The gradient is summed
+    over the data ranks and divided by ``n_micro`` times their number:
+    the gradient of the reference's global token mean.
     ``grad_schedule == "overlapped"`` reduce-scatters each block's
     gradient as it is made (``_scatter_grads``), in float32; ``"fused"``
     reduces once, after the ``grad_reduce_dtype`` cast.  The gradient
     comes back in the layout the update takes: with ``cfg.zero1`` each
-    leaf's ZeRO-1 block, else whole.  The metrics are the global ones
-    (means over the data ranks)."""
+    leaf's ZeRO-1 block, else the rank's block of the whole leaf.  The
+    metrics are the global ones (means over the data ranks)."""
     leaves, rebuild = adamw.flatten(params)
     masters = [p.detach().requires_grad_() for p in leaves]
     tree = rebuild(masters)
@@ -334,18 +362,18 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
         if b % n_micro:
             raise ValueError(f"batch {b} is not a multiple of {n_micro} "
                              f"micro-batches")
+        bm = b // n_micro
+        blocks = [{k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
+                  for i in range(n_micro)]
     else:
-        batch = dp.rows(batch)
-        b = batch["tokens"].shape[0]
-        n_micro, size = dp.micro_batches(b), dp.size
+        blocks, size = dp.micro_blocks(batch), dp.size
+        n_micro = len(blocks)
     per_micro = dp is not None and cfg.grad_schedule == "overlapped"
-    bm = b // n_micro
     lsum = torch.zeros((), dtype=torch.float32,
                        device=batch["tokens"].device)
     nlls, auxs, acc = [], [], None
-    with torch.enable_grad():
-        for i in range(n_micro):
-            mb = {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
+    with torch.enable_grad(), use_rules(None if dp is None else dp.rules):
+        for mb in blocks:
             loss, metrics = lm_loss(tree, mb, cfg, impl=impl)
             loss.backward()
             lsum = lsum + loss.detach()
@@ -384,7 +412,10 @@ def make_train_step(cfg: ModelConfig, hp: Optional[adamw.HParams] = None,
     (``DataParallel``), takes the global batch and a state laid out by
     ``DataParallel.place``, and every rank of the mesh must call it.
     With ``cfg.zero1`` the update runs on each leaf's ZeRO-1 block (m
-    and v are those blocks) and the new parameters are all-gathered."""
+    and v are those blocks) and the new parameters are all-gathered over
+    the data ranks.  Over a ``model`` axis above 1 the state holds this
+    rank's blocks of the model-sharded leaves (``DataParallel.place``)
+    and the step is tensor parallel over them."""
     hp = hp or adamw.HParams()
     dp = None if mesh is None else DataParallel(cfg, mesh)
 
@@ -397,7 +428,8 @@ def make_train_step(cfg: ModelConfig, hp: Optional[adamw.HParams] = None,
                                        state.opt, state.step, hp, gnorm)
             params = dp.gather_tree(blocks)
         else:
-            gnorm = adamw.global_norm(grads)
+            gnorm = (adamw.global_norm(grads) if dp is None
+                     or dp.model_size == 1 else dp.norm(grads))
             params, opt = adamw.update(state.params, grads, state.opt,
                                        state.step, hp, gnorm)
         metrics = {"loss": loss, "nll": nll, "aux": aux, "grad_norm": gnorm}
@@ -420,57 +452,95 @@ def _scatter_grads(grads, dp: Optional["DataParallel"]):
 
 
 # ============================================================== data parallelism
-def _shard_dim(placement) -> Optional[int]:
-    from torch.distributed.tensor import Shard
-    return placement.dim if isinstance(placement, Shard) else None
+# families whose blocks are tensor parallel over a model axis above 1
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
+
+
+def _axis_dim(spec, name: str) -> Optional[int]:
+    """The dimension of a spec whose entry names mesh axis ``name``."""
+    for dim, entry in enumerate(spec):
+        if name == entry or (isinstance(entry, tuple) and name in entry):
+            return dim
+    return None
+
+
+def refuse_model_axis(cfg: ModelConfig, model_par: int):
+    """``NotImplementedError`` for a family whose blocks have no tensor
+    parallelism yet, at a model axis above 1."""
+    if model_par > 1 and cfg.family not in TENSOR_PARALLEL_FAMILIES:
+        what = {"ssm": "mamba2's packed in_proj (z / x / B / C / dt) and "
+                       "its norm over a sharded d_inner",
+                "hybrid": "mamba2's packed in_proj and its norm over a "
+                          "sharded d_inner",
+                "enc_dec": "the encoder and cross attention",
+                "vlm": "the vision prefix"}.get(cfg.family, cfg.family)
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) over a model axis of {model_par}: "
+            f"tensor parallelism for {what} is ROADMAP item 13c")
 
 
 class DataParallel:
-    """A train state's layout over the ``data`` axis of a ``DeviceMesh``
-    (``launch.mesh``) and the collectives of a data-parallel step.
+    """A train state's layout over a ``("data", "model")`` ``DeviceMesh``
+    (``launch.mesh``) and the collectives of a step over it.
 
     The layout is the reference's (``launch.specs.state_shardings``,
     ``batch_shardings``):
 
-    * the global batch splits by rows over ``data`` where it divides
-      (``rows``); where it does not, every rank takes all of it, as the
-      reference replicates it;
-    * parameters are whole on every rank: the mesh's ``model`` axis has
-      size 1 (tensor parallelism is ROADMAP item 13a, third step);
-    * with ``cfg.zero1``, m and v are the ZeRO-1 shardings' blocks: leaf
-      ``i`` split in ``size`` along ``dims[i]`` (the ``Shard`` of its
-      placements on ``data``), rank ``r`` keeping block ``r``; a leaf
-      with no such dimension (``None``) stays whole on every rank.
+    * each micro-batch of the global batch splits by rows over ``data``
+      (``micro_blocks``), as the reference's sharded micro-batches do;
+    * each model rank holds its block of every leaf that the rules shard
+      over ``model`` (``launch.sharding.model_block`` of its param
+      sharding: ``model_dims[i]``, ``None`` for a replicated leaf), and
+      the model's blocks are tensor parallel over them (the dense and
+      moe families; the others raise at a model axis above 1);
+    * with ``cfg.zero1``, m and v are the ZeRO-1 shardings' blocks: the
+      rank's model block of leaf ``i`` split in ``size`` along
+      ``dims[i]`` (the dimension of the ``data`` entry of its ZeRO-1
+      spec, which may share it with ``model``, model major), data rank
+      ``r`` keeping block ``r``; a leaf with no such dimension
+      (``None``) stays whole over the data ranks.
 
     Parameters, gradients and activations are plain tensors on each rank
-    (never a DTensor: the kernels take plain tensors); the placements say
-    which block is whose.  The moe family raises at more than one rank:
-    its aux loss is a product of batch statistics and its capacity
-    couples a token to its batch (``repro/models/moe.py:66``), so a mean
-    of per-rank values is not the reference's loss."""
+    (never a DTensor: the kernels take plain tensors).  Gradients are
+    reduced over the data group only: each model rank's is already its
+    block of the whole one, and a replicated leaf's is the same on every
+    model rank (a replicated leaf stays bit-identical across them).
+
+    The moe family's aux loss is a product of batch statistics and its
+    capacity couples a token to its group (``repro/models/moe.py:66``);
+    over data ranks its router statistics are summed over the data group
+    (``moe._moe_grouped``) or, with a model axis, each rank's aux is
+    averaged as the reference's explicit expert parallelism does
+    (``moe._moe_explicit_ep``).  So every micro-batch must split evenly
+    over the data ranks."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         from repro_torch.launch.sharding import (ShardingRules, axis_names,
-                                                 axis_sizes, zero1_shardings)
+                                                 axis_sizes, param_shardings,
+                                                 zero1_shardings)
         names, sizes = axis_names(mesh), axis_sizes(mesh)
-        if set(names) - {"data", "model"} or sizes.get("model", 1) != 1:
+        if set(names) - {"data", "model"}:
             raise NotImplementedError(
-                f"a {sizes} mesh: the port trains data parallel only; "
-                f"tensor parallelism over 'model' is ROADMAP item 13a "
-                f"(third step)")
-        self.size = sizes["data"]
-        if cfg.family == "moe" and self.size > 1:
-            raise NotImplementedError(
-                f"{cfg.name} over {self.size} data ranks: the moe aux loss "
-                f"and capacity are batch statistics, and reducing them over "
-                f"the data ranks is ROADMAP item 13a (third step)")
+                f"a {sizes} mesh: the port trains over ('data', 'model') "
+                f"meshes")
+        self.size, self.model_size = sizes["data"], sizes.get("model", 1)
+        refuse_model_axis(cfg, self.model_size)
         self.cfg, self.mesh, self.zero1 = cfg, mesh, cfg.zero1
         self.rules = ShardingRules(mesh)
         self.group = mesh.get_group("data")
         self.rank = mesh.get_local_rank("data")
-        axis = names.index("data")
-        self.dims = [_shard_dim(s.placements[axis]) for s in adamw.flatten(
-            zero1_shardings(self.rules, T.model_schema(cfg)))[0]]
+        if self.model_size > 1:
+            self.model_group = mesh.get_group("model")
+            self.model_rank = mesh.get_local_rank("model")
+        else:
+            self.model_group, self.model_rank = None, 0
+        schema = T.model_schema(cfg)
+        self.shardings = adamw.flatten(param_shardings(self.rules,
+                                                       schema))[0]
+        self.model_dims = [_axis_dim(s.spec, "model") if self.model_size > 1
+                           else None for s in self.shardings]
+        self.dims = [_axis_dim(s.spec, "data") for s in adamw.flatten(
+            zero1_shardings(self.rules, schema))[0]]
 
     # ------------------------------------------------------------ batches
     def rows(self, batch):
@@ -481,6 +551,39 @@ class DataParallel:
         b = B // self.size
         return {k: v[self.rank * b:(self.rank + 1) * b]
                 for k, v in batch.items()}
+
+    def micro_blocks(self, batch):
+        """This rank's rows of each micro-batch of the global batch, in
+        micro-batch order.  The batch splits into ``cfg.num_microbatches``
+        consecutive row blocks, as the reference's ``reshape_micro``
+        splits it, and each into ``size`` blocks by rows: data rank ``r``
+        takes block ``r`` of each, the rows the reference's sharded
+        micro-batch gives it.  Where a micro-batch does not split over
+        the ranks, a family without an aux loss takes its rows of the
+        global batch instead (``rows``) in ``micro_batches`` blocks (the
+        global token mean, and its gradient, stay the reference's), and
+        the moe family raises: its routing couples the rows of a
+        micro-batch."""
+        B = batch["tokens"].shape[0]
+        n = max(self.cfg.num_microbatches, 1)
+        if B % n == 0 and (B // n) % self.size == 0:
+            bm, k = B // n, B // n // self.size
+            lo = self.rank * k
+            return [{key: v[i * bm + lo:i * bm + lo + k]
+                     for key, v in batch.items()} for i in range(n)]
+        if self.cfg.family == "moe" and self.size > 1:
+            raise ValueError(
+                f"{self.cfg.name}: a batch of {B} rows in {n} micro-batches "
+                f"does not split evenly over {self.size} data ranks; the "
+                f"moe routing and aux loss couple the rows of a "
+                f"micro-batch, so the gradient would not be the "
+                f"reference's")
+        rows = self.rows(batch)
+        b = rows["tokens"].shape[0]
+        n = self.micro_batches(b)
+        bm = b // n
+        return [{k: v[i * bm:(i + 1) * bm] for k, v in rows.items()}
+                for i in range(n)]
 
     def micro_batches(self, b: int) -> int:
         """Micro-batches of a rank's ``b`` rows: ``cfg.num_microbatches``
@@ -505,8 +608,9 @@ class DataParallel:
         return t if d is None else t.chunk(self.size, d)[self.rank]
 
     def reduce(self, g, i, scatter: bool):
-        """Leaf ``i``'s ``g`` summed over the data ranks: its ZeRO-1 block
-        (a reduce-scatter) with ``scatter``, else whole (an all-reduce)."""
+        """Leaf ``i``'s ``g`` (this rank's model block) summed over the
+        data ranks: its ZeRO-1 block (a reduce-scatter) with ``scatter``,
+        else whole (an all-reduce)."""
         d = self.dims[i] if scatter else None
         if d is None:
             dist.all_reduce(g, group=self.group)
@@ -517,7 +621,8 @@ class DataParallel:
         return out
 
     def gather(self, t, i):
-        """Leaf ``i`` whole from its blocks (an all-gather)."""
+        """Leaf ``i``'s model block from its ZeRO-1 blocks (an all-gather
+        over the data ranks)."""
         d = self.dims[i]
         if d is None:
             return t
@@ -533,19 +638,49 @@ class DataParallel:
         leaves, rebuild = adamw.flatten(tree)
         return rebuild([self.gather(t, i) for i, t in enumerate(leaves)])
 
-    def norm(self, grads) -> torch.Tensor:
-        """The global norm of a gradient given as ZeRO-1 blocks: the
-        blocks' squares summed over the ranks, the whole leaves' once."""
-        leaves = adamw.flatten(grads)[0]
+    def model_blocks(self, tree):
+        """Whole leaves -> this rank's model blocks."""
+        from repro_torch.launch.sharding import model_block
+        leaves, rebuild = adamw.flatten(tree)
+        if self.model_size == 1:
+            return tree
+        return rebuild([model_block(t, s, self.model_rank)
+                        for t, s in zip(leaves, self.shardings)])
 
-        def sq(keep):
-            return sum(torch.sum(torch.square(g.float()))
-                       for g, d in zip(leaves, self.dims)
-                       if (d is None) != keep)
-        split, whole = sq(True), sq(False)
-        if isinstance(split, torch.Tensor):
-            dist.all_reduce(split, group=self.group)
-        return torch.sqrt(split + whole)
+    def gather_model(self, tree):
+        """``model_blocks``' inverse: whole leaves (an all-gather over the
+        model ranks for each sharded leaf)."""
+        from repro_torch.launch.sharding import gather_model_block
+        leaves, rebuild = adamw.flatten(tree)
+        if self.model_size == 1:
+            return tree
+        return rebuild([gather_model_block(t, s, self.model_group)
+                        for t, s in zip(leaves, self.shardings)])
+
+    def norm(self, grads) -> torch.Tensor:
+        """The global norm of a gradient given as this rank's blocks: each
+        leaf's squares summed over the data ranks where ZeRO-1 splits it
+        and over the model ranks where the rules shard it; a leaf whole
+        over an axis counts once."""
+        leaves = adamw.flatten(grads)[0]
+        zero1 = self.zero1
+        total = None
+        for over_data in (False, True):
+            for over_model in (False, True):
+                parts = [torch.sum(torch.square(g.float()))
+                         for g, d, md in zip(leaves, self.dims,
+                                             self.model_dims)
+                         if (zero1 and d is not None) == over_data
+                         and (md is not None) == over_model]
+                if not parts:
+                    continue
+                sq = sum(parts)
+                if over_data:
+                    dist.all_reduce(sq, group=self.group)
+                if over_model:
+                    dist.all_reduce(sq, group=self.model_group)
+                total = sq if total is None else total + sq
+        return torch.sqrt(total)
 
     def mean(self, t):
         dist.all_reduce(t, group=self.group)
@@ -553,19 +688,23 @@ class DataParallel:
 
     # ------------------------------------------------------------ state
     def place(self, state: TrainState) -> TrainState:
-        """A whole state (every rank holds the same) -> this rank's: m and
-        v cut to their ZeRO-1 blocks with ``cfg.zero1``."""
-        if not self.zero1:
-            return state
-        return TrainState(state.step, state.params, adamw.AdamWState(
-            self.blocks(state.opt.m), self.blocks(state.opt.v)))
+        """A whole state (every rank holds the same) -> this rank's: the
+        model-sharded leaves cut to their model blocks, then, with
+        ``cfg.zero1``, m and v to their ZeRO-1 blocks."""
+        m, v = self.model_blocks(state.opt.m), self.model_blocks(state.opt.v)
+        if self.zero1:
+            m, v = self.blocks(m), self.blocks(v)
+        return TrainState(state.step, self.model_blocks(state.params),
+                          adamw.AdamWState(m, v))
 
     def gather_state(self, state: TrainState) -> TrainState:
         """``place``'s inverse: the whole state, on every rank."""
-        if not self.zero1:
-            return state
-        return TrainState(state.step, state.params, adamw.AdamWState(
-            self.gather_tree(state.opt.m), self.gather_tree(state.opt.v)))
+        m, v = state.opt.m, state.opt.v
+        if self.zero1:
+            m, v = self.gather_tree(m), self.gather_tree(v)
+        return TrainState(state.step, self.gather_model(state.params),
+                          adamw.AdamWState(self.gather_model(m),
+                                           self.gather_model(v)))
 
 
 # ============================================================== serving

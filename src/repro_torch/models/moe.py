@@ -1,11 +1,23 @@
 """GShard/Switch-style top-k MoE with capacity-bounded dispatch.
 
-Port of ``repro.models.moe`` without ``_moe_explicit_ep`` (its
-``shard_map`` expert parallelism over the mesh's ``model`` axis is
-ROADMAP item 13a, third step): the port's meshes are data parallel
-only, so ``moe_block`` takes the reference's own path without a model
-axis, ``_moe_grouped`` (``moe_impl`` "auto" or "grouped"), or the
-one-hot formulation (``moe_impl="onehot"``).
+Port of ``repro.models.moe``.  ``moe_block`` takes the reference's
+paths:
+
+* ``_moe_explicit_ep`` under sharding rules with a model axis ``m``
+  above 1 that divides the experts (``moe_impl`` "auto"): each rank
+  holds experts ``[r E/m, (r+1) E/m)``, routes its local tokens as one
+  group, gathers its own experts' slots locally, and the routed output
+  is one float32 all-reduce over the model group;
+* ``_moe_grouped`` otherwise (``moe_impl`` "auto" or "grouped"): over
+  data ranks (rules with a data axis above 1, a model axis of 1) each
+  rank routes its rows' groups and the router statistics are summed
+  over the data group, so the loss is the single device's;
+* the one-hot formulation with ``moe_impl="onehot"``.
+
+Where the rules shard the expert ``d_ff`` instead (``E % m != 0``, the
+``expert_ff`` fallback), and for "grouped" and "onehot" at a model axis
+above 1 or "onehot" over data ranks, ``moe_block`` raises
+``NotImplementedError``: ROADMAP item 13c.
 
 Routing is float32, from a float32 router, whatever the compute dtype;
 the expert weights are stored in compute dtype by ``convert``.  Every
@@ -34,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
+from repro_torch.launch import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.schema import Spec
 
@@ -67,10 +80,15 @@ def expert_capacity(cfg: ModelConfig, num_tokens: int) -> int:
     return max(8, min(cap, num_tokens))
 
 
-def route(router_logits, cfg: ModelConfig):
+def route(router_logits, cfg: ModelConfig, over_data: bool = False):
     """top-k routing. router_logits: (T, E) float32.
 
-    Returns (expert_idx (T, k) int64, weights (T, k), aux_loss scalar)."""
+    Returns (expert_idx (T, k) int64, weights (T, k), aux_loss scalar).
+    ``over_data``: the tokens are this rank's share of a batch split
+    over the active rules' data axis, and the aux loss is the whole
+    batch's: the first-choice counts and the sums of the probabilities
+    are summed over the data group (with the adjoint gradient) before
+    their product."""
     # jax.nn.softmax's own formula: exp(x - max) / sum
     e = torch.exp(router_logits - router_logits.amax(dim=-1, keepdim=True))
     probs = e / e.sum(dim=-1, keepdim=True)
@@ -81,39 +99,74 @@ def route(router_logits, cfg: ModelConfig):
     # Switch-style load-balancing auxiliary loss
     E = cfg.num_experts
     experts = torch.arange(E, device=probs.device)
-    density = (expert_idx[:, :1] == experts).float().mean(0)
-    density_proxy = probs.mean(0)
+    first = (expert_idx[:, :1] == experts).float()
+    if over_data:
+        n = probs.shape[0] * shd.data_axis().size
+        density = shd.sum_over_data(first.sum(0)) / n
+        density_proxy = shd.sum_over_data(probs.sum(0)) / n
+    else:
+        density = first.mean(0)
+        density_proxy = probs.mean(0)
     aux = torch.sum(density * density_proxy) * (E ** 2) / E
     return expert_idx, weights, aux * cfg.router_aux_weight
 
 
-def _shared_experts(p, h, out):
+def _shared_experts(p, h, out, cfg: ModelConfig):
+    """``out`` plus the shared experts' SwiGLU of ``h``; tensor parallel
+    over ``ff`` (f before, g after) where the rules shard it over a model
+    axis, whole otherwise."""
     if "ws_gate" not in p:
         return out
+    tp = shd.model_split("ff", cfg.num_shared_experts * cfg.d_ff) > 1
+    if tp:
+        h = shd.copy_to_model(h)
     gs = torch.matmul(h, p["ws_gate"])
     us = torch.matmul(h, p["ws_up"])
-    return out + torch.matmul(F.silu(gs) * us, p["ws_down"])
+    sh = torch.matmul(F.silu(gs) * us, p["ws_down"])
+    return out + (shd.reduce_from_model(sh) if tp else sh)
+
+
+def _not_ported(cfg: ModelConfig, why: str):
+    raise NotImplementedError(
+        f"{cfg.name} (moe_impl {cfg.moe_impl!r}, {cfg.num_experts} "
+        f"experts): {why} is not ported: ROADMAP item 13c")
 
 
 def moe_block(p, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (B, S, d), aux_loss.  ``moe_impl="onehot"`` runs
-    ``moe_block_onehot``; "auto" and "grouped" run ``_moe_grouped``."""
+    """x: (B, S, d) -> (B, S, d), aux_loss.  Under rules with a model axis
+    above 1 that divides the experts: ``_moe_explicit_ep``; else
+    ``moe_impl="onehot"`` runs ``moe_block_onehot``, and "auto" and
+    "grouped" run ``_moe_grouped`` (over the data ranks where the rules
+    have a data axis above 1)."""
+    tp, dp = shd.model_axis(), shd.data_axis()
+    if tp is not None:
+        if cfg.moe_impl != "auto":
+            _not_ported(cfg, f"moe_impl {cfg.moe_impl!r} over a model axis "
+                             f"of {tp.size}")
+        if cfg.num_experts % tp.size:
+            _not_ported(cfg, f"expert d_ff sharding over a model axis of "
+                             f"{tp.size} (the experts do not divide it)")
+        return _moe_explicit_ep(p, x, cfg, tp)
     if cfg.moe_impl == "onehot":
+        if dp is not None:
+            _not_ported(cfg, "the one-hot dispatch over data ranks")
         return moe_block_onehot(p, x, cfg)
     return _moe_grouped(p, x, cfg)
 
 
-def _dispatch(p, ht, cfg: ModelConfig, G: int, Tg: int):
+def _dispatch(p, ht, cfg: ModelConfig, G: int, Tg: int,
+              over_data: bool = False):
     """The routing of ``ht`` (G, Tg, d): each (group, choice-major
     entry)'s capacity slot, ``E * C`` where it is dropped, in the stable
     sort's order, with that order, the entries' tokens and weights, the
-    aux loss and C."""
+    aux loss and C (``over_data``: see ``route``)."""
     E, k = cfg.num_experts, cfg.top_k
     C = expert_capacity(cfg, Tg)
     kTg = k * Tg
     dev = ht.device
     router_logits = torch.matmul(ht.float(), p["router"].float())
-    expert_idx, weights, aux = route(router_logits.reshape(G * Tg, E), cfg)
+    expert_idx, weights, aux = route(router_logits.reshape(G * Tg, E), cfg,
+                                     over_data)
     expert_idx = expert_idx.reshape(G, Tg, k)
     weights = weights.reshape(G, Tg, k)
 
@@ -167,19 +220,99 @@ def _experts(buf, p):
     return torch.bmm(F.silu(g) * u, p["we_down"])
 
 
+def _combine(out_flat, slot_or_oob, order, k: int, Tg: int):
+    """Each token's kept contributions ``out_flat`` (G, slots + 1, d)
+    float32, the last row zero, summed in ascending slot order from 0.0,
+    one choice at a time: (G, Tg, d).  ``slot_or_oob`` (G, kTg) holds
+    each entry's row of ``out_flat`` in the stable sort's ``order``."""
+    G = slot_or_oob.shape[0]
+    gidx = torch.arange(G, device=out_flat.device)[:, None, None]
+    slot_of = torch.empty_like(slot_or_oob).scatter_(1, order, slot_or_oob)
+    slot_of = slot_of.reshape(G, k, Tg).transpose(1, 2).sort(dim=-1).values
+    terms = out_flat[gidx, slot_of]                           # (G, Tg, k, d)
+    combined = torch.zeros(G, Tg, out_flat.shape[-1], device=out_flat.device)
+    for j in range(k):
+        combined = combined + terms[:, :, j]
+    return combined
+
+
+def _moe_explicit_ep(p, x, cfg: ModelConfig, tp):
+    """Explicit expert parallelism (``repro/models/moe.py:138-216``): the
+    batch is split over the data ranks and replicated over the model
+    ranks, and model rank ``r`` holds experts ``[r E_loc, (r+1) E_loc)``
+    (``p["we_*"]`` are those).  Each rank routes its local tokens as one
+    group (capacity from ``T_loc``), gathers its own experts' slots
+    locally, runs them, and combines their weighted outputs in float32
+    in ascending slot order; one float32 all-reduce over the model group
+    (g) gives the routed output, cast to the compute dtype.  The aux loss
+    is the mean over the data ranks of each rank's (with the gradient of
+    a mean).
+
+    Gradients: the normed input and the router enter through f, so the
+    ranks' partial gradients (each through its own experts' slots) sum;
+    the aux loss, the same on every model rank, has its gradient divided
+    by ``m`` so that the sum counts it once."""
+    dt = dtype_of(cfg.compute_dtype)
+    b, s, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    m = tp.size
+    E_loc = E // m
+    T_loc = b * s
+
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
+    ht = shd.copy_to_model(h).reshape(1, T_loc, d)
+    slot_or_oob, order, flat_tok, flat_w, aux, C = _dispatch(
+        {"router": shd.copy_to_model(p["router"])}, ht, cfg, 1, T_loc)
+    tok_of_slot, w_of_slot = _slot_tables(
+        slot_or_oob, order, flat_tok, flat_w, E, C, T_loc)
+    # this rank's experts' slots: the dispatch is local
+    lo, n = tp.rank * E_loc * C, E_loc * C
+    ht_pad = torch.cat([ht[0], ht.new_zeros(1, d)])
+    buf = ht_pad[tok_of_slot[0, lo:lo + n]].reshape(E_loc, C, d)
+    out_buf = _experts(buf, p)
+    out_flat = torch.cat([
+        out_buf.reshape(n, d).float() * w_of_slot[0, lo:lo + n, None],
+        out_buf.new_zeros(1, d, dtype=torch.float32)])
+    # other ranks' slots (and dropped choices) read the zero row
+    local = slot_or_oob - lo
+    local = torch.where((local >= 0) & (local < n), local, n)
+    partial = _combine(out_flat[None], local, order, k, T_loc)[0]
+    out = shd.reduce_from_model(partial).to(dt).reshape(b, s, d)
+    dp = shd.data_axis()
+    if dp is not None:
+        aux = shd.sum_over_data(aux) / dp.size
+    aux = shd.scale_grad(aux, 1.0 / m)
+    return x + _shared_experts(p, h, out, cfg), aux
+
+
 def _moe_grouped(p, x, cfg: ModelConfig):
-    """Sort-based grouped dispatch (GShard capacity per group)."""
+    """Sort-based grouped dispatch (GShard capacity per group).
+
+    Over data ranks (the active rules' data axis above 1, this rank's
+    rows ``x`` of a batch split evenly over them) the groups are the
+    whole batch's ``moe_groups``: each rank routes its rows' groups,
+    which must be whole (the groups divide over the ranks), and the
+    router statistics are summed over the data group (``route``), so
+    that the loss is the single device's."""
     dt = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
     T = b * s
     E, k = cfg.num_experts, cfg.top_k
-    G = cfg.moe_groups if T % max(cfg.moe_groups, 1) == 0 else 1
+    dp = shd.data_axis()
+    n = 1 if dp is None else dp.size
+    G = cfg.moe_groups if (T * n) % max(cfg.moe_groups, 1) == 0 else 1
+    if G % n:
+        raise ValueError(
+            f"{cfg.name}: {G} routing group(s) of the batch do not split "
+            f"over {n} data ranks, so a rank's rows would not be whole "
+            f"groups and its routing would not be the single device's")
+    G //= n
     Tg = T // G
 
     h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
     ht = h.reshape(G, Tg, d)
     slot_or_oob, order, flat_tok, flat_w, aux, C = _dispatch(
-        p, ht, cfg, G, Tg)
+        p, ht, cfg, G, Tg, over_data=dp is not None)
     tok_of_slot, w_of_slot = _slot_tables(
         slot_or_oob, order, flat_tok, flat_w, E, C, Tg)
 
@@ -196,14 +329,9 @@ def _moe_grouped(p, x, cfg: ModelConfig):
     out_flat = torch.cat([
         out_buf.reshape(G, E * C, d).float() * w_of_slot[:, :, None],
         out_buf.new_zeros(G, 1, d, dtype=torch.float32)], dim=1)
-    slot_of = torch.empty_like(slot_or_oob).scatter_(1, order, slot_or_oob)
-    slot_of = slot_of.reshape(G, k, Tg).transpose(1, 2).sort(dim=-1).values
-    terms = out_flat[gidx[:, :, None], slot_of]                # (G, Tg, k, d)
-    combined = torch.zeros(G, Tg, d, device=x.device)
-    for j in range(k):
-        combined = combined + terms[:, :, j]
+    combined = _combine(out_flat, slot_or_oob, order, k, Tg)
     out = combined.to(dt).reshape(b, s, d)
-    return x + _shared_experts(p, h, out), aux
+    return x + _shared_experts(p, h, out, cfg), aux
 
 
 def moe_block_onehot(p, x, cfg: ModelConfig):
@@ -242,4 +370,4 @@ def moe_block_onehot(p, x, cfg: ModelConfig):
     for j in range(k):
         combined = combined + contrib[j]
     out = combined.reshape(b, s, d)
-    return x + _shared_experts(p, h, out), aux
+    return x + _shared_experts(p, h, out, cfg), aux

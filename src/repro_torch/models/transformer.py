@@ -21,6 +21,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
+from repro_torch.launch.sharding import (active_rules, copy_to_model,
+                                         model_axis, model_split,
+                                         reduce_from_model, use_rules)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
@@ -134,22 +137,56 @@ def model_schema(cfg: ModelConfig):
 
 
 # ============================================================== embedding / logits
+def vocab_block(cfg: ModelConfig):
+    """``(first id, ids)`` of this model rank's block of the vocabulary
+    where the active rules shard ``vocab`` over a model axis (the
+    embedding's rows, ``lm_head``'s columns), else ``None``."""
+    n = model_split("vocab", cfg.padded_vocab)
+    if n == 1:
+        return None
+    size = cfg.padded_vocab // n
+    return model_axis().rank * size, size
+
+
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
     """tokens (B, S) int -> (B, S, d) in compute dtype (the embedding is
-    stored in compute dtype by ``convert``)."""
-    return params["embed"][tokens]
+    stored in compute dtype by ``convert``).  With the vocabulary sharded
+    over a model axis, the lookup is vocab-parallel: each rank reads its
+    rows, ids outside its block give zero rows, and the ranks' rows are
+    all-reduced (one nonzero term a token: the whole lookup's bits)."""
+    block = vocab_block(cfg)
+    if block is None:
+        return params["embed"][tokens]
+    lo, size = block
+    ids = tokens.long() - lo
+    inside = (ids >= 0) & (ids < size)
+    rows = params["embed"][ids.clamp(0, size - 1)]
+    return reduce_from_model(torch.where(inside[..., None], rows,
+                                         rows.new_zeros(())))
 
 
 def lm_logits(params, h: torch.Tensor, cfg: ModelConfig):
     """(B, S, d) -> float32 logits (B, S, padded_vocab), padded slots
-    masked to -1e30."""
+    masked to -1e30.  With the vocabulary sharded over a model axis the
+    logits stay sharded, as the reference's constraint keeps them
+    (``transformer.py:141``): this rank's block of columns, (B, S,
+    padded_vocab / model), the mask applied at global column indices
+    (``model_zoo.lm_loss`` reduces the cross entropy over the ranks)."""
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].t()
-    logits = torch.matmul(h.to(w.dtype), w).float()
-    if cfg.padded_vocab != cfg.vocab_size:  # mask padded slots
-        logits[..., cfg.vocab_size:] = -1e30
+    block = vocab_block(cfg)
+    if block is None:
+        logits = torch.matmul(h.to(w.dtype), w).float()
+        if cfg.padded_vocab != cfg.vocab_size:  # mask padded slots
+            logits[..., cfg.vocab_size:] = -1e30
+        return logits
+    lo, size = block
+    logits = torch.matmul(copy_to_model(h.to(w.dtype)), w).float()
+    if lo + size > cfg.vocab_size:
+        cols = lo + torch.arange(size, device=logits.device)
+        logits = torch.where(cols >= cfg.vocab_size, -1e30, logits)
     return logits
 
 
@@ -158,13 +195,21 @@ def _maybe_remat(fn, cfg: ModelConfig):
     """``jax.checkpoint``'s counterpart: with ``cfg.remat == "full"``,
     ``fn`` keeps only its inputs for the backward pass and recomputes its
     insides there.  The recompute replays the same ops, so a kernel
-    inside ``fn`` launches once more."""
+    inside ``fn`` launches once more.  It replays them under the sharding
+    rules active at the forward (the rules are thread-local, and the
+    backward of CUDA tensors runs on autograd's own thread), so a
+    tensor-parallel body recomputes with the same collectives."""
     if cfg.remat != "full":
         return fn
 
     def remat(*args):
+        rules = active_rules()
+
+        def run(*a):
+            with use_rules(rules):
+                return fn(*a)
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
+            run, *args, use_reentrant=False, preserve_rng_state=False)
     return remat
 
 

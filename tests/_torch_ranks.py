@@ -49,21 +49,24 @@ def leaves(state):
             for t in adamw.flatten(tree)[0]]
 
 
-def trained(cfg, n_devices, steps=STEPS, seed=0):
+def trained(cfg, n_devices, steps=STEPS, seed=0, model_par=1):
     """``steps`` steps of an ``ElasticTrainer`` over the first
-    ``n_devices`` ranks: its metrics, the whole state after (rank 0's),
-    this rank's m and v leaves as the step keeps them."""
+    ``n_devices`` ranks (a ``(n_devices // model_par, model_par)``
+    mesh): its metrics, the whole state after (rank 0's), this rank's
+    parameter, m and v leaves as the step keeps them."""
     tr = ElasticTrainer(cfg, SHAPE, n_devices=n_devices, seed=seed,
-                        hp=adamw.HParams(**HP), device="cpu")
+                        hp=adamw.HParams(**HP), device="cpu",
+                        model_par=model_par)
     tr.train(steps, log_every=0)
     whole = tr.runtime.gathered_state()
     out = {"metrics": tr.metrics_log}
     if whole is not None:
         out["state"] = leaves(whole)
-        out["local_m"] = [t.clone() for t in
-                          adamw.flatten(tr.state.opt.m)[0]]
-        out["local_v"] = [t.clone() for t in
-                          adamw.flatten(tr.state.opt.v)[0]]
+        for key, tree in (("local_params", tr.state.params),
+                          ("local_m", tr.state.opt.m),
+                          ("local_v", tr.state.opt.v)):
+            out[key] = [t.detach().clone() for t in adamw.flatten(tree)[0]]
+        out["coord"] = tuple(tr.runtime.mesh.get_coordinate())
     return out
 
 
@@ -139,15 +142,98 @@ def scenario_two(world):
             out[key] = None
         except ValueError as e:
             out[key] = str(e)
-    for key, cfg, error in (
-            ("moe", cfg_of("qwen2-moe-a2.7b"), NotImplementedError),
-            ("micro3", granite.with_(num_microbatches=3), ValueError)):
+    for key, cfg, model_par, error in (
+            ("mamba2_tp", cfg_of("mamba2-780m"), 2, NotImplementedError),
+            ("micro3", granite.with_(num_microbatches=3), 1, ValueError),
+            ("moe_micro3", cfg_of("qwen2-moe-a2.7b", num_microbatches=3),
+             1, ValueError)):
         try:
-            trained(cfg, world, steps=1)
+            trained(cfg, world, steps=1, model_par=model_par)
             out[key] = None
         except error as e:
             out[key] = str(e)
     return out
+
+
+def spmd_stencil(world):
+    """The SPMD Jacobi step over the world's ranks (a (world,) mesh, odf
+    4, 5 iterations) on the reference test's grid shape, from a seeded
+    numpy draw: the global grid after, and this rank's block through
+    ``local``."""
+    import numpy as np
+    from repro_torch.core.spmd_stencil import make_jacobi_spmd_step
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world,), ("data",), device="cpu")
+    grid = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (world * 4 * 4, 32)).astype(np.float32))
+    step = make_jacobi_spmd_step(mesh, odf=4, n_iters=5)
+    b = grid.shape[0] // world
+    rank = mesh.get_local_rank("data")
+    return {"global": step(grid),
+            "local": step.local(grid[rank * b:(rank + 1) * b])}
+
+
+def scenario_tp_two(world):
+    """The model axis over 2 ranks: the SPMD stencil; reduced granite-8b
+    (float32) and qwen2-moe-a2.7b (float32) at (1, 2), granite-8b with
+    one KV head (replicated KV heads, sharded query heads) at (1, 2),
+    qwen2-moe-a2.7b at (2, 1)."""
+    f32 = dict(compute_dtype="float32")
+    return {"stencil": spmd_stencil(world),
+            "dense": trained(cfg_of("granite-8b", **f32), world,
+                             model_par=2),
+            "dense_kv1": trained(cfg_of("granite-8b", num_kv_heads=1,
+                                        **f32), world, model_par=2),
+            "moe": trained(cfg_of("qwen2-moe-a2.7b", **f32), world,
+                           model_par=2),
+            "moe_data": trained(cfg_of("qwen2-moe-a2.7b", **f32), world)}
+
+
+def elastic_tp(cfg, world):
+    """``elastic`` over a model axis of 2: ``(world/2, 2) -> (world/4, 2)
+    -> (world/2, 2)`` beside an unrescaled twin."""
+    def trainer():
+        return ElasticTrainer(cfg, SHAPE, n_devices=world, seed=11,
+                              device="cpu", model_par=2)
+    a, b = trainer(), trainer()
+    a.train(2, log_every=0)
+    b.train(2, log_every=0)
+    same = []
+    for n in (world // 2, world):
+        before = b.runtime.gathered_state()
+        before = leaves(before) if before is not None else None
+        b.rescale(n)
+        after = b.runtime.gathered_state()
+        if before is not None:
+            same.append(after is not None and all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in zip(before, leaves(after))))
+        b.train(2, log_every=0)
+    a.train(4, log_every=0)
+    return {"a": [m["loss"] for m in a.metrics_log],
+            "b": [m["loss"] for m in b.metrics_log],
+            "b_steps": [m["step"] for m in b.metrics_log],
+            "events": [(e.kind, e.from_devices, e.to_devices)
+                       for e in b.runtime.events],
+            "bit_equal": same}
+
+
+def scenario_tp_four(world):
+    """The model axis over 4 ranks: the SPMD stencil; reduced granite-8b
+    at (2, 2) in float32, with ZeRO-1 (overlapped) and in bf16;
+    qwen2-moe-a2.7b at (2, 2) in float32; the 4 -> 2 -> 4 rescale with a
+    model axis of 2."""
+    f32 = dict(compute_dtype="float32")
+    granite = cfg_of("granite-8b", **f32)
+    return {"stencil": spmd_stencil(world),
+            "dense": trained(granite, world, model_par=2),
+            "zero1": trained(granite.with_(zero1=True,
+                                           grad_schedule="overlapped"),
+                             world, model_par=2),
+            "bf16": trained(cfg_of("granite-8b"), world, model_par=2),
+            "moe": trained(cfg_of("qwen2-moe-a2.7b", **f32), world,
+                           model_par=2),
+            "elastic": elastic_tp(cfg_of("granite-8b", zero1=True), world)}
 
 
 def scenario_four(world):
@@ -206,6 +292,7 @@ def main():
     scenario, rank, world, init, out_dir = sys.argv[1:6]
     rank, world = int(rank), int(world)
     run = {"two": scenario_two, "four": scenario_four,
+           "tp_two": scenario_tp_two, "tp_four": scenario_tp_four,
            "cuda_one": scenario_cuda_one}[scenario]
     device = "cuda" if scenario.startswith("cuda") else "cpu"
     with launch_dist.process_group(rank, world, init, device,

@@ -110,9 +110,10 @@ def test_rescale_records_four_stages_and_restores_the_state(kind, tmp_path,
 
 def test_more_than_one_device_raises():
     """Without a process group the port trains on one device: more
-    raises, naming how to start the ranks (the multi-rank paths are
-    ``tests/test_torch_multirank.py``'s); tensor parallelism raises with
-    or without one."""
+    raises, naming how to start the ranks, and so does a model axis of
+    2 (the multi-rank paths are ``tests/test_torch_multirank.py``'s); a
+    family without tensor parallelism raises at a model axis above 1
+    before any rank is asked for, naming its ROADMAP item."""
     with pytest.raises(RuntimeError, match="process group"):
         devices_for(2, "cpu")
     with pytest.raises(ValueError):
@@ -121,8 +122,12 @@ def test_more_than_one_device_raises():
     with pytest.raises(RuntimeError, match="process group"):
         ElasticTrainer(cfg, SHAPES["train_4k"].reduced(), n_devices=2,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13a"):
+    with pytest.raises(RuntimeError, match="process group"):
         ElasticTrainer(cfg, SHAPES["train_4k"].reduced(), model_par=2,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13c"):
+        ElasticTrainer(ARCHS["mamba2-780m"].reduced(),
+                       SHAPES["train_4k"].reduced(), model_par=2,
                        device="cpu")
 
 
@@ -177,6 +182,6 @@ def test_launcher_cli(capsys):
                        "--reduced", "--steps", "2"])
     out = capsys.readouterr().out
     assert "step     0 loss" in out and "done:" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(RuntimeError, match="process group"):
         launch_train.main(["--device", "cpu", "--reduced",
                            "--model-par", "2", "--steps", "1"])

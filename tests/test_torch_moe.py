@@ -18,7 +18,10 @@ float32, the experts are cast to the compute dtype).  Tolerances:
   the largest (4 * 2^-8 * max |out|; silu and the expert matmuls round
   to bf16 in other places in the two frameworks).
 
-``test_grouped_gradients_finite`` waits for training (ROADMAP item 13).
+The reference's ``test_grouped_gradients_finite`` is mirrored in
+``tests/test_torch_train.py`` (``test_grouped_gradients_finite``), and
+the moe block over data and model ranks in
+``tests/test_torch_multirank.py``.
 """
 
 import jax

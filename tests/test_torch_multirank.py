@@ -1,5 +1,5 @@
-"""The port's data-parallel training over gloo ranks, held against the
-JAX package.
+"""The port's training over the data and model axes of gloo ranks, and
+its SPMD stencil, held against the JAX package.
 
 Every process group of this file lives in child processes: each rank is
 ``python tests/_torch_ranks.py ...`` started with ``subprocess`` (no
@@ -10,13 +10,20 @@ of them are in this one file, so that ``--dist loadfile`` runs them on
 one worker, one group at a time: a 2-rank group runs the 2-rank cases, a
 4-rank group the cases about 4 (1 row a rank, ZeRO-1 over 4, the
 4 -> 2 -> 4 rescale, a (2, 2) mesh's placements), and the launcher
-spawns its own 2.  The ranks run reduced models on the CPU (~10 s a
-group here).
+spawns its own 2.  Two more groups hold the model axis: 2 ranks the
+SPMD stencil, (1, 2) meshes for dense and moe tensor and expert
+parallelism and moe at (2, 1); 4 ranks the stencil, (2, 2) meshes
+(float32, ZeRO-1, bf16, moe) and the 4 -> 2 -> 4 rescale with a model
+axis of 2.  The ranks run reduced models on the CPU (~10 s a group
+here).
 
 The reference runs in this process: its ``jit`` with ``in_shardings`` on
-a real (2, 1) or (4, 1) host mesh (``tests/conftest.py`` gives 8 host
+a real host mesh of the same shape (``tests/conftest.py`` gives 8 host
 devices), from the state the port draws (carried as numpy), on the same
-``SyntheticLM`` batches.  Tolerances:
+``SyntheticLM`` batches.  At a model axis above 1 the reference's moe
+takes its explicit expert parallelism, whose routing groups and aux
+loss differ from a single device's: the port follows the reference at
+each mesh.  Tolerances:
 
 * float32: the same sums in other orders, ~1e-7 relative a step; loss,
   nll and grad_norm within 1e-5 relative, params within 1e-5 relative
@@ -26,7 +33,8 @@ devices), from the state the port draws (carried as numpy), on the same
   single-device run (``tests/test_multidevice.py:80``);
 * elastic: the losses of a rescaled run within 5e-4 of an unrescaled
   twin's (``tests/test_multidevice.py:106``), and the state gathered
-  after each rescale equal to the one before it, bit for bit.
+  after each rescale equal to the one before it, bit for bit;
+* the SPMD stencil: the reference's grid bit for bit.
 """
 
 import os
@@ -43,6 +51,7 @@ import torch
 
 from repro.configs import get_config as jax_config
 from repro.configs.base import SHAPES as JSHAPES
+from repro.core.spmd_stencil import make_jacobi_spmd_step as jspmd_step
 from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.launch import specs as jspecs
 from repro.launch.mesh import make_mesh as jmake_mesh
@@ -108,10 +117,20 @@ def four(tmp_path_factory):
     return run_ranks("four", 4, tmp_path_factory.mktemp("four"))
 
 
+@pytest.fixture(scope="module")
+def tp_two(tmp_path_factory):
+    return run_ranks("tp_two", 2, tmp_path_factory.mktemp("tp_two"))
+
+
+@pytest.fixture(scope="module")
+def tp_four(tmp_path_factory):
+    return run_ranks("tp_four", 4, tmp_path_factory.mktemp("tp_four"))
+
+
 # ------------------------------------------------------------- references
-def initial(arch):
+def initial(arch, **kw):
     """The state every trainer here starts from (seed 0), as numpy."""
-    cfg = get_config(arch).reduced()
+    cfg = get_config(arch).reduced().with_(**kw)
     return tzoo.state_to_numpy(tzoo.init_state(cfg, 0, device="cpu"))
 
 
@@ -129,19 +148,19 @@ def state_leaves(state):
             for x in jax.tree.leaves(tree)]
 
 
-def reference(arch, dtype, n_data, **kw):
+def reference(arch, dtype, n_data, n_model=1, **kw):
     """The reference's 3 steps of reduced ``arch``, jitted with
-    ``in_shardings`` on a real (n_data, 1) host mesh: (metrics per step,
-    final state leaves).  Cached for the module."""
-    key = ("jax", arch, dtype, n_data, tuple(sorted(kw.items())))
+    ``in_shardings`` on a real (n_data, n_model) host mesh: (metrics per
+    step, final state leaves).  Cached for the module."""
+    key = ("jax", arch, dtype, n_data, n_model, tuple(sorted(kw.items())))
     if key not in _RUNS:
         cfg = jax_config(arch).reduced().with_(compute_dtype=dtype, **kw)
         shape = JSHAPES["train_4k"].reduced()
-        mesh = jmake_mesh((n_data, 1), ("data", "model"))
+        mesh = jmake_mesh((n_data, n_model), ("data", "model"))
         rules = JShardingRules(mesh)
         ssh = jspecs.state_shardings(cfg, rules)
         bsh = jspecs.batch_shardings(cfg, shape, rules)
-        state = jax.device_put(to_jax(initial(arch)), ssh)
+        state = jax.device_put(to_jax(initial(arch, **kw)), ssh)
         step = jax.jit(jzoo.make_train_step(cfg, jadamw.HParams(**HP)),
                        in_shardings=(ssh, bsh))
         data = JSyntheticLM(cfg, shape, seed=0)
@@ -149,6 +168,9 @@ def reference(arch, dtype, n_data, **kw):
         with mesh, juse_rules(rules):
             for i in range(STEPS):
                 state, m = step(state, jax.device_put(data.batch_at(i), bsh))
+                # back to the input layout (an exact reshard: the update
+                # may hand ZeRO-1's layout to the params)
+                state = jax.device_put(state, ssh)
                 metrics.append({k: float(v) for k, v in m.items()})
         _RUNS[key] = (metrics, state_leaves(jax.tree.map(np.asarray, state)))
     return _RUNS[key]
@@ -312,12 +334,16 @@ def test_mamba2_data_parallel_matches_one_device(two):
 
 
 def test_moe_and_uneven_micro_batches_raise(two):
-    """moe past one rank raises, naming the ROADMAP item (its aux loss
-    and capacity are batch statistics); 2 rows a rank in 3 micro-batches
-    raise ``ValueError`` rather than give another gradient."""
-    assert "ROADMAP item 13a" in two[0]["moe"], two[0]["moe"]
-    assert "batch statistics" in two[0]["moe"]
+    """What still raises over 2 ranks: mamba2 at a model axis of 2 (its
+    packed in_proj has no tensor parallelism yet) names the ROADMAP
+    item; 2 rows a rank in 3 micro-batches raise ``ValueError`` rather
+    than give another gradient, for the moe family too (its routing
+    couples the rows of a micro-batch).  moe itself trains over data
+    ranks (``test_moe_matches_reference_at_each_mesh``)."""
+    assert "ROADMAP item 13c" in two[0]["mamba2_tp"], two[0]["mamba2_tp"]
+    assert "in_proj" in two[0]["mamba2_tp"]
     assert "micro-batches" in two[0]["micro3"], two[0]["micro3"]
+    assert "micro-batches" in two[0]["moe_micro3"], two[0]["moe_micro3"]
 
 
 @pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)])
@@ -405,3 +431,193 @@ def test_no_process_group_here(tmp_path, monkeypatch):
     (tmp_path / "rendezvous").touch()
     with pytest.raises(FileExistsError):
         launch_dist.file_rendezvous(tmp_path)
+
+
+# ------------------------------------------------------------- the model axis
+@pytest.mark.parametrize("world", [2, 4])
+def test_spmd_stencil_matches_reference(world, tp_two, tp_four):
+    """``make_jacobi_spmd_step`` over ``world`` gloo ranks (odf 4, 5
+    iterations, grid ``(world * 4 * 4, 32)``, as
+    ``tests/test_multidevice.py:35-49``) against the reference's on a
+    ``(world,)`` host mesh: the global grid bit for bit on every rank,
+    and each rank's ``local`` block is its rows of it."""
+    ranks = tp_two if world == 2 else tp_four
+    grid = np.random.default_rng(0).standard_normal(
+        (world * 4 * 4, 32)).astype(np.float32)
+    mesh = jmake_mesh((world,), ("data",))
+    want = np.asarray(jspmd_step(mesh, odf=4, n_iters=5)(jnp.asarray(grid)))
+    b = grid.shape[0] // world
+    for r, out in enumerate(ranks):
+        got = out["stencil"]["global"].numpy()
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), r
+        assert torch.equal(out["stencil"]["local"],
+                           out["stencil"]["global"][r * b:(r + 1) * b])
+
+
+def tp_run(ranks, key):
+    """Rank 0's run of ``key``, with the whole state it gathered."""
+    return run_of(ranks[0][key])
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
+def test_tensor_parallel_float32_matches_reference(mesh_shape, tp_two,
+                                                   tp_four):
+    """Reduced granite-8b, float32, 3 steps over a ``mesh_shape`` mesh
+    (heads, KV heads, ff and the vocabulary split over the model axis):
+    the reference's sharded jit at the same mesh, and the port's single
+    device (tensor parallelism leaves the function alone)."""
+    ranks = tp_two if mesh_shape == (1, 2) else tp_four
+    got = tp_run(ranks, "dense")
+    assert_same_run(got, reference("granite-8b", "float32", *mesh_shape),
+                    "vs reference")
+    assert_same_run(got, one_device("granite-8b", compute_dtype="float32"),
+                    "vs one device")
+    for r in ranks[1:]:
+        assert r["dense"]["metrics"] == ranks[0]["dense"]["metrics"]
+
+
+def test_tensor_parallel_replicated_kv_heads(tp_two):
+    """One KV head on a model axis of 2 (the rules replicate ``kv_heads``
+    and shard ``heads``): every rank holds the KV head and reads it for
+    its query heads; the reference's sharded jit at (1, 2)."""
+    assert_same_run(tp_run(tp_two, "dense_kv1"),
+                    reference("granite-8b", "float32", 1, 2,
+                              num_kv_heads=1), "kv heads replicated")
+
+
+def test_tensor_parallel_zero1_matches_reference(tp_four):
+    """ZeRO-1 (overlapped: a reduce-scatter a micro-batch) on a (2, 2)
+    mesh against the reference's ZeRO-1 run at (2, 2); each rank keeps of
+    m and v exactly the block the reference's ``NamedSharding`` gives its
+    device, and of each parameter its model block."""
+    got = tp_run(tp_four, "zero1")
+    assert_same_run(got, reference("granite-8b", "float32", 2, 2,
+                                   zero1=True, grad_schedule="overlapped"),
+                    "zero1 (2, 2)")
+    cfg = jax_config("granite-8b").reduced().with_(zero1=True)
+    mesh = jmake_mesh((2, 2), ("data", "model"))
+    state_sh = jspecs.state_shardings(cfg, JShardingRules(mesh))
+    zsh = jax.tree.leaves(state_sh.opt.m)
+    psh = jax.tree.leaves(state_sh.params)
+    whole = tp_four[0]["zero1"]["state"]
+    n = len(zsh)
+    for i in range(n):
+        for kind, sh, offset in (("local_params", psh[i], 0),
+                                 ("local_m", zsh[i], n),
+                                 ("local_v", zsh[i], 2 * n)):
+            full = whole[offset + i]
+            index = sh.devices_indices_map(tuple(full.shape))
+            for out in tp_four:
+                block = out["zero1"][kind][i]
+                want = full[index[mesh.devices[out["zero1"]["coord"]]]]
+                assert block.shape == want.shape, (kind, i)
+                assert torch.equal(block, want), (kind, i)
+
+
+def test_tensor_parallel_bf16_loss_within_reference_tolerance(tp_four):
+    """bf16 compute on a (2, 2) mesh: every step's loss within 8e-3 of
+    the reference's sharded run at (2, 2) and of the port's single
+    device (``tests/test_multidevice.py:80``)."""
+    got = [m["loss"] for m in tp_four[0]["bf16"]["metrics"]]
+    ref = [m["loss"] for m in reference("granite-8b", "bfloat16", 2, 2)[0]]
+    one = [m["loss"] for m in one_device("granite-8b")[0]]
+    assert len(got) == STEPS
+    for g, r, o in zip(got, ref, one):
+        assert abs(g - r) < BF16_LOSS and abs(g - o) < BF16_LOSS, (got, ref)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (1, 2), (2, 2)])
+def test_moe_matches_reference_at_each_mesh(mesh_shape, tp_two, tp_four):
+    """Reduced qwen2-moe-a2.7b, float32, 3 steps, against the reference's
+    sharded jit at the same mesh.  (2, 1): ``_moe_grouped`` over data
+    ranks, the single device's loss; (1, 2): explicit expert
+    parallelism, 4 experts a rank, each rank routing its tokens as one
+    group: a single device with ``moe_groups=1``; (2, 2): each data
+    rank's aux loss averaged, neither of those."""
+    ranks = tp_four if mesh_shape == (2, 2) else tp_two
+    key = "moe_data" if mesh_shape == (2, 1) else "moe"
+    got = tp_run(ranks, key)
+    want = reference("qwen2-moe-a2.7b", "float32", *mesh_shape)
+    assert_same_run(got, want, f"moe {mesh_shape}")
+    if mesh_shape == (2, 1):
+        assert_same_run(got, one_device("qwen2-moe-a2.7b",
+                                        compute_dtype="float32"), "one")
+    elif mesh_shape == (1, 2):
+        assert_same_run(got, one_device("qwen2-moe-a2.7b",
+                                        compute_dtype="float32",
+                                        moe_groups=1), "one, one group")
+    else:
+        ep = reference("qwen2-moe-a2.7b", "float32", 1, 2)[0]
+        assert got[0][0]["aux"] != pytest.approx(ep[0]["aux"], rel=1e-3)
+
+
+@pytest.mark.parametrize("case", ["dense (1, 2)", "dense (2, 2)",
+                                  "moe (1, 2)", "moe (2, 2)",
+                                  "zero1 (2, 2)"])
+def test_model_ranks_hold_blocks_and_identical_replicas(case, tp_two,
+                                                        tp_four):
+    """After 3 steps, each model rank's parameters: of a leaf the rules
+    shard over ``model``, its block only (1/m of the leaf, the block of
+    the gathered whole); of a replicated leaf (norms, the router, the
+    moe biases of none), a copy bit-identical on every rank."""
+    key, shape = case.split(" ", 1)
+    ranks = tp_two if shape == "(1, 2)" else tp_four
+    arch = "qwen2-moe-a2.7b" if key == "moe" else "granite-8b"
+    cfg = jax_config(arch).reduced()
+    mesh = jmake_mesh(eval(shape), ("data", "model"))
+    psh = jax.tree.leaves(jspecs.state_shardings(
+        cfg, JShardingRules(mesh)).params)
+    whole = ranks[0][key]["state"]
+    split = replicated = 0
+    for i, sh in enumerate(psh):
+        index = sh.devices_indices_map(tuple(whole[i].shape))
+        for out in ranks:
+            block = out[key]["local_params"][i]
+            if "model" in jax.tree.leaves(tuple(sh.spec)):
+                assert block.numel() * 2 == whole[i].numel(), i
+                want = whole[i][index[mesh.devices[out[key]["coord"]]]]
+                assert torch.equal(block, want), (i, out[key]["coord"])
+            else:
+                assert torch.equal(block, ranks[0][key]["local_params"][i])
+        if "model" in jax.tree.leaves(tuple(sh.spec)):
+            split += 1
+        else:
+            replicated += 1
+    assert split and replicated, (split, replicated)
+
+
+def test_elastic_tensor_parallel_4_2_4(tp_four):
+    """``ElasticTrainer(model_par=2)`` over 4 ranks, ZeRO-1, bf16:
+    (2, 2) -> (1, 2) -> (2, 2) beside an unrescaled twin; the losses
+    within 5e-4, the state gathered over both axes bit for bit across
+    each rescale."""
+    e = tp_four[0]["elastic"]
+    assert len(e["a"]) == len(e["b"]) == 6
+    assert e["b_steps"] == list(range(6))
+    assert all(abs(x - y) < ELASTIC_LOSS for x, y in zip(e["a"], e["b"])), \
+        (e["a"], e["b"])
+    assert e["events"] == [("shrink", 4, 2), ("expand", 2, 4)]
+    assert e["bit_equal"] == [True, True]
+    for r in (2, 3):
+        assert tp_four[r]["elastic"]["b_steps"] == [0, 1, 4, 5]
+
+
+def test_launcher_tensor_parallel_two_ranks():
+    """``python -m repro_torch.launch.train --device cpu --reduced
+    --n-devices 2 --model-par 2 --steps 2``: the launcher spawns its 2
+    gloo ranks on a (1, 2) mesh, rank 0 alone logs, and the first loss
+    is within bf16 tolerance of a single device's."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--reduced", "--n-devices", "2", "--model-par", "2", "--steps",
+         "2"], env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=GROUP_TIMEOUT_S)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.splitlines()
+    assert sum(line.startswith("done:") for line in lines) == 1, out.stdout
+    logged = [line.split() for line in lines if line.startswith("step")]
+    assert [(w[1], w[2], w[4]) for w in logged] == [("0", "loss", "gnorm")]
+    one = one_device("granite-8b")[0]
+    assert abs(float(logged[0][3]) - one[0]["loss"]) < BF16_LOSS

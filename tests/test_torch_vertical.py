@@ -4,8 +4,10 @@ The cases of ``test_vertical.py`` that need ``repro_torch.vertical``:
 the tier mapping, BestEffort held at the door until idle capacity, the
 cluster's grow / shrink smoke, forced shrinks that lose no work, and the
 sliding window's history (the engine-level resize cases are in
-``test_torch_{workunit,simengine}.py``, the detector and adaptive
-checkpoint cases in ``test_torch_chaos.py``).  Then parity: a
+``test_torch_{workunit,simengine}.py``; the reference's detector and
+adaptive checkpoint cases, ``test_detector_suspects_wedged_replica`` and
+``test_adaptive_checkpoint_interval``, have no port counterpart yet:
+ROADMAP item 14).  Then parity: a
 ``FixedThresholdVertical`` + ``QoSPolicy`` cluster and a
 ``SlidingWindowVertical`` one, on SimEngine and on float32 paged
 granite-8b, give the reference's journal digest, summary (wall-clock
