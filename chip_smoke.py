@@ -268,6 +268,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    2 -> 1, 1 step (rank 1 sits out), rescale 1 -> 2, 1 step; losses
    within 5e-4 of the twin's, the state gathered bit for bit across
    each rescale, the stage ms and s/step logged.
+23. the mesh's model axis, after phase 22 (``tp_phase``): two gloo ranks
+   spawned on the card, in one spawn: (a) the SPMD Jacobi stencil at
+   16384^2 float32 over a (2,) mesh, odf 4, 20 iterations, its grid bit
+   for bit the single-grid kernel's x 20, its tile-kernel launches (20 a
+   rank, counts set to 0 just before and read just after) added to the
+   Jacobi row, ms per iteration and the halo exchange's share; (b)
+   granite-8b at full width and 2 layers, tensor parallel on (1, 2), 3
+   steps, losses within 8e-3 of phase 22(b)'s unrescaled twin's (the
+   same seed, data, hp and model); (c) qwen2-moe-a2.7b at full width and
+   2 layers, explicit expert parallelism on (1, 2) (30 experts a rank), 3
+   steps, losses within 8e-3 of a one-device run with moe_groups=1 made
+   before the spawn; for (b) and (c) each rank's parameter GiB against
+   the whole model's, the model-axis all-reduces a step, s/step and peak
+   GiB by rank.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -3958,6 +3972,210 @@ def dp_phase(dev, twin_losses):
             {"one_rank": one, "gloo": gloo})
 
 
+# ------------------------------------------- phase 23: the model axis
+# Phase 23: the mesh's model axis over TP_RANKS gloo ranks sharing the
+# card (NCCL cannot put two ranks on one card), in one spawn: (a) the
+# SPMD Jacobi stencil at SPMD_GRID^2 float32 over a (2,) mesh, odf
+# SPMD_ODF, SPMD_ITERS iterations, bit for bit the single-grid kernel's;
+# (b) granite-8b at full width and DENSE_TRAIN_LAYERS layers, tensor
+# parallel on a (1, 2) mesh, TP_STEPS steps; (c) qwen2-moe-a2.7b at full
+# width and 2 layers with explicit expert parallelism on (1, 2) (30
+# experts a rank), TP_STEPS steps, beside a one-device run with
+# moe_groups=1 made here first (the function explicit EP computes on a
+# (1, 2) mesh: each rank routes its tokens as one group).
+TP_RANKS, TP_STEPS = 2, 3
+SPMD_GRID, SPMD_ODF, SPMD_ITERS = 16384, 4, 20
+TP_BF16_LOSS = 8e-3         # tests/test_multidevice.py:80
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 2
+
+
+def tp_cfg(arch, layers, dev, **kw):
+    """Phase 23's model and shape: ``train_cfg``'s (full width, batch
+    DENSE_TRAIN_BATCH of 4096 tokens on the card) cut to ``layers``
+    layers on the card."""
+    cfg, shape = train_cfg(arch, dev, **kw)
+    if dev.type == "cuda":
+        cfg = cfg.with_(num_layers=layers)
+    return cfg, shape
+
+
+def spmd_stencil_rank(dev) -> dict:
+    """(a) on one rank: the SPMD step over the (world,) mesh, its tile
+    kernel launches (counts set to 0 just before and read just after
+    ``step(grid)``), the global grid bit for bit against the
+    single-grid kernel x SPMD_ITERS on rank 0, then ms per iteration of
+    ``step.local`` and of its exchange and sweep halves, each window
+    started on both ranks together (a barrier)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.spmd_stencil import make_jacobi_spmd_step
+    from repro_torch.kernels.jacobi import jacobi
+    from repro_torch.kernels.jacobi import kernel as jk
+    from repro_torch.launch.mesh import make_mesh
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = SPMD_GRID if dev.type == "cuda" else 64
+    mesh = make_mesh((world,), ("data",), device=dev)
+    step = make_jacobi_spmd_step(mesh, odf=SPMD_ODF, n_iters=SPMD_ITERS)
+    grid = torch.randn((n, n), generator=torch.Generator(dev).manual_seed(0),
+                       device=dev)
+    b = n // world
+    block = grid[rank * b:(rank + 1) * b].clone()
+    sync(dev)
+    jk.launches = 0
+    out = step(grid)
+    sync(dev)
+    launches = jk.launches
+    same = None
+    if rank == 0:
+        want = grid
+        for _ in range(SPMD_ITERS):
+            want = jacobi(want)
+        same = bool(torch.equal(out, want))
+        del want
+    del grid, out
+    release(dev)
+    buf, spare = step.buffers(block)
+    ids, nbr = step.tables(dev)
+
+    def timed(fn):
+        """Seconds of ``fn`` on this rank, the ranks started together."""
+        sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        return time.perf_counter() - t0
+
+    def sweeps():
+        nonlocal buf, spare
+        for _ in range(SPMD_ITERS):
+            buf, spare = step.sweep(buf, spare, ids, nbr), buf
+    total = timed(lambda: step.local(block))
+    exchange = timed(lambda: [step.exchange(buf)
+                              for _ in range(SPMD_ITERS)])
+    sweep = timed(sweeps)
+    return {"grid": n, "launches": launches, "bit_equal": same,
+            "ms_per_iter": total / SPMD_ITERS * 1e3,
+            "exchange_ms_per_iter": exchange / SPMD_ITERS * 1e3,
+            "sweep_ms_per_iter": sweep / SPMD_ITERS * 1e3}
+
+
+def tp_train_rank(cfg, shape, dev, world) -> dict:
+    """(b) and (c) on one rank: ``ElasticTrainer`` over a (1, world)
+    mesh, TP_STEPS steps: losses, s/step, the model-axis all-reduces a
+    step, this rank's parameter GiB against the whole model's, and its
+    peak GiB."""
+    import torch
+    from repro_torch.launch import sharding
+    from repro_torch.launch.train import ElasticTrainer
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adamw
+    release(dev)
+    tr = ElasticTrainer(cfg, shape, n_devices=world, model_par=world,
+                        seed=0, store_kind="device",
+                        hp=adamw.HParams(**TRAIN_HP), device=dev)
+    local = sum(t.numel() * t.element_size()
+                for t in adamw.flatten(tr.state.params)[0])
+    before = sharding.all_reduces
+    times = timed_steps(tr, TP_STEPS, dev)
+    out = {"losses": [m["loss"] for m in tr.metrics_log], "step_s": times,
+           "all_reduces_per_step": (sharding.all_reduces - before)
+           / TP_STEPS, "param_gib": local / 2**30,
+           "whole_param_gib": zoo.num_params(cfg) * 4 / 2**30,
+           "peak_gib": peak_gib()}
+    del tr
+    release(dev)
+    return out
+
+
+def tp_rank(rank, world, dev, zero1, out_path):
+    """A rank of phase 23: (a), (b), (c) in turn; every rank's readings
+    gathered to rank 0, which writes them to ``out_path`` as JSON."""
+    import torch.distributed as dist
+    out = {"stencil": spmd_stencil_rank(dev)}
+    cfg, shape = tp_cfg(DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS, dev,
+                        zero1=zero1)
+    out["dense"] = tp_train_rank(cfg, shape, dev, world)
+    cfg, shape = tp_cfg(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, dev)
+    out["moe"] = tp_train_rank(cfg, shape, dev, world)
+    every = [None] * world
+    dist.all_gather_object(every, out)
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(every))
+
+
+def tp_phase(dev, zero1, twin_losses):
+    """Phase 23.  ``zero1``: phase 22's (b) setting, so that (b)'s losses
+    meet its unrescaled twin's (``twin_losses``: the same seed, data, hp
+    and model, data parallel over 2 ranks) within TP_BF16_LOSS.  Returns
+    (the stencil's tile-kernel launches, summed over the ranks, and the
+    phase's numbers)."""
+    import tempfile
+    from repro_torch.launch import dist as launch_dist
+    log(f"[tp] phase 23 on {gpu_line() if dev.type == 'cuda' else dev}")
+    cfg, shape = tp_cfg(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, dev)
+    log(f"[tp] (c)'s one-device run first: {cfg.name}, {cfg.num_layers} "
+        f"layers, moe_groups=1, {TP_STEPS} steps")
+    one = trainer_run(cfg.with_(moe_groups=1), shape, dev, "memory",
+                      (TP_STEPS,), False)
+    one_losses = [m["loss"] for m in one[0].metrics_log]
+    one_times, one_peak = one[2], one[4]
+    del one
+    release(dev)
+    log(f"  losses {one_losses}, s/step {spread(one_times, 1.0)}, peak "
+        f"{one_peak:.2f} GiB")
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = Path(tmp) / "tp.json"
+            t0 = time.perf_counter()
+            launch_dist.spawn(tp_rank, TP_RANKS, zero1, str(out_path),
+                              device=dev.type, backend="gloo")
+            wall = time.perf_counter() - t0
+            ranks = json.loads(out_path.read_text())
+    finally:
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    st = [r["stencil"] for r in ranks]
+    launches = sum(s["launches"] for s in st)
+    log(f"  (a) SPMD Jacobi {st[0]['grid']}^2 float32, {TP_RANKS} gloo "
+        f"ranks x odf {SPMD_ODF}, {SPMD_ITERS} iterations: bit for bit the "
+        f"single-grid kernel's: {st[0]['bit_equal']}; tile launches by rank "
+        f"{[s['launches'] for s in st]}; ms/iteration by rank "
+        + ", ".join(f"{s['ms_per_iter']:.3f} (exchange "
+                    f"{s['exchange_ms_per_iter']:.3f}, sweep "
+                    f"{s['sweep_ms_per_iter']:.3f}: exchange share "
+                    f"{s['exchange_ms_per_iter'] / (s['exchange_ms_per_iter'] + s['sweep_ms_per_iter']):.1%})"
+                    for s in st))
+    assert st[0]["bit_equal"] is True, st
+    want_launches = SPMD_ITERS if dev.type == "cuda" else 0
+    assert all(s["launches"] == want_launches for s in st), st
+    numbers = {"stencil": st, "wall_s": wall, "one_device_moe": {
+        "losses": one_losses, "step_s": one_times, "peak_gib": one_peak}}
+    for key, what, want in (
+            ("dense", f"(b) {DENSE_TRAIN_ARCH} tensor parallel", twin_losses),
+            ("moe", f"(c) {MOE_TRAIN_ARCH} expert parallel", one_losses)):
+        rs = [r[key] for r in ranks]
+        log(f"  {what} on (1, {TP_RANKS}): losses {rs[0]['losses']} "
+            f"against {[round(x, 6) for x in want]}; s/step "
+            f"{spread(rs[0]['step_s'], 1.0)}; model-axis all-reduces a step "
+            f"{rs[0]['all_reduces_per_step']:.0f}; parameters "
+            + ", ".join(f"{r['param_gib']:.2f}" for r in rs)
+            + f" GiB by rank of {rs[0]['whole_param_gib']:.2f}; peak "
+            + ", ".join(f"{r['peak_gib']:.2f}" for r in rs) + " GiB by rank")
+        diffs = [abs(a - b) for a, b in zip(rs[0]["losses"], want)]
+        assert len(diffs) == TP_STEPS and max(diffs) < TP_BF16_LOSS, \
+            (key, rs[0]["losses"], want)
+        assert all(r["losses"] == rs[0]["losses"] for r in rs), rs
+        assert all(r["param_gib"] < r["whole_param_gib"] for r in rs), rs
+        numbers[key] = {"ranks": rs, "max_loss_diff": max(diffs)}
+    log(f"  {wall:.1f} s with the spawn")
+    return launches, numbers
+
+
 def first_difference(a, b):
     """The first index where two token lists differ (None if equal)."""
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -4213,6 +4431,11 @@ def main() -> int:
     by_path.update(dp_runs)
     log(f"[dp] numbers {json.dumps(dp)}")
     t_phase = lap("phase 22 (data parallel)", t_phase)
+    # 23. the model axis: the SPMD stencil, tensor and expert parallelism
+    spmd_launches, tp = tp_phase(dev, dp["gloo"]["zero1"],
+                                 dp["gloo"]["twin_losses"])
+    log(f"[tp] numbers {json.dumps(tp)}")
+    t_phase = lap("phase 23 (model axis)", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}
@@ -4223,7 +4446,8 @@ def main() -> int:
     t_phase = lap("phase 16 (long-bucket parity)", t_phase)
 
     # 10-12. the stencil app: C1 and C2, correctness, the event driver
-    by_run = {"steady window": steady_launches, **stencil_app_phase(dev)}
+    by_run = {"steady window": steady_launches, **stencil_app_phase(dev),
+              f"spmd stencil ({TP_RANKS} gloo ranks)": spmd_launches}
     stencil_checks_phase(dev)
     by_run["driver"] = stencil_driver_phase(dev)
     jac["launches_by_path"] = by_run

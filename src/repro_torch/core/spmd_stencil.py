@@ -4,10 +4,15 @@ Port of ``repro.core.spmd_stencil``.  The reference shards the grid by
 row blocks over a mesh axis, splits each device's block into ``odf``
 tiles, and swaps the blocks' boundary rows around the ring with
 ``ppermute`` inside ``shard_map``.  Here each rank of the mesh's axis
-holds its row block, and every iteration swaps boundary rows with its
-ring neighbours through ``dist.batch_isend_irecv``; the global top and
-bottom rows see the fixed boundary (1.0 above rank 0, 0.0 below the last
-rank), as the reference's ``jnp.where`` sets them.
+holds its row block, and every iteration the ranks all-gather their
+blocks' top and bottom rows (``dist.all_gather``, 2 rows a rank) and
+each takes its neighbours'; the global top and bottom rows see the
+fixed boundary (1.0 above rank 0, 0.0 below the last rank), as the
+reference's ``jnp.where`` sets them.  A collective and not the ring's
+point-to-point sends: gloo, the backend that can put several ranks on
+one card, sends only host memory point to point (``isend`` of a CUDA
+tensor fails, "Bad address"), while its collectives take CUDA tensors.
+At ``n`` ranks a rank receives ``2 n`` rows where a ring would bring 2.
 
 The local sweep is the tile form of the Jacobi kernel
 (``kernels.jacobi.ops.prepare_jacobi_tiles``): the hand-written kernel
@@ -60,11 +65,8 @@ class JacobiSPMDStep:
         self.size = mesh.size(mesh.mesh_dim_names.index(axis))
         self.rank = mesh.get_local_rank(axis)
         self.odf, self.n_iters = odf, n_iters
-        # the ring neighbours' global ranks (None on the global boundary)
-        self.up = (dist.get_global_rank(self.group, self.rank - 1)
-                   if self.rank > 0 else None)
-        self.down = (dist.get_global_rank(self.group, self.rank + 1)
-                     if self.rank < self.size - 1 else None)
+        # whether a neighbour holds the rows above / below this block
+        self.up, self.down = self.rank > 0, self.rank < self.size - 1
 
     # ------------------------------------------------------------ layout
     def tables(self, device):
@@ -74,10 +76,9 @@ class JacobiSPMDStep:
         odf = self.odf
         nbr = torch.full((odf + 2, 4), -1, dtype=torch.int32)
         for i in range(odf):
-            nbr[i, 0] = i - 1 if i > 0 else (odf if self.up is not None
-                                             else -1)
+            nbr[i, 0] = i - 1 if i > 0 else (odf if self.up else -1)
             nbr[i, 1] = i + 1 if i < odf - 1 else (
-                odf + 1 if self.down is not None else -1)
+                odf + 1 if self.down else -1)
         return (torch.arange(odf, dtype=torch.int32, device=device),
                 nbr.to(device))
 
@@ -94,24 +95,20 @@ class JacobiSPMDStep:
 
     # ------------------------------------------------------------ one iteration
     def exchange(self, buf):
-        """Swap boundary rows with the ring neighbours: this block's top
-        row goes up (the neighbour's bottom halo), its bottom row down
-        (the neighbour's top halo); the received rows land in the halo
-        tiles."""
-        odf = self.odf
-        ops = []
-        if self.up is not None:
-            ops += [dist.P2POp(dist.isend, buf[0, 0], self.up, self.group),
-                    dist.P2POp(dist.irecv, buf[odf, -1], self.up,
-                               self.group)]
-        if self.down is not None:
-            ops += [dist.P2POp(dist.isend, buf[odf - 1, -1], self.down,
-                               self.group),
-                    dist.P2POp(dist.irecv, buf[odf + 1, 0], self.down,
-                               self.group)]
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
+        """The halo rows: every rank's top and bottom rows all-gathered;
+        the row above this block (the upper neighbour's bottom row) lands
+        in the last row of tile ``odf``, the row below it (the lower
+        neighbour's top row) in the first row of tile ``odf + 1``."""
+        if self.size == 1:
+            return
+        odf, r = self.odf, self.rank
+        edges = torch.stack([buf[0, 0], buf[odf - 1, -1]])
+        rows = [torch.empty_like(edges) for _ in range(self.size)]
+        dist.all_gather(rows, edges, group=self.group)
+        if self.up:
+            buf[odf, -1].copy_(rows[r - 1][1])
+        if self.down:
+            buf[odf + 1, 0].copy_(rows[r + 1][0])
 
     def sweep(self, buf, out, ids, nbr):
         """One sweep of the block's tiles of ``buf`` into ``out``."""

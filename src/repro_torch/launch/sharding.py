@@ -89,6 +89,9 @@ import threading
 from contextlib import contextmanager
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import torch
+import torch.distributed as dist
+
 _state = threading.local()
 
 
@@ -291,69 +294,65 @@ def model_split(logical: str, size: int) -> int:
         "model" else 1
 
 
-def _all_reduce(x, group, op=None):
-    import torch.distributed as dist
+# all-reduces made by the collectives below (forward and backward): a
+# plain count for readings, like a kernel wrapper's launches
+all_reduces = 0
+
+
+def _all_reduce(x, group, op=dist.ReduceOp.SUM):
+    global all_reduces
+    all_reduces += 1
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 
-def _autograd_collectives():
-    """The three autograd Functions, made at first use (``torch`` is not
-    imported by the rules)."""
-    global _Functions
-    if _Functions is None:
-        import torch
+class _CopyToGroup(torch.autograd.Function):
+    """f: identity forward, all-reduce of the gradient backward."""
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
 
-        class CopyToGroup(torch.autograd.Function):
-            """f: identity forward, all-reduce of the gradient backward."""
-            @staticmethod
-            def forward(ctx, x, group):
-                ctx.group = group
-                return x.view_as(x)
-
-            @staticmethod
-            def backward(ctx, g):
-                return _all_reduce(g, ctx.group), None
-
-        class ReduceFromGroup(torch.autograd.Function):
-            """g: all-reduce forward, identity backward."""
-            @staticmethod
-            def forward(ctx, x, group):
-                return _all_reduce(x, group)
-
-            @staticmethod
-            def backward(ctx, g):
-                return g, None
-
-        class SumOverGroup(torch.autograd.Function):
-            """All-reduce forward, and its adjoint, all-reduce, backward:
-            for a sum over ranks whose every copy enters the loss."""
-            @staticmethod
-            def forward(ctx, x, group):
-                ctx.group = group
-                return _all_reduce(x, group)
-
-            @staticmethod
-            def backward(ctx, g):
-                return _all_reduce(g, ctx.group), None
-
-        class ScaleGrad(torch.autograd.Function):
-            """Identity forward, the gradient times ``scale`` backward."""
-            @staticmethod
-            def forward(ctx, x, scale):
-                ctx.scale = scale
-                return x.view_as(x)
-
-            @staticmethod
-            def backward(ctx, g):
-                return g * ctx.scale, None
-
-        _Functions = (CopyToGroup, ReduceFromGroup, SumOverGroup, ScaleGrad)
-    return _Functions
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
 
 
-_Functions = None
+class _ReduceFromGroup(torch.autograd.Function):
+    """g: all-reduce forward, identity backward."""
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce forward and its adjoint, all-reduce, backward: for a sum
+    over ranks whose every copy enters the loss."""
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward, the gradient times ``scale`` backward."""
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 def copy_to_model(x):
@@ -364,7 +363,7 @@ def copy_to_model(x):
     tp = model_axis()
     if tp is None:
         return x
-    return _autograd_collectives()[0].apply(x, tp.group)
+    return _CopyToGroup.apply(x, tp.group)
 
 
 def reduce_from_model(x):
@@ -376,7 +375,7 @@ def reduce_from_model(x):
     tp = model_axis()
     if tp is None:
         return x
-    return _autograd_collectives()[1].apply(x, tp.group)
+    return _ReduceFromGroup.apply(x, tp.group)
 
 
 def max_over_model(x):
@@ -385,7 +384,6 @@ def max_over_model(x):
     tp = model_axis()
     if tp is None:
         return x
-    import torch.distributed as dist
     return _all_reduce(x.detach(), tp.group, dist.ReduceOp.MAX)
 
 
@@ -396,14 +394,14 @@ def sum_over_data(x):
     ax = data_axis()
     if ax is None:
         return x
-    return _autograd_collectives()[2].apply(x, ax.group)
+    return _SumOverGroup.apply(x, ax.group)
 
 
 def scale_grad(x, scale: float):
     """``x`` forward, its gradient times ``scale`` backward."""
     if scale == 1:
         return x
-    return _autograd_collectives()[3].apply(x, scale)
+    return _ScaleGrad.apply(x, scale)
 
 
 def _model_dim(sharding: NamedSharding) -> Optional[int]:
@@ -430,8 +428,6 @@ def model_block(t, sharding: NamedSharding, rank: int):
 def gather_model_block(t, sharding: NamedSharding, group):
     """``model_block``'s inverse: the whole leaf from the model ranks'
     blocks (an all-gather over ``group``, the mesh's model group)."""
-    import torch
-    import torch.distributed as dist
     dim = _model_dim(sharding)
     if dim is None:
         return t

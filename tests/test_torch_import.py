@@ -12,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_profile.py",
-    ROOT / "benchmarks" / "train_readings.py"]
+    ROOT / "benchmarks" / "train_readings.py",
+    ROOT / "benchmarks" / "tp_readings.py"]
 
 
 def test_import_loads_no_jax():
