@@ -404,7 +404,7 @@ def scale_grad(x, scale: float):
     return _ScaleGrad.apply(x, scale)
 
 
-def _model_dim(sharding: NamedSharding) -> Optional[int]:
+def model_dim(sharding: NamedSharding) -> Optional[int]:
     """The dimension that ``sharding`` splits over the ``model`` axis of
     its mesh (from its placements), or ``None``."""
     names = axis_names(sharding.mesh)
@@ -418,7 +418,7 @@ def model_block(t, sharding: NamedSharding, rank: int):
     """A whole leaf ``t`` -> model rank ``rank``'s block of it: its
     ``Shard(dim)`` placement on the ``model`` axis cut into equal blocks,
     or ``t`` itself where that placement is ``Replicate()``."""
-    dim = _model_dim(sharding)
+    dim = model_dim(sharding)
     if dim is None:
         return t
     n = axis_sizes(sharding.mesh)["model"]
@@ -428,7 +428,7 @@ def model_block(t, sharding: NamedSharding, rank: int):
 def gather_model_block(t, sharding: NamedSharding, group):
     """``model_block``'s inverse: the whole leaf from the model ranks'
     blocks (an all-gather over ``group``, the mesh's model group)."""
-    dim = _model_dim(sharding)
+    dim = model_dim(sharding)
     if dim is None:
         return t
     n = axis_sizes(sharding.mesh)["model"]

@@ -240,8 +240,8 @@ def attention_block(p, x, cfg, *, causal=True, positions=None,
     ``full_attention`` otherwise.  ``impl`` goes to
     ``blockwise_attention`` (``"ref"``: its plain form on the card)."""
     b, s, _ = x.shape
-    q, k, v = (_qkv(p, x, cfg) if model_split("heads", cfg.num_heads) == 1
-               else _qkv_tp(p, x, cfg))
+    tp = model_split("heads", cfg.num_heads) > 1
+    q, k, v = _qkv_tp(p, x, cfg) if tp else _qkv(p, x, cfg)
     if positions is None:
         positions = torch.arange(s, device=x.device)
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
@@ -257,9 +257,7 @@ def attention_block(p, x, cfg, *, causal=True, positions=None,
     else:
         out = full_attention(q, k, v, causal=causal)
     out = _proj_out(out, p["wo"])
-    if model_split("heads", cfg.num_heads) > 1:
-        out = reduce_from_model(out)
-    return x + out, (k, v)
+    return x + (reduce_from_model(out) if tp else out), (k, v)
 
 
 def decode_attention(p, x, cfg, *, cache_k, cache_v, cache_len,

@@ -456,10 +456,11 @@ def _scatter_grads(grads, dp: Optional["DataParallel"]):
 TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
 
 
-def _axis_dim(spec, name: str) -> Optional[int]:
-    """The dimension of a spec whose entry names mesh axis ``name``."""
+def _data_dim(spec) -> Optional[int]:
+    """The dimension of a spec whose entry names the ``data`` axis (alone
+    or after ``model``), or ``None``."""
     for dim, entry in enumerate(spec):
-        if name == entry or (isinstance(entry, tuple) and name in entry):
+        if entry == "data" or (isinstance(entry, tuple) and "data" in entry):
             return dim
     return None
 
@@ -516,7 +517,8 @@ class DataParallel:
 
     def __init__(self, cfg: ModelConfig, mesh):
         from repro_torch.launch.sharding import (ShardingRules, axis_names,
-                                                 axis_sizes, param_shardings,
+                                                 axis_sizes, model_dim,
+                                                 param_shardings,
                                                  zero1_shardings)
         names, sizes = axis_names(mesh), axis_sizes(mesh)
         if set(names) - {"data", "model"}:
@@ -537,9 +539,9 @@ class DataParallel:
         schema = T.model_schema(cfg)
         self.shardings = adamw.flatten(param_shardings(self.rules,
                                                        schema))[0]
-        self.model_dims = [_axis_dim(s.spec, "model") if self.model_size > 1
-                           else None for s in self.shardings]
-        self.dims = [_axis_dim(s.spec, "data") for s in adamw.flatten(
+        self.model_dims = [model_dim(s) if self.model_size > 1 else None
+                           for s in self.shardings]
+        self.dims = [_data_dim(s.spec) for s in adamw.flatten(
             zero1_shardings(self.rules, schema))[0]]
 
     # ------------------------------------------------------------ batches
@@ -641,9 +643,9 @@ class DataParallel:
     def model_blocks(self, tree):
         """Whole leaves -> this rank's model blocks."""
         from repro_torch.launch.sharding import model_block
-        leaves, rebuild = adamw.flatten(tree)
         if self.model_size == 1:
             return tree
+        leaves, rebuild = adamw.flatten(tree)
         return rebuild([model_block(t, s, self.model_rank)
                         for t, s in zip(leaves, self.shardings)])
 
@@ -651,9 +653,9 @@ class DataParallel:
         """``model_blocks``' inverse: whole leaves (an all-gather over the
         model ranks for each sharded leaf)."""
         from repro_torch.launch.sharding import gather_model_block
-        leaves, rebuild = adamw.flatten(tree)
         if self.model_size == 1:
             return tree
+        leaves, rebuild = adamw.flatten(tree)
         return rebuild([gather_model_block(t, s, self.model_group)
                         for t, s in zip(leaves, self.shardings)])
 
