@@ -13,9 +13,11 @@ no counterpart in ``repro``) starts and ends them:
   ranks on one card), and asking for more ranks than cards raises.
 * ``file_rendezvous(directory)``: a ``file://`` init method under a
   directory of the caller's (never a fixed TCP port).
-* ``spawn(fn, world, *args, device=...)``: ``world`` ranks started with
-  the ``spawn`` method (never ``fork``), each running ``fn(rank, world,
-  device, *args)`` inside ``process_group``; raises if a rank fails.
+* ``spawn(fn, world, *args, device=..., timeout=..., what=...)``:
+  ``world`` ranks started with the ``spawn`` method (never ``fork``),
+  each running ``fn(rank, world, device, *args)`` inside
+  ``process_group``; raises if a rank fails, and with ``timeout`` kills
+  a group that outlives it and raises ``TimeoutError`` naming ``what``.
 * ``torchrun_env()``: ``(rank, world)`` when the process runs under
   ``torchrun``'s environment, else ``None``.
 
@@ -29,6 +31,7 @@ import contextlib
 import datetime
 import os
 import tempfile
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -95,15 +98,32 @@ def _run_rank(rank, fn, world, init_method, device, backend, args):
         fn(rank, world, dev, *args)
 
 
-def spawn(fn, world: int, *args, device="cuda", backend=None):
+def spawn(fn, world: int, *args, device="cuda", backend=None,
+          timeout: Optional[float] = None, what: Optional[str] = None):
     """Run ``fn(rank, world, device, *args)`` in ``world`` new processes
     (the ``spawn`` start method), each inside ``process_group`` over a
     ``file://`` rendezvous in a fresh temporary directory.  ``fn`` must
     be importable by name (a module-level function).  Returns when every
-    rank has ended; raises if one failed."""
+    rank has ended; raises if one failed.  With ``timeout`` (wall
+    seconds), a group still running after it is killed, every rank, and
+    ``TimeoutError`` names ``what`` (``fn``'s name by default): a hung
+    collective fails the caller fast instead of waiting out
+    ``TIMEOUT``."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(
+        ctx = mp.start_processes(
             _run_rank, args=(fn, world, file_rendezvous(tmp), device,
                              backend, args),
-            nprocs=world, join=True, start_method="spawn")
+            nprocs=world, join=False, start_method="spawn")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ctx.join(None if deadline is None else
+                           max(deadline - time.monotonic(), 0.0)):
+            if deadline is not None and time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                for p in ctx.processes:
+                    p.join()
+                raise TimeoutError(
+                    f"{what or fn.__name__}: {world} ranks still running "
+                    f"after {timeout:.0f} s; killed")

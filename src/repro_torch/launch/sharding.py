@@ -56,8 +56,16 @@ layers.py:200 block out (embed)        g after ``wo`` (row-parallel), in
 layers.py:357 ``act`` (ff)             ``swiglu_block``: f, then gate/up
                                        column-parallel over ``ff``
 layers.py:359 block out (embed)        g after ``w_down``
-mamba2.py:174 ``proj`` (d_inner)       raises at a model axis above 1
-mamba2.py:215 block out (embed)        (ssm, hybrid: ROADMAP item 13c)
+mamba2.py:174 ``proj`` (d_inner)       ``mamba2_block``: f on the normed
+                                       input, z / x / dt over the rank's
+                                       contiguous heads, B and C whole
+                                       (``in_proj`` and ``conv_w`` read
+                                       whole: ``model_zoo.DataParallel``
+                                       gathers them once a step)
+mamba2.py:215 block out (embed)        g after ``out_proj`` (row-parallel
+                                       over the heads' channels); the
+                                       ``ssm_norm`` squares summed over
+                                       the group (``sum_over_model``)
 model_zoo.py:344 patch embeds          vlm at a model axis above 1 raises
 transformer.py:170 patch embeds        (item 13c); replicated otherwise
 transformer.py:227 encoder frames      enc_dec raises likewise (item 13c)
@@ -299,7 +307,9 @@ def model_split(logical: str, size: int) -> int:
 all_reduces = 0
 
 
-def _all_reduce(x, group, op=dist.ReduceOp.SUM):
+def all_reduce(x, group, op=dist.ReduceOp.SUM):
+    """``x`` reduced over ``group`` into a new tensor, counted in
+    ``all_reduces`` (no gradient of its own)."""
     global all_reduces
     all_reduces += 1
     out = x.contiguous().clone()
@@ -316,14 +326,14 @@ class _CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        return all_reduce(g, ctx.group), None
 
 
 class _ReduceFromGroup(torch.autograd.Function):
     """g: all-reduce forward, identity backward."""
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x, group)
+        return all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -336,11 +346,11 @@ class _SumOverGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _all_reduce(x, group)
+        return all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        return all_reduce(g, ctx.group), None
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -384,7 +394,19 @@ def max_over_model(x):
     tp = model_axis()
     if tp is None:
         return x
-    return _all_reduce(x.detach(), tp.group, dist.ReduceOp.MAX)
+    return all_reduce(x.detach(), tp.group, dist.ReduceOp.MAX)
+
+
+def sum_over_model(x):
+    """``x`` summed over the model group, with the adjoint gradient (an
+    all-reduce): for a sum whose every copy feeds the rank's own part of
+    a replicated output (a norm's mean of squares over a sharded
+    dimension), so that each rank's partial gradient reaches every
+    term.  The identity without a model axis."""
+    tp = model_axis()
+    if tp is None:
+        return x
+    return _SumOverGroup.apply(x, tp.group)
 
 
 def sum_over_data(x):

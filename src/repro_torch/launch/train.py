@@ -10,10 +10,10 @@ gradient reduced over the ranks, ZeRO-1 with ``cfg.zero1``), and every
 rank of the world builds it and calls ``train`` and ``rescale``: ranks
 outside the current mesh skip the steps.  ``model_par`` is the mesh's
 model axis, as in the reference's ``_mesh_for``: the mesh is ``(n //
-model_par, model_par)``, and over a model axis above 1 the dense and moe
-families train tensor parallel (the others raise: ROADMAP item 13c).  A
-rescale gathers the state over both axes for its checkpoint and places
-it on the new mesh.  Each step copies its host batch to the device on
+model_par, model_par)``, and over a model axis above 1 the dense, moe,
+ssm and hybrid families train tensor parallel (enc_dec and vlm raise:
+ROADMAP item 13c).  A rescale gathers the state over both axes for its
+checkpoint and places it on the new mesh.  Each step copies its host batch to the device on
 the caller's stream and reads the step's metrics back to the host (one
 wait a step).
 
@@ -24,6 +24,8 @@ CLI:
       --reduced --n-devices 2 --steps 2     # spawns 2 gloo ranks
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --reduced --n-devices 2 --model-par 2 --steps 2   # tensor parallel
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch zamba2-2.7b --reduced --n-devices 2 --model-par 2 --steps 2
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --reduced --n-devices 2 --steps 4     # 2 NCCL ranks on 2 cards
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\

@@ -15,6 +15,23 @@ dtypes follow the reference exactly: ``dt`` and ``A`` are float32, the
 SSD core is float32 and its output is cast back to the compute dtype;
 ``D``, ``conv_w`` and ``conv_b`` are in the compute dtype (``convert``
 stores them so), ``A_log`` and ``dt_bias`` stay float32.
+
+Under sharding rules with a model axis above 1 (training over a
+``("data", "model")`` mesh) the block is tensor parallel over its heads,
+the counterpart of the reference's constraints at ``mamba2.py:174,
+215``: each model rank computes z, x and dt of its contiguous block of
+``nheads / m`` heads, and B and C (one group, shared by every head)
+whole; the causal conv runs over its x channels and the B and C
+channels, the SSD (the kernel on the card) over its heads, ``ssm_norm``
+takes its mean of squares summed over the model group, and ``out_proj``
+is row-parallel (its ``d_inner`` rows are the heads' channels), its
+partial sums all-reduced (g).  The block reads ``in_proj`` and
+``conv_w`` whole (``models.model_zoo.DataParallel`` gathers them once a
+step: the reference's specs cut their packed dimensions in blocks that
+do not follow the z / x / B / C / dt parts) and slices the replicated
+``conv_b``, ``A_log``, ``D``, ``dt_bias`` and ``ssm_norm`` to its
+channels and heads; the gradients of all of these are partial on each
+rank, and ``DataParallel`` sums them over the model group.
 """
 
 from __future__ import annotations
@@ -28,6 +45,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: F401
+from repro_torch.launch.sharding import (copy_to_model, model_axis,
+                                         reduce_from_model, sum_over_model)
 from repro_torch.models import layers as L
 from repro_torch.models.schema import Spec
 
@@ -155,6 +174,14 @@ def mamba2_block(p, x, cfg: ModelConfig, *, ssm_state=None, conv_state=None,
     Returns (out, (ssm_state, conv_state)): new tensors, the caller's
     states untouched.
     """
+    tp = model_axis()
+    if tp is not None:
+        if ssm_state is not None or init_ssm is not None \
+                or init_conv is not None:
+            raise NotImplementedError(
+                "a tensor-parallel Mamba2 block takes no carried state "
+                "(training only)")
+        return _mamba2_block_tp(p, x, cfg, tp, impl)
     dt_c = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
     d_inner, nheads, conv_dim, _ = mamba2_dims(cfg)
@@ -195,4 +222,63 @@ def mamba2_block(p, x, cfg: ModelConfig, *, ssm_state=None, conv_state=None,
     y = y * F.silu(z)                                          # gated
     y = L.rms_norm(y, p["ssm_norm"], cfg.norm_eps).to(dt_c)
     out = x + torch.matmul(y, p["out_proj"])
+    return out, (new_ssm, new_conv)
+
+
+def head_block(cfg: ModelConfig, size: int, rank: int) -> Tuple[int, int]:
+    """``(first head, heads)`` of model rank ``rank`` of ``size``: a
+    contiguous block; ``ValueError`` where ``size`` does not divide the
+    heads."""
+    nheads = cfg.ssm_heads
+    if nheads % size:
+        raise ValueError(f"{cfg.name}: {nheads} SSM heads do not split over "
+                         f"a model axis of {size}")
+    hl = nheads // size
+    return rank * hl, hl
+
+
+def _mamba2_block_tp(p, x, cfg: ModelConfig, tp, impl: str):
+    """``mamba2_block``'s prefill form over this model rank's heads (see
+    the module's docstring): ``p["in_proj"]`` and ``p["conv_w"]`` whole,
+    ``p["out_proj"]`` the rank's rows.  Returns the block's output (the
+    same on every rank) and the rank's heads' states."""
+    dt_c = dtype_of(cfg.compute_dtype)
+    b, s, d = x.shape
+    d_inner, nheads, conv_dim, d_in_proj = mamba2_dims(cfg)
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    if p["in_proj"].shape[-1] != d_in_proj or \
+            p["conv_w"].shape[-1] != conv_dim:
+        raise ValueError(
+            f"a tensor-parallel Mamba2 block reads in_proj and conv_w "
+            f"whole ({d_in_proj} and {conv_dim} columns), got "
+            f"{p['in_proj'].shape[-1]} and {p['conv_w'].shape[-1]}")
+    h0, hl = head_block(cfg, tp.size, tp.rank)
+    c0, di = h0 * hp, hl * hp
+    xc = slice(c0, c0 + di)                   # the rank's x channels
+    bc = slice(d_inner, conv_dim)             # B and C
+    w = p["in_proj"]
+    # z, x, B, C, dt of the rank's heads: one projection
+    w = torch.cat([w[:, xc], w[:, d_inner:][:, xc], w[:, d_inner:][:, bc],
+                   w[:, d_inner + conv_dim + h0:][:, :hl]], dim=1)
+    h = copy_to_model(L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt_c))
+    z, xBC, dt_raw = torch.split(torch.matmul(h, w), [di, di + 2 * n, hl],
+                                 dim=-1)
+    heads = slice(h0, h0 + hl)
+    dt = softplus(dt_raw.float() + p["dt_bias"][heads].float())
+    conv_w = torch.cat([p["conv_w"][:, xc], p["conv_w"][:, bc]], dim=1)
+    conv_b = torch.cat([p["conv_b"][xc], p["conv_b"][bc]])
+    xBC, new_conv = _causal_conv(xBC, conv_w, conv_b)
+    xs, B, C = torch.split(xBC, [di, n, n], dim=-1)
+    xh = xs.reshape(b, s, hl, hp)
+    A = -torch.exp(p["A_log"][heads].float())
+    y, new_ssm = ssd_chunked(xh, dt, A, B, C, min(cfg.ssm_chunk, s),
+                             impl=impl)
+    y = y + xh * p["D"][heads][None, None, :, None]
+    y = y.reshape(b, s, di) * F.silu(z)
+    # ssm_norm over all of d_inner: the squares summed over the ranks
+    yf = y.float()
+    sq = sum_over_model(torch.square(yf).sum(dim=-1, keepdim=True))
+    y = (yf * torch.rsqrt(sq / d_inner + cfg.norm_eps)
+         * p["ssm_norm"][xc].float()).to(dt_c)
+    out = x + reduce_from_model(torch.matmul(y, p["out_proj"]))
     return out, (new_ssm, new_conv)

@@ -346,7 +346,10 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
     parameters (``params`` holds them), and the gradient of each leaf is
     this rank's block of the whole gradient.  The gradient is summed
     over the data ranks and divided by ``n_micro`` times their number:
-    the gradient of the reference's global token mean.
+    the gradient of the reference's global token mean.  Over a model
+    axis, the Mamba2 leaves that a rank reads whole or in part
+    (``DataParallel.compute_leaves``) have their partial gradients
+    summed over the model group first (``DataParallel.model_grads``).
     ``grad_schedule == "overlapped"`` reduce-scatters each block's
     gradient as it is made (``_scatter_grads``), in float32; ``"fused"``
     reduces once, after the ``grad_reduce_dtype`` cast.  The gradient
@@ -355,7 +358,10 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
     metrics are the global ones (means over the data ranks)."""
     leaves, rebuild = adamw.flatten(params)
     masters = [p.detach().requires_grad_() for p in leaves]
-    tree = rebuild(masters)
+    # the leaves the model reads: the masters, or (Mamba2 over a model
+    # axis) some of them gathered whole, once a step
+    compute = masters if dp is None else dp.compute_leaves(masters)
+    tree = rebuild(compute)
     if dp is None:
         n_micro, size = max(cfg.num_microbatches, 1), 1
         b = batch["tokens"].shape[0]
@@ -380,11 +386,16 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
             nlls.append(metrics["nll"].detach())
             auxs.append(metrics["aux"].detach())
             if per_micro:
-                g = _scatter_grads([p.grad for p in masters], dp)
+                g = _scatter_grads(dp.model_grads(
+                    [p.grad for p in compute]), dp)
                 acc = g if acc is None else [a + x for a, x in zip(acc, g)]
-                for p in masters:
+                for p in compute:
                     p.grad = None
-    grads = acc if per_micro else [p.grad for p in masters]
+    if per_micro:
+        grads = acc
+    else:
+        grads = [p.grad for p in compute]
+        grads = grads if dp is None else dp.model_grads(grads)
     grads = [g / (n_micro * size) for g in grads]
     if cfg.grad_reduce_dtype == "bfloat16":
         grads = [g.to(torch.bfloat16) for g in grads]
@@ -453,7 +464,18 @@ def _scatter_grads(grads, dp: Optional["DataParallel"]):
 
 # ============================================================== data parallelism
 # families whose blocks are tensor parallel over a model axis above 1
-TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# Mamba2 leaves that a tensor-parallel block reads whole (the reference
+# cuts their packed dimension in blocks that do not follow its parts),
+# and replicated ones that it reads in part (its heads' and channels')
+MAMBA_WHOLE = ("in_proj", "conv_w")
+MAMBA_PARTIAL = ("conv_b", "A_log", "D", "dt_bias", "ssm_norm")
+
+
+def _key_paths(tree, prefix=()):
+    """A tree of nested dicts -> the same tree with each leaf's key path."""
+    return {k: _key_paths(v, prefix + (k,)) if isinstance(v, dict)
+            else prefix + (k,) for k, v in tree.items()}
 
 
 def _data_dim(spec) -> Optional[int]:
@@ -469,11 +491,7 @@ def refuse_model_axis(cfg: ModelConfig, model_par: int):
     """``NotImplementedError`` for a family whose blocks have no tensor
     parallelism yet, at a model axis above 1."""
     if model_par > 1 and cfg.family not in TENSOR_PARALLEL_FAMILIES:
-        what = {"ssm": "mamba2's packed in_proj (z / x / B / C / dt) and "
-                       "its norm over a sharded d_inner",
-                "hybrid": "mamba2's packed in_proj and its norm over a "
-                          "sharded d_inner",
-                "enc_dec": "the encoder and cross attention",
+        what = {"enc_dec": "the encoder and cross attention",
                 "vlm": "the vision prefix"}.get(cfg.family, cfg.family)
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) over a model axis of {model_par}: "
@@ -492,8 +510,16 @@ class DataParallel:
     * each model rank holds its block of every leaf that the rules shard
       over ``model`` (``launch.sharding.model_block`` of its param
       sharding: ``model_dims[i]``, ``None`` for a replicated leaf), and
-      the model's blocks are tensor parallel over them (the dense and
-      moe families; the others raise at a model axis above 1);
+      the model's blocks are tensor parallel over them (the dense, moe,
+      ssm and hybrid families; enc_dec and vlm raise at a model axis
+      above 1);
+    * a tensor-parallel Mamba2 block reads ``in_proj`` and ``conv_w``
+      whole: ``compute_leaves`` all-gathers each over the model group
+      once a step (the stored blocks stay the reference's) and
+      ``model_grads`` reduce-scatters its gradient back to the rank's
+      block; the replicated ``conv_b``, ``A_log``, ``D``, ``dt_bias``
+      and ``ssm_norm``, which each rank reads in part, have their
+      gradients all-reduced over the model group;
     * with ``cfg.zero1``, m and v are the ZeRO-1 shardings' blocks: the
       rank's model block of leaf ``i`` split in ``size`` along
       ``dims[i]`` (the dimension of the ``data`` entry of its ZeRO-1
@@ -503,9 +529,11 @@ class DataParallel:
 
     Parameters, gradients and activations are plain tensors on each rank
     (never a DTensor: the kernels take plain tensors).  Gradients are
-    reduced over the data group only: each model rank's is already its
-    block of the whole one, and a replicated leaf's is the same on every
-    model rank (a replicated leaf stays bit-identical across them).
+    reduced over the data group, and over the model group only where a
+    rank reads a leaf whole or in part (the Mamba2 leaves above): each
+    model rank's is otherwise already its block of the whole one, and a
+    replicated leaf's is the same on every model rank (a replicated leaf
+    stays bit-identical across them).
 
     The moe family's aux loss is a product of batch statistics and its
     capacity couples a token to its group (``repro/models/moe.py:66``);
@@ -543,6 +571,20 @@ class DataParallel:
                            for s in self.shardings]
         self.dims = [_data_dim(s.spec) for s in adamw.flatten(
             zero1_shardings(self.rules, schema))[0]]
+        # Mamba2 leaves read whole (``whole``) or in part (``partial``)
+        self.whole, self.partial = [], []
+        if self.model_size > 1 and cfg.family in ("ssm", "hybrid"):
+            from repro_torch.models.mamba2 import head_block
+            head_block(cfg, self.model_size, self.model_rank)  # divides?
+            paths = adamw.flatten(_key_paths(schema))[0]
+            for i, path in enumerate(paths):
+                if path[0] not in ("layers", "mamba"):
+                    continue
+                if path[-1] in MAMBA_WHOLE:
+                    (self.whole if self.model_dims[i] is not None
+                     else self.partial).append(i)
+                elif path[-1] in MAMBA_PARTIAL:
+                    self.partial.append(i)
 
     # ------------------------------------------------------------ batches
     def rows(self, batch):
@@ -658,6 +700,36 @@ class DataParallel:
         leaves, rebuild = adamw.flatten(tree)
         return rebuild([gather_model_block(t, s, self.model_group)
                         for t, s in zip(leaves, self.shardings)])
+
+    def compute_leaves(self, masters):
+        """The leaves the model reads from the rank's ``masters``: each
+        leaf of ``whole`` all-gathered over the model group into a new
+        leaf that takes the gradient (once a step), the others as they
+        are."""
+        from repro_torch.launch.sharding import gather_model_block
+        out = list(masters)
+        for i in self.whole:
+            out[i] = gather_model_block(masters[i].detach(),
+                                        self.shardings[i],
+                                        self.model_group).requires_grad_()
+        return out
+
+    def model_grads(self, grads):
+        """``compute_leaves``' gradients -> the rank's: a leaf of
+        ``whole`` reduce-scattered over the model group to the rank's
+        block, a leaf of ``partial`` all-reduced over it; the others as
+        they are."""
+        from repro_torch.launch.sharding import all_reduce
+        out = list(grads)
+        for i in self.whole:
+            d = self.model_dims[i]
+            parts = [c.contiguous() for c in grads[i].chunk(
+                self.model_size, d)]
+            out[i] = torch.empty_like(parts[self.model_rank])
+            dist.reduce_scatter(out[i], parts, group=self.model_group)
+        for i in self.partial:
+            out[i] = all_reduce(grads[i], self.model_group)
+        return out
 
     def norm(self, grads) -> torch.Tensor:
         """The global norm of a gradient given as this rank's blocks: each

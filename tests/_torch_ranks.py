@@ -143,7 +143,11 @@ def scenario_two(world):
         except ValueError as e:
             out[key] = str(e)
     for key, cfg, model_par, error in (
-            ("mamba2_tp", cfg_of("mamba2-780m"), 2, NotImplementedError),
+            ("enc_dec_tp", cfg_of("seamless-m4t-medium"), 2,
+             NotImplementedError),
+            ("vlm_tp", cfg_of("internvl2-26b"), 2, NotImplementedError),
+            ("one_head_tp", cfg_of("mamba2-780m", ssm_head_dim=128), 2,
+             ValueError),
             ("micro3", granite.with_(num_microbatches=3), 1, ValueError),
             ("moe_micro3", cfg_of("qwen2-moe-a2.7b", num_microbatches=3),
              1, ValueError)):
@@ -177,9 +181,13 @@ def scenario_tp_two(world):
     """The model axis over 2 ranks: the SPMD stencil; reduced granite-8b
     (float32) and qwen2-moe-a2.7b (float32) at (1, 2), granite-8b with
     one KV head (replicated KV heads, sharded query heads) at (1, 2),
-    qwen2-moe-a2.7b at (2, 1)."""
+    qwen2-moe-a2.7b at (2, 1); mamba2-780m and zamba2-2.7b (float32) at
+    (1, 2)."""
     f32 = dict(compute_dtype="float32")
     return {"stencil": spmd_stencil(world),
+            "ssm": trained(cfg_of("mamba2-780m", **f32), world, model_par=2),
+            "hybrid": trained(cfg_of("zamba2-2.7b", **f32), world,
+                              model_par=2),
             "dense": trained(cfg_of("granite-8b", **f32), world,
                              model_par=2),
             "dense_kv1": trained(cfg_of("granite-8b", num_kv_heads=1,
@@ -222,10 +230,19 @@ def scenario_tp_four(world):
     """The model axis over 4 ranks: the SPMD stencil; reduced granite-8b
     at (2, 2) in float32, with ZeRO-1 (overlapped) and in bf16;
     qwen2-moe-a2.7b at (2, 2) in float32; the 4 -> 2 -> 4 rescale with a
-    model axis of 2."""
+    model axis of 2; mamba2-780m and zamba2-2.7b at (2, 2) in float32
+    and in bf16, and mamba2-780m's 4 -> 2 -> 4 rescale with ZeRO-1."""
     f32 = dict(compute_dtype="float32")
     granite = cfg_of("granite-8b", **f32)
     return {"stencil": spmd_stencil(world),
+            "ssm": trained(cfg_of("mamba2-780m", **f32), world, model_par=2),
+            "hybrid": trained(cfg_of("zamba2-2.7b", **f32), world,
+                              model_par=2),
+            "ssm_bf16": trained(cfg_of("mamba2-780m"), world, model_par=2),
+            "hybrid_bf16": trained(cfg_of("zamba2-2.7b"), world,
+                                   model_par=2),
+            "ssm_elastic": elastic_tp(cfg_of("mamba2-780m", zero1=True),
+                                      world),
             "dense": trained(granite, world, model_par=2),
             "zero1": trained(granite.with_(zero1=True,
                                            grad_schedule="overlapped"),
@@ -286,6 +303,13 @@ def scenario_cuda_one(world):
                     and torch.equal(d.full_tensor(), whole))
     out["placements"] = same
     return out
+
+
+def hang(rank, world, device, seconds):
+    """A rank that outlives any sensible limit (``launch.dist.spawn``'s
+    wall-clock limit is tested with it)."""
+    import time
+    time.sleep(seconds)
 
 
 def main():

@@ -317,6 +317,30 @@ def test_ssd_kernel_at_model_decays_on_card(cuda_device, nc, l, h, p, n):
             atol=1e-5 * float(ref.abs().max()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,n", [(24, 128), (40, 64)],
+                         ids=["mamba2-780m", "zamba2-2.7b"])
+def test_ssd_kernel_at_tensor_parallel_heads_on_card(cuda_device, h, n):
+    """One model rank's heads over a model axis of 2: half of
+    mamba2-780m's 48 and of zamba2-2.7b's 80, at the training chunk (b 2,
+    nc 16, l 256, p 64), through ``SSDIntraChunk`` (one launch, inputs
+    that take gradients).  Held to the full-shape limits: 1e-4
+    relative, 1e-5 of the largest output."""
+    args = [torch.from_numpy(a).to(cuda_device).requires_grad_()
+            for a in ssd_inputs(2, 16, 256, h, 64, n, seed=h)]
+    before = ssd.kernel.launches
+    y, st = ssd.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert "SSDIntraChunk" in type(y.grad_fn).__name__
+    assert ssd.kernel.launches == before + 1
+    y_ref, st_ref = ssd.ssd_intra_chunk_ref(*[a.detach() for a in args])
+    for out, ref in ((y, y_ref), (st, st_ref)):
+        assert torch.isfinite(out).all()
+        np.testing.assert_allclose(
+            out.detach().cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
+            atol=1e-5 * float(ref.abs().max()))
+
+
 def rel_l2(a, b) -> float:
     return float((a.double() - b.double()).norm()
                  / b.double().norm().clamp_min(1e-30))

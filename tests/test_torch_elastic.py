@@ -126,7 +126,7 @@ def test_more_than_one_device_raises():
         ElasticTrainer(cfg, SHAPES["train_4k"].reduced(), model_par=2,
                        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13c"):
-        ElasticTrainer(ARCHS["mamba2-780m"].reduced(),
+        ElasticTrainer(ARCHS["seamless-m4t-medium"].reduced(),
                        SHAPES["train_4k"].reduced(), model_par=2,
                        device="cpu")
 

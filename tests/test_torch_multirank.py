@@ -334,14 +334,22 @@ def test_mamba2_data_parallel_matches_one_device(two):
 
 
 def test_moe_and_uneven_micro_batches_raise(two):
-    """What still raises over 2 ranks: mamba2 at a model axis of 2 (its
-    packed in_proj has no tensor parallelism yet) names the ROADMAP
-    item; 2 rows a rank in 3 micro-batches raise ``ValueError`` rather
-    than give another gradient, for the moe family too (its routing
-    couples the rows of a micro-batch).  moe itself trains over data
-    ranks (``test_moe_matches_reference_at_each_mesh``)."""
-    assert "ROADMAP item 13c" in two[0]["mamba2_tp"], two[0]["mamba2_tp"]
-    assert "in_proj" in two[0]["mamba2_tp"]
+    """What still raises over 2 ranks: enc_dec and vlm at a model axis of
+    2 (their encoder, cross attention and vision prefix have no tensor
+    parallelism yet) name the ROADMAP item; 2 rows a rank in 3
+    micro-batches raise ``ValueError`` rather than give another
+    gradient, for the moe family too (its routing couples the rows of a
+    micro-batch), and a Mamba2 head count that the model axis does not
+    divide raises ``ValueError``.  moe itself trains over data ranks
+    (``test_moe_matches_reference_at_each_mesh``), and ssm and hybrid
+    over a model axis (``test_ssm_hybrid_tensor_parallel_float32``)."""
+    for key, what in (("enc_dec_tp", "cross attention"),
+                      ("vlm_tp", "vision prefix")):
+        assert "ROADMAP item 13c" in two[0][key], two[0][key]
+        assert what in two[0][key], two[0][key]
+    # a Mamba2 head count the model axis does not divide, with the sizes
+    assert "1 SSM heads do not split over a model axis of 2" in \
+        two[0]["one_head_tp"], two[0]["one_head_tp"]
     assert "micro-batches" in two[0]["micro3"], two[0]["micro3"]
     assert "micro-batches" in two[0]["moe_micro3"], two[0]["moe_micro3"]
 
@@ -398,6 +406,33 @@ def test_launcher_spawns_two_ranks():
     assert abs(float(logged[0][3]) - tr.metrics_log[0]["loss"]) < BF16_LOSS
 
 
+def test_spawn_kills_a_group_past_its_limit():
+    """``launch.dist.spawn`` with a wall-clock limit: a group whose ranks
+    outlive it (here they sleep 120 s) is killed, every rank, and
+    ``TimeoutError`` names what was running, long before the ranks (or a
+    collective's 300 s) would end.  In a child process: this worker
+    never starts ranks itself."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    code = ("import sys, time; sys.path[:0] = ['tests']\n"
+            "import _torch_ranks as r\n"
+            "from repro_torch.launch import dist\n"
+            "t0 = time.monotonic()\n"
+            "try:\n"
+            "    dist.spawn(r.hang, 2, 120, device='cpu', timeout=5,\n"
+            "               what='phase x')\n"
+            "except TimeoutError as e:\n"
+            "    print('raised', round(time.monotonic() - t0), e)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True,
+                         timeout=GROUP_TIMEOUT_S)
+    assert out.returncode == 0, out.stderr[-4000:]
+    words = out.stdout.split()
+    assert words[0] == "raised", out.stdout
+    assert int(words[1]) < 60, out.stdout
+    assert "phase x: 2 ranks still running after 5 s; killed" in out.stdout
+
+
 def test_meshes_over_the_process_group(two):
     """``make_host_mesh`` over the world's ranks; a mesh larger than the
     world, and the production (16, 16) mesh on 2 ranks, raise."""
@@ -452,6 +487,10 @@ def test_spmd_stencil_matches_reference(world, tp_two, tp_four):
         assert np.array_equal(got.view(np.int32), want.view(np.int32)), r
         assert torch.equal(out["stencil"]["local"],
                            out["stencil"]["global"][r * b:(r + 1) * b])
+
+
+TP_ARCHS = {"moe": "qwen2-moe-a2.7b", "ssm": "mamba2-780m",
+            "hybrid": "zamba2-2.7b"}
 
 
 def tp_run(ranks, key):
@@ -553,16 +592,20 @@ def test_moe_matches_reference_at_each_mesh(mesh_shape, tp_two, tp_four):
 
 @pytest.mark.parametrize("case", ["dense (1, 2)", "dense (2, 2)",
                                   "moe (1, 2)", "moe (2, 2)",
-                                  "zero1 (2, 2)"])
+                                  "zero1 (2, 2)", "ssm (1, 2)", "ssm (2, 2)",
+                                  "hybrid (1, 2)", "hybrid (2, 2)"])
 def test_model_ranks_hold_blocks_and_identical_replicas(case, tp_two,
                                                         tp_four):
     """After 3 steps, each model rank's parameters: of a leaf the rules
     shard over ``model``, its block only (1/m of the leaf, the block of
     the gathered whole); of a replicated leaf (norms, the router, the
-    moe biases of none), a copy bit-identical on every rank."""
+    moe biases of none), a copy bit-identical on every rank.  For ssm and
+    hybrid the stored blocks of Mamba2's packed ``in_proj`` and
+    ``conv_w`` are the reference's too, though each rank computes with
+    the whole leaf."""
     key, shape = case.split(" ", 1)
     ranks = tp_two if shape == "(1, 2)" else tp_four
-    arch = "qwen2-moe-a2.7b" if key == "moe" else "granite-8b"
+    arch = TP_ARCHS.get(key, "granite-8b")
     cfg = jax_config(arch).reduced()
     mesh = jmake_mesh(eval(shape), ("data", "model"))
     psh = jax.tree.leaves(jspecs.state_shardings(
@@ -621,3 +664,56 @@ def test_launcher_tensor_parallel_two_ranks():
     assert [(w[1], w[2], w[4]) for w in logged] == [("0", "loss", "gnorm")]
     one = one_device("granite-8b")[0]
     assert abs(float(logged[0][3]) - one[0]["loss"]) < BF16_LOSS
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("key", ["ssm", "hybrid"])
+def test_ssm_hybrid_tensor_parallel_float32(key, mesh_shape, tp_two,
+                                            tp_four):
+    """Reduced mamba2-780m (ssm) and zamba2-2.7b (hybrid: Mamba2 layers
+    and the shared attention and MLP), float32, 3 steps over a
+    ``mesh_shape`` mesh: each model rank computes 4 of the 8 SSM heads
+    (the SSD on them; its plain version here), B and C whole, ``ssm_norm``
+    over the group, and the hybrid's 2 of 4 attention heads and half of
+    ``ff``.  Against the reference's sharded jit at the same mesh, and
+    the port's single device; every rank logs the same metrics."""
+    ranks = tp_two if mesh_shape == (1, 2) else tp_four
+    arch = TP_ARCHS[key]
+    got = tp_run(ranks, key)
+    assert_same_run(got, reference(arch, "float32", *mesh_shape),
+                    f"{key} {mesh_shape} vs reference")
+    assert_same_run(got, one_device(arch, compute_dtype="float32"),
+                    f"{key} {mesh_shape} vs one device")
+    for r in ranks[1:]:
+        assert r[key]["metrics"] == ranks[0][key]["metrics"]
+
+
+@pytest.mark.parametrize("key", ["ssm", "hybrid"])
+def test_ssm_hybrid_tensor_parallel_bf16_loss(key, tp_four):
+    """bf16 compute (the configs' own) on a (2, 2) mesh: every step's
+    loss within 8e-3 of the reference's sharded run at (2, 2) and of the
+    port's single device (``tests/test_multidevice.py:80``)."""
+    arch = TP_ARCHS[key]
+    got = [m["loss"] for m in tp_four[0][f"{key}_bf16"]["metrics"]]
+    ref = [m["loss"] for m in reference(arch, "bfloat16", 2, 2)[0]]
+    one = [m["loss"] for m in one_device(arch)[0]]
+    assert len(got) == STEPS
+    for g, r, o in zip(got, ref, one):
+        assert abs(g - r) < BF16_LOSS and abs(g - o) < BF16_LOSS, (got, ref)
+
+
+def test_elastic_tensor_parallel_mamba2_4_2_4(tp_four):
+    """``ElasticTrainer(model_par=2)`` of reduced mamba2-780m over 4
+    ranks, ZeRO-1, bf16: (2, 2) -> (1, 2) -> (2, 2) beside an unrescaled
+    twin; the losses within 5e-4, the state gathered over both axes bit
+    for bit across each rescale (the packed leaves' stored blocks
+    included)."""
+    e = tp_four[0]["ssm_elastic"]
+    assert len(e["a"]) == len(e["b"]) == 6
+    assert e["b_steps"] == list(range(6))
+    assert all(abs(x - y) < ELASTIC_LOSS for x, y in zip(e["a"], e["b"])), \
+        (e["a"], e["b"])
+    assert e["events"] == [("shrink", 4, 2), ("expand", 2, 4)]
+    assert e["bit_equal"] == [True, True]
+    for r in (2, 3):
+        assert tp_four[r]["ssm_elastic"]["b_steps"] == [0, 1, 4, 5]
