@@ -3,14 +3,17 @@
 
     python3 benchmarks/tp_readings.py
 
-It builds only ``csrc/jacobi.cu``, runs phase 22(b)
+It builds only ``csrc/jacobi.cu`` and ``csrc/ssd.cu``, runs phase 22(b)
 (``chip_smoke.dp_gloo_phase``: two gloo ranks sharing the card train
-granite-8b at full width and 2 layers with ZeRO-1 across 2 -> 1 -> 2
-beside an unrescaled twin), then phase 23 (``chip_smoke.tp_phase``): two
-gloo ranks run the SPMD Jacobi stencil at 16384^2 against the
-single-grid kernel, granite-8b tensor parallel on a (1, 2) mesh against
-phase 22(b)'s twin, and qwen2-moe-a2.7b with explicit expert parallelism
-on (1, 2) against a one-device run with ``moe_groups=1``, all with
+granite-8b at full width and ``DENSE_TRAIN_LAYERS`` layers with ZeRO-1
+across 2 -> 1 -> 2 beside an unrescaled twin), then phase 23
+(``chip_smoke.tp_phase``): two gloo ranks run the SPMD Jacobi stencil at
+16384^2 against the single-grid kernel, granite-8b tensor parallel on a
+(1, 2) mesh against phase 22(b)'s twin, qwen2-moe-a2.7b with explicit
+expert parallelism on (1, 2) against a one-device run with
+``moe_groups=1``, and mamba2-780m (2 layers) and zamba2-2.7b (one
+period, 6 Mamba2 layers) tensor parallel on (1, 2), the SSD kernel on
+each rank's heads, against one-device runs of the same cuts, all with
 ``chip_smoke.py``'s limits.  The card's name and power limit come first,
 the phase's numbers as one JSON line last.  Without a card it exits
 non-zero.
@@ -39,15 +42,18 @@ def main() -> int:
     print(cs.gpu_line(), flush=True)
     dev = resolve_device("cuda")
     t0 = time.perf_counter()
-    build.compile_all(["jacobi"])
-    print(f"[build] jacobi in {time.perf_counter() - t0:.1f} s", flush=True)
+    build.compile_all(["jacobi", "ssd"])
+    print(f"[build] jacobi, ssd in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     gloo = cs.dp_gloo_phase(dev)
     print(f"[time] phase 22(b): {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches, numbers = cs.tp_phase(dev, gloo["zero1"], gloo["twin_losses"])
+    launches, ssd_launches, numbers = cs.tp_phase(dev, gloo["zero1"],
+                                                  gloo["twin_losses"])
     print(f"[time] phase 23: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"spmd_launches": launches, "numbers": numbers}),
+    print(json.dumps({"spmd_launches": launches,
+                      "ssd_launches": ssd_launches, "numbers": numbers}),
           flush=True)
     return 0
 

@@ -127,10 +127,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    full-width zamba2-2.7b bulk-prefills 16384 tokens of a 16400-token
    prompt (its shared attention, head_dim 80: flash launches = 9, SSD
    launches = 54 x its 2 bulk prefills) beside a 40-token one;
-15. kernel vs plain at full depth: one 16384-token ``make_prefill`` of
-   granite-8b and of zamba2-2.7b with ``impl="kernel"`` and
-   ``impl="ref"`` from the same tokens, last-position logits in bf16 and
-   float32 within a stated tolerance;
+15. kernel vs plain: one 16384-token ``make_prefill`` of granite-8b and
+   of zamba2-2.7b with ``impl="kernel"`` and ``impl="ref"`` from the
+   same tokens, last-position logits in bf16 (full depth) and float32
+   (granite-8b at 12 layers: 33 GB of float32 weights at 36) within a
+   stated tolerance;
 16. reduced granite-8b in float32 with a bucket of 8704: the dense engine
    (flash kernel) and the paged engine give the same greedy streams for
    a prompt of 8300 tokens and two short ones;
@@ -157,14 +158,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    agree with the source geometry's within ``MIGRATE_LOGITS_TOL``, and
    whether the streams still equal run A's is logged;
 18. the serving cluster on the card: ``ServingCluster`` over a fleet of
-   paged full-width granite-8b replicas (one ``params`` shared, random
+   paged granite-8b replicas at full width and ``CLUSTER_LAYERS`` (4)
+   layers (one ``params`` shared, random
    bf16 weights from seed 0, 8 lanes, 1024 positions, blocks of 16) of
    speeds 2.0 (an accelerator host: ``DeviceEndpoint``), 2.0, 0.7 and
    0.7 (``HostEndpoint``) serves 24 requests of 40-700 prompt tokens, 32
    new each, through two spot interruptions (r0, r1) that drain slots
    mid-decode; every stream equals a lone paged engine's of the same
    geometry, the paged launches (zeroed just before, read just after)
-   are 36 x the decode steps summed over the replicas, and the run
+   are 4 x the decode steps summed over the replicas, and the run
    repeated gives the same journal digest and summary (the wall-clock
    keys left out).  Wall and virtual times, per-replica tokens and host
    syncs, each drain's stage ms and bytes per unit by endpoint kind, the
@@ -174,9 +176,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    one hard kill of its own, survived through checkpoints, the failure
    detector and the straggler policy (every stream again the lone
    engine's), and ``repro_torch.launch.serve.main`` in cluster mode at
-   full width (16 of 16 served), after phase 19;
+   full width and 4 layers (16 of 16 served), after phase 19;
 19. the market and vertical layers on the same ``params``, each run's
-   paged launches zeroed just before it and read just after (36 x the
+   paged launches zeroed just before it and read just after (4 x the
    decode steps summed over the replicas) and its peak memory logged.
    The market A/B: the reference's ``cluster_spot_market`` scenario
    (three std.1x replicas bought on a volatile and a steady market, the
@@ -196,18 +198,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    strictly lower fleet cost.  In bf16 the horizontal arm's streams
    equal a 4-lane lone engine's, and a vertical stream may leave them
    only at the token where an 8-lane lone engine does (cuBLAS rounds
-   otherwise at another M); then the A/B again in float32 at full width
-   (the bf16 weights freed first), where every stream equals the lone
+   otherwise at another M); then the A/B again in float32 (the bf16
+   weights freed first), where every stream equals the lone
    engine's, and a QoS-keyed shrink of one 8-lane float32 engine from 8
    to 4 lanes evicts its 4 BestEffort units, which resume to the lone
-   engine's streams.  Then the launcher at full width in three modes:
+   engine's streams.  Then the launcher (``--layers 4``) in three modes:
    phase 18's drained interruption, ``--market adjusted --fallback
    different_market --scaling cost_aware --slo-mix 0.5 --router
    slo_aware``, and ``--vertical window --qos --slo-mix 0.5`` (16 of 16
    served each, evictions BestEffort first); then qwen2-moe-a2.7b
-   through the launcher at full width, one paged engine (8 of 8 served)
-   and the drained cluster mode (16 of 16), each with paged launches =
-   24 x the decode steps;
+   through the launcher at full width and 4 layers, one paged engine (8
+   of 8 served) and the drained cluster mode (16 of 16), each with paged
+   launches = 4 x the decode steps;
 20. training, after phase 19 (``training_phase``): (a)
    ``ssd_intra_chunk`` under autograd at mamba2-780m's and zamba2-2.7b's
    training chunks (b = 2, nc = 16, l = 256), through ``SSDIntraChunk``
@@ -217,21 +219,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``ElasticTrainer`` on full-width, full-depth mamba2-780m (train_4k's
    4096-token sequences, the global batch cut to 8: 4 micro-batches of
    2; remat full; float32 masters, bf16 compute; the test-scale
-   schedule), 6 steps, ``rescale(1)`` through the memory store, 4 more,
-   beside a twin of 10 straight steps (rescaled after, through the
+   schedule), 4 steps, ``rescale(1)`` through the memory store, 2 more,
+   beside a twin of 6 straight steps (rescaled after, through the
    device store): every loss finite, the last 3 below the first 3, the
    two runs' losses equal bit for bit, SSD launches (zeroed just before,
-   read just after each run) = 48 x 4 x 2 x 10; s/step, tokens/s, peak
+   read just after each run) = 48 x 4 x 2 x 6; s/step, tokens/s, peak
    GiB and the four rescale stages logged; (c) one step's gradient
    through the kernel and through the plain SSD, in bf16 and in float32
    (float32 also with an exact float64 SSD core): loss, grad_norm and
    every gradient leaf under ``TRAIN_ROUTE_TOL``; (d) granite-8b at full
-   width cut to 2 layers (4 x 4096 tokens), 2 steps, a rescale, 2 more,
+   width cut to 1 layer (4 x 4096 tokens), 2 steps, a rescale, 2 more,
    then ``python -m repro_torch.launch.train --arch granite-8b --reduced
    --steps 4`` as a subprocess;
 21. the enc_dec and vlm families, after phase 20 (``frontend_phase``):
-   seamless-m4t-medium (1.96 GB) and internvl2-26b (39.7 GB, the peak
-   while its weights are drawn logged) at full width and depth, random
+   seamless-m4t-medium (1.96 GB) at full width and depth and
+   internvl2-26b at full width and 12 of its 48 layers (the peak while
+   its weights are drawn logged), random
    bf16 weights from seed 0, each launch count set to 0 just before each
    run and read just after.  For each: ``ServingEngine(cache_mode=
    "dense")``, 8 lanes, max_seq 512, serves 8 requests of 40-300 prompt
@@ -242,7 +245,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``cache_mode="paged"`` raises ``ValueError``; one 8704-position
    ``make_prefill`` (seamless: frames and 8704 tokens, flash launches 24,
    12 encoder layers non-causal and 12 decoder self attentions causal;
-   internvl2: 256 patch embeddings and 8448 tokens, flash launches 48)
+   internvl2: 256 patch embeddings and 8448 tokens, flash launches 12)
    with the kernel, again for its warm wall time, and with
    ``impl="ref"``: the last logits in bf16 within ``BF16_LONG_TOL``, and
    in float32 (seamless at full depth, 3.9 GB; internvl2 at 4 layers,
@@ -263,25 +266,35 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    gathered state bit for bit across it); (b) two gloo ranks spawned on
    the one card (NCCL cannot put two ranks on one card) probe the
    collectives the step needs on CUDA tensors, then train granite-8b at
-   full width and 2 layers with ZeRO-1 (off, the log naming why, if gloo
+   full width and 1 layer with ZeRO-1 (off, the log naming why, if gloo
    refused one) beside an unrescaled twin of 3 steps: 1 step, rescale
    2 -> 1, 1 step (rank 1 sits out), rescale 1 -> 2, 1 step; losses
    within 5e-4 of the twin's, the state gathered bit for bit across
-   each rescale, the stage ms and s/step logged.
+   each rescale, the stage ms and s/step logged; the spawned group is
+   killed, and the phase fails naming itself, past ``DP_SPAWN_LIMIT_S``.
 23. the mesh's model axis, after phase 22 (``tp_phase``): two gloo ranks
    spawned on the card, in one spawn: (a) the SPMD Jacobi stencil at
    16384^2 float32 over a (2,) mesh, odf 4, 20 iterations, its grid bit
    for bit the single-grid kernel's x 20, its tile-kernel launches (20 a
    rank, counts set to 0 just before and read just after) added to the
    Jacobi row, ms per iteration and the halo exchange's share; (b)
-   granite-8b at full width and 2 layers, tensor parallel on (1, 2), 3
+   granite-8b at full width and 1 layer, tensor parallel on (1, 2), 3
    steps, losses within 8e-3 of phase 22(b)'s unrescaled twin's (the
    same seed, data, hp and model); (c) qwen2-moe-a2.7b at full width and
    2 layers, explicit expert parallelism on (1, 2) (30 experts a rank), 3
    steps, losses within 8e-3 of a one-device run with moe_groups=1 made
-   before the spawn; for (b) and (c) each rank's parameter GiB against
-   the whole model's, the model-axis all-reduces a step, s/step and peak
-   GiB by rank.
+   before the spawn; (d) mamba2-780m at full width and 2 layers and (e)
+   zamba2-2.7b at full width and one period (6 Mamba2 layers, the
+   shared attention and MLP), tensor parallel on (1, 2) (24 of 48 and
+   40 of 80 SSM heads a rank, the SSD kernel on them; zamba2's 16 of 32
+   attention heads), 3 steps of 4 x 4096 tokens, losses within 8e-3 of
+   one-device runs of the same cuts made before the spawn, SSD launches
+   a rank = Mamba2 layers x 4 micro-batches x 2 x 3 (added to the SSD
+   row), the SSD kernel held against its plain version once at 24 and
+   40 heads (b 2, nc 16, l 256); for (b)-(e) each rank's parameter GiB
+   against the whole model's, the model-axis all-reduces a step, s/step
+   and peak GiB by rank.  The spawned group is killed, and the phase
+   fails naming itself, past ``TP_SPAWN_LIMIT_S``.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -418,7 +431,11 @@ MIGRATE_LOGITS_TOL = BF16_STEP_TOL
 # replay from the prompt) and adds a hard kill (virtual t, replica) of
 # the accelerator replica after checkpoints, so that its units replay
 # from the device endpoint's store.
-CLUSTER_ARCH, CLUSTER_ATTN_LAYERS = "granite-8b", 36
+# Depth is not what these phases hold (the timeline follows the token
+# counts only), so their granite-8b keeps its width and is cut to
+# CLUSTER_LAYERS layers: paged launches = CLUSTER_LAYERS x decode steps.
+CLUSTER_ARCH, CLUSTER_LAYERS = "granite-8b", 4
+CLUSTER_ATTN_LAYERS = CLUSTER_LAYERS
 CLUSTER_FLEET = (("gpu.2x", 2.0, True), ("spot.2x", 2.0, False),
                  ("spot.0.7x", 0.7, False), ("spot.0.7x", 0.7, False))
 CLUSTER_GEOMETRY = dict(batch_size=8, max_seq=1024, decode_block=8)
@@ -433,6 +450,9 @@ CLUSTER_CKPT_S = 30.0      # virtual seconds between recovery checkpoints
 CLUSTER_CLI = ["--cluster", "--no-reduced", "--cache-mode", "paged",
                "--batch-size", "8", "--max-seq", "1024", "--fleet",
                "2x2.0,2x0.7", "--requests", "16"]
+# qwen2-moe-a2.7b through the launcher, at full width cut like the
+# cluster's granite-8b
+MOE_LAUNCH_LAYERS = CLUSTER_LAYERS
 LAUNCHES = (
     ("cluster launcher", ["--router", "rate_aware", "--interrupt-at", "4"]),
     ("market launcher", ["--market", "adjusted", "--fallback",
@@ -540,6 +560,10 @@ LONG_PATHS = (("granite-8b", LONG_PROMPTS, 4, 3),
 # summation only (~1e-7 relative per attention output).
 BF16_LONG_TOL = dict(rel_l2=0.1, argmax_agree=0.0)
 F32_LONG_TOL = dict(rel_l2=1e-4, argmax_agree=1.0)
+# The float32 repeat's depth where it is cut: granite-8b's 36 float32
+# layers are 33 GB to draw; 12 hold the same kernel against the same
+# plain form (the bf16 check keeps the full depth).
+LONG_F32_LAYERS = {"granite-8b": 12}
 
 
 def log(msg):
@@ -1850,7 +1874,7 @@ def long_prefill_vs_plain(cfg, params, dev, tol):
     rel = rel_l2(a, b)
     agree = float(a.argmax() == b.argmax())
     log(f"[long prefill {cfg.name} {cfg.compute_dtype}] {LONG_S} tokens at "
-        f"full depth, "
+        f"{cfg.num_layers} layers, "
         f"kernel vs plain: rel_l2={rel:.3e} max_abs={max_err(a, b):.3e} "
         f"argmax agreement {agree:.0f} (tol {tol}); {secs['kernel']:.2f} s "
         f"vs {secs['ref']:.2f} s")
@@ -2425,8 +2449,8 @@ def lone_engine_streams(cfg, params, dev, reqs, geometry) -> dict:
 
 def check_served(what, reqs, out, probe, launches, want, dev):
     """Everyone served with their token counts (and ``want``'s streams,
-    unless it is None); the paged kernel launched 36 x the decode steps
-    summed over the replicas."""
+    unless it is None); the paged kernel launched CLUSTER_ATTN_LAYERS x
+    the decode steps summed over the replicas."""
     assert out["completed"] == out["submitted"] == len(reqs), (what, out)
     assert out["dropped"] == 0, (what, out)
     for r in reqs:
@@ -2596,7 +2620,8 @@ def cluster_phase(cfg, params, dev):
                                requests(cfg, CLUSTER_LENS, 32, seed=0),
                                CLUSTER_GEOMETRY)
     release(dev)
-    log(f"[cluster] {CLUSTER_ARCH} at full width and depth, paged "
+    log(f"[cluster] {CLUSTER_ARCH} at full width, {cfg.num_layers} layers, "
+        f"paged "
         f"replicas {CLUSTER_GEOMETRY}, fleet {CLUSTER_FLEET}, "
         f"{len(CLUSTER_LENS)} requests of {min(CLUSTER_LENS)}-"
         f"{max(CLUSTER_LENS)} prompt tokens x 32 new, spot interruptions "
@@ -2682,14 +2707,15 @@ def cluster_phase(cfg, params, dev):
 
 def launcher_run(what, flags, dev, arch=CLUSTER_ARCH,
                  attn_layers=CLUSTER_ATTN_LAYERS):
-    """``repro_torch.launch.serve.main`` in cluster mode at full width
-    (its own weights, drawn from seed 0), the paged launch count set to 0
-    just before and read just after: every request served, the paged
-    kernel launched ``attn_layers`` x the decode steps.  Returns
-    (launches, summary, wall s, peak GiB)."""
+    """``repro_torch.launch.serve.main`` in cluster mode at full width and
+    ``attn_layers`` layers (its own weights, drawn from seed 0), the
+    paged launch count set to 0 just before and read just after: every
+    request served, the paged kernel launched ``attn_layers`` x the
+    decode steps.  Returns (launches, summary, wall s, peak GiB)."""
     from repro_torch.launch import serve
     argv = ["--arch", arch] + CLUSTER_CLI + flags + (
-        [] if dev.type == "cuda" else ["--device", "cpu", "--reduced"])
+        ["--layers", str(attn_layers)] if dev.type == "cuda"
+        else ["--device", "cpu", "--reduced"])
     log(f"[cluster] {what}: repro_torch.launch.serve.main({argv})")
     with resize_probe(dev) as resizes:
         (cl, reqs, out), wall, probe, launches = counted_run(
@@ -2713,16 +2739,17 @@ def launcher_run(what, flags, dev, arch=CLUSTER_ARCH,
 
 def single_launcher_run(arch, attn_layers, dev):
     """``repro_torch.launch.serve.main`` for one paged engine at full
-    width (8 requests, 32 new tokens each), the paged launch count set
-    to 0 just before and read just after: its report says every request
-    was served, and the paged kernel ran ``attn_layers`` x the decode
-    steps.  Returns the launches."""
+    width and ``attn_layers`` layers (8 requests, 32 new tokens each),
+    the paged launch count set to 0 just before and read just after: its
+    report says every request was served, and the paged kernel ran
+    ``attn_layers`` x the decode steps.  Returns the launches."""
     import io
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--no-reduced", "--cache-mode", "paged",
             "--batch-size", "8", "--max-seq", "1024", "--requests", "8",
-            "--max-new", "32"] + ([] if dev.type == "cuda" else
-                                  ["--device", "cpu", "--reduced"])
+            "--max-new", "32"] + (
+                ["--layers", str(attn_layers)] if dev.type == "cuda"
+                else ["--device", "cpu", "--reduced"])
     log(f"[launcher] repro_torch.launch.serve.main({argv})")
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
@@ -3098,12 +3125,12 @@ def vertical_phase(cfg, params, dev, geometry):
 # Phase 20: single-device training through the elastic runtime.
 # train_4k's 4096-token sequences, its global batch of 256 cut to 8 for
 # mamba2-780m (4 micro-batches of 2: one card, one call's time) and to 4
-# for granite-8b cut to 2 layers; the test-scale schedule of
+# for granite-8b cut to DENSE_TRAIN_LAYERS layers; the test-scale schedule of
 # tests/test_system.py (the default warms up over 100 steps); float32
 # masters, bf16 compute, remat full.
 TRAIN_HP = dict(lr=1e-3, warmup_steps=2, total_steps=100)
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_STEPS = "mamba2-780m", 8, (6, 4)
-DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS, DENSE_TRAIN_BATCH = "granite-8b", 2, 4
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_STEPS = "mamba2-780m", 8, (4, 2)
+DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS, DENSE_TRAIN_BATCH = "granite-8b", 1, 4
 DENSE_TRAIN_STEPS = (2, 2)
 # (a) the SSD Function at the models' training chunks, (b, nc, l, h, p, n):
 # a micro-batch of 2 sequences of 4096 tokens in chunks of 256
@@ -3303,8 +3330,9 @@ def log_trainer(what, cfg, shape, tr, launches, times, events, peak):
 
 def train_twin_phase(dev):
     """(b) mamba2-780m at full width and depth: ``ElasticTrainer`` for
-    6 steps, ``rescale(1)`` (memory store), 4 more; a twin trainer 10
-    steps straight (device store; rescaled after, for its stage times).
+    ``TRAIN_STEPS[0]`` steps, ``rescale(1)`` (memory store),
+    ``TRAIN_STEPS[1]`` more; a twin trainer of their sum straight (device
+    store; rescaled after, for its stage times).
     Every loss finite, the last 3 below the first 3, the two runs' losses
     equal bit for bit (one stream, cuBLAS deterministic there, the
     embedding's backward sort-based, no float atomics on this path), SSD
@@ -3433,8 +3461,9 @@ def flat_cat(leaves):
 
 
 def dense_train_phase(dev):
-    """(d) granite-8b at full width, depth cut to 2 layers: 2 steps,
-    ``rescale(1)``, 2 steps; then the launcher as a subprocess."""
+    """(d) granite-8b at full width, depth cut to DENSE_TRAIN_LAYERS: 2
+    steps, ``rescale(1)``, 2 steps; then the launcher as a
+    subprocess."""
     import math
     from repro_torch.models import model_zoo as zoo
     cfg, shape = train_cfg(DENSE_TRAIN_ARCH, dev)
@@ -3445,8 +3474,9 @@ def dense_train_phase(dev):
         f"{shape.global_batch} x {shape.seq_len}")
     tr, launches, times, events, peak = trainer_run(
         cfg, shape, dev, "memory", DENSE_TRAIN_STEPS, False)
-    numbers = log_trainer("granite-8b, 2 layers (memory store)", cfg, shape,
-                          tr, launches, times, events, peak)
+    numbers = log_trainer(f"granite-8b, {cfg.num_layers} layers (memory "
+                          f"store)", cfg, shape, tr, launches, times, events,
+                          peak)
     ls = numbers["losses"]
     assert all(math.isfinite(x) for x in ls), ls
     assert not any(launches.values()), launches   # full_attention: no kernel
@@ -3472,7 +3502,8 @@ def dense_train_phase(dev):
 def training_phase(dev, flush):
     """Phase 20: (a) the SSD Function, (b) mamba2-780m trained across a
     rescale beside a twin, (c) kernel against plain route, (d) granite-8b
-    at 2 layers and the launcher.  Returns (launches by run, numbers)."""
+    at DENSE_TRAIN_LAYERS layers and the launcher.  Returns (launches by
+    run, numbers)."""
     numbers = {}
     log(f"[train] phase 20 on {gpu_line() if dev.type == 'cuda' else dev}")
     if dev.type == "cuda":
@@ -3483,7 +3514,8 @@ def training_phase(dev, flush):
     runs, numbers["mamba2"] = train_twin_phase(dev)
     log("[train] (c) one step's gradient, kernel route vs plain route")
     numbers["routes"] = route_phase(dev)
-    log("[train] (d) granite-8b at 2 layers, then the launcher")
+    log(f"[train] (d) granite-8b at {DENSE_TRAIN_LAYERS} layers, then the "
+        f"launcher")
     numbers["dense"] = dense_train_phase(dev)
     return runs, numbers
 
@@ -3495,7 +3527,9 @@ def training_phase(dev, flush):
 # feeds every prompt token through a decode step, text only.  (model,
 # flash launches of one FRONTEND_S-position prefill: 12 encoder layers
 # non-causal and 12 decoder self attentions causal; 48 layers causal.)
-FRONTEND_PATHS = (("seamless-m4t-medium", 24), ("internvl2-26b", 48))
+# (model, layers: None keeps the published depth).  internvl2-26b's 48
+# layers (39.7 GB) are cut to 12: flash launches = its layers.
+FRONTEND_PATHS = (("seamless-m4t-medium", None), ("internvl2-26b", 12))
 FRONTEND_LENS, FRONTEND_NEW = [40, 63, 100, 150, 200, 240, 270, 300], 16
 FRONTEND_MAX_SEQ = 512
 # One long prefill of 8704 positions (17 blocks of 512, past the 8192
@@ -3511,14 +3545,16 @@ FRONTEND_F32_LAYERS = 4
 FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_STEPS = 8, 3
 
 
-def frontend_setup(arch, dev):
-    """(cfg, prefill positions): full width and depth on the card; on the
-    CPU (a rehearsal) the reduced model, blockwise attention at blocks of
-    32 (the flash kernel's plain version) and 64 positions."""
+def frontend_setup(arch, layers, dev):
+    """(cfg, prefill positions): full width on the card, cut to ``layers``
+    layers unless None; on the CPU (a rehearsal) the reduced model,
+    blockwise attention at blocks of 32 (the flash kernel's plain
+    version) and 64 positions."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     if dev.type == "cuda":
-        return cfg, FRONTEND_S
+        return (cfg if layers is None else cfg.with_(num_layers=layers),
+                FRONTEND_S)
     return cfg.reduced().with_(attn_impl="blockwise", flash_block_q=32,
                                flash_block_kv=32), 64
 
@@ -3699,8 +3735,11 @@ def frontend_phase(dev):
     from repro_torch.core.checkpointing import tree_leaves
     from repro_torch.models import model_zoo as zoo
     launches, numbers = {}, {}
-    for arch, want in FRONTEND_PATHS:
-        cfg, S = frontend_setup(arch, dev)
+    for arch, layers in FRONTEND_PATHS:
+        cfg, S = frontend_setup(arch, layers, dev)
+        # a launch a layer: the encoder's and the decoder's self attention
+        want = (cfg.enc_layers + cfg.dec_layers if cfg.family == "enc_dec"
+                else cfg.num_layers)
         release(dev)
         t0 = time.perf_counter()
         params = zoo.init_serving_params(cfg, seed=0, device=dev)
@@ -3744,6 +3783,9 @@ def frontend_phase(dev):
 # it, with ZeRO-1 across a 2 -> 1 -> 2 rescale, beside an unrescaled
 # twin.
 DP_STEPS, DP_RANKS = 3, 2
+# a hung rank fails (b) after this many wall seconds (the group is
+# killed); (b) reads 40-110 s on an H100
+DP_SPAWN_LIMIT_S = 300
 DP_ELASTIC_LOSS = 5e-4      # tests/test_multidevice.py:106
 # what a data-parallel step and a rescale call on a gloo group
 DP_COLLECTIVES = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
@@ -3901,8 +3943,9 @@ def dp_gloo_rank(rank, world, dev, out_path):
 
 def dp_gloo_phase(dev):
     """(b) ``DP_RANKS`` gloo ranks spawned on ``dev`` (sharing one card):
-    granite-8b at 2 layers with ZeRO-1 (off if gloo refused a collective
-    the step needs: the log names it) across 2 -> 1 -> 2, the losses
+    granite-8b at DENSE_TRAIN_LAYERS layers with ZeRO-1 (off if gloo
+    refused a collective the step needs: the log names it) across 2 -> 1
+    -> 2, the losses
     within ``DP_ELASTIC_LOSS`` of the unrescaled twin's, the state
     bit-equal across each rescale.  Returns the readings."""
     import tempfile
@@ -3921,7 +3964,8 @@ def dp_gloo_phase(dev):
             out_path = Path(tmp) / "dp_gloo.json"
             t0 = time.perf_counter()
             launch_dist.spawn(dp_gloo_rank, DP_RANKS, str(out_path),
-                              device=dev.type, backend="gloo")
+                              device=dev.type, backend="gloo",
+                              timeout=DP_SPAWN_LIMIT_S, what="phase 22(b)")
             wall = time.perf_counter() - t0
             out = json.loads(out_path.read_text())
     finally:
@@ -3983,20 +4027,62 @@ def dp_phase(dev, twin_losses):
 # experts a rank), TP_STEPS steps, beside a one-device run with
 # moe_groups=1 made here first (the function explicit EP computes on a
 # (1, 2) mesh: each rank routes its tokens as one group).
+# (d) mamba2-780m at full width and 2 layers, tensor parallel on (1, 2)
+# (24 of 48 SSM heads a rank: the SSD kernel on them, forward and remat
+# recompute), and (e) zamba2-2.7b at full width and one period (6 Mamba2
+# layers, then the shared attention and MLP: 40 of 80 SSM heads, 16 of
+# 32 attention heads, 5120 of 10240 ff a rank), TP_STEPS steps each,
+# beside one-device runs of the same cut, seed and data made first.
 TP_RANKS, TP_STEPS = 2, 3
 SPMD_GRID, SPMD_ODF, SPMD_ITERS = 16384, 4, 20
 TP_BF16_LOSS = 8e-3         # tests/test_multidevice.py:80
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 2
+SSM_TP = (("ssm", "mamba2-780m", 2), ("hybrid", "zamba2-2.7b", 6))
+# a hung rank fails the phase after this many wall seconds (the group is
+# killed); the phase reads 50-110 s on an H100
+TP_SPAWN_LIMIT_S = 300
 
 
 def tp_cfg(arch, layers, dev, **kw):
-    """Phase 23's model and shape: ``train_cfg``'s (full width, batch
-    DENSE_TRAIN_BATCH of 4096 tokens on the card) cut to ``layers``
-    layers on the card."""
+    """Phase 23's model and shape: ``train_cfg``'s full width cut to
+    ``layers`` layers, batch DENSE_TRAIN_BATCH of 4096 tokens, on the
+    card (reduced on the CPU)."""
     cfg, shape = train_cfg(arch, dev, **kw)
     if dev.type == "cuda":
         cfg = cfg.with_(num_layers=layers)
+        shape = dataclasses.replace(shape, global_batch=DENSE_TRAIN_BATCH)
     return cfg, shape
+
+
+def ssd_tp_heads_check(dev) -> dict:
+    """(d) and (e)'s kernel check, before the spawn: the SSD kernel
+    against its plain version once at one model rank's heads (half of
+    each model's), at the training chunk, held as phase 4 holds it; its
+    ms and the plain version's (L2 flushed) beside the bound.  These
+    launches are not on a path's count."""
+    import torch
+    from repro_torch.kernels.ssd import kernel, ssd_intra_chunk_ref
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    out = {}
+    for arch, (b, nc, l, h, p, n) in SSD_TRAIN_SHAPES:
+        shape = (b, nc, l, h // TP_RANKS, p, n)
+        args = ssd_train_inputs(dev, shape, seed=shape[3])
+        row = {"shape": shape,
+               "max_abs_err": ssd_check(args, f"{arch} at {shape[3]} heads"),
+               "ms": cuda_ms(lambda: kernel.ssd_intra_chunk(*args), 20,
+                             flush_buf.zero_),
+               "plain_ms": cuda_ms(lambda: ssd_intra_chunk_ref(*args), 5,
+                                   flush_buf.zero_),
+               "bound_ms": ssd_bound(l, shape[3], p, n, b * nc)[2]}
+        log(f"  SSD kernel at {arch}'s {shape[3]} heads a rank {shape}: "
+            f"max |err| {row['max_abs_err']:.2e} against plain; "
+            f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f}, bound "
+            f"{row['bound_ms']:.4f})")
+        out[arch] = row
+        del args
+    del flush_buf
+    release(dev)
+    return out
 
 
 def spmd_stencil_rank(dev) -> dict:
@@ -4077,8 +4163,11 @@ def tp_train_rank(cfg, shape, dev, world) -> dict:
     local = sum(t.numel() * t.element_size()
                 for t in adamw.flatten(tr.state.params)[0])
     before = sharding.all_reduces
+    sync(dev)
+    zero_launches()
     times = timed_steps(tr, TP_STEPS, dev)
     out = {"losses": [m["loss"] for m in tr.metrics_log], "step_s": times,
+           "launches": read_launches(),
            "all_reduces_per_step": (sharding.all_reduces - before)
            / TP_STEPS, "param_gib": local / 2**30,
            "whole_param_gib": zoo.num_params(cfg) * 4 / 2**30,
@@ -4098,6 +4187,9 @@ def tp_rank(rank, world, dev, zero1, out_path):
     out["dense"] = tp_train_rank(cfg, shape, dev, world)
     cfg, shape = tp_cfg(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, dev)
     out["moe"] = tp_train_rank(cfg, shape, dev, world)
+    for key, arch, layers in SSM_TP:
+        cfg, shape = tp_cfg(arch, layers, dev)
+        out[key] = tp_train_rank(cfg, shape, dev, world)
     every = [None] * world
     dist.all_gather_object(every, out)
     if rank == 0:
@@ -4124,6 +4216,22 @@ def tp_phase(dev, zero1, twin_losses):
     release(dev)
     log(f"  losses {one_losses}, s/step {spread(one_times, 1.0)}, peak "
         f"{one_peak:.2f} GiB")
+    ones = {}
+    for key, arch, layers in SSM_TP:
+        cfg, shape = tp_cfg(arch, layers, dev)
+        log(f"[tp] ({'d' if key == 'ssm' else 'e'})'s one-device run "
+            f"first: {cfg.name}, {cfg.num_layers} layers, batch "
+            f"{shape.global_batch} x {shape.seq_len}, {TP_STEPS} steps")
+        tr, launches, times, _, peak = trainer_run(cfg, shape, dev, "memory",
+                                                   (TP_STEPS,), False)
+        ones[key] = {"losses": [m["loss"] for m in tr.metrics_log],
+                     "step_s": times, "peak_gib": peak,
+                     "launches": launches["ssd_intra_chunk"]}
+        del tr
+        release(dev)
+        log(f"  losses {ones[key]['losses']}, s/step {spread(times, 1.0)}, "
+            f"peak {peak:.2f} GiB, SSD launches {ones[key]['launches']}")
+    ssd_heads = ssd_tp_heads_check(dev) if dev.type == "cuda" else {}
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
@@ -4131,7 +4239,8 @@ def tp_phase(dev, zero1, twin_losses):
             out_path = Path(tmp) / "tp.json"
             t0 = time.perf_counter()
             launch_dist.spawn(tp_rank, TP_RANKS, zero1, str(out_path),
-                              device=dev.type, backend="gloo")
+                              device=dev.type, backend="gloo",
+                              timeout=TP_SPAWN_LIMIT_S, what="phase 23")
             wall = time.perf_counter() - t0
             ranks = json.loads(out_path.read_text())
     finally:
@@ -4154,11 +4263,31 @@ def tp_phase(dev, zero1, twin_losses):
     want_launches = SPMD_ITERS if dev.type == "cuda" else 0
     assert all(s["launches"] == want_launches for s in st), st
     numbers = {"stencil": st, "wall_s": wall, "one_device_moe": {
-        "losses": one_losses, "step_s": one_times, "peak_gib": one_peak}}
+        "losses": one_losses, "step_s": one_times, "peak_gib": one_peak},
+        "one_device": ones, "ssd_at_rank_heads": ssd_heads}
+    ssd_launches = {}
     for key, what, want in (
             ("dense", f"(b) {DENSE_TRAIN_ARCH} tensor parallel", twin_losses),
-            ("moe", f"(c) {MOE_TRAIN_ARCH} expert parallel", one_losses)):
+            ("moe", f"(c) {MOE_TRAIN_ARCH} expert parallel", one_losses),
+            ("ssm", f"(d) {SSM_TP[0][1]} tensor parallel",
+             ones["ssm"]["losses"]),
+            ("hybrid", f"(e) {SSM_TP[1][1]} tensor parallel",
+             ones["hybrid"]["losses"])):
         rs = [r[key] for r in ranks]
+        if key in ("ssm", "hybrid"):
+            arch, layers = dict((k, (a, n)) for k, a, n in SSM_TP)[key]
+            cfg = tp_cfg(arch, layers, dev)[0]
+            got = [r["launches"]["ssd_intra_chunk"] for r in rs]
+            want_ssd = cfg.num_layers * cfg.num_microbatches * 2 * TP_STEPS
+            log(f"  {what}: SSD launches by rank {got} (want "
+                f"{cfg.num_layers} x {cfg.num_microbatches} x 2 x {TP_STEPS} "
+                f"= {want_ssd} on the card; the one-device run "
+                f"{ones[key]['launches']})")
+            if dev.type == "cuda":
+                assert got == [want_ssd] * TP_RANKS, (key, got, want_ssd)
+                assert ones[key]["launches"] == want_ssd, ones[key]
+            ssd_launches[f"{arch} tensor parallel ({TP_RANKS} gloo "
+                         f"ranks)"] = sum(got)
         log(f"  {what} on (1, {TP_RANKS}): losses {rs[0]['losses']} "
             f"against {[round(x, 6) for x in want]}; s/step "
             f"{spread(rs[0]['step_s'], 1.0)}; model-axis all-reduces a step "
@@ -4173,7 +4302,7 @@ def tp_phase(dev, zero1, twin_losses):
         assert all(r["param_gib"] < r["whole_param_gib"] for r in rs), rs
         numbers[key] = {"ranks": rs, "max_loss_diff": max(diffs)}
     log(f"  {wall:.1f} s with the spawn")
-    return launches, numbers
+    return launches, ssd_launches, numbers
 
 
 def first_difference(a, b):
@@ -4331,7 +4460,9 @@ def main() -> int:
         long_prefill_vs_plain(cfg, params, dev, BF16_LONG_TOL)
         del params
         torch.cuda.empty_cache()
-        cfg32 = cfg.with_(compute_dtype="float32")
+        cfg32 = cfg.with_(compute_dtype="float32",
+                          num_layers=LONG_F32_LAYERS.get(arch,
+                                                         cfg.num_layers))
         params32 = zoo.init_serving_params(cfg32, seed=0, device=dev)
         long_prefill_vs_plain(cfg32, params32, dev, F32_LONG_TOL)
         del params32
@@ -4367,7 +4498,7 @@ def main() -> int:
 
     # 18. the serving cluster on the card, full width; 19. market and
     # vertical A/Bs over the same params; then the launcher's three modes
-    cfg = get_config(CLUSTER_ARCH)
+    cfg = get_config(CLUSTER_ARCH).with_(num_layers=CLUSTER_LAYERS)
     params = zoo.init_serving_params(cfg, seed=0, device=dev)
     clustered, cluster = cluster_phase(cfg, params, dev)
     by_path.update(clustered)
@@ -4401,12 +4532,12 @@ def main() -> int:
     # the moe family through the launcher: one engine, then a cluster
     # with a drained interruption
     by_path[f"{MOE_ARCH} launcher"] = {
-        "paged_attention": single_launcher_run(MOE_ARCH, MOE_ATTN_LAYERS,
+        "paged_attention": single_launcher_run(MOE_ARCH, MOE_LAUNCH_LAYERS,
                                                dev),
         "ssd_intra_chunk": 0}
     launches, out, wall, peak = launcher_run(
         "moe cluster launcher", LAUNCHES[0][1], dev, MOE_ARCH,
-        MOE_ATTN_LAYERS)
+        MOE_LAUNCH_LAYERS)
     by_path[f"{MOE_ARCH} cluster launcher"] = {"paged_attention": launches,
                                                "ssd_intra_chunk": 0}
     log(f"  moe cluster launcher: wall {wall:.2f} s, peak {peak:.2f} GiB, "
@@ -4414,13 +4545,13 @@ def main() -> int:
     t_phase = lap("phase 19 and the launchers", t_phase)
 
     # 20. training: the SSD Function, mamba2-780m across a rescale and its
-    # twin, kernel route against plain, granite-8b at 2 layers
+    # twin, kernel route against plain, granite-8b cut in depth
     trained, training = training_phase(dev, flush)
     by_path.update(trained)
     ssd["training"] = training
     log(f"[train] numbers {json.dumps(training)}")
     t_phase = lap("phase 20 (training)", t_phase)
-    # 21. the enc_dec and vlm families at full width and depth
+    # 21. the enc_dec and vlm families at full width
     prefilled, frontend = frontend_phase(dev)
     flash["launches_by_path"].update(prefilled)
     flash["launches"] = sum(flash["launches_by_path"].values())
@@ -4432,8 +4563,11 @@ def main() -> int:
     log(f"[dp] numbers {json.dumps(dp)}")
     t_phase = lap("phase 22 (data parallel)", t_phase)
     # 23. the model axis: the SPMD stencil, tensor and expert parallelism
-    spmd_launches, tp = tp_phase(dev, dp["gloo"]["zero1"],
-                                 dp["gloo"]["twin_losses"])
+    spmd_launches, tp_ssd, tp = tp_phase(dev, dp["gloo"]["zero1"],
+                                         dp["gloo"]["twin_losses"])
+    by_path.update({k: {"paged_attention": 0, "ssd_intra_chunk": v}
+                    for k, v in tp_ssd.items()})
+    ssd["at_tensor_parallel_heads"] = tp["ssd_at_rank_heads"]
     log(f"[tp] numbers {json.dumps(tp)}")
     t_phase = lap("phase 23 (model axis)", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):

@@ -288,6 +288,10 @@ def main(argv=None):
                     default=True,
                     help="the reduced CPU-scale config (--no-reduced for "
                          "the published width and depth)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the config's width and cut its decoder to "
+                         "this many layers (a quick drive of a published "
+                         "width)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the plain versions of "
                          "the kernels")
@@ -379,6 +383,8 @@ def main(argv=None):
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = cfg.with_(num_layers=args.layers)
     params = zoo.init_serving_params(cfg, seed=args.seed, device=args.device)
     if args.cluster:
         return run_cluster(args, cfg, params)
