@@ -3784,7 +3784,7 @@ def frontend_phase(dev):
 # twin.
 DP_STEPS, DP_RANKS = 3, 2
 # a hung rank fails (b) after this many wall seconds (the group is
-# killed); (b) reads 40-110 s on an H100
+# killed); the spawn read 76 s on an H100 (PERF.md)
 DP_SPAWN_LIMIT_S = 300
 DP_ELASTIC_LOSS = 5e-4      # tests/test_multidevice.py:106
 # what a data-parallel step and a rescale call on a gloo group
@@ -4039,7 +4039,7 @@ TP_BF16_LOSS = 8e-3         # tests/test_multidevice.py:80
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 2
 SSM_TP = (("ssm", "mamba2-780m", 2), ("hybrid", "zamba2-2.7b", 6))
 # a hung rank fails the phase after this many wall seconds (the group is
-# killed); the phase reads 50-110 s on an H100
+# killed); the spawn read 76 s on an H100 (PERF.md)
 TP_SPAWN_LIMIT_S = 300
 
 
