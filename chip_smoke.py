@@ -291,10 +291,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    one-device runs of the same cuts made before the spawn, SSD launches
    a rank = Mamba2 layers x 4 micro-batches x 2 x 3 (added to the SSD
    row), the SSD kernel held against its plain version once at 24 and
-   40 heads (b 2, nc 16, l 256); for (b)-(e) each rank's parameter GiB
-   against the whole model's, the model-axis all-reduces a step, s/step
-   and peak GiB by rank.  The spawned group is killed, and the phase
-   fails naming itself, past ``TP_SPAWN_LIMIT_S``.
+   40 heads (b 2, nc 16, l 256); (f) seamless-m4t-medium at full width
+   and 2 encoder + 2 decoder layers (8 of 16 heads and KV heads, 2048 of
+   4096 ff a rank in the encoder, self and cross attention; the frames
+   replicated over the model axis) and (g) internvl2-26b at full width
+   and 1 layer (24 of 48 heads, 4 of 8 KV heads, 8192 of 16384 ff a
+   rank; the 256 patch positions replicated), tensor parallel on (1, 2),
+   3 steps of 4 x 4096 positions (``full_attention``: no kernel), losses
+   within 8e-3 of one-device runs of the same cuts made before the
+   spawn, each rank under 51% of the parameter bytes; for (b)-(g) each
+   rank's parameter GiB against the whole model's, the model-axis
+   all-reduces a step, s/step and peak GiB by rank.  The spawned group is
+   killed, and the phase fails naming itself, past
+   ``TP_SPAWN_LIMIT_S``.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -4033,11 +4042,22 @@ def dp_phase(dev, twin_losses):
 # layers, then the shared attention and MLP: 40 of 80 SSM heads, 16 of
 # 32 attention heads, 5120 of 10240 ff a rank), TP_STEPS steps each,
 # beside one-device runs of the same cut, seed and data made first.
+# (f) seamless-m4t-medium at full width and 2 encoder + 2 decoder layers
+# (8 of 16 heads and KV heads, 2048 of 4096 ff a rank, in the encoder,
+# self and cross attention; the frames replicated over the model axis)
+# and (g) internvl2-26b at full width and 1 layer (24 of 48 heads, 4 of
+# 8 KV heads, 8192 of 16384 ff a rank; the 256 patch positions
+# replicated), TP_STEPS steps each, beside one-device runs likewise.
 TP_RANKS, TP_STEPS = 2, 3
 SPMD_GRID, SPMD_ODF, SPMD_ITERS = 16384, 4, 20
 TP_BF16_LOSS = 8e-3         # tests/test_multidevice.py:80
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 2
-SSM_TP = (("ssm", "mamba2-780m", 2), ("hybrid", "zamba2-2.7b", 6))
+# (key, arch, layers a stack, cell): trained on (1, 2) against a
+# one-device run of the same cut
+ONE_DEVICE_TP = (("ssm", "mamba2-780m", 2, "d"),
+                 ("hybrid", "zamba2-2.7b", 6, "e"),
+                 ("enc_dec", "seamless-m4t-medium", 2, "f"),
+                 ("vlm", "internvl2-26b", 1, "g"))
 # a hung rank fails the phase after this many wall seconds (the group is
 # killed); the spawn read 76 s on an H100 (PERF.md)
 TP_SPAWN_LIMIT_S = 300
@@ -4045,11 +4065,14 @@ TP_SPAWN_LIMIT_S = 300
 
 def tp_cfg(arch, layers, dev, **kw):
     """Phase 23's model and shape: ``train_cfg``'s full width cut to
-    ``layers`` layers, batch DENSE_TRAIN_BATCH of 4096 tokens, on the
-    card (reduced on the CPU)."""
+    ``layers`` layers (an enc_dec model: ``layers`` in each stack),
+    batch DENSE_TRAIN_BATCH of 4096 tokens, on the card (reduced on the
+    CPU)."""
     cfg, shape = train_cfg(arch, dev, **kw)
     if dev.type == "cuda":
-        cfg = cfg.with_(num_layers=layers)
+        cfg = (cfg.with_(enc_layers=layers, dec_layers=layers,
+                         num_layers=2 * layers)
+               if cfg.family == "enc_dec" else cfg.with_(num_layers=layers))
         shape = dataclasses.replace(shape, global_batch=DENSE_TRAIN_BATCH)
     return cfg, shape
 
@@ -4147,7 +4170,7 @@ def spmd_stencil_rank(dev) -> dict:
 
 
 def tp_train_rank(cfg, shape, dev, world) -> dict:
-    """(b) and (c) on one rank: ``ElasticTrainer`` over a (1, world)
+    """(b)-(g) on one rank: ``ElasticTrainer`` over a (1, world)
     mesh, TP_STEPS steps: losses, s/step, the model-axis all-reduces a
     step, this rank's parameter GiB against the whole model's, and its
     peak GiB."""
@@ -4178,7 +4201,7 @@ def tp_train_rank(cfg, shape, dev, world) -> dict:
 
 
 def tp_rank(rank, world, dev, zero1, out_path):
-    """A rank of phase 23: (a), (b), (c) in turn; every rank's readings
+    """A rank of phase 23: (a)-(g) in turn; every rank's readings
     gathered to rank 0, which writes them to ``out_path`` as JSON."""
     import torch.distributed as dist
     out = {"stencil": spmd_stencil_rank(dev)}
@@ -4187,7 +4210,7 @@ def tp_rank(rank, world, dev, zero1, out_path):
     out["dense"] = tp_train_rank(cfg, shape, dev, world)
     cfg, shape = tp_cfg(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, dev)
     out["moe"] = tp_train_rank(cfg, shape, dev, world)
-    for key, arch, layers in SSM_TP:
+    for key, arch, layers, _ in ONE_DEVICE_TP:
         cfg, shape = tp_cfg(arch, layers, dev)
         out[key] = tp_train_rank(cfg, shape, dev, world)
     every = [None] * world
@@ -4217,9 +4240,9 @@ def tp_phase(dev, zero1, twin_losses):
     log(f"  losses {one_losses}, s/step {spread(one_times, 1.0)}, peak "
         f"{one_peak:.2f} GiB")
     ones = {}
-    for key, arch, layers in SSM_TP:
+    for key, arch, layers, cell in ONE_DEVICE_TP:
         cfg, shape = tp_cfg(arch, layers, dev)
-        log(f"[tp] ({'d' if key == 'ssm' else 'e'})'s one-device run "
+        log(f"[tp] ({cell})'s one-device run "
             f"first: {cfg.name}, {cfg.num_layers} layers, batch "
             f"{shape.global_batch} x {shape.seq_len}, {TP_STEPS} steps")
         tr, launches, times, _, peak = trainer_run(cfg, shape, dev, "memory",
@@ -4269,13 +4292,11 @@ def tp_phase(dev, zero1, twin_losses):
     for key, what, want in (
             ("dense", f"(b) {DENSE_TRAIN_ARCH} tensor parallel", twin_losses),
             ("moe", f"(c) {MOE_TRAIN_ARCH} expert parallel", one_losses),
-            ("ssm", f"(d) {SSM_TP[0][1]} tensor parallel",
-             ones["ssm"]["losses"]),
-            ("hybrid", f"(e) {SSM_TP[1][1]} tensor parallel",
-             ones["hybrid"]["losses"])):
+            *((k, f"({c}) {a} tensor parallel", ones[k]["losses"])
+              for k, a, _, c in ONE_DEVICE_TP)):
         rs = [r[key] for r in ranks]
         if key in ("ssm", "hybrid"):
-            arch, layers = dict((k, (a, n)) for k, a, n in SSM_TP)[key]
+            arch, layers = {k: (a, n) for k, a, n, _ in ONE_DEVICE_TP}[key]
             cfg = tp_cfg(arch, layers, dev)[0]
             got = [r["launches"]["ssd_intra_chunk"] for r in rs]
             want_ssd = cfg.num_layers * cfg.num_microbatches * 2 * TP_STEPS
@@ -4300,6 +4321,9 @@ def tp_phase(dev, zero1, twin_losses):
             (key, rs[0]["losses"], want)
         assert all(r["losses"] == rs[0]["losses"] for r in rs), rs
         assert all(r["param_gib"] < r["whole_param_gib"] for r in rs), rs
+        if key in ("enc_dec", "vlm"):   # only the norms are replicated
+            assert all(r["param_gib"] < 0.51 * r["whole_param_gib"]
+                       for r in rs), rs
         numbers[key] = {"ranks": rs, "max_loss_diff": max(diffs)}
     log(f"  {wall:.1f} s with the spawn")
     return launches, ssd_launches, numbers

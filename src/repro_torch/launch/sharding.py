@@ -66,9 +66,19 @@ mamba2.py:215 block out (embed)        g after ``out_proj`` (row-parallel
                                        over the heads' channels); the
                                        ``ssm_norm`` squares summed over
                                        the group (``sum_over_model``)
-model_zoo.py:344 patch embeds          vlm at a model axis above 1 raises
-transformer.py:170 patch embeds        (item 13c); replicated otherwise
-transformer.py:227 encoder frames      enc_dec raises likewise (item 13c)
+model_zoo.py:344 patch embeds          nothing: a batch leaf, split by
+transformer.py:170 patch embeds        rows over data (``DataParallel.
+                                       micro_blocks``) and replicated over
+                                       model, put in front of the
+                                       embedding's output (after its g)
+transformer.py:227 encoder frames      nothing likewise; the encoder's
+                                       blocks are ``attention_block`` and
+                                       ``swiglu_block`` as above, and cross
+                                       attention (no reference constraint)
+                                       is ``transformer.cross_kv``: f on
+                                       the encoder output, k / v over the
+                                       rank's KV heads; q after f on the
+                                       normed input, g after ``wo``
 transformer.py:131 embedding (embed)   ``embed_tokens``: vocab-parallel
                                        lookup (out-of-block ids give zero
                                        rows), then g

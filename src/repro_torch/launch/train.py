@@ -10,12 +10,12 @@ gradient reduced over the ranks, ZeRO-1 with ``cfg.zero1``), and every
 rank of the world builds it and calls ``train`` and ``rescale``: ranks
 outside the current mesh skip the steps.  ``model_par`` is the mesh's
 model axis, as in the reference's ``_mesh_for``: the mesh is ``(n //
-model_par, model_par)``, and over a model axis above 1 the dense, moe,
-ssm and hybrid families train tensor parallel (enc_dec and vlm raise:
-ROADMAP item 13c).  A rescale gathers the state over both axes for its
-checkpoint and places it on the new mesh.  Each step copies its host batch to the device on
-the caller's stream and reads the step's metrics back to the host (one
-wait a step).
+model_par, model_par)``, and over a model axis above 1 every family
+trains tensor parallel (moe's one-hot and grouped layouts past one rank
+raise: ROADMAP item 13c).  A rescale gathers the state over both axes
+for its checkpoint and places it on the new mesh.  Each step copies its
+host batch to the device on the caller's stream and reads the step's
+metrics back to the host (one wait a step).
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -57,7 +57,6 @@ class ElasticTrainer:
                  n_devices: Optional[int] = None, model_par: int = 1,
                  seed: int = 0, store_kind: str = "memory",
                  hp: Optional[adamw.HParams] = None, device="cuda"):
-        zoo.refuse_model_axis(cfg, model_par)
         self.cfg = cfg
         self.shape = shape
         self.device = resolve_device(device)

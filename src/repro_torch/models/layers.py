@@ -101,22 +101,30 @@ def _qkv(p, x, cfg):
 
 def _qkv_tp(p, x, cfg):
     """q, k, v of this model rank's heads: its contiguous block of the
-    query heads (``p["wq"]`` is that block), and of the KV heads, either
-    its block (``kv_heads`` sharded) or, where the rules replicate them,
-    the KV head of each of its query heads, taken from all of them."""
+    query heads (``p["wq"]`` is that block), and k, v as ``kv_tp``
+    gives them."""
     dt = dtype_of(cfg.compute_dtype)
     h = copy_to_model(rms_norm(x, p["norm"], cfg.norm_eps).to(dt))
-    q = _proj(h, p["wq"])
+    return (_proj(h, p["wq"]),) + kv_tp(p, h, cfg)
+
+
+def kv_tp(p, h, cfg):
+    """k, v (B, S, heads, D) of this model rank's KV heads from ``h``
+    (B, S, d), which has been through f (``copy_to_model``): either its
+    block of them (``kv_heads`` sharded), or, where the rules replicate
+    them, the KV head of each of its query heads, taken from all of
+    them."""
     if model_split("kv_heads", cfg.num_kv_heads) > 1:
-        return q, _proj(h, p["wk"]), _proj(h, p["wv"])
+        return _proj(h, p["wk"]), _proj(h, p["wv"])
     # all KV heads on every rank: their weights' gradients are partial
     # (each rank reads some heads), so f sums them over the ranks
+    tp = model_axis()
     group = cfg.num_heads // cfg.num_kv_heads
-    n = q.shape[2]
-    heads = (model_axis().rank * n + torch.arange(n, device=x.device)) // group
+    n = cfg.num_heads // tp.size
+    heads = (tp.rank * n + torch.arange(n, device=h.device)) // group
     k = _proj(h, copy_to_model(p["wk"])).index_select(2, heads)
     v = _proj(h, copy_to_model(p["wv"])).index_select(2, heads)
-    return q, k, v
+    return k, v
 
 
 # ----------------------------------------------------------------------------- attention cores

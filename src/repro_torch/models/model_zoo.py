@@ -463,8 +463,6 @@ def _scatter_grads(grads, dp: Optional["DataParallel"]):
 
 
 # ============================================================== data parallelism
-# families whose blocks are tensor parallel over a model axis above 1
-TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # Mamba2 leaves that a tensor-parallel block reads whole (the reference
 # cuts their packed dimension in blocks that do not follow its parts),
 # and replicated ones that it reads in part (its heads' and channels')
@@ -487,17 +485,6 @@ def _data_dim(spec) -> Optional[int]:
     return None
 
 
-def refuse_model_axis(cfg: ModelConfig, model_par: int):
-    """``NotImplementedError`` for a family whose blocks have no tensor
-    parallelism yet, at a model axis above 1."""
-    if model_par > 1 and cfg.family not in TENSOR_PARALLEL_FAMILIES:
-        what = {"enc_dec": "the encoder and cross attention",
-                "vlm": "the vision prefix"}.get(cfg.family, cfg.family)
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) over a model axis of {model_par}: "
-            f"tensor parallelism for {what} is ROADMAP item 13c")
-
-
 class DataParallel:
     """A train state's layout over a ``("data", "model")`` ``DeviceMesh``
     (``launch.mesh``) and the collectives of a step over it.
@@ -510,9 +497,12 @@ class DataParallel:
     * each model rank holds its block of every leaf that the rules shard
       over ``model`` (``launch.sharding.model_block`` of its param
       sharding: ``model_dims[i]``, ``None`` for a replicated leaf), and
-      the model's blocks are tensor parallel over them (the dense, moe,
-      ssm and hybrid families; enc_dec and vlm raise at a model axis
-      above 1);
+      the model's blocks are tensor parallel over them (every family:
+      the encoder's blocks and cross attention of enc_dec too; an
+      enc_dec model's frames and a vlm model's patch embeddings are
+      batch leaves, split by rows over ``data`` and replicated over
+      ``model``, as the reference's ``batch_shardings`` and its
+      constraints keep them);
     * a tensor-parallel Mamba2 block reads ``in_proj`` and ``conv_w``
       whole: ``compute_leaves`` all-gathers each over the model group
       once a step (the stored blocks stay the reference's) and
@@ -554,7 +544,6 @@ class DataParallel:
                 f"a {sizes} mesh: the port trains over ('data', 'model') "
                 f"meshes")
         self.size, self.model_size = sizes["data"], sizes.get("model", 1)
-        refuse_model_axis(cfg, self.model_size)
         self.cfg, self.mesh, self.zero1 = cfg, mesh, cfg.zero1
         self.rules = ShardingRules(mesh)
         self.group = mesh.get_group("data")

@@ -280,7 +280,9 @@ def encoder_forward(params, frames, cfg: ModelConfig, *,
     the frame positions; ``blockwise_attention`` past 8192 frames, the
     flash kernel on the card) and a SwiGLU MLP, then ``enc_norm``.
     Remat wraps each layer.  ``impl`` goes to ``attention_block``
-    (``"ref"``: the plain blockwise form on the card)."""
+    (``"ref"``: the plain blockwise form on the card).  Under rules with
+    a model axis the blocks are tensor parallel (``layers``) and the
+    frames and the output stay replicated over it."""
     h = frames.to(dtype_of(cfg.compute_dtype))
 
     def body(x, lp):
@@ -294,8 +296,15 @@ def encoder_forward(params, frames, cfg: ModelConfig, *,
 
 def cross_kv(p, enc_out, cfg: ModelConfig):
     """Cross attention's k and v (B, S_enc, KV, D) from the encoder output:
-    projections only, no rotary."""
+    projections only, no rotary.  Where the active rules shard ``heads``
+    over a model axis, the encoder output (replicated over it) goes
+    through f (``copy_to_model``) and the projections are
+    column-parallel, k and v of this rank's heads (``layers.kv_tp``):
+    f's backward sums the ranks' partial gradients of the encoder output,
+    once for each decoder layer that reads it."""
     e = enc_out.to(dtype_of(cfg.compute_dtype))
+    if model_split("heads", cfg.num_heads) > 1:
+        return L.kv_tp(p, copy_to_model(e), cfg)
     return L._proj(e, p["wk"]), L._proj(e, p["wv"])
 
 
@@ -303,12 +312,17 @@ def cross_attention(p, x, xk, xv, cfg: ModelConfig):
     """x (B, S, d) attends to all of ``xk``/``xv`` (B, S_enc, KV, D): an
     RMS-normed q (no rotary) through ``full_attention(causal=False)``,
     at any length (the reference never takes it blockwise), plus the
-    residual."""
+    residual.  Tensor parallel as ``attention_block`` is where the rules
+    shard ``heads``: f on the normed input, q over this rank's heads
+    (``xk``/``xv`` are its heads' from ``cross_kv``), ``wo``
+    row-parallel and g in the block's dtype."""
     dt = dtype_of(cfg.compute_dtype)
+    tp = model_split("heads", cfg.num_heads) > 1
     hn = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
-    att = L.full_attention(L._proj(hn, p["wq"]), xk.to(dt), xv.to(dt),
-                           causal=False)
-    return x + L._proj_out(att, p["wo"])
+    att = L.full_attention(L._proj(copy_to_model(hn) if tp else hn, p["wq"]),
+                           xk.to(dt), xv.to(dt), causal=False)
+    out = L._proj_out(att, p["wo"])
+    return x + (reduce_from_model(out) if tp else out)
 
 
 def enc_dec_forward(params, frames, tokens, cfg: ModelConfig, *,

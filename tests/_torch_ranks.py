@@ -143,9 +143,8 @@ def scenario_two(world):
         except ValueError as e:
             out[key] = str(e)
     for key, cfg, model_par, error in (
-            ("enc_dec_tp", cfg_of("seamless-m4t-medium"), 2,
-             NotImplementedError),
-            ("vlm_tp", cfg_of("internvl2-26b"), 2, NotImplementedError),
+            ("moe_onehot_tp", cfg_of("qwen2-moe-a2.7b", moe_impl="onehot"),
+             2, NotImplementedError),
             ("one_head_tp", cfg_of("mamba2-780m", ssm_head_dim=128), 2,
              ValueError),
             ("micro3", granite.with_(num_microbatches=3), 1, ValueError),
@@ -182,9 +181,17 @@ def scenario_tp_two(world):
     (float32) and qwen2-moe-a2.7b (float32) at (1, 2), granite-8b with
     one KV head (replicated KV heads, sharded query heads) at (1, 2),
     qwen2-moe-a2.7b at (2, 1); mamba2-780m and zamba2-2.7b (float32) at
-    (1, 2)."""
+    (1, 2); seamless-m4t-medium (also with one KV head: cross attention's
+    KV heads replicated) and internvl2-26b (float32) at (1, 2)."""
     f32 = dict(compute_dtype="float32")
     return {"stencil": spmd_stencil(world),
+            "enc_dec": trained(cfg_of("seamless-m4t-medium", **f32), world,
+                               model_par=2),
+            "enc_dec_kv1": trained(cfg_of("seamless-m4t-medium",
+                                          num_kv_heads=1, **f32), world,
+                                   model_par=2),
+            "vlm": trained(cfg_of("internvl2-26b", **f32), world,
+                           model_par=2),
             "ssm": trained(cfg_of("mamba2-780m", **f32), world, model_par=2),
             "hybrid": trained(cfg_of("zamba2-2.7b", **f32), world,
                               model_par=2),
@@ -231,10 +238,22 @@ def scenario_tp_four(world):
     at (2, 2) in float32, with ZeRO-1 (overlapped) and in bf16;
     qwen2-moe-a2.7b at (2, 2) in float32; the 4 -> 2 -> 4 rescale with a
     model axis of 2; mamba2-780m and zamba2-2.7b at (2, 2) in float32
-    and in bf16, and mamba2-780m's 4 -> 2 -> 4 rescale with ZeRO-1."""
+    and in bf16, and mamba2-780m's 4 -> 2 -> 4 rescale with ZeRO-1;
+    seamless-m4t-medium and internvl2-26b at (2, 2) in float32 and in
+    bf16, and seamless-m4t-medium's 4 -> 2 -> 4 rescale with ZeRO-1 in
+    float32."""
     f32 = dict(compute_dtype="float32")
     granite = cfg_of("granite-8b", **f32)
     return {"stencil": spmd_stencil(world),
+            "enc_dec": trained(cfg_of("seamless-m4t-medium", **f32), world,
+                               model_par=2),
+            "vlm": trained(cfg_of("internvl2-26b", **f32), world,
+                           model_par=2),
+            "enc_dec_bf16": trained(cfg_of("seamless-m4t-medium"), world,
+                                    model_par=2),
+            "vlm_bf16": trained(cfg_of("internvl2-26b"), world, model_par=2),
+            "enc_dec_elastic": elastic_tp(cfg_of("seamless-m4t-medium",
+                                                 zero1=True, **f32), world),
             "ssm": trained(cfg_of("mamba2-780m", **f32), world, model_par=2),
             "hybrid": trained(cfg_of("zamba2-2.7b", **f32), world,
                               model_par=2),

@@ -111,9 +111,9 @@ def test_rescale_records_four_stages_and_restores_the_state(kind, tmp_path,
 def test_more_than_one_device_raises():
     """Without a process group the port trains on one device: more
     raises, naming how to start the ranks, and so does a model axis of
-    2 (the multi-rank paths are ``tests/test_torch_multirank.py``'s); a
-    family without tensor parallelism raises at a model axis above 1
-    before any rank is asked for, naming its ROADMAP item."""
+    2 (the multi-rank paths are ``tests/test_torch_multirank.py``'s),
+    for every family: enc_dec at a model axis of 2 asks for the process
+    group as granite-8b does."""
     with pytest.raises(RuntimeError, match="process group"):
         devices_for(2, "cpu")
     with pytest.raises(ValueError):
@@ -125,7 +125,7 @@ def test_more_than_one_device_raises():
     with pytest.raises(RuntimeError, match="process group"):
         ElasticTrainer(cfg, SHAPES["train_4k"].reduced(), model_par=2,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13c"):
+    with pytest.raises(RuntimeError, match="process group"):
         ElasticTrainer(ARCHS["seamless-m4t-medium"].reduced(),
                        SHAPES["train_4k"].reduced(), model_par=2,
                        device="cpu")

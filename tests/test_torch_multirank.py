@@ -11,11 +11,11 @@ one worker, one group at a time: a 2-rank group runs the 2-rank cases, a
 4-rank group the cases about 4 (1 row a rank, ZeRO-1 over 4, the
 4 -> 2 -> 4 rescale, a (2, 2) mesh's placements), and the launcher
 spawns its own 2.  Two more groups hold the model axis: 2 ranks the
-SPMD stencil, (1, 2) meshes for dense and moe tensor and expert
-parallelism and moe at (2, 1); 4 ranks the stencil, (2, 2) meshes
-(float32, ZeRO-1, bf16, moe) and the 4 -> 2 -> 4 rescale with a model
-axis of 2.  The ranks run reduced models on the CPU (~10 s a group
-here).
+SPMD stencil, (1, 2) meshes for dense, ssm, hybrid, enc_dec and vlm
+tensor parallelism and moe expert parallelism, and moe at (2, 1); 4
+ranks the stencil, (2, 2) meshes (float32, ZeRO-1, bf16, moe, and the
+other families) and the 4 -> 2 -> 4 rescales with a model axis of 2.
+The ranks run reduced models on the CPU (~10-20 s a group here).
 
 The reference runs in this process: its ``jit`` with ``in_shardings`` on
 a real host mesh of the same shape (``tests/conftest.py`` gives 8 host
@@ -334,19 +334,19 @@ def test_mamba2_data_parallel_matches_one_device(two):
 
 
 def test_moe_and_uneven_micro_batches_raise(two):
-    """What still raises over 2 ranks: enc_dec and vlm at a model axis of
-    2 (their encoder, cross attention and vision prefix have no tensor
-    parallelism yet) name the ROADMAP item; 2 rows a rank in 3
-    micro-batches raise ``ValueError`` rather than give another
-    gradient, for the moe family too (its routing couples the rows of a
-    micro-batch), and a Mamba2 head count that the model axis does not
-    divide raises ``ValueError``.  moe itself trains over data ranks
-    (``test_moe_matches_reference_at_each_mesh``), and ssm and hybrid
-    over a model axis (``test_ssm_hybrid_tensor_parallel_float32``)."""
-    for key, what in (("enc_dec_tp", "cross attention"),
-                      ("vlm_tp", "vision prefix")):
-        assert "ROADMAP item 13c" in two[0][key], two[0][key]
-        assert what in two[0][key], two[0][key]
+    """What still raises over 2 ranks: qwen2-moe-a2.7b with the one-hot
+    dispatch at a model axis of 2 (a moe layout not yet ported) names
+    the ROADMAP item; 2 rows a rank in 3 micro-batches raise
+    ``ValueError`` rather than give another gradient, for the moe family
+    too (its routing couples the rows of a micro-batch), and a Mamba2
+    head count that the model axis does not divide raises
+    ``ValueError``.  moe itself trains over data ranks and with explicit
+    expert parallelism (``test_moe_matches_reference_at_each_mesh``),
+    and every other family over a model axis (``test_tensor_parallel_*``,
+    ``test_ssm_hybrid_*``, ``test_enc_dec_vlm_*``)."""
+    msg = two[0]["moe_onehot_tp"]
+    assert "ROADMAP item 13c" in msg and "'onehot'" in msg, msg
+    assert "over a model axis of 2" in msg, msg
     # a Mamba2 head count the model axis does not divide, with the sizes
     assert "1 SSM heads do not split over a model axis of 2" in \
         two[0]["one_head_tp"], two[0]["one_head_tp"]
@@ -490,7 +490,8 @@ def test_spmd_stencil_matches_reference(world, tp_two, tp_four):
 
 
 TP_ARCHS = {"moe": "qwen2-moe-a2.7b", "ssm": "mamba2-780m",
-            "hybrid": "zamba2-2.7b"}
+            "hybrid": "zamba2-2.7b", "enc_dec": "seamless-m4t-medium",
+            "vlm": "internvl2-26b"}
 
 
 def tp_run(ranks, key):
@@ -593,7 +594,9 @@ def test_moe_matches_reference_at_each_mesh(mesh_shape, tp_two, tp_four):
 @pytest.mark.parametrize("case", ["dense (1, 2)", "dense (2, 2)",
                                   "moe (1, 2)", "moe (2, 2)",
                                   "zero1 (2, 2)", "ssm (1, 2)", "ssm (2, 2)",
-                                  "hybrid (1, 2)", "hybrid (2, 2)"])
+                                  "hybrid (1, 2)", "hybrid (2, 2)",
+                                  "enc_dec (1, 2)", "enc_dec (2, 2)",
+                                  "vlm (1, 2)", "vlm (2, 2)"])
 def test_model_ranks_hold_blocks_and_identical_replicas(case, tp_two,
                                                         tp_four):
     """After 3 steps, each model rank's parameters: of a leaf the rules
@@ -717,3 +720,74 @@ def test_elastic_tensor_parallel_mamba2_4_2_4(tp_four):
     assert e["bit_equal"] == [True, True]
     for r in (2, 3):
         assert tp_four[r]["ssm_elastic"]["b_steps"] == [0, 1, 4, 5]
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("key", ["enc_dec", "vlm"])
+def test_enc_dec_vlm_tensor_parallel_float32(key, mesh_shape, tp_two,
+                                             tp_four):
+    """Reduced seamless-m4t-medium (enc_dec: the encoder's attention and
+    MLP blocks and the decoder's cross attention over the rank's 2 of 4
+    heads, 1 of 2 KV heads and half of ``ff``, the frames replicated over
+    the model axis) and internvl2-26b (vlm: the patch embeddings
+    replicated over it, the loss on the text positions), float32, 3
+    steps over a ``mesh_shape`` mesh: the reference's sharded jit at the
+    same mesh and the port's single device; every rank logs the same
+    metrics."""
+    ranks = tp_two if mesh_shape == (1, 2) else tp_four
+    arch = TP_ARCHS[key]
+    got = tp_run(ranks, key)
+    assert_same_run(got, reference(arch, "float32", *mesh_shape),
+                    f"{key} {mesh_shape} vs reference")
+    assert_same_run(got, one_device(arch, compute_dtype="float32"),
+                    f"{key} {mesh_shape} vs one device")
+    for r in ranks[1:]:
+        assert r[key]["metrics"] == ranks[0][key]["metrics"]
+
+
+@pytest.mark.parametrize("key", ["enc_dec", "vlm"])
+def test_enc_dec_vlm_tensor_parallel_bf16_loss(key, tp_four):
+    """bf16 compute (the configs' own) on a (2, 2) mesh: every step's
+    loss within 8e-3 of the reference's sharded run at (2, 2) and of the
+    port's single device (``tests/test_multidevice.py:80``); every rank
+    logs the same metrics."""
+    arch = TP_ARCHS[key]
+    got = [m["loss"] for m in tp_four[0][f"{key}_bf16"]["metrics"]]
+    ref = [m["loss"] for m in reference(arch, "bfloat16", 2, 2)[0]]
+    one = [m["loss"] for m in one_device(arch)[0]]
+    assert len(got) == STEPS
+    for g, r, o in zip(got, ref, one):
+        assert abs(g - r) < BF16_LOSS and abs(g - o) < BF16_LOSS, (got, ref)
+    for r in tp_four[1:]:
+        assert r[f"{key}_bf16"]["metrics"] == \
+            tp_four[0][f"{key}_bf16"]["metrics"]
+
+
+def test_cross_attention_replicated_kv_heads(tp_two):
+    """Reduced seamless-m4t-medium with one KV head on a model axis of 2
+    (the rules replicate ``kv_heads`` and shard ``heads``): every rank
+    projects the encoder output to the KV head, self and cross attention
+    alike, and reads it for its query heads; the reference's sharded jit
+    at (1, 2)."""
+    assert_same_run(tp_run(tp_two, "enc_dec_kv1"),
+                    reference("seamless-m4t-medium", "float32", 1, 2,
+                              num_kv_heads=1), "cross kv heads replicated")
+
+
+def test_elastic_tensor_parallel_enc_dec_4_2_4(tp_four):
+    """``ElasticTrainer(model_par=2)`` of reduced seamless-m4t-medium over
+    4 ranks, ZeRO-1: (2, 2) -> (1, 2) -> (2, 2) beside an unrescaled
+    twin; the losses within 5e-4, the state of both stacks gathered over
+    both axes bit for bit across each rescale.  In float32: on this
+    schedule the reference's own bf16 run drifts 5.1e-4 from its twin
+    (the data axis's reduction order alone), so the bound would read
+    bf16 rounding rather than the rescale."""
+    e = tp_four[0]["enc_dec_elastic"]
+    assert len(e["a"]) == len(e["b"]) == 6
+    assert e["b_steps"] == list(range(6))
+    assert all(abs(x - y) < ELASTIC_LOSS for x, y in zip(e["a"], e["b"])), \
+        (e["a"], e["b"])
+    assert e["events"] == [("shrink", 4, 2), ("expand", 2, 4)]
+    assert e["bit_equal"] == [True, True]
+    for r in (2, 3):
+        assert tp_four[r]["enc_dec_elastic"]["b_steps"] == [0, 1, 4, 5]
