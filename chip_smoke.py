@@ -4059,7 +4059,7 @@ ONE_DEVICE_TP = (("ssm", "mamba2-780m", 2, "d"),
                  ("enc_dec", "seamless-m4t-medium", 2, "f"),
                  ("vlm", "internvl2-26b", 1, "g"))
 # a hung rank fails the phase after this many wall seconds (the group is
-# killed); the spawn read 76 s on an H100 (PERF.md)
+# killed); the spawn read 82-97 s on an H100 (PERF.md)
 TP_SPAWN_LIMIT_S = 300
 
 
