@@ -14,9 +14,11 @@ expert parallelism on (1, 2) against a one-device run with
 ``moe_groups=1``, and mamba2-780m (2 layers) and zamba2-2.7b (one
 period, 6 Mamba2 layers) tensor parallel on (1, 2), the SSD kernel on
 each rank's heads, and seamless-m4t-medium (2 encoder + 2 decoder
-layers) and internvl2-26b (1 layer) tensor parallel on (1, 2), against
-one-device runs of the same cuts, all with
-``chip_smoke.py``'s limits.  The card's name and power limit come first,
+layers) and internvl2-26b (1 layer) tensor parallel on (1, 2), and
+qwen2-moe-a2.7b with the grouped dispatch (its 16 routing groups, 30
+experts a rank) on (1, 2), against one-device runs of the same cuts,
+all with ``chip_smoke.py``'s limits: losses, s/step (one device and
+(1, 2)), peak GiB a rank, model-axis all-reduces a step.  The card's name and power limit come first,
 the phase's numbers as one JSON line last.  Without a card it exits
 non-zero.
 """

@@ -4048,18 +4048,24 @@ def dp_phase(dev, twin_losses):
 # and (g) internvl2-26b at full width and 1 layer (24 of 48 heads, 4 of
 # 8 KV heads, 8192 of 16384 ff a rank; the 256 patch positions
 # replicated), TP_STEPS steps each, beside one-device runs likewise.
+# (h) (c)'s cut with moe_impl="grouped": the config's 16 routing groups
+# a micro-batch, each rank running its 30 experts' slots in every group
+# (the single device's function), beside a one-device run of the same
+# cut made first.
 TP_RANKS, TP_STEPS = 2, 3
 SPMD_GRID, SPMD_ODF, SPMD_ITERS = 16384, 4, 20
 TP_BF16_LOSS = 8e-3         # tests/test_multidevice.py:80
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 2
-# (key, arch, layers a stack, cell): trained on (1, 2) against a
-# one-device run of the same cut
-ONE_DEVICE_TP = (("ssm", "mamba2-780m", 2, "d"),
-                 ("hybrid", "zamba2-2.7b", 6, "e"),
-                 ("enc_dec", "seamless-m4t-medium", 2, "f"),
-                 ("vlm", "internvl2-26b", 1, "g"))
+# (key, arch, layers a stack, cell, config overrides): trained on (1, 2)
+# against a one-device run of the same cut
+ONE_DEVICE_TP = (("ssm", "mamba2-780m", 2, "d", {}),
+                 ("hybrid", "zamba2-2.7b", 6, "e", {}),
+                 ("enc_dec", "seamless-m4t-medium", 2, "f", {}),
+                 ("vlm", "internvl2-26b", 1, "g", {}),
+                 ("moe_grouped", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, "h",
+                  {"moe_impl": "grouped"}))
 # a hung rank fails the phase after this many wall seconds (the group is
-# killed); the spawn read 82-97 s on an H100 (PERF.md)
+# killed); the spawn read 94-101 s on an H100 (PERF.md)
 TP_SPAWN_LIMIT_S = 300
 
 
@@ -4170,7 +4176,7 @@ def spmd_stencil_rank(dev) -> dict:
 
 
 def tp_train_rank(cfg, shape, dev, world) -> dict:
-    """(b)-(g) on one rank: ``ElasticTrainer`` over a (1, world)
+    """(b)-(h) on one rank: ``ElasticTrainer`` over a (1, world)
     mesh, TP_STEPS steps: losses, s/step, the model-axis all-reduces a
     step, this rank's parameter GiB against the whole model's, and its
     peak GiB."""
@@ -4201,7 +4207,7 @@ def tp_train_rank(cfg, shape, dev, world) -> dict:
 
 
 def tp_rank(rank, world, dev, zero1, out_path):
-    """A rank of phase 23: (a)-(g) in turn; every rank's readings
+    """A rank of phase 23: (a)-(h) in turn; every rank's readings
     gathered to rank 0, which writes them to ``out_path`` as JSON."""
     import torch.distributed as dist
     out = {"stencil": spmd_stencil_rank(dev)}
@@ -4210,8 +4216,8 @@ def tp_rank(rank, world, dev, zero1, out_path):
     out["dense"] = tp_train_rank(cfg, shape, dev, world)
     cfg, shape = tp_cfg(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, dev)
     out["moe"] = tp_train_rank(cfg, shape, dev, world)
-    for key, arch, layers, _ in ONE_DEVICE_TP:
-        cfg, shape = tp_cfg(arch, layers, dev)
+    for key, arch, layers, _, kw in ONE_DEVICE_TP:
+        cfg, shape = tp_cfg(arch, layers, dev, **kw)
         out[key] = tp_train_rank(cfg, shape, dev, world)
     every = [None] * world
     dist.all_gather_object(every, out)
@@ -4240,11 +4246,12 @@ def tp_phase(dev, zero1, twin_losses):
     log(f"  losses {one_losses}, s/step {spread(one_times, 1.0)}, peak "
         f"{one_peak:.2f} GiB")
     ones = {}
-    for key, arch, layers, cell in ONE_DEVICE_TP:
-        cfg, shape = tp_cfg(arch, layers, dev)
+    for key, arch, layers, cell, kw in ONE_DEVICE_TP:
+        cfg, shape = tp_cfg(arch, layers, dev, **kw)
         log(f"[tp] ({cell})'s one-device run "
-            f"first: {cfg.name}, {cfg.num_layers} layers, batch "
-            f"{shape.global_batch} x {shape.seq_len}, {TP_STEPS} steps")
+            f"first: {cfg.name}, {cfg.num_layers} layers, moe_impl "
+            f"{cfg.moe_impl!r}, batch {shape.global_batch} x "
+            f"{shape.seq_len}, {TP_STEPS} steps")
         tr, launches, times, _, peak = trainer_run(cfg, shape, dev, "memory",
                                                    (TP_STEPS,), False)
         ones[key] = {"losses": [m["loss"] for m in tr.metrics_log],
@@ -4292,11 +4299,13 @@ def tp_phase(dev, zero1, twin_losses):
     for key, what, want in (
             ("dense", f"(b) {DENSE_TRAIN_ARCH} tensor parallel", twin_losses),
             ("moe", f"(c) {MOE_TRAIN_ARCH} expert parallel", one_losses),
-            *((k, f"({c}) {a} tensor parallel", ones[k]["losses"])
-              for k, a, _, c in ONE_DEVICE_TP)):
+            *((k, f"({c}) {a} " + ("grouped, the experts split" if kw
+                                   else "tensor parallel"),
+               ones[k]["losses"]) for k, a, _, c, kw in ONE_DEVICE_TP)):
         rs = [r[key] for r in ranks]
         if key in ("ssm", "hybrid"):
-            arch, layers = {k: (a, n) for k, a, n, _ in ONE_DEVICE_TP}[key]
+            arch, layers = {k: (a, n) for k, a, n, _, _ in
+                            ONE_DEVICE_TP}[key]
             cfg = tp_cfg(arch, layers, dev)[0]
             got = [r["launches"]["ssd_intra_chunk"] for r in rs]
             want_ssd = cfg.num_layers * cfg.num_microbatches * 2 * TP_STEPS

@@ -90,11 +90,20 @@ moe.py:215 explicit-EP out (embed)     ``_moe_explicit_ep``: one float32
                                        g of the routed experts' combine,
                                        g after the shared experts
 moe.py:231, 263, 264 routing (batch)   nothing: each rank routes its rows
-moe.py:272, 277, 280 (experts)         ``_moe_grouped`` at a model axis
-moe.py:287, 299 combine, out           above 1 raises (item 13c); over
-                                       data ranks its router statistics
-                                       are all-reduced (``sum_over_data``)
-moe.py:330, 334, 336, 349 (one-hot)    raises past one rank (item 13c)
+moe.py:272, 277, 280 (experts)         ``moe._routed``: f on the normed
+moe.py:287, 299 combine, out           input and the router, the rank's
+                                       experts' slots (``experts`` split)
+                                       or every expert on its ``d_ff``
+                                       block (``expert_ff`` split), one
+                                       float32 g of the combine; whole,
+                                       with no collective, where the rules
+                                       replicate the expert weights
+                                       (``model_split_dim``); over data
+                                       ranks the router statistics are
+                                       all-reduced (``sum_over_data``)
+moe.py:330, 334, 336, 349 (one-hot)    ``moe_block_onehot``: the same over
+                                       a model axis; raises over data
+                                       ranks (item 13c's fourth step)
 model_zoo.py:241 ``_scatter_grads``    ``DataParallel.reduce``: a
                                        reduce-scatter over data
 =====================================  ====================================
@@ -310,6 +319,22 @@ def model_split(logical: str, size: int) -> int:
         return 1
     return tp.size if active_rules().mesh_axes_for(logical, size) == \
         "model" else 1
+
+
+def model_split_dim(logical_axes: Sequence[Optional[str]],
+                    shape: Sequence[int]) -> Optional[int]:
+    """The dimension of a ``shape`` tensor named ``logical_axes`` that the
+    active rules split over a model axis above 1, or ``None``.  Read from
+    the rules' ``spec``, which gives the axis to the earliest dimension
+    it divides and to no later one: for the expert weights'
+    ``("experts", "embed", "expert_ff")`` the experts where the axis
+    divides them, else each expert's ``d_ff`` where it divides that,
+    else neither (the weights replicated)."""
+    if model_axis() is None:
+        return None
+    spec = active_rules().spec(logical_axes, shape)
+    return next((i for i, e in enumerate(spec) if "model" in _names(e)),
+                None)
 
 
 # all-reduces made by the collectives below (forward and backward): a

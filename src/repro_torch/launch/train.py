@@ -11,8 +11,9 @@ rank of the world builds it and calls ``train`` and ``rescale``: ranks
 outside the current mesh skip the steps.  ``model_par`` is the mesh's
 model axis, as in the reference's ``_mesh_for``: the mesh is ``(n //
 model_par, model_par)``, and over a model axis above 1 every family
-trains tensor parallel (moe's one-hot and grouped layouts past one rank
-raise: ROADMAP item 13c).  A rescale gathers the state over both axes
+trains tensor parallel, moe in every layout of its expert weights (moe's
+one-hot dispatch over data ranks raises: ROADMAP item 13c's fourth
+step).  A rescale gathers the state over both axes
 for its checkpoint and places it on the new mesh.  Each step copies its
 host batch to the device on the caller's stream and reads the step's
 metrics back to the host (one wait a step).

@@ -528,10 +528,12 @@ class DataParallel:
     The moe family's aux loss is a product of batch statistics and its
     capacity couples a token to its group (``repro/models/moe.py:66``);
     over data ranks its router statistics are summed over the data group
-    (``moe._moe_grouped``) or, with a model axis, each rank's aux is
-    averaged as the reference's explicit expert parallelism does
+    (``moe._moe_grouped``) or, with explicit expert parallelism, each
+    rank's aux is averaged as the reference's does
     (``moe._moe_explicit_ep``).  So every micro-batch must split evenly
-    over the data ranks."""
+    over the data ranks.  Over a model axis the expert weights are
+    blocks like any other leaf: split by experts, by each expert's
+    ``expert_ff``, or replicated, as the rules give them."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         from repro_torch.launch.sharding import (ShardingRules, axis_names,
@@ -610,7 +612,7 @@ class DataParallel:
                 f"does not split evenly over {self.size} data ranks; the "
                 f"moe routing and aux loss couple the rows of a "
                 f"micro-batch, so the gradient would not be the "
-                f"reference's")
+                f"reference's: ROADMAP item 13c's fourth step")
         rows = self.rows(batch)
         b = rows["tokens"].shape[0]
         n = self.micro_batches(b)
@@ -753,12 +755,21 @@ class DataParallel:
     def place(self, state: TrainState) -> TrainState:
         """A whole state (every rank holds the same) -> this rank's: the
         model-sharded leaves cut to their model blocks, then, with
-        ``cfg.zero1``, m and v to their ZeRO-1 blocks."""
+        ``cfg.zero1``, m and v to their ZeRO-1 blocks.  Each cut leaf is
+        a copy of its own, not a view: the whole state is freed once the
+        caller drops it."""
+        def own(tree, cut):
+            whole, rebuild = adamw.flatten(tree)
+            return rebuild([t if c is t else c.clone(
+                memory_format=torch.contiguous_format)
+                for t, c in zip(whole, adamw.flatten(cut)[0])])
         m, v = self.model_blocks(state.opt.m), self.model_blocks(state.opt.v)
         if self.zero1:
             m, v = self.blocks(m), self.blocks(v)
-        return TrainState(state.step, self.model_blocks(state.params),
-                          adamw.AdamWState(m, v))
+        return TrainState(state.step,
+                          own(state.params, self.model_blocks(state.params)),
+                          adamw.AdamWState(own(state.opt.m, m),
+                                           own(state.opt.v, v)))
 
     def gather_state(self, state: TrainState) -> TrainState:
         """``place``'s inverse: the whole state, on every rank."""

@@ -3,21 +3,26 @@
 Port of ``repro.models.moe``.  ``moe_block`` takes the reference's
 paths:
 
+* ``moe_impl="onehot"``: the one-hot formulation, ``moe_block_onehot``;
 * ``_moe_explicit_ep`` under sharding rules with a model axis ``m``
   above 1 that divides the experts (``moe_impl`` "auto"): each rank
   holds experts ``[r E/m, (r+1) E/m)``, routes its local tokens as one
   group, gathers its own experts' slots locally, and the routed output
   is one float32 all-reduce over the model group;
-* ``_moe_grouped`` otherwise (``moe_impl`` "auto" or "grouped"): over
-  data ranks (rules with a data axis above 1, a model axis of 1) each
-  rank routes its rows' groups and the router statistics are summed
-  over the data group, so the loss is the single device's;
-* the one-hot formulation with ``moe_impl="onehot"``.
+* ``_moe_grouped`` otherwise ("grouped", and "auto" without such an
+  axis): over data ranks (rules with a data axis above 1) each rank
+  routes its rows' groups and the router statistics are summed over
+  the data group, so the loss is the single device's.
 
-Where the rules shard the expert ``d_ff`` instead (``E % m != 0``, the
-``expert_ff`` fallback), and for "grouped" and "onehot" at a model axis
-above 1 or "onehot" over data ranks, ``moe_block`` raises
-``NotImplementedError``: ROADMAP item 13c.
+Over a model axis the grouped and one-hot paths compute the single
+device's function, with the expert weights laid out as the rules lay
+them out (``launch.sharding.model_split_dim``): split by experts where
+the axis divides them (each rank runs its experts' slots), else by each
+expert's ``d_ff`` where the axis divides that (each rank runs every
+expert on its block of ``d_ff``), else replicated (each rank runs every
+expert whole).  The one-hot dispatch over data ranks, routing groups
+that do not split over the data ranks and micro-batches that do not
+split over them raise: ROADMAP item 13c's fourth step.
 
 Routing is float32, from a float32 router, whatever the compute dtype;
 the expert weights are stored in compute dtype by ``convert``.  Every
@@ -129,28 +134,39 @@ def _shared_experts(p, h, out, cfg: ModelConfig):
 def _not_ported(cfg: ModelConfig, why: str):
     raise NotImplementedError(
         f"{cfg.name} (moe_impl {cfg.moe_impl!r}, {cfg.num_experts} "
-        f"experts): {why} is not ported: ROADMAP item 13c")
+        f"experts): {why} is not ported: ROADMAP item 13c's fourth step")
+
+
+def _expert_split(cfg: ModelConfig):
+    """Which dimension of an expert weight ``(E, d, d_ff)`` the active
+    rules split over a model axis above 1: 0 (the experts), 2 (each
+    expert's ``d_ff``) or ``None`` (replicated, or no model axis)."""
+    return shd.model_split_dim(("experts", "embed", "expert_ff"),
+                               (cfg.num_experts, cfg.d_model, cfg.d_ff))
+
+
+def _rank_experts(cfg: ModelConfig, split):
+    """The experts this rank runs, ``(e0, n)`` for ``[e0, e0 + n)``: its
+    block where the rules split the experts over the model axis
+    (``split == 0``), else all of them."""
+    if split != 0:
+        return 0, cfg.num_experts
+    tp = shd.model_axis()
+    n = cfg.num_experts // tp.size
+    return tp.rank * n, n
 
 
 def moe_block(p, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (B, S, d), aux_loss.  Under rules with a model axis
-    above 1 that divides the experts: ``_moe_explicit_ep``; else
-    ``moe_impl="onehot"`` runs ``moe_block_onehot``, and "auto" and
-    "grouped" run ``_moe_grouped`` (over the data ranks where the rules
-    have a data axis above 1)."""
-    tp, dp = shd.model_axis(), shd.data_axis()
-    if tp is not None:
-        if cfg.moe_impl != "auto":
-            _not_ported(cfg, f"moe_impl {cfg.moe_impl!r} over a model axis "
-                             f"of {tp.size}")
-        if cfg.num_experts % tp.size:
-            _not_ported(cfg, f"expert d_ff sharding over a model axis of "
-                             f"{tp.size} (the experts do not divide it)")
-        return _moe_explicit_ep(p, x, cfg, tp)
+    """x: (B, S, d) -> (B, S, d), aux_loss.  ``moe_impl="onehot"`` runs
+    ``moe_block_onehot``; "auto" under rules whose model axis above 1
+    takes the experts runs ``_moe_explicit_ep``; else ``_moe_grouped``
+    (over the data ranks where the rules have a data axis above 1)."""
     if cfg.moe_impl == "onehot":
-        if dp is not None:
+        if shd.data_axis() is not None:
             _not_ported(cfg, "the one-hot dispatch over data ranks")
         return moe_block_onehot(p, x, cfg)
+    if cfg.moe_impl != "grouped" and _expert_split(cfg) == 0:
+        return _moe_explicit_ep(p, x, cfg)
     return _moe_grouped(p, x, cfg)
 
 
@@ -236,68 +252,100 @@ def _combine(out_flat, slot_or_oob, order, k: int, Tg: int):
     return combined
 
 
-def _moe_explicit_ep(p, x, cfg: ModelConfig, tp):
+def _routed(p, h, cfg: ModelConfig, G: int, Tg: int,
+            over_data: bool = False):
+    """The routed experts' output for the normed input ``h`` (``G * Tg``
+    tokens) routed in ``G`` groups of ``Tg``: ((G, Tg, d) float32, aux
+    loss) (``over_data``: see ``route``).  Each token's kept slots are
+    combined in float32 in ascending slot order.
+
+    Over a model axis ``m`` the expert weights ``p["we_*"]`` are this
+    rank's as the rules lay them out (``_expert_split``):
+
+    * the experts split: the rank gathers and runs the slots of its
+      experts ``[r E/m, (r+1) E/m)`` in every group; the other ranks'
+      slots (and dropped choices) read a zero row in the combine;
+    * ``d_ff`` split: the rank runs every expert on its ``d_ff / m``
+      columns of ``we_gate`` / ``we_up`` and rows of ``we_down``;
+    * replicated: every rank runs every expert whole, with no collective.
+
+    Split either way, the rank's float32 combine is a partial sum of the
+    whole one, and one all-reduce over the model group (g) gives it.
+    The input and the router enter through f, so the ranks' partial
+    gradients sum; the aux loss, the same on every model rank, has its
+    gradient divided by ``m`` so that the sum counts it once."""
+    E, k = cfg.num_experts, cfg.top_k
+    d = h.shape[-1]
+    split = _expert_split(cfg)
+    router = p["router"]
+    if split is not None:
+        h, router = shd.copy_to_model(h), shd.copy_to_model(router)
+    ht = h.reshape(G, Tg, d)
+    slot_or_oob, order, flat_tok, flat_w, aux, C = _dispatch(
+        {"router": router}, ht, cfg, G, Tg, over_data)
+    tok_of_slot, w_of_slot = _slot_tables(
+        slot_or_oob, order, flat_tok, flat_w, E, C, Tg)
+    # the experts this rank runs and their slots
+    e0, n_e = _rank_experts(cfg, split)
+    lo, n = e0 * C, n_e * C
+
+    # dispatch: a group-local gather; empty slots read a zero pad row
+    gidx = torch.arange(G, device=h.device)[:, None]
+    ht_pad = torch.cat([ht, ht.new_zeros(G, 1, d)], dim=1)
+    buf = ht_pad[gidx, tok_of_slot[:, lo:lo + n]].reshape(G, n_e, C, d)
+    buf = buf.transpose(0, 1).reshape(n_e, G * C, d)
+    out_buf = _experts(buf, p).reshape(n_e, G, C, d).transpose(0, 1)
+
+    # combine in float32: each token's kept slots (the inverse map) in
+    # ascending slot order, dropped choices on a zero pad row, summed
+    # from 0.0 one choice at a time
+    out_flat = torch.cat([
+        out_buf.reshape(G, n, d).float() * w_of_slot[:, lo:lo + n, None],
+        out_buf.new_zeros(G, 1, d, dtype=torch.float32)], dim=1)
+    if split == 0:
+        local = slot_or_oob - lo
+        slot_or_oob = torch.where((local >= 0) & (local < n), local, n)
+    combined = _combine(out_flat, slot_or_oob, order, k, Tg)
+    if split is not None:
+        combined = shd.reduce_from_model(combined)
+        aux = shd.scale_grad(aux, 1.0 / shd.model_axis().size)
+    return combined, aux
+
+
+def _moe_explicit_ep(p, x, cfg: ModelConfig):
     """Explicit expert parallelism (``repro/models/moe.py:138-216``): the
     batch is split over the data ranks and replicated over the model
     ranks, and model rank ``r`` holds experts ``[r E_loc, (r+1) E_loc)``
     (``p["we_*"]`` are those).  Each rank routes its local tokens as one
-    group (capacity from ``T_loc``), gathers its own experts' slots
-    locally, runs them, and combines their weighted outputs in float32
-    in ascending slot order; one float32 all-reduce over the model group
-    (g) gives the routed output, cast to the compute dtype.  The aux loss
-    is the mean over the data ranks of each rank's (with the gradient of
-    a mean).
-
-    Gradients: the normed input and the router enter through f, so the
-    ranks' partial gradients (each through its own experts' slots) sum;
-    the aux loss, the same on every model rank, has its gradient divided
-    by ``m`` so that the sum counts it once."""
+    group (capacity from ``T_loc``) and runs its own experts' slots
+    (``_routed``); one float32 all-reduce over the model group gives the
+    routed output, cast to the compute dtype.  The aux loss is the mean
+    over the data ranks of each rank's (with the gradient of a mean)."""
     dt = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
-    E, k = cfg.num_experts, cfg.top_k
-    m = tp.size
-    E_loc = E // m
-    T_loc = b * s
-
     h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
-    ht = shd.copy_to_model(h).reshape(1, T_loc, d)
-    slot_or_oob, order, flat_tok, flat_w, aux, C = _dispatch(
-        {"router": shd.copy_to_model(p["router"])}, ht, cfg, 1, T_loc)
-    tok_of_slot, w_of_slot = _slot_tables(
-        slot_or_oob, order, flat_tok, flat_w, E, C, T_loc)
-    # this rank's experts' slots: the dispatch is local
-    lo, n = tp.rank * E_loc * C, E_loc * C
-    ht_pad = torch.cat([ht[0], ht.new_zeros(1, d)])
-    buf = ht_pad[tok_of_slot[0, lo:lo + n]].reshape(E_loc, C, d)
-    out_buf = _experts(buf, p)
-    out_flat = torch.cat([
-        out_buf.reshape(n, d).float() * w_of_slot[0, lo:lo + n, None],
-        out_buf.new_zeros(1, d, dtype=torch.float32)])
-    # other ranks' slots (and dropped choices) read the zero row
-    local = slot_or_oob - lo
-    local = torch.where((local >= 0) & (local < n), local, n)
-    partial = _combine(out_flat[None], local, order, k, T_loc)[0]
-    out = shd.reduce_from_model(partial).to(dt).reshape(b, s, d)
+    combined, aux = _routed(p, h, cfg, 1, b * s)
+    out = combined.to(dt).reshape(b, s, d)
     dp = shd.data_axis()
     if dp is not None:
         aux = shd.sum_over_data(aux) / dp.size
-    aux = shd.scale_grad(aux, 1.0 / m)
     return x + _shared_experts(p, h, out, cfg), aux
 
 
 def _moe_grouped(p, x, cfg: ModelConfig):
-    """Sort-based grouped dispatch (GShard capacity per group).
+    """Sort-based grouped dispatch (GShard capacity per group), the
+    single device's function at any mesh.
 
     Over data ranks (the active rules' data axis above 1, this rank's
     rows ``x`` of a batch split evenly over them) the groups are the
     whole batch's ``moe_groups``: each rank routes its rows' groups,
     which must be whole (the groups divide over the ranks), and the
     router statistics are summed over the data group (``route``), so
-    that the loss is the single device's."""
+    that the loss is the single device's.  Over a model axis the experts
+    run as ``_routed`` lays them out."""
     dt = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
     T = b * s
-    E, k = cfg.num_experts, cfg.top_k
     dp = shd.data_axis()
     n = 1 if dp is None else dp.size
     G = cfg.moe_groups if (T * n) % max(cfg.moe_groups, 1) == 0 else 1
@@ -305,38 +353,28 @@ def _moe_grouped(p, x, cfg: ModelConfig):
         raise ValueError(
             f"{cfg.name}: {G} routing group(s) of the batch do not split "
             f"over {n} data ranks, so a rank's rows would not be whole "
-            f"groups and its routing would not be the single device's")
+            f"groups and its routing would not be the single device's: "
+            f"ROADMAP item 13c's fourth step")
     G //= n
-    Tg = T // G
-
     h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
-    ht = h.reshape(G, Tg, d)
-    slot_or_oob, order, flat_tok, flat_w, aux, C = _dispatch(
-        p, ht, cfg, G, Tg, over_data=dp is not None)
-    tok_of_slot, w_of_slot = _slot_tables(
-        slot_or_oob, order, flat_tok, flat_w, E, C, Tg)
-
-    # dispatch: a group-local gather; empty slots read a zero pad row
-    gidx = torch.arange(G, device=x.device)[:, None]
-    ht_pad = torch.cat([ht, ht.new_zeros(G, 1, d)], dim=1)
-    buf = ht_pad[gidx, tok_of_slot].reshape(G, E, C, d)
-    buf = buf.transpose(0, 1).reshape(E, G * C, d)
-    out_buf = _experts(buf, p).reshape(E, G, C, d).transpose(0, 1)
-
-    # combine in float32: each token's kept slots (the inverse map) in
-    # ascending slot order, dropped choices on a zero pad row, summed
-    # from 0.0 one choice at a time
-    out_flat = torch.cat([
-        out_buf.reshape(G, E * C, d).float() * w_of_slot[:, :, None],
-        out_buf.new_zeros(G, 1, d, dtype=torch.float32)], dim=1)
-    combined = _combine(out_flat, slot_or_oob, order, k, Tg)
+    combined, aux = _routed(p, h, cfg, G, T // G, over_data=dp is not None)
     out = combined.to(dt).reshape(b, s, d)
     return x + _shared_experts(p, h, out, cfg), aux
 
 
 def moe_block_onehot(p, x, cfg: ModelConfig):
     """One-hot/cumsum dispatch (GShard formulation) over all T tokens:
-    the reference's second oracle for the sort-based path."""
+    the reference's second oracle for the sort-based path.
+
+    Over a model axis (one data rank) the expert weights are the rank's
+    as in ``_routed``: the rank runs its experts' capacity buffers, or
+    every expert on its ``d_ff`` block, or every expert whole
+    (replicated: the single device's code, no collective).  Split either
+    way, the rank's weighted contributions (each in the compute dtype,
+    as the reference's) are summed in float32, all-reduced over the
+    model group and cast: in float32 the reference's sum in another
+    order, in bf16 one rounding at the end where the reference rounds
+    after every choice (within the bf16 tolerance)."""
     dt = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
     T = b * s
@@ -345,8 +383,12 @@ def moe_block_onehot(p, x, cfg: ModelConfig):
     dev = x.device
 
     h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
-    ht = h.reshape(T, d)
-    router_logits = torch.matmul(ht.float(), p["router"].float())
+    split = _expert_split(cfg)
+    hr, router = h, p["router"]
+    if split is not None:
+        hr, router = shd.copy_to_model(h), shd.copy_to_model(router)
+    ht = hr.reshape(T, d)
+    router_logits = torch.matmul(ht.float(), router.float())
     expert_idx, weights, aux = route(router_logits, cfg)
 
     flat_e = expert_idx.t().reshape(-1)                        # (k*T,)
@@ -361,13 +403,24 @@ def moe_block_onehot(p, x, cfg: ModelConfig):
     src = ht[tok_idx] * keep[:, None].to(dt)
     buf = torch.zeros(E, C, d, dtype=dt, device=dev).index_put_(
         (flat_e, pos_c), src, accumulate=True)
-    out_buf = _experts(buf, p)
-
     flat_w = weights.t().reshape(-1).to(dt) * keep.to(dt)
-    contrib = (out_buf[flat_e, pos_c] * flat_w[:, None]).reshape(k, T, d)
-    # the reference's scatter-add in update order: choice 0 first
-    combined = torch.zeros(T, d, dtype=dt, device=dev)
+    if split is None:
+        out_buf = _experts(buf, p)
+        contrib = (out_buf[flat_e, pos_c] * flat_w[:, None]).reshape(k, T, d)
+        # the reference's scatter-add in update order: choice 0 first
+        combined = torch.zeros(T, d, dtype=dt, device=dev)
+        for j in range(k):
+            combined = combined + contrib[j]
+        return x + _shared_experts(p, h, combined.reshape(b, s, d), cfg), aux
+
+    e0, n_e = _rank_experts(cfg, split)
+    out_buf = _experts(buf[e0:e0 + n_e], p)
+    mine = ((flat_e >= e0) & (flat_e < e0 + n_e)).to(dt)
+    rows = out_buf[(flat_e - e0).clamp(0, n_e - 1), pos_c]
+    contrib = (rows * (flat_w * mine)[:, None]).float().reshape(k, T, d)
+    combined = torch.zeros(T, d, device=dev)
     for j in range(k):
         combined = combined + contrib[j]
-    out = combined.reshape(b, s, d)
+    out = shd.reduce_from_model(combined).to(dt).reshape(b, s, d)
+    aux = shd.scale_grad(aux, 1.0 / shd.model_axis().size)
     return x + _shared_experts(p, h, out, cfg), aux

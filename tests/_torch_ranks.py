@@ -143,8 +143,10 @@ def scenario_two(world):
         except ValueError as e:
             out[key] = str(e)
     for key, cfg, model_par, error in (
-            ("moe_onehot_tp", cfg_of("qwen2-moe-a2.7b", moe_impl="onehot"),
-             2, NotImplementedError),
+            ("moe_onehot_data", cfg_of("qwen2-moe-a2.7b", moe_impl="onehot"),
+             1, NotImplementedError),
+            ("moe_groups_data", cfg_of("qwen2-moe-a2.7b", moe_groups=1), 1,
+             ValueError),
             ("one_head_tp", cfg_of("mamba2-780m", ssm_head_dim=128), 2,
              ValueError),
             ("micro3", granite.with_(num_microbatches=3), 1, ValueError),
@@ -176,15 +178,50 @@ def spmd_stencil(world):
             "local": step.local(grid[rank * b:(rank + 1) * b])}
 
 
+# qwen2-moe-a2.7b's layouts over a model axis (reduced: 8 experts of
+# d_ff 32): the experts split (grouped, one-hot), each expert's d_ff split
+# (5 experts: the axis does not divide them), the expert weights
+# replicated (5 experts of d_ff 33), and capacity drops in one group
+MOE_LAYOUTS = {"moe_grouped": dict(moe_impl="grouped"),
+               "moe_onehot": dict(moe_impl="onehot"),
+               "moe_ff": dict(num_experts=5),
+               "moe_replicated": dict(num_experts=5, d_ff=33),
+               "moe_drops": dict(moe_impl="grouped", moe_groups=1,
+                                 capacity_factor=0.5)}
+
+
+def own_storage(state) -> bool:
+    """Whether every leaf of a placed state owns a storage of its own
+    size (not a view of a larger, whole leaf)."""
+    return all(t.untyped_storage().nbytes() == t.numel() * t.element_size()
+               for tree in (state.params, state.opt.m, state.opt.v)
+               for t in adamw.flatten(tree)[0])
+
+
 def scenario_tp_two(world):
     """The model axis over 2 ranks: the SPMD stencil; reduced granite-8b
     (float32) and qwen2-moe-a2.7b (float32) at (1, 2), granite-8b with
     one KV head (replicated KV heads, sharded query heads) at (1, 2),
     qwen2-moe-a2.7b at (2, 1); mamba2-780m and zamba2-2.7b (float32) at
     (1, 2); seamless-m4t-medium (also with one KV head: cross attention's
-    KV heads replicated) and internvl2-26b (float32) at (1, 2)."""
+    KV heads replicated) and internvl2-26b (float32) at (1, 2); every
+    moe layout of ``MOE_LAYOUTS`` (float32) at (1, 2), and the one-hot
+    dispatch in bf16; whether a placed state's leaves own their
+    storage."""
     f32 = dict(compute_dtype="float32")
-    return {"stencil": spmd_stencil(world),
+    moe = {key: trained(cfg_of("qwen2-moe-a2.7b", **kw, **f32), world,
+                        model_par=2) for key, kw in MOE_LAYOUTS.items()}
+    placed = {}
+    for key, arch, kw in (("dense", "granite-8b", dict(zero1=True)),
+                          ("moe_ff", "qwen2-moe-a2.7b",
+                           dict(num_experts=5))):
+        tr = ElasticTrainer(cfg_of(arch, **kw), SHAPE, n_devices=world,
+                            device="cpu", model_par=2)
+        placed[key] = own_storage(tr.state)
+    return {"stencil": spmd_stencil(world), **moe, "own_storage": placed,
+            "moe_onehot_bf16": trained(cfg_of("qwen2-moe-a2.7b",
+                                              moe_impl="onehot"), world,
+                                       model_par=2),
             "enc_dec": trained(cfg_of("seamless-m4t-medium", **f32), world,
                                model_par=2),
             "enc_dec_kv1": trained(cfg_of("seamless-m4t-medium",
@@ -241,10 +278,29 @@ def scenario_tp_four(world):
     and in bf16, and mamba2-780m's 4 -> 2 -> 4 rescale with ZeRO-1;
     seamless-m4t-medium and internvl2-26b at (2, 2) in float32 and in
     bf16, and seamless-m4t-medium's 4 -> 2 -> 4 rescale with ZeRO-1 in
-    float32."""
+    float32; qwen2-moe-a2.7b grouped (the experts split) and with 5
+    experts (each expert's d_ff split) at (2, 2) in float32, the latter
+    in bf16 and across the 4 -> 2 -> 4 rescale with ZeRO-1 in float32;
+    whether a
+    placed ZeRO-1 state's leaves own their storage."""
     f32 = dict(compute_dtype="float32")
     granite = cfg_of("granite-8b", **f32)
-    return {"stencil": spmd_stencil(world),
+    tr = ElasticTrainer(cfg_of("qwen2-moe-a2.7b", num_experts=5,
+                               zero1=True), SHAPE, n_devices=world,
+                        device="cpu", model_par=2)
+    placed = {"moe_ff": own_storage(tr.state)}
+    del tr
+    return {"stencil": spmd_stencil(world), "own_storage": placed,
+            "moe_grouped": trained(cfg_of("qwen2-moe-a2.7b",
+                                          moe_impl="grouped", **f32), world,
+                                   model_par=2),
+            "moe_ff": trained(cfg_of("qwen2-moe-a2.7b", num_experts=5,
+                                     **f32), world, model_par=2),
+            "moe_ff_bf16": trained(cfg_of("qwen2-moe-a2.7b", num_experts=5),
+                                   world, model_par=2),
+            "moe_ff_elastic": elastic_tp(cfg_of("qwen2-moe-a2.7b",
+                                                num_experts=5, zero1=True,
+                                                **f32), world),
             "enc_dec": trained(cfg_of("seamless-m4t-medium", **f32), world,
                                model_par=2),
             "vlm": trained(cfg_of("internvl2-26b", **f32), world,
