@@ -89,7 +89,12 @@ transformer.py:141 logits (vocab)      ``lm_logits``: f, the rank's vocab
 moe.py:215 explicit-EP out (embed)     ``_moe_explicit_ep``: one float32
                                        g of the routed experts' combine,
                                        g after the shared experts
-moe.py:231, 263, 264 routing (batch)   nothing: each rank routes its rows
+moe.py:231, 263, 264 routing (batch)   each rank routes its rows of the
+                                       micro-batch (``routing_pool``):
+                                       groups that span ranks take their
+                                       positions from count tables
+                                       all-gathered over data
+                                       (``gather_over_data``)
 moe.py:272, 277, 280 (experts)         ``moe._routed``: f on the normed
 moe.py:287, 299 combine, out           input and the router, the rank's
                                        experts' slots (``experts`` split)
@@ -100,10 +105,10 @@ moe.py:287, 299 combine, out           input and the router, the rank's
                                        replicate the expert weights
                                        (``model_split_dim``); over data
                                        ranks the router statistics are
-                                       all-reduced (``sum_over_data``)
+                                       all-reduced over the pool
+                                       (``sum_over_pool``)
 moe.py:330, 334, 336, 349 (one-hot)    ``moe_block_onehot``: the same over
-                                       a model axis; raises over data
-                                       ranks (item 13c's fourth step)
+                                       a model axis and over data ranks
 model_zoo.py:241 ``_scatter_grads``    ``DataParallel.reduce``: a
                                        reduce-scatter over data
 =====================================  ====================================
@@ -111,6 +116,7 @@ model_zoo.py:241 ``_scatter_grads``    ``DataParallel.reduce``: a
 
 from __future__ import annotations
 
+import copy
 import math
 import threading
 from contextlib import contextmanager
@@ -220,6 +226,16 @@ class ShardingRules:
     def __init__(self, mesh):
         self.mesh = mesh
         self.axes = set(axis_names(mesh))
+        # the data ranks ``(lo, size)`` that hold this rank's micro-batch
+        # (``routing_pool``); ``None``: all of them
+        self.pool = None
+
+    def with_pool(self, lo: int, size: int) -> "ShardingRules":
+        """These rules, with this rank's micro-batch held by the data
+        ranks ``[lo, lo + size)``."""
+        rules = copy.copy(self)
+        rules.pool = (lo, size)
+        return rules
 
     def mesh_axes_for(self, logical: Optional[str], dim_size: int):
         pref = self.PREFERRED.get(logical, None)
@@ -308,6 +324,31 @@ def model_axis() -> Optional[Axis]:
 def data_axis() -> Optional[Axis]:
     """The active rules' ``data`` axis above size 1, else ``None``."""
     return _mesh_axis("data")
+
+
+class Pool(NamedTuple):
+    """A rank's routing pool: the data ranks ``[lo, lo + size)``, in rank
+    order, whose rows make up the micro-batch that this rank holds a
+    block of (every rank of the pool as many rows)."""
+    axis: Axis        # the data axis
+    lo: int
+    size: int
+
+    @property
+    def index(self) -> int:
+        """This rank's block of the micro-batch."""
+        return self.axis.rank - self.lo
+
+
+def routing_pool() -> Optional[Pool]:
+    """The active rules' routing pool (``ShardingRules.with_pool``; the
+    whole data axis where none is set), ``None`` without a data axis
+    above 1.  A pool of one rank: the rank holds the micro-batch whole."""
+    ax = data_axis()
+    if ax is None:
+        return None
+    lo, size = active_rules().pool or (0, ax.size)
+    return Pool(ax, lo, size)
 
 
 def model_split(logical: str, size: int) -> int:
@@ -452,6 +493,34 @@ def sum_over_data(x):
     if ax is None:
         return x
     return _SumOverGroup.apply(x, ax.group)
+
+
+def sum_over_pool(x, pool: Pool):
+    """``x`` summed over the ranks of ``pool``, with the adjoint gradient:
+    ``sum_over_data`` where the pool is the whole data axis, else each
+    rank's ``x`` in its row of a (data ranks, ...) tensor, all-reduced
+    over the data group, and the pool's rows summed."""
+    if pool.size == pool.axis.size:
+        return _SumOverGroup.apply(x, pool.axis.group)
+    rows = torch.stack([x if r == pool.axis.rank else torch.zeros_like(x)
+                        for r in range(pool.axis.size)])
+    rows = _SumOverGroup.apply(rows, pool.axis.group)
+    return rows[pool.lo:pool.lo + pool.size].sum(0)
+
+
+# all-gathers made by ``gather_over_data``: a plain count for readings
+all_gathers = 0
+
+
+def gather_over_data(x):
+    """Every data rank's ``x`` (no gradient), stacked in rank order:
+    (data ranks, ...); counted in ``all_gathers``."""
+    global all_gathers
+    ax = data_axis()
+    all_gathers += 1
+    parts = [torch.empty_like(x) for _ in range(ax.size)]
+    dist.all_gather(parts, x.contiguous(), group=ax.group)
+    return torch.stack(parts)
 
 
 def scale_grad(x, scale: float):

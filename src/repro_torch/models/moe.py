@@ -8,11 +8,27 @@ paths:
   above 1 that divides the experts (``moe_impl`` "auto"): each rank
   holds experts ``[r E/m, (r+1) E/m)``, routes its local tokens as one
   group, gathers its own experts' slots locally, and the routed output
-  is one float32 all-reduce over the model group;
+  is one float32 all-reduce over the model group; where a micro-batch's
+  rows do not divide over the data ranks it falls back to
+  ``_moe_grouped``, as the reference does;
 * ``_moe_grouped`` otherwise ("grouped", and "auto" without such an
-  axis): over data ranks (rules with a data axis above 1) each rank
-  routes its rows' groups and the router statistics are summed over
-  the data group, so the loss is the single device's.
+  axis).
+
+Over data ranks the grouped and one-hot dispatches compute the single
+device's function of the whole micro-batch.  The rank's rows are a
+contiguous block of the micro-batch (its routing pool,
+``launch.sharding.routing_pool``: the data ranks that hold the
+micro-batch, in rank order), and its routing groups are the reference's
+consecutive blocks of the pool's tokens, which may span ranks or cut a
+rank's rows.  Each rank counts its entries by (group, choice, expert);
+where a group spans ranks the ranks all-gather these integer tables
+over the data group, and each entry's position in its expert is that
+of the reference's choice-major cumulative sum over the whole group
+(``capacity_positions``).  The router statistics of the aux loss are
+summed over the pool (``route``).  Counts move, activations do not: a
+token's expert output depends on its own row and on whether it was
+kept, so each rank runs its own kept entries in an ``(E, C, d)``
+buffer per group it touches and combines its own tokens.
 
 Over a model axis the grouped and one-hot paths compute the single
 device's function, with the expert weights laid out as the rules lay
@@ -20,9 +36,7 @@ them out (``launch.sharding.model_split_dim``): split by experts where
 the axis divides them (each rank runs its experts' slots), else by each
 expert's ``d_ff`` where the axis divides that (each rank runs every
 expert on its block of ``d_ff``), else replicated (each rank runs every
-expert whole).  The one-hot dispatch over data ranks, routing groups
-that do not split over the data ranks and micro-batches that do not
-split over them raise: ROADMAP item 13c's fourth step.
+expert whole).
 
 Routing is float32, from a float32 router, whatever the compute dtype;
 the expert weights are stored in compute dtype by ``convert``.  Every
@@ -33,8 +47,8 @@ What JAX leaves implicit is explicit here:
 
 * ``lax.top_k`` puts the lower index first among equal values: the top
   k is taken from a stable descending ``torch.sort``;
-* out-of-range ``.at[].set(mode="drop")`` writes land in a pad column
-  (``E * C``) that is sliced off;
+* out-of-range ``.at[].set(mode="drop")`` writes land in a pad slot
+  that is sliced off;
 * no ``bincount``, ``nonzero``, ``.item()`` or boolean-mask indexing:
   each would wait for the device;
 * the combine adds each token's kept contributions in float32 in
@@ -85,15 +99,16 @@ def expert_capacity(cfg: ModelConfig, num_tokens: int) -> int:
     return max(8, min(cap, num_tokens))
 
 
-def route(router_logits, cfg: ModelConfig, over_data: bool = False):
+def route(router_logits, cfg: ModelConfig, pool=None):
     """top-k routing. router_logits: (T, E) float32.
 
     Returns (expert_idx (T, k) int64, weights (T, k), aux_loss scalar).
-    ``over_data``: the tokens are this rank's share of a batch split
-    over the active rules' data axis, and the aux loss is the whole
-    batch's: the first-choice counts and the sums of the probabilities
-    are summed over the data group (with the adjoint gradient) before
-    their product."""
+    ``pool`` (``launch.sharding.routing_pool``, more than one rank): the
+    tokens are this rank's block of a micro-batch whose rows the pool's
+    data ranks hold, and the aux loss is the whole micro-batch's: the
+    first-choice counts and the sums of the probabilities are summed
+    over the pool (one all-reduce, with the adjoint gradient) and
+    divided by the tokens they count."""
     # jax.nn.softmax's own formula: exp(x - max) / sum
     e = torch.exp(router_logits - router_logits.amax(dim=-1, keepdim=True))
     probs = e / e.sum(dim=-1, keepdim=True)
@@ -105,10 +120,11 @@ def route(router_logits, cfg: ModelConfig, over_data: bool = False):
     E = cfg.num_experts
     experts = torch.arange(E, device=probs.device)
     first = (expert_idx[:, :1] == experts).float()
-    if over_data:
-        n = probs.shape[0] * shd.data_axis().size
-        density = shd.sum_over_data(first.sum(0)) / n
-        density_proxy = shd.sum_over_data(probs.sum(0)) / n
+    if pool is not None and pool.size > 1:
+        first_sum, probs_sum = shd.sum_over_pool(
+            torch.stack([first.sum(0), probs.sum(0)]), pool).unbind(0)
+        n = first_sum.sum()                  # the pool's tokens, counted
+        density, density_proxy = first_sum / n, probs_sum / n
     else:
         density = first.mean(0)
         density_proxy = probs.mean(0)
@@ -116,6 +132,91 @@ def route(router_logits, cfg: ModelConfig, over_data: bool = False):
     return expert_idx, weights, aux * cfg.router_aux_weight
 
 
+# ------------------------------------------------------ capacity positions
+def _own_positions(key, n_keys: int, onehot: bool):
+    """Each entry's position among the entries before it with the same
+    ``key`` (entries in order): a cumulative sum of the one-hot keys
+    (``onehot``, the GShard formulation) or the rank in a stable sort."""
+    if onehot:
+        hot = (key[:, None] == torch.arange(n_keys, device=key.device)).to(
+            torch.int32)
+        return (torch.cumsum(hot, dim=0) - 1).gather(1, key[:, None])[:, 0] \
+            .long()
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(n_keys, dtype=torch.int64,
+                         device=key.device).scatter_add_(
+        0, key, torch.ones_like(key))
+    starts = torch.cumsum(counts, dim=0) - counts
+    ranks = torch.arange(key.numel(), device=key.device) - starts[key[order]]
+    return torch.empty_like(ranks).scatter_(0, order, ranks)
+
+
+def pool_offsets(tables, q: int):
+    """``tables`` (ranks, G, k, E): every rank's entries of a routing pool
+    counted by (group, choice, expert), in rank order; ``q``: this
+    rank's index.  What to add to the position of one of its entries
+    among its own entries of the same (group, expert), counted in
+    choice-major order, to give its position in the pool's choice-major
+    order: the other ranks' entries of earlier choices, and the earlier
+    ranks' entries of the same choice.  (G, k, E)."""
+    others = tables.sum(0) - tables[q]
+    return (torch.cumsum(others, dim=1) - others) + tables[:q].sum(0)
+
+
+def capacity_positions(expert_idx, off: int, q: int, Tg: int, G: int,
+                       num_experts: int, gather=None, onehot=False):
+    """The capacity positions of a rank's block of a routing pool.
+
+    ``expert_idx`` (T, k): the expert choices of the block's tokens,
+    tokens ``[off, off + T)`` of the pool, which route in ``G`` groups of
+    ``Tg`` consecutive tokens; ``q``: the block's index in the pool.  An
+    entry (token, choice ``j``) sits at its position in its expert within
+    its group in the reference's choice-major order: every entry of
+    choice 0 of the group, then of choice 1, ...  ``gather``: ``None``
+    where the block's groups are whole (no other block holds their
+    tokens), else a function from this block's table of counts (G, k, E)
+    to every block's, (blocks, G, k, E) in block order (an all-gather
+    over the data ranks).
+
+    Returns ``(pos, key, Gt)`` over the block's entries in choice-major
+    order: the position, the entry's (group - first group of the block)
+    * E + expert, and the number of groups the block touches."""
+    T, k = expert_idx.shape
+    E = num_experts
+    dev = expert_idx.device
+    g0 = off // Tg
+    Gt = (off + T - 1) // Tg - g0 + 1
+    lg = (off + torch.arange(T, device=dev)) // Tg - g0
+    flat_e = expert_idx.t().reshape(-1)                        # (k*T,)
+    key = lg.repeat(k) * E + flat_e
+    pos = _own_positions(key, Gt * E, onehot)
+    if gather is not None:
+        choice = torch.arange(k, device=dev).repeat_interleave(T)
+        cell = ((g0 + lg.repeat(k)) * k + choice) * E + flat_e
+        table = torch.zeros(G * k * E, dtype=torch.int64,
+                            device=dev).scatter_add_(
+            0, cell, torch.ones_like(cell)).view(G, k, E)
+        pos = pos + pool_offsets(gather(table), q).reshape(-1)[cell]
+    return pos, key, Gt
+
+
+def _positions(expert_idx, pool, Tg: int, G: int, num_experts: int,
+               onehot=False):
+    """``capacity_positions`` of this rank's tokens in its routing
+    ``pool`` (every rank of it holds as many): the count tables are
+    all-gathered over the data group where a group spans ranks or cuts a
+    rank's rows; every rank of the data group takes the same branch."""
+    T = expert_idx.shape[0]
+    q = 0 if pool is None else pool.index
+    gather = None
+    if pool is not None and pool.size > 1 and T % Tg:
+        def gather(table):
+            return shd.gather_over_data(table)[pool.lo:pool.lo + pool.size]
+    return capacity_positions(expert_idx, q * T, q, Tg, G, num_experts,
+                              gather, onehot)
+
+
+# ------------------------------------------------------------- the blocks
 def _shared_experts(p, h, out, cfg: ModelConfig):
     """``out`` plus the shared experts' SwiGLU of ``h``; tensor parallel
     over ``ff`` (f before, g after) where the rules shard it over a model
@@ -129,12 +230,6 @@ def _shared_experts(p, h, out, cfg: ModelConfig):
     us = torch.matmul(h, p["ws_up"])
     sh = torch.matmul(F.silu(gs) * us, p["ws_down"])
     return out + (shd.reduce_from_model(sh) if tp else sh)
-
-
-def _not_ported(cfg: ModelConfig, why: str):
-    raise NotImplementedError(
-        f"{cfg.name} (moe_impl {cfg.moe_impl!r}, {cfg.num_experts} "
-        f"experts): {why} is not ported: ROADMAP item 13c's fourth step")
 
 
 def _expert_split(cfg: ModelConfig):
@@ -156,76 +251,59 @@ def _rank_experts(cfg: ModelConfig, split):
     return tp.rank * n, n
 
 
+def _pool_tokens(T: int, pool) -> int:
+    """The tokens of the micro-batch this rank's ``T`` are a block of."""
+    return T * (1 if pool is None else pool.size)
+
+
 def moe_block(p, x, cfg: ModelConfig):
     """x: (B, S, d) -> (B, S, d), aux_loss.  ``moe_impl="onehot"`` runs
     ``moe_block_onehot``; "auto" under rules whose model axis above 1
-    takes the experts runs ``_moe_explicit_ep``; else ``_moe_grouped``
-    (over the data ranks where the rules have a data axis above 1)."""
+    takes the experts runs ``_moe_explicit_ep``; else ``_moe_grouped``.
+    Over data ranks each routes this rank's block of the micro-batch as
+    the reference routes the whole one (``routing_pool``)."""
     if cfg.moe_impl == "onehot":
-        if shd.data_axis() is not None:
-            _not_ported(cfg, "the one-hot dispatch over data ranks")
         return moe_block_onehot(p, x, cfg)
     if cfg.moe_impl != "grouped" and _expert_split(cfg) == 0:
         return _moe_explicit_ep(p, x, cfg)
     return _moe_grouped(p, x, cfg)
 
 
-def _dispatch(p, ht, cfg: ModelConfig, G: int, Tg: int,
-              over_data: bool = False):
-    """The routing of ``ht`` (G, Tg, d): each (group, choice-major
-    entry)'s capacity slot, ``E * C`` where it is dropped, in the stable
-    sort's order, with that order, the entries' tokens and weights, the
-    aux loss and C (``over_data``: see ``route``)."""
+def _dispatch(router, ht, cfg: ModelConfig, G: int, Tg: int, pool):
+    """The routing of this rank's tokens ``ht`` (T, d), a block of its
+    routing ``pool``'s tokens (``None``: all of them), which route in
+    ``G`` groups of ``Tg``.  Returns ``(slot, tok_of_slot, w_of_slot,
+    aux, C, Gt)``: each entry's slot (choice-major entries; slots are
+    (group touched, expert, position), ``Gt * E * C`` where the entry is
+    dropped), slot -> token (``T`` where empty) and slot -> weight over
+    the ``Gt * E * C`` slots of the ``Gt`` groups the block touches."""
     E, k = cfg.num_experts, cfg.top_k
+    T = ht.shape[0]
     C = expert_capacity(cfg, Tg)
-    kTg = k * Tg
     dev = ht.device
-    router_logits = torch.matmul(ht.float(), p["router"].float())
-    expert_idx, weights, aux = route(router_logits.reshape(G * Tg, E), cfg,
-                                     over_data)
-    expert_idx = expert_idx.reshape(G, Tg, k)
-    weights = weights.reshape(G, Tg, k)
-
-    # choice-major flattening per group: first choices precede second
-    # choices, so the stable sort preserves Switch-style drop priority.
-    flat_e = expert_idx.transpose(1, 2).reshape(G, kTg)
-    flat_tok = torch.arange(Tg, device=dev).repeat(G, k)
-    flat_w = weights.transpose(1, 2).reshape(G, kTg)
-
-    order = torch.argsort(flat_e, dim=1, stable=True)
-    sorted_e = flat_e.gather(1, order)
-    counts = torch.zeros(G, E, dtype=torch.int64, device=dev).scatter_add_(
-        1, flat_e, torch.ones_like(flat_e))
-    starts = torch.cumsum(counts, dim=1) - counts
-    rank = (torch.arange(kTg, device=dev)[None]
-            - starts.gather(1, sorted_e))
-    slot = sorted_e * C + rank.clamp(0, C - 1)
-    slot_or_oob = torch.where(rank < C, slot, E * C)          # capacity drop
-    return slot_or_oob, order, flat_tok, flat_w, aux, C
-
-
-def _slot_tables(slot_or_oob, order, flat_tok, flat_w, E: int, C: int,
-                 Tg: int):
-    """slot -> token (``Tg`` where empty) and slot -> weight, (G, E*C)."""
-    G = slot_or_oob.shape[0]
-    dev = slot_or_oob.device
-    tok_of_slot = torch.full((G, E * C + 1), Tg, dtype=torch.int64,
+    router_logits = torch.matmul(ht.float(), router.float())
+    expert_idx, weights, aux = route(router_logits, cfg, pool)
+    pos, key, Gt = _positions(expert_idx, pool, Tg, G, E)
+    n_slots = Gt * E * C
+    slot = torch.where(pos < C, key * C + pos.clamp(max=C - 1), n_slots)
+    tok_of_slot = torch.full((n_slots + 1,), T, dtype=torch.int64,
                              device=dev).scatter_(
-        1, slot_or_oob, flat_tok.gather(1, order))[:, :E * C]
-    w_of_slot = torch.zeros(G, E * C + 1, device=dev).scatter_(
-        1, slot_or_oob, flat_w.gather(1, order))[:, :E * C]
-    return tok_of_slot, w_of_slot
+        0, slot, torch.arange(T, device=dev).repeat(k))[:n_slots]
+    w_of_slot = torch.zeros(n_slots + 1, device=dev).scatter_(
+        0, slot, weights.t().reshape(-1))[:n_slots]
+    return slot, tok_of_slot, w_of_slot, aux, C, Gt
 
 
 def _routing_tables(p, ht, cfg: ModelConfig, G: int, Tg: int):
-    """Shared routing math: slot -> token / slot -> weight tables per
-    group.  ht: (G, Tg, d).  Returns (tok_of_slot, w_of_slot) of shape
-    (G, E*C) plus (aux, C)."""
-    slot_or_oob, order, flat_tok, flat_w, aux, C = _dispatch(
-        p, ht, cfg, G, Tg)
-    tok_of_slot, w_of_slot = _slot_tables(
-        slot_or_oob, order, flat_tok, flat_w, cfg.num_experts, C, Tg)
-    return tok_of_slot, w_of_slot, aux, C
+    """The reference's routing tables of ``ht`` (G, Tg, d) on one
+    device: slot -> token within the group (``Tg`` where empty) and slot
+    -> weight, (G, E*C) each, plus (aux, C)."""
+    _, tok, w, aux, C, _ = _dispatch(p["router"], ht.reshape(G * Tg, -1),
+                                     cfg, G, Tg, None)
+    tok = tok.view(G, -1)
+    first = torch.arange(G, device=tok.device)[:, None] * Tg
+    tok = torch.where(tok == G * Tg, Tg, tok - first)
+    return tok, w.view(G, -1), aux, C
 
 
 def _experts(buf, p):
@@ -236,27 +314,25 @@ def _experts(buf, p):
     return torch.bmm(F.silu(g) * u, p["we_down"])
 
 
-def _combine(out_flat, slot_or_oob, order, k: int, Tg: int):
-    """Each token's kept contributions ``out_flat`` (G, slots + 1, d)
+def _combine(out_flat, slot, k: int, T: int):
+    """Each token's kept contributions ``out_flat`` (slots + 1, d)
     float32, the last row zero, summed in ascending slot order from 0.0,
-    one choice at a time: (G, Tg, d).  ``slot_or_oob`` (G, kTg) holds
-    each entry's row of ``out_flat`` in the stable sort's ``order``."""
-    G = slot_or_oob.shape[0]
-    gidx = torch.arange(G, device=out_flat.device)[:, None, None]
-    slot_of = torch.empty_like(slot_or_oob).scatter_(1, order, slot_or_oob)
-    slot_of = slot_of.reshape(G, k, Tg).transpose(1, 2).sort(dim=-1).values
-    terms = out_flat[gidx, slot_of]                           # (G, Tg, k, d)
-    combined = torch.zeros(G, Tg, out_flat.shape[-1], device=out_flat.device)
+    one choice at a time: (T, d).  ``slot`` (k*T,) holds each
+    choice-major entry's row of ``out_flat``."""
+    slot_of = slot.view(k, T).t().sort(dim=-1).values          # (T, k)
+    terms = out_flat[slot_of]                                  # (T, k, d)
+    combined = torch.zeros(T, out_flat.shape[-1], device=out_flat.device)
     for j in range(k):
-        combined = combined + terms[:, :, j]
+        combined = combined + terms[:, j]
     return combined
 
 
-def _routed(p, h, cfg: ModelConfig, G: int, Tg: int,
-            over_data: bool = False):
-    """The routed experts' output for the normed input ``h`` (``G * Tg``
-    tokens) routed in ``G`` groups of ``Tg``: ((G, Tg, d) float32, aux
-    loss) (``over_data``: see ``route``).  Each token's kept slots are
+def _routed(p, h, cfg: ModelConfig, G: int, Tg: int, pool):
+    """The routed experts' output for this rank's normed tokens ``h``
+    (any leading shape, ``T`` tokens), a block of its routing ``pool``'s
+    tokens (``None``: all of them) routed in ``G`` groups of ``Tg``:
+    ((T, d) float32, aux loss).  The rank runs the slots of the groups
+    its tokens touch (``_dispatch``), and each token's kept slots are
     combined in float32 in ascending slot order.
 
     Over a model axis ``m`` the expert weights ``p["we_*"]`` are this
@@ -280,32 +356,30 @@ def _routed(p, h, cfg: ModelConfig, G: int, Tg: int,
     router = p["router"]
     if split is not None:
         h, router = shd.copy_to_model(h), shd.copy_to_model(router)
-    ht = h.reshape(G, Tg, d)
-    slot_or_oob, order, flat_tok, flat_w, aux, C = _dispatch(
-        {"router": router}, ht, cfg, G, Tg, over_data)
-    tok_of_slot, w_of_slot = _slot_tables(
-        slot_or_oob, order, flat_tok, flat_w, E, C, Tg)
-    # the experts this rank runs and their slots
+    ht = h.reshape(-1, d)
+    T = ht.shape[0]
+    slot, tok_of_slot, w_of_slot, aux, C, Gt = _dispatch(
+        router, ht, cfg, G, Tg, pool)
+    # the experts this rank runs and their slots in each group
     e0, n_e = _rank_experts(cfg, split)
     lo, n = e0 * C, n_e * C
 
-    # dispatch: a group-local gather; empty slots read a zero pad row
-    gidx = torch.arange(G, device=h.device)[:, None]
-    ht_pad = torch.cat([ht, ht.new_zeros(G, 1, d)], dim=1)
-    buf = ht_pad[gidx, tok_of_slot[:, lo:lo + n]].reshape(G, n_e, C, d)
-    buf = buf.transpose(0, 1).reshape(n_e, G * C, d)
-    out_buf = _experts(buf, p).reshape(n_e, G, C, d).transpose(0, 1)
+    # dispatch: a gather; empty slots read a zero pad row
+    ht_pad = torch.cat([ht, ht.new_zeros(1, d)], dim=0)
+    buf = ht_pad[tok_of_slot.view(Gt, E * C)[:, lo:lo + n]]
+    buf = buf.reshape(Gt, n_e, C, d).transpose(0, 1).reshape(n_e, Gt * C, d)
+    out_buf = _experts(buf, p).reshape(n_e, Gt, C, d).transpose(0, 1)
 
     # combine in float32: each token's kept slots (the inverse map) in
     # ascending slot order, dropped choices on a zero pad row, summed
     # from 0.0 one choice at a time
-    out_flat = torch.cat([
-        out_buf.reshape(G, n, d).float() * w_of_slot[:, lo:lo + n, None],
-        out_buf.new_zeros(G, 1, d, dtype=torch.float32)], dim=1)
+    w = w_of_slot.view(Gt, E * C)[:, lo:lo + n].reshape(Gt * n, 1)
+    out_flat = torch.cat([out_buf.reshape(Gt * n, d).float() * w,
+                          out_buf.new_zeros(1, d, dtype=torch.float32)])
     if split == 0:
-        local = slot_or_oob - lo
-        slot_or_oob = torch.where((local >= 0) & (local < n), local, n)
-    combined = _combine(out_flat, slot_or_oob, order, k, Tg)
+        g, s = slot // (E * C), slot % (E * C) - lo
+        slot = torch.where((g < Gt) & (s >= 0) & (s < n), g * n + s, Gt * n)
+    combined = _combine(out_flat, slot, k, T)
     if split is not None:
         combined = shd.reduce_from_model(combined)
         aux = shd.scale_grad(aux, 1.0 / shd.model_axis().size)
@@ -320,15 +394,20 @@ def _moe_explicit_ep(p, x, cfg: ModelConfig):
     group (capacity from ``T_loc``) and runs its own experts' slots
     (``_routed``); one float32 all-reduce over the model group gives the
     routed output, cast to the compute dtype.  The aux loss is the mean
-    over the data ranks of each rank's (with the gradient of a mean)."""
+    over the data ranks of each rank's (with the gradient of a mean).
+    Where the micro-batch's rows do not divide over the data ranks (its
+    routing pool is not the whole data axis) it is ``_moe_grouped``, as
+    in the reference (``repro/models/moe.py:159-160``)."""
+    pool = shd.routing_pool()
+    if pool is not None and pool.size < pool.axis.size:
+        return _moe_grouped(p, x, cfg)
     dt = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
     h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
-    combined, aux = _routed(p, h, cfg, 1, b * s)
+    combined, aux = _routed(p, h, cfg, 1, b * s, None)
     out = combined.to(dt).reshape(b, s, d)
-    dp = shd.data_axis()
-    if dp is not None:
-        aux = shd.sum_over_data(aux) / dp.size
+    if pool is not None:
+        aux = shd.sum_over_data(aux) / pool.size
     return x + _shared_experts(p, h, out, cfg), aux
 
 
@@ -336,50 +415,54 @@ def _moe_grouped(p, x, cfg: ModelConfig):
     """Sort-based grouped dispatch (GShard capacity per group), the
     single device's function at any mesh.
 
-    Over data ranks (the active rules' data axis above 1, this rank's
-    rows ``x`` of a batch split evenly over them) the groups are the
-    whole batch's ``moe_groups``: each rank routes its rows' groups,
-    which must be whole (the groups divide over the ranks), and the
-    router statistics are summed over the data group (``route``), so
-    that the loss is the single device's.  Over a model axis the experts
-    run as ``_routed`` lays them out."""
+    The groups are the reference's: ``moe_groups`` consecutive blocks of
+    the micro-batch's tokens where they divide them, else one.  Over
+    data ranks this rank's rows ``x`` are a block of the micro-batch
+    (``routing_pool``): a group whole on the rank routes locally, and
+    the positions in a group that spans ranks or cuts the rank's rows
+    come from the pool's count tables (``capacity_positions``); the
+    router statistics are summed over the pool (``route``).  Over a
+    model axis the experts run as ``_routed`` lays them out."""
     dt = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
-    T = b * s
-    dp = shd.data_axis()
-    n = 1 if dp is None else dp.size
-    G = cfg.moe_groups if (T * n) % max(cfg.moe_groups, 1) == 0 else 1
-    if G % n:
-        raise ValueError(
-            f"{cfg.name}: {G} routing group(s) of the batch do not split "
-            f"over {n} data ranks, so a rank's rows would not be whole "
-            f"groups and its routing would not be the single device's: "
-            f"ROADMAP item 13c's fourth step")
-    G //= n
+    pool = shd.routing_pool()
+    Tp = _pool_tokens(b * s, pool)
+    G = cfg.moe_groups if Tp % max(cfg.moe_groups, 1) == 0 else 1
     h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
-    combined, aux = _routed(p, h, cfg, G, T // G, over_data=dp is not None)
+    combined, aux = _routed(p, h, cfg, G, Tp // G, pool)
     out = combined.to(dt).reshape(b, s, d)
     return x + _shared_experts(p, h, out, cfg), aux
 
 
 def moe_block_onehot(p, x, cfg: ModelConfig):
-    """One-hot/cumsum dispatch (GShard formulation) over all T tokens:
-    the reference's second oracle for the sort-based path.
+    """One-hot/cumsum dispatch (GShard formulation) over all T tokens of
+    the micro-batch: the reference's second oracle for the sort-based
+    path.
 
-    Over a model axis (one data rank) the expert weights are the rank's
-    as in ``_routed``: the rank runs its experts' capacity buffers, or
-    every expert on its ``d_ff`` block, or every expert whole
-    (replicated: the single device's code, no collective).  Split either
-    way, the rank's weighted contributions (each in the compute dtype,
-    as the reference's) are summed in float32, all-reduced over the
-    model group and cast: in float32 the reference's sum in another
-    order, in bf16 one rounding at the end where the reference rounds
-    after every choice (within the bf16 tolerance)."""
+    Over data ranks this rank's rows are a block of the micro-batch
+    (``routing_pool``): capacity is the micro-batch's, each entry's
+    position the whole micro-batch's cumulative sum (this rank's one-hot
+    cumulative sum plus the pool's count tables, ``capacity_positions``),
+    and the rank fills its own kept entries into an ``(E, C, d)`` buffer,
+    runs it and combines its own tokens; the router statistics are
+    summed over the pool (``route``).
+
+    Over a model axis the expert weights are the rank's as in
+    ``_routed``: the rank runs its experts' capacity buffers, or every
+    expert on its ``d_ff`` block, or every expert whole (replicated: the
+    single device's code, no collective).  Split either way, the rank's
+    weighted contributions (each in the compute dtype, as the
+    reference's) are summed in float32, all-reduced over the model group
+    and cast: in float32 the reference's sum in another order, in bf16
+    one rounding at the end where the reference rounds after every
+    choice (within the bf16 tolerance)."""
     dt = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
     T = b * s
     E, k = cfg.num_experts, cfg.top_k
-    C = expert_capacity(cfg, T)
+    pool = shd.routing_pool()
+    Tp = _pool_tokens(T, pool)
+    C = expert_capacity(cfg, Tp)
     dev = x.device
 
     h = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
@@ -389,12 +472,10 @@ def moe_block_onehot(p, x, cfg: ModelConfig):
         hr, router = shd.copy_to_model(h), shd.copy_to_model(router)
     ht = hr.reshape(T, d)
     router_logits = torch.matmul(ht.float(), router.float())
-    expert_idx, weights, aux = route(router_logits, cfg)
+    expert_idx, weights, aux = route(router_logits, cfg, pool)
 
     flat_e = expert_idx.t().reshape(-1)                        # (k*T,)
-    onehot = (flat_e[:, None] == torch.arange(E, device=dev)).to(torch.int32)
-    pos = torch.cumsum(onehot, dim=0) - 1                      # (kT, E)
-    pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
+    pos_in_e = _positions(expert_idx, pool, Tp, 1, E, onehot=True)[0]
     keep = pos_in_e < C
     pos_c = pos_in_e.clamp(0, C - 1)
 

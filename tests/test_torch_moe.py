@@ -286,3 +286,77 @@ def test_block_matches_reference_bf16(impl):
     np.testing.assert_allclose(to.float().numpy(), ref, rtol=0,
                                atol=4 * 2.0 ** -8 * np.abs(ref).max())
     assert float(taux) == pytest.approx(float(jaux), rel=1e-6)
+
+
+# ------------------------------------- capacity positions over rank blocks
+def _choice_major_positions(idx, Tg: int, E: int):
+    """The single device's positions, straight from the definition: in
+    each group of ``Tg`` tokens, entry (token, choice j) counts the
+    entries before it with its expert in choice-major order (every
+    token's choice 0, then choice 1, ...).  (k, T)."""
+    T, k = idx.shape
+    pos = np.empty((k, T), np.int64)
+    for g0 in range(0, T, Tg):
+        seen = np.zeros(E, np.int64)
+        for j in range(k):
+            for t in range(g0, g0 + Tg):
+                pos[j, t] = seen[idx[t, j]]
+                seen[idx[t, j]] += 1
+    return pos
+
+
+@pytest.mark.parametrize("onehot", [False, True])
+@pytest.mark.parametrize("groups", [1, 2, 16])
+@pytest.mark.parametrize("blocks", [(160,), (80, 80), (37, 123),
+                                    (50, 13, 61, 36)])
+def test_capacity_positions_over_blocks_match_one_device(blocks, groups,
+                                                         onehot):
+    """Random top-2 choices of 160 tokens over 8 experts, routed in 1, 2
+    or 16 groups, split into 1-4 contiguous blocks (the data ranks'
+    rows; equal and unequal, cutting groups or not): given every block's
+    count table, each block's positions (sort-based ranks, or the
+    one-hot cumulative sum) plus ``pool_offsets`` are the single
+    device's choice-major positions over the whole group, so the keep
+    mask at the group's capacity (factor 0.5: 1 and 2 groups drop
+    tokens) is too; one
+    block with no tables is the single device itself."""
+    E, k, T = 8, 2, sum(blocks)
+    cfg = small_cfg(num_experts=E, top_k=k, capacity_factor=0.5)
+    Tg = T // groups
+    C = moe_lib.expert_capacity(cfg, Tg)
+    rng = np.random.default_rng(len(blocks) * 100 + groups)
+    idx = np.argsort(rng.random((T, E)), axis=1)[:, :k]
+    want = _choice_major_positions(idx, Tg, E)
+    # groups of 10 tokens keep all (capacity's floor of 8); larger drop
+    assert (want >= C).any() == (Tg > 10)
+    offs = np.cumsum((0,) + blocks[:-1])
+    tidx = torch.from_numpy(idx)
+    if len(blocks) == 1:
+        pos, key, Gt = moe_lib.capacity_positions(tidx, 0, 0, Tg, groups, E,
+                                                  onehot=onehot)
+        assert torch.equal(pos, torch.from_numpy(want.reshape(-1)))
+        assert Gt == groups
+        return
+    tables = []
+
+    def keep(table):
+        tables.append(table)
+        return table.new_zeros((len(blocks),) + table.shape)
+    for q, (off, n) in enumerate(zip(offs, blocks)):
+        moe_lib.capacity_positions(tidx[off:off + n], int(off), q, Tg,
+                                   groups, E, gather=keep, onehot=onehot)
+    gathered = torch.stack(tables)
+    assert gathered.shape == (len(blocks), groups, k, E)
+    assert int(gathered.sum()) == k * T
+    for q, (off, n) in enumerate(zip(offs, blocks)):
+        pos, key, Gt = moe_lib.capacity_positions(
+            tidx[off:off + n], int(off), q, Tg, groups, E,
+            gather=lambda t: gathered, onehot=onehot)
+        mine = want[:, off:off + n].reshape(-1)
+        assert torch.equal(pos, torch.from_numpy(mine)), q
+        assert torch.equal(pos < C, torch.from_numpy(mine < C)), q
+        g0 = off // Tg
+        assert Gt == (off + n - 1) // Tg - g0 + 1
+        groups_of = (off + np.arange(n)) // Tg - g0
+        assert torch.equal(key, torch.from_numpy(
+            (np.tile(groups_of, k) * E + idx[off:off + n].T.reshape(-1))))
