@@ -11,9 +11,10 @@ rank of the world builds it and calls ``train`` and ``rescale``: ranks
 outside the current mesh skip the steps.  ``model_par`` is the mesh's
 model axis, as in the reference's ``_mesh_for``: the mesh is ``(n //
 model_par, model_par)``, and over a model axis above 1 every family
-trains tensor parallel, moe in every layout of its expert weights (moe's
-one-hot dispatch over data ranks raises: ROADMAP item 13c's fourth
-step).  A rescale gathers the state over both axes
+trains tensor parallel, moe in every layout of its expert weights, and
+moe's batch is routed over the data ranks as the reference routes it
+(every dispatch, routing groups and micro-batches that span ranks).  A
+rescale gathers the state over both axes
 for its checkpoint and places it on the new mesh.  Each step copies its
 host batch to the device on the caller's stream and reads the step's
 metrics back to the host (one wait a step).

@@ -44,6 +44,7 @@ the decode loop's carry check, whose conv leaf comes back float32
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -339,14 +340,15 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
     "bfloat16"``, cast to bf16.  ``loss`` is the summed loss over
     ``n_micro``; ``nll`` and ``aux`` the means of the blocks' values.
 
-    With ``dp`` (a ``DataParallel`` layout) the rank takes its rows of
-    each micro-batch of the global batch (``dp.micro_blocks``) and runs
-    the model under the layout's sharding rules: over a model axis above
+    With ``dp`` (a ``DataParallel`` layout) the rank takes its pieces of
+    the global batch's micro-batches (``dp.micro_blocks``) and runs the
+    model under the sharding rules they come with: over a model axis above
     1 the blocks are tensor parallel on this rank's blocks of the
     parameters (``params`` holds them), and the gradient of each leaf is
     this rank's block of the whole gradient.  The gradient is summed
-    over the data ranks and divided by ``n_micro`` times their number:
-    the gradient of the reference's global token mean.  Over a model
+    over the data ranks and divided by the pieces of all of them (every
+    micro-batch is run by as many): the gradient of the reference's
+    global token mean.  Over a model
     axis, the Mamba2 leaves that a rank reads whole or in part
     (``DataParallel.compute_leaves``) have their partial gradients
     summed over the model group first (``DataParallel.model_grads``).
@@ -372,13 +374,13 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
         blocks = [{k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
                   for i in range(n_micro)]
     else:
-        blocks, size = dp.micro_blocks(batch), dp.size
+        (blocks, rules), size = dp.micro_blocks(batch), dp.size
         n_micro = len(blocks)
     per_micro = dp is not None and cfg.grad_schedule == "overlapped"
     lsum = torch.zeros((), dtype=torch.float32,
                        device=batch["tokens"].device)
     nlls, auxs, acc = [], [], None
-    with torch.enable_grad(), use_rules(None if dp is None else dp.rules):
+    with torch.enable_grad(), use_rules(None if dp is None else rules):
         for mb in blocks:
             loss, metrics = lm_loss(tree, mb, cfg, impl=impl)
             loss.backward()
@@ -493,7 +495,9 @@ class DataParallel:
     ``batch_shardings``):
 
     * each micro-batch of the global batch splits by rows over ``data``
-      (``micro_blocks``), as the reference's sharded micro-batches do;
+      (``micro_blocks``), as the reference's sharded micro-batches do,
+      or, where it does not split over them, whole micro-batches or
+      blocks of them go to the ranks in lockstep (``micro_blocks``);
     * each model rank holds its block of every leaf that the rules shard
       over ``model`` (``launch.sharding.model_block`` of its param
       sharding: ``model_dims[i]``, ``None`` for a replicated leaf), and
@@ -526,14 +530,17 @@ class DataParallel:
     stays bit-identical across them).
 
     The moe family's aux loss is a product of batch statistics and its
-    capacity couples a token to its group (``repro/models/moe.py:66``);
-    over data ranks its router statistics are summed over the data group
-    (``moe._moe_grouped``) or, with explicit expert parallelism, each
-    rank's aux is averaged as the reference's does
-    (``moe._moe_explicit_ep``).  So every micro-batch must split evenly
-    over the data ranks.  Over a model axis the expert weights are
-    blocks like any other leaf: split by experts, by each expert's
-    ``expert_ff``, or replicated, as the rules give them."""
+    capacity couples a token to its group (``repro/models/moe.py:66``):
+    a moe block routes the rank's block of a micro-batch as the
+    reference routes the whole one, from the routing pool that
+    ``micro_blocks`` sets in the rules (the data ranks that hold the
+    micro-batch): the router statistics are summed over the pool, and
+    where a routing group spans ranks the capacity positions come from
+    the pool's count tables (``moe.capacity_positions``); with explicit
+    expert parallelism each rank's aux is averaged as the reference's
+    is (``moe._moe_explicit_ep``).  Over a model axis the expert
+    weights are blocks like any other leaf: split by experts, by each
+    expert's ``expert_ff``, or replicated, as the rules give them."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         from repro_torch.launch.sharding import (ShardingRules, axis_names,
@@ -578,64 +585,54 @@ class DataParallel:
                     self.partial.append(i)
 
     # ------------------------------------------------------------ batches
-    def rows(self, batch):
-        """This rank's rows of the global batch (every leaf's dim 0)."""
-        B = batch["tokens"].shape[0]
-        if self.rules.spec(("batch",), (B,))[0] is None:
-            return batch
-        b = B // self.size
-        return {k: v[self.rank * b:(self.rank + 1) * b]
-                for k, v in batch.items()}
-
     def micro_blocks(self, batch):
-        """This rank's rows of each micro-batch of the global batch, in
-        micro-batch order.  The batch splits into ``cfg.num_microbatches``
-        consecutive row blocks, as the reference's ``reshape_micro``
-        splits it, and each into ``size`` blocks by rows: data rank ``r``
-        takes block ``r`` of each, the rows the reference's sharded
-        micro-batch gives it.  Where a micro-batch does not split over
-        the ranks, a family without an aux loss takes its rows of the
-        global batch instead (``rows``) in ``micro_batches`` blocks (the
-        global token mean, and its gradient, stay the reference's), and
-        the moe family raises: its routing couples the rows of a
-        micro-batch."""
+        """This rank's pieces of the global batch, in the order it runs
+        them, and the sharding rules to run them under: ``(blocks,
+        rules)``.
+
+        The batch splits into ``cfg.num_microbatches`` consecutive row
+        blocks, as the reference's ``reshape_micro`` splits it (a batch
+        they do not divide raises ``ValueError``, where the reference's
+        ``assert`` fails).  The data ranks step through their pieces in
+        lockstep, every piece as many rows, and the ranks that hold the
+        pieces of one micro-batch at a step are its routing pool
+        (``launch.sharding.routing_pool``, set in ``rules``):
+
+        * a micro-batch that splits over the data ranks: each in turn,
+          data rank ``r`` taking block ``r`` of it, the rows the
+          reference's sharded micro-batch gives it (the pool: every
+          data rank);
+        * else, with ``u`` the largest number of rows that divides both
+          a micro-batch and a rank's share of the batch: at each step
+          the ranks take the next ``size * u`` rows, ``u`` a rank, in
+          rank order; each micro-batch is then held by ``micro / u``
+          consecutive ranks (one: the rank holds it whole and routes it
+          alone), 2-row micro-batches over 4 ranks by 2;
+        * where the rules replicate the batch (its rows do not divide
+          over the data ranks), every rank runs every micro-batch whole.
+
+        Every micro-batch is run by as many pieces, so the gradient
+        summed over the ranks' pieces and divided by their number
+        (``train_grads``) is the reference's."""
         B = batch["tokens"].shape[0]
         n = max(self.cfg.num_microbatches, 1)
-        if B % n == 0 and (B // n) % self.size == 0:
-            bm, k = B // n, B // n // self.size
-            lo = self.rank * k
-            return [{key: v[i * bm + lo:i * bm + lo + k]
-                     for key, v in batch.items()} for i in range(n)]
-        if self.cfg.family == "moe" and self.size > 1:
+        if B % n:
             raise ValueError(
-                f"{self.cfg.name}: a batch of {B} rows in {n} micro-batches "
-                f"does not split evenly over {self.size} data ranks; the "
-                f"moe routing and aux loss couple the rows of a "
-                f"micro-batch, so the gradient would not be the "
-                f"reference's: ROADMAP item 13c's fourth step")
-        rows = self.rows(batch)
-        b = rows["tokens"].shape[0]
-        n = self.micro_batches(b)
-        bm = b // n
-        return [{k: v[i * bm:(i + 1) * bm] for k, v in rows.items()}
-                for i in range(n)]
-
-    def micro_batches(self, b: int) -> int:
-        """Micro-batches of a rank's ``b`` rows: ``cfg.num_microbatches``
-        where it divides ``b``.  A rank with fewer rows than that (global
-        batch 4 in 2 micro-batches over 4 ranks) takes one row a block:
-        every row holds the same number of loss tokens and no family that
-        reaches here has an aux loss, so the global token mean, and its
-        gradient, are the reference's.  Anything else raises."""
-        n = max(self.cfg.num_microbatches, 1)
-        if b % n == 0:
-            return n
-        if n % b == 0:
-            return b
-        raise ValueError(
-            f"{b} rows a rank do not split into {n} micro-batches, nor "
-            f"{n} into one-row blocks: the gradient would not be the "
-            f"reference's")
+                f"{self.cfg.name}: a batch of {B} rows does not split into "
+                f"{n} micro-batches")
+        bm, size, r = B // n, self.size, self.rank
+        if bm % size == 0:
+            u = bm // size
+            starts, pool = [i * bm + r * u for i in range(n)], (0, size)
+        elif B % size == 0:
+            u = math.gcd(bm, B // size)
+            a = bm // u
+            starts = [t * size * u + r * u for t in range(B // size // u)]
+            pool = (r - r % a, a)
+        else:
+            u, starts, pool = bm, [i * bm for i in range(n)], (r, 1)
+        blocks = [{k: v[s:s + u] for k, v in batch.items()} for s in starts]
+        return blocks, self.rules.with_pool(*pool)
 
     # ------------------------------------------------------------ leaves
     def _block(self, t, i):

@@ -29,6 +29,7 @@ torch.set_num_threads(1)
 
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.launch import dist as launch_dist  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.launch.train import ElasticTrainer  # noqa: E402
 from repro_torch.models import model_zoo as zoo  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -53,13 +54,16 @@ def trained(cfg, n_devices, steps=STEPS, seed=0, model_par=1):
     """``steps`` steps of an ``ElasticTrainer`` over the first
     ``n_devices`` ranks (a ``(n_devices // model_par, model_par)``
     mesh): its metrics, the whole state after (rank 0's), this rank's
-    parameter, m and v leaves as the step keeps them."""
+    parameter, m and v leaves as the step keeps them, and the routing
+    all-gathers of its steps (``launch.sharding.all_gathers``)."""
     tr = ElasticTrainer(cfg, SHAPE, n_devices=n_devices, seed=seed,
                         hp=adamw.HParams(**HP), device="cpu",
                         model_par=model_par)
+    before = sharding.all_gathers
     tr.train(steps, log_every=0)
+    gathers = sharding.all_gathers - before
     whole = tr.runtime.gathered_state()
-    out = {"metrics": tr.metrics_log}
+    out = {"metrics": tr.metrics_log, "all_gathers": gathers}
     if whole is not None:
         out["state"] = leaves(whole)
         for key, tree in (("local_params", tr.state.params),
@@ -143,10 +147,6 @@ def scenario_two(world):
         except ValueError as e:
             out[key] = str(e)
     for key, cfg, model_par, error in (
-            ("moe_onehot_data", cfg_of("qwen2-moe-a2.7b", moe_impl="onehot"),
-             1, NotImplementedError),
-            ("moe_groups_data", cfg_of("qwen2-moe-a2.7b", moe_groups=1), 1,
-             ValueError),
             ("one_head_tp", cfg_of("mamba2-780m", ssm_head_dim=128), 2,
              ValueError),
             ("micro3", granite.with_(num_microbatches=3), 1, ValueError),
@@ -188,6 +188,44 @@ MOE_LAYOUTS = {"moe_grouped": dict(moe_impl="grouped"),
                "moe_replicated": dict(num_experts=5, d_ff=33),
                "moe_drops": dict(moe_impl="grouped", moe_groups=1,
                                  capacity_factor=0.5)}
+
+
+# qwen2-moe-a2.7b's batch over data ranks (reduced: 8 experts, top 2, a
+# batch of 4 rows of 64 tokens in 2 micro-batches): the one-hot dispatch
+# and one routing group, each routing a micro-batch across the ranks
+# (also with tokens dropped across the rank boundary), one-row
+# micro-batches (each whole on a rank), and the reduced default (2-row
+# micro-batches over 4 ranks: 2 ranks a micro-batch)
+MOE_DATA = {"moe_onehot": dict(moe_impl="onehot"),
+            "moe_groups1": dict(moe_impl="grouped", moe_groups=1),
+            "moe_onehot_drops": dict(moe_impl="onehot", capacity_factor=0.5),
+            "moe_micro4": dict(num_microbatches=4),
+            "moe_default": {}}
+
+
+def scenario_moe_two(world):
+    """moe over 2 data ranks, (2, 1), float32: ``MOE_DATA``'s one-hot,
+    one-group, dropping and one-row micro-batch cases."""
+    return {key: trained(cfg_of("qwen2-moe-a2.7b", compute_dtype="float32",
+                                **MOE_DATA[key]), world)
+            for key in ("moe_onehot", "moe_groups1", "moe_onehot_drops",
+                        "moe_micro4")}
+
+
+def scenario_moe_four(world):
+    """moe over the data ranks of 4: the one-hot, one-group and one-row
+    micro-batch cases at (2, 2) in float32 (the last with "auto": the
+    explicit-EP fallback), the reduced default at (4, 1), and the
+    one-hot dispatch in bf16 at (2, 2)."""
+    out = {key: trained(cfg_of("qwen2-moe-a2.7b", compute_dtype="float32",
+                               **MOE_DATA[key]), world, model_par=2)
+           for key in ("moe_onehot", "moe_groups1", "moe_micro4")}
+    out["moe_default"] = trained(cfg_of("qwen2-moe-a2.7b",
+                                        compute_dtype="float32"), world)
+    out["moe_onehot_bf16"] = trained(cfg_of("qwen2-moe-a2.7b",
+                                            **MOE_DATA["moe_onehot"]),
+                                     world, model_par=2)
+    return out
 
 
 def own_storage(state) -> bool:
@@ -392,6 +430,7 @@ def main():
     rank, world = int(rank), int(world)
     run = {"two": scenario_two, "four": scenario_four,
            "tp_two": scenario_tp_two, "tp_four": scenario_tp_four,
+           "moe_two": scenario_moe_two, "moe_four": scenario_moe_four,
            "cuda_one": scenario_cuda_one}[scenario]
     device = "cuda" if scenario.startswith("cuda") else "cpu"
     with launch_dist.process_group(rank, world, init, device,

@@ -15,7 +15,9 @@ SPMD stencil, (1, 2) meshes for dense, ssm, hybrid, enc_dec and vlm
 tensor parallelism and moe expert parallelism, and moe at (2, 1); 4
 ranks the stencil, (2, 2) meshes (float32, ZeRO-1, bf16, moe, and the
 other families) and the 4 -> 2 -> 4 rescales with a model axis of 2.
-The ranks run reduced models on the CPU (~10-20 s a group here).
+Two more hold moe's batch over the data ranks: 2 ranks at (2, 1), 4 at
+(2, 2) and (4, 1).  The ranks run reduced models on the CPU (~10-20 s a
+group here).
 
 The reference runs in this process: its ``jit`` with ``in_shardings`` on
 a real host mesh of the same shape (``tests/conftest.py`` gives 8 host
@@ -125,6 +127,16 @@ def tp_two(tmp_path_factory):
 @pytest.fixture(scope="module")
 def tp_four(tmp_path_factory):
     return run_ranks("tp_four", 4, tmp_path_factory.mktemp("tp_four"))
+
+
+@pytest.fixture(scope="module")
+def moe_two(tmp_path_factory):
+    return run_ranks("moe_two", 2, tmp_path_factory.mktemp("moe_two"))
+
+
+@pytest.fixture(scope="module")
+def moe_four(tmp_path_factory):
+    return run_ranks("moe_four", 4, tmp_path_factory.mktemp("moe_four"))
 
 
 # ------------------------------------------------------------- references
@@ -335,32 +347,22 @@ def test_mamba2_data_parallel_matches_one_device(two):
                     "mamba2")
 
 
-def test_moe_and_uneven_micro_batches_raise(two):
-    """What still raises over 2 ranks: qwen2-moe-a2.7b with the one-hot
-    dispatch over 2 data ranks ``NotImplementedError``, and with one
-    routing group (which does not split over them) ``ValueError``, both
-    naming the ROADMAP step that routes a batch over the data ranks; 2
-    rows a rank in 3 micro-batches raise ``ValueError`` rather than give
-    another gradient, for the moe family too (its routing couples the
-    rows of a micro-batch: the same step), and a Mamba2 head count that
-    the model axis does not divide raises ``ValueError``.  moe itself
-    trains over data ranks and in every layout over a model axis
-    (``test_moe_matches_reference_at_each_mesh``, ``test_moe_layouts_*``),
-    and every other family over a model axis
+def test_uneven_micro_batches_and_one_head_raise(two):
+    """What still raises over 2 ranks: 4 rows in 3 micro-batches raise
+    ``ValueError`` (the reference's ``assert`` fails there), for the moe
+    family too, and a Mamba2 head count that the model axis does not
+    divide raises ``ValueError``.  moe trains over data ranks in every
+    dispatch (``test_moe_over_data_ranks_*``) and in every layout over a
+    model axis (``test_moe_matches_reference_at_each_mesh``,
+    ``test_moe_layouts_*``), and every other family over a model axis
     (``test_tensor_parallel_*``, ``test_ssm_hybrid_*``,
     ``test_enc_dec_vlm_*``)."""
-    step = "ROADMAP item 13c's fourth step"
-    msg = two[0]["moe_onehot_data"]
-    assert step in msg and "'onehot'" in msg, msg
-    assert "one-hot dispatch over data ranks" in msg, msg
-    msg = two[0]["moe_groups_data"]
-    assert step in msg and "do not split over 2 data ranks" in msg, msg
     # a Mamba2 head count the model axis does not divide, with the sizes
     assert "1 SSM heads do not split over a model axis of 2" in \
         two[0]["one_head_tp"], two[0]["one_head_tp"]
-    assert "micro-batches" in two[0]["micro3"], two[0]["micro3"]
-    assert "micro-batches" in two[0]["moe_micro3"], two[0]["moe_micro3"]
-    assert step in two[0]["moe_micro3"], two[0]["moe_micro3"]
+    for key in ("micro3", "moe_micro3"):
+        assert "4 rows does not split into 3 micro-batches" in \
+            two[0][key], two[0][key]
 
 
 @pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)])
@@ -668,6 +670,70 @@ def test_moe_layouts_bf16_loss_within_reference_tolerance(case, tp_two,
         assert abs(g - r) < BF16_LOSS and abs(g - o) < BF16_LOSS, (got, ref)
     for r in ranks[1:]:
         assert r[key]["metrics"] == ranks[0][key]["metrics"]
+
+
+# the config overrides of ``tests/_torch_ranks.py``'s MOE_DATA cases
+MOE_DATA = {"moe_onehot": dict(moe_impl="onehot"),
+            "moe_groups1": dict(moe_impl="grouped", moe_groups=1),
+            "moe_onehot_drops": dict(moe_impl="onehot", capacity_factor=0.5),
+            "moe_micro4": dict(num_microbatches=4),
+            "moe_default": {}}
+
+
+@pytest.mark.parametrize("case", [
+    "moe_onehot (2, 1)", "moe_onehot (2, 2)", "moe_groups1 (2, 1)",
+    "moe_groups1 (2, 2)", "moe_onehot_drops (2, 1)", "moe_micro4 (2, 1)",
+    "moe_micro4 (2, 2)", "moe_default (4, 1)"])
+def test_moe_over_data_ranks_float32_matches_reference_and_one_device(
+        case, moe_two, moe_four):
+    """Reduced qwen2-moe-a2.7b, float32, 3 steps, its batch over the data
+    ranks: the one-hot dispatch and one routing group (``moe_impl=
+    "grouped", moe_groups=1``), whose 2-row micro-batches are routed
+    across 2 data ranks, at (2, 1) and (2, 2) (the experts split over
+    the model axis); the one-hot dispatch at capacity factor 0.5 (tokens
+    dropped past the rank boundary); one-row micro-batches (each whole
+    on a rank) at (2, 1) and at (2, 2) with "auto" (the reference's
+    explicit EP falls back to the grouped dispatch); the reduced default
+    at (4, 1) (2-row micro-batches over 4 ranks, 2 ranks a micro-batch).
+    Each is the single device's function: it matches the reference's
+    sharded jit at its mesh and the port's single device, and every rank
+    logs the same metrics.  Where a micro-batch's groups span ranks the
+    ranks all-gather their count tables once a moe layer a piece,
+    forward and remat's recompute (2 layers, 2 micro-batches a step);
+    elsewhere the moe blocks run no all-gather."""
+    key, shape = case.split(" ", 1)
+    mesh_shape = eval(shape)
+    ranks = moe_two if mesh_shape == (2, 1) else moe_four
+    kw = MOE_DATA[key]
+    got = tp_run(ranks, key)
+    assert_same_run(got, reference("qwen2-moe-a2.7b", "float32",
+                                   *mesh_shape, **kw), f"{case} vs reference")
+    assert_same_run(got, one_device("qwen2-moe-a2.7b",
+                                    compute_dtype="float32", **kw),
+                    f"{case} vs one device")
+    spans = key in ("moe_onehot", "moe_groups1", "moe_onehot_drops")
+    for r in ranks:
+        assert r[key]["metrics"] == ranks[0][key]["metrics"]
+        assert r[key]["all_gathers"] == (STEPS * 2 * 2 * 2 if spans else 0)
+
+
+def test_moe_over_data_ranks_bf16_loss_within_reference_tolerance(moe_four):
+    """The one-hot dispatch in bf16 (the config's own) at (2, 2), each
+    micro-batch routed across the 2 data ranks and the experts split over
+    the model axis: every step's loss within 8e-3 of the reference's
+    sharded run at the mesh and of the port's single device; every rank
+    logs the same metrics."""
+    kw = MOE_DATA["moe_onehot"]
+    got = [m["loss"] for m in moe_four[0]["moe_onehot_bf16"]["metrics"]]
+    ref = [m["loss"] for m in reference("qwen2-moe-a2.7b", "bfloat16", 2, 2,
+                                        **kw)[0]]
+    one = [m["loss"] for m in one_device("qwen2-moe-a2.7b", **kw)[0]]
+    assert len(got) == STEPS
+    for g, r, o in zip(got, ref, one):
+        assert abs(g - r) < BF16_LOSS and abs(g - o) < BF16_LOSS, (got, ref)
+    for r in moe_four[1:]:
+        assert r["moe_onehot_bf16"]["metrics"] == \
+            moe_four[0]["moe_onehot_bf16"]["metrics"]
 
 
 def test_elastic_tensor_parallel_moe_expert_ff_4_2_4(tp_four):
