@@ -16,9 +16,12 @@ period, 6 Mamba2 layers) tensor parallel on (1, 2), the SSD kernel on
 each rank's heads, and seamless-m4t-medium (2 encoder + 2 decoder
 layers) and internvl2-26b (1 layer) tensor parallel on (1, 2), and
 qwen2-moe-a2.7b with the grouped dispatch (its 16 routing groups, 30
-experts a rank) on (1, 2), against one-device runs of the same cuts,
-all with ``chip_smoke.py``'s limits: losses, s/step (one device and
-(1, 2)), peak GiB a rank, model-axis all-reduces a step.  The card's name and power limit come first,
+experts a rank) on (1, 2), and qwen2-moe-a2.7b at 1 layer with the
+one-hot dispatch on (2, 1) (2-row micro-batches routed across both data
+ranks), against one-device runs of the same cuts, all with
+``chip_smoke.py``'s limits: losses, s/step (one device and the mesh),
+peak GiB a rank, model-axis all-reduces and routing all-gathers a
+step.  The card's name and power limit come first,
 the phase's numbers as one JSON line last.  Without a card it exits
 non-zero.
 """

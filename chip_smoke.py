@@ -281,7 +281,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    granite-8b at full width and 1 layer, tensor parallel on (1, 2), 3
    steps, losses within 8e-3 of phase 22(b)'s unrescaled twin's (the
    same seed, data, hp and model); (c) qwen2-moe-a2.7b at full width and
-   2 layers, explicit expert parallelism on (1, 2) (30 experts a rank), 3
+   1 layer, explicit expert parallelism on (1, 2) (30 experts a rank), 3
    steps, losses within 8e-3 of a one-device run with moe_groups=1 made
    before the spawn; (d) mamba2-780m at full width and 2 layers and (e)
    zamba2-2.7b at full width and one period (6 Mamba2 layers, the
@@ -299,10 +299,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    rank; the 256 patch positions replicated), tensor parallel on (1, 2),
    3 steps of 4 x 4096 positions (``full_attention``: no kernel), losses
    within 8e-3 of one-device runs of the same cuts made before the
-   spawn, each rank under 51% of the parameter bytes; for (b)-(g) each
-   rank's parameter GiB against the whole model's, the model-axis
-   all-reduces a step, s/step and peak GiB by rank.  The spawned group is
-   killed, and the phase fails naming itself, past
+   spawn, each rank under 51% of the parameter bytes; (h) qwen2-moe-a2.7b
+   at 1 layer with the grouped dispatch (16 routing groups, 30 experts a
+   rank) on (1, 2) against a one-device grouped run; (i) qwen2-moe-a2.7b
+   at full width and 1 layer with the one-hot dispatch on a (2, 1) mesh
+   (the data axis), 3 steps of 4 x 4096 tokens in 2 micro-batches of 2
+   rows, each routed across both ranks (the capacity positions from
+   count tables all-gathered over the data ranks: layers x micro-batches
+   x 2 all-gathers a step, asserted), losses within 8e-3 of a one-device
+   run of the same cut made before the spawn; for (b)-(i) each rank's
+   parameter GiB against the whole model's, the model-axis all-reduces
+   and routing all-gathers a step, s/step and peak GiB by rank.  The
+   spawned group is killed, and the phase fails naming itself, past
    ``TP_SPAWN_LIMIT_S``.
 
 Each phase's wall time is logged (``[time]``).  The line before the
@@ -4032,7 +4040,7 @@ def dp_phase(dev, twin_losses):
 # SPMD_ODF, SPMD_ITERS iterations, bit for bit the single-grid kernel's;
 # (b) granite-8b at full width and DENSE_TRAIN_LAYERS layers, tensor
 # parallel on a (1, 2) mesh, TP_STEPS steps; (c) qwen2-moe-a2.7b at full
-# width and 2 layers with explicit expert parallelism on (1, 2) (30
+# width and 1 layer with explicit expert parallelism on (1, 2) (30
 # experts a rank), TP_STEPS steps, beside a one-device run with
 # moe_groups=1 made here first (the function explicit EP computes on a
 # (1, 2) mesh: each rank routes its tokens as one group).
@@ -4052,10 +4060,16 @@ def dp_phase(dev, twin_losses):
 # a micro-batch, each rank running its 30 experts' slots in every group
 # (the single device's function), beside a one-device run of the same
 # cut made first.
+# (i) qwen2-moe-a2.7b at full width and 1 layer with moe_impl="onehot"
+# on a (2, 1) mesh (the data axis): batch 4 x 4096 in 2 micro-batches of
+# 2 rows, each routed across both ranks (capacity from its 8192 tokens,
+# positions from the count tables all-gathered over the data ranks; a
+# rank holds the whole model and the gradient is all-reduced over gloo),
+# beside a one-device run of the same cut made first.
 TP_RANKS, TP_STEPS = 2, 3
 SPMD_GRID, SPMD_ODF, SPMD_ITERS = 16384, 4, 20
 TP_BF16_LOSS = 8e-3         # tests/test_multidevice.py:80
-MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 2
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 1
 # (key, arch, layers a stack, cell, config overrides): trained on (1, 2)
 # against a one-device run of the same cut
 ONE_DEVICE_TP = (("ssm", "mamba2-780m", 2, "d", {}),
@@ -4064,8 +4078,11 @@ ONE_DEVICE_TP = (("ssm", "mamba2-780m", 2, "d", {}),
                  ("vlm", "internvl2-26b", 1, "g", {}),
                  ("moe_grouped", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, "h",
                   {"moe_impl": "grouped"}))
+# the same on (2, 1): the data axis
+ONE_DEVICE_DATA = (("moe_onehot_data", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS,
+                    "i", {"moe_impl": "onehot", "num_microbatches": 2}),)
 # a hung rank fails the phase after this many wall seconds (the group is
-# killed); the spawn read 94-101 s on an H100 (PERF.md)
+# killed); the spawn read 94-139 s on an H100 (PERF.md)
 TP_SPAWN_LIMIT_S = 300
 
 
@@ -4175,29 +4192,33 @@ def spmd_stencil_rank(dev) -> dict:
             "sweep_ms_per_iter": sweep / SPMD_ITERS * 1e3}
 
 
-def tp_train_rank(cfg, shape, dev, world) -> dict:
-    """(b)-(h) on one rank: ``ElasticTrainer`` over a (1, world)
-    mesh, TP_STEPS steps: losses, s/step, the model-axis all-reduces a
-    step, this rank's parameter GiB against the whole model's, and its
-    peak GiB."""
+def tp_train_rank(cfg, shape, dev, world, model_par=None) -> dict:
+    """(b)-(i) on one rank: ``ElasticTrainer`` over a (world /
+    model_par, model_par) mesh (``model_par`` None: (1, world)),
+    TP_STEPS steps: losses, s/step, the model-axis all-reduces and the
+    routing all-gathers a step, this rank's parameter GiB against the
+    whole model's, and its peak GiB."""
     import torch
     from repro_torch.launch import sharding
     from repro_torch.launch.train import ElasticTrainer
     from repro_torch.models import model_zoo as zoo
     from repro_torch.optim import adamw
     release(dev)
-    tr = ElasticTrainer(cfg, shape, n_devices=world, model_par=world,
+    tr = ElasticTrainer(cfg, shape, n_devices=world,
+                        model_par=world if model_par is None else model_par,
                         seed=0, store_kind="device",
                         hp=adamw.HParams(**TRAIN_HP), device=dev)
     local = sum(t.numel() * t.element_size()
                 for t in adamw.flatten(tr.state.params)[0])
-    before = sharding.all_reduces
+    before, gathers = sharding.all_reduces, sharding.all_gathers
     sync(dev)
     zero_launches()
     times = timed_steps(tr, TP_STEPS, dev)
     out = {"losses": [m["loss"] for m in tr.metrics_log], "step_s": times,
            "launches": read_launches(),
            "all_reduces_per_step": (sharding.all_reduces - before)
+           / TP_STEPS,
+           "all_gathers_per_step": (sharding.all_gathers - gathers)
            / TP_STEPS, "param_gib": local / 2**30,
            "whole_param_gib": zoo.num_params(cfg) * 4 / 2**30,
            "peak_gib": peak_gib()}
@@ -4207,7 +4228,7 @@ def tp_train_rank(cfg, shape, dev, world) -> dict:
 
 
 def tp_rank(rank, world, dev, zero1, out_path):
-    """A rank of phase 23: (a)-(h) in turn; every rank's readings
+    """A rank of phase 23: (a)-(i) in turn; every rank's readings
     gathered to rank 0, which writes them to ``out_path`` as JSON."""
     import torch.distributed as dist
     out = {"stencil": spmd_stencil_rank(dev)}
@@ -4219,6 +4240,9 @@ def tp_rank(rank, world, dev, zero1, out_path):
     for key, arch, layers, _, kw in ONE_DEVICE_TP:
         cfg, shape = tp_cfg(arch, layers, dev, **kw)
         out[key] = tp_train_rank(cfg, shape, dev, world)
+    for key, arch, layers, _, kw in ONE_DEVICE_DATA:
+        cfg, shape = tp_cfg(arch, layers, dev, **kw)
+        out[key] = tp_train_rank(cfg, shape, dev, world, model_par=1)
     every = [None] * world
     dist.all_gather_object(every, out)
     if rank == 0:
@@ -4246,7 +4270,7 @@ def tp_phase(dev, zero1, twin_losses):
     log(f"  losses {one_losses}, s/step {spread(one_times, 1.0)}, peak "
         f"{one_peak:.2f} GiB")
     ones = {}
-    for key, arch, layers, cell, kw in ONE_DEVICE_TP:
+    for key, arch, layers, cell, kw in ONE_DEVICE_TP + ONE_DEVICE_DATA:
         cfg, shape = tp_cfg(arch, layers, dev, **kw)
         log(f"[tp] ({cell})'s one-device run "
             f"first: {cfg.name}, {cfg.num_layers} layers, moe_impl "
@@ -4301,8 +4325,12 @@ def tp_phase(dev, zero1, twin_losses):
             ("moe", f"(c) {MOE_TRAIN_ARCH} expert parallel", one_losses),
             *((k, f"({c}) {a} " + ("grouped, the experts split" if kw
                                    else "tensor parallel"),
-               ones[k]["losses"]) for k, a, _, c, kw in ONE_DEVICE_TP)):
+               ones[k]["losses"]) for k, a, _, c, kw in ONE_DEVICE_TP),
+            *((k, f"({c}) {a} one-hot over the data ranks",
+               ones[k]["losses"]) for k, a, _, c, _ in ONE_DEVICE_DATA)):
         rs = [r[key] for r in ranks]
+        data = key in {k for k, *_ in ONE_DEVICE_DATA}
+        mesh = f"({TP_RANKS}, 1)" if data else f"(1, {TP_RANKS})"
         if key in ("ssm", "hybrid"):
             arch, layers = {k: (a, n) for k, a, n, _, _ in
                             ONE_DEVICE_TP}[key]
@@ -4318,10 +4346,13 @@ def tp_phase(dev, zero1, twin_losses):
                 assert ones[key]["launches"] == want_ssd, ones[key]
             ssd_launches[f"{arch} tensor parallel ({TP_RANKS} gloo "
                          f"ranks)"] = sum(got)
-        log(f"  {what} on (1, {TP_RANKS}): losses {rs[0]['losses']} "
+        log(f"  {what} on {mesh}: losses {rs[0]['losses']} "
             f"against {[round(x, 6) for x in want]}; s/step "
-            f"{spread(rs[0]['step_s'], 1.0)}; model-axis all-reduces a step "
-            f"{rs[0]['all_reduces_per_step']:.0f}; parameters "
+            f"{spread(rs[0]['step_s'], 1.0)}; "
+            + ("router-statistics" if data else "model-axis")
+            + f" all-reduces a step "
+            f"{rs[0]['all_reduces_per_step']:.0f}; routing all-gathers a "
+            f"step {rs[0]['all_gathers_per_step']:.0f}; parameters "
             + ", ".join(f"{r['param_gib']:.2f}" for r in rs)
             + f" GiB by rank of {rs[0]['whole_param_gib']:.2f}; peak "
             + ", ".join(f"{r['peak_gib']:.2f}" for r in rs) + " GiB by rank")
@@ -4329,6 +4360,19 @@ def tp_phase(dev, zero1, twin_losses):
         assert len(diffs) == TP_STEPS and max(diffs) < TP_BF16_LOSS, \
             (key, rs[0]["losses"], want)
         assert all(r["losses"] == rs[0]["losses"] for r in rs), rs
+        if data:
+            # a micro-batch routed across both ranks: one all-gather of
+            # the count tables a moe layer a micro-batch, forward and
+            # remat's recompute; each rank holds the whole model
+            arch, layers, kw = {k: (a, n, w) for k, a, n, _, w in
+                                ONE_DEVICE_DATA}[key]
+            cfg = tp_cfg(arch, layers, dev, **kw)[0]
+            want_gathers = cfg.num_layers * cfg.num_microbatches * (
+                2 if cfg.remat == "full" else 1)
+            assert all(r["all_gathers_per_step"] == want_gathers
+                       for r in rs), (key, want_gathers, rs)
+            numbers[key] = {"ranks": rs, "max_loss_diff": max(diffs)}
+            continue
         assert all(r["param_gib"] < r["whole_param_gib"] for r in rs), rs
         if key in ("enc_dec", "vlm"):   # only the norms are replicated
             assert all(r["param_gib"] < 0.51 * r["whole_param_gib"]

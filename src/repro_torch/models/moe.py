@@ -188,11 +188,12 @@ def capacity_positions(expert_idx, off: int, q: int, Tg: int, G: int,
     Gt = (off + T - 1) // Tg - g0 + 1
     lg = (off + torch.arange(T, device=dev)) // Tg - g0
     flat_e = expert_idx.t().reshape(-1)                        # (k*T,)
-    key = lg.repeat(k) * E + flat_e
+    flat_g = lg.repeat(k)
+    key = flat_g * E + flat_e
     pos = _own_positions(key, Gt * E, onehot)
     if gather is not None:
         choice = torch.arange(k, device=dev).repeat_interleave(T)
-        cell = ((g0 + lg.repeat(k)) * k + choice) * E + flat_e
+        cell = ((g0 + flat_g) * k + choice) * E + flat_e
         table = torch.zeros(G * k * E, dtype=torch.int64,
                             device=dev).scatter_add_(
             0, cell, torch.ones_like(cell)).view(G, k, E)
