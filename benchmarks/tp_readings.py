@@ -13,8 +13,8 @@ across 2 -> 1 -> 2 beside an unrescaled twin), then phase 23
 expert parallelism on (1, 2) against a one-device run with
 ``moe_groups=1``, and mamba2-780m (2 layers) and zamba2-2.7b (one
 period, 6 Mamba2 layers) tensor parallel on (1, 2), the SSD kernel on
-each rank's heads, and seamless-m4t-medium (2 encoder + 2 decoder
-layers) and internvl2-26b (1 layer) tensor parallel on (1, 2), and
+each rank's heads, and seamless-m4t-medium (1 encoder + 1 decoder
+layer) and internvl2-26b (1 layer) tensor parallel on (1, 2), and
 qwen2-moe-a2.7b with the grouped dispatch (its 16 routing groups, 30
 experts a rank) on (1, 2), and qwen2-moe-a2.7b at 1 layer with the
 one-hot dispatch on (2, 1) (2-row micro-batches routed across both data

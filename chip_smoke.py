@@ -250,9 +250,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``impl="ref"``: the last logits in bf16 within ``BF16_LONG_TOL``, and
    in float32 (seamless at full depth, 3.9 GB; internvl2 at 4 layers,
    10.9 GB) within ``F32_LONG_TOL`` with the same greedy token.
-   seamless-m4t-medium also trains 3 steps (train_4k sequences, the
-   global batch cut to 8 in 4 micro-batches of 2; no kernel: 4096 <
-   8192; s/step, tokens/s, peak GiB, finite losses) and runs ``python -m
+   seamless-m4t-medium also trains 3 steps at 4 + 4 layers (train_4k
+   sequences, the global batch cut to 8 in 4 micro-batches of 2; no
+   kernel: 4096 < 8192; s/step, tokens/s, peak GiB, finite losses) and
+   runs ``python -m
    repro_torch.launch.serve --arch seamless-m4t-medium --no-reduced
    --cache-mode dense`` as a subprocess.
 22. data-parallel training over ``torch.distributed`` ranks, after
@@ -292,7 +293,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    a rank = Mamba2 layers x 4 micro-batches x 2 x 3 (added to the SSD
    row), the SSD kernel held against its plain version once at 24 and
    40 heads (b 2, nc 16, l 256); (f) seamless-m4t-medium at full width
-   and 2 encoder + 2 decoder layers (8 of 16 heads and KV heads, 2048 of
+   and 1 encoder + 1 decoder layer (8 of 16 heads and KV heads, 2048 of
    4096 ff a rank in the encoder, self and cross attention; the frames
    replicated over the model axis) and (g) internvl2-26b at full width
    and 1 layer (24 of 48 heads, 4 of 8 KV heads, 8192 of 16384 ff a
@@ -3558,8 +3559,11 @@ FRONTEND_S = 8704
 # internvl2-26b in float32 is 79.5 GB at full depth: 4 layers (10.9 GB)
 FRONTEND_F32_LAYERS = 4
 # seamless-m4t-medium's train steps: train_4k sequences, the global batch
-# cut to 8 (4 micro-batches of 2, the config's own), as phase 20 cuts it
+# cut to 8 (4 micro-batches of 2, the config's own), as phase 20 cuts it,
+# and the depth to FRONTEND_TRAIN_LAYERS a stack (12 until PR 33, cut for
+# the script's time: depth is not what the steps hold)
 FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_STEPS = 8, 3
+FRONTEND_TRAIN_LAYERS = 4
 
 
 def frontend_setup(arch, layers, dev):
@@ -3707,11 +3711,15 @@ def frontend_prefill_vs_plain(cfg, params, S, dev, tol, want):
 
 def frontend_train(cfg, dev):
     """seamless-m4t-medium trained: FRONTEND_TRAIN_STEPS steps of
-    ``ElasticTrainer`` on train_4k sequences at a global batch of 8 (no
-    kernel runs: 4096 < 8192 positions), every loss finite."""
+    ``ElasticTrainer`` on train_4k sequences at a global batch of 8, cut
+    to FRONTEND_TRAIN_LAYERS layers a stack on the card (no kernel runs:
+    4096 < 8192 positions), every loss finite."""
     import math
     from repro_torch.configs import SHAPES
     from repro_torch.configs.base import ShapeConfig
+    if dev.type == "cuda":
+        n = FRONTEND_TRAIN_LAYERS
+        cfg = cfg.with_(enc_layers=n, dec_layers=n, num_layers=2 * n)
     train_4k = SHAPES["train_4k"]
     shape = (ShapeConfig(train_4k.name, train_4k.seq_len,
                          FRONTEND_TRAIN_BATCH, "train")
@@ -4050,7 +4058,7 @@ def dp_phase(dev, twin_losses):
 # layers, then the shared attention and MLP: 40 of 80 SSM heads, 16 of
 # 32 attention heads, 5120 of 10240 ff a rank), TP_STEPS steps each,
 # beside one-device runs of the same cut, seed and data made first.
-# (f) seamless-m4t-medium at full width and 2 encoder + 2 decoder layers
+# (f) seamless-m4t-medium at full width and 1 encoder + 1 decoder layer
 # (8 of 16 heads and KV heads, 2048 of 4096 ff a rank, in the encoder,
 # self and cross attention; the frames replicated over the model axis)
 # and (g) internvl2-26b at full width and 1 layer (24 of 48 heads, 4 of
@@ -4074,7 +4082,7 @@ MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 1
 # against a one-device run of the same cut
 ONE_DEVICE_TP = (("ssm", "mamba2-780m", 2, "d", {}),
                  ("hybrid", "zamba2-2.7b", 6, "e", {}),
-                 ("enc_dec", "seamless-m4t-medium", 2, "f", {}),
+                 ("enc_dec", "seamless-m4t-medium", 1, "f", {}),
                  ("vlm", "internvl2-26b", 1, "g", {}),
                  ("moe_grouped", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, "h",
                   {"moe_impl": "grouped"}))
