@@ -602,12 +602,16 @@ class DataParallel:
           data rank ``r`` taking block ``r`` of it, the rows the
           reference's sharded micro-batch gives it (the pool: every
           data rank);
+        * else, where a rank's share of the batch (the rows the
+          reference's batch sharding gives it) holds whole micro-batches,
+          the rank runs them in turn, each whole (its pool: the rank
+          alone);
         * else, with ``u`` the largest number of rows that divides both
           a micro-batch and a rank's share of the batch: at each step
           the ranks take the next ``size * u`` rows, ``u`` a rank, in
-          rank order; each micro-batch is then held by ``micro / u``
-          consecutive ranks (one: the rank holds it whole and routes it
-          alone), 2-row micro-batches over 4 ranks by 2;
+          rank order, and each micro-batch is held by ``micro / u``
+          consecutive ranks (2-row micro-batches over 4 ranks: 2, each
+          rank its share in one piece);
         * where the rules replicate the batch (its rows do not divide
           over the data ranks), every rank runs every micro-batch whole.
 
@@ -625,9 +629,11 @@ class DataParallel:
             u = bm // size
             starts, pool = [i * bm + r * u for i in range(n)], (0, size)
         elif B % size == 0:
-            u = math.gcd(bm, B // size)
+            share = B // size
+            u = math.gcd(bm, share)
             a = bm // u
-            starts = [t * size * u + r * u for t in range(B // size // u)]
+            starts = ([r * share + t * u for t in range(share // u)] if a == 1
+                      else [t * size * u + r * u for t in range(share // u)])
             pool = (r - r % a, a)
         else:
             u, starts, pool = bm, [i * bm for i in range(n)], (r, 1)
