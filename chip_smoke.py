@@ -3560,8 +3560,8 @@ FRONTEND_S = 8704
 FRONTEND_F32_LAYERS = 4
 # seamless-m4t-medium's train steps: train_4k sequences, the global batch
 # cut to 8 (4 micro-batches of 2, the config's own), as phase 20 cuts it,
-# and the depth to FRONTEND_TRAIN_LAYERS a stack (12 until PR 33, cut for
-# the script's time: depth is not what the steps hold)
+# and the depth to FRONTEND_TRAIN_LAYERS a stack (cut from 12 for the
+# script's time: depth is not what the steps hold)
 FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_STEPS = 8, 3
 FRONTEND_TRAIN_LAYERS = 4
 
