@@ -42,7 +42,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+from repro_torch.launch.hlo_analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S)                # H100 SXM data sheet
 
 
 def busy_us(intervals):

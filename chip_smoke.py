@@ -313,6 +313,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and routing all-gathers a step, s/step and peak GiB by rank.  The
    spawned group is killed, and the phase fails naming itself, past
    ``TP_SPAWN_LIMIT_S``.
+24. the cost analysis against the card, after phase 23
+   (``analysis_phase``): (a) one train step of phase 20's dense cell
+   (granite-8b at 1 layer, 4 x 4096) and of mamba2-780m at
+   ``ANALYSIS_SSM_LAYERS`` (2) layers (8 x 4096, the SSD kernel on its
+   path) on the card under ``launch.hlo_analysis.CostCounter``, and the
+   same step traced on meta tensors: FLOPs, bytes accessed and kernel
+   calls by name equal, the SSD kernel's launches (set to 0 just before,
+   read just after; not added to its row) equal its counted calls, the
+   trace's peak of live storage within ``ANALYSIS_PEAK_RATIO``
+   (0.75-1.33) of the card's peak allocation for the step; the step's
+   device ms (CUDA events, a step without the counter) beside the
+   trace's t_compute and t_memory at the data sheet's rates, printed,
+   not held; (b) meanwhile, in a child process, phase 23's cells (b) and
+   (h) traced as rank 0 of a fake (1, 2) process group: the all-reduces
+   that ``launch.sharding`` counts equal phase 23's counts a step, and
+   the trace's all-reduces over the model group are those plus
+   ``DataParallel.norm``'s.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -335,8 +352,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor peak
+from repro_torch.launch import hlo_analysis as H  # noqa: E402
+
+# H100 SXM data sheet: the HBM rate and the dense bf16 tensor peak are the
+# cost analysis's own constants
+HBM_BYTES_PER_S, BF16_FLOPS = H.HBM_BW, H.PEAK_FLOPS
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 TF32X3_FLOPS = 495e12 / 3      # float32 products as 3 TF32 tensor products
 BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)   # 2 bf16 ulps at |x| ~ 1-2
@@ -761,18 +781,9 @@ def paged_library(args):
 
 def paged_bound(args):
     """(bytes, flops, bound ms, bound_by) of one bf16 call on ``args``:
-    the K and V rows below each lane's kv_len, q and the output, the
-    table entries those rows need and kv_len, each once; q.k and p.v at
-    2 operations a multiply-add."""
-    q, k_pool, _, _, kv_len = args
-    B, H, D = q.shape
-    bs, KV = k_pool.shape[1], k_pool.shape[2]
-    lens = kv_len.tolist()
-    tokens = sum(lens)
-    nbytes = (tokens * KV * D * 2 * 2                 # k and v rows, bf16
-              + 2 * B * H * D * 2                     # q in, out
-              + sum(-(-n // bs) for n in lens) * 4 + B * 4)
-    flops = 4 * tokens * H * D
+    the kernel's ``cost`` at the lanes' lengths (read here)."""
+    from repro_torch.kernels.paged_attention import kernel
+    flops, nbytes = kernel.cost(*args, lens=args[4].tolist())
     hbm, ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return (nbytes, flops, max(hbm, ops) * 1e3,
             "bytes" if hbm >= ops else "operations")
@@ -807,16 +818,22 @@ def paged_kernel_phase(dev, flush, H, KV, D):
     return {**rows["skewed"], "by_mix": rows}
 
 
+def meta(*shape, dtype=None):
+    """A meta tensor (shape and dtype, no storage) for a kernel's
+    ``cost``."""
+    import torch
+    return torch.empty(shape, dtype=dtype or torch.float32, device="meta")
+
+
 def ssd_bound(l, h, p, n, bc=1):
     """(flops, bytes, bound ms, FFMA bound ms) of one intra-chunk call over
-    ``bc`` = b * nc chunks: per chunk the causal half of C.B^T once (B and
-    C are shared by the heads), per head the causal half of att @ xdt and
-    the (p, n) state product, 2 operations per multiply-add; each input
-    read and output written once in float32.  The bound is the kernel's
-    route (3xTF32 on the tensor cores); the FFMA bound stands beside it."""
-    tri = l * (l + 1) // 2
-    flops = 2 * bc * (tri * n + h * tri * p + h * l * p * n)
-    bytes_moved = 4 * bc * (2 * l * h * p + 2 * l * h + 2 * l * n + h * p * n)
+    ``bc`` = b * nc chunks, from the kernel's ``cost``.  The bound is the
+    kernel's route (3xTF32 on the tensor cores); the FFMA bound stands
+    beside it."""
+    from repro_torch.kernels.ssd import kernel
+    flops, bytes_moved = kernel.cost(
+        meta(1, bc, l, h, p), meta(1, bc, l, h), meta(1, bc, l, h),
+        meta(1, bc, l, n), meta(1, bc, l, n))
     hbm = bytes_moved / HBM_BYTES_PER_S
     return (flops, bytes_moved, max(flops / TF32X3_FLOPS, hbm) * 1e3,
             max(flops / F32_FLOPS, hbm) * 1e3)
@@ -1022,7 +1039,7 @@ def jacobi_kernel_phase(dev, flush):
         library_ms = cuda_ms(lambda: F.conv2d(padded, cross), 10, flush)
         del padded, out, grid
         torch.cuda.empty_cache()
-        nbytes, flops = 2 * n * n * 4, 4 * n * n
+        flops, nbytes = kernel.cost(n * n, torch.float32)
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
         log(f"  {n}^2 float32: kernel == plain; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, conv2d {library_ms:.4f} ms, bound "
@@ -1074,6 +1091,7 @@ def tile_form_phase(dev, flush):
     import numpy as np
     import torch
     from repro_torch.kernels.jacobi import jacobi_tiles, jacobi_tiles_ref
+    from repro_torch.kernels.jacobi import kernel as jacobi_kernel
     rt = stencil_runtime(dev, 4)
     rt.tiles.uniform_(generator=torch.Generator(dev).manual_seed(6))
     moved = slow_pe_balance(rt)
@@ -1092,7 +1110,8 @@ def tile_form_phase(dev, flush):
     plain_ms = cuda_ms(lambda: jacobi_tiles_ref(rt.tiles, ids, rt.nbr), 5,
                        flush)
     h, w = rt.grid.tile_shape
-    bound_ms = 2 * len(ids) * h * w * 4 / HBM_BYTES_PER_S * 1e3
+    bound_ms = jacobi_kernel.cost(len(ids) * h * w, torch.float32)[1] \
+        / HBM_BYTES_PER_S * 1e3
     log(f"  {moved} tiles moved; PE {pe} holds {len(ids)} tiles of {h}x{w}:"
         f" kernel == plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms")
@@ -1547,12 +1566,13 @@ def prefill_step_vs_plain(cfg, params, dev, tol):
 
 
 def flash_bound(S, H, KV, D, elem_bytes, peak, causal=True):
-    """(flops, bytes, bound ms) of one call: q.k and p.v over the attended
-    pairs of each head (S (S + 1) / 2 causal, S^2 not), 2 operations a
-    multiply-add; q, k and v read once and the output written once."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * H * D * pairs
-    nbytes = elem_bytes * D * S * (2 * H + 2 * KV)
+    """(flops, bytes, bound ms) of one call at batch 1, from the kernel's
+    ``cost``."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    dt = {2: torch.bfloat16, 4: torch.float32}[elem_bytes]
+    kv = meta(1, KV, S, D, dtype=dt)
+    flops, nbytes = kernel.cost(meta(1, H, S, D, dtype=dt), kv, kv, causal)
     return flops, nbytes, max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
@@ -4390,6 +4410,184 @@ def tp_phase(dev, zero1, twin_losses):
     return launches, ssd_launches, numbers
 
 
+# ------------------------------------------- phase 24: the cost analysis
+# Phase 24: the port's cost analysis (``launch/hlo_analysis.py``) against
+# the card.  (a) one real train step of phase 20's dense cell and of
+# mamba2-780m at ANALYSIS_SSM_LAYERS layers (the SSD kernel on its path),
+# each counted by a ``CostCounter`` on the card and traced again on meta
+# tensors: FLOPs, bytes and kernel calls by name equal, the SSD kernel's
+# launches equal its counted calls, and the trace's peak of live storage
+# within ANALYSIS_PEAK_RATIO of the card's peak allocation for the step.
+# (b) phase 23's cells (b) and (h) traced in a child process as rank 0 of
+# a fake (1, TP_RANKS) group: their all-reduces equal phase 23's counts.
+ANALYSIS_SSM_LAYERS = 2
+ANALYSIS_PEAK_RATIO = (0.75, 1.33)
+ANALYSIS_CHILD_LIMIT_S = 120
+
+
+def norm_model_reduces(dp) -> int:
+    """All-reduces over the model group that ``DataParallel.norm`` makes
+    (one for each of its two sums that holds a model-sharded leaf):
+    collectives of the step that ``launch.sharding.all_reduces`` does not
+    count."""
+    return sum(1 for over_data in (False, True) if any(
+        (dp.zero1 and d is not None) == over_data and md is not None
+        for d, md in zip(dp.dims, dp.model_dims)))
+
+
+def analysis_trace_child(cells, device_type, out_path):
+    """Phase 24(b) in a child process: each ``(key, arch, layers, kw)``
+    of ``cells`` cut as phase 23 cuts it on ``device_type``, traced on
+    meta tensors as rank 0 of a fake (1, TP_RANKS) group; its all-reduces
+    over the model group and ``launch.sharding``'s count of them, written
+    to ``out_path``."""
+    import torch
+    from repro_torch.launch import dryrun, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import DataParallel
+    out = {}
+    with dryrun.fake_world(TP_RANKS):
+        mesh = make_mesh((1, TP_RANKS), ("data", "model"), device="cpu")
+        for key, arch, layers, kw in cells:
+            cfg, shape = tp_cfg(arch, layers, torch.device(device_type),
+                                **kw)
+            before = sharding.all_reduces
+            counter, dt = dryrun.trace_cell(cfg, shape, mesh)
+            out[key] = {
+                "sharding_all_reduces": sharding.all_reduces - before,
+                "model_all_reduces": sum(
+                    1 for c in counter.collectives
+                    if c.kind == "all-reduce" and c.group_size == TP_RANKS),
+                "norm_model_all_reduces": norm_model_reduces(
+                    DataParallel(cfg, mesh)),
+                "collectives": H.collective_summary(counter.collectives),
+                "trace_s": dt}
+    Path(out_path).write_text(json.dumps(out))
+
+
+def analysis_step_check(arch, layers, dev) -> dict:
+    """Phase 24(a) for one cell: a step on the card under a
+    ``CostCounter`` against its meta trace."""
+    import torch
+    from repro_torch.launch.specs import abstract_batch
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adamw
+    cfg, shape = train_cfg(arch, dev)
+    if dev.type == "cuda":
+        cfg = cfg.with_(num_layers=layers)
+    release(dev)
+    state = zoo.init_state(cfg, seed=0, device=dev)
+    batch = zoo.make_batch(cfg, shape, seed=1, device=dev)
+    step = zoo.make_train_step(cfg, adamw.HParams(**TRAIN_HP))
+    step(state, batch)            # warm: cuBLAS's workspace, the kernels
+    sync(dev)
+    row = {"arch": arch, "layers": cfg.num_layers,
+           "batch": [shape.global_batch, shape.seq_len]}
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch)
+        end.record()
+        sync(dev)
+        row["device_ms"] = start.elapsed_time(end)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    card = H.CostCounter()
+    card.run(step, state, batch)
+    sync(dev)
+    launches = read_launches()
+    trace = H.CostCounter()
+    trace.run(step, zoo.abstract_state(cfg), abstract_batch(cfg, shape))
+    terms = H.RooflineTerms(trace.flops, trace.bytes, 0.0)
+    row.update(flops=trace.flops, bytes=trace.bytes, kernels=trace.kernels,
+               card_flops=card.flops, card_bytes=card.bytes,
+               card_kernels=card.kernels, launches=launches,
+               t_compute_ms=terms.t_compute * 1e3,
+               t_memory_ms=terms.t_memory * 1e3,
+               trace_peak=trace.peak)
+    log(f"  {arch} at {cfg.num_layers} layers, batch {shape.global_batch}"
+        f" x {shape.seq_len}: card {card.flops} flop, {card.bytes} B, "
+        f"kernels {card.kernels}; meta trace {trace.flops} flop, "
+        f"{trace.bytes} B, kernels {trace.kernels}; launches {launches}")
+    assert (card.flops, card.bytes, card.kernels) == \
+        (trace.flops, trace.bytes, trace.kernels), row
+    calls = trace.kernels.get("ssd_intra_chunk", {}).get("calls", 0)
+    assert launches["ssd_intra_chunk"] == (calls if dev.type == "cuda"
+                                           else 0), row
+    if dev.type == "cuda":
+        # the step's own peak: the allocator's, less what was live
+        # beside its arguments
+        row["card_peak"] = (torch.cuda.max_memory_allocated(dev)
+                            - (base - card.argument_bytes))
+        row["peak_ratio"] = trace.peak / row["card_peak"]
+        ms = row["device_ms"]
+        log(f"  peak: trace {trace.peak / 2**30:.3f} GiB, card "
+            f"{row['card_peak'] / 2**30:.3f} GiB (ratio "
+            f"{row['peak_ratio']:.4f}, held to {ANALYSIS_PEAK_RATIO}); "
+            f"device {ms:.2f} ms a step against t_compute "
+            f"{row['t_compute_ms']:.2f} ms ({row['t_compute_ms'] / ms:.1%})"
+            f" and t_memory {row['t_memory_ms']:.2f} ms "
+            f"({row['t_memory_ms'] / ms:.1%}), datasheet constants")
+        lo, hi = ANALYSIS_PEAK_RATIO
+        assert lo <= row["peak_ratio"] <= hi, row
+    del state, batch, card, trace
+    release(dev)
+    return row
+
+
+def analysis_phase(dev, zero1, tp) -> dict:
+    """Phase 24.  ``zero1``: phase 22(b)'s setting, as phase 23(b) ran;
+    ``tp``: phase 23's numbers, whose (b) and (h) all-reduce counts the
+    child's traces must equal."""
+    import multiprocessing
+    import tempfile
+    log(f"[analysis] phase 24 on "
+        f"{gpu_line() if dev.type == 'cuda' else dev}")
+    cells = [("dense", DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS,
+              {"zero1": zero1}),
+             *((k, a, n, kw) for k, a, n, _, kw in ONE_DEVICE_TP
+               if k == "moe_grouped")]
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = Path(tmp) / "analysis.json"
+        child = multiprocessing.get_context("spawn").Process(
+            target=analysis_trace_child,
+            args=(cells, dev.type, str(out_path)))
+        child.start()            # (b) on the host while (a) runs
+        try:
+            log("[analysis] (a) a train step on the card against its meta "
+                "trace")
+            numbers["steps"] = [
+                analysis_step_check(DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS,
+                                    dev),
+                analysis_step_check(TRAIN_ARCH, ANALYSIS_SSM_LAYERS, dev)]
+            child.join(ANALYSIS_CHILD_LIMIT_S)
+        finally:
+            if child.is_alive():
+                child.kill()
+                child.join()
+        assert child.exitcode == 0, \
+            f"phase 24(b): the child's exit code {child.exitcode}"
+        traced = json.loads(out_path.read_text())
+    log(f"[analysis] (b) phase 23's cells traced as rank 0 of a fake (1, "
+        f"{TP_RANKS}) group")
+    for key, arch, layers, _ in cells:
+        got, want = traced[key], tp[key]["ranks"][0]["all_reduces_per_step"]
+        log(f"  {key} ({arch}, {layers} layers): trace "
+            f"{got['model_all_reduces']} all-reduces over the model group "
+            f"({got['sharding_all_reduces']} through launch.sharding, "
+            f"{got['norm_model_all_reduces']} from DataParallel.norm); "
+            f"phase 23 read {want:.0f} a step; {got['trace_s']:.1f} s to "
+            f"trace; {json.dumps(got['collectives'])}")
+        assert got["sharding_all_reduces"] == want, (key, got, want)
+        assert got["model_all_reduces"] == got["sharding_all_reduces"] + \
+            got["norm_model_all_reduces"], (key, got)
+    numbers["traced"] = traced
+    return numbers
+
+
 def first_difference(a, b):
     """The first index where two token lists differ (None if equal)."""
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -4655,6 +4853,20 @@ def main() -> int:
     ssd["at_tensor_parallel_heads"] = tp["ssd_at_rank_heads"]
     log(f"[tp] numbers {json.dumps(tp)}")
     t_phase = lap("phase 23 (model axis)", t_phase)
+    # 24. the cost analysis: a step on the card against its meta trace,
+    # phase 23's all-reduces against a fake group's trace
+    analysis = analysis_phase(dev, dp["gloo"]["zero1"], tp)
+    log(f"[analysis] numbers {json.dumps(analysis)}")
+    log("[analysis] summary: card and meta trace agree (FLOPs, bytes, "
+        "kernel calls) for " + ", ".join(
+            f"{r['arch']} x{r['layers']} (peak ratio "
+            f"{r['peak_ratio']:.3f}, device {r['device_ms']:.1f} ms, "
+            f"t_compute {r['t_compute_ms']:.1f}, t_memory "
+            f"{r['t_memory_ms']:.1f})" for r in analysis["steps"])
+        + "; all-reduces equal phase 23's: " + ", ".join(
+            f"{k} {v['sharding_all_reduces']}"
+            for k, v in analysis["traced"].items()))
+    t_phase = lap("phase 24 (cost analysis)", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()
                                       if c[key]}

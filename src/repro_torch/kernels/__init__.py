@@ -6,9 +6,26 @@ that autograd would record (``refuse_grad``) instead of returning an
 output that silently drops the gradient; only the SSD kernel has a
 backward (``kernels.ssd.ops.SSDIntraChunk``), and its entry point routes
 such calls through it.
+
+Every kernel call, a launch on a card or a call on meta tensors (which
+launches nothing), is told to the cost counter in force, if any
+(``report``; ``launch.hlo_analysis.CostCounter``), with the FLOPs and
+bytes of its ``kernel.cost``.
 """
 
 import torch
+
+# The cost counters in force (``launch.hlo_analysis.CostCounter``),
+# innermost last.
+counters: list = []
+
+
+def report(name: str, cost, *args) -> None:
+    """Tell the innermost cost counter in force, if any, of one call of
+    kernel ``name`` on ``args``: ``cost(*args)`` gives its ``(flops,
+    bytes)``.  With no counter in force this is one check."""
+    if counters:
+        counters[-1].kernel_call(name, *cost(*args))
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

@@ -10,7 +10,8 @@ checks device, dtype, shape, strides and alignment, allocates the output
 with ``torch.empty_like(q)`` (q's strides, so a heads-major view of a
 (B, S, H, D) tensor gets a (B, S, H, D) output), launches, and raises if
 the launch failed.  ``launches`` counts successful launches and nothing
-else.
+else; each launch is also reported to the cost counter in force
+(``kernels.report``, ``cost``).
 
 A call that autograd would record (grad mode on, an input that
 requires grad) raises ``RuntimeError`` (``kernels.refuse_grad``): the
@@ -23,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_grad, report
 
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)   # multiples of 16 to 128
 MAX_GRID_YZ = 65535                               # heads, batch
@@ -48,8 +49,28 @@ def _lib():
     return _fn
 
 
-def check_args(q, k, v):
-    """Raise ``ValueError`` for arguments the kernel does not take."""
+def cost(q, k, v, causal=True):
+    """``(flops, bytes)`` of one call on q (B, H, Sq, D) and k, v (B, KV,
+    Sk, D): q.k and p.v over the attended pairs of each head (query row
+    i attends keys 0..i when causal, all Sk otherwise), 2 operations a
+    multiply-add; q, k and v read once and the output written once."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    if causal:
+        full = max(sq - sk, 0)                  # rows that see every key
+        m = sq - full
+        pairs = m * (m + 1) // 2 + full * sk
+    else:
+        pairs = sq * sk
+    flops = 4 * b * h * d * pairs
+    nbytes = q.element_size() * b * d * (2 * h * sq + 2 * kv * sk)
+    return flops, nbytes
+
+
+def check_args(q, k, v, device: str = "cuda"):
+    """Raise ``ValueError`` for arguments the kernel does not take;
+    ``device`` is the device type they must be on (``"meta"``: a call
+    that ``ops`` answers without launching)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (B,H,Sq,D) and k, v (B,KV,Sk,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -73,8 +94,9 @@ def check_args(q, k, v):
     # whole number of 16-byte chunks, every base 16-byte aligned
     chunk = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.device.type != "cuda":
-            raise ValueError(f"all tensors must be on one CUDA device; got "
+        if t.device != q.device or t.device.type != device:
+            raise ValueError(f"the CUDA kernel's tensors must be on one "
+                             f"{device} device; got "
                              f"{[str(x.device) for x in (q, k, v)]}")
         if t.stride(3) != 1 or any(s % chunk for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
@@ -108,4 +130,5 @@ def flash_attention(q, k, v, *, causal=True):
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
     launches += 1
+    report("flash_attention", cost, q, k, v, causal)
     return out

@@ -9,7 +9,8 @@ output does not overlap the input, launches, and raises if the launch
 failed.  The values of ``ids`` and ``nbr`` are not read on the host
 (that would synchronise): ids must lie in ``[0, T)`` and neighbours in
 ``[-1, T)``, as the tile runtime builds them.  ``launches`` counts
-successful launches and nothing else.
+successful launches and nothing else; each launch is also reported to
+the cost counter in force (``kernels.report``, ``cost``).
 
 A call that autograd would record (grad mode on, an input that
 requires grad) raises ``RuntimeError`` (``kernels.refuse_grad``): the
@@ -22,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_grad, report
 
 ROWS_PER_CTA = 16       # kRows in csrc/jacobi.cu
 MAX_GRID_YZ = 65535     # tiles per launch, and row strips per tile
@@ -49,7 +50,14 @@ def _lib():
     return _fn
 
 
-def _check_grid(*tensors):
+def cost(points: int, dtype) -> tuple:
+    """``(flops, bytes)`` of one sweep over ``points`` grid points of
+    ``dtype``: 3 adds and a multiply a point; each point read once and
+    written once (the halos are other points' reads)."""
+    return 4 * points, 2 * points * dtype.itemsize
+
+
+def _check_grid(*tensors, device: str = "cuda"):
     refuse_grad("jacobi (no backward)", *tensors)
     dtype = tensors[0].dtype
     if dtype not in (torch.float32, torch.bfloat16):
@@ -58,8 +66,9 @@ def _check_grid(*tensors):
         if t.dtype != dtype:
             raise ValueError(
                 f"dtypes differ: {[str(x.dtype) for x in tensors]}")
-        if t.device.type != "cuda" or t.device != tensors[0].device:
-            raise ValueError(f"all tensors must be on one CUDA device; got "
+        if t.device.type != device or t.device != tensors[0].device:
+            raise ValueError(f"the CUDA kernel's tensors must be on one "
+                             f"{device} device; got "
                              f"{[str(x.device) for x in tensors]}")
         if not t.is_contiguous() or t.data_ptr() % t.element_size():
             raise ValueError("tensors must be contiguous and aligned")
@@ -70,14 +79,17 @@ def _overlap(a, b) -> bool:
     return a0 < b0 + b.nbytes and b0 < a0 + a.nbytes
 
 
-def check_tiles(src, ids, nbr, out):
-    """Raise ``ValueError`` for arguments the tile launch does not take."""
+def check_tiles(src, ids, nbr, out, device: str = "cuda"):
+    """Raise ``ValueError`` for arguments the tile launch does not take;
+    ``device`` is the device type they must be on (``"meta"``: a call
+    that ``ops`` answers without launching, where ``out``'s overlap with
+    the tiles cannot be read)."""
     if src.dim() != 3 or min(src.shape) <= 0:
         raise ValueError(f"want tiles (T, h, w); got {tuple(src.shape)}")
     if tuple(out.shape) != tuple(src.shape):
         raise ValueError(f"out {tuple(out.shape)} != tiles "
                          f"{tuple(src.shape)}")
-    if _overlap(src, out):
+    if device != "meta" and _overlap(src, out):
         raise ValueError("out overlaps the tiles it is computed from")
     T, h, _ = src.shape
     if ids.dim() != 1 or not 1 <= ids.numel() <= MAX_GRID_YZ:
@@ -92,7 +104,16 @@ def check_tiles(src, ids, nbr, out):
                              f"{src.device}; got {t.dtype} on {t.device}")
     if -(-h // ROWS_PER_CTA) > MAX_GRID_YZ:
         raise ValueError(f"tile height {h} too large")
-    _check_grid(src, out)
+    _check_grid(src, out, device=device)
+
+
+def check_grid(grid, device: str = "cuda"):
+    """Raise ``ValueError`` for a grid the global sweep does not take."""
+    if grid.dim() != 2 or min(grid.shape) <= 0:
+        raise ValueError(f"want a grid (H, W); got {tuple(grid.shape)}")
+    _check_grid(grid, device=device)
+    if -(-grid.shape[0] // ROWS_PER_CTA) > MAX_GRID_YZ:
+        raise ValueError(f"grid height {grid.shape[0]} too large")
 
 
 def _launcher(src, out, ids, nbr, n, h, w):
@@ -118,6 +139,7 @@ def _launcher(src, out, ids, nbr, n, h, w):
         if rc != 0:
             raise RuntimeError(f"jacobi kernel launch failed (code {rc})")
         launches += 1
+        report("jacobi", cost, n * h * w, src.dtype)
         return out
     return launch
 
@@ -135,10 +157,6 @@ def prepare_tiles(src, ids, nbr, out):
 
 def jacobi_step(grid):
     """One sweep of the grid ``(H, W)``: top halo 1.0, others 0.0."""
-    if grid.dim() != 2 or min(grid.shape) <= 0:
-        raise ValueError(f"want a grid (H, W); got {tuple(grid.shape)}")
-    _check_grid(grid)
+    check_grid(grid)
     H, W = grid.shape
-    if -(-H // ROWS_PER_CTA) > MAX_GRID_YZ:
-        raise ValueError(f"grid height {H} too large")
     return _launcher(grid, torch.empty_like(grid), None, None, 1, H, W)()

@@ -5,7 +5,11 @@ Dispatch follows the tensor, never a fallback:
 
 * a CUDA tensor launches the hand-written kernel (``kernel.py``), which
   raises on arguments it does not take;
-* a CPU tensor runs the plain version (``ref.py``).
+* a CPU tensor runs the plain version (``ref.py``);
+* a meta tensor (a cost trace, ``launch.hlo_analysis``) gets an output
+  of the kernel's shape and dtype: the arguments are checked as the
+  kernel checks them and the call is reported to the cost counter in
+  force with ``kernel.cost``, and nothing is launched, built or run.
 
 ``jacobi(..., impl="ref")`` asks for the plain version explicitly,
 wherever the grid is: only tests use it, to hold the kernel against its
@@ -13,6 +17,9 @@ plain version on the card.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import report
 from repro_torch.kernels.jacobi import kernel
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref, jacobi_tiles_ref
 
@@ -23,6 +30,10 @@ def jacobi(grid, *, impl=None):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "ref" or grid.device.type == "cpu":
         return jacobi_step_ref(grid)
+    if grid.device.type == "meta":
+        kernel.check_grid(grid, device="meta")
+        report("jacobi", kernel.cost, grid.numel(), grid.dtype)
+        return torch.empty_like(grid)
     return kernel.jacobi_step(grid)
 
 
@@ -39,6 +50,14 @@ def prepare_jacobi_tiles(tiles, ids, nbr, out):
             out[ids.long()] = jacobi_tiles_ref(tiles, ids, nbr)
             return out
         return plain
+    if tiles.device.type == "meta":
+        kernel.check_tiles(tiles, ids, nbr, out, device="meta")
+
+        def counted():
+            _, h, w = tiles.shape
+            report("jacobi", kernel.cost, ids.numel() * h * w, tiles.dtype)
+            return out
+        return counted
     return kernel.prepare_tiles(tiles, ids, nbr, out)
 
 

@@ -13,8 +13,10 @@ device: zeroed once, grown (zeroed) when a call has more lanes x kv heads
 than it holds, and left zero by every launch, so a call reads nothing on
 the host and allocates nothing that depends on ``kv_len``.  Calls on one
 device share it and must not overlap (one stream).  ``launches`` counts
-successful launches and nothing else.  ``empty_launch`` launches an
-empty kernel through the same C path (the floor under a call's time).
+successful launches and nothing else; each launch is also reported to
+the cost counter in force (``kernels.report``, ``cost``).
+``empty_launch`` launches an empty kernel through the same C path (the
+floor under a call's time).
 
 A call that autograd would record (grad mode on, an input that
 requires grad) raises ``RuntimeError`` (``kernels.refuse_grad``): the
@@ -27,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_grad, report
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: zamba2-2.7b's shared attention
 MAX_GROUP = 8
@@ -59,8 +61,30 @@ def _lib():
     return _fns
 
 
-def check_args(q, k_pool, v_pool, block_tables, kv_len):
-    """Raise ``ValueError`` for arguments the kernel does not take."""
+def cost(q, k_pool, v_pool, block_tables, kv_len, lens=None):
+    """``(flops, bytes)`` of one call: the K and V rows below each lane's
+    length, q and the output, the table entries those rows need and
+    kv_len, each read or written once; q.k and p.v at 2 operations a
+    multiply-add.  ``lens`` gives the lanes' lengths (``kv_len`` read on
+    the host by the caller); without it (a cost trace, whose ``kv_len``
+    holds no values, and a counted launch, which reads nothing on the
+    host) every lane counts the full width of its table."""
+    B, H, D = q.shape
+    bs, KV = k_pool.shape[1], k_pool.shape[2]
+    if lens is None:
+        lens = [block_tables.shape[1] * bs] * B
+    tokens, e = sum(lens), q.element_size()
+    nbytes = (tokens * KV * D * e * 2                 # k and v rows
+              + 2 * B * H * D * e                     # q in, out
+              + sum(-(-n // bs) for n in lens) * 4 + B * 4)
+    return 4 * tokens * H * D, nbytes
+
+
+def check_args(q, k_pool, v_pool, block_tables, kv_len,
+               device: str = "cuda"):
+    """Raise ``ValueError`` for arguments the kernel does not take;
+    ``device`` is the device type they must be on (``"meta"``: a call
+    that ``ops`` answers without launching)."""
     if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"want q (B,H,D) and pools (NB,bs,KV,D); got "
                          f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
@@ -87,8 +111,9 @@ def check_args(q, k_pool, v_pool, block_tables, kv_len):
         raise ValueError("empty pool or block table")
     tensors = (q, k_pool, v_pool, block_tables, kv_len)
     for t in tensors:
-        if t.device != q.device or t.device.type != "cuda":
-            raise ValueError(f"all tensors must be on one CUDA device; got "
+        if t.device != q.device or t.device.type != device:
+            raise ValueError(f"the CUDA kernel's tensors must be on one "
+                             f"{device} device; got "
                              f"{[str(x.device) for x in tensors]}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("tensors must be contiguous and 16-byte "
@@ -132,6 +157,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, kv_len):
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
     launches += 1
+    report("paged_attention", cost, q, k_pool, v_pool, block_tables, kv_len)
     return out
 
 

@@ -9,7 +9,9 @@ through ctypes on the current CUDA stream.  This wrapper takes CUDA
 tensors only: it checks device, dtype, shape, contiguity and alignment,
 allocates both outputs with ``torch.empty``, launches, and raises if the
 launch failed.  ``launches`` counts successful launches and nothing
-else; ``launches_by_len`` counts them by chunk length l.
+else; ``launches_by_len`` counts them by chunk length l.  Each launch
+is also reported to the cost counter in force (``kernels.report``,
+``cost``).
 ``empty_launch`` launches an empty kernel through the same C path (the
 floor of a timing harness) and counts nothing.
 
@@ -25,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_grad, report
 
 MAX_HEAD_DIM = 128   # p: one or two 64-column groups
 MAX_STATE = 256      # n: the C and B tiles, 64 rows of n (rounded up to
@@ -52,8 +54,24 @@ def _lib():
     return _fn
 
 
-def check_args(xr, dtr, dA_cs, Br, Cr):
-    """Raise ``ValueError`` for arguments the kernel does not take."""
+def cost(xr, dtr, dA_cs, Br, Cr):
+    """``(flops, bytes)`` of one call (shapes only are read): over the
+    b * nc chunks, per chunk the causal half of C.B^T once (B and C are
+    shared by the heads), per head the causal half of att @ xdt and the
+    (p, n) state product, 2 operations a multiply-add; each input read
+    and each output written once in float32."""
+    b, nc, l, h, p = xr.shape
+    n, bc = Br.shape[-1], b * nc
+    tri = l * (l + 1) // 2
+    flops = 2 * bc * (tri * n + h * tri * p + h * l * p * n)
+    nbytes = 4 * bc * (2 * l * h * p + 2 * l * h + 2 * l * n + h * p * n)
+    return flops, nbytes
+
+
+def check_args(xr, dtr, dA_cs, Br, Cr, device: str = "cuda"):
+    """Raise ``ValueError`` for arguments the kernel does not take;
+    ``device`` is the device type they must be on (``"meta"``: a call
+    that ``ops`` answers without launching)."""
     if xr.dim() != 5:
         raise ValueError(f"want xr (b,nc,l,h,p); got {tuple(xr.shape)}")
     b, nc, l, h, p = xr.shape
@@ -74,8 +92,9 @@ def check_args(xr, dtr, dA_cs, Br, Cr):
         if t.dtype != torch.float32:
             raise ValueError(f"all inputs must be float32; got "
                              f"{[str(x.dtype) for x in tensors]}")
-        if t.device != xr.device or t.device.type != "cuda":
-            raise ValueError(f"all tensors must be on one CUDA device; got "
+        if t.device != xr.device or t.device.type != device:
+            raise ValueError(f"the CUDA kernel's tensors must be on one "
+                             f"{device} device; got "
                              f"{[str(x.device) for x in tensors]}")
         # the kernel copies 16-byte pieces of rows that are 16-byte
         # aligned and single floats otherwise: 4 bytes is all it needs
@@ -106,6 +125,7 @@ def ssd_intra_chunk(xr, dtr, dA_cs, Br, Cr):
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed (code {rc})")
     launches += 1
     launches_by_len[l] = launches_by_len.get(l, 0) + 1
+    report("ssd_intra_chunk", cost, xr, dtr, dA_cs, Br, Cr)
     return y, states
 
 

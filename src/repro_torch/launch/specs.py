@@ -1,16 +1,22 @@
 """input_specs(): abstract stand-ins + shardings per (arch x shape).
 
 Port of ``repro.launch.specs``.  The abstract args are meta tensors
-(``model_zoo.abstract_state``, ``abstract_decode_state``) and the
-batch's ``ArraySpec``s, where the reference has ``ShapeDtypeStruct``s;
-the shardings are ``launch.sharding.NamedSharding``s, whose specs are the
-reference's ``PartitionSpec``s entry for entry.  No device allocation
-happens here.
+where the reference has ``ShapeDtypeStruct``s: the train state
+(``model_zoo.abstract_state``), the batch (``batch_spec``'s shapes and
+dtypes), and for prefill and decode the parameters in the serving layout
+that ``cell_fn``'s functions read (``abstract_serving_params``) and the
+decode state (``abstract_decode_state``), so that ``cell_fn(cfg,
+shape)(*input_specs(cfg, shape, rules)["args"])`` runs on them.  The
+shardings are ``launch.sharding.NamedSharding``s, whose specs are the
+reference's ``PartitionSpec``s entry for entry (the parameters' in the
+reference's stacked layout).  No device allocation happens here.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.sharding import (NamedSharding, ShardingRules,
@@ -18,7 +24,6 @@ from repro_torch.launch.sharding import (NamedSharding, ShardingRules,
                                          zero1_shardings)
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models import transformer as T
-from repro_torch.models.schema import abstract_params
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -67,6 +72,12 @@ def metrics_shardings(rules: ShardingRules):
     return {k: rep for k in ("loss", "nll", "aux", "grad_norm")}
 
 
+def abstract_batch(cfg: ModelConfig, shape: ShapeConfig):
+    """``batch_spec``'s inputs as meta tensors."""
+    return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in zoo.batch_spec(cfg, shape).items()}
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,
                 rules: ShardingRules) -> Dict[str, Any]:
     """Everything a launcher needs to run a cell at scale.
@@ -75,15 +86,15 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
     """
     rep = NamedSharding(rules.mesh, ())
     if shape.kind == "train":
-        args = (zoo.abstract_state(cfg), zoo.batch_spec(cfg, shape))
+        args = (zoo.abstract_state(cfg), abstract_batch(cfg, shape))
         in_sh = (state_shardings(cfg, rules),
                  batch_shardings(cfg, shape, rules))
         out_sh = (state_shardings(cfg, rules), metrics_shardings(rules))
         return dict(kind="train", args=args, in_shardings=in_sh,
                     out_shardings=out_sh)
-    params = abstract_params(T.model_schema(cfg), cfg.param_dtype)
+    params = zoo.abstract_serving_params(cfg)
     if shape.kind == "prefill":
-        args = (params, zoo.batch_spec(cfg, shape))
+        args = (params, abstract_batch(cfg, shape))
         in_sh = (params_shardings(cfg, rules),
                  batch_shardings(cfg, shape, rules))
         out_sh = (rep, decode_state_shardings(cfg, shape, rules))
@@ -91,7 +102,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
                     out_shardings=out_sh)
     if shape.kind == "decode":
         args = (params, zoo.abstract_decode_state(cfg, shape),
-                zoo.batch_spec(cfg, shape))
+                abstract_batch(cfg, shape))
         dsh = decode_state_shardings(cfg, shape, rules)
         in_sh = (params_shardings(cfg, rules), dsh,
                  batch_shardings(cfg, shape, rules))
@@ -102,13 +113,20 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def cell_fn(cfg: ModelConfig, shape: ShapeConfig):
-    """The function a cell runs.  (The reference's ``unroll`` flag
-    straightens its scans for XLA's cost analysis; the port's layers and
-    micro-batches are Python loops already.)"""
+    """The function a cell runs, with the reference's signature:
+    ``train_step(state, batch)``, ``prefill(params, batch)`` or
+    ``serve_step(params, state, batch)`` with ``batch = {"tokens",
+    "active"}``.  (The reference's ``unroll`` flag straightens its scans
+    for XLA's cost analysis; the port's layers and micro-batches are
+    Python loops already.)"""
     if shape.kind == "train":
         return zoo.make_train_step(cfg)
     if shape.kind == "prefill":
         return zoo.make_prefill(cfg, shape)
     if shape.kind == "decode":
-        return zoo.make_serve_step(cfg, shape)
+        step = zoo.make_serve_step(cfg, shape)
+
+        def serve_step(params, state, batch):
+            return step(params, state, batch["tokens"], batch.get("active"))
+        return serve_step
     raise ValueError(shape.kind)

@@ -104,8 +104,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     ``attn_every`` dicts; ``enc_layers`` and ``dec_layers`` (enc_dec)
     lists of ``cfg.enc_layers`` dicts (``attn``, ``mlp``) and
     ``cfg.dec_layers`` dicts (``self_attn``, ``cross_attn``, ``mlp``).
-    The dicts hold views of the stacked tensors."""
-    return _layout(_convert(tree, cfg, resolve_device(device)), cfg)
+    The dicts hold views of the stacked tensors.  ``device=None`` keeps
+    each tensor where it is (meta tensors stay meta)."""
+    dev = None if device is None else resolve_device(device)
+    return _layout(_convert(tree, cfg, dev), cfg)
 
 
 def compute_view(params, cfg: ModelConfig):

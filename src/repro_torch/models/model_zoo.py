@@ -147,6 +147,14 @@ def init_serving_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     return params_from_numpy(tree, cfg, dev)
 
 
+def abstract_serving_params(cfg: ModelConfig):
+    """``init_serving_params``' leaves as meta tensors (shape and dtype,
+    no storage): the layout ``make_prefill`` and ``make_serve_step``
+    read, from the same schema and ``convert`` rules."""
+    tree = abstract_params(T.model_schema(cfg), cfg.compute_dtype)
+    return params_from_numpy(tree, cfg, device=None)
+
+
 def num_params(cfg: ModelConfig) -> int:
     return count_params(T.model_schema(cfg))
 

@@ -13,7 +13,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_profile.py",
     ROOT / "benchmarks" / "train_readings.py",
-    ROOT / "benchmarks" / "tp_readings.py"]
+    ROOT / "benchmarks" / "tp_readings.py",
+    ROOT / "benchmarks" / "analysis_bounds.py"]
 
 
 def test_import_loads_no_jax():
@@ -30,7 +31,9 @@ def test_import_loads_no_jax():
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
             "repro_torch.core.elastic, repro_torch.launch.train, "
             "repro_torch.launch.dist, repro_torch.launch.mesh, "
-            "repro_torch.launch.sharding, repro_torch.launch.specs\n"
+            "repro_torch.launch.sharding, repro_torch.launch.specs, "
+            "repro_torch.launch.hlo_analysis, repro_torch.launch.dryrun, "
+            "repro_torch.launch.roofline\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.') or m == 'ml_dtypes')\n"

@@ -17,6 +17,7 @@ in ``tests/test_torch_multirank.py``.
 
 import jax
 import pytest
+import torch
 
 from repro.configs import ARCHS as JARCHS
 from repro.configs.base import SHAPES as JSHAPES
@@ -36,6 +37,7 @@ from repro_torch.launch.specs import (_zero1_extend, batch_shardings,
                                       state_shardings)
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models import transformer as T
+from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.schema import _leaves
 from repro_torch.optim import adamw
 
@@ -272,7 +274,10 @@ def test_placements_follow_the_mesh_order():
 def test_input_specs_equal_the_references(name, cell):
     """``input_specs`` on a real (4, 2) host mesh: the abstract args'
     shapes and dtypes and every in / out sharding's spec are the
-    reference's, leaf for leaf; ``cell_fn`` gives the cell's function."""
+    reference's, leaf for leaf (prefill's and decode's parameters in the
+    serving layout ``cell_fn`` reads: the reference's stacked leaves
+    through ``convert.params_from_numpy``); ``cell_fn`` gives the cell's
+    function."""
     from repro_torch.launch.specs import cell_fn, input_specs
     cfg, jcfg = ARCHS[name], JARCHS[name]
     got = input_specs(cfg, SHAPES[cell], ShardingRules(
@@ -298,8 +303,18 @@ def test_input_specs_equal_the_references(name, cell):
         g, w = flat(got[key]), jflat(want[key])
         assert len(g) == len(w) > 1
         assert [s.spec for s in g] == [_jax_spec(s.spec) for s in w], key
-    g, w = flat(got["args"]), jax.tree.leaves(want["args"])
-    assert len(g) == len(w) > 1
+    got_args, want_args = got["args"], want["args"]
+    if cell != "train_4k":
+        ref_params = params_from_numpy(jax.tree.map(
+            lambda s: torch.empty(s.shape, device="meta"), want_args[0]),
+            cfg, device=None)
+        g, w = flat(got_args[0]), flat(ref_params)
+        assert len(g) == len(w) > 1
+        assert [(tuple(a.shape), a.dtype) for a in g] == \
+            [(tuple(a.shape), a.dtype) for a in w]
+        got_args, want_args = got_args[1:], want_args[1:]
+    g, w = flat(got_args), jax.tree.leaves(want_args)
+    assert len(g) == len(w) >= 1
     assert [tuple(a.shape) for a in g] == [tuple(a.shape) for a in w]
     assert [str(a.dtype).replace("torch.", "") for a in g] == \
         [str(a.dtype) for a in w]
