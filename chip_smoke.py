@@ -129,15 +129,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    launches = 54 x its 2 bulk prefills) beside a 40-token one;
 15. kernel vs plain: one 16384-token ``make_prefill`` of granite-8b and
    of zamba2-2.7b with ``impl="kernel"`` and ``impl="ref"`` from the
-   same tokens, last-position logits in bf16 (full depth) and float32
-   (granite-8b at 12 layers: 33 GB of float32 weights at 36) within a
-   stated tolerance;
+   same tokens, last-position logits in bf16 and float32 (zamba2-2.7b
+   at full depth, granite-8b at 12 layers: 33 GB of float32 weights at
+   36) within a stated tolerance;
 16. reduced granite-8b in float32 with a bucket of 8704: the dense engine
    (flash kernel) and the paged engine give the same greedy streams for
    a prompt of 8300 tokens and two short ones;
 17. work-unit migration on the card, after phase 7, for granite-8b,
-   zamba2-2.7b and qwen2-moe-a2.7b at full width and depth (phase 5's
-   engine and requests):
+   zamba2-2.7b and qwen2-moe-a2.7b at full width and a third of their
+   depth (12, 18 and 8 layers; phase 5's engine and requests):
    run A serves them unmigrated; run B, two decode windows in, packs 3
    slots into a second engine, preempts 2 and resumes them in place,
    checkpoints the rest and replays the checkpoint in a third engine;
@@ -232,9 +232,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    then ``python -m repro_torch.launch.train --arch granite-8b --reduced
    --steps 4`` as a subprocess;
 21. the enc_dec and vlm families, after phase 20 (``frontend_phase``):
-   seamless-m4t-medium (1.96 GB) at full width and depth and
-   internvl2-26b at full width and 12 of its 48 layers (the peak while
-   its weights are drawn logged), random
+   seamless-m4t-medium at full width and 6 + 6 of its 12 + 12 layers
+   and internvl2-26b at full width and 6 of its 48 layers (the peak
+   while its weights are drawn logged), random
    bf16 weights from seed 0, each launch count set to 0 just before each
    run and read just after.  For each: ``ServingEngine(cache_mode=
    "dense")``, 8 lanes, max_seq 512, serves 8 requests of 40-300 prompt
@@ -243,13 +243,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    steady 8-step window with zero host syncs under ``set_sync_debug_mode
    ("error")``, its decode tok/s beside the weight-read bound;
    ``cache_mode="paged"`` raises ``ValueError``; one 8704-position
-   ``make_prefill`` (seamless: frames and 8704 tokens, flash launches 24,
-   12 encoder layers non-causal and 12 decoder self attentions causal;
-   internvl2: 256 patch embeddings and 8448 tokens, flash launches 12)
+   ``make_prefill`` (seamless: frames and 8704 tokens, flash launches 12,
+   6 encoder layers non-causal and 6 decoder self attentions causal;
+   internvl2: 256 patch embeddings and 8448 tokens, flash launches 6)
    with the kernel, again for its warm wall time, and with
    ``impl="ref"``: the last logits in bf16 within ``BF16_LONG_TOL``, and
-   in float32 (seamless at full depth, 3.9 GB; internvl2 at 4 layers,
-   10.9 GB) within ``F32_LONG_TOL`` with the same greedy token.
+   in float32 (seamless at 6 + 6 layers; internvl2 at 4 layers, 10.9
+   GB) within ``F32_LONG_TOL`` with the same greedy token.
    seamless-m4t-medium also trains 3 steps at 4 + 4 layers (train_4k
    sequences, the global batch cut to 8 in 4 micro-batches of 2; no
    kernel: 4096 < 8192; s/step, tokens/s, peak GiB, finite losses) and
@@ -310,8 +310,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    x 2 all-gathers a step, asserted), losses within 8e-3 of a one-device
    run of the same cut made before the spawn; for (b)-(i) each rank's
    parameter GiB against the whole model's, the model-axis all-reduces
-   and routing all-gathers a step, s/step and peak GiB by rank.  The
-   spawned group is killed, and the phase fails naming itself, past
+   and routing all-gathers a step, s/step and peak GiB by rank; (j)
+   serving over (1, 2): granite-8b at full width and 2 layers in bf16,
+   a prefill of 2 lanes x 9216 tokens through ``make_prefill(mesh=)``
+   (the flash kernel on each rank's 16 of 32 heads: 2 launches a rank,
+   added to the flash row), then 16 ``make_serve_step(mesh=)`` steps
+   against an 18432-position cache in the reference's layout (model
+   rank 0 holds the prompt's 9216 positions of every KV head, the new
+   tokens land on rank 1), fed the tokens of a one-device run of the
+   same cut made before the spawn: every step's logits the same on both
+   ranks and within 8 bf16 ulps of the largest one-device logit, the
+   greedy token equal wherever the top-2 gap allows, the all-reduces and
+   all-gathers of the prefill and of each step in closed form (5 and 5),
+   each rank's parameter and cache GiB against the whole's; the flash
+   kernel held against its plain version at a rank's prefill shape
+   before the spawn, its ms beside SDPA's and the bound.  The spawned
+   group is killed, and the phase fails naming itself, past
    ``TP_SPAWN_LIMIT_S``.
 24. the cost analysis against the card, after phase 23
    (``analysis_phase``): (a) one train step of phase 20's dense cell
@@ -329,7 +343,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (h) traced as rank 0 of a fake (1, 2) process group: the all-reduces
    that ``launch.sharding`` counts equal phase 23's counts a step, and
    the trace's all-reduces over the model group are those plus
-   ``DataParallel.norm``'s.
+   ``DataParallel.norm``'s; and (j)'s prefill and one decode step
+   traced on rank 0's blocks: their all-reduces and all-gathers equal
+   those the ranks counted on the card.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -446,15 +462,18 @@ PROMPT_LENS = [40, 63, 100, 200, 267, 450, 600, 700]
 # Work-unit migration (phase 17): the main path's 8 requests, two decode
 # windows in, then slots packed into a second engine of the same geometry
 # and slots preempted and resumed in place.  The paths: (arch, attention
-# layers per decode step, Mamba2 layers per chunk prefill).
-MIGRATE_PATHS = (("granite-8b", 36, 0), ("zamba2-2.7b", 9, 54),
-                 (MOE_ARCH, MOE_ATTN_LAYERS, 0))
+# layers per decode step, Mamba2 layers per chunk prefill), at full width
+# and a third of the depth (12, 18 and 8 layers; full depth until PR 35,
+# cut for time: the phase holds streams, host syncs and columns, which
+# depth does not change).
+MIGRATE_PATHS = (("granite-8b", 12, 0), ("zamba2-2.7b", 3, 18),
+                 (MOE_ARCH, 8, 0))
 MIGRATE_PACK, MIGRATE_PREEMPT = [1, 4, 6], [0, 3]
 # The first decode step after an install into another geometry (a dense
 # cache, 32-position blocks, 4 lanes after a resize) against the same
 # step in the source geometry, on bit-identical caches: the step's own
 # arithmetic differs (the dense cache's plain attention against the paged
-# kernel, another page walk, cuBLAS at M = 4), and 36 layers of random
+# kernel, another page walk, cuBLAS at M = 4), and layers of random
 # bf16 weights amplify that as in the kernel-vs-plain step
 # (BF16_STEP_TOL), so the same limit holds here; argmax agreement logged.
 MIGRATE_LOGITS_TOL = BF16_STEP_TOL
@@ -586,8 +605,8 @@ HYBRID_PROMPTS = [16400, 40]
 # (model, prompts, batch size, prompts bulk-prefilled at LONG_S)
 LONG_PATHS = (("granite-8b", LONG_PROMPTS, 4, 3),
               ("zamba2-2.7b", HYBRID_PROMPTS, 2, 1))
-# One full-depth 16384-token prefill of granite-8b or zamba2-2.7b, kernel
-# vs plain (``blockwise_attention``'s plain form), last-position logits:
+# One 16384-token prefill of granite-8b or zamba2-2.7b, kernel vs plain
+# (``blockwise_attention``'s plain form), last-position logits:
 # relative L2 and whether the greedy token agrees.  bf16: the plain form
 # rounds the softmax weights to bf16 before p.v (as the reference does)
 # and the kernel keeps them in float32, so every attention output differs
@@ -598,10 +617,11 @@ LONG_PATHS = (("granite-8b", LONG_PROMPTS, 4, 3),
 # summation only (~1e-7 relative per attention output).
 BF16_LONG_TOL = dict(rel_l2=0.1, argmax_agree=0.0)
 F32_LONG_TOL = dict(rel_l2=1e-4, argmax_agree=1.0)
-# The float32 repeat's depth where it is cut: granite-8b's 36 float32
-# layers are 33 GB to draw; 12 hold the same kernel against the same
-# plain form (the bf16 check keeps the full depth).
-LONG_F32_LAYERS = {"granite-8b": 12}
+# The parity checks' depth where it is cut: granite-8b's 36 float32
+# layers are 33 GB to draw, and its bf16 plain form took 14.9 s at 36
+# layers (PR 35's first run; cut to the same 12 since); 12 hold the same
+# kernel against the same plain form.  zamba2-2.7b's stay whole.
+LONG_PARITY_LAYERS = {"granite-8b": 12}
 
 
 def log(msg):
@@ -2055,6 +2075,14 @@ def install_and_repack(units, engine, cols, what):
     return again, (t1 - t0) * 1e3 / n, (t2 - t1) * 1e3 / n
 
 
+def migrate_cfg(arch):
+    """Phase 17's model: full width, ``MIGRATE_PATHS``' depth."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    attn, mamba = {a: (n, m) for a, n, m in MIGRATE_PATHS}[arch]
+    return cfg.with_(num_layers=mamba if cfg.family == "hybrid" else attn)
+
+
 def migration_path(arch, attn_layers, mamba_layers, dev):
     """Phase 17, same geometry: run A serves the main path's 8 requests
     unmigrated; run B, two decode windows in, packs ``MIGRATE_PACK``
@@ -2072,7 +2100,7 @@ def migration_path(arch, attn_layers, mamba_layers, dev):
     from repro_torch.kernels.ssd import kernel as ssd
     from repro_torch.models import model_zoo as zoo
     from repro_torch.serving.engine import ServingEngine
-    cfg = get_config(arch)
+    cfg = migrate_cfg(arch)
     params = zoo.init_serving_params(cfg, seed=0, device=dev)
 
     def engine():
@@ -2247,7 +2275,7 @@ def migration_geometry(params, want, dev):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import ServingEngine
-    cfg = get_config("granite-8b")
+    cfg = migrate_cfg("granite-8b")
     geom = dict(batch_size=8, max_seq=1024, block_size=16,
                 cache_mode="paged", device=dev)
     src = ServingEngine(cfg, params, **geom)
@@ -2338,7 +2366,7 @@ def migration_phase(dev):
             numbers["geometry"] = migration_geometry(params, want, dev)
         if get_config(arch).family == "moe":
             numbers[arch]["all slots"] = migrate_all_slots(
-                get_config(arch), params, want, dev)
+                migrate_cfg(arch), params, want, dev)
         del params
         torch.cuda.empty_cache()
     return by_path, numbers
@@ -3560,14 +3588,16 @@ def training_phase(dev, flush):
 
 # ------------------------------------------- phase 21: enc_dec and vlm
 # Phase 21: seamless-m4t-medium (enc_dec) and internvl2-26b (vlm) at full
-# width and depth, random bf16 weights from seed 0.  Neither family has a
-# bulk prefill or a paged cache (as in the reference), so the dense engine
+# width, random bf16 weights from seed 0.  Neither family has a bulk
+# prefill or a paged cache (as in the reference), so the dense engine
 # feeds every prompt token through a decode step, text only.  (model,
-# flash launches of one FRONTEND_S-position prefill: 12 encoder layers
-# non-causal and 12 decoder self attentions causal; 48 layers causal.)
-# (model, layers: None keeps the published depth).  internvl2-26b's 48
-# layers (39.7 GB) are cut to 12: flash launches = its layers.
-FRONTEND_PATHS = (("seamless-m4t-medium", None), ("internvl2-26b", 12))
+# layers a stack: None keeps the published depth.)  Cut for the script's
+# time (depth is not what the phase holds): seamless-m4t-medium's 12 + 12
+# layers to 6 + 6 (PR 35; flash launches of one FRONTEND_S-position
+# prefill: 6 encoder layers non-causal, 6 decoder self attentions
+# causal), internvl2-26b's 48 layers (39.7 GB) to 6 (12 until PR 35):
+# flash launches = its layers.
+FRONTEND_PATHS = (("seamless-m4t-medium", 6), ("internvl2-26b", 6))
 FRONTEND_LENS, FRONTEND_NEW = [40, 63, 100, 150, 200, 240, 270, 300], 16
 FRONTEND_MAX_SEQ = 512
 # One long prefill of 8704 positions (17 blocks of 512, past the 8192
@@ -3594,8 +3624,11 @@ def frontend_setup(arch, layers, dev):
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     if dev.type == "cuda":
-        return (cfg if layers is None else cfg.with_(num_layers=layers),
-                FRONTEND_S)
+        if layers is not None:
+            cfg = (cfg.with_(enc_layers=layers, dec_layers=layers)
+                   if cfg.family == "enc_dec" else
+                   cfg.with_(num_layers=layers))
+        return cfg, FRONTEND_S
     return cfg.reduced().with_(attn_impl="blockwise", flash_block_q=32,
                                flash_block_kv=32), 64
 
@@ -4094,6 +4127,9 @@ def dp_phase(dev, twin_losses):
 # positions from the count tables all-gathered over the data ranks; a
 # rank holds the whole model and the gradient is all-reduced over gloo),
 # beside a one-device run of the same cut made first.
+# (j) serving over (1, 2): granite-8b's prefill and decode steps at full
+# width and 2 layers (the SERVE_* constants below), beside a one-device
+# run made first.
 TP_RANKS, TP_STEPS = 2, 3
 SPMD_GRID, SPMD_ODF, SPMD_ITERS = 16384, 4, 20
 TP_BF16_LOSS = 8e-3         # tests/test_multidevice.py:80
@@ -4157,6 +4193,220 @@ def ssd_tp_heads_check(dev) -> dict:
     del flush_buf
     release(dev)
     return out
+
+
+# (j): granite-8b at full width and SERVE_LAYERS layers in bf16, served
+# over a (1, 2) mesh: a prefill of SERVE_LANES lanes x SERVE_PROMPT tokens
+# (the flash kernel on each rank's 16 of 32 heads), then SERVE_STEPS
+# decode steps against a SERVE_CACHE-position cache whose first
+# SERVE_PROMPT positions hold that prefill: model rank 0 holds the prompt,
+# the new tokens land on rank 1
+SERVE_ARCH, SERVE_LAYERS, SERVE_LANES = "granite-8b", 2, 2
+SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 9216, 18432, 16
+SERVE_BF16_ULPS = 8          # tests/test_torch_engine.py's bf16 rule
+
+
+def serve_cfg(dev):
+    """(j)'s model, prefill and decode shapes and steps: full width on the
+    card, reduced on the CPU (32 and 64 positions, 4 steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    cfg = get_config(SERVE_ARCH)
+    if dev.type == "cuda":
+        cfg, (p, s, n) = (cfg.with_(num_layers=SERVE_LAYERS),
+                          (SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS))
+    else:
+        cfg, (p, s, n) = cfg.reduced(), (32, 64, 4)
+    return (cfg, ShapeConfig("prefill", p, SERVE_LANES, "prefill"),
+            ShapeConfig("decode", s, SERVE_LANES, "decode"), n)
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def serve_decode_state(cfg, dshape, cache, n: int, dev):
+    """A whole ``dshape`` decode state whose first ``n`` positions hold a
+    prefill's whole ``cache``, ``cache_len`` at ``n``."""
+    from repro_torch.models import model_zoo as zoo
+    state = zoo.init_decode_state(cfg, dshape, fill_len=n, device=dev)
+    for k, v in cache.items():
+        state.cache[k][:, :, :n].copy_(v)
+    return state
+
+
+def serve_one_device(dev, path) -> dict:
+    """(j)'s one-device run, made before the spawn: the prefill, then
+    greedy decode steps; the prompt, the tokens fed and every step's
+    last logits saved to ``path`` for the ranks (which are fed the same
+    tokens); the flash kernel's launches in the prefill (counts set to 0
+    just before, read just after), seconds, peak GiB."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    release(dev)
+    cfg, pshape, dshape, steps = serve_cfg(dev)
+    params = zoo.init_serving_params(cfg, seed=0, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_LANES, pshape.seq_len),
+                           generator=torch.Generator().manual_seed(23),
+                           dtype=torch.int32)
+    prefill = zoo.make_prefill(cfg, pshape)
+    sync(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    logits, pstate = prefill(params, {"tokens": prompt.to(dev)})
+    sync(dev)
+    prefill_s, launches = time.perf_counter() - t0, read_launches()
+    state = serve_decode_state(cfg, dshape, pstate.cache, pshape.seq_len,
+                               dev)
+    del pstate
+    step = zoo.make_serve_step(cfg, dshape)
+    out, fed, times = [logits[:, -1].float().cpu()], [], []
+    for _ in range(steps):
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        fed.append(tok.cpu())
+        t0 = time.perf_counter()
+        logits, state = step(params, state, tok)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        out.append(logits[:, -1].float().cpu())
+    torch.save({"prompt": prompt, "fed": fed, "logits": out}, path)
+    row = {"prefill_s": prefill_s, "step_s": times,
+           "flash_launches": launches["flash_attention"],
+           "peak_gib": peak_gib()}
+    del params, state, logits
+    release(dev)
+    return row
+
+
+def serve_rank(dev, ref_path, out_path) -> dict:
+    """(j) on one rank: the rank's blocks of the same parameters
+    (``init_serving_params(mesh=...)``), the prefill over the (1, 2) mesh
+    on the global prompt, the decode state built from its blocks (the
+    prefill's cache gathered whole into the first positions of the
+    longer cache, then this rank's block), and the steps fed the
+    one-device run's tokens; every logits saved to ``out_path``.
+    Returns seconds (``wall_s``: the whole of it), flash launches, the
+    all-reduces and all-gathers of the prefill and of each step
+    (``launch.sharding``'s counts), the rank's parameter and cache GiB
+    against the whole's, peak GiB."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_zoo as zoo
+    t_start = time.perf_counter()
+    release(dev)
+    cfg, pshape, dshape, _ = serve_cfg(dev)
+    mesh = make_mesh((1, dist.get_world_size()), ("data", "model"),
+                     device=dev)
+    params = zoo.init_serving_params(cfg, seed=0, device=dev, mesh=mesh)
+    ref = torch.load(ref_path)
+
+    def counted(fn, *args):
+        sync(dev)
+        dist.barrier()
+        before = sharding.all_reduces, sharding.all_gathers
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync(dev)
+        return out, (sharding.all_reduces - before[0],
+                     sharding.all_gathers - before[1]), \
+            time.perf_counter() - t0
+
+    zero_launches()
+    (logits, pstate), prefill_colls, prefill_s = counted(
+        zoo.make_prefill(cfg, pshape, mesh=mesh), params,
+        {"tokens": ref["prompt"].to(dev)})
+    launches = read_launches()["flash_attention"]
+    whole = zoo.ServingMesh(cfg, pshape, mesh).gather_state(pstate)
+    state = zoo.ServingMesh(cfg, dshape, mesh).place_state(
+        serve_decode_state(cfg, dshape, whole.cache, pshape.seq_len, dev))
+    del whole, pstate
+    step = zoo.make_serve_step(cfg, dshape, mesh=mesh)
+    out, colls, times = [logits[:, -1].float().cpu()], [], []
+    for tok in ref["fed"]:
+        (logits, state), c, s = counted(step, params, state, tok.to(dev))
+        out.append(logits[:, -1].float().cpu())
+        colls.append(c)
+        times.append(s)
+    torch.save(out, out_path)
+    whole_cache = tree_bytes(zoo.abstract_decode_state(cfg, dshape).cache)
+    row = {"prefill_s": prefill_s, "step_s": times,
+           "flash_launches": launches, "prefill_collectives": prefill_colls,
+           "step_collectives": colls,
+           "param_gib": tree_bytes(params) / 2**30,
+           "whole_param_gib": tree_bytes(zoo.abstract_serving_params(cfg))
+           / 2**30,
+           "cache_gib": tree_bytes(state.cache) / 2**30,
+           "whole_cache_gib": whole_cache / 2**30, "peak_gib": peak_gib()}
+    del params, state, logits
+    release(dev)
+    row["wall_s"] = time.perf_counter() - t_start
+    return row
+
+
+def serve_collectives(cfg) -> dict:
+    """(j)'s all-reduces and all-gathers in closed form, a prefill's and a
+    step's, on (1, m), m > 1, the KV heads split: 1 + 2L all-reduces (the
+    embedding; each layer's attention and MLP g), and a step's L more
+    (each layer's split softmax output summed over the ranks); 2L
+    all-gathers (a prefill's k and v to the cache's positions; a step's
+    q/k/v, then each rank's largest logit and sum) + 1 (the logits'
+    vocab blocks)."""
+    L_ = cfg.num_layers
+    return {"prefill": (1 + 2 * L_, 2 * L_ + 1),
+            "step": (1 + 3 * L_, 2 * L_ + 1)}
+
+
+def flash_tp_heads_check(dev) -> dict:
+    """(j)'s kernel check, before the spawn: the flash kernel at one model
+    rank's prefill shape (SERVE_LANES lanes, SERVE_PROMPT tokens, 16 of
+    32 heads, 4 of 8 KV heads, D 128, causal, bf16) against its plain
+    version, held as phase 13 holds it; its ms, the plain version's and
+    SDPA's (KV repeated outside the timing), L2 flushed, beside the
+    bound.  These launches are not on a path's count."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_ref,
+                                                     kernel)
+    cfg, pshape, _, _ = serve_cfg(dev)
+    B, S = SERVE_LANES, pshape.seq_len
+    H, KV, D = cfg.num_heads // TP_RANKS, cfg.num_kv_heads // TP_RANKS, \
+        cfg.head_dim
+    g = torch.Generator(dev).manual_seed(9)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=dev).bfloat16()
+               .transpose(1, 2) for n in (H, KV, KV))
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    out = kernel.flash_attention(q, k, v, causal=True)
+    ref = flash_attention_ref(q, k, v, causal=True)
+    e, rel = assert_scaled(out, ref, FLASH_FULL_TOL, FLASH_FULL_REL_L2,
+                           f"flash at a rank's prefill (B {B}, S {S}, H {H}"
+                           f", KV {KV}, D {D}) bf16 kernel vs plain")
+    kr, vr = (t.repeat_interleave(H // KV, 1) for t in (k, v))
+    flops, nbytes = kernel.cost(q, k, v, True)
+    row = {"B": B, "S": S, "H": H, "KV": KV, "D": D, "max_abs_err": e,
+           "rel_l2": rel,
+           "ms": cuda_ms(lambda: kernel.flash_attention(q, k, v,
+                                                        causal=True),
+                         5, flush_buf.zero_),
+           "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v,
+                                                           causal=True),
+                               2, flush_buf.zero_),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q, kr, vr, is_causal=True), 10, flush_buf.zero_),
+           "bound_ms": max(flops / BF16_FLOPS,
+                           nbytes / HBM_BYTES_PER_S) * 1e3}
+    log(f"  flash at a rank's prefill: {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.2f}, SDPA {row['library_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f})")
+    del q, k, v, out, ref, kr, vr, flush_buf
+    release(dev)
+    return row
 
 
 def spmd_stencil_rank(dev) -> dict:
@@ -4256,8 +4506,9 @@ def tp_train_rank(cfg, shape, dev, world, model_par=None) -> dict:
 
 
 def tp_rank(rank, world, dev, zero1, out_path):
-    """A rank of phase 23: (a)-(i) in turn; every rank's readings
-    gathered to rank 0, which writes them to ``out_path`` as JSON."""
+    """A rank of phase 23: (a)-(j) in turn; every rank's readings
+    gathered to rank 0, which writes them to ``out_path`` as JSON ((j)'s
+    logits beside it)."""
     import torch.distributed as dist
     out = {"stencil": spmd_stencil_rank(dev)}
     cfg, shape = tp_cfg(DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS, dev,
@@ -4271,6 +4522,9 @@ def tp_rank(rank, world, dev, zero1, out_path):
     for key, arch, layers, _, kw in ONE_DEVICE_DATA:
         cfg, shape = tp_cfg(arch, layers, dev, **kw)
         out[key] = tp_train_rank(cfg, shape, dev, world, model_par=1)
+    tmp = Path(out_path).parent
+    out["serve"] = serve_rank(dev, tmp / "serve_ref.pt",
+                              tmp / f"serve-{rank}.pt")
     every = [None] * world
     dist.all_gather_object(every, out)
     if rank == 0:
@@ -4314,17 +4568,36 @@ def tp_phase(dev, zero1, twin_losses):
         log(f"  losses {ones[key]['losses']}, s/step {spread(times, 1.0)}, "
             f"peak {peak:.2f} GiB, SSD launches {ones[key]['launches']}")
     ssd_heads = ssd_tp_heads_check(dev) if dev.type == "cuda" else {}
+    t_flash = time.perf_counter()
+    flash_heads = flash_tp_heads_check(dev) if dev.type == "cuda" else {}
+    t_flash = time.perf_counter() - t_flash
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         with tempfile.TemporaryDirectory() as tmp:
             out_path = Path(tmp) / "tp.json"
+            cfg, pshape, dshape, steps = serve_cfg(dev)
+            log(f"[tp] (j)'s one-device run first: {cfg.name}, "
+                f"{cfg.num_layers} layers, {cfg.compute_dtype}, prefill "
+                f"{SERVE_LANES} x {pshape.seq_len}, {steps} steps against "
+                f"{dshape.seq_len} positions")
+            t_one = time.perf_counter()
+            serve_one = serve_one_device(dev, Path(tmp) / "serve_ref.pt")
+            t_one = time.perf_counter() - t_one
+            log(f"  prefill {serve_one['prefill_s']:.3f} s (flash launches "
+                f"{serve_one['flash_launches']}), s/step "
+                f"{spread(serve_one['step_s'], 1.0)}, peak "
+                f"{serve_one['peak_gib']:.2f} GiB")
             t0 = time.perf_counter()
             launch_dist.spawn(tp_rank, TP_RANKS, zero1, str(out_path),
                               device=dev.type, backend="gloo",
                               timeout=TP_SPAWN_LIMIT_S, what="phase 23")
             wall = time.perf_counter() - t0
             ranks = json.loads(out_path.read_text())
+            serve = serve_check(cfg, torch_load(Path(tmp) / "serve_ref.pt"),
+                                [torch_load(Path(tmp) / f"serve-{r}.pt")
+                                 for r in range(TP_RANKS)],
+                                [r["serve"] for r in ranks], dev)
     finally:
         if alloc_conf is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
@@ -4346,7 +4619,9 @@ def tp_phase(dev, zero1, twin_losses):
     assert all(s["launches"] == want_launches for s in st), st
     numbers = {"stencil": st, "wall_s": wall, "one_device_moe": {
         "losses": one_losses, "step_s": one_times, "peak_gib": one_peak},
-        "one_device": ones, "ssd_at_rank_heads": ssd_heads}
+        "one_device": ones, "ssd_at_rank_heads": ssd_heads,
+        "flash_at_rank_heads": flash_heads,
+        "serve": dict(serve, one_device=serve_one)}
     ssd_launches = {}
     for key, what, want in (
             ("dense", f"(b) {DENSE_TRAIN_ARCH} tensor parallel", twin_losses),
@@ -4407,7 +4682,74 @@ def tp_phase(dev, zero1, twin_losses):
                        for r in rs), rs
         numbers[key] = {"ranks": rs, "max_loss_diff": max(diffs)}
     log(f"  {wall:.1f} s with the spawn")
+    serve_s = max(r["serve"]["wall_s"] for r in ranks)
+    numbers["serve"]["wall_s"] = {"one_device": t_one, "flash_check": t_flash,
+                                  "ranks": serve_s}
+    log(f"[time] phase 23 (j): {t_one + t_flash + serve_s:.1f} s (the "
+        f"one-device run {t_one:.1f}, the flash check {t_flash:.1f}, the "
+        f"ranks' serve {serve_s:.1f} of the spawn's {wall:.1f})")
     return launches, ssd_launches, numbers
+
+
+def torch_load(path):
+    import torch
+    return torch.load(path, weights_only=False)
+
+
+def serve_check(cfg, ref, got, ranks, dev) -> dict:
+    """(j)'s readings against the one-device run: every rank's logits the
+    same (replicated), each step's within SERVE_BF16_ULPS bf16 ulps of
+    the largest one-device logit and the greedy token equal wherever the
+    one-device top-2 gap exceeds twice that; flash launches = layers a
+    rank on the card; the collectives of the prefill and of every step
+    as ``serve_collectives`` counts them; each rank under 51% of the
+    parameter bytes (the norms are replicated) and half the cache's."""
+    V = cfg.vocab_size
+    for r in got[1:]:
+        assert all(bool((a == b).all()) for a, b in zip(r, got[0])), \
+            "(j): the ranks' logits differ"
+    worst, clear, agree = 0.0, 0, 0
+    for i, (want, mine) in enumerate(zip(ref["logits"], got[0])):
+        want, mine = want[..., :V], mine[..., :V]
+        tol = SERVE_BF16_ULPS * 2.0 ** -8 * float(want.abs().max())
+        err = float((mine - want).abs().max())
+        worst = max(worst, err / tol)
+        assert err <= tol, ("(j) logits", i, err, tol)
+        top2 = want.topk(2, dim=-1).values
+        wide = (top2[..., 0] - top2[..., 1]) > 2 * tol
+        same = mine.argmax(-1) == want.argmax(-1)
+        assert bool(same[wide].all()), ("(j) greedy", i)
+        clear += int(wide.sum())
+        agree += int(same.sum())
+    want_colls = serve_collectives(cfg)
+    for r in ranks:
+        if dev.type == "cuda":
+            assert r["flash_launches"] == cfg.num_layers, r
+        assert tuple(r["prefill_collectives"]) == want_colls["prefill"], r
+        assert all(tuple(c) == want_colls["step"]
+                   for c in r["step_collectives"]), r
+        assert r["param_gib"] < 0.51 * r["whole_param_gib"], r
+        assert abs(r["cache_gib"] * TP_RANKS - r["whole_cache_gib"]) < 1e-9
+    n = len(ref["logits"]) * SERVE_LANES
+    log(f"  (j) {cfg.name} at {cfg.num_layers} layers served over (1, "
+        f"{TP_RANKS}): prefill s by rank "
+        + ", ".join(f"{r['prefill_s']:.3f}" for r in ranks)
+        + "; s/step " + spread(ranks[0]["step_s"], 1.0)
+        + f"; flash launches by rank {[r['flash_launches'] for r in ranks]}"
+        f"; logits within {worst:.3f} of the {SERVE_BF16_ULPS}-ulp bound, "
+        f"greedy equal {agree} of {n} ({clear} with a clear gap, all "
+        f"equal); all-reduces, all-gathers a prefill "
+        f"{ranks[0]['prefill_collectives']} and a step "
+        f"{ranks[0]['step_collectives'][0]} (closed form "
+        f"{want_colls['prefill']}, {want_colls['step']}); "
+        f"parameters " + ", ".join(f"{r['param_gib']:.3f}" for r in ranks)
+        + f" GiB by rank of {ranks[0]['whole_param_gib']:.3f}; cache "
+        + ", ".join(f"{r['cache_gib']:.3f}" for r in ranks)
+        + f" GiB by rank of {ranks[0]['whole_cache_gib']:.3f}; peak "
+        + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB")
+    return {"ranks": ranks, "worst_of_bound": worst, "greedy_equal": agree,
+            "greedy_clear": clear, "lanes_x_steps": n,
+            "collectives": want_colls}
 
 
 # ------------------------------------------- phase 24: the cost analysis
@@ -4419,7 +4761,9 @@ def tp_phase(dev, zero1, twin_losses):
 # launches equal its counted calls, and the trace's peak of live storage
 # within ANALYSIS_PEAK_RATIO of the card's peak allocation for the step.
 # (b) phase 23's cells (b) and (h) traced in a child process as rank 0 of
-# a fake (1, TP_RANKS) group: their all-reduces equal phase 23's counts.
+# a fake (1, TP_RANKS) group: their all-reduces equal phase 23's counts;
+# (j)'s prefill and one decode step likewise, all-reduces and
+# all-gathers.
 ANALYSIS_SSM_LAYERS = 2
 ANALYSIS_PEAK_RATIO = (0.75, 1.33)
 ANALYSIS_CHILD_LIMIT_S = 120
@@ -4462,7 +4806,43 @@ def analysis_trace_child(cells, device_type, out_path):
                     DataParallel(cfg, mesh)),
                 "collectives": H.collective_summary(counter.collectives),
                 "trace_s": dt}
+        out["serve"] = serve_trace(torch.device(device_type), mesh)
     Path(out_path).write_text(json.dumps(out))
+
+
+def serve_trace(dev, mesh) -> dict:
+    """Phase 24(b) for (j): its prefill and one decode step as ``dev``
+    cuts them, traced on meta tensors (rank 0's blocks) over ``mesh``:
+    the all-reduces and all-gathers the trace sees and those
+    ``launch.sharding`` counts, each."""
+    import torch
+    from repro_torch.launch import sharding
+    from repro_torch.models import model_zoo as zoo
+    cfg, pshape, dshape, _ = serve_cfg(dev)
+    params = zoo.abstract_serving_params(cfg, mesh)
+
+    def tokens(n):
+        return torch.empty((SERVE_LANES, n), dtype=torch.int32,
+                           device="meta")
+    out = {}
+    for key, fn, args in (
+            ("prefill", zoo.make_prefill(cfg, pshape, mesh=mesh),
+             (params, {"tokens": tokens(pshape.seq_len)})),
+            ("step", zoo.make_serve_step(cfg, dshape, mesh=mesh),
+             (params, zoo.abstract_decode_state(cfg, dshape, mesh),
+              tokens(1)))):
+        before = sharding.all_reduces, sharding.all_gathers
+        counter = H.CostCounter()
+        t0 = time.perf_counter()
+        counter.run(fn, *args)
+        out[key] = {
+            "trace": [sum(1 for c in counter.collectives if c.kind == kind)
+                      for kind in ("all-reduce", "all-gather")],
+            "sharding": [sharding.all_reduces - before[0],
+                         sharding.all_gathers - before[1]],
+            "kernels": counter.kernels,
+            "trace_s": time.perf_counter() - t0}
+    return out
 
 
 def analysis_step_check(arch, layers, dev) -> dict:
@@ -4584,7 +4964,20 @@ def analysis_phase(dev, zero1, tp) -> dict:
         assert got["sharding_all_reduces"] == want, (key, got, want)
         assert got["model_all_reduces"] == got["sharding_all_reduces"] + \
             got["norm_model_all_reduces"], (key, got)
+    served = traced.pop("serve")
+    ranks = tp["serve"]["ranks"]
+    for key, want in (("prefill", ranks[0]["prefill_collectives"]),
+                      ("step", ranks[0]["step_collectives"][0])):
+        got = served[key]
+        log(f"  (j)'s {key} traced: all-reduces, all-gathers "
+            f"{tuple(got['trace'])} (launch.sharding "
+            f"{tuple(got['sharding'])}); the ranks counted {tuple(want)} "
+            f"on the card; kernels {got['kernels']}; "
+            f"{got['trace_s']:.1f} s to trace")
+        assert list(got["trace"]) == list(got["sharding"]) == list(want), \
+            (key, got, want)
     numbers["traced"] = traced
+    numbers["serve_traced"] = served
     return numbers
 
 
@@ -4727,7 +5120,7 @@ def main() -> int:
         t_phase = lap(f"phases 5-6 ({arch})", t_phase)
     # 14-15. the long-prompt paths (granite-8b, then the hybrid route
     # through zamba2-2.7b's shared attention), then each model's
-    # 16384-token prefill, kernel vs plain at full depth
+    # 16384-token prefill, kernel vs plain (granite-8b cut to 12 layers)
     flash["launches_by_path"] = {}
     for arch, prompts, batch_size, n_long in LONG_PATHS:
         engine, params, long, launches = long_engine_phase(
@@ -4740,12 +5133,14 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
         cfg = get_config(arch)
+        cut = LONG_PARITY_LAYERS.get(arch)
+        if cut is not None:
+            cfg, params = (cfg.with_(num_layers=cut),
+                           dict(params, layers=params["layers"][:cut]))
         long_prefill_vs_plain(cfg, params, dev, BF16_LONG_TOL)
         del params
         torch.cuda.empty_cache()
-        cfg32 = cfg.with_(compute_dtype="float32",
-                          num_layers=LONG_F32_LAYERS.get(arch,
-                                                         cfg.num_layers))
+        cfg32 = cfg.with_(compute_dtype="float32")
         params32 = zoo.init_serving_params(cfg32, seed=0, device=dev)
         long_prefill_vs_plain(cfg32, params32, dev, F32_LONG_TOL)
         del params32
@@ -4851,6 +5246,11 @@ def main() -> int:
     by_path.update({k: {"paged_attention": 0, "ssd_intra_chunk": v}
                     for k, v in tp_ssd.items()})
     ssd["at_tensor_parallel_heads"] = tp["ssd_at_rank_heads"]
+    flash["at_tensor_parallel_heads"] = tp["flash_at_rank_heads"]
+    flash["launches_by_path"][
+        f"{SERVE_ARCH} prefill over (1, {TP_RANKS}) ({TP_RANKS} gloo "
+        f"ranks)"] = sum(r["flash_launches"] for r in tp["serve"]["ranks"])
+    flash["launches"] = sum(flash["launches_by_path"].values())
     log(f"[tp] numbers {json.dumps(tp)}")
     t_phase = lap("phase 23 (model axis)", t_phase)
     # 24. the cost analysis: a step on the card against its meta trace,
@@ -4865,7 +5265,10 @@ def main() -> int:
             f"{r['t_memory_ms']:.1f})" for r in analysis["steps"])
         + "; all-reduces equal phase 23's: " + ", ".join(
             f"{k} {v['sharding_all_reduces']}"
-            for k, v in analysis["traced"].items()))
+            for k, v in analysis["traced"].items())
+        + "; (j)'s collectives equal the ranks': " + ", ".join(
+            f"{k} {tuple(v['trace'])}"
+            for k, v in analysis["serve_traced"].items()))
     t_phase = lap("phase 24 (cost analysis)", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()

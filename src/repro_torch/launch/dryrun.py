@@ -19,17 +19,20 @@ anything.
 Over a mesh of more than one rank the process is rank 0 of a ``"fake"``
 process group of ``prod(mesh shape)`` ranks (``fake_world``: no other
 process, no network; its collectives return at once and are counted),
-and the cell runs the port's own per-rank program:
-``DataParallel.place`` and ``make_train_step(cfg, mesh=mesh)``.  A (1, 1)
-mesh needs no process group.
+and the cell runs the port's own per-rank program on rank 0's blocks:
+``make_train_step(cfg, mesh=mesh)`` on ``DataParallel.place``'s state,
+``make_prefill`` / ``make_serve_step(cfg, shape, mesh=mesh)`` on
+``serving_params``' parameters and ``ServingMesh.place_state``'s decode
+state (the reference's sequence-sharded KV cache).  A (1, 1) mesh needs
+no process group.
 
-Covered in this step: every kind at a (1, 1) mesh, and every
-``train_4k`` cell on the single-pod (16, 16) mesh.  Refused, with a
+Covered: every kind at a (1, 1) mesh, and on the single-pod (16, 16)
+mesh every ``train_4k`` cell and the ``prefill_32k`` and ``decode_32k``
+cells of the dense, vlm, moe and enc_dec families.  Refused, with a
 ``NotImplementedError`` that a record keeps as the reference keeps a
-failing cell: prefill and decode over a mesh of more than one rank (the
-port serves on one device) and every cell of the multi-pod mesh (the
-port trains over ``("data", "model")`` meshes).  Both are ROADMAP item
-13b's second step.
+failing cell and that names ROADMAP's next step: ssm and hybrid
+prefill and decode over a mesh (``long_500k`` included; item 13b's
+third step) and every cell of the multi-pod mesh (its fourth step).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
         --shape train_4k
@@ -60,9 +63,6 @@ ARTIFACT_DIR = (Path(__file__).resolve().parents[3] / "artifacts"
                 / "dryrun_torch")
 PRODUCTION_MESHES = {"single": ((16, 16), ("data", "model")),
                      "multi": ((2, 16, 16), ("pod", "data", "model"))}
-SECOND_STEP = ("ROADMAP item 13b, second step: prefill and decode over a "
-               "mesh with the reference's cache layout, and the pod axis "
-               "folded into the data group")
 
 
 # --------------------------------------------------------------- meshes
@@ -97,24 +97,27 @@ def production_mesh(kind: str):
 def trace_cell(cfg, shape, mesh):
     """One run of the cell's function on meta tensors under a
     ``CostCounter``: ``(counter, seconds)``.  Over a mesh of more than
-    one rank, rank 0's data-parallel train step (the caller holds the
-    process group the mesh was made in)."""
+    one rank, rank 0's program (the caller holds the process group the
+    mesh was made in)."""
     sizes = axis_sizes(mesh)
     n = math.prod(sizes.values())
     if "pod" in sizes:
         raise NotImplementedError(
             f"a {tuple(sizes.values())} mesh with a pod axis: the port "
-            f"trains over ('data', 'model') meshes; {SECOND_STEP}")
-    if n > 1 and shape.kind != "train":
-        raise NotImplementedError(
-            f"{shape.kind} over a {tuple(sizes.values())} mesh: the port "
-            f"serves on one device; {SECOND_STEP}")
+            f"trains and serves over ('data', 'model') meshes; "
+            f"{zoo.MESH_POD_STEP}")
     args = input_specs(cfg, shape, ShardingRules(mesh))["args"]
-    if n > 1:
-        args = (zoo.DataParallel(cfg, mesh).place(args[0]), args[1])
-        fn = zoo.make_train_step(cfg, mesh=mesh)
-    else:
+    if n == 1:
         fn = cell_fn(cfg, shape)
+    else:
+        fn = cell_fn(cfg, shape, mesh)
+        if shape.kind == "train":
+            args = (zoo.DataParallel(cfg, mesh).place(args[0]), args[1])
+        else:
+            params = zoo.abstract_serving_params(cfg, mesh)
+            args = ((params, args[1]) if shape.kind == "prefill" else
+                    (params, zoo.ServingMesh(cfg, shape, mesh).place_state(
+                        args[1]), args[2]))
     counter = H.CostCounter()
     t0 = time.perf_counter()
     counter.run(fn, *args)

@@ -29,8 +29,8 @@ The port keeps parameters and activations as plain tensors on each rank
 the batch and, with ZeRO-1, the optimizer state
 (``models.model_zoo.DataParallel``).  The model axis is tensor
 parallelism: each model rank holds the block of every leaf that its
-``NamedSharding`` gives it (``model_block``; ``gather_model_block`` is
-the inverse), and the blocks compute with the two autograd-aware
+``NamedSharding`` gives it (``local_block``; ``gather_block`` is the
+inverse), and the blocks compute with the two autograd-aware
 collectives of Megatron-style tensor parallelism over the active rules'
 ``model`` group, ``copy_to_model`` (f: identity forward, all-reduce
 backward) at the entry of a column-parallel region and
@@ -111,6 +111,22 @@ moe.py:330, 334, 336, 349 (one-hot)    ``moe_block_onehot``: the same over
                                        a model axis and over data ranks
 model_zoo.py:241 ``_scatter_grads``    ``DataParallel.reduce``: a
                                        reduce-scatter over data
+model_zoo.py:294-312 decode state      ``model_zoo.ServingMesh``: a rank
+(``cache_batch``, ``cache_seq``;       holds its rows and its S / m
+layers.py:179 "seq-sharded on the      positions of every KV head
+model axis")                           (``local_block`` / ``gather_block``
+                                       of the specs); a prefill's k and v
+                                       gathered over model where the rules
+                                       shard ``kv_heads``, then sliced
+                                       (``layers.cache_block``); a decode
+                                       step's attention a split softmax
+                                       over the ranks' positions (one
+                                       gather of q / k / v, one of each
+                                       rank's largest logit and sum,
+                                       merged by log-sum-exp, and an
+                                       all-reduce of the outputs:
+                                       ``layers.seq_sharded_attention``);
+                                       the logits gathered to every rank
 =====================================  ====================================
 """
 
@@ -508,19 +524,36 @@ def sum_over_pool(x, pool: Pool):
     return rows[pool.lo:pool.lo + pool.size].sum(0)
 
 
-# all-gathers made by ``gather_over_data``: a plain count for readings
+# all-gathers made by ``gather_parts`` (``gather_over_data``, the serving
+# paths' gathers): a plain count for readings
 all_gathers = 0
+
+
+def gather_parts(x, group, size: int, count: bool = True):
+    """Every rank of ``group`` (``size`` ranks)'s ``x``, in rank order (no
+    gradient); counted in ``all_gathers`` unless ``count`` is false."""
+    global all_gathers
+    all_gathers += count
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
 
 
 def gather_over_data(x):
     """Every data rank's ``x`` (no gradient), stacked in rank order:
     (data ranks, ...); counted in ``all_gathers``."""
-    global all_gathers
     ax = data_axis()
-    all_gathers += 1
-    parts = [torch.empty_like(x) for _ in range(ax.size)]
-    dist.all_gather(parts, x.contiguous(), group=ax.group)
-    return torch.stack(parts)
+    return torch.stack(gather_parts(x, ax.group, ax.size))
+
+
+def gather_over_model(x, dim: int):
+    """Every model rank's ``x`` concatenated along ``dim`` in rank order
+    (no gradient; an all-gather counted in ``all_gathers``); ``x``
+    without a model axis."""
+    tp = model_axis()
+    if tp is None:
+        return x
+    return torch.cat(gather_parts(x, tp.group, tp.size), dim)
 
 
 def scale_grad(x, scale: float):
@@ -540,27 +573,52 @@ def model_dim(sharding: NamedSharding) -> Optional[int]:
     return getattr(place, "dim", None)
 
 
-def model_block(t, sharding: NamedSharding, rank: int):
-    """A whole leaf ``t`` -> model rank ``rank``'s block of it: its
-    ``Shard(dim)`` placement on the ``model`` axis cut into equal blocks,
-    or ``t`` itself where that placement is ``Replicate()``."""
-    dim = model_dim(sharding)
-    if dim is None:
-        return t
-    n = axis_sizes(sharding.mesh)["model"]
-    return t.chunk(n, dim)[rank]
+def coordinate(mesh) -> Dict[str, int]:
+    """This rank's index on each axis of ``mesh``: a ``DeviceMesh``'s
+    ``get_coordinate()``; 0 on every axis of a shape-only mesh (its first
+    device)."""
+    names = axis_names(mesh)
+    if getattr(mesh, "mesh_dim_names", None) is None:
+        return {n: 0 for n in names}
+    return dict(zip(names, mesh.get_coordinate()))
 
 
-def gather_model_block(t, sharding: NamedSharding, group):
-    """``model_block``'s inverse: the whole leaf from the model ranks'
-    blocks (an all-gather over ``group``, the mesh's model group)."""
-    dim = model_dim(sharding)
-    if dim is None:
-        return t
-    n = axis_sizes(sharding.mesh)["model"]
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim)
+def local_block(t, sharding: NamedSharding, coord: Dict[str, int]):
+    """The block of a whole leaf ``t`` that ``sharding`` gives the mesh
+    coordinate ``coord`` (``coordinate(mesh)``): each dimension cut into
+    equal blocks over the axes of its spec entry, the block at the
+    coordinate's index over them, major to minor (the block JAX's
+    ``NamedSharding`` gives the device there).  A view of ``t``."""
+    sizes = axis_sizes(sharding.mesh)
+    for dim, entry in enumerate(sharding.spec):
+        n, i = 1, 0
+        for a in _names(entry):
+            n, i = n * sizes[a], i * sizes[a] + coord[a]
+        if n > 1:
+            t = t.narrow(dim, i * (t.shape[dim] // n), t.shape[dim] // n)
+    return t
+
+
+def gather_block(t, sharding: NamedSharding, count: bool = True):
+    """``local_block``'s inverse on a ``DeviceMesh``: the whole leaf on
+    every rank from the ranks' blocks, all-gathered over each axis above
+    1 that splits a dimension (the minor axes of an entry first; each
+    gather counted in ``all_gathers`` unless ``count`` is false)."""
+    mesh, sizes = sharding.mesh, axis_sizes(sharding.mesh)
+    for dim, entry in enumerate(sharding.spec):
+        for a in reversed(_names(entry)):
+            if sizes[a] > 1:
+                t = torch.cat(gather_parts(t, mesh.get_group(a), sizes[a],
+                                           count), dim)
+    return t
+
+
+def position_owner(pos, seq_len: int, model_size: int):
+    """The model rank whose block of a ``seq_len``-position cache holds
+    position ``pos`` (``cache_seq`` over a model axis of ``model_size``:
+    rank ``r`` holds ``[r S/m, (r+1) S/m)``): ``pos // (S / m)``; a
+    position at or past ``seq_len`` gives ``model_size`` (no rank)."""
+    return pos // (seq_len // model_size)
 
 
 def param_shardings(rules: ShardingRules, schema):

@@ -56,15 +56,7 @@ def state_shardings(cfg: ModelConfig, rules: ShardingRules):
     )
 
 
-def decode_state_shardings(cfg: ModelConfig, shape: ShapeConfig,
-                           rules: ShardingRules):
-    ab = zoo.abstract_decode_state(cfg, shape)
-    ax = zoo.decode_state_logical_axes(cfg)
-    cache_sh = {k: rules.sharding(ax.cache[k], v.shape)
-                for k, v in ab.cache.items()}
-    return zoo.DecodeState(cache_sh,
-                           rules.sharding(ax.cache_len,
-                                          (shape.global_batch,)))
+decode_state_shardings = zoo.decode_state_shardings
 
 
 def metrics_shardings(rules: ShardingRules):
@@ -112,19 +104,23 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
     raise ValueError(shape.kind)
 
 
-def cell_fn(cfg: ModelConfig, shape: ShapeConfig):
+def cell_fn(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     """The function a cell runs, with the reference's signature:
     ``train_step(state, batch)``, ``prefill(params, batch)`` or
     ``serve_step(params, state, batch)`` with ``batch = {"tokens",
     "active"}``.  (The reference's ``unroll`` flag straightens its scans
     for XLA's cost analysis; the port's layers and micro-batches are
-    Python loops already.)"""
+    Python loops already.)  ``mesh``: this rank's program over a
+    ``("data", "model")`` ``DeviceMesh``, which every rank of it runs:
+    it takes the rank's blocks of the state or parameters and decode
+    state (``DataParallel.place``, ``model_zoo.serving_params``,
+    ``ServingMesh.place_state``) and the global batch."""
     if shape.kind == "train":
-        return zoo.make_train_step(cfg)
+        return zoo.make_train_step(cfg, mesh=mesh)
     if shape.kind == "prefill":
-        return zoo.make_prefill(cfg, shape)
+        return zoo.make_prefill(cfg, shape, mesh=mesh)
     if shape.kind == "decode":
-        step = zoo.make_serve_step(cfg, shape)
+        step = zoo.make_serve_step(cfg, shape, mesh=mesh)
 
         def serve_step(params, state, batch):
             return step(params, state, batch["tokens"], batch.get("active"))

@@ -33,6 +33,14 @@ head ``h // group`` on the same rank).  Where the rules replicate
 ``kv_heads`` while they shard ``heads``, a rank holds all KV heads and
 reads those its query heads need.  A dimension the rules replicate is
 computed whole, with no collective.
+
+Serving over such a mesh keeps the reference's decode state: a rank
+holds its ``S / m`` positions of every KV head (``cache_seq`` over
+``model``).  A prefill's blocks are the training path's, and
+``cache_block`` cuts the cache's positions from their k and v; a decode
+step (``decode_attention`` under the rules) is a split softmax over the
+ranks' positions (``block_logits``, ``block_stats``, ``merge_stats``,
+``block_attention``, ``seq_sharded_attention``).
 """
 
 from __future__ import annotations
@@ -41,8 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import dtype_of
-from repro_torch.launch.sharding import (copy_to_model, model_axis,
-                                         model_split, reduce_from_model)
+from repro_torch.launch.sharding import (all_reduce, copy_to_model,
+                                         gather_over_model, gather_parts,
+                                         model_axis, model_split,
+                                         position_owner, reduce_from_model)
 
 NEG_INF = -1e30
 
@@ -99,32 +109,55 @@ def _qkv(p, x, cfg):
     return _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
 
 
-def _qkv_tp(p, x, cfg):
-    """q, k, v of this model rank's heads: its contiguous block of the
-    query heads (``p["wq"]`` is that block), and k, v as ``kv_tp``
-    gives them."""
-    dt = dtype_of(cfg.compute_dtype)
-    h = copy_to_model(rms_norm(x, p["norm"], cfg.norm_eps).to(dt))
-    return (_proj(h, p["wq"]),) + kv_tp(p, h, cfg)
-
-
-def kv_tp(p, h, cfg):
-    """k, v (B, S, heads, D) of this model rank's KV heads from ``h``
-    (B, S, d), which has been through f (``copy_to_model``): either its
-    block of them (``kv_heads`` sharded), or, where the rules replicate
-    them, the KV head of each of its query heads, taken from all of
-    them."""
+def kv_heads_tp(p, h, cfg):
+    """k, v (B, S, heads, D) of the KV heads this model rank holds, from
+    ``h`` (B, S, d), which has been through f (``copy_to_model``), and
+    the KV head each of its query heads reads: its block of them
+    (``kv_heads`` sharded; ``None``, GQA stays local), or, where the
+    rules replicate them, all of them and the index of its query heads'
+    KV heads among them."""
     if model_split("kv_heads", cfg.num_kv_heads) > 1:
-        return _proj(h, p["wk"]), _proj(h, p["wv"])
+        return _proj(h, p["wk"]), _proj(h, p["wv"]), None
     # all KV heads on every rank: their weights' gradients are partial
     # (each rank reads some heads), so f sums them over the ranks
     tp = model_axis()
     group = cfg.num_heads // cfg.num_kv_heads
     n = cfg.num_heads // tp.size
     heads = (tp.rank * n + torch.arange(n, device=h.device)) // group
-    k = _proj(h, copy_to_model(p["wk"])).index_select(2, heads)
-    v = _proj(h, copy_to_model(p["wv"])).index_select(2, heads)
-    return k, v
+    return (_proj(h, copy_to_model(p["wk"])),
+            _proj(h, copy_to_model(p["wv"])), heads)
+
+
+def expand_kv(k, v, heads):
+    """``kv_heads_tp``'s k, v -> those of each of the rank's query heads
+    (``heads`` None: as they are)."""
+    if heads is None:
+        return k, v
+    return k.index_select(2, heads), v.index_select(2, heads)
+
+
+def kv_tp(p, h, cfg):
+    """k, v (B, S, heads, D) that this model rank's query heads read, from
+    ``h`` as ``kv_heads_tp`` takes it: its block of the KV heads, or the
+    KV head of each of its query heads, taken from all of them."""
+    return expand_kv(*kv_heads_tp(p, h, cfg))
+
+
+def cache_block(k, cfg):
+    """The decode state's block of a prefill's k or v (B_r, S, heads, D),
+    the KV heads this model rank holds (``kv_heads_tp``): under rules
+    with a model axis ``m`` above 1 the reference's layout, ``cache_seq``
+    over ``model`` and every KV head a rank, so the rank's ``S / m``
+    positions of every KV head (an all-gather over the model group where
+    the rules shard ``kv_heads``, then a slice; a slice alone where each
+    rank holds every KV head).  ``k`` itself without a model axis."""
+    tp = model_axis()
+    if tp is None:
+        return k
+    if model_split("kv_heads", cfg.num_kv_heads) > 1:
+        k = gather_over_model(k, 2)
+    n = k.shape[1] // tp.size
+    return k.narrow(1, tp.rank * n, n)
 
 
 # ----------------------------------------------------------------------------- attention cores
@@ -241,7 +274,8 @@ def blockwise_attention(q, k, v, *, causal: bool, block_q: int,
 def attention_block(p, x, cfg, *, causal=True, positions=None,
                     impl: str = "kernel"):
     """Pre-norm attention block with rotary + GQA, prefill mode: attends
-    within ``x`` and returns ``(out, (k, v))``.
+    within ``x`` and returns ``(out, (k, v))``, k and v of the KV heads
+    the model rank holds (``kv_heads_tp``; all of them on one device).
 
     The attention core is the reference's choice: ``cfg.attn_impl``, with
     ``"auto"`` taking ``blockwise_attention`` for ``s > 8192`` and
@@ -249,21 +283,29 @@ def attention_block(p, x, cfg, *, causal=True, positions=None,
     ``blockwise_attention`` (``"ref"``: its plain form on the card)."""
     b, s, _ = x.shape
     tp = model_split("heads", cfg.num_heads) > 1
-    q, k, v = _qkv_tp(p, x, cfg) if tp else _qkv(p, x, cfg)
+    heads = None
+    if tp:
+        dt = dtype_of(cfg.compute_dtype)
+        h = copy_to_model(rms_norm(x, p["norm"], cfg.norm_eps).to(dt))
+        q = _proj(h, p["wq"])
+        k, v, heads = kv_heads_tp(p, h, cfg)
+    else:
+        q, k, v = _qkv(p, x, cfg)
     if positions is None:
         positions = torch.arange(s, device=x.device)
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
+    kq, vq = expand_kv(k, v, heads)
     attn = cfg.attn_impl
     if attn == "auto":
         attn = "blockwise" if s > 8192 else "full"
     if attn == "blockwise":
-        out = blockwise_attention(q, k, v, causal=causal,
+        out = blockwise_attention(q, kq, vq, causal=causal,
                                   block_q=cfg.flash_block_q,
                                   block_kv=cfg.flash_block_kv, impl=impl)
     else:
-        out = full_attention(q, k, v, causal=causal)
+        out = full_attention(q, kq, vq, causal=causal)
     out = _proj_out(out, p["wo"])
     return x + (reduce_from_model(out) if tp else out), (k, v)
 
@@ -278,29 +320,163 @@ def decode_attention(p, x, cfg, *, cache_k, cache_v, cache_len,
     ``cache_len == S_max`` write back the value already at the clamped
     position (the reference keeps the old value and drops the write);
     each lane writes its own row, so no two writes collide.
+
+    Under rules with a model axis above 1 the cache is this rank's block
+    of the reference's layout (``cache_seq`` over ``model``, every KV
+    head), and the step is ``_decode_attention_split``'s.
     """
+    if model_axis() is not None:
+        return _decode_attention_split(p, x, cfg, cache_k=cache_k,
+                                       cache_v=cache_v, cache_len=cache_len,
+                                       active=active)
     dt = dtype_of(cfg.compute_dtype)
-    b = x.shape[0]  # x: (B, 1, d)
     q, k, v = _qkv(p, x, cfg)
     cos, sin = rotary_embedding(cache_len[:, None], cfg.head_dim,
                                 cfg.rope_theta)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    S = cache_k.shape[1]
-    bidx = torch.arange(b, device=x.device)
-    pos = cache_len.clamp(0, S - 1)
-    write = cache_len < S
+    _write_token(cache_k, cache_v, k, v, cache_len, active)
+    out = full_attention(q, cache_k.to(dt), cache_v.to(dt), causal=False,
+                         kv_len=cache_len + 1)
+    return x + _proj_out(out, p["wo"]), (cache_k, cache_v)
+
+
+def _write_token(cache_k, cache_v, k, v, cache_len, active, rank: int = 0,
+                 ranks: int = 1):
+    """Each lane's new k, v (B, 1, KV, D) into model rank ``rank``'s block
+    of a cache cut in ``ranks`` position blocks (``S_blk`` positions
+    each), in place, at ``cache_len - rank S_blk`` where the rank owns
+    position ``cache_len`` (``position_owner``) and the lane is active;
+    every other lane writes back the value at its clamped position."""
+    b, S = cache_k.shape[:2]
+    pos = cache_len.long() - rank * S
+    write = position_owner(cache_len.long(), S * ranks, ranks) == rank
     if active is not None:
         write = write & active
-    flat = bidx * S + pos.long()
+    flat = torch.arange(b, device=k.device) * S + pos.clamp(0, S - 1)
     for cache, new in ((cache_k, k), (cache_v, v)):
         rows = cache.view(b * S, *cache.shape[2:])
         old = rows.index_select(0, flat)
         rows.index_copy_(0, flat, torch.where(
             write[:, None, None], new[:, 0].to(cache.dtype), old))
-    out = full_attention(q, cache_k.to(dt), cache_v.to(dt), causal=False,
-                         kv_len=cache_len + 1)
-    return x + _proj_out(out, p["wo"]), (cache_k, cache_v)
+
+
+def block_logits(q, k, *, lo: int = 0, kv_len=None):
+    """``full_attention``'s float32 logits (B, KV, G, Sq, S_blk) of q (B,
+    Sq, H, D) over a block k (B, S_blk, KV, D) holding the positions
+    ``[lo, lo + S_blk)``, those at or past ``kv_len`` (B,) masked to
+    ``NEG_INF``."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * \
+        d ** -0.5
+    if kv_len is not None:
+        valid = (lo + torch.arange(k.shape[1], device=q.device)[None, :]
+                 < kv_len[:, None])
+        logits = torch.where(valid[:, None, None, None], logits, NEG_INF)
+    return logits
+
+
+def block_stats(logits):
+    """A block's softmax statistics from its ``block_logits``: m its
+    largest logit (B, KV, G, Sq) and l its sum of ``exp(logit - m)``."""
+    m = logits.amax(dim=-1)
+    return m, torch.exp(logits - m[..., None]).sum(dim=-1)
+
+
+def merge_stats(m, l):
+    """Blocks' softmax statistics stacked on a leading axis of blocks, m
+    each block's largest logit (B, KV, G, Sq) and l its sum of
+    ``exp(logit - m)`` -> the whole sequence's: the largest logit and
+    the sum ``sum_r exp(m_r - max m) l_r``.  A block with no valid
+    position (``m_r = NEG_INF``: its ``l`` counts every position) adds
+    nothing, since its weight is ``exp(NEG_INF - max m) = 0`` while some
+    block holds a valid position."""
+    mx = m.amax(dim=0)
+    return mx, (torch.exp(m - mx) * l).sum(0)
+
+
+def block_attention(logits, mx, den, v):
+    """A block's share of ``full_attention``'s output (B, KV, G, Sq, D)
+    float32, from its ``block_logits`` and the whole sequence's
+    ``merge_stats``: the probabilities ``exp(logit - mx) / den``
+    rounded to v's dtype, as ``full_attention`` rounds them, times the
+    block's v.  The blocks' shares sum to ``full_attention`` (its
+    denominator summed in another order)."""
+    probs = torch.exp(logits - mx[..., None]) / den[..., None]
+    return torch.einsum("bkgqs,bskd->bkgqd", probs.to(v.dtype).float(),
+                        v.float())
+
+
+def seq_sharded_attention(q, k, v, *, kv_len=None):
+    """Attention of q (B, Sq, H, D), every query head, over a key/value
+    sequence cut in blocks over the model ranks (this rank's k/v (B,
+    S_blk, KV, D) hold positions ``[r S_blk, (r+1) S_blk)``), those at or
+    past ``kv_len`` masked: each rank's ``block_logits`` and their
+    ``block_stats``, all-gathered over the model group (``merge_stats``),
+    then each rank's ``block_attention`` summed over the group (an
+    all-reduce).  (B, Sq, H, D) float32, the same on every rank."""
+    tp = model_axis()
+    b, sq, h, d = q.shape
+    logits = block_logits(q, k, lo=tp.rank * k.shape[1], kv_len=kv_len)
+    s = torch.stack(gather_parts(torch.stack(block_stats(logits), -1),
+                                 tp.group, tp.size))
+    mx, den = merge_stats(s[..., 0], s[..., 1])
+    out = all_reduce(block_attention(logits, mx, den, v), tp.group)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+def _decode_attention_split(p, x, cfg, *, cache_k, cache_v, cache_len,
+                            active):
+    """``decode_attention`` over the reference's sequence-sharded cache:
+    this model rank holds positions ``[r S/m, (r+1) S/m)`` of every KV
+    head (``cache_k``/``cache_v`` (B, S/m, KV, D)) and its block of the
+    query heads, KV heads and ``wo`` where the rules shard them.
+
+    1. q of the rank's query heads (f on the normed input), k and v of
+       its KV heads (``kv_heads_tp``: its block, or all of them);
+    2. every query head's q and every KV head's k, v on every rank: one
+       all-gather over the model group of what the rules shard (none
+       where both are replicated), then rotary at ``cache_len``;
+    3. the rank that owns position ``cache_len`` of a lane writes it
+       (``_write_token``: inactive lanes and ``cache_len == S`` write
+       nothing, as on one device);
+    4. ``seq_sharded_attention`` with ``kv_len = cache_len + 1``, the
+       reference's mask: a split softmax, its statistics merged by
+       log-sum-exp, its probabilities rounded as on one device;
+    5. the rank's query heads through ``wo`` (row-parallel) and g, or
+       every head through the whole ``wo`` where ``heads`` is
+       replicated.  Returns ``(out, (cache_k, cache_v))``."""
+    tp = model_axis()
+    dt = dtype_of(cfg.compute_dtype)
+    tp_heads = model_split("heads", cfg.num_heads) > 1
+    if tp_heads:
+        h = copy_to_model(rms_norm(x, p["norm"], cfg.norm_eps).to(dt))
+        q = _proj(h, p["wq"])
+        k, v, _ = kv_heads_tp(p, h, cfg)
+        # every head on every rank: q, and k, v where the rules split them
+        parts = (q, k, v) if k.shape[2] < cfg.num_kv_heads else (q,)
+        sizes = [t.shape[2] for t in parts]
+        blocks = [g.split(sizes, 2) for g in gather_parts(
+            torch.cat(parts, 2), tp.group, tp.size)]
+        q, *kv = (torch.cat(ts, 2) for ts in zip(*blocks))
+        k, v = kv or (k, v)
+    else:
+        q, k, v = _qkv(p, x, cfg)
+    cos, sin = rotary_embedding(cache_len[:, None], cfg.head_dim,
+                                cfg.rope_theta)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    _write_token(cache_k, cache_v, k, v, cache_len, active, tp.rank,
+                 tp.size)
+    out = seq_sharded_attention(q, cache_k.to(dt), cache_v.to(dt),
+                                kv_len=cache_len + 1).to(dt)
+    if not tp_heads:
+        return x + _proj_out(out, p["wo"]), (cache_k, cache_v)
+    n = cfg.num_heads // tp.size
+    out = _proj_out(out.narrow(2, tp.rank * n, n), p["wo"])
+    return x + reduce_from_model(out), (cache_k, cache_v)
 
 
 def _drop_to_sink(rows, nb: int):

@@ -43,6 +43,7 @@ the decode loop's carry check, whose conv leaf comes back float32
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, NamedTuple, Optional
@@ -53,8 +54,10 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch.sharding import (max_over_model, reduce_from_model,
-                                         use_rules)
+from repro_torch.launch.sharding import (ShardingRules, axis_sizes,
+                                         coordinate, gather_block,
+                                         local_block, max_over_model,
+                                         reduce_from_model, use_rules)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
@@ -131,7 +134,8 @@ def _attn_layers(cfg: ModelConfig) -> int:
     return cfg.num_layers // cfg.attn_every
 
 
-def init_serving_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
+def init_serving_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                        mesh=None):
     """Random weights for ``cfg``, drawn on ``device`` from a seeded
     ``torch.Generator`` and laid out as ``convert`` lays them out.
 
@@ -140,19 +144,40 @@ def init_serving_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     would give), so a full-width model never holds a float32 copy; norms
     stay float32, as ``convert`` keeps them, and Mamba2's
     ``A_log``/``dt_bias`` and the MoE ``router`` are drawn and kept in
-    float32 (their schemas say so)."""
+    float32 (their schemas say so).  ``mesh``: this rank's blocks of the
+    same draw (``serving_params``)."""
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
     tree = init_params(T.model_schema(cfg), gen, dev, cfg.compute_dtype)
-    return params_from_numpy(tree, cfg, dev)
+    return serving_params(tree, cfg, mesh, dev)
 
 
-def abstract_serving_params(cfg: ModelConfig):
+def serving_params(tree, cfg: ModelConfig, mesh=None, device="cuda"):
+    """A whole parameter tree in the reference's stacked layout (numpy,
+    or tensors as ``init_params`` draws them) -> the params that
+    ``make_prefill`` and ``make_serve_step`` read (``convert``'s layout)
+    on ``device`` (None: where they are).  ``mesh``: this rank's blocks
+    of the model-sharded leaves, cut as ``DataParallel.model_blocks``
+    cuts a train state's (``params_shardings``, the reference's
+    ``in_shardings`` for the cell), each a copy of its own."""
+    if mesh is not None:
+        whole = adamw.tree_map(torch.as_tensor, tree)
+        tree = adamw.tree_map(
+            lambda t, b: b if b is t else b.clone(
+                memory_format=torch.contiguous_format),
+            whole, DataParallel(cfg, mesh).model_blocks(whole))
+    return params_from_numpy(tree, cfg,
+                             None if device is None else resolve_device(
+                                 device))
+
+
+def abstract_serving_params(cfg: ModelConfig, mesh=None):
     """``init_serving_params``' leaves as meta tensors (shape and dtype,
     no storage): the layout ``make_prefill`` and ``make_serve_step``
-    read, from the same schema and ``convert`` rules."""
+    read, from the same schema and ``convert`` rules (``mesh``: this
+    rank's blocks)."""
     tree = abstract_params(T.model_schema(cfg), cfg.compute_dtype)
-    return params_from_numpy(tree, cfg, device=None)
+    return serving_params(tree, cfg, mesh, device=None)
 
 
 def num_params(cfg: ModelConfig) -> int:
@@ -507,7 +532,7 @@ class DataParallel:
       or, where it does not split over them, whole micro-batches or
       blocks of them go to the ranks in lockstep (``micro_blocks``);
     * each model rank holds its block of every leaf that the rules shard
-      over ``model`` (``launch.sharding.model_block`` of its param
+      over ``model`` (``launch.sharding.local_block`` of its param
       sharding: ``model_dims[i]``, ``None`` for a replicated leaf), and
       the model's blocks are tensor parallel over them (every family:
       the encoder's blocks and cross attention of enc_dec too; an
@@ -570,6 +595,7 @@ class DataParallel:
             self.model_rank = mesh.get_local_rank("model")
         else:
             self.model_group, self.model_rank = None, 0
+        self.coord = coordinate(mesh)
         schema = T.model_schema(cfg)
         self.shardings = adamw.flatten(param_shardings(self.rules,
                                                        schema))[0]
@@ -685,22 +711,22 @@ class DataParallel:
         return rebuild([self.gather(t, i) for i, t in enumerate(leaves)])
 
     def model_blocks(self, tree):
-        """Whole leaves -> this rank's model blocks."""
-        from repro_torch.launch.sharding import model_block
+        """Whole leaves -> this rank's model blocks (``local_block``: the
+        param specs split over ``model`` only)."""
         if self.model_size == 1:
             return tree
         leaves, rebuild = adamw.flatten(tree)
-        return rebuild([model_block(t, s, self.model_rank)
+        return rebuild([local_block(t, s, self.coord)
                         for t, s in zip(leaves, self.shardings)])
 
     def gather_model(self, tree):
         """``model_blocks``' inverse: whole leaves (an all-gather over the
-        model ranks for each sharded leaf)."""
-        from repro_torch.launch.sharding import gather_model_block
+        model ranks for each sharded leaf, not counted in
+        ``launch.sharding.all_gathers``)."""
         if self.model_size == 1:
             return tree
         leaves, rebuild = adamw.flatten(tree)
-        return rebuild([gather_model_block(t, s, self.model_group)
+        return rebuild([gather_block(t, s, count=False)
                         for t, s in zip(leaves, self.shardings)])
 
     def compute_leaves(self, masters):
@@ -708,12 +734,10 @@ class DataParallel:
         leaf of ``whole`` all-gathered over the model group into a new
         leaf that takes the gradient (once a step), the others as they
         are."""
-        from repro_torch.launch.sharding import gather_model_block
         out = list(masters)
         for i in self.whole:
-            out[i] = gather_model_block(masters[i].detach(),
-                                        self.shardings[i],
-                                        self.model_group).requires_grad_()
+            out[i] = gather_block(masters[i].detach(), self.shardings[i],
+                                  count=False).requires_grad_()
         return out
 
     def model_grads(self, grads):
@@ -807,14 +831,19 @@ class DecodeState:
 def init_decode_state(cfg: ModelConfig, shape: ShapeConfig,
                       fill_len: Optional[int] = None,
                       device="cuda") -> DecodeState:
+    """A zeroed decode state, ``cache_len`` at ``fill_len`` (default
+    ``seq_len - 1``)."""
     return _decode_state(cfg, shape, fill_len, resolve_device(device))
 
 
-def abstract_decode_state(cfg: ModelConfig,
-                          shape: ShapeConfig) -> DecodeState:
+def abstract_decode_state(cfg: ModelConfig, shape: ShapeConfig,
+                          mesh=None) -> DecodeState:
     """``init_decode_state``'s leaves as meta tensors (shape and dtype, no
-    storage), the reference's ``abstract_decode_state``."""
-    return _decode_state(cfg, shape, None, torch.device("meta"))
+    storage), the reference's ``abstract_decode_state``; ``mesh``: this
+    rank's blocks."""
+    state = _decode_state(cfg, shape, None, torch.device("meta"))
+    return state if mesh is None else ServingMesh(
+        cfg, shape, mesh).place_state(state)
 
 
 def decode_state_logical_axes(cfg: ModelConfig) -> DecodeState:
@@ -834,6 +863,119 @@ def decode_state_logical_axes(cfg: ModelConfig) -> DecodeState:
     else:
         raise ValueError(cfg.family)
     return DecodeState(cache, ("cache_batch",))
+
+
+def decode_state_shardings(cfg: ModelConfig, shape: ShapeConfig,
+                           rules) -> DecodeState:
+    """Each decode-state leaf's ``NamedSharding`` under ``rules``, the
+    reference's ``launch.specs.decode_state_shardings``: ``cache_batch``
+    over ``data`` where it divides, ``cache_seq`` over ``model``, so
+    ``kv_heads`` (after it) stays replicated in the cache."""
+    ab = _decode_state(cfg, shape, None, torch.device("meta"))
+    ax = decode_state_logical_axes(cfg)
+    return DecodeState(
+        {k: rules.sharding(ax.cache[k], v.shape) for k, v in ab.cache.items()},
+        rules.sharding(ax.cache_len, (shape.global_batch,)))
+
+
+# the steps of ROADMAP item 13b that a mesh still refuses
+MESH_SSM_STEP = ("ROADMAP item 13b, third step: ssm and hybrid prefill and "
+                 "decode over a mesh, with the recurrent state's conv_dim "
+                 "block that is not the rank's heads")
+MESH_POD_STEP = ("ROADMAP item 13b, fourth step: the pod axis folded into "
+                 "the data group")
+
+
+class ServingMesh:
+    """A prefill's or a serve step's layout over a ``("data", "model")``
+    ``DeviceMesh`` (``launch.mesh``), the reference's ``input_specs`` and
+    ``out_shardings`` for a prefill or decode cell:
+
+    * the parameters: each rank's blocks of the model-sharded leaves
+      (``serving_params``, ``DataParallel``'s cut);
+    * the batch (``tokens``, ``active``, ``frames``, ``patch_embeds``):
+      its rows over ``data`` where they divide (``rows``), replicated
+      over ``model``; where the rows do not divide, every data rank runs
+      them all, and moe routes them alone (its routing pool is the rank);
+    * the decode state: ``cache_batch`` over ``data`` where it divides,
+      ``cache_seq`` over ``model``, every KV head a rank
+      (``decode_state_shardings``; ``place_state`` / ``gather_state``);
+      ``cache_len`` by rows;
+    * the logits replicated: gathered over the vocabulary's model blocks
+      and the data ranks' rows (``gather_logits``).
+
+    Refused with ``NotImplementedError`` naming ROADMAP's next step: a
+    mesh with a pod axis, the ssm and hybrid families, and a cache whose
+    positions the model axis does not divide."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, mesh):
+        sizes = axis_sizes(mesh)
+        if set(sizes) - {"data", "model"}:
+            raise NotImplementedError(
+                f"prefill and decode over a {tuple(sizes.values())} mesh "
+                f"with a pod axis: the port serves over ('data', 'model') "
+                f"meshes; {MESH_POD_STEP}")
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.family} prefill and decode over a "
+                f"{tuple(sizes.values())} mesh: the port serves the "
+                f"dense, vlm, moe and enc_dec families over a mesh; "
+                f"{MESH_SSM_STEP}")
+        m = sizes.get("model", 1)
+        if shape.seq_len % m:
+            raise NotImplementedError(
+                f"a cache of {shape.seq_len} positions over a model axis "
+                f"of {m}: the port keeps the reference's cache_seq over "
+                f"model, which must divide it")
+        self.cfg, self.shape, self.mesh = cfg, shape, mesh
+        self.coord = coordinate(mesh)
+        rules = ShardingRules(mesh)
+        if sizes.get("data", 1) > 1 and rules.mesh_axes_for(
+                "batch", shape.global_batch) is None:
+            rules = rules.with_pool(self.coord["data"], 1)
+        self.rules = rules
+        self.state_shardings = decode_state_shardings(cfg, shape, rules)
+
+    def rows(self, t):
+        """A global batch leaf -> this rank's rows of it (a view)."""
+        return local_block(t, self.rules.sharding(
+            ("batch",) + (None,) * (t.ndim - 1), t.shape), self.coord)
+
+    def gather_logits(self, logits):
+        """This rank's logits (its rows; its block of the vocabulary where
+        the rules shard it, ``transformer.lm_logits``) -> the whole (B, S,
+        padded_vocab), the same on every rank: all-gathered over the
+        model and data axes that split them."""
+        shape = (self.shape.global_batch, logits.shape[1],
+                 self.cfg.padded_vocab)
+        return gather_block(logits, self.rules.sharding(
+            ("batch", None, "vocab"), shape))
+
+    def place_state(self, state: DecodeState) -> DecodeState:
+        """A whole decode state -> this rank's block of every leaf, each a
+        copy of its own."""
+        sh = self.state_shardings
+
+        def own(t, s):
+            return local_block(t, s, self.coord).clone(
+                memory_format=torch.contiguous_format)
+        return DecodeState({k: own(v, sh.cache[k])
+                            for k, v in state.cache.items()},
+                           own(state.cache_len, sh.cache_len))
+
+    def gather_state(self, state: DecodeState) -> DecodeState:
+        """``place_state``'s inverse: the whole decode state on every rank
+        (all-gathers over the axes that split each leaf)."""
+        sh = self.state_shardings
+        return DecodeState({k: gather_block(v, sh.cache[k])
+                            for k, v in state.cache.items()},
+                           gather_block(state.cache_len, sh.cache_len))
+
+
+def _mesh_rules(sm: Optional[ServingMesh]):
+    """``sm``'s rules for the life of the block; the caller's as they are
+    without a mesh."""
+    return contextlib.nullcontext() if sm is None else use_rules(sm.rules)
 
 
 def _decode_state(cfg: ModelConfig, shape: ShapeConfig,
@@ -864,8 +1006,8 @@ def _decoder_prefill(params, batch, cfg: ModelConfig, impl: str = "kernel"):
         h, (k, v) = L.attention_block(lp["attn"], h, cfg, causal=True,
                                       impl=impl)
         h = _feed_forward(lp, h, cfg)
-        ks.append(k.to(torch.bfloat16))
-        vs.append(v.to(torch.bfloat16))
+        ks.append(L.cache_block(k.to(torch.bfloat16), cfg))
+        vs.append(L.cache_block(v.to(torch.bfloat16), cfg))
     return h, ks, vs
 
 
@@ -879,11 +1021,12 @@ def _encdec_prefill(params, batch, cfg: ModelConfig, impl: str = "kernel"):
     for lp in params["dec_layers"]:
         h, (k, v) = L.attention_block(lp["self_attn"], h, cfg, causal=True,
                                       impl=impl)
-        xk, xv = T.cross_kv(lp["cross_attn"], enc_out, cfg)
-        h = T.cross_attention(lp["cross_attn"], h, xk, xv, cfg)
+        xk, xv, heads = T.cross_kv_heads(lp["cross_attn"], enc_out, cfg)
+        h = T.cross_attention(lp["cross_attn"], h,
+                              *L.expand_kv(xk, xv, heads), cfg)
         h = L.swiglu_block(lp["mlp"], h, cfg)
         for key, t in zip(cols, (k, v, xk, xv)):
-            cols[key].append(t.to(torch.bfloat16))
+            cols[key].append(L.cache_block(t.to(torch.bfloat16), cfg))
     return h, {k: torch.stack(ts) for k, ts in cols.items()}
 
 
@@ -914,7 +1057,8 @@ def _ssm_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
     return h, cache
 
 
-def make_prefill(cfg: ModelConfig, shape: ShapeConfig, impl: str = "kernel"):
+def make_prefill(cfg: ModelConfig, shape: ShapeConfig, impl: str = "kernel",
+                 mesh=None):
     """Returns fn(params, batch) -> (last_logits, DecodeState).
 
     ``batch`` is ``batch_spec``'s prefill batch: ``tokens``, and an
@@ -924,18 +1068,36 @@ def make_prefill(cfg: ModelConfig, shape: ShapeConfig, impl: str = "kernel"):
     encoder's non-causal, the decoders' causal; enc_dec cross attention
     stays ``full_attention``).  Every kernel on the way (flash attention,
     SSD) runs its plain version on the CPU, or with ``impl="ref"``.
-    ``cache_len`` is ``shape.seq_len``, as in the reference."""
+    ``cache_len`` is ``shape.seq_len``, as in the reference.
+
+    ``mesh``: a ``("data", "model")`` ``DeviceMesh`` this rank belongs
+    to; every rank of it must call the function, with its blocks of the
+    parameters (``serving_params(..., mesh=mesh)``) and the **global**
+    batch.  The rank runs its rows (``ServingMesh``) with the blocks
+    tensor parallel over the model axis (attention on its heads: the
+    flash kernel on them past 8192 positions; moe routed over the data
+    ranks with the experts laid out as the rules lay them), and returns
+    what the reference's ``out_shardings`` give it: the logits
+    replicated, (B, 1, padded_vocab) on every rank, and its block of the
+    decode state (``ServingMesh.state_shardings``: its rows, its
+    ``S / m`` positions of every KV head, ``layers.cache_block``)."""
+    sm = None if mesh is None else ServingMesh(cfg, shape, mesh)
 
     def prefill(params, batch):
-        if cfg.family in DECODER_FAMILIES:
-            h, ks, vs = _decoder_prefill(params, batch, cfg, impl)
-            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-        elif cfg.family == "enc_dec":
-            h, cache = _encdec_prefill(params, batch, cfg, impl)
-        else:
-            h, cache = _ssm_prefill(params, batch["tokens"], cfg, impl)
-        logits = T.lm_logits(params, h[:, -1:], cfg)
-        cache_len = torch.full((shape.global_batch,), shape.seq_len,
+        if sm is not None:
+            batch = {k: sm.rows(v) for k, v in batch.items()}
+        with _mesh_rules(sm):
+            if cfg.family in DECODER_FAMILIES:
+                h, ks, vs = _decoder_prefill(params, batch, cfg, impl)
+                cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            elif cfg.family == "enc_dec":
+                h, cache = _encdec_prefill(params, batch, cfg, impl)
+            else:
+                h, cache = _ssm_prefill(params, batch["tokens"], cfg, impl)
+            logits = T.lm_logits(params, h[:, -1:], cfg)
+        if sm is not None:
+            logits = sm.gather_logits(logits)
+        cache_len = torch.full((h.shape[0],), shape.seq_len,
                                dtype=torch.int32, device=h.device)
         return logits, DecodeState(cache, cache_len)
 
@@ -1090,8 +1252,8 @@ def _layer_stack(params, cache, h, cfg: ModelConfig, attention, *,
     if cfg.family == "enc_dec":
         for i, lp in enumerate(params["dec_layers"]):
             h = attention(lp["self_attn"], h, i)
-            h = T.cross_attention(lp["cross_attn"], h, cache["xk"][i],
-                                  cache["xv"][i], cfg)
+            h = T.decode_cross_attention(lp["cross_attn"], h, cache["xk"][i],
+                                         cache["xv"][i], cfg)
             h = L.swiglu_block(lp["mlp"], h, cfg)
         return h
     shared = params.get("shared")
@@ -1115,17 +1277,30 @@ def _layer_stack(params, cache, h, cfg: ModelConfig, attention, *,
     return h
 
 
-def make_serve_step(cfg: ModelConfig, shape: ShapeConfig):
+def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     """Returns fn(params, DecodeState, tokens (B,1), active (B,)) ->
     (logits, DecodeState): one new token per sequence against a cache
-    of ``shape.seq_len``."""
+    of ``shape.seq_len``.
+
+    ``mesh``: as ``make_prefill``'s.  Every rank of the mesh calls the
+    step with its blocks of the parameters and of the decode state
+    (``ServingMesh.place_state``, or a prefill's over the same mesh) and
+    the **global** ``tokens`` / ``active``; it returns the logits
+    replicated and its block of the new state.  Each attention is a
+    split softmax over the model ranks' positions
+    (``layers._decode_attention_split``; enc_dec's cross attention
+    ``transformer.decode_cross_attention``), the reference's
+    ``kv_len = cache_len + 1`` function; only the rank that owns a
+    lane's position ``cache_len`` writes it."""
+    sm = None if mesh is None else ServingMesh(cfg, shape, mesh)
 
     def serve_step(params, state: DecodeState, tokens, active=None):
         if active is None:
             active = torch.ones(tokens.shape[0], dtype=torch.int32,
                                 device=tokens.device)
+        if sm is not None:
+            tokens, active = sm.rows(tokens), sm.rows(active)
         act = active.bool()
-        h = T.embed_tokens(params, tokens, cfg)
         cache, clen = state.cache, state.cache_len
 
         def attention(p, x, i):
@@ -1134,8 +1309,12 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig):
                                       active=act)
             return x
 
-        h = _layer_stack(params, cache, h, cfg, attention, act=act)
-        logits = T.lm_logits(params, h, cfg)
+        with _mesh_rules(sm):
+            h = T.embed_tokens(params, tokens, cfg)
+            h = _layer_stack(params, cache, h, cfg, attention, act=act)
+            logits = T.lm_logits(params, h, cfg)
+        if sm is not None:
+            logits = sm.gather_logits(logits)
         return logits, DecodeState(cache, clen + active)
 
     return serve_step

@@ -22,8 +22,9 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.launch.sharding import (active_rules, copy_to_model,
-                                         model_axis, model_split,
-                                         reduce_from_model, use_rules)
+                                         gather_over_model, model_axis,
+                                         model_split, reduce_from_model,
+                                         use_rules)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
@@ -294,18 +295,27 @@ def encoder_forward(params, frames, cfg: ModelConfig, *,
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
-def cross_kv(p, enc_out, cfg: ModelConfig):
-    """Cross attention's k and v (B, S_enc, KV, D) from the encoder output:
-    projections only, no rotary.  Where the active rules shard ``heads``
-    over a model axis, the encoder output (replicated over it) goes
-    through f (``copy_to_model``) and the projections are
-    column-parallel, k and v of this rank's heads (``layers.kv_tp``):
-    f's backward sums the ranks' partial gradients of the encoder output,
-    once for each decoder layer that reads it."""
+def cross_kv_heads(p, enc_out, cfg: ModelConfig):
+    """Cross attention's k and v (B, S_enc, heads, D) from the encoder
+    output, projections only, no rotary, of the KV heads this rank holds,
+    and the KV head each of its query heads reads (``None``: local), as
+    ``layers.kv_heads_tp`` gives them: where the active rules shard
+    ``heads`` over a model axis, the encoder output (replicated over it)
+    goes through f (``copy_to_model``) and the projections are
+    column-parallel; f's backward sums the ranks' partial gradients of
+    the encoder output, once for each decoder layer that reads it.  A
+    decode state's ``xk``/``xv`` keep these heads
+    (``layers.cache_block``)."""
     e = enc_out.to(dtype_of(cfg.compute_dtype))
     if model_split("heads", cfg.num_heads) > 1:
-        return L.kv_tp(p, copy_to_model(e), cfg)
-    return L._proj(e, p["wk"]), L._proj(e, p["wv"])
+        return L.kv_heads_tp(p, copy_to_model(e), cfg)
+    return L._proj(e, p["wk"]), L._proj(e, p["wv"]), None
+
+
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """``cross_kv_heads``' k and v of each of this rank's query heads
+    (``layers.expand_kv``)."""
+    return L.expand_kv(*cross_kv_heads(p, enc_out, cfg))
 
 
 def cross_attention(p, x, xk, xv, cfg: ModelConfig):
@@ -323,6 +333,36 @@ def cross_attention(p, x, xk, xv, cfg: ModelConfig):
                            xk.to(dt), xv.to(dt), causal=False)
     out = L._proj_out(att, p["wo"])
     return x + (reduce_from_model(out) if tp else out)
+
+
+def decode_cross_attention(p, x, xk, xv, cfg: ModelConfig):
+    """A decode step's cross attention over a decode state's ``xk``/``xv``:
+    ``cross_attention`` without a model axis.  Under rules with a model
+    axis above 1 they are this rank's block of the reference's layout
+    (``cache_seq`` over ``model``: positions ``[r S/m, (r+1) S/m)`` of
+    every KV head), as the self attention's cache is
+    (``layers._decode_attention_split``): q of the rank's query heads
+    (f on the normed input, no rotary), gathered over the model group
+    where the rules shard ``heads``, then ``layers.
+    seq_sharded_attention`` with no mask (the reference attends to all
+    of the encoder's positions), and the rank's heads through ``wo``
+    and g (every head through the whole ``wo`` where ``heads`` is
+    replicated)."""
+    tp = model_axis()
+    if tp is None:
+        return cross_attention(p, x, xk, xv, cfg)
+    dt = dtype_of(cfg.compute_dtype)
+    tp_heads = model_split("heads", cfg.num_heads) > 1
+    hn = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
+    q = L._proj(copy_to_model(hn) if tp_heads else hn, p["wq"])
+    if tp_heads:
+        q = gather_over_model(q, 2)
+    att = L.seq_sharded_attention(q, xk.to(dt), xv.to(dt)).to(dt)
+    if not tp_heads:
+        return x + L._proj_out(att, p["wo"])
+    n = cfg.num_heads // tp.size
+    out = L._proj_out(att.narrow(2, tp.rank * n, n), p["wo"])
+    return x + reduce_from_model(out)
 
 
 def enc_dec_forward(params, frames, tokens, cfg: ModelConfig, *,

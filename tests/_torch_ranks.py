@@ -418,6 +418,139 @@ def scenario_cuda_one(world):
     return out
 
 
+# serving over a mesh: (case, arch, config overrides, mesh shape, decode?)
+# at the reduced prefill_32k / decode_32k shapes (4 rows of 64
+# positions); the 2-rank group runs the (1, 2) and (2, 1) cases, the
+# 4-rank group the (2, 2) ones
+F32 = dict(compute_dtype="float32")
+SERVE_CASES = {
+    2: (("dense", "granite-8b", F32, (1, 2), True),
+        ("dense", "granite-8b", F32, (2, 1), True),
+        ("blockwise", "granite-8b", dict(attn_impl="blockwise", **F32),
+         (1, 2), False),
+        ("kv1", "granite-8b", dict(num_kv_heads=1, **F32), (1, 2), True),
+        ("moe_grouped", "qwen2-moe-a2.7b", dict(moe_impl="grouped", **F32),
+         (1, 2), True),
+        ("moe_onehot", "qwen2-moe-a2.7b", dict(moe_impl="onehot", **F32),
+         (1, 2), True),
+        ("vlm", "internvl2-26b", F32, (1, 2), True),
+        ("enc_dec", "seamless-m4t-medium", F32, (1, 2), True),
+        ("bf16", "granite-8b", {}, (1, 2), True)),
+    4: (("dense", "granite-8b", F32, (2, 2), True),
+        ("moe_grouped", "qwen2-moe-a2.7b", dict(moe_impl="grouped", **F32),
+         (2, 2), True),
+        ("moe_onehot", "qwen2-moe-a2.7b", dict(moe_impl="onehot", **F32),
+         (2, 2), True))}
+SERVE_STEPS = 4
+# the decode lanes' cache_len (S = 64; a model axis of 2 holds 32
+# positions a rank): lane 0 writes position 31 on rank 0, then 32-34 on
+# rank 1; lane 1 is inactive; lane 2 is full (cache_len == S: no write);
+# lane 3's positions all lie on rank 0 (rank 1 holds none of them)
+SERVE_LENS = (31, 40, 64, 3)
+SERVE_ACTIVE = (1, 0, 1, 1)
+
+
+def serve_inputs(cfg, seed=0):
+    """A case's inputs, made from ``seed`` with numpy (float32 where the
+    model reads bf16; both packages round them to bf16 the same way):
+    the whole parameter tree (the port's draw, as numpy), the prefill
+    batch, a decode state (random bf16 cache, ``SERVE_LENS``) and
+    ``SERVE_STEPS`` steps of tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pshape, dshape = (SHAPES["prefill_32k"].reduced(),
+                      SHAPES["decode_32k"].reduced())
+    B, S = pshape.global_batch, pshape.seq_len
+    st = S - cfg.frontend_seq if cfg.family == "vlm" else S
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, st),
+                                    dtype=np.int32)}
+    if cfg.family == "enc_dec":
+        batch["frames"] = rng.standard_normal((B, S, cfg.d_model),
+                                              dtype=np.float32)
+    elif cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, cfg.frontend_seq, cfg.d_model), dtype=np.float32)
+    ab = zoo.abstract_decode_state(cfg, dshape)
+    cache = {k: rng.standard_normal(tuple(v.shape), dtype=np.float32)
+             for k, v in ab.cache.items()}
+    params = adamw.tree_map(lambda t: t.numpy(),
+                            zoo.init_state(cfg, seed, device="cpu").params)
+    return {"params": params, "batch": batch, "cache": cache,
+            "cache_len": np.array(SERVE_LENS, np.int32)[:dshape.global_batch],
+            "tokens": rng.integers(0, cfg.vocab_size,
+                                   (SERVE_STEPS, dshape.global_batch, 1),
+                                   dtype=np.int32),
+            "active": np.array(SERVE_ACTIVE, np.int32)}
+
+
+def _torch_leaf(x):
+    """A numpy input -> a tensor: float32 arrays are bf16 model inputs."""
+    t = torch.from_numpy(x)
+    return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+
+def served(cfg, mesh_shape, decode: bool) -> dict:
+    """One case over a ``mesh_shape`` mesh of the world's first ranks: the
+    prefill's logits and this rank's block of its decode state, then
+    (``decode``) ``SERVE_STEPS`` serve steps from the seeded state's
+    block, their logits and the final block; the all-reduces and
+    all-gathers of the prefill and of each step; rank 0 also keeps the
+    inputs (the test hands them to the reference)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+    if mesh.get_coordinate() is None:
+        return {}
+    inp = serve_inputs(cfg)
+    pshape, dshape = (SHAPES["prefill_32k"].reduced(),
+                      SHAPES["decode_32k"].reduced())
+    params = zoo.serving_params(inp["params"], cfg, mesh, device="cpu")
+
+    def counted(fn, *args):
+        before = sharding.all_reduces, sharding.all_gathers
+        out = fn(*args)
+        return out, (sharding.all_reduces - before[0],
+                     sharding.all_gathers - before[1])
+
+    batch = {k: _torch_leaf(v) for k, v in inp["batch"].items()}
+    (logits, state), colls = counted(
+        zoo.make_prefill(cfg, pshape, mesh=mesh), params, batch)
+    out = {"coord": tuple(mesh.get_coordinate()),
+           "prefill": {"logits": logits, "cache": state.cache,
+                       "cache_len": state.cache_len,
+                       "collectives": colls}}
+    if decode:
+        sm = zoo.ServingMesh(cfg, dshape, mesh)
+        state = sm.place_state(zoo.DecodeState(
+            {k: _torch_leaf(v) for k, v in inp["cache"].items()},
+            torch.from_numpy(inp["cache_len"])))
+        step = zoo.make_serve_step(cfg, dshape, mesh=mesh)
+        active = torch.from_numpy(inp["active"])
+        steps = []
+        for tokens in inp["tokens"]:
+            (logits, state), colls = counted(
+                step, params, state, torch.from_numpy(tokens), active)
+            steps.append((logits, colls))
+        whole = sm.gather_state(state)
+        out["decode"] = {"logits": [lg for lg, _ in steps],
+                         "collectives": [c for _, c in steps],
+                         "cache": state.cache, "cache_len": state.cache_len,
+                         "gathered_len": whole.cache_len,
+                         "gathered_equal": all(
+                             torch.equal(sm.place_state(whole).cache[k],
+                                         state.cache[k])
+                             for k in state.cache)}
+    if torch.distributed.get_rank() == 0:
+        out["inputs"] = inp
+    return out
+
+
+def scenario_serve(world):
+    """``SERVE_CASES[world]``: prefill and decode over meshes of the
+    world's ranks, each case's readings by name and mesh."""
+    return {f"{key} {shape}": served(cfg_of(arch, **kw), shape, decode)
+            for key, arch, kw, shape, decode in SERVE_CASES[world]}
+
+
 def hang(rank, world, device, seconds):
     """A rank that outlives any sensible limit (``launch.dist.spawn``'s
     wall-clock limit is tested with it)."""
@@ -431,6 +564,7 @@ def main():
     run = {"two": scenario_two, "four": scenario_four,
            "tp_two": scenario_tp_two, "tp_four": scenario_tp_four,
            "moe_two": scenario_moe_two, "moe_four": scenario_moe_four,
+           "serve_two": scenario_serve, "serve_four": scenario_serve,
            "cuda_one": scenario_cuda_one}[scenario]
     device = "cuda" if scenario.startswith("cuda") else "cpu"
     with launch_dist.process_group(rank, world, init, device,

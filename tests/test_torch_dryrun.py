@@ -18,7 +18,11 @@ held against the JAX package's.
   L = 4 extrapolation against a direct L = 4 trace exactly.
 * Meshes of more than one rank in child processes (the pytest worker
   opens no process group): reduced ``train_4k`` records at (2, 2) and
-  (16, 16), and the refused cells' named error.
+  (16, 16), reduced prefill and decode records at (2, 2) with their
+  collectives in closed form, granite-8b's decode_32k and
+  qwen3-moe-30b-a3b's prefill_32k at production size on (16, 16), and
+  the refused cells' named error (ssm and hybrid serving over a mesh,
+  the pod axis).
 
 Tolerances of the FLOP slope.  XLA's compiled count of a reduced cell is
 of its fused CPU program: a fusion recomputes an elementwise producer in
@@ -455,8 +459,9 @@ _CHILD = """
 import json, sys
 from pathlib import Path
 from repro_torch.launch import dryrun as D
-D.ARCHS = {k: v.reduced() for k, v in D.ARCHS.items()}
-D.SHAPES = {k: v.reduced() for k, v in D.SHAPES.items()}
+if sys.argv[4:] != ["full"]:
+    D.ARCHS = {k: v.reduced() for k, v in D.ARCHS.items()}
+    D.SHAPES = {k: v.reduced() for k, v in D.SHAPES.items()}
 D.PRODUCTION_MESHES["single"] = (tuple(json.loads(sys.argv[2])),
                                  ("data", "model"))
 out = Path(sys.argv[1])
@@ -465,10 +470,13 @@ for arch, shape, meshes in json.loads(sys.argv[3]):
 """
 
 
-def _child(tmp_path, mesh, cells):
+def _child(tmp_path, mesh, cells, full=False):
+    """The cells traced in a child process (reduced; ``full``: at their
+    production size) over a ``mesh`` single-pod mesh: their records."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     run = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path),
-                          json.dumps(mesh), json.dumps(cells)],
+                          json.dumps(mesh), json.dumps(cells)]
+                         + (["full"] if full else []),
                          env=env, cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert run.returncode == 0, run.stderr[-4000:]
@@ -478,8 +486,9 @@ def _child(tmp_path, mesh, cells):
 
 def _ok(rec):
     assert rec["ok"], rec.get("error")
-    assert [(p["L"], p["M"]) for p in rec["analysis_points"]] == \
-        [(1, 1), (2, 1), (1, 2)]
+    points = ([(1, 1), (2, 1), (1, 2)] if rec["kind"] == "train"
+              else [(1, 1), (2, 1)])
+    assert [(p["L"], p["M"]) for p in rec["analysis_points"]] == points
     assert rec["production_single"]["memory"]["peak_hbm_estimate"] > 0
     return [rec["production_single"]["raw_terms_body_once"]] + \
         rec["analysis_points"]
@@ -487,20 +496,48 @@ def _ok(rec):
 
 def test_mesh_records_at_2x2(tmp_path):
     """Rank 0 of a fake group of 4: granite-8b's step all-reduces over
-    groups of 2 (wire = result bytes).  Prefill over the mesh is refused,
-    naming the roadmap's next step."""
+    groups of 2 (wire = result bytes).  Its prefill and decode cells run
+    rank 0's per-rank program over the (2, 2) mesh (2 of 4 rows, 32 of 64
+    positions of every KV head), their collectives in closed form for L
+    layers, B_r = 2 rows, bf16 activations: 1 + 2L all-reduces of
+    (B_r, S_q, d) (the embedding, each layer's attention and MLP g), and
+    a step's L more of every head's split softmax output (B_r, H, D)
+    float32; all-gathers over groups of 2 (wire = half the result, each
+    result the gathered whole): a prefill's k and v to (B_r, S, KV, D)
+    bf16 before the cache's positions are cut, a step's q/k/v to (B_r,
+    1, H + 2 KV, D) bf16 and the softmax statistics (m and l of every
+    head, float32) of both ranks, each layer; then the logits' vocab
+    blocks to (B_r, 1, V) and rows to (B, 1, V), float32."""
     recs = _child(tmp_path, [2, 2], [
         ["granite-8b", "train_4k", ["single"]],
-        ["granite-8b", "prefill_32k", ["single"]]])
+        ["granite-8b", "prefill_32k", ["single"]],
+        ["granite-8b", "decode_32k", ["single"]]])
     for terms in _ok(recs["granite-8b__train_4k"]):
         colls = terms["collectives"]
         assert set(colls) == {"all-reduce"}
         assert colls["all-reduce"]["wire_bytes"] == \
             colls["all-reduce"]["result_bytes"] > 0
-    pre = recs["granite-8b__prefill_32k"]
-    assert not pre["ok"] and pre["error"].startswith("NotImplementedError")
-    assert "prefill over a (2, 2) mesh" in pre["error"]
-    assert "item 13b, second step" in pre["error"]
+    cfg = ARCHS["granite-8b"].reduced()
+    d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    V, B, Br = cfg.padded_vocab, 4, 2
+    logits = 4 * (Br * V + B * V)
+    for kind, S_q, per_layer, softmax_out in (
+            ("prefill", 64, 2 * 2 * Br * 64 * KV * D, 0),
+            ("decode", 1, 2 * Br * (H + 2 * KV) * D + 4 * 2 * Br * H * 2,
+             4 * Br * H * D)):
+        rec = recs[f"granite-8b__{kind}_32k"]
+        for terms, L_ in zip(_ok(rec), (cfg.num_layers, 1, 2)):
+            colls = terms["collectives"]
+            assert set(colls) == {"all-reduce", "all-gather"}
+            reduced = (1 + 2 * L_) * 2 * Br * S_q * d + L_ * softmax_out
+            assert colls["all-reduce"] == {
+                "count": 1 + 2 * L_ + (L_ if softmax_out else 0),
+                "result_bytes": reduced, "wire_bytes": reduced}, kind
+            gathered = L_ * per_layer + logits
+            assert colls["all-gather"] == {
+                "count": 2 * L_ + 2, "result_bytes": gathered,
+                "wire_bytes": gathered / 2}, kind
+        assert rec["production_single"]["n_devices"] == 4
 
 
 def test_mamba2_mesh_record_at_2x2(tmp_path):
@@ -531,10 +568,13 @@ def test_mamba2_mesh_record_at_2x2(tmp_path):
 def test_mesh_records_at_16x16(tmp_path):
     """The single-pod mesh: rank 0 of a fake group of 256, every
     all-reduce over a group of 16 (ring wire bytes 2 x 15/16 of the
-    result); a multi-pod cell is refused by name."""
+    result); a multi-pod cell, and ssm prefill and decode over the mesh,
+    are refused naming ROADMAP's next steps."""
     recs = _child(tmp_path, [16, 16], [
         ["granite-8b", "train_4k", ["single"]],
-        ["mamba2-780m", "train_4k", ["multi"]]])
+        ["mamba2-780m", "train_4k", ["multi"]],
+        ["mamba2-780m", "prefill_32k", ["single"]],
+        ["zamba2-2.7b", "decode_32k", ["single"]]])
     for terms in _ok(recs["granite-8b__train_4k"]):
         ar = terms["collectives"]["all-reduce"]
         assert ar["wire_bytes"] == pytest.approx(
@@ -543,4 +583,51 @@ def test_mesh_records_at_16x16(tmp_path):
         "n_devices"] == 256
     multi = recs["mamba2-780m__train_4k"]
     assert not multi["ok"] and "pod axis" in multi["error"]
-    assert "item 13b, second step" in multi["error"]
+    assert "item 13b, fourth step: the pod axis" in multi["error"]
+    for key in ("mamba2-780m__prefill_32k", "zamba2-2.7b__decode_32k"):
+        rec = recs[key]
+        assert not rec["ok"] and rec["error"].startswith(
+            "NotImplementedError"), key
+        assert "item 13b, third step: ssm and hybrid prefill and decode " \
+            "over a mesh" in rec["error"]
+
+
+@pytest.mark.parametrize("cell", ["granite-8b__decode_32k",
+                                  "qwen3-moe-30b-a3b__prefill_32k"])
+def test_serving_records_at_16x16_full_size(cell, tmp_path):
+    """granite-8b's decode_32k and qwen3-moe-30b-a3b's prefill_32k at
+    their production size on (16, 16), rank 0 of a fake group of 256,
+    each in a child of its own within its timeout.  granite-8b, 8 of 128
+    lanes a data rank, 2048 of 32768 positions of all 8 KV heads (which
+    do not divide 16: each rank projects them whole) and 2 of 32 query
+    heads a model rank: 1 + 2 x 36 all-reduces of (8, 1, 4096) bf16 and
+    36 of the split softmax output (8, 8, 4, 1, 128) float32;
+    all-gathers each layer of q (to (8, 1, 32, 128) bf16) and of the
+    softmax statistics (16 x (8, 8, 4, 1, 2) float32), then the logits'
+    vocab blocks and rows.  qwen3-moe-30b-a3b, 2 of 32 rows, its 128 experts
+    split over 16 (explicit expert parallelism): 1 + 3 x 48 all-reduces
+    (the embedding; each layer's attention g, the experts' float32
+    combine and the aux loss over the data ranks); its 4 KV heads
+    replicated, so the cache's positions are a slice and the logits' two
+    gathers are the only all-gathers; the flash kernel's meta branch
+    counted once a layer."""
+    arch, shape = cell.split("__")
+    rec = _child(tmp_path, [16, 16], [[arch, shape, ["single"]]],
+                 full=True)[cell]
+    terms = _ok(rec)[0]
+    colls = terms["collectives"]
+    cfg = ARCHS[arch]
+    L_, V = cfg.num_layers, cfg.padded_vocab
+    if arch == "granite-8b":
+        assert colls["all-reduce"]["count"] == 1 + 3 * L_
+        assert colls["all-reduce"]["result_bytes"] == \
+            (1 + 2 * L_) * 8 * 4096 * 2 + L_ * 8 * 8 * 4 * 128 * 4
+        assert colls["all-gather"]["count"] == 2 * L_ + 2
+        assert colls["all-gather"]["result_bytes"] == L_ * (
+            8 * 32 * 128 * 2 + 16 * 8 * 8 * 4 * 2 * 4) + 4 * (
+            8 * V + 128 * V)
+    else:
+        assert colls["all-reduce"]["count"] == 1 + 3 * L_
+        assert colls["all-gather"]["count"] == 2
+        assert terms["kernels"]["flash_attention"]["calls"] == L_
+    assert rec["production_single"]["n_devices"] == 256

@@ -978,3 +978,250 @@ def test_elastic_tensor_parallel_enc_dec_4_2_4(tp_four):
     assert e["bit_equal"] == [True, True]
     for r in (2, 3):
         assert tp_four[r]["enc_dec_elastic"]["b_steps"] == [0, 1, 4, 5]
+
+
+# ------------------------------------------------- serving over the mesh
+@pytest.fixture(scope="module")
+def serve_two(tmp_path_factory):
+    return run_ranks("serve_two", 2, tmp_path_factory.mktemp("serve_two"))
+
+
+@pytest.fixture(scope="module")
+def serve_four(tmp_path_factory):
+    return run_ranks("serve_four", 4, tmp_path_factory.mktemp("serve_four"))
+
+
+# ``tests/_torch_ranks.py``'s SERVE_CASES: case -> (arch, config overrides)
+F32 = dict(compute_dtype="float32")
+SERVE = {"dense": ("granite-8b", F32),
+         "blockwise": ("granite-8b", dict(attn_impl="blockwise", **F32)),
+         "kv1": ("granite-8b", dict(num_kv_heads=1, **F32)),
+         "moe_grouped": ("qwen2-moe-a2.7b", dict(moe_impl="grouped", **F32)),
+         "moe_onehot": ("qwen2-moe-a2.7b", dict(moe_impl="onehot", **F32)),
+         "vlm": ("internvl2-26b", F32),
+         "enc_dec": ("seamless-m4t-medium", F32),
+         "bf16": ("granite-8b", {})}
+
+
+def _jax_leaf(x):
+    """A numpy input as the reference takes it: float32 arrays are bf16
+    model inputs (rounded as the port rounds them)."""
+    x = jnp.asarray(x)
+    return x.astype(jnp.bfloat16) if x.dtype == jnp.float32 else x
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def serve_reference(case, mesh_shape, inputs, decode):
+    """The reference's prefill and (``decode``) serve steps of ``case`` on
+    a real ``mesh_shape`` host mesh: ``jax.jit(cell_fn(...),
+    in_shardings=..., out_shardings=...)`` of ``input_specs``, from the
+    inputs the ranks used.  Returns the logits and the decode states'
+    leaves as arrays with their output shardings.  Cached."""
+    key = ("serve", case, mesh_shape)
+    if key in _RUNS:
+        return _RUNS[key]
+    arch, kw = SERVE[case]
+    cfg = jax_config(arch).reduced().with_(**kw)
+    mesh = jmake_mesh(mesh_shape, ("data", "model"))
+    rules = JShardingRules(mesh)
+    pshape = JSHAPES["prefill_32k"].reduced()
+    dshape = JSHAPES["decode_32k"].reduced()
+    out = {}
+    with mesh, juse_rules(rules):
+        spec = jspecs.input_specs(cfg, pshape, rules)
+        params = jax.device_put(jax.tree.map(jnp.asarray, inputs["params"]),
+                                spec["in_shardings"][0])
+        batch = jax.device_put({k: _jax_leaf(v) for k, v in
+                                inputs["batch"].items()},
+                               spec["in_shardings"][1])
+        prefill = jax.jit(jspecs.cell_fn(cfg, pshape),
+                          in_shardings=spec["in_shardings"],
+                          out_shardings=spec["out_shardings"])
+        out["prefill"] = prefill(params, batch)
+        if decode:
+            dspec = jspecs.input_specs(cfg, dshape, rules)
+            state = jax.device_put(jzoo.DecodeState(
+                {k: _jax_leaf(v) for k, v in inputs["cache"].items()},
+                jnp.asarray(inputs["cache_len"])), dspec["in_shardings"][1])
+            step = jax.jit(jspecs.cell_fn(cfg, dshape),
+                           in_shardings=dspec["in_shardings"],
+                           out_shardings=dspec["out_shardings"])
+            logits = []
+            for tokens in inputs["tokens"]:
+                lg, state = step(params, state, jax.device_put(
+                    {"tokens": jnp.asarray(tokens),
+                     "active": jnp.asarray(inputs["active"])},
+                    dspec["in_shardings"][2]))
+                logits.append(lg)
+            out["decode"] = (logits, state)
+    out["mesh"] = mesh
+    _RUNS[key] = out
+    return out
+
+
+def _one_bf16_ulp(x):
+    """The spacing of bf16 numbers at each element of ``x``."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+                   - 7)
+
+
+def assert_blocks(got, want_state, mesh, coord, what, ulps=1):
+    """A rank's decode-state block (``got``: its ``cache`` dict and
+    ``cache_len``) against the block the reference's output sharding
+    gives the device at ``coord``: ``cache_len`` equal, each bf16 cache
+    element within ``ulps`` bf16 ulps of the reference's, over the
+    float32 values' own difference before the rounding (1e-5 of the
+    leaf's largest element: near zero, a float32 difference of that
+    size spans several bf16 ulps of the element)."""
+    device = mesh.devices[coord]
+    for k, arr in list(want_state.cache.items()) + [
+            ("cache_len", want_state.cache_len)]:
+        index = arr.sharding.devices_indices_map(arr.shape)[device]
+        want = _f32(arr)[index] if k != "cache_len" else \
+            np.asarray(arr)[index]
+        block = got["cache_len"] if k == "cache_len" else got["cache"][k]
+        assert tuple(block.shape) == want.shape, (what, k, coord)
+        if k == "cache_len":
+            assert np.array_equal(block.numpy(), want), (what, coord)
+            continue
+        g = block.float().numpy()
+        bound = ulps * _one_bf16_ulp(np.maximum(np.abs(g), np.abs(want))) \
+            + F32_PARAM * np.abs(want).max()
+        assert (np.abs(g - want) <= bound).all(), \
+            (what, k, coord, float(np.abs(g - want).max()))
+
+
+def serve_case(ranks, name):
+    case, shape = name.split(" ", 1)
+    mesh_shape = eval(shape)
+    mine = [r[name] for r in ranks if r.get(name)]
+    assert len(mine) == mesh_shape[0] * mesh_shape[1]
+    decode = "decode" in mine[0]
+    want = serve_reference(case, mesh_shape, mine[0]["inputs"], decode)
+    return mine, want
+
+
+@pytest.mark.parametrize("name", ["dense (1, 2)", "dense (2, 1)",
+                                  "dense (2, 2)", "blockwise (1, 2)",
+                                  "kv1 (1, 2)", "moe_grouped (1, 2)",
+                                  "moe_onehot (1, 2)", "moe_grouped (2, 2)",
+                                  "moe_onehot (2, 2)", "vlm (1, 2)",
+                                  "enc_dec (1, 2)"])
+def test_prefill_over_the_mesh_matches_reference(name, serve_two,
+                                                 serve_four):
+    """Reduced models, float32, the reduced prefill_32k cell (4 rows of
+    64 positions) over a (data, model) mesh of gloo ranks against the
+    reference's sharded jit of ``cell_fn`` on a host mesh of the same
+    shape, ``in_shardings`` and ``out_shardings`` from ``input_specs``:
+    granite-8b at (1, 2), (2, 1) and (2, 2), with ``attn_impl=
+    "blockwise"`` (its plain form on the CPU) and with one KV head (the
+    rules replicate ``kv_heads``); qwen2-moe-a2.7b grouped and one-hot
+    (the experts split over the model axis, the rows routed over the
+    data ranks); internvl2-26b (patch embeddings) and
+    seamless-m4t-medium (frames; xk / xv in the decode state).  Every
+    rank's logits (replicated: the whole (B, 1, V)) within 1e-5
+    relative L2, and its block of the decode state (cache_batch over
+    data, cache_seq over model, every KV head) within one bf16 ulp of
+    the reference's block, cache_len equal."""
+    ranks = serve_four if name.endswith("(2, 2)") else serve_two
+    mine, want = serve_case(ranks, name)
+    logits, state = want["prefill"]
+    for r in mine:
+        got = r["prefill"]
+        assert rel_l2(np.asarray(logits), got["logits"].numpy()) <= \
+            F32_METRIC, name
+        assert_blocks(got, state, want["mesh"], r["coord"], name)
+
+
+@pytest.mark.parametrize("name", ["dense (1, 2)", "dense (2, 1)",
+                                  "dense (2, 2)", "kv1 (1, 2)",
+                                  "moe_grouped (1, 2)", "moe_onehot (1, 2)",
+                                  "moe_grouped (2, 2)", "moe_onehot (2, 2)",
+                                  "vlm (1, 2)", "enc_dec (1, 2)"])
+def test_decode_over_the_mesh_matches_reference(name, serve_two,
+                                                serve_four):
+    """4 serve steps from a seeded decode state (random bf16 cache of 64
+    positions), each rank holding its block: lane 0 at cache_len 31
+    writes position 31 on model rank 0 and 32-34 on rank 1, lane 1 is
+    inactive, lane 2 is full (cache_len == S: no write), and lane 3's
+    positions all lie on rank 0 (rank 1 holds no valid position of it:
+    its share of the split softmax must add nothing).  Against the
+    reference's sharded jit of the serve step: every step's logits within
+    1e-5 relative L2 on every rank (seamless-m4t-medium within 5e-5: its
+    cross attention reads the seeded N(0, 1) xk of 64 positions, whose
+    logits are tens, and a float32 difference in q of 1e-7 relative
+    moves lane 0's softmax by ~1e-5; the port's single device reads
+    1.1-1.5e-5 from the reference here, the mesh the same), the final
+    blocks within one bf16 ulp, cache_len equal; the blocks gathered
+    back over the mesh give the same blocks again."""
+    ranks = serve_four if name.endswith("(2, 2)") else serve_two
+    mine, want = serve_case(ranks, name)
+    logits, state = want["decode"]
+    tol = 5e-5 if name.startswith("enc_dec") else F32_METRIC
+    for r in mine:
+        got = r["decode"]
+        assert len(got["logits"]) == len(logits) == 4
+        for a, b in zip(logits, got["logits"]):
+            assert rel_l2(np.asarray(a), b.numpy()) <= tol, name
+        assert_blocks(got, state, want["mesh"], r["coord"], name)
+        assert got["gathered_equal"]
+        assert np.array_equal(got["gathered_len"].numpy(),
+                              np.asarray(state.cache_len))
+
+
+@pytest.mark.parametrize("name", ["dense (1, 2)", "dense (2, 1)",
+                                  "dense (2, 2)"])
+def test_serving_collectives_in_closed_form(name, serve_two, serve_four):
+    """Reduced granite-8b (L = 2 layers) on a (d, m) mesh, per prefill and
+    per serve step, as ``launch.sharding`` counts them: over a model axis
+    above 1, 1 + 2L all-reduces (the vocab-parallel embedding, each
+    layer's attention and MLP g), and a step's L more (each layer's
+    split softmax output summed over the ranks); all-gathers 2L
+    (prefill: k and v to the cache's positions; a step: q/k/v, then each
+    rank's largest logit and sum) + 1 (the logits' vocabulary blocks) +
+    1 over a data axis above 1 (the logits' rows)."""
+    ranks = serve_four if name.endswith("(2, 2)") else serve_two
+    d, m = eval(name.split(" ", 1)[1])
+    L_ = 2
+    gathers = (2 * L_ + 1 if m > 1 else 0) + (1 if d > 1 else 0)
+    prefill = ((1 + 2 * L_) if m > 1 else 0, gathers)
+    step = ((1 + 3 * L_) if m > 1 else 0, gathers)
+    for r in ranks:
+        got = r[name]
+        assert tuple(got["prefill"]["collectives"]) == prefill, name
+        assert [tuple(c) for c in got["decode"]["collectives"]] == \
+            [step] * 4, name
+
+
+def test_bf16_serving_within_the_bf16_rule(serve_two):
+    """granite-8b in bf16 (the config's own) on (1, 2): the prefill's and
+    every step's logits within 8 bf16 ulps (8 * 2^-8) of the largest
+    reference logit, and the greedy token equal wherever the reference's
+    top-2 gap exceeds twice that; the cache blocks within 8 bf16 ulps of
+    each leaf's largest element (layer 1 reads layer 0's output, whose
+    tensor-parallel sums round otherwise)."""
+    name = "bf16 (1, 2)"
+    mine, want = serve_case(serve_two, name)
+    (p_logits, _), (d_logits, state) = want["prefill"], want["decode"]
+    pairs = [(p_logits, r["prefill"]["logits"]) for r in mine] + [
+        (a, r["decode"]["logits"][i]) for r in mine
+        for i, a in enumerate(d_logits)]
+    for ref, got in pairs:
+        ref, got = _f32(ref)[..., :256], got.numpy()[..., :256]
+        tol = 8 * 2.0 ** -8 * np.abs(ref).max()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+        top2 = np.sort(ref, axis=-1)[..., -2:]
+        clear = top2[..., 1] - top2[..., 0] > 2 * tol
+        assert (got.argmax(-1) == ref.argmax(-1))[clear].all()
+    mesh = want["mesh"]
+    for r in mine:
+        for k, arr in state.cache.items():
+            index = arr.sharding.devices_indices_map(arr.shape)[
+                mesh.devices[r["coord"]]]
+            ref = _f32(arr)[index]
+            got = r["decode"]["cache"][k].float().numpy()
+            assert np.abs(got - ref).max() <= 8 * 2.0 ** -8 * \
+                np.abs(ref).max(), k
