@@ -129,9 +129,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    launches = 54 x its 2 bulk prefills) beside a 40-token one;
 15. kernel vs plain: one 16384-token ``make_prefill`` of granite-8b and
    of zamba2-2.7b with ``impl="kernel"`` and ``impl="ref"`` from the
-   same tokens, last-position logits in bf16 and float32 (zamba2-2.7b
-   at full depth, granite-8b at 12 layers: 33 GB of float32 weights at
-   36) within a stated tolerance;
+   same tokens, last-position logits in bf16 and float32 (granite-8b at
+   8 layers, zamba2-2.7b at two periods, 12 layers: ``LONG_PARITY_
+   LAYERS``) within a stated tolerance;
 16. reduced granite-8b in float32 with a bucket of 8704: the dense engine
    (flash kernel) and the paged engine give the same greedy streams for
    a prompt of 8300 tokens and two short ones;
@@ -617,11 +617,12 @@ LONG_PATHS = (("granite-8b", LONG_PROMPTS, 4, 3),
 # summation only (~1e-7 relative per attention output).
 BF16_LONG_TOL = dict(rel_l2=0.1, argmax_agree=0.0)
 F32_LONG_TOL = dict(rel_l2=1e-4, argmax_agree=1.0)
-# The parity checks' depth where it is cut: granite-8b's 36 float32
-# layers are 33 GB to draw, and its bf16 plain form took 14.9 s at 36
-# layers (PR 35's first run; cut to the same 12 since); 12 hold the same
-# kernel against the same plain form.  zamba2-2.7b's stay whole.
-LONG_PARITY_LAYERS = {"granite-8b": 12}
+# The parity checks' depth: granite-8b's 36 float32 layers are 33 GB to
+# draw, and its bf16 plain form took 14.9 s at 36 layers; zamba2-2.7b's
+# 54 took 15.1 s in both dtypes.  A few layers hold the same kernel
+# against the same plain form (zamba2-2.7b's a whole period each, its
+# shared attention twice), and the script keeps within its budget.
+LONG_PARITY_LAYERS = {"granite-8b": 8, "zamba2-2.7b": 12}
 
 
 def log(msg):
@@ -4195,28 +4196,39 @@ def ssd_tp_heads_check(dev) -> dict:
     return out
 
 
-# (j): granite-8b at full width and SERVE_LAYERS layers in bf16, served
-# over a (1, 2) mesh: a prefill of SERVE_LANES lanes x SERVE_PROMPT tokens
-# (the flash kernel on each rank's 16 of 32 heads), then SERVE_STEPS
-# decode steps against a SERVE_CACHE-position cache whose first
-# SERVE_PROMPT positions hold that prefill: model rank 0 holds the prompt,
-# the new tokens land on rank 1
-SERVE_ARCH, SERVE_LAYERS, SERVE_LANES = "granite-8b", 2, 2
+# (j): granite-8b at full width and 2 layers in bf16, served over a (1,
+# 2) mesh: a prefill of SERVE_LANES lanes x SERVE_PROMPT tokens (the flash
+# kernel on each rank's 16 of 32 heads), then SERVE_STEPS decode steps
+# against a SERVE_CACHE-position cache whose first SERVE_PROMPT positions
+# hold that prefill: model rank 0 holds the prompt, the new tokens land
+# on rank 1.  (k) the same for mamba2-780m at 2 layers (24 of 48 SSM
+# heads a rank, the SSD kernel on them) and zamba2-2.7b at one period (6
+# Mamba2 layers, 40 of 80 SSM heads a rank, then the shared attention on
+# 16 of 32 heads, the flash kernel at D = 80 on the prompt).
+# SERVE_MODELS: cell -> (arch, layers on the card)
+SERVE_MODELS = {"j": ("granite-8b", 2), "k_ssm": ("mamba2-780m", 2),
+                "k_hybrid": ("zamba2-2.7b", 6)}
+SERVE_K = ("k_ssm", "k_hybrid")
+SERVE_LANES = 2
 SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 9216, 18432, 16
 SERVE_BF16_ULPS = 8          # tests/test_torch_engine.py's bf16 rule
 
 
-def serve_cfg(dev):
-    """(j)'s model, prefill and decode shapes and steps: full width on the
-    card, reduced on the CPU (32 and 64 positions, 4 steps)."""
+def serve_cfg(dev, key="j"):
+    """A served cell's model, prefill and decode shapes and steps: full
+    width at SERVE_MODELS' layers on the card; reduced on the CPU (a
+    hybrid model to one period; 32 and 64 positions, 4 steps)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    cfg = get_config(SERVE_ARCH)
+    arch, layers = SERVE_MODELS[key]
+    cfg = get_config(arch)
     if dev.type == "cuda":
-        cfg, (p, s, n) = (cfg.with_(num_layers=SERVE_LAYERS),
+        cfg, (p, s, n) = (cfg.with_(num_layers=layers),
                           (SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS))
     else:
         cfg, (p, s, n) = cfg.reduced(), (32, 64, 4)
+        if cfg.family == "hybrid":
+            cfg = cfg.with_(num_layers=cfg.attn_every)
     return (cfg, ShapeConfig("prefill", p, SERVE_LANES, "prefill"),
             ShapeConfig("decode", s, SERVE_LANES, "decode"), n)
 
@@ -4232,24 +4244,26 @@ def tree_bytes(tree) -> int:
 
 def serve_decode_state(cfg, dshape, cache, n: int, dev):
     """A whole ``dshape`` decode state whose first ``n`` positions hold a
-    prefill's whole ``cache``, ``cache_len`` at ``n``."""
+    prefill's whole ``cache`` (its recurrent leaves as they are),
+    ``cache_len`` at ``n``."""
     from repro_torch.models import model_zoo as zoo
     state = zoo.init_decode_state(cfg, dshape, fill_len=n, device=dev)
     for k, v in cache.items():
-        state.cache[k][:, :, :n].copy_(v)
+        (state.cache[k][:, :, :n] if k in ("k", "v") else
+         state.cache[k]).copy_(v)
     return state
 
 
-def serve_one_device(dev, path) -> dict:
-    """(j)'s one-device run, made before the spawn: the prefill, then
-    greedy decode steps; the prompt, the tokens fed and every step's
-    last logits saved to ``path`` for the ranks (which are fed the same
-    tokens); the flash kernel's launches in the prefill (counts set to 0
-    just before, read just after), seconds, peak GiB."""
+def serve_one_device(dev, path, key="j") -> dict:
+    """A served cell's one-device run, made before the spawn: the
+    prefill, then greedy decode steps; the prompt, the tokens fed and
+    every step's last logits saved to ``path`` for the ranks (which are
+    fed the same tokens); the kernels' launches in the prefill (counts
+    set to 0 just before, read just after), seconds, peak GiB."""
     import torch
     from repro_torch.models import model_zoo as zoo
     release(dev)
-    cfg, pshape, dshape, steps = serve_cfg(dev)
+    cfg, pshape, dshape, steps = serve_cfg(dev, key)
     params = zoo.init_serving_params(cfg, seed=0, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_LANES, pshape.seq_len),
                            generator=torch.Generator().manual_seed(23),
@@ -4277,23 +4291,25 @@ def serve_one_device(dev, path) -> dict:
     torch.save({"prompt": prompt, "fed": fed, "logits": out}, path)
     row = {"prefill_s": prefill_s, "step_s": times,
            "flash_launches": launches["flash_attention"],
+           "ssd_launches": launches["ssd_intra_chunk"],
            "peak_gib": peak_gib()}
     del params, state, logits
     release(dev)
     return row
 
 
-def serve_rank(dev, ref_path, out_path) -> dict:
-    """(j) on one rank: the rank's blocks of the same parameters
-    (``init_serving_params(mesh=...)``), the prefill over the (1, 2) mesh
-    on the global prompt, the decode state built from its blocks (the
-    prefill's cache gathered whole into the first positions of the
-    longer cache, then this rank's block), and the steps fed the
-    one-device run's tokens; every logits saved to ``out_path``.
-    Returns seconds (``wall_s``: the whole of it), flash launches, the
+def serve_rank(dev, ref_path, out_path, key="j") -> dict:
+    """A served cell on one rank: the rank's blocks of the same
+    parameters (``init_serving_params(mesh=...)``), the prefill over the
+    (1, 2) mesh on the global prompt, the decode state built from its
+    blocks (the prefill's state gathered whole, its k / v into the first
+    positions of the longer cache, then this rank's block), and the steps
+    fed the one-device run's tokens; every logits saved to ``out_path``.
+    Returns seconds (``wall_s``: the whole of it), the prefill's flash
+    and SSD launches (counts set to 0 just before, read just after), the
     all-reduces and all-gathers of the prefill and of each step
     (``launch.sharding``'s counts), the rank's parameter and cache GiB
-    against the whole's, peak GiB."""
+    against the whole's and the cache's layout's, peak GiB."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import sharding
@@ -4301,7 +4317,7 @@ def serve_rank(dev, ref_path, out_path) -> dict:
     from repro_torch.models import model_zoo as zoo
     t_start = time.perf_counter()
     release(dev)
-    cfg, pshape, dshape, _ = serve_cfg(dev)
+    cfg, pshape, dshape, _ = serve_cfg(dev, key)
     mesh = make_mesh((1, dist.get_world_size()), ("data", "model"),
                      device=dev)
     params = zoo.init_serving_params(cfg, seed=0, device=dev, mesh=mesh)
@@ -4322,7 +4338,7 @@ def serve_rank(dev, ref_path, out_path) -> dict:
     (logits, pstate), prefill_colls, prefill_s = counted(
         zoo.make_prefill(cfg, pshape, mesh=mesh), params,
         {"tokens": ref["prompt"].to(dev)})
-    launches = read_launches()["flash_attention"]
+    launches = read_launches()
     whole = zoo.ServingMesh(cfg, pshape, mesh).gather_state(pstate)
     state = zoo.ServingMesh(cfg, dshape, mesh).place_state(
         serve_decode_state(cfg, dshape, whole.cache, pshape.seq_len, dev))
@@ -4336,13 +4352,17 @@ def serve_rank(dev, ref_path, out_path) -> dict:
         times.append(s)
     torch.save(out, out_path)
     whole_cache = tree_bytes(zoo.abstract_decode_state(cfg, dshape).cache)
+    layout = tree_bytes(zoo.abstract_decode_state(cfg, dshape, mesh).cache)
     row = {"prefill_s": prefill_s, "step_s": times,
-           "flash_launches": launches, "prefill_collectives": prefill_colls,
+           "flash_launches": launches["flash_attention"],
+           "ssd_launches": launches["ssd_intra_chunk"],
+           "prefill_collectives": prefill_colls,
            "step_collectives": colls,
            "param_gib": tree_bytes(params) / 2**30,
            "whole_param_gib": tree_bytes(zoo.abstract_serving_params(cfg))
            / 2**30,
            "cache_gib": tree_bytes(state.cache) / 2**30,
+           "layout_cache_gib": layout / 2**30,
            "whole_cache_gib": whole_cache / 2**30, "peak_gib": peak_gib()}
     del params, state, logits
     release(dev)
@@ -4350,31 +4370,45 @@ def serve_rank(dev, ref_path, out_path) -> dict:
     return row
 
 
+def serve_layers(cfg):
+    """(attention layers, Mamba2 layers) of a served model: granite-8b's
+    layers, mamba2-780m's, zamba2-2.7b's periods (each one shared
+    attention and MLP) and Mamba2 layers."""
+    if cfg.family == "dense":
+        return cfg.num_layers, 0
+    if cfg.family == "ssm":
+        return 0, cfg.num_layers
+    return cfg.num_layers // cfg.attn_every, cfg.num_layers
+
+
 def serve_collectives(cfg) -> dict:
-    """(j)'s all-reduces and all-gathers in closed form, a prefill's and a
-    step's, on (1, m), m > 1, the KV heads split: 1 + 2L all-reduces (the
-    embedding; each layer's attention and MLP g), and a step's L more
-    (each layer's split softmax output summed over the ranks); 2L
-    all-gathers (a prefill's k and v to the cache's positions; a step's
-    q/k/v, then each rank's largest logit and sum) + 1 (the logits'
-    vocab blocks)."""
-    L_ = cfg.num_layers
-    return {"prefill": (1 + 2 * L_, 2 * L_ + 1),
-            "step": (1 + 3 * L_, 2 * L_ + 1)}
+    """A served cell's all-reduces and all-gathers in closed form, a
+    prefill's and a step's, on (1, m), m > 1, the KV heads and SSM heads
+    split, the cache's positions too, with A attention layers (each with
+    its MLP) and M Mamba2 layers: 1 + 2A + 2M all-reduces (the embedding;
+    each attention's and MLP's g; each Mamba2 layer's ``ssm_norm``
+    squares and ``out_proj``), and a step's A more (each split softmax
+    output summed over the ranks); 2A all-gathers (a prefill's k and v to
+    the cache's positions; a step's q/k/v, then each rank's largest logit
+    and sum) + 1 (the logits' vocab blocks)."""
+    a, m = serve_layers(cfg)
+    return {"prefill": (1 + 2 * a + 2 * m, 2 * a + 1),
+            "step": (1 + 3 * a + 2 * m, 2 * a + 1)}
 
 
-def flash_tp_heads_check(dev) -> dict:
-    """(j)'s kernel check, before the spawn: the flash kernel at one model
-    rank's prefill shape (SERVE_LANES lanes, SERVE_PROMPT tokens, 16 of
-    32 heads, 4 of 8 KV heads, D 128, causal, bf16) against its plain
-    version, held as phase 13 holds it; its ms, the plain version's and
-    SDPA's (KV repeated outside the timing), L2 flushed, beside the
-    bound.  These launches are not on a path's count."""
+def flash_tp_heads_check(dev, key="j") -> dict:
+    """A served cell's flash check, before the spawn: the flash kernel at
+    one model rank's prefill shape (SERVE_LANES lanes, SERVE_PROMPT
+    tokens, half the heads and KV heads, causal, bf16; granite-8b's D
+    128, zamba2-2.7b's 80) against its plain version, held as phase 13
+    holds it; its ms, the plain version's and SDPA's (KV repeated outside
+    the timing), L2 flushed, beside the bound.  These launches are not on
+    a path's count."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_ref,
                                                      kernel)
-    cfg, pshape, _, _ = serve_cfg(dev)
+    cfg, pshape, _, _ = serve_cfg(dev, key)
     B, S = SERVE_LANES, pshape.seq_len
     H, KV, D = cfg.num_heads // TP_RANKS, cfg.num_kv_heads // TP_RANKS, \
         cfg.head_dim
@@ -4385,8 +4419,9 @@ def flash_tp_heads_check(dev) -> dict:
     out = kernel.flash_attention(q, k, v, causal=True)
     ref = flash_attention_ref(q, k, v, causal=True)
     e, rel = assert_scaled(out, ref, FLASH_FULL_TOL, FLASH_FULL_REL_L2,
-                           f"flash at a rank's prefill (B {B}, S {S}, H {H}"
-                           f", KV {KV}, D {D}) bf16 kernel vs plain")
+                           f"flash at {cfg.name}'s rank prefill (B {B}, S "
+                           f"{S}, H {H}, KV {KV}, D {D}) bf16 kernel vs "
+                           f"plain")
     kr, vr = (t.repeat_interleave(H // KV, 1) for t in (k, v))
     flops, nbytes = kernel.cost(q, k, v, True)
     row = {"B": B, "S": S, "H": H, "KV": KV, "D": D, "max_abs_err": e,
@@ -4401,12 +4436,49 @@ def flash_tp_heads_check(dev) -> dict:
                q, kr, vr, is_causal=True), 10, flush_buf.zero_),
            "bound_ms": max(flops / BF16_FLOPS,
                            nbytes / HBM_BYTES_PER_S) * 1e3}
-    log(f"  flash at a rank's prefill: {row['ms']:.4f} ms (plain "
-        f"{row['plain_ms']:.2f}, SDPA {row['library_ms']:.4f}, bound "
-        f"{row['bound_ms']:.4f})")
+    log(f"  flash at {cfg.name}'s rank prefill (H {H}, KV {KV}, D {D}): "
+        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.2f}, SDPA "
+        f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f})")
     del q, k, v, out, ref, kr, vr, flush_buf
     release(dev)
     return row
+
+
+def ssd_serve_heads_check(dev) -> dict:
+    """(k)'s SSD check, before the spawn: the kernel against its plain
+    version at one model rank's heads of the serving prefill (SERVE_LANES
+    x SERVE_PROMPT tokens in chunks of 256: b * nc = 72, l = 256; 24 of
+    mamba2-780m's heads, 40 of zamba2-2.7b's), held as phase 4 holds it;
+    its ms and the plain version's (L2 flushed) beside the bound.  These
+    launches are not on a path's count."""
+    import torch
+    from repro_torch.kernels.ssd import kernel, ssd_intra_chunk_ref
+    from repro_torch.configs import get_config
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    out = {}
+    for key in SERVE_K:
+        cfg = get_config(SERVE_MODELS[key][0])
+        l = cfg.ssm_chunk
+        bc = SERVE_LANES * SERVE_PROMPT // l
+        h, p, n = cfg.ssm_heads // TP_RANKS, cfg.ssm_head_dim, cfg.ssm_state
+        args = ssd_phase_inputs(dev, bc, l, h, p, n, seed=h)
+        what = f"{cfg.name} serving prefill at {h} heads a rank"
+        row = {"bc": bc, "l": l, "h": h, "p": p, "n": n,
+               "max_abs_err": ssd_check(args, what),
+               "ms": cuda_ms(lambda: kernel.ssd_intra_chunk(*args), 20,
+                             flush_buf.zero_),
+               "plain_ms": cuda_ms(lambda: ssd_intra_chunk_ref(*args), 5,
+                                   flush_buf.zero_),
+               "bound_ms": ssd_bound(l, h, p, n, bc)[2]}
+        log(f"  SSD kernel at {what} (b*nc {bc}, l {l}, p {p}, n {n}): "
+            f"max |err| {row['max_abs_err']:.2e} against plain; "
+            f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f}, bound "
+            f"{row['bound_ms']:.4f})")
+        out[cfg.name] = row
+        del args
+    del flush_buf
+    release(dev)
+    return out
 
 
 def spmd_stencil_rank(dev) -> dict:
@@ -4506,9 +4578,9 @@ def tp_train_rank(cfg, shape, dev, world, model_par=None) -> dict:
 
 
 def tp_rank(rank, world, dev, zero1, out_path):
-    """A rank of phase 23: (a)-(j) in turn; every rank's readings
+    """A rank of phase 23: (a)-(k) in turn; every rank's readings
     gathered to rank 0, which writes them to ``out_path`` as JSON ((j)'s
-    logits beside it)."""
+    and (k)'s logits beside it)."""
     import torch.distributed as dist
     out = {"stencil": spmd_stencil_rank(dev)}
     cfg, shape = tp_cfg(DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS, dev,
@@ -4525,6 +4597,11 @@ def tp_rank(rank, world, dev, zero1, out_path):
     tmp = Path(out_path).parent
     out["serve"] = serve_rank(dev, tmp / "serve_ref.pt",
                               tmp / f"serve-{rank}.pt")
+    t0 = time.perf_counter()
+    out["serve_k"] = {key: serve_rank(dev, tmp / f"serve_ref_{key}.pt",
+                                      tmp / f"serve_{key}-{rank}.pt", key)
+                      for key in SERVE_K}
+    out["serve_k_s"] = time.perf_counter() - t0
     every = [None] * world
     dist.all_gather_object(every, out)
     if rank == 0:
@@ -4571,6 +4648,11 @@ def tp_phase(dev, zero1, twin_losses):
     t_flash = time.perf_counter()
     flash_heads = flash_tp_heads_check(dev) if dev.type == "cuda" else {}
     t_flash = time.perf_counter() - t_flash
+    t_checks_k = time.perf_counter()
+    k_checks = ({"ssd": ssd_serve_heads_check(dev),
+                 "flash": flash_tp_heads_check(dev, "k_hybrid")}
+                if dev.type == "cuda" else {})
+    t_checks_k = time.perf_counter() - t_checks_k
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
@@ -4588,6 +4670,22 @@ def tp_phase(dev, zero1, twin_losses):
                 f"{serve_one['flash_launches']}), s/step "
                 f"{spread(serve_one['step_s'], 1.0)}, peak "
                 f"{serve_one['peak_gib']:.2f} GiB")
+            t_one_k = time.perf_counter()
+            one_k = {}
+            for key in SERVE_K:
+                kcfg, kp, kd, ksteps = serve_cfg(dev, key)
+                log(f"[tp] (k)'s one-device run first: {kcfg.name}, "
+                    f"{kcfg.num_layers} layers, {kcfg.compute_dtype}, "
+                    f"prefill {SERVE_LANES} x {kp.seq_len}, {ksteps} steps "
+                    f"against {kd.seq_len} positions")
+                one_k[key] = serve_one_device(
+                    dev, Path(tmp) / f"serve_ref_{key}.pt", key)
+                log(f"  prefill {one_k[key]['prefill_s']:.3f} s (SSD "
+                    f"launches {one_k[key]['ssd_launches']}, flash "
+                    f"{one_k[key]['flash_launches']}), s/step "
+                    f"{spread(one_k[key]['step_s'], 1.0)}, peak "
+                    f"{one_k[key]['peak_gib']:.2f} GiB")
+            t_one_k = time.perf_counter() - t_one_k
             t0 = time.perf_counter()
             launch_dist.spawn(tp_rank, TP_RANKS, zero1, str(out_path),
                               device=dev.type, backend="gloo",
@@ -4597,7 +4695,14 @@ def tp_phase(dev, zero1, twin_losses):
             serve = serve_check(cfg, torch_load(Path(tmp) / "serve_ref.pt"),
                                 [torch_load(Path(tmp) / f"serve-{r}.pt")
                                  for r in range(TP_RANKS)],
-                                [r["serve"] for r in ranks], dev)
+                                [r["serve"] for r in ranks], dev, "(j)")
+            serve_k = {key: serve_check(
+                serve_cfg(dev, key)[0],
+                torch_load(Path(tmp) / f"serve_ref_{key}.pt"),
+                [torch_load(Path(tmp) / f"serve_{key}-{r}.pt")
+                 for r in range(TP_RANKS)],
+                [r["serve_k"][key] for r in ranks], dev, "(k)")
+                for key in SERVE_K}
     finally:
         if alloc_conf is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
@@ -4621,7 +4726,9 @@ def tp_phase(dev, zero1, twin_losses):
         "losses": one_losses, "step_s": one_times, "peak_gib": one_peak},
         "one_device": ones, "ssd_at_rank_heads": ssd_heads,
         "flash_at_rank_heads": flash_heads,
-        "serve": dict(serve, one_device=serve_one)}
+        "serve": dict(serve, one_device=serve_one),
+        "serve_k": {key: dict(serve_k[key], one_device=one_k[key])
+                    for key in SERVE_K}, "serve_k_checks": k_checks}
     ssd_launches = {}
     for key, what, want in (
             ("dense", f"(b) {DENSE_TRAIN_ARCH} tensor parallel", twin_losses),
@@ -4688,6 +4795,14 @@ def tp_phase(dev, zero1, twin_losses):
     log(f"[time] phase 23 (j): {t_one + t_flash + serve_s:.1f} s (the "
         f"one-device run {t_one:.1f}, the flash check {t_flash:.1f}, the "
         f"ranks' serve {serve_s:.1f} of the spawn's {wall:.1f})")
+    serve_k_s = max(r["serve_k_s"] for r in ranks)
+    numbers["serve_k_wall_s"] = {"one_device": t_one_k,
+                                 "kernel_checks": t_checks_k,
+                                 "ranks": serve_k_s}
+    log(f"[time] phase 23 (k): {t_one_k + t_checks_k + serve_k_s:.1f} s "
+        f"(the one-device runs {t_one_k:.1f}, the SSD and flash checks "
+        f"{t_checks_k:.1f}, the ranks' serve {serve_k_s:.1f} of the "
+        f"spawn's {wall:.1f})")
     return launches, ssd_launches, numbers
 
 
@@ -4696,46 +4811,58 @@ def torch_load(path):
     return torch.load(path, weights_only=False)
 
 
-def serve_check(cfg, ref, got, ranks, dev) -> dict:
-    """(j)'s readings against the one-device run: every rank's logits the
-    same (replicated), each step's within SERVE_BF16_ULPS bf16 ulps of
-    the largest one-device logit and the greedy token equal wherever the
-    one-device top-2 gap exceeds twice that; flash launches = layers a
-    rank on the card; the collectives of the prefill and of every step
-    as ``serve_collectives`` counts them; each rank under 51% of the
-    parameter bytes (the norms are replicated) and half the cache's."""
+def serve_check(cfg, ref, got, ranks, dev, cell) -> dict:
+    """A served cell's readings against its one-device run: every rank's
+    logits the same (replicated), each step's within SERVE_BF16_ULPS
+    bf16 ulps of the largest one-device logit and the greedy token equal
+    wherever the one-device top-2 gap exceeds twice that; flash launches
+    = attention layers and SSD launches = Mamba2 layers a rank on the
+    card (one prefill); the collectives of the prefill and of every step
+    as ``serve_collectives`` counts them; each rank's parameters under
+    the whole's (granite-8b under 51%: the norms are replicated; the
+    Mamba2 blocks replicate B and C and their norms), its cache the
+    bytes of its layout (``abstract_decode_state`` over the mesh), half
+    of the whole's where nothing of it is replicated (granite-8b)."""
     V = cfg.vocab_size
     for r in got[1:]:
         assert all(bool((a == b).all()) for a, b in zip(r, got[0])), \
-            "(j): the ranks' logits differ"
+            f"{cell} {cfg.name}: the ranks' logits differ"
     worst, clear, agree = 0.0, 0, 0
     for i, (want, mine) in enumerate(zip(ref["logits"], got[0])):
         want, mine = want[..., :V], mine[..., :V]
         tol = SERVE_BF16_ULPS * 2.0 ** -8 * float(want.abs().max())
         err = float((mine - want).abs().max())
         worst = max(worst, err / tol)
-        assert err <= tol, ("(j) logits", i, err, tol)
+        assert err <= tol, (cell, cfg.name, "logits", i, err, tol)
         top2 = want.topk(2, dim=-1).values
         wide = (top2[..., 0] - top2[..., 1]) > 2 * tol
         same = mine.argmax(-1) == want.argmax(-1)
-        assert bool(same[wide].all()), ("(j) greedy", i)
+        assert bool(same[wide].all()), (cell, cfg.name, "greedy", i)
         clear += int(wide.sum())
         agree += int(same.sum())
     want_colls = serve_collectives(cfg)
+    attn, mamba = serve_layers(cfg)
     for r in ranks:
         if dev.type == "cuda":
-            assert r["flash_launches"] == cfg.num_layers, r
+            assert r["flash_launches"] == attn, r
+            assert r["ssd_launches"] == mamba, r
         assert tuple(r["prefill_collectives"]) == want_colls["prefill"], r
         assert all(tuple(c) == want_colls["step"]
                    for c in r["step_collectives"]), r
-        assert r["param_gib"] < 0.51 * r["whole_param_gib"], r
-        assert abs(r["cache_gib"] * TP_RANKS - r["whole_cache_gib"]) < 1e-9
+        assert r["param_gib"] < (0.51 if cfg.family == "dense" else 1) \
+            * r["whole_param_gib"], r
+        assert r["cache_gib"] == r["layout_cache_gib"] < \
+            r["whole_cache_gib"], r
+        if cfg.family == "dense":
+            assert abs(r["cache_gib"] * TP_RANKS
+                       - r["whole_cache_gib"]) < 1e-9
     n = len(ref["logits"]) * SERVE_LANES
-    log(f"  (j) {cfg.name} at {cfg.num_layers} layers served over (1, "
+    log(f"  {cell} {cfg.name} at {cfg.num_layers} layers served over (1, "
         f"{TP_RANKS}): prefill s by rank "
         + ", ".join(f"{r['prefill_s']:.3f}" for r in ranks)
         + "; s/step " + spread(ranks[0]["step_s"], 1.0)
         + f"; flash launches by rank {[r['flash_launches'] for r in ranks]}"
+        f", SSD {[r['ssd_launches'] for r in ranks]}"
         f"; logits within {worst:.3f} of the {SERVE_BF16_ULPS}-ulp bound, "
         f"greedy equal {agree} of {n} ({clear} with a clear gap, all "
         f"equal); all-reduces, all-gathers a prefill "
@@ -4807,18 +4934,20 @@ def analysis_trace_child(cells, device_type, out_path):
                 "collectives": H.collective_summary(counter.collectives),
                 "trace_s": dt}
         out["serve"] = serve_trace(torch.device(device_type), mesh)
+        out["serve_k"] = {key: serve_trace(torch.device(device_type), mesh,
+                                           key) for key in SERVE_K}
     Path(out_path).write_text(json.dumps(out))
 
 
-def serve_trace(dev, mesh) -> dict:
-    """Phase 24(b) for (j): its prefill and one decode step as ``dev``
-    cuts them, traced on meta tensors (rank 0's blocks) over ``mesh``:
-    the all-reduces and all-gathers the trace sees and those
-    ``launch.sharding`` counts, each."""
+def serve_trace(dev, mesh, key="j") -> dict:
+    """Phase 24(b) for a served cell ((j), or one of (k)'s): its prefill
+    and one decode step as ``dev`` cuts them, traced on meta tensors
+    (rank 0's blocks) over ``mesh``: the all-reduces and all-gathers the
+    trace sees and those ``launch.sharding`` counts, each."""
     import torch
     from repro_torch.launch import sharding
     from repro_torch.models import model_zoo as zoo
-    cfg, pshape, dshape, _ = serve_cfg(dev)
+    cfg, pshape, dshape, _ = serve_cfg(dev, key)
     params = zoo.abstract_serving_params(cfg, mesh)
 
     def tokens(n):
@@ -4965,19 +5094,23 @@ def analysis_phase(dev, zero1, tp) -> dict:
         assert got["model_all_reduces"] == got["sharding_all_reduces"] + \
             got["norm_model_all_reduces"], (key, got)
     served = traced.pop("serve")
-    ranks = tp["serve"]["ranks"]
-    for key, want in (("prefill", ranks[0]["prefill_collectives"]),
-                      ("step", ranks[0]["step_collectives"][0])):
-        got = served[key]
-        log(f"  (j)'s {key} traced: all-reduces, all-gathers "
-            f"{tuple(got['trace'])} (launch.sharding "
-            f"{tuple(got['sharding'])}); the ranks counted {tuple(want)} "
-            f"on the card; kernels {got['kernels']}; "
-            f"{got['trace_s']:.1f} s to trace")
-        assert list(got["trace"]) == list(got["sharding"]) == list(want), \
-            (key, got, want)
+    served_k = traced.pop("serve_k")
+    for cell, key, got_cell, ranks in (
+            ("(j)", "j", served, tp["serve"]["ranks"]),
+            *(("(k)", k, served_k[k], tp["serve_k"][k]["ranks"])
+              for k in SERVE_K)):
+        for kind, want in (("prefill", ranks[0]["prefill_collectives"]),
+                           ("step", ranks[0]["step_collectives"][0])):
+            got = got_cell[kind]
+            log(f"  {cell} {SERVE_MODELS[key][0]}'s {kind} traced: "
+                f"all-reduces, all-gathers {tuple(got['trace'])} "
+                f"(launch.sharding {tuple(got['sharding'])}); the ranks "
+                f"counted {tuple(want)} on the card; kernels "
+                f"{got['kernels']}; {got['trace_s']:.1f} s to trace")
+            assert list(got["trace"]) == list(got["sharding"]) == \
+                list(want), (cell, key, kind, got, want)
     numbers["traced"] = traced
-    numbers["serve_traced"] = served
+    numbers["serve_traced"] = dict(served_k, j=served)
     return numbers
 
 
@@ -5120,7 +5253,7 @@ def main() -> int:
         t_phase = lap(f"phases 5-6 ({arch})", t_phase)
     # 14-15. the long-prompt paths (granite-8b, then the hybrid route
     # through zamba2-2.7b's shared attention), then each model's
-    # 16384-token prefill, kernel vs plain (granite-8b cut to 12 layers)
+    # 16384-token prefill, kernel vs plain (cut to LONG_PARITY_LAYERS)
     flash["launches_by_path"] = {}
     for arch, prompts, batch_size, n_long in LONG_PATHS:
         engine, params, long, launches = long_engine_phase(
@@ -5133,10 +5266,11 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
         cfg = get_config(arch)
-        cut = LONG_PARITY_LAYERS.get(arch)
-        if cut is not None:
-            cfg, params = (cfg.with_(num_layers=cut),
-                           dict(params, layers=params["layers"][:cut]))
+        cut = LONG_PARITY_LAYERS[arch]
+        stack, n = (("mamba", cut // cfg.attn_every)
+                    if cfg.family == "hybrid" else ("layers", cut))
+        cfg, params = (cfg.with_(num_layers=cut),
+                       dict(params, **{stack: params[stack][:n]}))
         long_prefill_vs_plain(cfg, params, dev, BF16_LONG_TOL)
         del params
         torch.cuda.empty_cache()
@@ -5247,9 +5381,19 @@ def main() -> int:
                     for k, v in tp_ssd.items()})
     ssd["at_tensor_parallel_heads"] = tp["ssd_at_rank_heads"]
     flash["at_tensor_parallel_heads"] = tp["flash_at_rank_heads"]
-    flash["launches_by_path"][
-        f"{SERVE_ARCH} prefill over (1, {TP_RANKS}) ({TP_RANKS} gloo "
-        f"ranks)"] = sum(r["flash_launches"] for r in tp["serve"]["ranks"])
+    if tp["serve_k_checks"]:
+        ssd["at_serving_rank_heads"] = tp["serve_k_checks"]["ssd"]
+        flash["at_hybrid_serving_rank_heads"] = tp["serve_k_checks"]["flash"]
+    for key, served in (("j", tp["serve"]),
+                        *((k, tp["serve_k"][k]) for k in SERVE_K)):
+        what = (f"{SERVE_MODELS[key][0]} prefill over (1, {TP_RANKS}) "
+                f"({TP_RANKS} gloo ranks)")
+        flash["launches_by_path"][what] = sum(
+            r["flash_launches"] for r in served["ranks"])
+        by_path[what] = {"paged_attention": 0, "ssd_intra_chunk": sum(
+            r["ssd_launches"] for r in served["ranks"])}
+    flash["launches_by_path"] = {k: v for k, v in
+                                 flash["launches_by_path"].items() if v}
     flash["launches"] = sum(flash["launches_by_path"].values())
     log(f"[tp] numbers {json.dumps(tp)}")
     t_phase = lap("phase 23 (model axis)", t_phase)
@@ -5266,9 +5410,10 @@ def main() -> int:
         + "; all-reduces equal phase 23's: " + ", ".join(
             f"{k} {v['sharding_all_reduces']}"
             for k, v in analysis["traced"].items())
-        + "; (j)'s collectives equal the ranks': " + ", ".join(
-            f"{k} {tuple(v['trace'])}"
-            for k, v in analysis["serve_traced"].items()))
+        + "; (j)'s and (k)'s collectives equal the ranks': " + ", ".join(
+            f"{c} {k} {tuple(v['trace'])}"
+            for c, cell in analysis["serve_traced"].items()
+            for k, v in cell.items()))
     t_phase = lap("phase 24 (cost analysis)", t_phase)
     for record, key in ((paged, "paged_attention"), (ssd, "ssd_intra_chunk")):
         record["launches_by_path"] = {a: c[key] for a, c in by_path.items()

@@ -23,16 +23,15 @@ and the cell runs the port's own per-rank program on rank 0's blocks:
 ``make_train_step(cfg, mesh=mesh)`` on ``DataParallel.place``'s state,
 ``make_prefill`` / ``make_serve_step(cfg, shape, mesh=mesh)`` on
 ``serving_params``' parameters and ``ServingMesh.place_state``'s decode
-state (the reference's sequence-sharded KV cache).  A (1, 1) mesh needs
-no process group.
+state (the reference's KV cache layout; the recurrent state of the
+rank's SSM heads).  A (1, 1) mesh needs no process group.
 
 Covered: every kind at a (1, 1) mesh, and on the single-pod (16, 16)
-mesh every ``train_4k`` cell and the ``prefill_32k`` and ``decode_32k``
-cells of the dense, vlm, moe and enc_dec families.  Refused, with a
-``NotImplementedError`` that a record keeps as the reference keeps a
-failing cell and that names ROADMAP's next step: ssm and hybrid
-prefill and decode over a mesh (``long_500k`` included; item 13b's
-third step) and every cell of the multi-pod mesh (its fourth step).
+mesh every cell: ``train_4k``, and ``prefill_32k`` and ``decode_32k``
+of every family, with ``long_500k`` for ssm and hybrid.  Refused, with
+a ``NotImplementedError`` that a record keeps as the reference keeps a
+failing cell and that names ROADMAP's next step: every cell of the
+multi-pod mesh (item 13b's fourth step).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
         --shape train_4k

@@ -59,9 +59,12 @@ layers.py:359 block out (embed)        g after ``w_down``
 mamba2.py:174 ``proj`` (d_inner)       ``mamba2_block``: f on the normed
                                        input, z / x / dt over the rank's
                                        contiguous heads, B and C whole
-                                       (``in_proj`` and ``conv_w`` read
-                                       whole: ``model_zoo.DataParallel``
-                                       gathers them once a step)
+                                       (``mamba2.head_leaves`` cuts
+                                       ``in_proj`` and ``conv_w``: in
+                                       training from the whole leaves
+                                       ``model_zoo.DataParallel`` gathers
+                                       once a step, in serving once, in
+                                       ``model_zoo.mesh_blocks``)
 mamba2.py:215 block out (embed)        g after ``out_proj`` (row-parallel
                                        over the heads' channels); the
                                        ``ssm_norm`` squares summed over
@@ -112,10 +115,10 @@ moe.py:330, 334, 336, 349 (one-hot)    ``moe_block_onehot``: the same over
 model_zoo.py:241 ``_scatter_grads``    ``DataParallel.reduce``: a
                                        reduce-scatter over data
 model_zoo.py:294-312 decode state      ``model_zoo.ServingMesh``: a rank
-(``cache_batch``, ``cache_seq``;       holds its rows and its S / m
-layers.py:179 "seq-sharded on the      positions of every KV head
-model axis")                           (``local_block`` / ``gather_block``
-                                       of the specs); a prefill's k and v
+(``cache_batch``, ``cache_seq``,       holds its rows and its S / m
+``kv_heads``, ``ssm_heads``,           positions of every KV head
+``conv_dim``; layers.py:179            (``local_block`` / ``gather_block``
+"seq-sharded on the model axis")       of the specs); a prefill's k and v
                                        gathered over model where the rules
                                        shard ``kv_heads``, then sliced
                                        (``layers.cache_block``); a decode
@@ -126,7 +129,14 @@ model axis")                           (``local_block`` / ``gather_block``
                                        merged by log-sum-exp, and an
                                        all-reduce of the outputs:
                                        ``layers.seq_sharded_attention``);
-                                       the logits gathered to every rank
+                                       where m does not divide S
+                                       (``cache_seq_split``), every
+                                       position of the rank's KV heads and
+                                       tensor-parallel attention; the
+                                       rank's SSM heads' ``ssm`` and its
+                                       own ``conv`` block (its heads' x
+                                       channels, B and C); the logits
+                                       gathered to every rank
 =====================================  ====================================
 """
 
@@ -245,12 +255,22 @@ class ShardingRules:
         # the data ranks ``(lo, size)`` that hold this rank's micro-batch
         # (``routing_pool``); ``None``: all of them
         self.pool = None
+        # the positions of the decode state's KV cache that a serving
+        # mesh lays out (``cache_seq_split``); ``None`` outside serving
+        self.cache_positions = None
 
     def with_pool(self, lo: int, size: int) -> "ShardingRules":
         """These rules, with this rank's micro-batch held by the data
         ranks ``[lo, lo + size)``."""
         rules = copy.copy(self)
         rules.pool = (lo, size)
+        return rules
+
+    def with_cache(self, positions: int) -> "ShardingRules":
+        """These rules, serving a decode state of ``positions`` cache
+        positions."""
+        rules = copy.copy(self)
+        rules.cache_positions = positions
         return rules
 
     def mesh_axes_for(self, logical: Optional[str], dim_size: int):
@@ -376,6 +396,20 @@ def model_split(logical: str, size: int) -> int:
         return 1
     return tp.size if active_rules().mesh_axes_for(logical, size) == \
         "model" else 1
+
+
+def cache_seq_split() -> bool:
+    """Whether the active rules cut the decode state's KV cache by
+    positions over a model axis above 1: ``cache_seq`` over ``model``
+    for the positions ``ShardingRules.with_cache`` set, where the axis
+    divides them.  Where it does not, the reference's rules give
+    ``model`` to the cache's ``kv_heads`` where they divide (each rank
+    its block of them at every position), else keep the cache whole on
+    every rank."""
+    rules = active_rules()
+    return (model_axis() is not None and rules.cache_positions is not None
+            and rules.mesh_axes_for("cache_seq", rules.cache_positions)
+            == "model")
 
 
 def model_split_dim(logical_axes: Sequence[Optional[str]],

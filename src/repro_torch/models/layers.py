@@ -34,13 +34,17 @@ head ``h // group`` on the same rank).  Where the rules replicate
 reads those its query heads need.  A dimension the rules replicate is
 computed whole, with no collective.
 
-Serving over such a mesh keeps the reference's decode state: a rank
-holds its ``S / m`` positions of every KV head (``cache_seq`` over
-``model``).  A prefill's blocks are the training path's, and
-``cache_block`` cuts the cache's positions from their k and v; a decode
-step (``decode_attention`` under the rules) is a split softmax over the
-ranks' positions (``block_logits``, ``block_stats``, ``merge_stats``,
-``block_attention``, ``seq_sharded_attention``).
+Serving over such a mesh keeps the reference's decode state.  Where
+``m`` divides the cache's positions a rank holds its ``S / m``
+positions of every KV head (``cache_seq`` over ``model``): a prefill's
+blocks are the training path's, and ``cache_block`` cuts the cache's
+positions from their k and v; a decode step (``decode_attention`` under
+the rules) is a split softmax over the ranks' positions
+(``block_logits``, ``block_stats``, ``merge_stats``,
+``block_attention``, ``seq_sharded_attention``).  Where it does not, a
+rank holds every position of its KV heads (``kv_heads`` over ``model``
+where they divide, else all of them), and a step is the training
+path's tensor-parallel attention over them.
 """
 
 from __future__ import annotations
@@ -49,10 +53,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import dtype_of
-from repro_torch.launch.sharding import (all_reduce, copy_to_model,
-                                         gather_over_model, gather_parts,
-                                         model_axis, model_split,
-                                         position_owner, reduce_from_model)
+from repro_torch.launch.sharding import (all_reduce, cache_seq_split,
+                                         copy_to_model, gather_over_model,
+                                         gather_parts, model_axis,
+                                         model_split, position_owner,
+                                         reduce_from_model)
 
 NEG_INF = -1e30
 
@@ -109,21 +114,34 @@ def _qkv(p, x, cfg):
     return _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
 
 
-def kv_heads_tp(p, h, cfg):
-    """k, v (B, S, heads, D) of the KV heads this model rank holds, from
-    ``h`` (B, S, d), which has been through f (``copy_to_model``), and
-    the KV head each of its query heads reads: its block of them
-    (``kv_heads`` sharded; ``None``, GQA stays local), or, where the
-    rules replicate them, all of them and the index of its query heads'
-    KV heads among them."""
-    if model_split("kv_heads", cfg.num_kv_heads) > 1:
-        return _proj(h, p["wk"]), _proj(h, p["wv"]), None
-    # all KV heads on every rank: their weights' gradients are partial
-    # (each rank reads some heads), so f sums them over the ranks
+def kv_index(cfg, device):
+    """The KV head each of this model rank's query heads reads, as an
+    index into the KV heads it holds, where the active rules shard
+    ``heads`` over a model axis and replicate ``kv_heads`` (the rank
+    holds every KV head); ``None`` where its KV heads are its query
+    heads' own (a block of them, GQA local) or where no rule shards
+    ``heads``."""
+    if model_split("heads", cfg.num_heads) == 1 or \
+            model_split("kv_heads", cfg.num_kv_heads) > 1:
+        return None
     tp = model_axis()
     group = cfg.num_heads // cfg.num_kv_heads
     n = cfg.num_heads // tp.size
-    heads = (tp.rank * n + torch.arange(n, device=h.device)) // group
+    return (tp.rank * n + torch.arange(n, device=device)) // group
+
+
+def kv_heads_tp(p, h, cfg):
+    """k, v (B, S, heads, D) of the KV heads this model rank holds, from
+    ``h`` (B, S, d), which has been through f (``copy_to_model``), and
+    the KV head each of its query heads reads (``kv_index``): its block
+    of them (``kv_heads`` sharded; ``None``, GQA stays local), or, where
+    the rules replicate them, all of them and the index of its query
+    heads' KV heads among them."""
+    heads = kv_index(cfg, h.device)
+    if heads is None:
+        return _proj(h, p["wk"]), _proj(h, p["wv"]), None
+    # all KV heads on every rank: their weights' gradients are partial
+    # (each rank reads some heads), so f sums them over the ranks
     return (_proj(h, copy_to_model(p["wk"])),
             _proj(h, copy_to_model(p["wv"])), heads)
 
@@ -136,24 +154,21 @@ def expand_kv(k, v, heads):
     return k.index_select(2, heads), v.index_select(2, heads)
 
 
-def kv_tp(p, h, cfg):
-    """k, v (B, S, heads, D) that this model rank's query heads read, from
-    ``h`` as ``kv_heads_tp`` takes it: its block of the KV heads, or the
-    KV head of each of its query heads, taken from all of them."""
-    return expand_kv(*kv_heads_tp(p, h, cfg))
-
-
 def cache_block(k, cfg):
     """The decode state's block of a prefill's k or v (B_r, S, heads, D),
-    the KV heads this model rank holds (``kv_heads_tp``): under rules
-    with a model axis ``m`` above 1 the reference's layout, ``cache_seq``
+    the KV heads this model rank holds (``kv_heads_tp``), under rules
+    with a model axis ``m`` above 1: where ``m`` divides the cache's
+    positions (``cache_seq_split``), the reference's layout, ``cache_seq``
     over ``model`` and every KV head a rank, so the rank's ``S / m``
     positions of every KV head (an all-gather over the model group where
     the rules shard ``kv_heads``, then a slice; a slice alone where each
-    rank holds every KV head).  ``k`` itself without a model axis."""
-    tp = model_axis()
-    if tp is None:
+    rank holds every KV head).  Otherwise ``k`` itself: every position
+    of the KV heads the rank holds, its block of them where the rules
+    shard ``kv_heads`` (the reference gives them ``model`` then) and all
+    of them where they do not (the cache whole on every rank)."""
+    if not cache_seq_split():
         return k
+    tp = model_axis()
     if model_split("kv_heads", cfg.num_kv_heads) > 1:
         k = gather_over_model(k, 2)
     n = k.shape[1] // tp.size
@@ -322,23 +337,41 @@ def decode_attention(p, x, cfg, *, cache_k, cache_v, cache_len,
     each lane writes its own row, so no two writes collide.
 
     Under rules with a model axis above 1 the cache is this rank's block
-    of the reference's layout (``cache_seq`` over ``model``, every KV
-    head), and the step is ``_decode_attention_split``'s.
+    of the reference's layout.  Where the axis divides the cache's
+    positions (``sharding.cache_seq_split``) that is ``cache_seq`` over
+    ``model``, every KV head, and the step is
+    ``_decode_attention_split``'s.  Otherwise the rank holds every
+    position of its KV heads (its block of them where the rules shard
+    ``kv_heads``, all of them where they do not), and the step is the
+    training path's tensor-parallel attention (``attention_block``):
+    q of its query heads, k and v of its KV heads (``kv_heads_tp``),
+    every rank writes its KV heads' new token, ``full_attention`` over
+    every position, ``wo`` row-parallel and g; where the rules replicate
+    ``heads``, the one-device step on every rank.
     """
-    if model_axis() is not None:
+    if cache_seq_split():
         return _decode_attention_split(p, x, cfg, cache_k=cache_k,
                                        cache_v=cache_v, cache_len=cache_len,
                                        active=active)
     dt = dtype_of(cfg.compute_dtype)
-    q, k, v = _qkv(p, x, cfg)
+    tp = model_split("heads", cfg.num_heads) > 1
+    heads = None
+    if tp:
+        h = copy_to_model(rms_norm(x, p["norm"], cfg.norm_eps).to(dt))
+        q = _proj(h, p["wq"])
+        k, v, heads = kv_heads_tp(p, h, cfg)
+    else:
+        q, k, v = _qkv(p, x, cfg)
     cos, sin = rotary_embedding(cache_len[:, None], cfg.head_dim,
                                 cfg.rope_theta)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     _write_token(cache_k, cache_v, k, v, cache_len, active)
-    out = full_attention(q, cache_k.to(dt), cache_v.to(dt), causal=False,
-                         kv_len=cache_len + 1)
-    return x + _proj_out(out, p["wo"]), (cache_k, cache_v)
+    out = full_attention(q, *expand_kv(cache_k.to(dt), cache_v.to(dt),
+                                       heads),
+                         causal=False, kv_len=cache_len + 1)
+    out = _proj_out(out, p["wo"])
+    return x + (reduce_from_model(out) if tp else out), (cache_k, cache_v)
 
 
 def _write_token(cache_k, cache_v, k, v, cache_len, active, rank: int = 0,

@@ -56,8 +56,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.sharding import (ShardingRules, axis_sizes,
                                          coordinate, gather_block,
-                                         local_block, max_over_model,
-                                         reduce_from_model, use_rules)
+                                         gather_parts, local_block,
+                                         max_over_model, reduce_from_model,
+                                         use_rules)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
@@ -157,18 +158,46 @@ def serving_params(tree, cfg: ModelConfig, mesh=None, device="cuda"):
     or tensors as ``init_params`` draws them) -> the params that
     ``make_prefill`` and ``make_serve_step`` read (``convert``'s layout)
     on ``device`` (None: where they are).  ``mesh``: this rank's blocks
-    of the model-sharded leaves, cut as ``DataParallel.model_blocks``
-    cuts a train state's (``params_shardings``, the reference's
-    ``in_shardings`` for the cell), each a copy of its own."""
+    (``mesh_blocks``), each a copy of its own."""
     if mesh is not None:
         whole = adamw.tree_map(torch.as_tensor, tree)
         tree = adamw.tree_map(
             lambda t, b: b if b is t else b.clone(
                 memory_format=torch.contiguous_format),
-            whole, DataParallel(cfg, mesh).model_blocks(whole))
+            whole, mesh_blocks(whole, cfg, mesh))
     return params_from_numpy(tree, cfg,
                              None if device is None else resolve_device(
                                  device))
+
+
+def mesh_blocks(tree, cfg: ModelConfig, mesh):
+    """This rank's blocks of a whole stacked parameter tree over a
+    ``("data", "model")`` mesh: each leaf's ``local_block`` of its
+    ``param_shardings`` (the reference's ``in_shardings`` for a cell),
+    except the Mamba2 leaves over a model axis above 1.  Where the rules
+    shard ``ssm_heads`` over it, the leaves of ``mamba2.HEAD_LEAVES`` are
+    cut to the rank's heads (``mamba2.head_leaves``: the reference's
+    specs cut the packed ``in_proj`` and ``conv_w`` in blocks that do not
+    follow their parts) and ``out_proj`` keeps its block (the heads'
+    channels); where they replicate ``ssm_heads``, every Mamba2 leaf is
+    whole.  Views where a leaf is cut, new tensors for the head cut."""
+    from repro_torch.launch.sharding import param_shardings
+    rules, coord = ShardingRules(mesh), coordinate(mesh)
+    blocks = adamw.tree_map(lambda t, s: local_block(t, s, coord), tree,
+                            param_shardings(rules, T.model_schema(cfg)))
+    key = {"ssm": "layers", "hybrid": "mamba"}.get(cfg.family)
+    m = axis_sizes(mesh).get("model", 1)
+    if key is not None and m > 1:
+        blocks[key] = (dict(blocks[key], **ssm_lib.head_leaves(
+            tree[key], cfg, coord["model"], m)) if _heads_split(cfg, rules)
+            else dict(tree[key]))
+    return blocks
+
+
+def _heads_split(cfg: ModelConfig, rules) -> bool:
+    """Whether ``rules`` shard the SSM heads over a model axis above 1."""
+    return (axis_sizes(rules.mesh).get("model", 1) > 1 and
+            rules.mesh_axes_for("ssm_heads", cfg.ssm_heads) == "model")
 
 
 def abstract_serving_params(cfg: ModelConfig, mesh=None):
@@ -878,10 +907,7 @@ def decode_state_shardings(cfg: ModelConfig, shape: ShapeConfig,
         rules.sharding(ax.cache_len, (shape.global_batch,)))
 
 
-# the steps of ROADMAP item 13b that a mesh still refuses
-MESH_SSM_STEP = ("ROADMAP item 13b, third step: ssm and hybrid prefill and "
-                 "decode over a mesh, with the recurrent state's conv_dim "
-                 "block that is not the rank's heads")
+# the step of ROADMAP item 13b that a mesh still refuses
 MESH_POD_STEP = ("ROADMAP item 13b, fourth step: the pod axis folded into "
                  "the data group")
 
@@ -891,22 +917,34 @@ class ServingMesh:
     ``DeviceMesh`` (``launch.mesh``), the reference's ``input_specs`` and
     ``out_shardings`` for a prefill or decode cell:
 
-    * the parameters: each rank's blocks of the model-sharded leaves
-      (``serving_params``, ``DataParallel``'s cut);
+    * the parameters: each rank's blocks (``serving_params``,
+      ``mesh_blocks``);
     * the batch (``tokens``, ``active``, ``frames``, ``patch_embeds``):
       its rows over ``data`` where they divide (``rows``), replicated
       over ``model``; where the rows do not divide, every data rank runs
       them all, and moe routes them alone (its routing pool is the rank);
-    * the decode state: ``cache_batch`` over ``data`` where it divides,
-      ``cache_seq`` over ``model``, every KV head a rank
-      (``decode_state_shardings``; ``place_state`` / ``gather_state``);
-      ``cache_len`` by rows;
+    * the decode state (``state_shardings``, the reference's
+      ``decode_state_shardings``; ``place_state`` / ``gather_state``):
+      ``cache_batch`` over ``data`` where it divides; the KV cache
+      (``k``, ``v``, ``xk``, ``xv``) in one of two layouts, as the
+      reference's rules give it: where the model axis divides the
+      cache's positions, ``cache_seq`` over ``model``, every KV head a
+      rank; where it does not, every position a rank, ``kv_heads`` over
+      ``model`` where they divide, else every KV head (the cache whole
+      on each rank); ``cache_len`` by rows;
+    * the recurrent state (ssm, hybrid): where the rules shard
+      ``ssm_heads`` over ``model``, ``ssm`` is the rank's heads (the
+      reference's block) and ``conv`` the port's own block, the x
+      channels of the rank's heads followed by B and C (the same on
+      every model rank), the channels its tensor-parallel Mamba2 block
+      reads (``mamba2.head_channels``; the reference cuts ``conv_dim``
+      in equal blocks that do not follow them); where the rules
+      replicate ``ssm_heads``, both whole on every model rank;
     * the logits replicated: gathered over the vocabulary's model blocks
       and the data ranks' rows (``gather_logits``).
 
     Refused with ``NotImplementedError`` naming ROADMAP's next step: a
-    mesh with a pod axis, the ssm and hybrid families, and a cache whose
-    positions the model axis does not divide."""
+    mesh with a pod axis."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, mesh):
         sizes = axis_sizes(mesh)
@@ -915,26 +953,23 @@ class ServingMesh:
                 f"prefill and decode over a {tuple(sizes.values())} mesh "
                 f"with a pod axis: the port serves over ('data', 'model') "
                 f"meshes; {MESH_POD_STEP}")
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.family} prefill and decode over a "
-                f"{tuple(sizes.values())} mesh: the port serves the "
-                f"dense, vlm, moe and enc_dec families over a mesh; "
-                f"{MESH_SSM_STEP}")
-        m = sizes.get("model", 1)
-        if shape.seq_len % m:
-            raise NotImplementedError(
-                f"a cache of {shape.seq_len} positions over a model axis "
-                f"of {m}: the port keeps the reference's cache_seq over "
-                f"model, which must divide it")
         self.cfg, self.shape, self.mesh = cfg, shape, mesh
         self.coord = coordinate(mesh)
-        rules = ShardingRules(mesh)
+        rules = ShardingRules(mesh).with_cache(shape.seq_len)
         if sizes.get("data", 1) > 1 and rules.mesh_axes_for(
                 "batch", shape.global_batch) is None:
             rules = rules.with_pool(self.coord["data"], 1)
         self.rules = rules
         self.state_shardings = decode_state_shardings(cfg, shape, rules)
+        # the recurrent ``conv`` leaf: its rows (cache_batch) only, then
+        # the rank's heads' channels where ``heads`` is (rank, size)
+        self.heads = None
+        if cfg.family in ("ssm", "hybrid"):
+            conv = self.state_shardings.cache["conv"]
+            self.conv_rows = conv._replace(spec=tuple(
+                None if e == "model" else e for e in conv.spec))
+            if _heads_split(cfg, rules):
+                self.heads = (self.coord["model"], sizes["model"])
 
     def rows(self, t):
         """A global batch leaf -> this rank's rows of it (a view)."""
@@ -956,19 +991,33 @@ class ServingMesh:
         copy of its own."""
         sh = self.state_shardings
 
-        def own(t, s):
-            return local_block(t, s, self.coord).clone(
-                memory_format=torch.contiguous_format)
-        return DecodeState({k: own(v, sh.cache[k])
-                            for k, v in state.cache.items()},
-                           own(state.cache_len, sh.cache_len))
+        def own(k, t):
+            if k != "conv":
+                return local_block(t, sh.cache[k], self.coord).clone(
+                    memory_format=torch.contiguous_format)
+            t = local_block(t, self.conv_rows, self.coord)
+            return (t.clone(memory_format=torch.contiguous_format)
+                    if self.heads is None else
+                    ssm_lib.head_channels(t, self.cfg, *self.heads))
+        return DecodeState({k: own(k, v) for k, v in state.cache.items()},
+                           local_block(state.cache_len, sh.cache_len,
+                                       self.coord).clone())
 
     def gather_state(self, state: DecodeState) -> DecodeState:
         """``place_state``'s inverse: the whole decode state on every rank
-        (all-gathers over the axes that split each leaf)."""
+        (all-gathers over the axes that split each leaf; the ``conv``
+        blocks of the rank's heads joined by ``mamba2.whole_channels``)."""
         sh = self.state_shardings
-        return DecodeState({k: gather_block(v, sh.cache[k])
-                            for k, v in state.cache.items()},
+
+        def whole(k, t):
+            if k != "conv":
+                return gather_block(t, sh.cache[k])
+            if self.heads is not None:
+                t = ssm_lib.whole_channels(gather_parts(
+                    t, self.mesh.get_group("model"), self.heads[1]),
+                    self.cfg)
+            return gather_block(t, self.conv_rows)
+        return DecodeState({k: whole(k, v) for k, v in state.cache.items()},
                            gather_block(state.cache_len, sh.cache_len))
 
 
@@ -1046,8 +1095,8 @@ def _ssm_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
             h, (k, v) = L.attention_block(shared["attn"], h, cfg,
                                           causal=True, impl=impl)
             h = L.swiglu_block(shared["mlp"], h, cfg)
-            ks.append(k.to(torch.bfloat16))
-            vs.append(v.to(torch.bfloat16))
+            ks.append(L.cache_block(k.to(torch.bfloat16), cfg))
+            vs.append(L.cache_block(v.to(torch.bfloat16), cfg))
     lead = ((cfg.num_layers,) if cfg.family == "ssm"
             else (len(ks), cfg.attn_every))
     cache = {"ssm": torch.stack(sts).reshape(lead + sts[0].shape),
@@ -1075,12 +1124,15 @@ def make_prefill(cfg: ModelConfig, shape: ShapeConfig, impl: str = "kernel",
     parameters (``serving_params(..., mesh=mesh)``) and the **global**
     batch.  The rank runs its rows (``ServingMesh``) with the blocks
     tensor parallel over the model axis (attention on its heads: the
-    flash kernel on them past 8192 positions; moe routed over the data
-    ranks with the experts laid out as the rules lay them), and returns
-    what the reference's ``out_shardings`` give it: the logits
-    replicated, (B, 1, padded_vocab) on every rank, and its block of the
-    decode state (``ServingMesh.state_shardings``: its rows, its
-    ``S / m`` positions of every KV head, ``layers.cache_block``)."""
+    flash kernel on them past 8192 positions; the Mamba2 blocks on its
+    SSM heads, the SSD kernel on them; moe routed over the data ranks
+    with the experts laid out as the rules lay them), and returns what
+    the reference's ``out_shardings`` give it: the logits replicated,
+    (B, 1, padded_vocab) on every rank, and its block of the decode
+    state in ``ServingMesh``'s layout (its rows; of the KV cache its
+    ``S / m`` positions of every KV head, or, where ``m`` does not
+    divide S, every position of its KV heads: ``layers.cache_block``;
+    its heads' ``ssm`` and ``conv``)."""
     sm = None if mesh is None else ServingMesh(cfg, shape, mesh)
 
     def prefill(params, batch):
@@ -1286,12 +1338,17 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     step with its blocks of the parameters and of the decode state
     (``ServingMesh.place_state``, or a prefill's over the same mesh) and
     the **global** ``tokens`` / ``active``; it returns the logits
-    replicated and its block of the new state.  Each attention is a
-    split softmax over the model ranks' positions
-    (``layers._decode_attention_split``; enc_dec's cross attention
-    ``transformer.decode_cross_attention``), the reference's
-    ``kv_len = cache_len + 1`` function; only the rank that owns a
-    lane's position ``cache_len`` writes it."""
+    replicated and its block of the new state.  Each attention follows
+    the cache's layout (``layers.decode_attention``; enc_dec's cross
+    attention ``transformer.decode_cross_attention``), the reference's
+    ``kv_len = cache_len + 1`` function: where the model axis divides
+    the cache's positions, a split softmax over the ranks' positions,
+    and only the rank that owns a lane's position ``cache_len`` writes
+    it; where it does not, tensor-parallel attention over every
+    position of the rank's KV heads, which every rank writes.  Each
+    Mamba2 block steps the rank's heads' states (``mamba2_block``:
+    ``ssm_norm``'s squares and ``out_proj`` all-reduced over the model
+    ranks)."""
     sm = None if mesh is None else ServingMesh(cfg, shape, mesh)
 
     def serve_step(params, state: DecodeState, tokens, active=None):

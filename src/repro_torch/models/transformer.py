@@ -21,10 +21,10 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
-from repro_torch.launch.sharding import (active_rules, copy_to_model,
-                                         gather_over_model, model_axis,
-                                         model_split, reduce_from_model,
-                                         use_rules)
+from repro_torch.launch.sharding import (active_rules, cache_seq_split,
+                                         copy_to_model, gather_over_model,
+                                         model_axis, model_split,
+                                         reduce_from_model, use_rules)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import moe as moe_lib
@@ -338,20 +338,26 @@ def cross_attention(p, x, xk, xv, cfg: ModelConfig):
 def decode_cross_attention(p, x, xk, xv, cfg: ModelConfig):
     """A decode step's cross attention over a decode state's ``xk``/``xv``:
     ``cross_attention`` without a model axis.  Under rules with a model
-    axis above 1 they are this rank's block of the reference's layout
-    (``cache_seq`` over ``model``: positions ``[r S/m, (r+1) S/m)`` of
-    every KV head), as the self attention's cache is
-    (``layers._decode_attention_split``): q of the rank's query heads
-    (f on the normed input, no rotary), gathered over the model group
-    where the rules shard ``heads``, then ``layers.
-    seq_sharded_attention`` with no mask (the reference attends to all
-    of the encoder's positions), and the rank's heads through ``wo``
-    and g (every head through the whole ``wo`` where ``heads`` is
-    replicated)."""
+    axis above 1 they are this rank's block of the reference's layout,
+    as the self attention's cache is (``layers.decode_attention``).
+    Where the axis divides the cache's positions
+    (``sharding.cache_seq_split``): positions ``[r S/m, (r+1) S/m)`` of
+    every KV head; q of the rank's query heads (f on the normed input,
+    no rotary), gathered over the model group where the rules shard
+    ``heads``, then ``layers.seq_sharded_attention`` with no mask (the
+    reference attends to all of the encoder's positions), and the rank's
+    heads through ``wo`` and g (every head through the whole ``wo``
+    where ``heads`` is replicated).  Otherwise every position of the KV
+    heads the rank holds: ``cross_attention`` on the rank's query heads,
+    each reading its KV head (``layers.kv_index``), as the prefill's
+    cross attention does."""
     tp = model_axis()
     if tp is None:
         return cross_attention(p, x, xk, xv, cfg)
     dt = dtype_of(cfg.compute_dtype)
+    if not cache_seq_split():
+        return cross_attention(p, x, *L.expand_kv(
+            xk.to(dt), xv.to(dt), L.kv_index(cfg, x.device)), cfg)
     tp_heads = model_split("heads", cfg.num_heads) > 1
     hn = L.rms_norm(x, p["norm"], cfg.norm_eps).to(dt)
     q = L._proj(copy_to_model(hn) if tp_heads else hn, p["wq"])

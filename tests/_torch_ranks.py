@@ -420,8 +420,8 @@ def scenario_cuda_one(world):
 
 # serving over a mesh: (case, arch, config overrides, mesh shape, decode?)
 # at the reduced prefill_32k / decode_32k shapes (4 rows of 64
-# positions); the 2-rank group runs the (1, 2) and (2, 1) cases, the
-# 4-rank group the (2, 2) ones
+# positions; a case of SERVE_SEQ at its own positions); the 2-rank group
+# runs the (1, 2) and (2, 1) cases, the 4-rank group the (2, 2) ones
 F32 = dict(compute_dtype="float32")
 SERVE_CASES = {
     2: (("dense", "granite-8b", F32, (1, 2), True),
@@ -435,31 +435,58 @@ SERVE_CASES = {
          (1, 2), True),
         ("vlm", "internvl2-26b", F32, (1, 2), True),
         ("enc_dec", "seamless-m4t-medium", F32, (1, 2), True),
-        ("bf16", "granite-8b", {}, (1, 2), True)),
+        ("bf16", "granite-8b", {}, (1, 2), True),
+        ("ssm", "mamba2-780m", F32, (1, 2), True),
+        ("ssm", "mamba2-780m", F32, (2, 1), True),
+        ("hybrid", "zamba2-2.7b", F32, (1, 2), True),
+        ("hybrid", "zamba2-2.7b", F32, (2, 1), True),
+        ("dense63", "granite-8b", F32, (1, 2), True),
+        ("kv1_63", "granite-8b", dict(num_kv_heads=1, **F32), (1, 2), True),
+        ("hybrid63", "zamba2-2.7b", F32, (1, 2), True)),
     4: (("dense", "granite-8b", F32, (2, 2), True),
         ("moe_grouped", "qwen2-moe-a2.7b", dict(moe_impl="grouped", **F32),
          (2, 2), True),
         ("moe_onehot", "qwen2-moe-a2.7b", dict(moe_impl="onehot", **F32),
-         (2, 2), True))}
+         (2, 2), True),
+        ("ssm", "mamba2-780m", F32, (2, 2), True),
+        ("hybrid", "zamba2-2.7b", F32, (2, 2), True))}
+# cases at other positions than 64: (prefill, decode) positions; 63 is
+# not a multiple of a model axis of 2, so the decode state's cache keeps
+# every position on each rank (its KV heads over model where they
+# divide); hybrid63's prefill stays at 64 (the SSD chunk must divide it)
+SERVE_SEQ = {"dense63": (63, 63), "kv1_63": (63, 63), "hybrid63": (64, 63)}
 SERVE_STEPS = 4
 # the decode lanes' cache_len (S = 64; a model axis of 2 holds 32
 # positions a rank): lane 0 writes position 31 on rank 0, then 32-34 on
 # rank 1; lane 1 is inactive; lane 2 is full (cache_len == S: no write);
-# lane 3's positions all lie on rank 0 (rank 1 holds none of them)
+# lane 3's positions all lie on rank 0 (rank 1 holds none of them); each
+# at most S where S is smaller
 SERVE_LENS = (31, 40, 64, 3)
 SERVE_ACTIVE = (1, 0, 1, 1)
 
 
-def serve_inputs(cfg, seed=0):
-    """A case's inputs, made from ``seed`` with numpy (float32 where the
-    model reads bf16; both packages round them to bf16 the same way):
-    the whole parameter tree (the port's draw, as numpy), the prefill
-    batch, a decode state (random bf16 cache, ``SERVE_LENS``) and
-    ``SERVE_STEPS`` steps of tokens."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
+def serve_shapes(case):
+    """A case's prefill and decode shapes: the reduced prefill_32k and
+    decode_32k, at ``SERVE_SEQ``'s positions where it lists the case."""
+    import dataclasses
     pshape, dshape = (SHAPES["prefill_32k"].reduced(),
                       SHAPES["decode_32k"].reduced())
+    if case in SERVE_SEQ:
+        p, d = SERVE_SEQ[case]
+        pshape = dataclasses.replace(pshape, seq_len=p)
+        dshape = dataclasses.replace(dshape, seq_len=d)
+    return pshape, dshape
+
+
+def serve_inputs(cfg, case, seed=0):
+    """A case's inputs, made from ``seed`` with numpy (float32 where the
+    model reads bf16; both packages round them to bf16 the same way; the
+    float32 ``ssm`` leaf stays float32): the whole parameter tree (the
+    port's draw, as numpy), the prefill batch, a decode state (random
+    cache, ``SERVE_LENS``) and ``SERVE_STEPS`` steps of tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pshape, dshape = serve_shapes(case)
     B, S = pshape.global_batch, pshape.seq_len
     st = S - cfg.frontend_seq if cfg.family == "vlm" else S
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, st),
@@ -475,34 +502,37 @@ def serve_inputs(cfg, seed=0):
              for k, v in ab.cache.items()}
     params = adamw.tree_map(lambda t: t.numpy(),
                             zoo.init_state(cfg, seed, device="cpu").params)
+    lens = [min(n, dshape.seq_len) for n in SERVE_LENS]
     return {"params": params, "batch": batch, "cache": cache,
-            "cache_len": np.array(SERVE_LENS, np.int32)[:dshape.global_batch],
+            "cache_len": np.array(lens, np.int32)[:dshape.global_batch],
             "tokens": rng.integers(0, cfg.vocab_size,
                                    (SERVE_STEPS, dshape.global_batch, 1),
                                    dtype=np.int32),
             "active": np.array(SERVE_ACTIVE, np.int32)}
 
 
-def _torch_leaf(x):
-    """A numpy input -> a tensor: float32 arrays are bf16 model inputs."""
+def _torch_leaf(x, key=None):
+    """A numpy input -> a tensor: float32 arrays are bf16 model inputs,
+    but for the float32 ``ssm`` leaf."""
     t = torch.from_numpy(x)
-    return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+    return t.to(torch.bfloat16) if t.dtype == torch.float32 and \
+        key != "ssm" else t
 
 
-def served(cfg, mesh_shape, decode: bool) -> dict:
+def served(cfg, case, mesh_shape, decode: bool) -> dict:
     """One case over a ``mesh_shape`` mesh of the world's first ranks: the
     prefill's logits and this rank's block of its decode state, then
     (``decode``) ``SERVE_STEPS`` serve steps from the seeded state's
     block, their logits and the final block; the all-reduces and
-    all-gathers of the prefill and of each step; rank 0 also keeps the
-    inputs (the test hands them to the reference)."""
+    all-gathers of the prefill and of each step; the states gathered
+    whole (``gather_state``) after them; rank 0 also keeps the inputs
+    (the test hands them to the reference)."""
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
     if mesh.get_coordinate() is None:
         return {}
-    inp = serve_inputs(cfg)
-    pshape, dshape = (SHAPES["prefill_32k"].reduced(),
-                      SHAPES["decode_32k"].reduced())
+    inp = serve_inputs(cfg, case)
+    pshape, dshape = serve_shapes(case)
     params = zoo.serving_params(inp["params"], cfg, mesh, device="cpu")
 
     def counted(fn, *args):
@@ -517,11 +547,13 @@ def served(cfg, mesh_shape, decode: bool) -> dict:
     out = {"coord": tuple(mesh.get_coordinate()),
            "prefill": {"logits": logits, "cache": state.cache,
                        "cache_len": state.cache_len,
-                       "collectives": colls}}
+                       "collectives": colls,
+                       "gathered": zoo.ServingMesh(
+                           cfg, pshape, mesh).gather_state(state).cache}}
     if decode:
         sm = zoo.ServingMesh(cfg, dshape, mesh)
         state = sm.place_state(zoo.DecodeState(
-            {k: _torch_leaf(v) for k, v in inp["cache"].items()},
+            {k: _torch_leaf(v, k) for k, v in inp["cache"].items()},
             torch.from_numpy(inp["cache_len"])))
         step = zoo.make_serve_step(cfg, dshape, mesh=mesh)
         active = torch.from_numpy(inp["active"])
@@ -534,6 +566,7 @@ def served(cfg, mesh_shape, decode: bool) -> dict:
         out["decode"] = {"logits": [lg for lg, _ in steps],
                          "collectives": [c for _, c in steps],
                          "cache": state.cache, "cache_len": state.cache_len,
+                         "gathered": whole.cache,
                          "gathered_len": whole.cache_len,
                          "gathered_equal": all(
                              torch.equal(sm.place_state(whole).cache[k],
@@ -547,7 +580,7 @@ def served(cfg, mesh_shape, decode: bool) -> dict:
 def scenario_serve(world):
     """``SERVE_CASES[world]``: prefill and decode over meshes of the
     world's ranks, each case's readings by name and mesh."""
-    return {f"{key} {shape}": served(cfg_of(arch, **kw), shape, decode)
+    return {f"{key} {shape}": served(cfg_of(arch, **kw), key, shape, decode)
             for key, arch, kw, shape, decode in SERVE_CASES[world]}
 
 

@@ -20,9 +20,10 @@ held against the JAX package's.
   opens no process group): reduced ``train_4k`` records at (2, 2) and
   (16, 16), reduced prefill and decode records at (2, 2) with their
   collectives in closed form, granite-8b's decode_32k and
-  qwen3-moe-30b-a3b's prefill_32k at production size on (16, 16), and
-  the refused cells' named error (ssm and hybrid serving over a mesh,
-  the pod axis).
+  qwen3-moe-30b-a3b's prefill_32k, mamba2-780m's prefill_32k and
+  zamba2-2.7b's decode_32k at production size on (16, 16), reduced ssm
+  and hybrid serving cells at (16, 16), and the refused cell's named
+  error (the pod axis).
 
 Tolerances of the FLOP slope.  XLA's compiled count of a reduced cell is
 of its fused CPU program: a fusion recomputes an elementwise producer in
@@ -568,8 +569,16 @@ def test_mamba2_mesh_record_at_2x2(tmp_path):
 def test_mesh_records_at_16x16(tmp_path):
     """The single-pod mesh: rank 0 of a fake group of 256, every
     all-reduce over a group of 16 (ring wire bytes 2 x 15/16 of the
-    result); a multi-pod cell, and ssm prefill and decode over the mesh,
-    are refused naming ROADMAP's next steps."""
+    result); a multi-pod cell is refused naming ROADMAP's next step.
+    Reduced mamba2-780m's prefill and zamba2-2.7b's decode over the mesh
+    trace: their 8 SSM heads do not split over 16, so each rank runs the
+    Mamba2 blocks whole (the SSD kernel's meta branch once a layer in
+    the prefill) and the model axis carries only the vocab-parallel
+    embedding's all-reduce and the logits' gather (the 4 rows are
+    replicated over the 16 data ranks), plus, in zamba2-2.7b's step,
+    each period's attention over the cache's 4 positions a rank (heads
+    and KV heads whole: a gather of the softmax statistics and an
+    all-reduce of the output) and its MLP's g (d_ff split)."""
     recs = _child(tmp_path, [16, 16], [
         ["granite-8b", "train_4k", ["single"]],
         ["mamba2-780m", "train_4k", ["multi"]],
@@ -584,33 +593,51 @@ def test_mesh_records_at_16x16(tmp_path):
     multi = recs["mamba2-780m__train_4k"]
     assert not multi["ok"] and "pod axis" in multi["error"]
     assert "item 13b, fourth step: the pod axis" in multi["error"]
-    for key in ("mamba2-780m__prefill_32k", "zamba2-2.7b__decode_32k"):
-        rec = recs[key]
-        assert not rec["ok"] and rec["error"].startswith(
-            "NotImplementedError"), key
-        assert "item 13b, third step: ssm and hybrid prefill and decode " \
-            "over a mesh" in rec["error"]
+    ssm = ARCHS["mamba2-780m"].reduced()
+    for terms, L_ in zip(_ok(recs["mamba2-780m__prefill_32k"]),
+                         (ssm.num_layers, 1, 2)):
+        assert terms["kernels"]["ssd_intra_chunk"]["calls"] == L_
+        assert {k: c["count"] for k, c in terms["collectives"].items()} == \
+            {"all-reduce": 1, "all-gather": 1}
+    hybrid = ARCHS["zamba2-2.7b"].reduced()
+    for terms, P in zip(_ok(recs["zamba2-2.7b__decode_32k"]),
+                        (hybrid.num_layers // hybrid.attn_every, 1, 2)):
+        assert "kernels" not in terms or not terms["kernels"]
+        assert {k: c["count"] for k, c in terms["collectives"].items()} == \
+            {"all-reduce": 1 + 2 * P, "all-gather": 1 + P}
 
 
 @pytest.mark.parametrize("cell", ["granite-8b__decode_32k",
-                                  "qwen3-moe-30b-a3b__prefill_32k"])
+                                  "qwen3-moe-30b-a3b__prefill_32k",
+                                  "mamba2-780m__prefill_32k",
+                                  "zamba2-2.7b__decode_32k"])
 def test_serving_records_at_16x16_full_size(cell, tmp_path):
-    """granite-8b's decode_32k and qwen3-moe-30b-a3b's prefill_32k at
-    their production size on (16, 16), rank 0 of a fake group of 256,
-    each in a child of its own within its timeout.  granite-8b, 8 of 128
-    lanes a data rank, 2048 of 32768 positions of all 8 KV heads (which
-    do not divide 16: each rank projects them whole) and 2 of 32 query
-    heads a model rank: 1 + 2 x 36 all-reduces of (8, 1, 4096) bf16 and
-    36 of the split softmax output (8, 8, 4, 1, 128) float32;
-    all-gathers each layer of q (to (8, 1, 32, 128) bf16) and of the
-    softmax statistics (16 x (8, 8, 4, 1, 2) float32), then the logits'
-    vocab blocks and rows.  qwen3-moe-30b-a3b, 2 of 32 rows, its 128 experts
-    split over 16 (explicit expert parallelism): 1 + 3 x 48 all-reduces
-    (the embedding; each layer's attention g, the experts' float32
-    combine and the aux loss over the data ranks); its 4 KV heads
-    replicated, so the cache's positions are a slice and the logits' two
-    gathers are the only all-gathers; the flash kernel's meta branch
-    counted once a layer."""
+    """Four cells at their production size on (16, 16), rank 0 of a fake
+    group of 256, each in a child of its own within its timeout.
+    granite-8b's decode_32k, 8 of 128 lanes a data rank, 2048 of 32768
+    positions of all 8 KV heads (which do not divide 16: each rank
+    projects them whole) and 2 of 32 query heads a model rank: 1 + 2 x
+    36 all-reduces of (8, 1, 4096) bf16 and 36 of the split softmax
+    output (8, 8, 4, 1, 128) float32; all-gathers each layer of q (to
+    (8, 1, 32, 128) bf16) and of the softmax statistics (16 x (8, 8, 4,
+    1, 2) float32), then the logits' vocab blocks and rows.
+    qwen3-moe-30b-a3b's prefill_32k, 2 of 32 rows, its 128 experts split
+    over 16 (explicit expert parallelism): 1 + 3 x 48 all-reduces (the
+    embedding; each layer's attention g, the experts' float32 combine
+    and the aux loss over the data ranks); its 4 KV heads replicated, so
+    the cache's positions are a slice and the logits' two gathers are
+    the only all-gathers; the flash kernel's meta branch counted once a
+    layer.  mamba2-780m's prefill_32k, 2 of 32 rows of 32768 tokens, 3
+    of 48 SSM heads a model rank: 1 + 2 x 48 all-reduces, the
+    embedding's and each layer's ``out_proj`` (2, 32768, 1536) bf16 and
+    ``ssm_norm``'s squares (2, 32768, 1) float32; the logits' two
+    gathers; the SSD kernel once a layer.  zamba2-2.7b's decode_32k, 8
+    of 128 lanes, 5 of 80 SSM heads, 2 of 32 attention and KV heads and
+    2048 positions a rank: 1 + 2 x 54 Mamba2 all-reduces as mamba2's
+    (of (8, 1, 2560)), and each of the 9 periods' shared attention as
+    granite-8b's layer (its g, the MLP's g, the split softmax output (8,
+    32, 1, 1, 80) float32; its q/k/v to (8, 1, 96, 80) bf16 and the
+    statistics); no kernel in a step."""
     arch, shape = cell.split("__")
     rec = _child(tmp_path, [16, 16], [[arch, shape, ["single"]]],
                  full=True)[cell]
@@ -626,6 +653,23 @@ def test_serving_records_at_16x16_full_size(cell, tmp_path):
         assert colls["all-gather"]["result_bytes"] == L_ * (
             8 * 32 * 128 * 2 + 16 * 8 * 8 * 4 * 2 * 4) + 4 * (
             8 * V + 128 * V)
+    elif arch == "mamba2-780m":
+        S, d = 32768, cfg.d_model
+        assert colls["all-reduce"]["count"] == 1 + 2 * L_
+        assert colls["all-reduce"]["result_bytes"] == \
+            (1 + L_) * 2 * S * d * 2 + L_ * 2 * S * 4
+        assert colls["all-gather"]["count"] == 2
+        assert colls["all-gather"]["result_bytes"] == 4 * (2 * V + 32 * V)
+        assert terms["kernels"]["ssd_intra_chunk"]["calls"] == L_
+    elif arch == "zamba2-2.7b":
+        P, d = L_ // cfg.attn_every, cfg.d_model
+        assert colls["all-reduce"]["count"] == 1 + 2 * L_ + 3 * P
+        assert colls["all-reduce"]["result_bytes"] == \
+            (1 + L_ + 2 * P) * 8 * d * 2 + L_ * 8 * 4 + P * 8 * 32 * 80 * 4
+        assert colls["all-gather"]["count"] == 2 * P + 2
+        assert colls["all-gather"]["result_bytes"] == P * (
+            8 * 96 * 80 * 2 + 16 * 8 * 32 * 2 * 4) + 4 * (8 * V + 128 * V)
+        assert not terms.get("kernels")
     else:
         assert colls["all-reduce"]["count"] == 1 + 3 * L_
         assert colls["all-gather"]["count"] == 2

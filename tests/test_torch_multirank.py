@@ -1000,18 +1000,40 @@ SERVE = {"dense": ("granite-8b", F32),
          "moe_onehot": ("qwen2-moe-a2.7b", dict(moe_impl="onehot", **F32)),
          "vlm": ("internvl2-26b", F32),
          "enc_dec": ("seamless-m4t-medium", F32),
-         "bf16": ("granite-8b", {})}
+         "bf16": ("granite-8b", {}),
+         "ssm": ("mamba2-780m", F32),
+         "hybrid": ("zamba2-2.7b", F32),
+         "dense63": ("granite-8b", F32),
+         "kv1_63": ("granite-8b", dict(num_kv_heads=1, **F32)),
+         "hybrid63": ("zamba2-2.7b", F32)}
+# and its SERVE_SEQ: case -> (prefill, decode) positions
+SERVE_SEQ = {"dense63": (63, 63), "kv1_63": (63, 63), "hybrid63": (64, 63)}
+RECURRENT = ("ssm", "hybrid", "hybrid63")
 
 
-def _jax_leaf(x):
+def _jax_leaf(x, key=None):
     """A numpy input as the reference takes it: float32 arrays are bf16
-    model inputs (rounded as the port rounds them)."""
+    model inputs (rounded as the port rounds them), but for the float32
+    ``ssm`` leaf."""
     x = jnp.asarray(x)
-    return x.astype(jnp.bfloat16) if x.dtype == jnp.float32 else x
+    return x.astype(jnp.bfloat16) if x.dtype == jnp.float32 and \
+        key != "ssm" else x
 
 
 def _f32(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def serve_shapes(case):
+    """The reference's prefill and decode shapes of ``case``."""
+    import dataclasses
+    pshape = JSHAPES["prefill_32k"].reduced()
+    dshape = JSHAPES["decode_32k"].reduced()
+    if case in SERVE_SEQ:
+        p, d = SERVE_SEQ[case]
+        pshape = dataclasses.replace(pshape, seq_len=p)
+        dshape = dataclasses.replace(dshape, seq_len=d)
+    return pshape, dshape
 
 
 def serve_reference(case, mesh_shape, inputs, decode):
@@ -1019,7 +1041,13 @@ def serve_reference(case, mesh_shape, inputs, decode):
     a real ``mesh_shape`` host mesh: ``jax.jit(cell_fn(...),
     in_shardings=..., out_shardings=...)`` of ``input_specs``, from the
     inputs the ranks used.  Returns the logits and the decode states'
-    leaves as arrays with their output shardings.  Cached."""
+    leaves as arrays with their output shardings.  Cached.
+
+    The reference runs the ssm and hybrid families in float32 here: its
+    float32 step returns a float32 ``conv`` leaf (the state it declares
+    is bf16), which is cast back to bf16 before the next step, the
+    rounding the port makes when it writes the leaf (as
+    ``tests/test_torch_mamba2.py`` casts it)."""
     key = ("serve", case, mesh_shape)
     if key in _RUNS:
         return _RUNS[key]
@@ -1027,8 +1055,7 @@ def serve_reference(case, mesh_shape, inputs, decode):
     cfg = jax_config(arch).reduced().with_(**kw)
     mesh = jmake_mesh(mesh_shape, ("data", "model"))
     rules = JShardingRules(mesh)
-    pshape = JSHAPES["prefill_32k"].reduced()
-    dshape = JSHAPES["decode_32k"].reduced()
+    pshape, dshape = serve_shapes(case)
     out = {}
     with mesh, juse_rules(rules):
         spec = jspecs.input_specs(cfg, pshape, rules)
@@ -1044,7 +1071,7 @@ def serve_reference(case, mesh_shape, inputs, decode):
         if decode:
             dspec = jspecs.input_specs(cfg, dshape, rules)
             state = jax.device_put(jzoo.DecodeState(
-                {k: _jax_leaf(v) for k, v in inputs["cache"].items()},
+                {k: _jax_leaf(v, k) for k, v in inputs["cache"].items()},
                 jnp.asarray(inputs["cache_len"])), dspec["in_shardings"][1])
             step = jax.jit(jspecs.cell_fn(cfg, dshape),
                            in_shardings=dspec["in_shardings"],
@@ -1055,6 +1082,11 @@ def serve_reference(case, mesh_shape, inputs, decode):
                     {"tokens": jnp.asarray(tokens),
                      "active": jnp.asarray(inputs["active"])},
                     dspec["in_shardings"][2]))
+                if "conv" in state.cache:
+                    state = jzoo.DecodeState(dict(
+                        state.cache,
+                        conv=state.cache["conv"].astype(jnp.bfloat16)),
+                        state.cache_len)
                 logits.append(lg)
             out["decode"] = (logits, state)
     out["mesh"] = mesh
@@ -1068,17 +1100,20 @@ def _one_bf16_ulp(x):
                    - 7)
 
 
-def assert_blocks(got, want_state, mesh, coord, what, ulps=1):
+def assert_blocks(got, want_state, mesh, coord, what, ulps=1, skip=()):
     """A rank's decode-state block (``got``: its ``cache`` dict and
     ``cache_len``) against the block the reference's output sharding
     gives the device at ``coord``: ``cache_len`` equal, each bf16 cache
     element within ``ulps`` bf16 ulps of the reference's, over the
     float32 values' own difference before the rounding (1e-5 of the
     leaf's largest element: near zero, a float32 difference of that
-    size spans several bf16 ulps of the element)."""
+    size spans several bf16 ulps of the element); the leaves in
+    ``skip`` are left out."""
     device = mesh.devices[coord]
     for k, arr in list(want_state.cache.items()) + [
             ("cache_len", want_state.cache_len)]:
+        if k in skip:
+            continue
         index = arr.sharding.devices_indices_map(arr.shape)[device]
         want = _f32(arr)[index] if k != "cache_len" else \
             np.asarray(arr)[index]
@@ -1094,6 +1129,52 @@ def assert_blocks(got, want_state, mesh, coord, what, ulps=1):
             (what, k, coord, float(np.abs(g - want).max()))
 
 
+def _within_bf16_ulp(got, want, what):
+    """``assert_blocks``' bound on one bf16 leaf."""
+    bound = _one_bf16_ulp(np.maximum(np.abs(got), np.abs(want))) \
+        + F32_PARAM * np.abs(want).max()
+    assert got.shape == want.shape, what
+    assert (np.abs(got - want) <= bound).all(), \
+        (what, float(np.abs(got - want).max()))
+
+
+def assert_recurrent_state(got, want_state, mesh, coord, cfg, what):
+    """A rank's ssm / hybrid decode-state block and the state gathered
+    whole against the reference's: ``k``, ``v`` and ``cache_len`` by
+    ``assert_blocks``; ``ssm`` (float32) the reference's block within
+    1e-4 relative and absolute (``tests/test_torch_mamba2.py``'s F32);
+    ``conv`` the port's block, the x channels of the rank's heads then B
+    and C, cut here from the reference's rows, within one bf16 ulp (the
+    reference's float32 leaf before the port's rounding); the gathered
+    whole state within the same bounds of the reference's whole."""
+    assert_blocks(got, want_state, mesh, coord, what, skip=("ssm", "conv"))
+    device = mesh.devices[coord]
+    ssm = want_state.cache["ssm"]
+    index = ssm.sharding.devices_indices_map(ssm.shape)[device]
+    np.testing.assert_allclose(got["cache"]["ssm"].numpy(),
+                               np.asarray(ssm)[index], rtol=1e-4,
+                               atol=1e-4, err_msg=what)
+    conv = want_state.cache["conv"]
+    index = conv.sharding.devices_indices_map(conv.shape)[device]
+    rows = _f32(conv)[index[:-1] + (slice(None),)]
+    m = mesh.devices.shape[1]
+    if m > 1 and cfg.ssm_heads % m == 0:
+        di = cfg.d_inner // m
+        r = coord[1]
+        rows = np.concatenate([rows[..., r * di:(r + 1) * di],
+                               rows[..., cfg.d_inner:]], -1)
+    _within_bf16_ulp(got["cache"]["conv"].float().numpy(), rows,
+                     (what, "conv", coord))
+    whole = got["gathered"]
+    np.testing.assert_allclose(whole["ssm"].numpy(), np.asarray(ssm),
+                               rtol=1e-4, atol=1e-4, err_msg=what)
+    for k in whole:
+        if k != "ssm":
+            _within_bf16_ulp(whole[k].float().numpy(),
+                             _f32(want_state.cache[k]),
+                             (what, k, "gathered"))
+
+
 def serve_case(ranks, name):
     case, shape = name.split(" ", 1)
     mesh_shape = eval(shape)
@@ -1104,12 +1185,18 @@ def serve_case(ranks, name):
     return mine, want
 
 
+RECURRENT_CASES = ["ssm (1, 2)", "ssm (2, 1)", "ssm (2, 2)",
+                   "hybrid (1, 2)", "hybrid (2, 1)", "hybrid (2, 2)"]
+UNDIVIDED_CASES = ["dense63 (1, 2)", "kv1_63 (1, 2)", "hybrid63 (1, 2)"]
+
+
 @pytest.mark.parametrize("name", ["dense (1, 2)", "dense (2, 1)",
                                   "dense (2, 2)", "blockwise (1, 2)",
                                   "kv1 (1, 2)", "moe_grouped (1, 2)",
                                   "moe_onehot (1, 2)", "moe_grouped (2, 2)",
                                   "moe_onehot (2, 2)", "vlm (1, 2)",
-                                  "enc_dec (1, 2)"])
+                                  "enc_dec (1, 2)"] + RECURRENT_CASES
+                         + UNDIVIDED_CASES)
 def test_prefill_over_the_mesh_matches_reference(name, serve_two,
                                                  serve_four):
     """Reduced models, float32, the reduced prefill_32k cell (4 rows of
@@ -1125,22 +1212,36 @@ def test_prefill_over_the_mesh_matches_reference(name, serve_two,
     rank's logits (replicated: the whole (B, 1, V)) within 1e-5
     relative L2, and its block of the decode state (cache_batch over
     data, cache_seq over model, every KV head) within one bf16 ulp of
-    the reference's block, cache_len equal."""
+    the reference's block, cache_len equal.  Reduced mamba2-780m and
+    zamba2-2.7b at (1, 2), (2, 1) and (2, 2): the Mamba2 blocks on each
+    rank's SSM heads (the SSD's plain version on the CPU), the state
+    held by ``assert_recurrent_state``.  granite-8b at 63 positions
+    (which a model axis of 2 does not divide), with 2 KV heads and with
+    one: the cache keeps every position, its KV heads over model where
+    they divide; zamba2-2.7b's at 64 (hybrid63's decode cell is at
+    63)."""
     ranks = serve_four if name.endswith("(2, 2)") else serve_two
     mine, want = serve_case(ranks, name)
     logits, state = want["prefill"]
+    case = name.split(" ", 1)[0]
     for r in mine:
         got = r["prefill"]
         assert rel_l2(np.asarray(logits), got["logits"].numpy()) <= \
             F32_METRIC, name
-        assert_blocks(got, state, want["mesh"], r["coord"], name)
+        if case in RECURRENT:
+            assert_recurrent_state(got, state, want["mesh"], r["coord"],
+                                   jax_config(SERVE[case][0]).reduced(),
+                                   name)
+        else:
+            assert_blocks(got, state, want["mesh"], r["coord"], name)
 
 
 @pytest.mark.parametrize("name", ["dense (1, 2)", "dense (2, 1)",
                                   "dense (2, 2)", "kv1 (1, 2)",
                                   "moe_grouped (1, 2)", "moe_onehot (1, 2)",
                                   "moe_grouped (2, 2)", "moe_onehot (2, 2)",
-                                  "vlm (1, 2)", "enc_dec (1, 2)"])
+                                  "vlm (1, 2)", "enc_dec (1, 2)"]
+                         + RECURRENT_CASES + UNDIVIDED_CASES)
 def test_decode_over_the_mesh_matches_reference(name, serve_two,
                                                 serve_four):
     """4 serve steps from a seeded decode state (random bf16 cache of 64
@@ -1156,39 +1257,74 @@ def test_decode_over_the_mesh_matches_reference(name, serve_two,
     moves lane 0's softmax by ~1e-5; the port's single device reads
     1.1-1.5e-5 from the reference here, the mesh the same), the final
     blocks within one bf16 ulp, cache_len equal; the blocks gathered
-    back over the mesh give the same blocks again."""
+    back over the mesh give the same blocks again.  The ssm and hybrid
+    cases (float32 wherever the reference's sharded jit runs: its conv
+    leaf is cast back to bf16 between steps) step each rank's SSM
+    heads' states, an inactive lane keeping both of its own; their
+    state is held by ``assert_recurrent_state``.  The 63-position
+    cases (granite-8b with 2 KV heads, split over model, and with one,
+    whole on each rank; zamba2-2.7b's shared attention) run the
+    tensor-parallel attention over every position, each rank writing
+    its KV heads' new token (lane 2 is full at 63)."""
     ranks = serve_four if name.endswith("(2, 2)") else serve_two
     mine, want = serve_case(ranks, name)
     logits, state = want["decode"]
+    case = name.split(" ", 1)[0]
     tol = 5e-5 if name.startswith("enc_dec") else F32_METRIC
     for r in mine:
         got = r["decode"]
         assert len(got["logits"]) == len(logits) == 4
         for a, b in zip(logits, got["logits"]):
             assert rel_l2(np.asarray(a), b.numpy()) <= tol, name
-        assert_blocks(got, state, want["mesh"], r["coord"], name)
+        if case in RECURRENT:
+            assert_recurrent_state(got, state, want["mesh"], r["coord"],
+                                   jax_config(SERVE[case][0]).reduced(),
+                                   name)
+        else:
+            assert_blocks(got, state, want["mesh"], r["coord"], name)
         assert got["gathered_equal"]
         assert np.array_equal(got["gathered_len"].numpy(),
                               np.asarray(state.cache_len))
 
 
 @pytest.mark.parametrize("name", ["dense (1, 2)", "dense (2, 1)",
-                                  "dense (2, 2)"])
+                                  "dense (2, 2)"] + RECURRENT_CASES
+                         + UNDIVIDED_CASES)
 def test_serving_collectives_in_closed_form(name, serve_two, serve_four):
-    """Reduced granite-8b (L = 2 layers) on a (d, m) mesh, per prefill and
-    per serve step, as ``launch.sharding`` counts them: over a model axis
-    above 1, 1 + 2L all-reduces (the vocab-parallel embedding, each
-    layer's attention and MLP g), and a step's L more (each layer's
-    split softmax output summed over the ranks); all-gathers 2L
-    (prefill: k and v to the cache's positions; a step: q/k/v, then each
-    rank's largest logit and sum) + 1 (the logits' vocabulary blocks) +
-    1 over a data axis above 1 (the logits' rows)."""
+    """Per prefill and per serve step on a (d, m) mesh, as
+    ``launch.sharding`` counts them; every model-axis term is there only
+    where m > 1, and the logits' rows add 1 all-gather where d > 1.
+
+    * Reduced granite-8b (L = 2 layers): 1 + 2L all-reduces (the
+      vocab-parallel embedding, each layer's attention and MLP g), and a
+      step's L more (each layer's split softmax output summed over the
+      ranks); all-gathers 2L (prefill: k and v to the cache's positions;
+      a step: q/k/v, then each rank's largest logit and sum) + 1 (the
+      logits' vocabulary blocks).  At 63 positions (the cache keeps
+      every position): 1 + 2L all-reduces and the logits' gather alone,
+      a prefill and a step.
+    * Reduced mamba2-780m (L = 2): 1 + 2L all-reduces (the embedding,
+      each layer's ``ssm_norm`` squares and ``out_proj``) and the
+      logits' gather, a prefill and a step.
+    * Reduced zamba2-2.7b (L = 4 Mamba2 layers, P = 2 periods of shared
+      attention): the same 1 + 2L, and each period's attention as
+      granite-8b's layer: 2P all-reduces and 2P all-gathers a prefill,
+      3P and 2P a step; at 63 decode positions a step's 2P all-reduces
+      alone."""
     ranks = serve_four if name.endswith("(2, 2)") else serve_two
-    d, m = eval(name.split(" ", 1)[1])
-    L_ = 2
-    gathers = (2 * L_ + 1 if m > 1 else 0) + (1 if d > 1 else 0)
-    prefill = ((1 + 2 * L_) if m > 1 else 0, gathers)
-    step = ((1 + 3 * L_) if m > 1 else 0, gathers)
+    case, shape = name.split(" ", 1)
+    d, m = eval(shape)
+    mamba, periods = {"ssm": (2, 0), "hybrid": (4, 2),
+                      "hybrid63": (4, 2)}.get(case, (0, 2))
+    seq_split = case not in ("dense63", "kv1_63")
+    step_split = seq_split and case != "hybrid63"
+    prefill = (1 + 2 * mamba + 2 * periods,
+               1 + 2 * periods * seq_split)
+    step = (1 + 2 * mamba + (2 + step_split) * periods,
+            1 + 2 * periods * step_split)
+    if m == 1:
+        prefill, step = (0, 0), (0, 0)
+    prefill, step = ((n, g + (d > 1)) for n, g in (prefill, step))
     for r in ranks:
         got = r[name]
         assert tuple(got["prefill"]["collectives"]) == prefill, name

@@ -7,8 +7,9 @@ holds no valid position; the position-to-owner arithmetic
 (``sharding.position_owner``); each mesh coordinate's block of a decode
 state (``sharding.local_block`` of ``ServingMesh.state_shardings``)
 against the block JAX's ``NamedSharding`` of the reference's
-``decode_state_shardings`` gives the device there; and the cells a mesh
-still refuses.  The runs over gloo ranks are
+``decode_state_shardings`` gives the device there; the ssm and hybrid
+layouts, whose blocks join back into the whole state; and the cells a
+mesh still refuses.  The runs over gloo ranks are
 ``tests/test_torch_multirank.py``'s.
 
 Tolerances: the merge is the softmax's sum in another order (blocks,
@@ -33,6 +34,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.launch.sharding import local_block, position_owner
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import model_zoo as zoo
 
 torch.set_num_threads(1)
@@ -174,24 +176,100 @@ def test_state_blocks_are_the_references(name, mesh_shape):
             assert torch.equal(block, torch.from_numpy(want_block)), coord
 
 
+class At:
+    """A shape-only ``("data", "model")`` mesh seen from one coordinate:
+    what ``ServingMesh`` reads of a ``DeviceMesh`` to place a state."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape, coord):
+        self.shape, self.coord = tuple(shape), tuple(coord)
+
+    def get_coordinate(self):
+        return list(self.coord)
+
+
+def _joined(cfg, shape, mesh_shape, whole):
+    """``ServingMesh.place_state``'s blocks of ``whole`` at every
+    coordinate of ``mesh_shape``, joined back into one state as the ranks'
+    ``gather_state`` joins them: each leaf's blocks put where its
+    sharding says, and the ``conv`` blocks of the model ranks of each
+    data rank through ``mamba2.whole_channels``."""
+    out = {k: torch.zeros_like(v) for k, v in whole.cache.items()}
+    out_len = torch.zeros_like(whole.cache_len)
+    conv = {}
+    for coord in np.ndindex(*mesh_shape):
+        sm = zoo.ServingMesh(cfg, shape, At(mesh_shape, coord))
+        block = sm.place_state(whole)
+        at = dict(zip(("data", "model"), coord))
+        for k, v in block.cache.items():
+            if k == "conv":
+                conv.setdefault(coord[0], []).append(v)
+            else:
+                local_block(out[k], sm.state_shardings.cache[k], at).copy_(v)
+        local_block(out_len, sm.state_shardings.cache_len, at).copy_(
+            block.cache_len)
+    for d, parts in conv.items():
+        rows = ssm_lib.whole_channels(parts, cfg) if sm.heads is not None \
+            else parts[0]
+        local_block(out["conv"], sm.conv_rows, {"data": d, "model": 0}
+                    ).copy_(rows)
+    return out, out_len
+
+
 @pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-2.7b"])
 def test_recurrent_families_over_a_mesh_are_refused(name):
-    """ssm and hybrid prefill and decode over a mesh (their recurrent
-    state's ``conv_dim`` block is not the rank's heads) and any mesh with
-    a pod axis raise ``NotImplementedError`` naming ROADMAP's next
-    step; so does a cache whose positions the model axis does not
-    divide."""
+    """ssm and hybrid prefill and decode over a mesh, which ``ServingMesh``
+    now lays out; only a mesh with a pod axis is refused, naming
+    ROADMAP's next step.
+
+    * At full size on (16, 16), for prefill_32k, decode_32k and
+      long_500k (1 lane, replicated over data), on meta tensors: rank
+      0's ``ssm`` block is its SSM heads' (the reference's block), its
+      ``conv`` block the x channels of those heads then B and C, its
+      ``k`` / ``v`` the reference's block (2,048 of 32,768 positions).
+    * Reduced, on the CPU, at (1, 2), (2, 2), (4, 2) and (1, 16) (whose
+      16 model ranks do not divide the 8 SSM heads: both leaves whole
+      on every rank): the blocks ``place_state`` gives each coordinate,
+      joined back, are the whole state bit for bit (``gather_state``
+      joins them so over gloo ranks in ``tests/test_torch_multirank.py``).
+    * A 100-position cache over (1, 16) and (1, 8) builds with the
+      reference's layout: ``cache_seq`` replicated, ``kv_heads`` (8)
+      over model at (1, 8) and whole at (1, 16)."""
     cfg = ARCHS[name]
+    d_inner, nheads, conv_dim, _ = ssm_lib.mamba2_dims(cfg)
     for shape in ("prefill_32k", "decode_32k", "long_500k"):
-        with pytest.raises(NotImplementedError,
-                           match="item 13b, third step: ssm and hybrid"):
-            zoo.ServingMesh(cfg, SHAPES[shape], MeshShape.of(
-                (16, 16), ("data", "model")))
+        sh = SHAPES[shape]
+        state = zoo.abstract_decode_state(cfg, sh, MeshShape.of(
+            (16, 16), ("data", "model")))
+        lead = state.cache["ssm"].shape[:-4]
+        lanes = sh.global_batch // 16 if sh.global_batch % 16 == 0 else 1
+        assert state.cache["ssm"].shape == lead + (
+            lanes, nheads // 16, cfg.ssm_head_dim, cfg.ssm_state), shape
+        assert state.cache["conv"].shape == lead + (
+            lanes, cfg.conv_width - 1, d_inner // 16 + 2 * cfg.ssm_state)
+        if cfg.family == "hybrid":
+            assert state.cache["k"].shape == (
+                cfg.num_layers // cfg.attn_every, lanes, sh.seq_len // 16,
+                cfg.num_kv_heads, cfg.head_dim)
+    small = get_config(name).reduced()
+    shape = SHAPES["decode_32k"].reduced()
+    whole = zoo.init_decode_state(small, shape, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    whole.cache = {k: torch.randn(v.shape, generator=gen).to(v.dtype)
+                   for k, v in whole.cache.items()}
+    whole.cache_len = torch.arange(shape.global_batch, dtype=torch.int32)
+    for mesh_shape in ((1, 2), (2, 2), (4, 2), (1, 16)):
+        cache, lens = _joined(small, shape, mesh_shape, whole)
+        for k, v in whole.cache.items():
+            assert torch.equal(cache[k], v), (mesh_shape, k)
+        assert torch.equal(lens, whole.cache_len)
     with pytest.raises(NotImplementedError,
                        match="item 13b, fourth step: the pod axis"):
         zoo.ServingMesh(ARCHS["granite-8b"], SHAPES["decode_32k"],
                         MeshShape.of((2, 16, 16), ("pod", "data", "model")))
     odd = ShapeConfig("decode", 100, 4, "decode")
-    with pytest.raises(NotImplementedError, match="100 positions"):
-        zoo.ServingMesh(ARCHS["granite-8b"], odd,
-                        MeshShape.of((1, 16), ("data", "model")))
+    for m, kv in ((16, None), (8, "model")):
+        sm = zoo.ServingMesh(ARCHS["granite-8b"], odd,
+                             MeshShape.of((1, m), ("data", "model")))
+        assert sm.state_shardings.cache["k"].spec[2:] == (None, kv, None)
