@@ -18,7 +18,10 @@ layer) and internvl2-26b (1 layer) tensor parallel on (1, 2), and
 qwen2-moe-a2.7b with the grouped dispatch (its 16 routing groups, 30
 experts a rank) on (1, 2), and qwen2-moe-a2.7b at 1 layer with the
 one-hot dispatch on (2, 1) (2-row micro-batches routed across both data
-ranks), against one-device runs of the same cuts, all with
+ranks), against one-device runs of the same cuts, and the pod axis
+((l): mamba2-780m with ZeRO-1 and granite-8b served on a (2, 1, 1)
+``("pod", "data", "model")`` mesh against the same one-device runs),
+all with
 ``chip_smoke.py``'s limits: losses, s/step (one device and the mesh),
 peak GiB a rank, model-axis all-reduces and routing all-gathers a
 step.  The card's name and power limit come first,

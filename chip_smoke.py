@@ -324,8 +324,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    all-gathers of the prefill and of each step in closed form (5 and 5),
    each rank's parameter and cache GiB against the whole's; the flash
    kernel held against its plain version at a rank's prefill shape
-   before the spawn, its ms beside SDPA's and the bound.  The spawned
-   group is killed, and the phase fails naming itself, past
+   before the spawn, its ms beside SDPA's and the bound; (k) the same
+   for mamba2-780m and zamba2-2.7b; (l) the pod axis, the same two ranks
+   as a (2, 1, 1) ``("pod", "data", "model")`` mesh: (d)'s cut with
+   ZeRO-1, each pod rank 2 of the 4 rows (the SSD kernel on them: layers
+   x 2 pieces x 2 x 3 launches a rank, asserted), one pod all-reduce of
+   each ZeRO-1 block a step, losses within 8e-3 of (d)'s one-device run;
+   and (j)'s cell served, each pod rank one lane (the flash kernel on
+   all 32 heads: 2 launches a rank), against (j)'s one-device run as (j)
+   holds itself, no all-reduce and one all-gather (the logits' rows) a
+   prefill and a step, each rank all the parameters and half the cache.
+   The spawned group is killed, and the phase fails naming itself, past
    ``TP_SPAWN_LIMIT_S``.
 24. the cost analysis against the card, after phase 23
    (``analysis_phase``): (a) one train step of phase 20's dense cell
@@ -343,9 +352,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (h) traced as rank 0 of a fake (1, 2) process group: the all-reduces
    that ``launch.sharding`` counts equal phase 23's counts a step, and
    the trace's all-reduces over the model group are those plus
-   ``DataParallel.norm``'s; and (j)'s prefill and one decode step
-   traced on rank 0's blocks: their all-reduces and all-gathers equal
-   those the ranks counted on the card.
+   ``DataParallel.norm``'s; and (j)'s, (k)'s and (l)'s prefill and one
+   decode step traced on rank 0's blocks: their all-reduces and
+   all-gathers equal those the ranks counted on the card; (l)'s train
+   step traced on the (2, 1, 1) mesh: its pod all-reduces equal the
+   card's, and with the metrics' mean, every all-reduce over 2 ranks.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -4131,6 +4142,9 @@ def dp_phase(dev, twin_losses):
 # (j) serving over (1, 2): granite-8b's prefill and decode steps at full
 # width and 2 layers (the SERVE_* constants below), beside a one-device
 # run made first.
+# (l) the pod axis: (d)'s and (j)'s cells on a (2, 1, 1) ("pod", "data",
+# "model") mesh, in the same spawn and against the same one-device runs
+# (POD_TRAIN, below the SERVE_* constants).
 TP_RANKS, TP_STEPS = 2, 3
 SPMD_GRID, SPMD_ODF, SPMD_ITERS = 16384, 4, 20
 TP_BF16_LOSS = 8e-3         # tests/test_multidevice.py:80
@@ -4212,6 +4226,13 @@ SERVE_K = ("k_ssm", "k_hybrid")
 SERVE_LANES = 2
 SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 9216, 18432, 16
 SERVE_BF16_ULPS = 8          # tests/test_torch_engine.py's bf16 rule
+# (l): the mesh's axes, and (d)'s cell with ZeRO-1 on it (key, arch,
+# layers a stack, cell, config overrides): each pod rank 2 of the 4 rows,
+# its blocks of m and v over the data axis (of 1), the gradient summed
+# over the pods (one all-reduce of each block a step); (j)'s cell served
+# on it, each pod rank one lane (flash on all 32 heads of its prefill)
+POD_AXES = ("pod", "data", "model")
+POD_TRAIN = ("ssm", "mamba2-780m", 2, "l", {"zero1": True})
 
 
 def serve_cfg(dev, key="j"):
@@ -4298,10 +4319,11 @@ def serve_one_device(dev, path, key="j") -> dict:
     return row
 
 
-def serve_rank(dev, ref_path, out_path, key="j") -> dict:
+def serve_rank(dev, ref_path, out_path, key="j", pod=False) -> dict:
     """A served cell on one rank: the rank's blocks of the same
     parameters (``init_serving_params(mesh=...)``), the prefill over the
-    (1, 2) mesh on the global prompt, the decode state built from its
+    (1, 2) mesh (``pod``: (2, 1, 1), (l)) on the global prompt, the
+    decode state built from its
     blocks (the prefill's state gathered whole, its k / v into the first
     positions of the longer cache, then this rank's block), and the steps
     fed the one-device run's tokens; every logits saved to ``out_path``.
@@ -4318,8 +4340,9 @@ def serve_rank(dev, ref_path, out_path, key="j") -> dict:
     t_start = time.perf_counter()
     release(dev)
     cfg, pshape, dshape, _ = serve_cfg(dev, key)
-    mesh = make_mesh((1, dist.get_world_size()), ("data", "model"),
-                     device=dev)
+    world = dist.get_world_size()
+    mesh = (make_mesh((world, 1, 1), POD_AXES, device=dev) if pod else
+            make_mesh((1, world), ("data", "model"), device=dev))
     params = zoo.init_serving_params(cfg, seed=0, device=dev, mesh=mesh)
     ref = torch.load(ref_path)
 
@@ -4381,7 +4404,7 @@ def serve_layers(cfg):
     return cfg.num_layers // cfg.attn_every, cfg.num_layers
 
 
-def serve_collectives(cfg) -> dict:
+def serve_collectives(cfg, pod=False) -> dict:
     """A served cell's all-reduces and all-gathers in closed form, a
     prefill's and a step's, on (1, m), m > 1, the KV heads and SSM heads
     split, the cache's positions too, with A attention layers (each with
@@ -4390,7 +4413,11 @@ def serve_collectives(cfg) -> dict:
     squares and ``out_proj``), and a step's A more (each split softmax
     output summed over the ranks); 2A all-gathers (a prefill's k and v to
     the cache's positions; a step's q/k/v, then each rank's largest logit
-    and sum) + 1 (the logits' vocab blocks)."""
+    and sum) + 1 (the logits' vocab blocks).  ``pod``: on (p, 1, 1),
+    p > 1, no all-reduce and one all-gather, the logits' rows over the
+    pods."""
+    if pod:
+        return {"prefill": (0, 1), "step": (0, 1)}
     a, m = serve_layers(cfg)
     return {"prefill": (1 + 2 * a + 2 * m, 2 * a + 1),
             "step": (1 + 3 * a + 2 * m, 2 * a + 1)}
@@ -4577,10 +4604,54 @@ def tp_train_rank(cfg, shape, dev, world, model_par=None) -> dict:
     return out
 
 
+def pod_train_rank(cfg, shape, dev, world) -> dict:
+    """(l)'s training on one rank: ``make_train_step`` over a (world, 1,
+    1) ``POD_AXES`` mesh from ``DataParallel.place``'s state, fed the
+    batches ``ElasticTrainer`` feeds (seed 0, as (d)'s one-device run),
+    TP_STEPS steps: losses, s/step, the pod all-reduces a step
+    (``launch.sharding``'s count: one for each ZeRO-1 block), the
+    leaves, the kernels' launches (counts set to 0 just before the first
+    step, read just after the last), this rank's parameter GiB against
+    the whole model's, its m and v GiB, and its peak GiB."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adamw
+    release(dev)
+    mesh = make_mesh((world, 1, 1), POD_AXES, device=dev)
+    dp = zoo.DataParallel(cfg, mesh)
+    state = dp.place(zoo.init_state(cfg, 0, device=dev))
+    step = zoo.make_train_step(cfg, adamw.HParams(**TRAIN_HP), mesh=mesh)
+    data = SyntheticLM(cfg, shape, seed=0)
+    pieces = len(dp.micro_blocks(data.batch_at(0))[0])
+    sync(dev)
+    zero_launches()
+    before = sharding.all_reduces
+    losses, times = [], []
+    for i in range(TP_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, to_device(data.batch_at(i), dev))
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    out = {"losses": losses, "step_s": times, "launches": read_launches(),
+           "pod_all_reduces_per_step": (sharding.all_reduces - before)
+           / TP_STEPS,
+           "leaves": len(adamw.flatten(state.params)[0]),
+           "pieces": pieces, "param_gib": tree_bytes(state.params) / 2**30,
+           "whole_param_gib": zoo.num_params(cfg) * 4 / 2**30,
+           "moments_gib": (tree_bytes(state.opt.m)
+                           + tree_bytes(state.opt.v)) / 2**30,
+           "peak_gib": peak_gib()}
+    del state, step
+    release(dev)
+    return out
+
+
 def tp_rank(rank, world, dev, zero1, out_path):
-    """A rank of phase 23: (a)-(k) in turn; every rank's readings
-    gathered to rank 0, which writes them to ``out_path`` as JSON ((j)'s
-    and (k)'s logits beside it)."""
+    """A rank of phase 23: (a)-(l) in turn; every rank's readings
+    gathered to rank 0, which writes them to ``out_path`` as JSON ((j)'s,
+    (k)'s and (l)'s logits beside it)."""
     import torch.distributed as dist
     out = {"stencil": spmd_stencil_rank(dev)}
     cfg, shape = tp_cfg(DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS, dev,
@@ -4602,6 +4673,13 @@ def tp_rank(rank, world, dev, zero1, out_path):
                                       tmp / f"serve_{key}-{rank}.pt", key)
                       for key in SERVE_K}
     out["serve_k_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    key, arch, layers, _, kw = POD_TRAIN
+    cfg, shape = tp_cfg(arch, layers, dev, **kw)
+    out["pod_train"] = pod_train_rank(cfg, shape, dev, world)
+    out["pod_serve"] = serve_rank(dev, tmp / "serve_ref.pt",
+                                  tmp / f"serve_l-{rank}.pt", pod=True)
+    out["pod_s"] = time.perf_counter() - t0
     every = [None] * world
     dist.all_gather_object(every, out)
     if rank == 0:
@@ -4703,6 +4781,11 @@ def tp_phase(dev, zero1, twin_losses):
                  for r in range(TP_RANKS)],
                 [r["serve_k"][key] for r in ranks], dev, "(k)")
                 for key in SERVE_K}
+            serve_l = serve_check(cfg, torch_load(Path(tmp) / "serve_ref.pt"),
+                                  [torch_load(Path(tmp) / f"serve_l-{r}.pt")
+                                   for r in range(TP_RANKS)],
+                                  [r["pod_serve"] for r in ranks], dev,
+                                  "(l)", pod=True)
     finally:
         if alloc_conf is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
@@ -4728,7 +4811,8 @@ def tp_phase(dev, zero1, twin_losses):
         "flash_at_rank_heads": flash_heads,
         "serve": dict(serve, one_device=serve_one),
         "serve_k": {key: dict(serve_k[key], one_device=one_k[key])
-                    for key in SERVE_K}, "serve_k_checks": k_checks}
+                    for key in SERVE_K}, "serve_k_checks": k_checks,
+        "pod": {"serve": dict(serve_l, one_device=serve_one)}}
     ssd_launches = {}
     for key, what, want in (
             ("dense", f"(b) {DENSE_TRAIN_ARCH} tensor parallel", twin_losses),
@@ -4788,6 +4872,8 @@ def tp_phase(dev, zero1, twin_losses):
             assert all(r["param_gib"] < 0.51 * r["whole_param_gib"]
                        for r in rs), rs
         numbers[key] = {"ranks": rs, "max_loss_diff": max(diffs)}
+    numbers["pod"]["train"] = pod_train_check(ranks, ones, dev,
+                                              ssd_launches)
     log(f"  {wall:.1f} s with the spawn")
     serve_s = max(r["serve"]["wall_s"] for r in ranks)
     numbers["serve"]["wall_s"] = {"one_device": t_one, "flash_check": t_flash,
@@ -4803,7 +4889,52 @@ def tp_phase(dev, zero1, twin_losses):
         f"(the one-device runs {t_one_k:.1f}, the SSD and flash checks "
         f"{t_checks_k:.1f}, the ranks' serve {serve_k_s:.1f} of the "
         f"spawn's {wall:.1f})")
+    pod_s = max(r["pod_s"] for r in ranks)
+    numbers["pod"]["wall_s"] = pod_s
+    log(f"[time] phase 23 (l): {pod_s:.1f} s (the ranks' training and "
+        f"serve over ({TP_RANKS}, 1, 1), of the spawn's {wall:.1f}; the "
+        f"one-device runs are (d)'s and (j)'s)")
     return launches, ssd_launches, numbers
+
+
+def pod_train_check(ranks, ones, dev, ssd_launches) -> dict:
+    """(l)'s training readings against (d)'s one-device run: every rank's
+    losses the same and within TP_BF16_LOSS of it; one pod all-reduce of
+    each ZeRO-1 block a step; SSD launches a rank = Mamba2 layers x its
+    pieces a step (half the micro-batches) x 2 (forward and remat's
+    recompute) x TP_STEPS on the card (added to ``ssd_launches``); each
+    rank all the parameters (the pod axis splits rows only)."""
+    key, arch, layers, cell, kw = POD_TRAIN
+    rs = [r["pod_train"] for r in ranks]
+    want = ones[key]["losses"]
+    cfg = tp_cfg(arch, layers, dev, **kw)[0]
+    diffs = [abs(a - b) for a, b in zip(rs[0]["losses"], want)]
+    got = [r["launches"]["ssd_intra_chunk"] for r in rs]
+    want_ssd = cfg.num_layers * rs[0]["pieces"] * 2 * TP_STEPS
+    log(f"  ({cell}) {arch} at {cfg.num_layers} layers with ZeRO-1 on "
+        f"({TP_RANKS}, 1, 1), each pod rank half the rows: losses "
+        f"{rs[0]['losses']} against (d)'s one-device "
+        f"{[round(x, 6) for x in want]} (max diff {max(diffs):.3e}); s/step "
+        f"{spread(rs[0]['step_s'], 1.0)}; pod all-reduces a step "
+        f"{rs[0]['pod_all_reduces_per_step']:.0f} ({rs[0]['leaves']} "
+        f"leaves); SSD launches by rank {got} (want {cfg.num_layers} "
+        f"layers x {rs[0]['pieces']} pieces x 2 x {TP_STEPS} = {want_ssd} "
+        f"on the card); parameters "
+        + ", ".join(f"{r['param_gib']:.3f}" for r in rs)
+        + f" GiB by rank of {rs[0]['whole_param_gib']:.3f}, m and v "
+        + ", ".join(f"{r['moments_gib']:.3f}" for r in rs)
+        + " GiB; peak " + ", ".join(f"{r['peak_gib']:.2f}" for r in rs)
+        + " GiB by rank")
+    assert len(diffs) == TP_STEPS and max(diffs) < TP_BF16_LOSS, \
+        (cell, rs[0]["losses"], want)
+    assert all(r["losses"] == rs[0]["losses"] for r in rs), rs
+    assert all(r["pod_all_reduces_per_step"] == r["leaves"] for r in rs), rs
+    assert all(abs(r["param_gib"] - r["whole_param_gib"]) < 1e-9
+               for r in rs), rs
+    if dev.type == "cuda":
+        assert got == [want_ssd] * TP_RANKS, (cell, got, want_ssd)
+    ssd_launches[f"{arch} over pods ({TP_RANKS} gloo ranks)"] = sum(got)
+    return {"ranks": rs, "max_loss_diff": max(diffs)}
 
 
 def torch_load(path):
@@ -4811,7 +4942,7 @@ def torch_load(path):
     return torch.load(path, weights_only=False)
 
 
-def serve_check(cfg, ref, got, ranks, dev, cell) -> dict:
+def serve_check(cfg, ref, got, ranks, dev, cell, pod=False) -> dict:
     """A served cell's readings against its one-device run: every rank's
     logits the same (replicated), each step's within SERVE_BF16_ULPS
     bf16 ulps of the largest one-device logit and the greedy token equal
@@ -4820,9 +4951,10 @@ def serve_check(cfg, ref, got, ranks, dev, cell) -> dict:
     card (one prefill); the collectives of the prefill and of every step
     as ``serve_collectives`` counts them; each rank's parameters under
     the whole's (granite-8b under 51%: the norms are replicated; the
-    Mamba2 blocks replicate B and C and their norms), its cache the
-    bytes of its layout (``abstract_decode_state`` over the mesh), half
-    of the whole's where nothing of it is replicated (granite-8b)."""
+    Mamba2 blocks replicate B and C and their norms; ``pod``, the (2, 1,
+    1) mesh of (l): all of them), its cache the bytes of its layout
+    (``abstract_decode_state`` over the mesh), half of the whole's where
+    nothing of it is replicated (granite-8b)."""
     V = cfg.vocab_size
     for r in got[1:]:
         assert all(bool((a == b).all()) for a, b in zip(r, got[0])), \
@@ -4840,7 +4972,7 @@ def serve_check(cfg, ref, got, ranks, dev, cell) -> dict:
         assert bool(same[wide].all()), (cell, cfg.name, "greedy", i)
         clear += int(wide.sum())
         agree += int(same.sum())
-    want_colls = serve_collectives(cfg)
+    want_colls = serve_collectives(cfg, pod)
     attn, mamba = serve_layers(cfg)
     for r in ranks:
         if dev.type == "cuda":
@@ -4849,16 +4981,20 @@ def serve_check(cfg, ref, got, ranks, dev, cell) -> dict:
         assert tuple(r["prefill_collectives"]) == want_colls["prefill"], r
         assert all(tuple(c) == want_colls["step"]
                    for c in r["step_collectives"]), r
-        assert r["param_gib"] < (0.51 if cfg.family == "dense" else 1) \
-            * r["whole_param_gib"], r
+        if pod:
+            assert abs(r["param_gib"] - r["whole_param_gib"]) < 1e-9, r
+        else:
+            assert r["param_gib"] < (0.51 if cfg.family == "dense"
+                                     else 1) * r["whole_param_gib"], r
         assert r["cache_gib"] == r["layout_cache_gib"] < \
             r["whole_cache_gib"], r
         if cfg.family == "dense":
             assert abs(r["cache_gib"] * TP_RANKS
                        - r["whole_cache_gib"]) < 1e-9
     n = len(ref["logits"]) * SERVE_LANES
-    log(f"  {cell} {cfg.name} at {cfg.num_layers} layers served over (1, "
-        f"{TP_RANKS}): prefill s by rank "
+    mesh = f"({TP_RANKS}, 1, 1)" if pod else f"(1, {TP_RANKS})"
+    log(f"  {cell} {cfg.name} at {cfg.num_layers} layers served over "
+        f"{mesh}: prefill s by rank "
         + ", ".join(f"{r['prefill_s']:.3f}" for r in ranks)
         + "; s/step " + spread(ranks[0]["step_s"], 1.0)
         + f"; flash launches by rank {[r['flash_launches'] for r in ranks]}"
@@ -4890,7 +5026,9 @@ def serve_check(cfg, ref, got, ranks, dev, cell) -> dict:
 # (b) phase 23's cells (b) and (h) traced in a child process as rank 0 of
 # a fake (1, TP_RANKS) group: their all-reduces equal phase 23's counts;
 # (j)'s prefill and one decode step likewise, all-reduces and
-# all-gathers.
+# all-gathers; (l)'s, the same fake group laid out as (TP_RANKS, 1, 1):
+# its training step's pod all-reduces, its prefill's and step's
+# collectives.
 ANALYSIS_SSM_LAYERS = 2
 ANALYSIS_PEAK_RATIO = (0.75, 1.33)
 ANALYSIS_CHILD_LIMIT_S = 120
@@ -4936,6 +5074,19 @@ def analysis_trace_child(cells, device_type, out_path):
         out["serve"] = serve_trace(torch.device(device_type), mesh)
         out["serve_k"] = {key: serve_trace(torch.device(device_type), mesh,
                                            key) for key in SERVE_K}
+        pod = make_mesh((TP_RANKS, 1, 1), POD_AXES, device="cpu")
+        out["serve_l"] = serve_trace(torch.device(device_type), pod)
+        _, arch, layers, _, kw = POD_TRAIN
+        cfg, shape = tp_cfg(arch, layers, torch.device(device_type), **kw)
+        before = sharding.all_reduces
+        counter, dt = dryrun.trace_cell(cfg, shape, pod)
+        out["pod_train"] = {
+            "sharding_all_reduces": sharding.all_reduces - before,
+            "pod_all_reduces": sum(
+                1 for c in counter.collectives
+                if c.kind == "all-reduce" and c.group_size == TP_RANKS),
+            "collectives": H.collective_summary(counter.collectives),
+            "trace_s": dt}
     Path(out_path).write_text(json.dumps(out))
 
 
@@ -5095,10 +5246,22 @@ def analysis_phase(dev, zero1, tp) -> dict:
             got["norm_model_all_reduces"], (key, got)
     served = traced.pop("serve")
     served_k = traced.pop("serve_k")
+    served_l = traced.pop("serve_l")
+    pod_train = traced.pop("pod_train")
+    want = tp["pod"]["train"]["ranks"][0]["pod_all_reduces_per_step"]
+    log(f"  (l) {POD_TRAIN[1]}'s step on ({TP_RANKS}, 1, 1) traced: "
+        f"{pod_train['sharding_all_reduces']} pod all-reduces through "
+        f"launch.sharding, {pod_train['pod_all_reduces']} all-reduces over "
+        f"{TP_RANKS} ranks in all (and the metrics' mean); phase 23 read "
+        f"{want:.0f} a step; {pod_train['trace_s']:.1f} s to trace; "
+        f"{json.dumps(pod_train['collectives'])}")
+    assert pod_train["sharding_all_reduces"] == want, (pod_train, want)
+    assert pod_train["pod_all_reduces"] == want + 1, pod_train
     for cell, key, got_cell, ranks in (
             ("(j)", "j", served, tp["serve"]["ranks"]),
             *(("(k)", k, served_k[k], tp["serve_k"][k]["ranks"])
-              for k in SERVE_K)):
+              for k in SERVE_K),
+            ("(l)", "j", served_l, tp["pod"]["serve"]["ranks"])):
         for kind, want in (("prefill", ranks[0]["prefill_collectives"]),
                            ("step", ranks[0]["step_collectives"][0])):
             got = got_cell[kind]
@@ -5109,8 +5272,8 @@ def analysis_phase(dev, zero1, tp) -> dict:
                 f"{got['kernels']}; {got['trace_s']:.1f} s to trace")
             assert list(got["trace"]) == list(got["sharding"]) == \
                 list(want), (cell, key, kind, got, want)
-    numbers["traced"] = traced
-    numbers["serve_traced"] = dict(served_k, j=served)
+    numbers["traced"] = dict(traced, pod_train=pod_train)
+    numbers["serve_traced"] = dict(served_k, j=served, l=served_l)
     return numbers
 
 
@@ -5384,9 +5547,11 @@ def main() -> int:
     if tp["serve_k_checks"]:
         ssd["at_serving_rank_heads"] = tp["serve_k_checks"]["ssd"]
         flash["at_hybrid_serving_rank_heads"] = tp["serve_k_checks"]["flash"]
-    for key, served in (("j", tp["serve"]),
-                        *((k, tp["serve_k"][k]) for k in SERVE_K)):
-        what = (f"{SERVE_MODELS[key][0]} prefill over (1, {TP_RANKS}) "
+    for key, served, mesh in (
+            ("j", tp["serve"], f"(1, {TP_RANKS})"),
+            *((k, tp["serve_k"][k], f"(1, {TP_RANKS})") for k in SERVE_K),
+            ("j", tp["pod"]["serve"], f"({TP_RANKS}, 1, 1)")):
+        what = (f"{SERVE_MODELS[key][0]} prefill over {mesh} "
                 f"({TP_RANKS} gloo ranks)")
         flash["launches_by_path"][what] = sum(
             r["flash_launches"] for r in served["ranks"])
@@ -5410,7 +5575,8 @@ def main() -> int:
         + "; all-reduces equal phase 23's: " + ", ".join(
             f"{k} {v['sharding_all_reduces']}"
             for k, v in analysis["traced"].items())
-        + "; (j)'s and (k)'s collectives equal the ranks': " + ", ".join(
+        + "; (j)'s, (k)'s and (l)'s collectives equal the ranks': "
+        + ", ".join(
             f"{c} {k} {tuple(v['trace'])}"
             for c, cell in analysis["serve_traced"].items()
             for k, v in cell.items()))

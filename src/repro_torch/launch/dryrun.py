@@ -27,14 +27,16 @@ state (the reference's KV cache layout; the recurrent state of the
 rank's SSM heads).  A (1, 1) mesh needs no process group.
 
 Covered: every kind at a (1, 1) mesh, and on the single-pod (16, 16)
-mesh every cell: ``train_4k``, and ``prefill_32k`` and ``decode_32k``
-of every family, with ``long_500k`` for ssm and hybrid.  Refused, with
-a ``NotImplementedError`` that a record keeps as the reference keeps a
-failing cell and that names ROADMAP's next step: every cell of the
-multi-pod mesh (item 13b's fourth step).
+and the multi-pod (2, 16, 16) mesh every cell: ``train_4k``, and
+``prefill_32k`` and ``decode_32k`` of every family, with ``long_500k``
+for ssm and hybrid.  Over the multi-pod mesh (rank 0 of a fake group of
+512) the batch and the decode state's rows go over the 32 pod x data
+ranks (``launch.sharding.batch_group``) and ZeRO-1 over the 16 data
+ranks alone, as the reference's rules give them.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
         --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh multi
     PYTHONPATH=src python -m repro_torch.launch.roofline
 """
 
@@ -53,7 +55,7 @@ import torch.distributed as dist
 from repro_torch.configs import ARCHS, SHAPES, shape_applicable
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import hlo_analysis as H
-from repro_torch.launch.mesh import MeshShape, make_mesh
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.sharding import ShardingRules, axis_sizes
 from repro_torch.launch.specs import cell_fn, input_specs
 from repro_torch.models import model_zoo as zoo
@@ -82,12 +84,8 @@ def fake_world(world: int):
 def production_mesh(kind: str):
     """The production mesh ``kind`` ("single" or "multi") for the life of
     the block: a ``DeviceMesh`` whose rank 0 this process is, in a fake
-    group opened here; the multi-pod mesh, which ``trace_cell`` refuses,
-    is its shape alone."""
+    group opened here."""
     shape, axes = PRODUCTION_MESHES[kind]
-    if "pod" in axes:
-        yield MeshShape.of(shape, axes)
-        return
     with fake_world(math.prod(shape)):
         yield make_mesh(shape, axes, device="cpu")
 
@@ -98,13 +96,7 @@ def trace_cell(cfg, shape, mesh):
     ``CostCounter``: ``(counter, seconds)``.  Over a mesh of more than
     one rank, rank 0's program (the caller holds the process group the
     mesh was made in)."""
-    sizes = axis_sizes(mesh)
-    n = math.prod(sizes.values())
-    if "pod" in sizes:
-        raise NotImplementedError(
-            f"a {tuple(sizes.values())} mesh with a pod axis: the port "
-            f"trains and serves over ('data', 'model') meshes; "
-            f"{zoo.MESH_POD_STEP}")
+    n = math.prod(axis_sizes(mesh).values())
     args = input_specs(cfg, shape, ShardingRules(mesh))["args"]
     if n == 1:
         fn = cell_fn(cfg, shape)

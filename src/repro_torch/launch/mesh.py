@@ -8,6 +8,11 @@ collective over the world.  A mesh of ``n`` ranks takes the first ``n``
 of the world, as ``jax.make_mesh`` takes the first devices; a rank
 outside it gets a mesh whose ``get_coordinate()`` is ``None``.
 
+A mesh with a ``pod`` axis also gets its batch group here
+(``launch.sharding.batch_group``: the pod x data ranks, a group of its
+own where both axes are above 1), so that every rank of the world makes
+it together.
+
 ``MeshShape`` is a shape-only mesh (axis sizes and names, no ranks) for
 the sharding rules of a mesh that no process group holds, such as the
 production meshes, as the reference's ``FakeMesh`` test does.
@@ -59,8 +64,12 @@ def make_mesh(shape, axes, device="cuda"):
         raise ValueError(f"a {shape} mesh needs {n} ranks; the process "
                          f"group has {world}")
     from torch.distributed.device_mesh import DeviceMesh
-    return DeviceMesh(resolve_device(device).type,
+    from repro_torch.launch.sharding import batch_group
+    mesh = DeviceMesh(resolve_device(device).type,
                       torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    if "pod" in axes:
+        batch_group(mesh)
+    return mesh
 
 
 def make_host_mesh(n_data: int = 1, n_model: int = 1, device="cuda"):

@@ -15,6 +15,15 @@ useful-compute ratio, the dominant term, and per-device memory from the
 full-depth production trace.  These are computed from counts and
 constants, not measured.
 
+``--traced`` reads instead the terms of each record's full-depth
+production trace on ``--mesh`` (``production_single``, rank 0 of 256,
+or ``production_multi``, the multi-pod (2, 16, 16) mesh's rank 0 of
+512): the port's eager trace counts every layer, so they are taken as
+they are, with no extrapolation, and a prefill's attention is the path
+it runs (blockwise past 8192 positions) where the analysis points trace
+full attention.  The multi-pod mesh has no analysis points (they are
+the single-pod mesh's), so ``--mesh multi`` implies ``--traced``.
+
 Cost model (exact for homogeneous stacks):
   train:  c(L, M) = a + M*b + M*L*d   (3 analysis points)
   other:  c(L)    = a + L*d           (2 analysis points)
@@ -33,6 +42,7 @@ from repro_torch.launch.hlo_analysis import HBM_BW, LINK_BW, PEAK_FLOPS
 from repro_torch.models import model_zoo as zoo
 
 CHIPS_SINGLE_POD = 256
+CHIPS = {"single": CHIPS_SINGLE_POD, "multi": 2 * CHIPS_SINGLE_POD}
 
 
 def _metric(pt: dict, key: str) -> float:
@@ -64,16 +74,28 @@ def model_flops(arch: str, shape_name: str) -> float:
     return 2.0 * n * shape.global_batch  # one new token per sequence
 
 
-def cell_roofline(rec: dict) -> Optional[dict]:
-    if "analysis_points" not in rec:
+def cell_roofline(rec: dict, mesh: str = "single",
+                  traced: bool = False) -> Optional[dict]:
+    """One cell's terms on the ``mesh`` production mesh: extrapolated
+    from the analysis points, or (``traced``; always for the multi-pod
+    mesh) read from the full-depth production trace on it; ``None``
+    without them."""
+    traced = traced or mesh != "single"
+    if "analysis_points" not in rec or traced and \
+            f"production_{mesh}" not in rec:
         return None
     kind = rec["kind"]
-    L = rec["production_L_units"]
-    M = rec.get("production_M", 1)
-    pts = rec["analysis_points"]
-    flops = extrapolate(pts, "flops", kind, L, M)
-    hbm = extrapolate(pts, "bytes_accessed", kind, L, M)
-    wire = extrapolate(pts, "wire_bytes", kind, L, M)
+    if not traced:
+        L = rec["production_L_units"]
+        M = rec.get("production_M", 1)
+        pts = rec["analysis_points"]
+        flops = extrapolate(pts, "flops", kind, L, M)
+        hbm = extrapolate(pts, "bytes_accessed", kind, L, M)
+        wire = extrapolate(pts, "wire_bytes", kind, L, M)
+    else:
+        terms = rec[f"production_{mesh}"]["raw_terms_body_once"]
+        flops, hbm, wire = (_metric(terms, k) for k in
+                            ("flops", "bytes_accessed", "wire_bytes"))
     t_c = flops / PEAK_FLOPS
     t_m = hbm / HBM_BW
     t_w = wire / LINK_BW
@@ -81,8 +103,8 @@ def cell_roofline(rec: dict) -> Optional[dict]:
         (("compute", t_c), ("memory", t_m), ("collective", t_w)),
         key=lambda kv: kv[1])[0]
     mf = model_flops(rec["arch"], rec["shape"])
-    useful = mf / (flops * CHIPS_SINGLE_POD) if flops else 0.0
-    mem = rec.get("production_single", {}).get("memory", {})
+    useful = mf / (flops * CHIPS[mesh]) if flops else 0.0
+    mem = rec.get(f"production_{mesh}", {}).get("memory", {})
     bound = max(t_c, t_m, t_w)
     return {
         "arch": rec["arch"], "shape": rec["shape"], "kind": kind,
@@ -97,7 +119,8 @@ def cell_roofline(rec: dict) -> Optional[dict]:
     }
 
 
-def load_table(art_dir: Path = ARTIFACT_DIR) -> List[dict]:
+def load_table(art_dir: Path = ARTIFACT_DIR, mesh: str = "single",
+               traced: bool = False) -> List[dict]:
     rows = []
     for f in sorted(Path(art_dir).glob("*.json")):
         rec = json.loads(f.read_text())
@@ -109,7 +132,7 @@ def load_table(art_dir: Path = ARTIFACT_DIR) -> List[dict]:
             rows.append({"arch": rec["arch"], "shape": rec["shape"],
                          "error": rec.get("error")})
             continue
-        r = cell_roofline(rec)
+        r = cell_roofline(rec, mesh, traced)
         if r:
             rows.append(r)
     return rows
@@ -149,8 +172,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--art", default=str(ARTIFACT_DIR))
     ap.add_argument("--json", default=None, help="dump rows as json")
+    ap.add_argument("--mesh", default="single", choices=sorted(CHIPS),
+                    help="the production mesh whose terms to tabulate")
+    ap.add_argument("--traced", action="store_true",
+                    help="the full-depth production trace's terms, not "
+                         "the analysis points' extrapolation")
     args = ap.parse_args()
-    rows = load_table(Path(args.art))
+    rows = load_table(Path(args.art), args.mesh, args.traced)
     print(markdown_table(rows))
     if args.json:
         Path(args.json).write_text(json.dumps(rows, indent=1))

@@ -25,8 +25,10 @@ MeshShape``, the reference's ``FakeMesh``), so the specs of a production
 mesh can be worked out with no process group.
 
 The port keeps parameters and activations as plain tensors on each rank
-(never a DTensor: the kernels take plain tensors).  The data axis splits
-the batch and, with ZeRO-1, the optimizer state
+(never a DTensor: the kernels take plain tensors).  The batch group
+(``batch_group``: the pod x data ranks, flattened pod-major, as the
+rules' ``("pod", "data")`` entry orders them) splits the batch, and the
+data axis alone, with ZeRO-1, the optimizer state
 (``models.model_zoo.DataParallel``).  The model axis is tensor
 parallelism: each model rank holds the block of every leaf that its
 ``NamedSharding`` gives it (``local_block``; ``gather_block`` is the
@@ -70,8 +72,9 @@ mamba2.py:215 block out (embed)        g after ``out_proj`` (row-parallel
                                        ``ssm_norm`` squares summed over
                                        the group (``sum_over_model``)
 model_zoo.py:344 patch embeds          nothing: a batch leaf, split by
-transformer.py:170 patch embeds        rows over data (``DataParallel.
-                                       micro_blocks``) and replicated over
+transformer.py:170 patch embeds        rows over the batch group
+                                       (``DataParallel.micro_blocks``)
+                                       and replicated over
                                        model, put in front of the
                                        embedding's output (after its g)
 transformer.py:227 encoder frames      nothing likewise; the encoder's
@@ -96,8 +99,8 @@ moe.py:231, 263, 264 routing (batch)   each rank routes its rows of the
                                        micro-batch (``routing_pool``):
                                        groups that span ranks take their
                                        positions from count tables
-                                       all-gathered over data
-                                       (``gather_over_data``)
+                                       all-gathered over the batch
+                                       group (``gather_over_batch``)
 moe.py:272, 277, 280 (experts)         ``moe._routed``: f on the normed
 moe.py:287, 299 combine, out           input and the router, the rank's
                                        experts' slots (``experts`` split)
@@ -106,14 +109,15 @@ moe.py:287, 299 combine, out           input and the router, the rank's
                                        float32 g of the combine; whole,
                                        with no collective, where the rules
                                        replicate the expert weights
-                                       (``model_split_dim``); over data
+                                       (``model_split_dim``); over batch
                                        ranks the router statistics are
                                        all-reduced over the pool
                                        (``sum_over_pool``)
 moe.py:330, 334, 336, 349 (one-hot)    ``moe_block_onehot``: the same over
-                                       a model axis and over data ranks
+                                       a model axis and over batch ranks
 model_zoo.py:241 ``_scatter_grads``    ``DataParallel.reduce``: a
-                                       reduce-scatter over data
+                                       reduce-scatter over data, then an
+                                       all-reduce of the block over pod
 model_zoo.py:294-312 decode state      ``model_zoo.ServingMesh``: a rank
 (``cache_batch``, ``cache_seq``,       holds its rows and its S / m
 ``kv_heads``, ``ssm_heads``,           positions of every KV head
@@ -252,7 +256,7 @@ class ShardingRules:
     def __init__(self, mesh):
         self.mesh = mesh
         self.axes = set(axis_names(mesh))
-        # the data ranks ``(lo, size)`` that hold this rank's micro-batch
+        # the batch ranks ``(lo, size)`` that hold this rank's micro-batch
         # (``routing_pool``); ``None``: all of them
         self.pool = None
         # the positions of the decode state's KV cache that a serving
@@ -260,8 +264,8 @@ class ShardingRules:
         self.cache_positions = None
 
     def with_pool(self, lo: int, size: int) -> "ShardingRules":
-        """These rules, with this rank's micro-batch held by the data
-        ranks ``[lo, lo + size)``."""
+        """These rules, with this rank's micro-batch held by the batch
+        ranks ``[lo, lo + size)`` (``batch_group``)."""
         rules = copy.copy(self)
         rules.pool = (lo, size)
         return rules
@@ -357,16 +361,67 @@ def model_axis() -> Optional[Axis]:
     return _mesh_axis("model")
 
 
-def data_axis() -> Optional[Axis]:
-    """The active rules' ``data`` axis above size 1, else ``None``."""
-    return _mesh_axis("data")
+BATCH_AXES = ("pod", "data")
+
+
+def batch_group(mesh) -> Axis:
+    """The batch group of a ``DeviceMesh``: its ``pod`` x ``data`` ranks
+    (those of the mesh's axes), flattened pod-major, the order of the
+    rules' ``("pod", "data")`` entry: batch rank ``pod * data_size +
+    data``.  The rows of the batch and of the decode state go over it,
+    the gradient is summed over it and moe's routing pool is drawn from
+    it; ZeRO-1 stays on ``data`` alone (``zero1_extend``).
+
+    One axis above 1 is that axis's own group; with both above 1 the
+    group is made here once per mesh, by ``dist.new_group`` for every
+    coordinate of the other axes: a collective over the world, which
+    every rank of it must make the first time (``launch.mesh.make_mesh``
+    does, for every mesh with a pod axis).  Size 1: no group."""
+    cached = getattr(mesh, "_batch_group", None)
+    if cached is not None:
+        return cached
+    names, sizes = axis_names(mesh), axis_sizes(mesh)
+    axes = [a for a in BATCH_AXES if a in names and sizes[a] > 1]
+    size = math.prod(sizes[a] for a in axes)
+    coord = mesh.get_coordinate()      # None: a rank outside the mesh
+    rank, group = 0, None
+    if coord is not None:
+        for a in axes:
+            rank = rank * sizes[a] + coord[names.index(a)]
+    if len(axes) == 1 and coord is not None:
+        group = mesh.get_group(axes[0])
+    elif len(axes) == 2:
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in dims]
+        for row in mesh.mesh.permute(rest + dims).reshape(-1, size).tolist():
+            # a group's ranks are in rank order: batch rank order only
+            # where the mesh lists its ranks so
+            if row != sorted(row):
+                raise ValueError(f"a {sizes} mesh whose pod and data ranks "
+                                 f"are not in rank order")
+            made = dist.new_group(row)
+            if dist.get_rank() in row:
+                group = made
+    ax = Axis(group, rank, size)
+    mesh._batch_group = ax
+    return ax
+
+
+def batch_axis() -> Optional[Axis]:
+    """The active rules' batch group (``batch_group``) above size 1, else
+    ``None`` (also without rules or on a shape-only mesh)."""
+    rules = active_rules()
+    if rules is None or getattr(rules.mesh, "mesh_dim_names", None) is None:
+        return None
+    ax = batch_group(rules.mesh)
+    return ax if ax.size > 1 else None
 
 
 class Pool(NamedTuple):
-    """A rank's routing pool: the data ranks ``[lo, lo + size)``, in rank
-    order, whose rows make up the micro-batch that this rank holds a
+    """A rank's routing pool: the batch ranks ``[lo, lo + size)``, in
+    rank order, whose rows make up the micro-batch that this rank holds a
     block of (every rank of the pool as many rows)."""
-    axis: Axis        # the data axis
+    axis: Axis        # the batch group
     lo: int
     size: int
 
@@ -378,9 +433,10 @@ class Pool(NamedTuple):
 
 def routing_pool() -> Optional[Pool]:
     """The active rules' routing pool (``ShardingRules.with_pool``; the
-    whole data axis where none is set), ``None`` without a data axis
-    above 1.  A pool of one rank: the rank holds the micro-batch whole."""
-    ax = data_axis()
+    whole batch group where none is set), ``None`` without a batch group
+    above 1.  A pool of one rank: the rank holds the micro-batch
+    whole."""
+    ax = batch_axis()
     if ax is None:
         return None
     lo, size = active_rules().pool or (0, ax.size)
@@ -535,11 +591,11 @@ def sum_over_model(x):
     return _SumOverGroup.apply(x, tp.group)
 
 
-def sum_over_data(x):
-    """``x`` summed over the data group, with the adjoint gradient (an
-    all-reduce): every data rank's loss holds the sum, and the data
-    ranks' gradients are summed.  The identity without a data axis."""
-    ax = data_axis()
+def sum_over_batch(x):
+    """``x`` summed over the batch group, with the adjoint gradient (an
+    all-reduce): every batch rank's loss holds the sum, and the batch
+    ranks' gradients are summed.  The identity without a batch group."""
+    ax = batch_axis()
     if ax is None:
         return x
     return _SumOverGroup.apply(x, ax.group)
@@ -547,9 +603,9 @@ def sum_over_data(x):
 
 def sum_over_pool(x, pool: Pool):
     """``x`` summed over the ranks of ``pool``, with the adjoint gradient:
-    ``sum_over_data`` where the pool is the whole data axis, else each
-    rank's ``x`` in its row of a (data ranks, ...) tensor, all-reduced
-    over the data group, and the pool's rows summed."""
+    ``sum_over_batch`` where the pool is the whole batch group, else each
+    rank's ``x`` in its row of a (batch ranks, ...) tensor, all-reduced
+    over the batch group, and the pool's rows summed."""
     if pool.size == pool.axis.size:
         return _SumOverGroup.apply(x, pool.axis.group)
     rows = torch.stack([x if r == pool.axis.rank else torch.zeros_like(x)
@@ -558,7 +614,7 @@ def sum_over_pool(x, pool: Pool):
     return rows[pool.lo:pool.lo + pool.size].sum(0)
 
 
-# all-gathers made by ``gather_parts`` (``gather_over_data``, the serving
+# all-gathers made by ``gather_parts`` (``gather_over_batch``, the serving
 # paths' gathers): a plain count for readings
 all_gathers = 0
 
@@ -573,10 +629,10 @@ def gather_parts(x, group, size: int, count: bool = True):
     return parts
 
 
-def gather_over_data(x):
-    """Every data rank's ``x`` (no gradient), stacked in rank order:
-    (data ranks, ...); counted in ``all_gathers``."""
-    ax = data_axis()
+def gather_over_batch(x):
+    """Every batch rank's ``x`` (no gradient), stacked in batch-rank
+    order: (batch ranks, ...); counted in ``all_gathers``."""
+    ax = batch_axis()
     return torch.stack(gather_parts(x, ax.group, ax.size))
 
 

@@ -54,7 +54,8 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch.sharding import (ShardingRules, axis_sizes,
+from repro_torch.launch.sharding import (BATCH_AXES, ShardingRules,
+                                         axis_sizes, batch_group,
                                          coordinate, gather_block,
                                          gather_parts, local_block,
                                          max_over_model, reduce_from_model,
@@ -172,7 +173,8 @@ def serving_params(tree, cfg: ModelConfig, mesh=None, device="cuda"):
 
 def mesh_blocks(tree, cfg: ModelConfig, mesh):
     """This rank's blocks of a whole stacked parameter tree over a
-    ``("data", "model")`` mesh: each leaf's ``local_block`` of its
+    ``("data", "model")`` or ``("pod", "data", "model")`` mesh (the same
+    on every pod and data rank): each leaf's ``local_block`` of its
     ``param_shardings`` (the reference's ``in_shardings`` for a cell),
     except the Mamba2 leaves over a model axis above 1.  Where the rules
     shard ``ssm_heads`` over it, the leaves of ``mamba2.HEAD_LEAVES`` are
@@ -408,7 +410,8 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
     1 the blocks are tensor parallel on this rank's blocks of the
     parameters (``params`` holds them), and the gradient of each leaf is
     this rank's block of the whole gradient.  The gradient is summed
-    over the data ranks and divided by the pieces of all of them (every
+    over the batch ranks (pod x data) and divided by the pieces of all of
+    them (every
     micro-batch is run by as many): the gradient of the reference's
     global token mean.  Over a model
     axis, the Mamba2 leaves that a rank reads whole or in part
@@ -419,7 +422,7 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
     reduces once, after the ``grad_reduce_dtype`` cast.  The gradient
     comes back in the layout the update takes: with ``cfg.zero1`` each
     leaf's ZeRO-1 block, else the rank's block of the whole leaf.  The
-    metrics are the global ones (means over the data ranks)."""
+    metrics are the global ones (means over the batch ranks)."""
     leaves, rebuild = adamw.flatten(params)
     masters = [p.detach().requires_grad_() for p in leaves]
     # the leaves the model reads: the masters, or (Mamba2 over a model
@@ -436,7 +439,7 @@ def train_grads(params, batch, cfg: ModelConfig, impl: str = "kernel",
         blocks = [{k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
                   for i in range(n_micro)]
     else:
-        (blocks, rules), size = dp.micro_blocks(batch), dp.size
+        (blocks, rules), size = dp.micro_blocks(batch), dp.batch.size
         n_micro = len(blocks)
     per_micro = dp is not None and cfg.grad_schedule == "overlapped"
     lsum = torch.zeros((), dtype=torch.float32,
@@ -483,7 +486,7 @@ def make_train_step(cfg: ModelConfig, hp: Optional[adamw.HParams] = None,
     only (``"ref"``: the plain SSD route on the card).
 
     ``mesh``: a ``DeviceMesh`` (``launch.mesh``) this rank belongs to;
-    the step is then data parallel over its ``data`` axis
+    the step is then data parallel over its ``pod`` and ``data`` axes
     (``DataParallel``), takes the global batch and a state laid out by
     ``DataParallel.place``, and every rank of the mesh must call it.
     With ``cfg.zero1`` the update runs on each leaf's ZeRO-1 block (m
@@ -518,9 +521,10 @@ def _scatter_grads(grads, dp: Optional["DataParallel"]):
     an active mesh (``model_zoo.py:229-241``), so GSPMD lowers its
     reduction as a reduce-scatter, and returns it as it is without one.
     The port, given a ``DataParallel`` layout: each leaf summed over the
-    data ranks into its ZeRO-1 block, a reduce-scatter along the
-    dimension ``zero1_extend`` picks (a leaf it leaves whole: an
-    all-reduce); without one (a single device), the identity."""
+    batch ranks into its ZeRO-1 block, a reduce-scatter over the data
+    ranks along the dimension ``zero1_extend`` picks, then an all-reduce
+    over the pod ranks (a leaf it leaves whole: an all-reduce over the
+    batch group); without one (a single device), the identity."""
     if dp is None:
         return grads
     return [dp.reduce(g, i, scatter=True) for i, g in enumerate(grads)]
@@ -550,15 +554,20 @@ def _data_dim(spec) -> Optional[int]:
 
 
 class DataParallel:
-    """A train state's layout over a ``("data", "model")`` ``DeviceMesh``
-    (``launch.mesh``) and the collectives of a step over it.
+    """A train state's layout over a ``("data", "model")`` or ``("pod",
+    "data", "model")`` ``DeviceMesh`` (``launch.mesh``) and the
+    collectives of a step over it.
 
     The layout is the reference's (``launch.specs.state_shardings``,
-    ``batch_shardings``):
+    ``batch_shardings``), over two groups of ranks: the batch group
+    (``launch.sharding.batch_group``: the pod x data ranks, flattened
+    pod-major, as the rules' ``("pod", "data")`` entry orders them), and
+    the ZeRO-1 group, ``data`` alone (``zero1_extend`` never scatters
+    over ``pod``):
 
-    * each micro-batch of the global batch splits by rows over ``data``
-      (``micro_blocks``), as the reference's sharded micro-batches do,
-      or, where it does not split over them, whole micro-batches or
+    * each micro-batch of the global batch splits by rows over the batch
+      group (``micro_blocks``), as the reference's sharded micro-batches
+      do, or, where it does not split over them, whole micro-batches or
       blocks of them go to the ranks in lockstep (``micro_blocks``);
     * each model rank holds its block of every leaf that the rules shard
       over ``model`` (``launch.sharding.local_block`` of its param
@@ -580,12 +589,14 @@ class DataParallel:
       rank's model block of leaf ``i`` split in ``size`` along
       ``dims[i]`` (the dimension of the ``data`` entry of its ZeRO-1
       spec, which may share it with ``model``, model major), data rank
-      ``r`` keeping block ``r``; a leaf with no such dimension
-      (``None``) stays whole over the data ranks.
+      ``r`` keeping block ``r`` on every pod; a leaf with no such
+      dimension (``None``) stays whole over the data ranks.
 
     Parameters, gradients and activations are plain tensors on each rank
     (never a DTensor: the kernels take plain tensors).  Gradients are
-    reduced over the data group, and over the model group only where a
+    summed over the batch group (with ZeRO-1 a reduce-scatter over
+    ``data``, then an all-reduce of the block over ``pod``), and over the
+    model group only where a
     rank reads a leaf whole or in part (the Mamba2 leaves above): each
     model rank's is otherwise already its block of the whole one, and a
     replicated leaf's is the same on every model rank (a replicated leaf
@@ -595,30 +606,35 @@ class DataParallel:
     capacity couples a token to its group (``repro/models/moe.py:66``):
     a moe block routes the rank's block of a micro-batch as the
     reference routes the whole one, from the routing pool that
-    ``micro_blocks`` sets in the rules (the data ranks that hold the
-    micro-batch): the router statistics are summed over the pool, and
-    where a routing group spans ranks the capacity positions come from
-    the pool's count tables (``moe.capacity_positions``); with explicit
+    ``micro_blocks`` sets in the rules (the batch ranks that hold the
+    micro-batch, pods included): the router statistics are summed over
+    the pool, and where a routing group spans ranks the capacity
+    positions come from the pool's count tables (``moe.capacity_positions``); with explicit
     expert parallelism each rank's aux is averaged as the reference's
     is (``moe._moe_explicit_ep``).  Over a model axis the expert
     weights are blocks like any other leaf: split by experts, by each
     expert's ``expert_ff``, or replicated, as the rules give them."""
 
     def __init__(self, cfg: ModelConfig, mesh):
-        from repro_torch.launch.sharding import (ShardingRules, axis_names,
-                                                 axis_sizes, model_dim,
+        from repro_torch.launch.sharding import (axis_names, model_dim,
                                                  param_shardings,
                                                  zero1_shardings)
         names, sizes = axis_names(mesh), axis_sizes(mesh)
-        if set(names) - {"data", "model"}:
-            raise NotImplementedError(
+        if "data" not in names or set(names) - {"pod", "data", "model"}:
+            raise ValueError(
                 f"a {sizes} mesh: the port trains over ('data', 'model') "
-                f"meshes")
+                f"and ('pod', 'data', 'model') meshes")
         self.size, self.model_size = sizes["data"], sizes.get("model", 1)
         self.cfg, self.mesh, self.zero1 = cfg, mesh, cfg.zero1
         self.rules = ShardingRules(mesh)
+        # the ZeRO-1 group (data) and the batch group (pod x data)
         self.group = mesh.get_group("data")
         self.rank = mesh.get_local_rank("data")
+        self.batch = batch_group(mesh)
+        self.batch_pg = self.batch.group if self.batch.size > 1 else \
+            self.group
+        self.pod_group = (mesh.get_group("pod") if sizes.get("pod", 1) > 1
+                          else None)
         if self.model_size > 1:
             self.model_group = mesh.get_group("model")
             self.model_rank = mesh.get_local_rank("model")
@@ -656,15 +672,16 @@ class DataParallel:
         The batch splits into ``cfg.num_microbatches`` consecutive row
         blocks, as the reference's ``reshape_micro`` splits it (a batch
         they do not divide raises ``ValueError``, where the reference's
-        ``assert`` fails).  The data ranks step through their pieces in
-        lockstep, every piece as many rows, and the ranks that hold the
-        pieces of one micro-batch at a step are its routing pool
-        (``launch.sharding.routing_pool``, set in ``rules``):
+        ``assert`` fails).  The batch ranks (``self.batch``: pod x data,
+        pod-major) step through their pieces in lockstep, every piece as
+        many rows, and the ranks that hold the pieces of one micro-batch
+        at a step are its routing pool (``launch.sharding.routing_pool``,
+        set in ``rules``):
 
-        * a micro-batch that splits over the data ranks: each in turn,
-          data rank ``r`` taking block ``r`` of it, the rows the
+        * a micro-batch that splits over the batch ranks: each in turn,
+          batch rank ``r`` taking block ``r`` of it, the rows the
           reference's sharded micro-batch gives it (the pool: every
-          data rank);
+          batch rank);
         * else, where a rank's share of the batch (the rows the
           reference's batch sharding gives it) holds whole micro-batches,
           the rank runs them in turn, each whole (its pool: the rank
@@ -676,7 +693,8 @@ class DataParallel:
           consecutive ranks (2-row micro-batches over 4 ranks: 2, each
           rank its share in one piece);
         * where the rules replicate the batch (its rows do not divide
-          over the data ranks), every rank runs every micro-batch whole.
+          over the batch ranks: the reference replicates them over pod
+          and data alike), every rank runs every micro-batch whole.
 
         Every micro-batch is run by as many pieces, so the gradient
         summed over the ranks' pieces and divided by their number
@@ -687,7 +705,7 @@ class DataParallel:
             raise ValueError(
                 f"{self.cfg.name}: a batch of {B} rows does not split into "
                 f"{n} micro-batches")
-        bm, size, r = B // n, self.size, self.rank
+        bm, size, r = B // n, self.batch.size, self.batch.rank
         if bm % size == 0:
             u = bm // size
             starts, pool = [i * bm + r * u for i in range(n)], (0, size)
@@ -710,16 +728,21 @@ class DataParallel:
 
     def reduce(self, g, i, scatter: bool):
         """Leaf ``i``'s ``g`` (this rank's model block) summed over the
-        data ranks: its ZeRO-1 block (a reduce-scatter) with ``scatter``,
-        else whole (an all-reduce)."""
+        batch ranks: with ``scatter`` its ZeRO-1 block (a reduce-scatter
+        over the data ranks, then, over a pod axis above 1, an all-reduce
+        of the block over the pod ranks, counted in
+        ``launch.sharding.all_reduces``), else whole (an all-reduce over
+        the batch group)."""
+        from repro_torch.launch.sharding import all_reduce
         d = self.dims[i] if scatter else None
         if d is None:
-            dist.all_reduce(g, group=self.group)
+            dist.all_reduce(g, group=self.batch_pg)
             return g
         parts = [c.contiguous() for c in g.chunk(self.size, d)]
         out = torch.empty_like(parts[self.rank])
         dist.reduce_scatter(out, parts, group=self.group)
-        return out
+        return out if self.pod_group is None else all_reduce(
+            out, self.pod_group)
 
     def gather(self, t, i):
         """Leaf ``i``'s model block from its ZeRO-1 blocks (an all-gather
@@ -789,8 +812,9 @@ class DataParallel:
     def norm(self, grads) -> torch.Tensor:
         """The global norm of a gradient given as this rank's blocks: each
         leaf's squares summed over the data ranks where ZeRO-1 splits it
-        and over the model ranks where the rules shard it; a leaf whole
-        over an axis counts once."""
+        (not over pod: a pod holds the same blocks) and over the model
+        ranks where the rules shard it; a leaf whole over an axis counts
+        once."""
         leaves = adamw.flatten(grads)[0]
         zero1 = self.zero1
         total = None
@@ -812,8 +836,9 @@ class DataParallel:
         return torch.sqrt(total)
 
     def mean(self, t):
-        dist.all_reduce(t, group=self.group)
-        return t / self.size
+        """``t``'s mean over the batch ranks."""
+        dist.all_reduce(t, group=self.batch_pg)
+        return t / self.batch.size
 
     # ------------------------------------------------------------ state
     def place(self, state: TrainState) -> TrainState:
@@ -907,25 +932,24 @@ def decode_state_shardings(cfg: ModelConfig, shape: ShapeConfig,
         rules.sharding(ax.cache_len, (shape.global_batch,)))
 
 
-# the step of ROADMAP item 13b that a mesh still refuses
-MESH_POD_STEP = ("ROADMAP item 13b, fourth step: the pod axis folded into "
-                 "the data group")
-
-
 class ServingMesh:
     """A prefill's or a serve step's layout over a ``("data", "model")``
-    ``DeviceMesh`` (``launch.mesh``), the reference's ``input_specs`` and
-    ``out_shardings`` for a prefill or decode cell:
+    or ``("pod", "data", "model")`` ``DeviceMesh`` (``launch.mesh``), the
+    reference's ``input_specs`` and ``out_shardings`` for a prefill or
+    decode cell:
 
     * the parameters: each rank's blocks (``serving_params``,
-      ``mesh_blocks``);
+      ``mesh_blocks``), the same on every pod and data rank;
     * the batch (``tokens``, ``active``, ``frames``, ``patch_embeds``):
-      its rows over ``data`` where they divide (``rows``), replicated
-      over ``model``; where the rows do not divide, every data rank runs
-      them all, and moe routes them alone (its routing pool is the rank);
+      its rows over the batch ranks (``("pod", "data")``, pod-major)
+      where they divide (``rows``), replicated over ``model``; where the
+      rows do not divide, every batch rank runs them all (the rules
+      replicate them over pod and data alike), and moe routes them alone
+      (its routing pool is the rank);
     * the decode state (``state_shardings``, the reference's
       ``decode_state_shardings``; ``place_state`` / ``gather_state``):
-      ``cache_batch`` over ``data`` where it divides; the KV cache
+      ``cache_batch`` over ``("pod", "data")`` where it divides; the KV
+      cache
       (``k``, ``v``, ``xk``, ``xv``) in one of two layouts, as the
       reference's rules give it: where the model axis divides the
       cache's positions, ``cache_seq`` over ``model``, every KV head a
@@ -941,24 +965,27 @@ class ServingMesh:
       in equal blocks that do not follow them); where the rules
       replicate ``ssm_heads``, both whole on every model rank;
     * the logits replicated: gathered over the vocabulary's model blocks
-      and the data ranks' rows (``gather_logits``).
-
-    Refused with ``NotImplementedError`` naming ROADMAP's next step: a
-    mesh with a pod axis."""
+      and the batch ranks' rows (``gather_logits``: over ``data``, then
+      over ``pod``)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, mesh):
         sizes = axis_sizes(mesh)
-        if set(sizes) - {"data", "model"}:
-            raise NotImplementedError(
-                f"prefill and decode over a {tuple(sizes.values())} mesh "
-                f"with a pod axis: the port serves over ('data', 'model') "
-                f"meshes; {MESH_POD_STEP}")
+        if set(sizes) - {"pod", "data", "model"}:
+            raise ValueError(
+                f"prefill and decode over a {sizes} mesh: the port serves "
+                f"over ('data', 'model') and ('pod', 'data', 'model') "
+                f"meshes")
         self.cfg, self.shape, self.mesh = cfg, shape, mesh
         self.coord = coordinate(mesh)
         rules = ShardingRules(mesh).with_cache(shape.seq_len)
-        if sizes.get("data", 1) > 1 and rules.mesh_axes_for(
-                "batch", shape.global_batch) is None:
-            rules = rules.with_pool(self.coord["data"], 1)
+        # this rank's coordinate on the batch group, and its size
+        b, n = 0, 1
+        for a in BATCH_AXES:
+            b, n = b * sizes.get(a, 1) + self.coord.get(a, 0), \
+                n * sizes.get(a, 1)
+        if n > 1 and rules.mesh_axes_for("batch",
+                                         shape.global_batch) is None:
+            rules = rules.with_pool(b, 1)
         self.rules = rules
         self.state_shardings = decode_state_shardings(cfg, shape, rules)
         # the recurrent ``conv`` leaf: its rows (cache_batch) only, then
@@ -1119,13 +1146,14 @@ def make_prefill(cfg: ModelConfig, shape: ShapeConfig, impl: str = "kernel",
     SSD) runs its plain version on the CPU, or with ``impl="ref"``.
     ``cache_len`` is ``shape.seq_len``, as in the reference.
 
-    ``mesh``: a ``("data", "model")`` ``DeviceMesh`` this rank belongs
-    to; every rank of it must call the function, with its blocks of the
+    ``mesh``: a ``("data", "model")`` or ``("pod", "data", "model")``
+    ``DeviceMesh`` this rank belongs to; every rank of it must call the
+    function, with its blocks of the
     parameters (``serving_params(..., mesh=mesh)``) and the **global**
     batch.  The rank runs its rows (``ServingMesh``) with the blocks
     tensor parallel over the model axis (attention on its heads: the
     flash kernel on them past 8192 positions; the Mamba2 blocks on its
-    SSM heads, the SSD kernel on them; moe routed over the data ranks
+    SSM heads, the SSD kernel on them; moe routed over the batch ranks
     with the experts laid out as the rules lay them), and returns what
     the reference's ``out_shardings`` give it: the logits replicated,
     (B, 1, padded_vocab) on every rank, and its block of the decode

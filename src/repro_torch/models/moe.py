@@ -9,20 +9,22 @@ paths:
   holds experts ``[r E/m, (r+1) E/m)``, routes its local tokens as one
   group, gathers its own experts' slots locally, and the routed output
   is one float32 all-reduce over the model group; where a micro-batch's
-  rows do not divide over the data ranks it falls back to
+  rows do not divide over the batch ranks (pod x data) it falls back to
   ``_moe_grouped``, as the reference does;
 * ``_moe_grouped`` otherwise ("grouped", and "auto" without such an
   axis).
 
-Over data ranks the grouped and one-hot dispatches compute the single
+Over batch ranks (the pod x data ranks, ``launch.sharding.
+batch_group``) the grouped and one-hot dispatches compute the single
 device's function of the whole micro-batch.  The rank's rows are a
 contiguous block of the micro-batch (its routing pool,
-``launch.sharding.routing_pool``: the data ranks that hold the
-micro-batch, in rank order), and its routing groups are the reference's
-consecutive blocks of the pool's tokens, which may span ranks or cut a
-rank's rows.  Each rank counts its entries by (group, choice, expert);
-where a group spans ranks the ranks all-gather these integer tables
-over the data group, and each entry's position in its expert is that
+``launch.sharding.routing_pool``: the batch ranks that hold the
+micro-batch, in batch-rank order, pods included), and its routing
+groups are the reference's consecutive blocks of the pool's tokens,
+which may span ranks, pods too, or cut a rank's rows.  Each rank counts
+its entries by (group, choice, expert); where a group spans ranks the
+ranks all-gather these integer tables over the batch group, and each
+entry's position in its expert is that
 of the reference's choice-major cumulative sum over the whole group
 (``capacity_positions``).  The router statistics of the aux loss are
 summed over the pool (``route``).  Counts move, activations do not: a
@@ -105,7 +107,7 @@ def route(router_logits, cfg: ModelConfig, pool=None):
     Returns (expert_idx (T, k) int64, weights (T, k), aux_loss scalar).
     ``pool`` (``launch.sharding.routing_pool``, more than one rank): the
     tokens are this rank's block of a micro-batch whose rows the pool's
-    data ranks hold, and the aux loss is the whole micro-batch's: the
+    batch ranks hold, and the aux loss is the whole micro-batch's: the
     first-choice counts and the sums of the probabilities are summed
     over the pool (one all-reduce, with the adjoint gradient) and
     divided by the tokens they count."""
@@ -176,7 +178,7 @@ def capacity_positions(expert_idx, off: int, q: int, Tg: int, G: int,
     where the block's groups are whole (no other block holds their
     tokens), else a function from this block's table of counts (G, k, E)
     to every block's, (blocks, G, k, E) in block order (an all-gather
-    over the data ranks).
+    over the batch ranks).
 
     Returns ``(pos, key, Gt)`` over the block's entries in choice-major
     order: the position, the entry's (group - first group of the block)
@@ -205,14 +207,14 @@ def _positions(expert_idx, pool, Tg: int, G: int, num_experts: int,
                onehot=False):
     """``capacity_positions`` of this rank's tokens in its routing
     ``pool`` (every rank of it holds as many): the count tables are
-    all-gathered over the data group where a group spans ranks or cuts a
-    rank's rows; every rank of the data group takes the same branch."""
+    all-gathered over the batch group where a group spans ranks or cuts a
+    rank's rows; every rank of the batch group takes the same branch."""
     T = expert_idx.shape[0]
     q = 0 if pool is None else pool.index
     gather = None
     if pool is not None and pool.size > 1 and T % Tg:
         def gather(table):
-            return shd.gather_over_data(table)[pool.lo:pool.lo + pool.size]
+            return shd.gather_over_batch(table)[pool.lo:pool.lo + pool.size]
     return capacity_positions(expert_idx, q * T, q, Tg, G, num_experts,
                               gather, onehot)
 
@@ -261,7 +263,7 @@ def moe_block(p, x, cfg: ModelConfig):
     """x: (B, S, d) -> (B, S, d), aux_loss.  ``moe_impl="onehot"`` runs
     ``moe_block_onehot``; "auto" under rules whose model axis above 1
     takes the experts runs ``_moe_explicit_ep``; else ``_moe_grouped``.
-    Over data ranks each routes this rank's block of the micro-batch as
+    Over batch ranks each routes this rank's block of the micro-batch as
     the reference routes the whole one (``routing_pool``)."""
     if cfg.moe_impl == "onehot":
         return moe_block_onehot(p, x, cfg)
@@ -389,15 +391,16 @@ def _routed(p, h, cfg: ModelConfig, G: int, Tg: int, pool):
 
 def _moe_explicit_ep(p, x, cfg: ModelConfig):
     """Explicit expert parallelism (``repro/models/moe.py:138-216``): the
-    batch is split over the data ranks and replicated over the model
-    ranks, and model rank ``r`` holds experts ``[r E_loc, (r+1) E_loc)``
+    batch is split over the batch ranks (pod x data) and replicated over
+    the model ranks, and model rank ``r`` holds experts ``[r E_loc, (r+1)
+    E_loc)``
     (``p["we_*"]`` are those).  Each rank routes its local tokens as one
     group (capacity from ``T_loc``) and runs its own experts' slots
     (``_routed``); one float32 all-reduce over the model group gives the
     routed output, cast to the compute dtype.  The aux loss is the mean
-    over the data ranks of each rank's (with the gradient of a mean).
-    Where the micro-batch's rows do not divide over the data ranks (its
-    routing pool is not the whole data axis) it is ``_moe_grouped``, as
+    over the batch ranks of each rank's (with the gradient of a mean).
+    Where the micro-batch's rows do not divide over the batch ranks (its
+    routing pool is not the whole batch group) it is ``_moe_grouped``, as
     in the reference (``repro/models/moe.py:159-160``)."""
     pool = shd.routing_pool()
     if pool is not None and pool.size < pool.axis.size:
@@ -408,7 +411,7 @@ def _moe_explicit_ep(p, x, cfg: ModelConfig):
     combined, aux = _routed(p, h, cfg, 1, b * s, None)
     out = combined.to(dt).reshape(b, s, d)
     if pool is not None:
-        aux = shd.sum_over_data(aux) / pool.size
+        aux = shd.sum_over_batch(aux) / pool.size
     return x + _shared_experts(p, h, out, cfg), aux
 
 
@@ -418,7 +421,7 @@ def _moe_grouped(p, x, cfg: ModelConfig):
 
     The groups are the reference's: ``moe_groups`` consecutive blocks of
     the micro-batch's tokens where they divide them, else one.  Over
-    data ranks this rank's rows ``x`` are a block of the micro-batch
+    batch ranks this rank's rows ``x`` are a block of the micro-batch
     (``routing_pool``): a group whole on the rank routes locally, and
     the positions in a group that spans ranks or cuts the rank's rows
     come from the pool's count tables (``capacity_positions``); the
@@ -440,7 +443,7 @@ def moe_block_onehot(p, x, cfg: ModelConfig):
     the micro-batch: the reference's second oracle for the sort-based
     path.
 
-    Over data ranks this rank's rows are a block of the micro-batch
+    Over batch ranks this rank's rows are a block of the micro-batch
     (``routing_pool``): capacity is the micro-batch's, each entry's
     position the whole micro-batch's cumulative sum (this rank's one-hot
     cumulative sum plus the pool's count tables, ``capacity_positions``),

@@ -74,6 +74,45 @@ def trained(cfg, n_devices, steps=STEPS, seed=0, model_par=1):
     return out
 
 
+POD_AXES = ("pod", "data", "model")
+
+
+def mesh_axes(mesh_shape):
+    """A mesh shape's axis names: ``("data", "model")``, or with a pod
+    axis first for a shape of 3."""
+    return POD_AXES[-len(mesh_shape):]
+
+
+def trained_on(cfg, mesh_shape, steps=STEPS, seed=0):
+    """``steps`` of ``make_train_step`` over a ``("pod", "data",
+    "model")`` mesh of ``mesh_shape`` (the world's first ranks), fed
+    ``ElasticTrainer``'s batches (``SyntheticLM`` of ``seed``) from its
+    seeded state placed by ``DataParallel.place``: ``trained``'s
+    readings, and the all-reduces ``launch.sharding`` counts in the
+    steps (the pod all-reduces of the ZeRO-1 blocks)."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(mesh_shape, POD_AXES, device="cpu")
+    dp = zoo.DataParallel(cfg, mesh)
+    state = dp.place(zoo.init_state(cfg, seed, device="cpu"))
+    step = zoo.make_train_step(cfg, adamw.HParams(**HP), mesh=mesh)
+    data = SyntheticLM(cfg, SHAPE, seed=seed)
+    before = sharding.all_reduces, sharding.all_gathers
+    metrics = []
+    for i in range(steps):
+        state, m = step(state, to_device(data.batch_at(i), "cpu"))
+        metrics.append(dict({k: float(v) for k, v in m.items()}, step=i))
+    out = {"metrics": metrics,
+           "all_reduces": sharding.all_reduces - before[0],
+           "all_gathers": sharding.all_gathers - before[1],
+           "state": leaves(dp.gather_state(state)),
+           "coord": tuple(mesh.get_coordinate())}
+    for key, tree in (("local_params", state.params),
+                      ("local_m", state.opt.m), ("local_v", state.opt.v)):
+        out[key] = [t.detach().clone() for t in adamw.flatten(tree)[0]]
+    return out
+
+
 def placements_of(mesh_shape, cfg):
     """Every ZeRO-1 opt leaf of ``cfg`` distributed over a ``mesh_shape``
     mesh by its placements: this rank's block of a seeded whole."""
@@ -133,6 +172,7 @@ def scenario_two(world):
            "mamba2": trained(cfg_of("mamba2-780m", compute_dtype="float32"),
                              world),
            "placements": placements_of((world, 1), granite)}
+    out["pod"] = trained_on(granite, (world, 1, 1))
     from repro_torch.launch import mesh as launch_mesh
     host = launch_mesh.make_host_mesh(world, 1, device="cpu")
     out["host_mesh"] = (tuple(host.shape), host.mesh_dim_names,
@@ -442,7 +482,9 @@ SERVE_CASES = {
         ("hybrid", "zamba2-2.7b", F32, (2, 1), True),
         ("dense63", "granite-8b", F32, (1, 2), True),
         ("kv1_63", "granite-8b", dict(num_kv_heads=1, **F32), (1, 2), True),
-        ("hybrid63", "zamba2-2.7b", F32, (1, 2), True)),
+        ("hybrid63", "zamba2-2.7b", F32, (1, 2), True),
+        ("dense", "granite-8b", F32, (2, 1, 1), True),
+        ("hybrid", "zamba2-2.7b", F32, (2, 1, 1), True)),
     4: (("dense", "granite-8b", F32, (2, 2), True),
         ("moe_grouped", "qwen2-moe-a2.7b", dict(moe_impl="grouped", **F32),
          (2, 2), True),
@@ -528,7 +570,7 @@ def served(cfg, case, mesh_shape, decode: bool) -> dict:
     whole (``gather_state``) after them; rank 0 also keeps the inputs
     (the test hands them to the reference)."""
     from repro_torch.launch.mesh import make_mesh
-    mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+    mesh = make_mesh(mesh_shape, mesh_axes(mesh_shape), device="cpu")
     if mesh.get_coordinate() is None:
         return {}
     inp = serve_inputs(cfg, case)
@@ -577,11 +619,37 @@ def served(cfg, case, mesh_shape, decode: bool) -> dict:
     return out
 
 
-def scenario_serve(world):
-    """``SERVE_CASES[world]``: prefill and decode over meshes of the
-    world's ranks, each case's readings by name and mesh."""
+def scenario_serve(world, cases=None):
+    """``SERVE_CASES[world]`` (or ``cases``): prefill and decode over
+    meshes of the world's ranks, each case's readings by name and
+    mesh."""
     return {f"{key} {shape}": served(cfg_of(arch, **kw), key, shape, decode)
-            for key, arch, kw, shape, decode in SERVE_CASES[world]}
+            for key, arch, kw, shape, decode in (cases or
+                                                 SERVE_CASES[world])}
+
+
+# the pod axis's cases that need 4 ranks: served on (2, 1, 2) and (2, 2, 1)
+POD_SERVE_CASES = (("dense", "granite-8b", F32, (2, 1, 2), True),
+                   ("dense", "granite-8b", F32, (2, 2, 1), True))
+
+
+def scenario_pod_four(world):
+    """The pod axis over 4 ranks: reduced granite-8b in float32 at (2, 2,
+    1), without and with ZeRO-1 (overlapped: the pod all-reduce of each
+    block a micro-batch; m and v blocks over data, the same on both
+    pods); qwen2-moe-a2.7b one-hot with one micro-batch of the 4 rows,
+    routed across both pods, at (2, 2, 1); mamba2-780m at (2, 1, 2);
+    granite-8b served at (2, 1, 2) and (2, 2, 1)."""
+    granite = cfg_of("granite-8b", **F32)
+    out = {"dense": trained_on(granite, (2, 2, 1)),
+           "zero1": trained_on(granite.with_(
+               zero1=True, grad_schedule="overlapped"), (2, 2, 1)),
+           "moe_onehot": trained_on(cfg_of(
+               "qwen2-moe-a2.7b", moe_impl="onehot", num_microbatches=1,
+               **F32), (2, 2, 1)),
+           "ssm": trained_on(cfg_of("mamba2-780m", **F32), (2, 1, 2))}
+    out.update(scenario_serve(world, POD_SERVE_CASES))
+    return out
 
 
 def hang(rank, world, device, seconds):
@@ -598,6 +666,7 @@ def main():
            "tp_two": scenario_tp_two, "tp_four": scenario_tp_four,
            "moe_two": scenario_moe_two, "moe_four": scenario_moe_four,
            "serve_two": scenario_serve, "serve_four": scenario_serve,
+           "pod_four": scenario_pod_four,
            "cuda_one": scenario_cuda_one}[scenario]
     device = "cuda" if scenario.startswith("cuda") else "cpu"
     with launch_dist.process_group(rank, world, init, device,

@@ -59,8 +59,10 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch import roofline as R
 from repro_torch.launch.mesh import MeshShape
-from repro_torch.launch.sharding import ShardingRules
-from repro_torch.launch.specs import cell_fn, input_specs
+from repro_torch.launch.sharding import ShardingRules, local_block
+from repro_torch.launch.specs import cell_fn, input_specs, params_shardings
+from repro_torch.models import model_zoo as zoo
+from repro_torch.optim import adamw
 
 ROOT = Path(__file__).resolve().parents[1]
 ONE = MeshShape.of((1, 1), ("data", "model"))
@@ -183,6 +185,37 @@ def test_roofline_table_equals_the_references(tmp_path):
     assert "SKIP" in table[2] and "ERROR" in table[5]   # sorted by file
     assert R.fmt_seconds(2.5) == JR.fmt_seconds(2.5)
     assert R.fmt_seconds(3e-3) == JR.fmt_seconds(3e-3)
+
+
+def test_roofline_reads_the_traced_terms_of_either_mesh(tmp_path):
+    """``--traced`` and ``--mesh multi``: a record's terms read from its
+    full-depth production trace on that mesh (rank 0 of 256 or of 512),
+    with the useful ratio over that many chips and the trace's own peak;
+    a record without a multi-pod trace has no multi-pod row."""
+    train = _records()[0]
+    for mesh, flops, hbm, wire in (("single", 9e12, 2e11, 4e9),
+                                   ("multi", 5e12, 1e11, 6e9)):
+        train[f"production_{mesh}"] = {
+            "n_devices": R.CHIPS[mesh],
+            "memory": {"peak_hbm_estimate": 2**30 * R.CHIPS[mesh] / 256},
+            "raw_terms_body_once": {"flops": flops, "bytes_accessed": hbm,
+                                    "wire_bytes": wire}}
+    for mesh, traced in (("single", True), ("multi", False),
+                         ("multi", True)):
+        got = R.cell_roofline(train, mesh, traced)
+        terms = train[f"production_{mesh}"]["raw_terms_body_once"]
+        assert got["t_compute_s"] == terms["flops"] / H.PEAK_FLOPS
+        assert got["t_memory_s"] == terms["bytes_accessed"] / H.HBM_BW
+        assert got["t_collective_s"] == terms["wire_bytes"] / H.LINK_BW
+        assert got["useful_ratio"] == R.model_flops(
+            "granite-8b", "train_4k") / (terms["flops"] * R.CHIPS[mesh])
+        assert got["peak_hbm_gib"] == R.CHIPS[mesh] / 256
+    assert R.cell_roofline(train) != R.cell_roofline(train, traced=True)
+    (tmp_path / "a.json").write_text(json.dumps(train))
+    (tmp_path / "b.json").write_text(json.dumps(_records()[1]))
+    assert [r["arch"] for r in R.load_table(tmp_path, "multi")] == \
+        ["granite-8b"]
+    assert len(R.load_table(tmp_path, "single")) == 2
 
 
 # ------------------------------------------------------- cell_fn on meta
@@ -463,17 +496,22 @@ from repro_torch.launch import dryrun as D
 if sys.argv[4:] != ["full"]:
     D.ARCHS = {k: v.reduced() for k, v in D.ARCHS.items()}
     D.SHAPES = {k: v.reduced() for k, v in D.SHAPES.items()}
-D.PRODUCTION_MESHES["single"] = (tuple(json.loads(sys.argv[2])),
-                                 ("data", "model"))
+mesh = tuple(json.loads(sys.argv[2]))
+D.PRODUCTION_MESHES["single"] = (mesh, ("pod", "data", "model")[-len(mesh):])
 out = Path(sys.argv[1])
-for arch, shape, meshes in json.loads(sys.argv[3]):
-    D.run_cell(arch, shape, meshes=tuple(meshes), out_dir=out)
+for arch, shape, meshes, *more in json.loads(sys.argv[3]):
+    opts, tag = (more + [[], ""][len(more):])[:2]
+    D.run_cell(arch, shape, meshes=tuple(meshes), out_dir=out / tag,
+               opts=tuple(opts))
 """
 
 
 def _child(tmp_path, mesh, cells, full=False):
     """The cells traced in a child process (reduced; ``full``: at their
-    production size) over a ``mesh`` single-pod mesh: their records."""
+    production size) over a ``mesh`` mesh in place of the single-pod one
+    (a shape of 3: with a pod axis): their records, by name (a cell
+    ``[arch, shape, meshes, opts, tag]`` traced with ``run_cell``'s
+    ``opts``, its record named ``tag/arch__shape``)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     run = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path),
                           json.dumps(mesh), json.dumps(cells)]
@@ -481,8 +519,8 @@ def _child(tmp_path, mesh, cells, full=False):
                          env=env, cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert run.returncode == 0, run.stderr[-4000:]
-    return {p.stem: json.loads(p.read_text())
-            for p in tmp_path.glob("*.json")}
+    return {p.relative_to(tmp_path).with_suffix("").as_posix():
+            json.loads(p.read_text()) for p in tmp_path.rglob("*.json")}
 
 
 def _ok(rec):
@@ -566,10 +604,59 @@ def test_mamba2_mesh_record_at_2x2(tmp_path):
         assert terms["kernels"]["ssd_intra_chunk"]["calls"] > 0
 
 
+def test_pod_mesh_record_at_2x2x1_against_4x1(tmp_path):
+    """Reduced granite-8b's train step on a fake (2, 2, 1) ``("pod",
+    "data", "model")`` mesh against (4, 1): the 4 rows over the 4 batch
+    ranks either way, so rank 0 runs the same FLOPs and bytes, and
+    without ZeRO-1 the same collectives (the gradient and metrics
+    all-reduced over a group of 4), at the production point and at every
+    analysis point.  With ZeRO-1 the blocks are over ``data`` alone:
+    halves on (2, 2, 1), quarters on (4, 1).  So, with N leaves of P
+    float32 bytes: N reduce-scatters of P / 2 bytes (P / 4 on (4, 1)),
+    then the pod all-reduce of each block, N more all-reduces of P / 2
+    in all, beside the norm's and the metrics' 2; the same N all-gathers
+    of the params, P.  The update on blocks twice as large adds a third
+    of the FLOPs that ZeRO-1 saved on (4, 1)."""
+    cells = [["granite-8b", "train_4k", ["single"], [], "plain"],
+             ["granite-8b", "train_4k", ["single"], ["zero1"], "zero1"]]
+    four = _child(tmp_path / "4x1", [4, 1], cells)
+    pod = _child(tmp_path / "2x2x1", [2, 2, 1], cells)
+    for rec in list(four.values()) + list(pod.values()):
+        _ok(rec)
+    name = "granite-8b__train_4k"
+    for got, want in zip(_ok(pod[f"plain/{name}"]),
+                         _ok(four[f"plain/{name}"])):
+        got.pop("compile_s", None)
+        want.pop("compile_s", None)
+        assert got == want
+    assert pod[f"plain/{name}"]["production_single"]["n_devices"] == 4
+    cfg = ARCHS["granite-8b"].reduced()
+    leaves = adamw.flatten(zoo.abstract_state(cfg).params)[0]
+    N, P = len(leaves), sum(4 * t.numel() for t in leaves)
+    plain, z4, z2 = (r["production_single"]["raw_terms_body_once"]
+                     for r in (four[f"plain/{name}"], four[f"zero1/{name}"],
+                               pod[f"zero1/{name}"]))
+    count = {k: (c["count"], c["result_bytes"])
+             for k, c in z4["collectives"].items()}
+    assert count == {"reduce-scatter": (N, P // 4), "all-gather": (N, P),
+                     "all-reduce": (2, 16)}
+    count = {k: (c["count"], c["result_bytes"])
+             for k, c in z2["collectives"].items()}
+    assert count == {"reduce-scatter": (N, P // 2), "all-gather": (N, P),
+                     "all-reduce": (N + 2, P // 2 + 16)}
+    assert plain["flops"] - z4["flops"] == 3 * (z2["flops"] - z4["flops"])
+
+
 def test_mesh_records_at_16x16(tmp_path):
     """The single-pod mesh: rank 0 of a fake group of 256, every
     all-reduce over a group of 16 (ring wire bytes 2 x 15/16 of the
-    result); a multi-pod cell is refused naming ROADMAP's next step.
+    result).  The multi-pod mesh, rank 0 of a fake group of 512: a train
+    and a decode record ``ok`` with ``n_devices`` 512; the reduced
+    batch's 4 rows replicated over the 32 pod x data ranks as over the
+    16 data ranks, so rank 0 runs the same FLOPs and bytes and the same
+    collectives, but for the gradient's and the metrics' all-reduces
+    (float32, every parameter and 3 metrics), now over the batch group of
+    32 (2 x 31/32 of their result bytes on the wire against 2 x 15/16).
     Reduced mamba2-780m's prefill and zamba2-2.7b's decode over the mesh
     trace: their 8 SSM heads do not split over 16, so each rank runs the
     Mamba2 blocks whole (the SSD kernel's meta branch once a layer in
@@ -580,19 +667,35 @@ def test_mesh_records_at_16x16(tmp_path):
     and KV heads whole: a gather of the softmax statistics and an
     all-reduce of the output) and its MLP's g (d_ff split)."""
     recs = _child(tmp_path, [16, 16], [
-        ["granite-8b", "train_4k", ["single"]],
-        ["mamba2-780m", "train_4k", ["multi"]],
+        ["granite-8b", "train_4k", ["single", "multi"]],
         ["mamba2-780m", "prefill_32k", ["single"]],
-        ["zamba2-2.7b", "decode_32k", ["single"]]])
+        ["zamba2-2.7b", "decode_32k", ["single", "multi"]]])
     for terms in _ok(recs["granite-8b__train_4k"]):
         ar = terms["collectives"]["all-reduce"]
         assert ar["wire_bytes"] == pytest.approx(
             2 * ar["result_bytes"] * 15 / 16, rel=1e-12)
-    assert recs["granite-8b__train_4k"]["production_single"][
-        "n_devices"] == 256
-    multi = recs["mamba2-780m__train_4k"]
-    assert not multi["ok"] and "pod axis" in multi["error"]
-    assert "item 13b, fourth step: the pod axis" in multi["error"]
+    train = recs["granite-8b__train_4k"]
+    assert train["production_single"]["n_devices"] == 256
+    # the bytes of rank 0's gradient (its model blocks) and 3 metrics
+    rules = ShardingRules(MeshShape.of((16, 16), ("data", "model")))
+    dense = ARCHS["granite-8b"].reduced()
+    grads = 3 * 4 + 4 * sum(
+        local_block(t, s, {"data": 0, "model": 0}).numel()
+        for t, s in zip(adamw.flatten(zoo.abstract_state(dense).params)[0],
+                        adamw.flatten(params_shardings(dense, rules))[0]))
+    for rec in (train, recs["zamba2-2.7b__decode_32k"]):
+        one, two = (rec[f"production_{k}"] for k in ("single", "multi"))
+        assert two["n_devices"] == 512
+        one, two = one["raw_terms_body_once"], two["raw_terms_body_once"]
+        for key in ("flops", "bytes_accessed", "kernels"):
+            assert one[key] == two[key], key
+        gap = 2 * grads * (31 / 32 - 15 / 16) if rec is train else 0
+        for kind, c in one["collectives"].items():
+            d = two["collectives"][kind]
+            assert (d["count"], d["result_bytes"]) == \
+                (c["count"], c["result_bytes"]), kind
+            assert d["wire_bytes"] - c["wire_bytes"] == pytest.approx(
+                gap if kind == "all-reduce" else 0, rel=1e-9, abs=1e-6)
     ssm = ARCHS["mamba2-780m"].reduced()
     for terms, L_ in zip(_ok(recs["mamba2-780m__prefill_32k"]),
                          (ssm.num_layers, 1, 2)):

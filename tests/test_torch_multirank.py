@@ -16,7 +16,10 @@ tensor parallelism and moe expert parallelism, and moe at (2, 1); 4
 ranks the stencil, (2, 2) meshes (float32, ZeRO-1, bf16, moe, and the
 other families) and the 4 -> 2 -> 4 rescales with a model axis of 2.
 Two more hold moe's batch over the data ranks: 2 ranks at (2, 1), 4 at
-(2, 2) and (4, 1).  The ranks run reduced models on the CPU (~10-20 s a
+(2, 2) and (4, 1).  The pod axis (``("pod", "data", "model")`` meshes:
+the rows over the pod x data ranks, ZeRO-1 over data alone) rides the
+2-rank groups at (2, 1, 1) and has a 4-rank group of its own for (2, 2,
+1) and (2, 1, 2).  The ranks run reduced models on the CPU (~10-20 s a
 group here).
 
 The reference runs in this process: its ``jit`` with ``in_shardings`` on
@@ -160,15 +163,24 @@ def state_leaves(state):
             for x in jax.tree.leaves(tree)]
 
 
-def reference(arch, dtype, n_data, n_model=1, **kw):
+def mesh_axes(mesh_shape):
+    """A mesh shape's axis names: ``("data", "model")``, or with a pod
+    axis first for a shape of 3."""
+    return ("pod", "data", "model")[-len(mesh_shape):]
+
+
+def reference(arch, dtype, *mesh_shape, **kw):
     """The reference's 3 steps of reduced ``arch``, jitted with
-    ``in_shardings`` on a real (n_data, n_model) host mesh: (metrics per
-    step, final state leaves).  Cached for the module."""
-    key = ("jax", arch, dtype, n_data, n_model, tuple(sorted(kw.items())))
+    ``in_shardings`` on a real host mesh of ``mesh_shape`` ((n_data,),
+    (n_data, n_model) or (n_pod, n_data, n_model)): (metrics per step,
+    final state leaves).  Cached for the module."""
+    if len(mesh_shape) == 1:
+        mesh_shape += (1,)
+    key = ("jax", arch, dtype, mesh_shape, tuple(sorted(kw.items())))
     if key not in _RUNS:
         cfg = jax_config(arch).reduced().with_(compute_dtype=dtype, **kw)
         shape = JSHAPES["train_4k"].reduced()
-        mesh = jmake_mesh((n_data, n_model), ("data", "model"))
+        mesh = jmake_mesh(mesh_shape, mesh_axes(mesh_shape))
         rules = JShardingRules(mesh)
         ssh = jspecs.state_shardings(cfg, rules)
         bsh = jspecs.batch_shardings(cfg, shape, rules)
@@ -980,6 +992,93 @@ def test_elastic_tensor_parallel_enc_dec_4_2_4(tp_four):
         assert tp_four[r]["enc_dec_elastic"]["b_steps"] == [0, 1, 4, 5]
 
 
+# ------------------------------------------------------------- the pod axis
+@pytest.fixture(scope="module")
+def pod_four(tmp_path_factory):
+    return run_ranks("pod_four", 4, tmp_path_factory.mktemp("pod_four"))
+
+
+# the pod axis's training cases: key -> (arch, config overrides beside
+# float32 compute; ``tests/_torch_ranks.py``)
+POD_TRAIN = {"pod": ("granite-8b", {}), "dense": ("granite-8b", {}),
+             "zero1": ("granite-8b", dict(zero1=True,
+                                          grad_schedule="overlapped")),
+             "moe_onehot": ("qwen2-moe-a2.7b", dict(moe_impl="onehot",
+                                                    num_microbatches=1)),
+             "ssm": ("mamba2-780m", {})}
+
+
+@pytest.mark.parametrize("case", ["pod (2, 1, 1)", "dense (2, 2, 1)",
+                                  "zero1 (2, 2, 1)", "moe_onehot (2, 2, 1)",
+                                  "ssm (2, 1, 2)"])
+def test_pod_axis_training_matches_reference(case, request):
+    """Reduced models, float32, 3 steps over a ``("pod", "data",
+    "model")`` mesh, the batch's rows over the pod x data ranks
+    (pod-major) and the gradient summed over them: granite-8b at (2, 1,
+    1) (each pod rank 2 rows) and at (2, 2, 1), also with ZeRO-1
+    (overlapped: a reduce-scatter over data, then the block all-reduced
+    over pod, a micro-batch); qwen2-moe-a2.7b one-hot with one
+    micro-batch of the 4 rows, routed across both pods (the count tables
+    all-gathered over the 4 batch ranks); mamba2-780m at (2, 1, 2) (the
+    SSM heads over the model axis).  Each matches the reference's
+    sharded jit on a host mesh of the same shape and the port's single
+    device, and every rank logs the same metrics."""
+    key, shape = case.split(" ", 1)
+    mesh_shape = eval(shape)
+    ranks = request.getfixturevalue("two" if mesh_shape == (2, 1, 1)
+                                    else "pod_four")
+    arch, kw = POD_TRAIN[key]
+    got = run_of(ranks[0][key])
+    assert_same_run(got, reference(arch, "float32", *mesh_shape, **kw),
+                    f"{case} vs reference")
+    one = {k: v for k, v in kw.items() if k not in ("zero1",
+                                                    "grad_schedule")}
+    assert_same_run(got, one_device(arch, compute_dtype="float32", **one),
+                    f"{case} vs one device")
+    coords = [r[key]["coord"] for r in ranks]
+    assert sorted(coords) == [tuple(c) for c in np.ndindex(*mesh_shape)]
+    for r in ranks:
+        assert r[key]["metrics"] == ranks[0][key]["metrics"], case
+    if key == "moe_onehot":
+        # one routing group over the 4 ranks: the count tables gathered
+        # once a moe layer, forward and remat's recompute
+        assert all(r[key]["all_gathers"] == STEPS * 2 * 2 for r in ranks)
+
+
+def test_pod_axis_zero1_blocks_over_data_same_on_both_pods(pod_four):
+    """ZeRO-1 at (2, 2, 1): each rank keeps of m and v exactly the block
+    the reference's ZeRO-1 ``NamedSharding`` gives its device on a host
+    mesh of the same shape (``zero1_extend`` scatters over ``data``
+    only), half of each leaf, bit for bit the same on the two pods; the
+    parameters whole on every rank; one pod all-reduce of each leaf's
+    block a step (each rank runs one piece a step: 1 of the 4 rows)."""
+    cfg = jax_config("granite-8b").reduced().with_(zero1=True)
+    mesh = jmake_mesh((2, 2, 1), ("pod", "data", "model"))
+    zsh = jax.tree.leaves(jspecs.state_shardings(
+        cfg, JShardingRules(mesh)).opt.m)
+    whole = pod_four[0]["zero1"]["state"]
+    n = len(zsh)
+    by_coord = {tuple(r["zero1"]["coord"]): r["zero1"] for r in pod_four}
+    for i, sh in enumerate(zsh):
+        assert "pod" not in jax.tree.leaves(tuple(sh.spec)), sh.spec
+        for kind, offset in (("local_m", n), ("local_v", 2 * n)):
+            full = whole[offset + i]
+            index = sh.devices_indices_map(tuple(full.shape))
+            for coord, out in by_coord.items():
+                block = out[kind][i]
+                want = full[index[mesh.devices[coord]]]
+                assert block.shape == want.shape, (kind, i, coord)
+                assert torch.equal(block, want), (kind, i, coord)
+                assert block.numel() * 2 == full.numel(), (kind, i)
+            for d in range(2):
+                assert torch.equal(by_coord[(0, d, 0)][kind][i],
+                                   by_coord[(1, d, 0)][kind][i]), (kind, i)
+        for out in by_coord.values():
+            assert torch.equal(out["local_params"][i], whole[i]), i
+    for out in by_coord.values():
+        assert out["all_reduces"] == STEPS * n
+
+
 # ------------------------------------------------- serving over the mesh
 @pytest.fixture(scope="module")
 def serve_two(tmp_path_factory):
@@ -1053,7 +1152,7 @@ def serve_reference(case, mesh_shape, inputs, decode):
         return _RUNS[key]
     arch, kw = SERVE[case]
     cfg = jax_config(arch).reduced().with_(**kw)
-    mesh = jmake_mesh(mesh_shape, ("data", "model"))
+    mesh = jmake_mesh(mesh_shape, mesh_axes(mesh_shape))
     rules = JShardingRules(mesh)
     pshape, dshape = serve_shapes(case)
     out = {}
@@ -1157,10 +1256,10 @@ def assert_recurrent_state(got, want_state, mesh, coord, cfg, what):
     conv = want_state.cache["conv"]
     index = conv.sharding.devices_indices_map(conv.shape)[device]
     rows = _f32(conv)[index[:-1] + (slice(None),)]
-    m = mesh.devices.shape[1]
+    m = mesh.devices.shape[-1]
     if m > 1 and cfg.ssm_heads % m == 0:
         di = cfg.d_inner // m
-        r = coord[1]
+        r = coord[-1]
         rows = np.concatenate([rows[..., r * di:(r + 1) * di],
                                rows[..., cfg.d_inner:]], -1)
     _within_bf16_ulp(got["cache"]["conv"].float().numpy(), rows,
@@ -1175,11 +1274,21 @@ def assert_recurrent_state(got, want_state, mesh, coord, cfg, what):
                              (what, k, "gathered"))
 
 
+def serve_ranks(request, name):
+    """The group that ran the served case ``name``: ``serve_two`` for 2
+    ranks, ``serve_four`` for a (2, 2) mesh, ``pod_four`` for 4 ranks
+    with a pod axis."""
+    mesh_shape = eval(name.split(" ", 1)[1])
+    group = ("serve_two" if np.prod(mesh_shape) == 2 else
+             "pod_four" if len(mesh_shape) == 3 else "serve_four")
+    return request.getfixturevalue(group)
+
+
 def serve_case(ranks, name):
     case, shape = name.split(" ", 1)
     mesh_shape = eval(shape)
     mine = [r[name] for r in ranks if r.get(name)]
-    assert len(mine) == mesh_shape[0] * mesh_shape[1]
+    assert len(mine) == np.prod(mesh_shape)
     decode = "decode" in mine[0]
     want = serve_reference(case, mesh_shape, mine[0]["inputs"], decode)
     return mine, want
@@ -1188,6 +1297,8 @@ def serve_case(ranks, name):
 RECURRENT_CASES = ["ssm (1, 2)", "ssm (2, 1)", "ssm (2, 2)",
                    "hybrid (1, 2)", "hybrid (2, 1)", "hybrid (2, 2)"]
 UNDIVIDED_CASES = ["dense63 (1, 2)", "kv1_63 (1, 2)", "hybrid63 (1, 2)"]
+POD_CASES = ["dense (2, 1, 1)", "hybrid (2, 1, 1)", "dense (2, 1, 2)",
+             "dense (2, 2, 1)"]
 
 
 @pytest.mark.parametrize("name", ["dense (1, 2)", "dense (2, 1)",
@@ -1196,9 +1307,8 @@ UNDIVIDED_CASES = ["dense63 (1, 2)", "kv1_63 (1, 2)", "hybrid63 (1, 2)"]
                                   "moe_onehot (1, 2)", "moe_grouped (2, 2)",
                                   "moe_onehot (2, 2)", "vlm (1, 2)",
                                   "enc_dec (1, 2)"] + RECURRENT_CASES
-                         + UNDIVIDED_CASES)
-def test_prefill_over_the_mesh_matches_reference(name, serve_two,
-                                                 serve_four):
+                         + UNDIVIDED_CASES + POD_CASES)
+def test_prefill_over_the_mesh_matches_reference(name, request):
     """Reduced models, float32, the reduced prefill_32k cell (4 rows of
     64 positions) over a (data, model) mesh of gloo ranks against the
     reference's sharded jit of ``cell_fn`` on a host mesh of the same
@@ -1219,9 +1329,10 @@ def test_prefill_over_the_mesh_matches_reference(name, serve_two,
     (which a model axis of 2 does not divide), with 2 KV heads and with
     one: the cache keeps every position, its KV heads over model where
     they divide; zamba2-2.7b's at 64 (hybrid63's decode cell is at
-    63)."""
-    ranks = serve_four if name.endswith("(2, 2)") else serve_two
-    mine, want = serve_case(ranks, name)
+    63).  With a pod axis, the rows over the pod x data ranks
+    (pod-major): granite-8b and zamba2-2.7b at (2, 1, 1), each pod rank
+    2 rows, and granite-8b at (2, 1, 2) and (2, 2, 1)."""
+    mine, want = serve_case(serve_ranks(request, name), name)
     logits, state = want["prefill"]
     case = name.split(" ", 1)[0]
     for r in mine:
@@ -1241,9 +1352,8 @@ def test_prefill_over_the_mesh_matches_reference(name, serve_two,
                                   "moe_grouped (1, 2)", "moe_onehot (1, 2)",
                                   "moe_grouped (2, 2)", "moe_onehot (2, 2)",
                                   "vlm (1, 2)", "enc_dec (1, 2)"]
-                         + RECURRENT_CASES + UNDIVIDED_CASES)
-def test_decode_over_the_mesh_matches_reference(name, serve_two,
-                                                serve_four):
+                         + RECURRENT_CASES + UNDIVIDED_CASES + POD_CASES)
+def test_decode_over_the_mesh_matches_reference(name, request):
     """4 serve steps from a seeded decode state (random bf16 cache of 64
     positions), each rank holding its block: lane 0 at cache_len 31
     writes position 31 on model rank 0 and 32-34 on rank 1, lane 1 is
@@ -1265,9 +1375,9 @@ def test_decode_over_the_mesh_matches_reference(name, serve_two,
     cases (granite-8b with 2 KV heads, split over model, and with one,
     whole on each rank; zamba2-2.7b's shared attention) run the
     tensor-parallel attention over every position, each rank writing
-    its KV heads' new token (lane 2 is full at 63)."""
-    ranks = serve_four if name.endswith("(2, 2)") else serve_two
-    mine, want = serve_case(ranks, name)
+    its KV heads' new token (lane 2 is full at 63).  The pod cases
+    (``POD_CASES``) step each rank's rows of the pod x data ranks."""
+    mine, want = serve_case(serve_ranks(request, name), name)
     logits, state = want["decode"]
     case = name.split(" ", 1)[0]
     tol = 5e-5 if name.startswith("enc_dec") else F32_METRIC
@@ -1289,11 +1399,12 @@ def test_decode_over_the_mesh_matches_reference(name, serve_two,
 
 @pytest.mark.parametrize("name", ["dense (1, 2)", "dense (2, 1)",
                                   "dense (2, 2)"] + RECURRENT_CASES
-                         + UNDIVIDED_CASES)
-def test_serving_collectives_in_closed_form(name, serve_two, serve_four):
-    """Per prefill and per serve step on a (d, m) mesh, as
+                         + UNDIVIDED_CASES + POD_CASES)
+def test_serving_collectives_in_closed_form(name, request):
+    """Per prefill and per serve step on a (d, m) or (p, d, m) mesh, as
     ``launch.sharding`` counts them; every model-axis term is there only
-    where m > 1, and the logits' rows add 1 all-gather where d > 1.
+    where m > 1, and the logits' rows add 1 all-gather for each of the
+    pod and data axes above 1 (``gather_block``: over data, then pod).
 
     * Reduced granite-8b (L = 2 layers): 1 + 2L all-reduces (the
       vocab-parallel embedding, each layer's attention and MLP g), and a
@@ -1311,9 +1422,9 @@ def test_serving_collectives_in_closed_form(name, serve_two, serve_four):
       granite-8b's layer: 2P all-reduces and 2P all-gathers a prefill,
       3P and 2P a step; at 63 decode positions a step's 2P all-reduces
       alone."""
-    ranks = serve_four if name.endswith("(2, 2)") else serve_two
+    ranks = serve_ranks(request, name)
     case, shape = name.split(" ", 1)
-    d, m = eval(shape)
+    *batch, m = eval(shape)
     mamba, periods = {"ssm": (2, 0), "hybrid": (4, 2),
                       "hybrid63": (4, 2)}.get(case, (0, 2))
     seq_split = case not in ("dense63", "kv1_63")
@@ -1324,7 +1435,8 @@ def test_serving_collectives_in_closed_form(name, serve_two, serve_four):
             1 + 2 * periods * step_split)
     if m == 1:
         prefill, step = (0, 0), (0, 0)
-    prefill, step = ((n, g + (d > 1)) for n, g in (prefill, step))
+    rows = sum(n > 1 for n in batch)
+    prefill, step = ((n, g + rows) for n, g in (prefill, step))
     for r in ranks:
         got = r[name]
         assert tuple(got["prefill"]["collectives"]) == prefill, name

@@ -8,9 +8,9 @@ holds no valid position; the position-to-owner arithmetic
 state (``sharding.local_block`` of ``ServingMesh.state_shardings``)
 against the block JAX's ``NamedSharding`` of the reference's
 ``decode_state_shardings`` gives the device there; the ssm and hybrid
-layouts, whose blocks join back into the whole state; and the cells a
-mesh still refuses.  The runs over gloo ranks are
-``tests/test_torch_multirank.py``'s.
+layouts, whose blocks join back into the whole state; and the pod
+axis's layout (the rows over the pod x data ranks, pod-major).  The runs
+over gloo ranks are ``tests/test_torch_multirank.py``'s.
 
 Tolerances: the merge is the softmax's sum in another order (blocks,
 then log-sum-exp weights), float32: within 2e-6 relative per element of
@@ -19,6 +19,8 @@ probabilities to bf16 before the product (the denominators differ in
 float32 rounding only), so the outputs, rounded to bf16, agree within
 one bf16 ulp (2^-8 relative) of each element.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -143,21 +145,24 @@ def test_position_owner(S, m):
 
 @pytest.mark.parametrize("name", ["granite-8b", "qwen2-moe-a2.7b",
                                   "seamless-m4t-medium"])
-@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 1), (2, 2), (4, 2)])
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 1), (2, 2), (4, 2),
+                                        (2, 1, 1), (2, 2, 1), (2, 1, 2),
+                                        (2, 2, 2)])
 def test_state_blocks_are_the_references(name, mesh_shape):
     """Every leaf of a reduced decode_32k state (4 lanes of 64 positions)
     cut by ``local_block`` at each mesh coordinate: the block that JAX's
     ``NamedSharding`` of the reference's ``decode_state_shardings`` gives
-    the device there (``cache_batch`` over data, ``cache_seq`` over
-    model, every KV head; ``cache_len`` by lanes)."""
+    the device there (``cache_batch`` over data, or over pod and data,
+    pod-major, where the mesh has a pod axis; ``cache_seq`` over model,
+    every KV head; ``cache_len`` by lanes)."""
     cfg = get_config(name).reduced()
     shape = SHAPES["decode_32k"].reduced()
-    mesh = jmake_mesh(mesh_shape, ("data", "model"))
+    axes = ("pod", "data", "model")[-len(mesh_shape):]
+    mesh = jmake_mesh(mesh_shape, axes)
     want = jspecs.decode_state_shardings(
         jax_config(name).reduced(), JSHAPES["decode_32k"].reduced(),
         JShardingRules(mesh))
-    sm = zoo.ServingMesh(cfg, shape, MeshShape.of(mesh_shape,
-                                                  ("data", "model")))
+    sm = zoo.ServingMesh(cfg, shape, MeshShape.of(mesh_shape, axes))
     whole = zoo.init_decode_state(cfg, shape, device="cpu")
     gen = torch.Generator().manual_seed(0)
     whole.cache = {k: torch.randn(v.shape, generator=gen)
@@ -170,8 +175,7 @@ def test_state_blocks_are_the_references(name, mesh_shape):
     for t, ours, theirs in pairs:
         index = theirs.devices_indices_map(tuple(t.shape))
         for coord in np.ndindex(*mesh_shape):
-            block = local_block(t, ours, dict(zip(("data", "model"),
-                                                  coord)))
+            block = local_block(t, ours, dict(zip(axes, coord)))
             want_block = t.numpy()[index[mesh.devices[coord]]]
             assert torch.equal(block, torch.from_numpy(want_block)), coord
 
@@ -220,14 +224,18 @@ def _joined(cfg, shape, mesh_shape, whole):
 @pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-2.7b"])
 def test_recurrent_families_over_a_mesh_are_refused(name):
     """ssm and hybrid prefill and decode over a mesh, which ``ServingMesh``
-    now lays out; only a mesh with a pod axis is refused, naming
-    ROADMAP's next step.
+    lays out, the multi-pod mesh too: no mesh of the production shapes
+    is refused.
 
-    * At full size on (16, 16), for prefill_32k, decode_32k and
-      long_500k (1 lane, replicated over data), on meta tensors: rank
-      0's ``ssm`` block is its SSM heads' (the reference's block), its
-      ``conv`` block the x channels of those heads then B and C, its
-      ``k`` / ``v`` the reference's block (2,048 of 32,768 positions).
+    * At full size on (16, 16) and (2, 16, 16), for prefill_32k,
+      decode_32k and long_500k (1 lane, replicated over pod and data),
+      on meta tensors: rank 0's ``ssm`` block is its SSM heads' (the
+      reference's block), its ``conv`` block the x channels of those
+      heads then B and C, its ``k`` / ``v`` the reference's block (2,048
+      of 32,768 positions), its lanes ``cache_batch``'s first block over
+      the 16 data ranks, or over the 32 pod x data ranks.
+    * granite-8b's decode_32k on (2, 16, 16): rank 0 holds lanes [0, 4)
+      of 128 and 2,048 positions of every KV head.
     * Reduced, on the CPU, at (1, 2), (2, 2), (4, 2) and (1, 16) (whose
       16 model ranks do not divide the 8 SSM heads: both leaves whole
       on every rank): the blocks ``place_state`` gives each coordinate,
@@ -238,12 +246,15 @@ def test_recurrent_families_over_a_mesh_are_refused(name):
       over model at (1, 8) and whole at (1, 16)."""
     cfg = ARCHS[name]
     d_inner, nheads, conv_dim, _ = ssm_lib.mamba2_dims(cfg)
-    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+    for shape, mesh in itertools.product(
+            ("prefill_32k", "decode_32k", "long_500k"),
+            (((16, 16), ("data", "model")),
+             ((2, 16, 16), ("pod", "data", "model")))):
         sh = SHAPES[shape]
-        state = zoo.abstract_decode_state(cfg, sh, MeshShape.of(
-            (16, 16), ("data", "model")))
+        state = zoo.abstract_decode_state(cfg, sh, MeshShape.of(*mesh))
         lead = state.cache["ssm"].shape[:-4]
-        lanes = sh.global_batch // 16 if sh.global_batch % 16 == 0 else 1
+        n = np.prod(mesh[0][:-1])
+        lanes = sh.global_batch // n if sh.global_batch % n == 0 else 1
         assert state.cache["ssm"].shape == lead + (
             lanes, nheads // 16, cfg.ssm_head_dim, cfg.ssm_state), shape
         assert state.cache["conv"].shape == lead + (
@@ -264,10 +275,20 @@ def test_recurrent_families_over_a_mesh_are_refused(name):
         for k, v in whole.cache.items():
             assert torch.equal(cache[k], v), (mesh_shape, k)
         assert torch.equal(lens, whole.cache_len)
-    with pytest.raises(NotImplementedError,
-                       match="item 13b, fourth step: the pod axis"):
-        zoo.ServingMesh(ARCHS["granite-8b"], SHAPES["decode_32k"],
-                        MeshShape.of((2, 16, 16), ("pod", "data", "model")))
+    # the multi-pod mesh: rank 0 holds lanes [0, 4) of 128 (cache_batch
+    # over the 32 pod x data ranks), 2,048 of 32,768 positions
+    pod = MeshShape.of((2, 16, 16), ("pod", "data", "model"))
+    sh = SHAPES["decode_32k"]
+    sm = zoo.ServingMesh(ARCHS["granite-8b"], sh, pod)
+    assert sm.state_shardings.cache["k"].spec == \
+        (None, ("pod", "data"), "model", None, None)
+    lanes = local_block(torch.arange(sh.global_batch),
+                        sm.state_shardings.cache_len, sm.coord)
+    assert lanes.tolist() == [0, 1, 2, 3]
+    k = zoo.abstract_decode_state(ARCHS["granite-8b"], sh, pod).cache["k"]
+    assert tuple(k.shape) == (ARCHS["granite-8b"].num_layers, 4, 2048,
+                              ARCHS["granite-8b"].num_kv_heads,
+                              ARCHS["granite-8b"].head_dim)
     odd = ShapeConfig("decode", 100, 4, "decode")
     for m, kv in ((16, None), (8, "model")):
         sm = zoo.ServingMesh(ARCHS["granite-8b"], odd,

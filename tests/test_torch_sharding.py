@@ -104,6 +104,32 @@ def test_zero1_extends_first_free_dim():
     assert out.spec[0] == "data"
 
 
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 1), (2, 2, 2), (2, 16, 16)])
+@pytest.mark.parametrize("spec, shape", [
+    ((None, "model"), (8, 16)),          # the first free dim takes data
+    (("model", None), (16, 3)),          # none divides: unchanged
+    (("model",), (256,)),                # model then data on one dim
+    ((("pod", "data"), None), (32, 16)), # pod already splits dim 0
+    ((("pod", "data"),), (64,)),         # and nothing else is free
+    (("pod", None), (4, 32)),            # pod alone: data on dim 1
+    ((None, None, "model"), (3, 5, 32))])
+def test_zero1_extend_never_scatters_over_pod(mesh_shape, spec, shape,
+                                              monkeypatch):
+    """``zero1_extend`` on meshes with a pod axis, against the
+    reference's (``repro/launch/sharding.py:142-162``): it adds ``data``
+    to the first dimension that takes it and never to one that ``pod``
+    already splits, so ZeRO-1 blocks are over ``data`` alone and the
+    same on every pod."""
+    axes = ("pod", "data", "model")
+    jr, _ = _reference_rules(mesh_shape, axes)
+    ours = ShardingRules(MeshShape.of(mesh_shape, axes))
+    got = _zero1_extend(NamedSharding(ours.mesh, spec), shape, ours).spec
+    assert got == _fake_zero1(jr, spec, shape, monkeypatch), (spec, got)
+    assert all("pod" not in (e if isinstance(e, tuple) else (e,))
+               for e, before in zip(got, spec + (None,) * len(shape))
+               if e != before)
+
+
 def test_batch_shardings_match_batch_spec(rules):
     cfg = ARCHS["internvl2-26b"]
     bsh = batch_shardings(cfg, SHAPES["train_4k"], rules)
@@ -146,7 +172,11 @@ def _cells(name):
             if shape_applicable(cfg, SHAPES[s])[0]]
 
 
-MESHES = ([(s, ("data", "model")) for s in REAL_MESHES] + PRODUCTION_MESHES)
+# the pod axis on real host meshes: the shapes the multi-rank tests run
+POD_MESHES = [(s, ("pod", "data", "model"))
+              for s in ((2, 1, 1), (2, 2, 1), (2, 1, 2))]
+MESHES = ([(s, ("data", "model")) for s in REAL_MESHES] + PRODUCTION_MESHES
+          + POD_MESHES)
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m[0])))

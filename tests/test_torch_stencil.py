@@ -154,29 +154,54 @@ def test_comm_model_exposure_shrinks_with_odf():
     assert res[8] <= res[1]
 
 
+# C1 and C2 compare accounted times, which rest on measured per-tile
+# costs: two runs made seconds apart on a loaded host (the suite's other
+# workers) can read costs that differ by more than the effect.  So each
+# arm runs REPEATS times, the arms interleaved, and each keeps its least
+# reading: load only ever slows a run, so the least of like-for-like
+# repeats reads every arm at the host's own pace.
+REPEATS = 3
+
+
+def _least(arms):
+    """``arms``: name -> a function that runs the arm once and returns
+    its reading.  Each arm's least reading over ``REPEATS`` interleaved
+    rounds."""
+    readings = {k: [] for k in arms}
+    for _ in range(REPEATS):
+        for k, run in arms.items():
+            readings[k].append(run())
+    return {k: min(v) for k, v in readings.items()}
+
+
 def test_c1_overdecomposition_hides_latency():
     """``tests/test_system.py`` C1 on the port: odf 4 beats odf 1 in
-    accounted time under 500 us per-message latency."""
-    t = {}
-    for odf in (1, 4):
-        out = run_jacobi(grid_size=512, n_pes=4, odf=odf, iters=14,
-                         comm_latency_s=500e-6, device="cpu")
-        t[odf] = out.accounted_time_per_iter
+    accounted time under 500 us per-message latency (each arm's least of
+    ``REPEATS`` interleaved runs)."""
+    def arm(odf):
+        return lambda: run_jacobi(
+            grid_size=512, n_pes=4, odf=odf, iters=14,
+            comm_latency_s=500e-6, device="cpu").accounted_time_per_iter
+    t = _least({odf: arm(odf) for odf in (1, 4)})
     assert t[4] < t[1], t
 
 
 def test_c2_rate_aware_lb_beats_none():
     """``tests/test_system.py`` C2 on the port: rate-aware GreedyRefine
-    beats no LB by more than 5% on heterogeneous PEs (LULESH proxy)."""
+    beats no LB by more than 5% on heterogeneous PEs (LULESH proxy; each
+    arm's least of ``REPEATS`` interleaved runs)."""
     rates = [1.0, 0.9, 0.4, 1.0]
-    res = {}
-    for strat, aware in ((None, False), ("greedy_refine", True)):
-        out = run_lulesh(grid_size=768, n_pes=4, odf=4, iters=24,
-                         pe_rate_multipliers=rates, lb_strategy=strat,
-                         lb_every=6, rate_aware=aware, device="cpu")
-        tail = out.per_iter[-8:]
-        res[strat] = float(np.median([m["accounted_time_per_iter"]
-                                      for m in tail]))
+
+    def arm(strat, aware):
+        def run():
+            out = run_lulesh(grid_size=768, n_pes=4, odf=4, iters=24,
+                             pe_rate_multipliers=rates, lb_strategy=strat,
+                             lb_every=6, rate_aware=aware, device="cpu")
+            return float(np.median([m["accounted_time_per_iter"]
+                                    for m in out.per_iter[-8:]]))
+        return run
+    res = _least({None: arm(None, False),
+                  "greedy_refine": arm("greedy_refine", True)})
     improvement = 1 - res["greedy_refine"] / res[None]
     assert improvement > 0.05, res
 
