@@ -153,7 +153,11 @@ def _causal_conv(xBC, conv_w, conv_b, conv_state=None):
     streaming decode form, and state-continued prefill); without it the
     window starts from zeros.  Returns (silu(conv + b), the last W-1 rows
     of the window) — the state a following step continues from.  A bf16
-    state meets float32 activations upcast, as JAX's concatenate promotes.
+    state meets float32 activations upcast, as JAX's concatenate promotes
+    (``repro/models/mamba2.py:133-149``), and the new state is the window
+    in the activations' dtype: the decode state's ``conv`` leaf therefore
+    has dtype ``promote_types(bf16, compute dtype)``
+    (``model_zoo.conv_dtype``), and a step stores it unrounded.
     """
     w = conv_w.shape[0]
     if conv_state is not None:
@@ -170,8 +174,9 @@ def _causal_conv(xBC, conv_w, conv_b, conv_state=None):
 
 def _step_state(xh, dt, A, B, conv_state, ssm_state, new_conv, active):
     """The single-token recurrence of the heads in ``xh`` (b, 1, h, p):
-    the new SSD state (b, h, p, n) float32 and conv tail, lanes whose
-    ``active`` is False keeping both of theirs."""
+    the new SSD state (b, h, p, n) float32 and conv tail (the window's
+    dtype, ``_causal_conv``), lanes whose ``active`` is False keeping both
+    of theirs."""
     dA = torch.exp(dt[:, 0] * A[None])                         # (b,h)
     xdt = xh[:, 0].float() * dt[:, 0][..., None]               # (b,h,p)
     upd = xdt[..., None] * B[:, 0].float()[:, None, None, :]

@@ -30,15 +30,18 @@ mutates the state it is given and returns it.  The KV cache is bf16
 whatever the compute dtype, as in the reference.  A paged pool holds one
 sink row past its ``num_blocks`` live rows (see ``layers``).
 
-Recurrent leaves, as the reference declares them: ``ssm`` (the SSD
-state) is float32 and ``conv`` (the last W-1 pre-conv activations) is
-bf16, ``(L, B, ...)`` for ssm and ``(periods, attn_every, B, ...)`` for
-hybrid.  A step writes its new conv state into that bf16 leaf, in place:
-in bf16 compute the value is already bf16, and in float32 compute this
-is the rounding the reference's bf16 engine does.  The reference has no
-multi-step float32 counterpart: its float32 ssm/hybrid engine stops at
-the decode loop's carry check, whose conv leaf comes back float32
-(ROADMAP §3).
+Recurrent leaves, ``(L, B, ...)`` for ssm and ``(periods, attn_every,
+B, ...)`` for hybrid: ``ssm`` (the SSD state) is float32, and ``conv``
+(the last W-1 pre-conv activations) has the dtype the reference's decode
+step carries, ``promote_types(bf16, compute dtype)`` (``conv_dtype``):
+bf16 in bf16 compute, float32 in float32 compute.  The reference declares
+the leaf bf16 and its prefills round the conv tail to bf16
+(``repro/models/model_zoo.py:410, :430``), but a float32 step concatenates
+that state with float32 activations and returns the float32 window as the
+new state (``repro/models/mamba2.py:133-149``), so from the second step on
+its chain carries float32.  The port's prefills (``make_prefill``, the
+bulk and paged chunk prefills) round the tail to bf16 as the reference's
+do and store it in the leaf; a step writes its new window unrounded.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import dtype_of, resolve_device
 from repro_torch.launch.sharding import (BATCH_AXES, ShardingRules,
                                          axis_sizes, batch_group,
                                          coordinate, gather_block,
@@ -108,8 +111,24 @@ def _mamba_layers(params, cfg: ModelConfig):
             for pi, period in enumerate(params["mamba"])]
 
 
+def conv_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The recurrent ``conv`` leaf's dtype: the reference's decode step
+    promotes its bf16 state with the compute dtype's activations
+    (``repro/models/mamba2.py:133-149``), so bf16 in bf16 compute and
+    float32 in float32 compute."""
+    return torch.promote_types(torch.bfloat16, dtype_of(cfg.compute_dtype))
+
+
+def _prefill_conv(conv, cfg: ModelConfig):
+    """A prefill's conv tail as the leaf stores it: rounded to bf16, as
+    the reference's prefills round it (``repro/models/model_zoo.py:410``),
+    in ``conv_dtype``."""
+    return conv.to(torch.bfloat16).to(conv_dtype(cfg))
+
+
 def _recurrent_cache(cfg: ModelConfig, B: int, dev) -> Dict[str, torch.Tensor]:
-    """Zeroed ``ssm`` (float32) and ``conv`` (bf16) leaves for B lanes."""
+    """Zeroed ``ssm`` (float32) and ``conv`` (``conv_dtype``) leaves for B
+    lanes."""
     _, nheads, conv_dim, _ = ssm_lib.mamba2_dims(cfg)
     lead = ((cfg.num_layers,) if cfg.family == "ssm"
             else (cfg.num_layers // cfg.attn_every, cfg.attn_every))
@@ -118,7 +137,7 @@ def _recurrent_cache(cfg: ModelConfig, B: int, dev) -> Dict[str, torch.Tensor]:
                                    cfg.ssm_state),
                            dtype=torch.float32, device=dev),
         "conv": torch.zeros(lead + (B, cfg.conv_width - 1, conv_dim),
-                            dtype=torch.bfloat16, device=dev)}
+                            dtype=conv_dtype(cfg), device=dev)}
 
 
 def lane_axis(cfg: ModelConfig) -> int:
@@ -1108,7 +1127,8 @@ def _encdec_prefill(params, batch, cfg: ModelConfig, impl: str = "kernel"):
 
 def _ssm_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
     """tokens (B, S) -> (final hidden, cache): per-layer SSD states
-    (float32) and conv tails (bf16), stacked as the cache leaves are, and
+    (float32) and conv tails (rounded to bf16, in ``conv_dtype``),
+    stacked as the cache leaves are, and
     for hybrid the shared block's bf16 k, v per period."""
     h = T.embed_tokens(params, tokens, cfg)
     shared = params.get("shared")
@@ -1117,7 +1137,7 @@ def _ssm_prefill(params, tokens, cfg: ModelConfig, impl: str = "kernel"):
         for _, lp in layers:
             h, (st, conv) = ssm_lib.mamba2_block(lp, h, cfg, impl=impl)
             sts.append(st.float())
-            convs.append(conv.to(torch.bfloat16))
+            convs.append(_prefill_conv(conv, cfg))
         if shared is not None:
             h, (k, v) = L.attention_block(shared["attn"], h, cfg,
                                           causal=True, impl=impl)
@@ -1322,7 +1342,8 @@ def _layer_stack(params, cache, h, cfg: ModelConfig, attention, *,
     Mamba2 layers, decode (``slot`` None): one token per lane, each layer
     steps its lanes' states (lanes with ``act`` False keep theirs).  Chunk
     prefill (``slot`` given): the chunk continues lane ``slot``'s states,
-    or starts from zeros when ``fresh``, and they are replaced whole.
+    or starts from zeros when ``fresh``, and they are replaced whole, the
+    conv tail rounded to bf16 as every prefill rounds it.
     """
     if cfg.family in DECODER_FAMILIES:
         for i, lp in enumerate(params["layers"]):
@@ -1349,6 +1370,7 @@ def _layer_stack(params, cache, h, cfg: ModelConfig, attention, *,
                     lp, h, cfg, impl=impl,
                     init_ssm=None if fresh else ssm,
                     init_conv=None if fresh else conv)
+                cv = _prefill_conv(cv, cfg)
             ssm.copy_(st)
             conv.copy_(cv)
         if shared is not None:

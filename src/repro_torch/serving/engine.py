@@ -102,8 +102,8 @@ class SlotSnapshot:
     geometry on ``unpack``, so snapshots move between dense and paged
     engines and between block sizes bit for bit.
 
-    The columns are CPU torch tensors in the leaf's own dtype (bf16 kv
-    and conv, float32 ssm): numpy has no bfloat16 without
+    The columns are CPU torch tensors in the leaf's own dtype (bf16 kv,
+    float32 ssm, conv in ``model_zoo.conv_dtype``): numpy has no bfloat16 without
     ``ml_dtypes``, and a CPU tensor holds bf16 exactly, can be pinned
     for the copy back to the card, and is what the checkpoint stores
     keep.  ``unpack`` also reads the JAX package's snapshots, whose
