@@ -1,13 +1,14 @@
 """Shared discrete-event core on the port: ordering, fault traces,
 determinism.
 
-The cases of ``test_event_runtime.py`` that need no ``CloudManager``
-(``core/cloud.py`` is ROADMAP item 12), on the port's runtime, cluster
-(``device="cpu"``, reduced granite-8b) and tile runtime:
+The cases of ``test_event_runtime.py`` on the port's runtime, cluster
+(``device="cpu"``, reduced granite-8b), ``CloudManager`` and tile
+runtime:
   * one EventLoop heap serves every subsystem, ties broken by schedule
     order, so identical inputs give bit-identical event timelines;
-  * a FaultTrace drives a ServingCluster drain and the tile runtime at
-    its lifecycle timestamps;
+  * a FaultTrace drives a ServingCluster drain, a CloudManager run and
+    the tile runtime at its lifecycle timestamps, and two lifecycles on
+    one target doom two different instances;
   * open-loop arrival processes are seeded and replayable.
 """
 
@@ -16,6 +17,7 @@ import pytest
 
 from repro_torch.cluster import InstanceType, RateAwareRouter, ServingCluster
 from repro_torch.configs import get_config
+from repro_torch.core.cloud import CloudManager, Mode, StageCostModel
 from repro_torch.core.overdecomp import (HostTileRuntime, TileGrid,
                                          TileRuntimeDriver)
 from repro_torch.models import model_zoo as zoo
@@ -178,6 +180,64 @@ def test_cluster_event_timeline_bit_identical(model):
     drop = "interruption_overhead_s"
     assert ({k: v for k, v in out_a.items() if k != drop}
             == {k: v for k, v in out_b.items() if k != drop})
+
+
+def test_cloud_manager_timeline_bit_identical():
+    reports = []
+    for _ in range(2):
+        cm = CloudManager(n_instances=8, mode=Mode.C_PROACTIVE,
+                          cost=StageCostModel(state_bytes=8 * 64e6),
+                          total_iters=2000, iter_seconds=0.2)
+        cm.inject_interruption(t=100.0, count=3)
+        reports.append((cm.run(), cm.loop.journal))
+    (rep_a, j_a), (rep_b, j_b) = reports
+    assert j_a == j_b
+    assert rep_a.timeline == rep_b.timeline
+    assert rep_a.total_time == rep_b.total_time
+    assert rep_a.rescales == rep_b.rescales
+
+
+def _lifecycle_ts(timeline, key):
+    return [t for t, msg in timeline if msg.startswith(key)]
+
+
+def test_one_trace_drives_training_and_serving_identically(model):
+    """CloudManager and ServingCluster on ONE trace see the same notice
+    and terminate timestamps, the trace's own."""
+    trace = FaultTrace(rebalance_lead=6.0, notice_deadline=4.0)
+    trace.inject(4.0, 0)
+
+    cl, out = _drive_cluster(model, trace)
+    assert out["drains"] == 1 and out["dropped"] == 0
+
+    cm = CloudManager(n_instances=4, mode=Mode.C_PROACTIVE,
+                      cost=StageCostModel(state_bytes=4 * 64e6),
+                      total_iters=2000, iter_seconds=0.2, trace=trace)
+    rep = cm.run()
+
+    for key in ("interruption_notice", "terminated"):
+        ts_serving = _lifecycle_ts(cl.timeline, key)
+        ts_training = _lifecycle_ts(rep.timeline, key)
+        assert ts_serving == ts_training == [10.0 if key ==
+                                             "interruption_notice" else 14.0]
+    by_kind = {n.kind: n.t for n in trace.events()}
+    assert by_kind["interruption_notice"] == 10.0
+    assert by_kind["terminate"] == 14.0
+
+
+def test_overlapping_lifecycles_on_one_target_hit_distinct_victims():
+    """Two in-flight lifecycles with the same target doom and terminate
+    two DIFFERENT instances."""
+    cm = CloudManager(n_instances=8, mode=Mode.A_FILESYSTEM,
+                      cost=StageCostModel(state_bytes=8 * 64e6),
+                      total_iters=20_000, iter_seconds=0.2)
+    cm.trace.inject(10.0, 0)
+    cm.trace.inject(100.0, 0)
+    rep = cm.run()
+    terminated = {(t, msg) for t, msg in rep.timeline
+                  if msg.startswith("terminated")}
+    assert {t for t, _ in terminated} == {310.0, 400.0}
+    assert len({msg for _, msg in terminated}) == 2, rep.timeline
 
 
 def _lifecycle_ts(timeline, key):

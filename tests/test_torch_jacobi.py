@@ -9,8 +9,9 @@
   halos, bit for bit; so does the port's own ``jacobi_tile_step``.
 * ``lulesh_tile_step`` is within 1e-5 of JAX's over 8 inner rounds
   (float32 transcendentals of two libraries).
-* ``reference_jacobi`` and the row-block ``_tile_step`` equal JAX's bit
-  for bit (the multi-rank ``make_jacobi_spmd_step`` is
+* ``reference_jacobi``, five sweeps of the kernel entry point (five of
+  the Pallas kernel: ``test_jacobi_multi_sweep_matches_reference``) and
+  the row-block ``_tile_step`` equal JAX's bit for bit (the multi-rank ``make_jacobi_spmd_step`` is
   ``test_torch_multirank.py``'s).
 * A CPU tensor runs the plain version and launches nothing; the kernel
   wrapper refuses CPU tensors, wrong dtypes, shapes and overlapping
@@ -180,3 +181,19 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
         kernel.check_tiles(tiles, ids.long(), nbr, torch.zeros(4, 8, 8))
     with pytest.raises(ValueError, match="unknown impl"):
         jk.jacobi(g, impl="pallas")
+
+
+def test_jacobi_multi_sweep_matches_reference():
+    """Five sweeps of the port's kernel entry point (its plain version on
+    a CPU tensor) equal five sweeps of JAX's Pallas kernel (interpret
+    mode) and the port's and JAX's ``reference_jacobi``, bit for bit."""
+    g = _grid(64, 32, seed=1)
+    a, p = torch.from_numpy(g), jnp.asarray(g)
+    for _ in range(5):
+        a = jk.jacobi(a)
+        p = pallas_jacobi(p, block_rows=16, interpret=True)
+    np.testing.assert_array_equal(_bits(a), _bits(p))
+    np.testing.assert_array_equal(
+        _bits(a), _bits(reference_jacobi(torch.from_numpy(g), 5)))
+    np.testing.assert_array_equal(_bits(a),
+                                  _bits(jax_reference(jnp.asarray(g), 5)))

@@ -10,6 +10,8 @@ runs the same inputs every time).
   ``4/3 * max(mean, max)`` is not a property of it: the 4/3 factor bounds
   LPT against the *optimum*, and the optimum can exceed that lower bound
   (five loads of 1.0 on 4 PEs: makespan 2, bound 1.67).
+* Rate-aware LPT lies between ``sum(loads) / sum(rates)`` and the serial
+  time on the slowest PE; ``no_lb`` keeps the placement it is given.
 """
 
 import numpy as np
@@ -110,3 +112,21 @@ def test_greedy_refine_keeps_balanced_assignment():
     res = lb.greedy_refine(np.ones(16), 4, current=current)
     assert res.migrations == 0
     np.testing.assert_array_equal(res.assignment, current)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_rate_aware_greedy_bounds(seed):
+    """Rate-aware LPT lies between the ideal ``sum(loads) / sum(rates)``
+    and the serial time on the slowest PE."""
+    loads, n_pes, rates, _, _ = _case(seed)
+    res = lb.greedy(loads, n_pes, rates=rates)
+    assert res.makespan >= loads.sum() / rates.sum() - 1e-9
+    assert res.makespan <= loads.sum() / rates.min() + 1e-9
+
+
+def test_no_lb_is_identity():
+    loads = np.ones(8)
+    cur = np.array([0, 0, 0, 0, 1, 1, 1, 1])
+    res = lb.no_lb(loads, 2, current=cur)
+    assert np.array_equal(res.assignment, cur)
+    assert res.migrations == 0

@@ -129,3 +129,11 @@ def test_rate_monitor_ewma_and_stragglers():
     r = mon.rates()
     assert r[2] < 0.6 * r[0]
     assert mon.straggler_pes(0.7) == [2]
+
+
+def test_rate_monitor_resize_preserves_history():
+    mon = RateMonitor(4)
+    mon.record_step([1, 1, 1, 1], [1.0, 1.0, 4.0, 1.0])
+    mon.resize(6)
+    assert mon.rates().shape == (6,)
+    assert mon.rates()[2] < mon.rates()[0]

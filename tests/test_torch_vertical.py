@@ -3,11 +3,13 @@
 The cases of ``test_vertical.py`` that need ``repro_torch.vertical``:
 the tier mapping, BestEffort held at the door until idle capacity, the
 cluster's grow / shrink smoke, forced shrinks that lose no work, and the
-sliding window's history (the engine-level resize cases are in
-``test_torch_{workunit,simengine}.py``; the reference's detector and
-adaptive checkpoint cases, ``test_detector_suspects_wedged_replica`` and
-``test_adaptive_checkpoint_interval``, have no port counterpart yet:
-ROADMAP item 14).  Then parity: a
+sliding window's history, the failure detector's wedge cross-check and
+the adaptive checkpoint cadence (each also against the reference's for
+the same inputs), and the seeded resize / preempt / resume / step
+interleaving on a dense float32 engine (the reference's hypothesis
+property, ``test_resize_interleaving_property``, on fixed seeds; the
+other engine-level resize cases are in
+``test_torch_{workunit,simengine}.py``).  Then parity: a
 ``FixedThresholdVertical`` + ``QoSPolicy`` cluster and a
 ``SlidingWindowVertical`` one, on SimEngine and on float32 paged
 granite-8b, give the reference's journal digest, summary (wall-clock
@@ -20,10 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.cluster import (InstanceType, ResizeOrder, ServingCluster,
+import repro.cluster as jcluster
+from repro_torch.cluster import (CheckpointPolicy, FailureDetector,
+                                 InstanceType, ResizeOrder, ServingCluster,
                                  VerticalScalingPolicy)
-from repro_torch.serving.engine import Request
+from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.simengine import SimEngine, sim_token
+from repro_torch.serving.workunit import PAUSED
 from repro_torch.serving.workload import (BATCH, INTERACTIVE, STANDARD,
                                           SLOClass, classed_requests,
                                           synthetic_requests)
@@ -184,6 +189,149 @@ def test_summary_schema_zero_fills_vertical_keys():
                 "resize_stage_s", "qos_guaranteed_slot_s",
                 "qos_burstable_slot_s", "qos_best_effort_slot_s"):
         assert key in out and out[key] == 0, key
+
+
+# ------------------------------------------------ detector and checkpoints
+class _Rep:
+    def __init__(self, rid):
+        self.rid = rid
+
+
+def _wedge_scans(FD):
+    """The reference case's beats and scans on detector class ``FD``."""
+    fd = FD(heartbeat_interval=1.0, check_interval=1.0, suspect_after=50.0,
+            confirm_after=100.0, progress_stale_after=5.0)
+    rep = _Rep(0)
+    fd.beat(0, 0.0, progress=10, busy=True)
+    fd.beat(0, 2.0, progress=10, busy=True)      # beating, not moving
+    out = [fd.scan([rep], 4.0), fd.scan([rep], 6.0)]
+    fd.beat(0, 7.0, progress=11, busy=True)      # progress resumed
+    out.append(fd.scan([rep], 8.0))
+    fd.beat(0, 9.0, progress=11, busy=False)     # idle is healthy
+    out.append(fd.scan([rep], 30.0))
+    plain = FD()
+    plain.beat(0, 0.0, progress=10, busy=True)
+    plain.beat(0, 2.0, progress=10, busy=True)
+    out.append(plain.scan([_Rep(0)], 6.0))
+    return out
+
+
+def test_detector_suspects_wedged_replica():
+    """A replica that heartbeats but stops advancing its progress counter
+    while busy is suspected, and cleared when tokens move or it goes
+    idle; wedge staleness never confirms death by itself; without the
+    cross-check the same silence goes unnoticed.  The reference's
+    detector scans the same."""
+    not_yet, wedged, resumed, idle, plain = _wedge_scans(FailureDetector)
+    assert not_yet == ([], [], [])
+    assert wedged[0] == [0] and wedged[2] == []
+    assert resumed[1] == [0]
+    assert idle == ([], [], [])
+    assert plain == ([], [], [])
+    assert [not_yet, wedged, resumed, idle, plain] == \
+        _wedge_scans(jcluster.FailureDetector)
+
+
+class _Eng:
+    def __init__(self, fed):
+        self._fed = fed
+
+    def slot_requests(self):
+        return [(i, None) for i in range(len(self._fed))]
+
+    def fed_tokens(self, slot):
+        return self._fed[slot]
+
+
+class _Serving:
+    serving = True
+
+    def __init__(self, fed):
+        self.engine = _Eng(fed)
+
+
+def _cadence(Policy):
+    """The reference case's intervals under policy class ``Policy``."""
+    fixed = Policy(interval=10.0)
+    ad = Policy(interval=10.0, adaptive=True, fault_window=60.0,
+                fault_ref=1.0, tokens_ref=100.0)
+    out = [fixed.next_interval([_Serving([500, 500])], 0.0),
+           ad.next_interval([], 0.0),
+           ad.next_interval([_Serving([150, 50])], 0.0)]
+    ad.note_fault(1.0)
+    ad.note_fault(2.0)
+    out += [ad.next_interval([_Serving([150, 50])], 3.0),
+            ad.next_interval([_Serving([150, 50])], 200.0),
+            ad.next_interval([_Serving([10 ** 9])], 3.0)]
+    return ad, out
+
+
+def test_adaptive_checkpoint_interval():
+    """Chaos and in-flight work shorten the cadence; a quiet fleet relaxes
+    it; a fixed policy never moves; clamps hold at extremes.  The
+    reference's policy gives the same intervals."""
+    ad, (fixed, quiet, busy, chaotic, aged, clamped) = _cadence(
+        CheckpointPolicy)
+    assert fixed == 10.0
+    assert quiet == 10.0 * ad.quiet_relax        # nothing at risk: relax
+    assert busy < 10.0                           # live tokens: tighten
+    assert ad.min_interval <= chaotic < busy     # chaos tightens further
+    assert aged == busy                          # faults age out
+    assert clamped == ad.min_interval
+    with pytest.raises(ValueError, match="min <= interval <= max"):
+        CheckpointPolicy(interval=1.0, min_interval=2.0, max_interval=4.0)
+    assert _cadence(jcluster.CheckpointPolicy)[1] == \
+        [fixed, quiet, busy, chaotic, aged, clamped]
+
+
+# ------------------------------------------------------------ conservation
+def _requests(n, seed=3, max_new=6):
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+                0, 200, int(rng.integers(3, 20))).astype(np.int32),
+                    max_new_tokens=max_new)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize(
+    "seed", [int(s) for s in np.random.default_rng(2025).integers(
+        0, 10_001, 6)])
+def test_resize_interleaving_property_dense(f32, seed):
+    """The reference's resize / preempt / resume / step interleaving on a
+    dense float32 engine: every request finishes with the stream of a
+    never-resized engine holding every request, resize evictions are
+    parked like preemptions."""
+    cfg, params = f32["torch"]
+    rng = np.random.default_rng(seed)
+    lone = ServingEngine(cfg, params, batch_size=6, max_seq=64,
+                         device="cpu")
+    want = _requests(6, seed=seed, max_new=5)
+    for r in want:
+        lone.submit(r)
+    lone.run_until_idle()
+    eng = ServingEngine(cfg, params, batch_size=3, max_seq=64, device="cpu")
+    reqs = _requests(6, seed=seed, max_new=5)
+    for r in reqs:
+        eng.submit(r)
+    paused = []
+    for _ in range(rng.integers(8, 16)):
+        op = rng.integers(0, 4)
+        if op == 0:
+            eng.step()
+        elif op == 1:
+            evicted = eng.resize(batch_size=int(rng.integers(1, 5)))
+            assert all(u.state is PAUSED for u in evicted)
+            paused.extend(evicted)
+        elif op == 2:
+            paused.extend(eng.preempt())
+        elif op == 3 and paused:
+            batch, paused = paused, []
+            eng.resume(batch)
+    eng.resume(paused)
+    eng.run_until_idle()
+    assert all(r.done for r in reqs)
+    assert [list(r.out_tokens) for r in reqs] == \
+        [list(r.out_tokens) for r in want]
 
 
 # ------------------------------------------------- parity with repro
