@@ -65,7 +65,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    tolerance;
 7. reduced granite-8b, mamba2-780m, zamba2-2.7b and qwen2-moe-a2.7b in
    float32: the dense and paged engines on the card give the same greedy
-   streams, and a second paged run gives them again bit for bit;
+   streams, and a second paged run gives them again bit for bit; then
+   the float32 recurrent decode state at full width
+   (``recurrent_f32_phase``): mamba2-780m at ``F32_CHAIN`` layers and
+   zamba2-2.7b at one period, 10 tokens fed one serve step at a time,
+   dense and paged, against ``make_prefill`` of each prefix (the SSD
+   kernel), each step's logits relative to the largest; mamba2-780m held
+   to ``F32_CHAIN_TOL`` (1e-5), zamba2-2.7b printed (its shared
+   attention reads the bf16 cache where the prefill reads float32 k and
+   v); beside them the same dense chain on a bf16 conv leaf, the state
+   before the leaf followed the compute dtype;
 8. the tile runtime at full size (16384^2 float32, 4 PEs x 4 tiles),
    fresh, in a process that has not loaded the Jacobi kernel yet: its
    first step's per-PE device times against their medians over a steady
@@ -357,6 +366,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    all-gathers equal those the ranks counted on the card; (l)'s train
    step traced on the (2, 1, 1) mesh: its pod all-reduces equal the
    card's, and with the metrics' mean, every all-reduce over 2 ranks.
+
+25. the five examples (``examples/torch_*.py``) in this process on the
+   card, each through its ``main`` (``examples_phase``): ``torch_serve``
+   (6 requests, 48 tokens), ``torch_serve_cluster`` (nothing dropped
+   under any router), ``torch_jacobi_overdecomp`` (its seven lines; its
+   Jacobi kernel launches, 4 odf x 12 iterations x 4 PEs, join the
+   Jacobi row's ``launches_by_path``), ``torch_quickstart`` (its loss
+   bound) and ``torch_train_spot_elastic`` at 4 gloo ranks sharing the
+   card, 6 steps, shrink 4 -> 2 and expand 2 -> 4, killed past
+   ``EXAMPLE_SPAWN_LIMIT_S``; each example's seconds logged.
 
 Each phase's wall time is logged (``[time]``).  The line before the
 last is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -5277,6 +5296,152 @@ def analysis_phase(dev, zero1, tp) -> dict:
     return numbers
 
 
+# phase 7's float32 recurrent decode chain at full width: mamba2-780m cut
+# to F32_CHAIN layers, zamba2-2.7b to one period (6 Mamba2 layers and the
+# shared attention); 10 tokens fed one serve step at a time
+F32_CHAIN, F32_CHAIN_TOKENS, F32_CHAIN_TOL = 2, 10, 1e-5
+
+
+def recurrent_chain(cfg, params, toks, dev, paged, conv_dtype=None):
+    """``toks`` (B, T) fed one serve step at a time from an empty dense or
+    paged state (``conv_dtype``: the conv leaf in another dtype than the
+    port's); the (B, T, V) float32 logits."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model_zoo as zoo
+    B, T = toks.shape
+    shape = ShapeConfig("chain", 16 * ((T + 15) // 16), B, "decode")
+    if paged:
+        bs, mb = 16, shape.seq_len // 16
+        state = zoo.init_paged_decode_state(cfg, shape, bs, B * mb, dev)
+        state.block_tables.copy_(torch.arange(
+            B * mb, dtype=torch.int32, device=dev).view(B, mb))
+        step = zoo.make_paged_serve_step(cfg, shape, bs, B * mb)
+    else:
+        state = zoo.init_decode_state(cfg, shape, fill_len=0, device=dev)
+        step = zoo.make_serve_step(cfg, shape)
+    if conv_dtype is not None:
+        state.cache["conv"] = state.cache["conv"].to(conv_dtype)
+    active = torch.ones(B, dtype=torch.int32, device=dev)
+    outs = []
+    with torch.no_grad():
+        for t in range(T):
+            logits, state = step(params, state, toks[:, t:t + 1], active)
+            outs.append(logits[:, 0].float())
+    return torch.stack(outs, dim=1)
+
+
+def recurrent_f32_phase(dev) -> dict:
+    """Phase 7's float32 recurrent decode check at full width: each chain
+    against the forward, ``make_prefill`` of every prefix (the SSD kernel
+    on the card), as the largest difference over the largest logit; the
+    dense chain again on a bf16 conv leaf, the state before the leaf
+    followed the compute dtype, is the reading before the repair."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.models import model_zoo as zoo
+    out = {}
+    for arch in ("mamba2-780m", "zamba2-2.7b"):
+        cfg = get_config(arch)
+        layers = F32_CHAIN if cfg.family == "ssm" else cfg.attn_every
+        cfg = cfg.with_(num_layers=layers, compute_dtype="float32")
+        params = zoo.init_serving_params(cfg, seed=0, device=dev)
+        gen = torch.Generator().manual_seed(7)
+        toks = torch.randint(0, cfg.vocab_size, (2, F32_CHAIN_TOKENS),
+                             generator=gen, dtype=torch.int32).to(dev)
+        sk.launches = 0
+        with torch.no_grad():
+            fwd = torch.stack([zoo.make_prefill(cfg, ShapeConfig(
+                "p", t, 2, "prefill"))(params, {"tokens": toks[:, :t]})[0][
+                    :, 0].float() for t in range(1, F32_CHAIN_TOKENS + 1)],
+                dim=1)
+        ssd_launches = sk.launches
+        top = float(fwd.abs().max())
+        rel = {}
+        for name, paged, conv in (("dense", False, None),
+                                  ("paged", True, None),
+                                  ("dense, bf16 conv leaf", False,
+                                   torch.bfloat16)):
+            dec = recurrent_chain(cfg, params, toks, dev, paged, conv)
+            assert torch.isfinite(dec).all(), (arch, name)
+            rel[name] = float((dec - fwd).abs().max()) / top
+        log(f"[f32 chain] {arch} at {layers} layers, d {cfg.d_model}, "
+            f"float32, {F32_CHAIN_TOKENS} steps vs make_prefill of each "
+            f"prefix ({ssd_launches} SSD launches): decode vs forward "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f" of the largest logit {top:.4f} (the bf16 conv leaf: "
+            f"before the repair)")
+        if cfg.family == "ssm":
+            for name in ("dense", "paged"):
+                assert rel[name] < F32_CHAIN_TOL, (arch, name, rel[name])
+        out[arch] = {"layers": layers, "ssd_launches": ssd_launches, **rel}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 25: the examples; the spot-elastic fleet's ranks share the card
+EXAMPLE_RANKS, EXAMPLE_STEPS, EXAMPLE_SPAWN_LIMIT_S = 4, 6, 300
+EXAMPLE_JACOBI_LAUNCHES = 4 * 12 * 4     # odf 1, 2, 4, 8 x 12 iters x 4 PEs
+
+
+def example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(dev) -> dict:
+    """Each example's ``main`` on the card, held to what its original
+    holds; returns each one's seconds and the Jacobi kernel's launches
+    in the stencil example."""
+    import math
+    import torch
+    from repro_torch.cluster import ROUTERS
+    from repro_torch.kernels.jacobi import kernel as jk
+    secs = {}
+
+    def run(name, argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = example(name).main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"[examples] {name} {' '.join(argv)}: {secs[name]:.2f} s")
+        return out
+
+    out = run("torch_serve", [])
+    assert out["stats"]["tokens"] == 48, out["stats"]
+    assert all(r.done and len(r.out_tokens) == 8 for r in out["requests"])
+    outs = run("torch_serve_cluster", [])
+    assert set(outs) == set(ROUTERS)
+    assert all(o["dropped"] == 0 and o["completed"] == 20
+               for o in outs.values()), outs
+    jk.launches = 0
+    lines = run("torch_jacobi_overdecomp", [])
+    jacobi_launches = jk.launches
+    assert len(lines) == 7, lines
+    assert jacobi_launches == EXAMPLE_JACOBI_LAUNCHES, jacobi_launches
+    out = run("torch_quickstart", [])
+    assert out["final_loss"] < 6.5, out
+    rec = run("torch_train_spot_elastic", [
+        "--n-devices", str(EXAMPLE_RANKS), "--steps", str(EXAMPLE_STEPS),
+        "--timeout", str(EXAMPLE_SPAWN_LIMIT_S)])
+    assert [tuple(r) for r in rec["rescales"]] == [
+        ("shrink", EXAMPLE_RANKS, EXAMPLE_RANKS - 2),
+        ("expand", EXAMPLE_RANKS - 2, EXAMPLE_RANKS)], rec
+    assert rec["steps"] == list(range(EXAMPLE_STEPS)), rec
+    assert all(math.isfinite(x) for x in rec["losses"]), rec
+    return {"seconds": secs, "jacobi_launches": jacobi_launches,
+            "spot_elastic_losses": rec["losses"]}
+
+
 def first_difference(a, b):
     """The first index where two token lists differ (None if equal)."""
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -5463,7 +5628,10 @@ def main() -> int:
         assert streams[0] == streams[1] == streams[2], streams
         log(f"[small] reduced {arch} f32: dense and paged (kernel) engines "
             f"give identical greedy streams, and a second paged run again")
-    t_phase = lap("phase 7 (reduced float32 parity)", t_phase)
+    f32_chain = recurrent_f32_phase(dev)
+    log(f"[f32 chain] numbers {json.dumps(f32_chain)}")
+    t_phase = lap("phase 7 (reduced float32 parity, float32 recurrent "
+                  "chain)", t_phase)
 
     # 17. work-unit migration on the card, full width
     migrated, migration = migration_phase(dev)
@@ -5595,9 +5763,15 @@ def main() -> int:
               f"spmd stencil ({TP_RANKS} gloo ranks)": spmd_launches}
     stencil_checks_phase(dev)
     by_run["driver"] = stencil_driver_phase(dev)
+    t_phase = lap("phases 10-12 (stencil app)", t_phase)
+
+    # 25. the five examples on the card
+    examples = examples_phase(dev)
+    log(f"[examples] numbers {json.dumps(examples)}")
+    by_run["jacobi_overdecomp example"] = examples["jacobi_launches"]
     jac["launches_by_path"] = by_run
     jac["launches"] = sum(by_run.values())
-    lap("phases 10-12 (stencil app)", t_phase)
+    lap("phase 25 (examples)", t_phase)
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": [paged, ssd, flash, jac]}), flush=True)

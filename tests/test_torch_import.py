@@ -14,7 +14,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_profile.py",
     ROOT / "benchmarks" / "train_readings.py",
     ROOT / "benchmarks" / "tp_readings.py",
-    ROOT / "benchmarks" / "analysis_bounds.py"]
+    ROOT / "benchmarks" / "analysis_bounds.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 
 
 def test_import_loads_no_jax():

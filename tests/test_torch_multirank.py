@@ -42,6 +42,7 @@ each mesh.  Tolerances:
 * the SPMD stencil: the reference's grid bit for bit.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -427,6 +428,30 @@ def test_launcher_spawns_two_ranks():
     logged = [line.split() for line in lines if line.startswith("step")]
     assert [(w[1], w[2], w[4]) for w in logged] == [("0", "loss", "gnorm")]
     assert abs(float(logged[0][3]) - tr.metrics_log[0]["loss"]) < BF16_LOSS
+
+
+def test_spot_elastic_example_rescales_4_2_4():
+    """``examples/torch_train_spot_elastic.py --device cpu --n-devices 4``
+    at 3 steps and 16 positions: 4 gloo ranks train the example's
+    22M-parameter model, shrink to 2 ranks and expand back to 4 (one
+    step each side), under the group's wall-clock limit; rank 0 alone
+    prints, once, the two rescales and the final loss."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run(
+        [sys.executable, "examples/torch_train_spot_elastic.py", "--device",
+         "cpu", "--n-devices", "4", "--steps", "3", "--seq", "16",
+         "--timeout", str(GROUP_TIMEOUT_S)], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=GROUP_TIMEOUT_S + 60)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.splitlines()
+    assert sum(ln.startswith("fleet: 4 instances") for ln in lines) == 1
+    stages = [ln.split(":")[0].split() for ln in lines
+              if ln.startswith(("  shrink", "  expand"))]
+    assert stages == [["shrink", "4->2"], ["expand", "2->4"]], out.stdout
+    final = [ln for ln in lines if ln.startswith("final loss")]
+    assert len(final) == 1 and "across 2 rescales" in final[0]
+    assert math.isfinite(float(final[0].split()[2]))
 
 
 def test_spawn_kills_a_group_past_its_limit():
