@@ -5305,7 +5305,8 @@ F32_CHAIN, F32_CHAIN_TOKENS, F32_CHAIN_TOL = 2, 10, 1e-5
 def recurrent_chain(cfg, params, toks, dev, paged, conv_dtype=None):
     """``toks`` (B, T) fed one serve step at a time from an empty dense or
     paged state (``conv_dtype``: the conv leaf in another dtype than the
-    port's); the (B, T, V) float32 logits."""
+    port's); the (B, T, vocab_size) float32 logits (the padded columns,
+    masked to -1e30, left out)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import model_zoo as zoo
@@ -5327,7 +5328,7 @@ def recurrent_chain(cfg, params, toks, dev, paged, conv_dtype=None):
     with torch.no_grad():
         for t in range(T):
             logits, state = step(params, state, toks[:, t:t + 1], active)
-            outs.append(logits[:, 0].float())
+            outs.append(logits[:, 0, :cfg.vocab_size].float())
     return torch.stack(outs, dim=1)
 
 
@@ -5355,8 +5356,8 @@ def recurrent_f32_phase(dev) -> dict:
         with torch.no_grad():
             fwd = torch.stack([zoo.make_prefill(cfg, ShapeConfig(
                 "p", t, 2, "prefill"))(params, {"tokens": toks[:, :t]})[0][
-                    :, 0].float() for t in range(1, F32_CHAIN_TOKENS + 1)],
-                dim=1)
+                    :, 0, :cfg.vocab_size].float()
+                for t in range(1, F32_CHAIN_TOKENS + 1)], dim=1)
         ssd_launches = sk.launches
         top = float(fwd.abs().max())
         rel = {}
