@@ -103,8 +103,8 @@ class SlotSnapshot:
     engines and between block sizes bit for bit.
 
     The columns are CPU torch tensors in the leaf's own dtype (bf16 kv,
-    float32 ssm, conv in ``model_zoo.conv_dtype``): numpy has no bfloat16 without
-    ``ml_dtypes``, and a CPU tensor holds bf16 exactly, can be pinned
+    float32 ssm, conv in ``model_zoo.conv_dtype``): numpy has no
+    bfloat16 without ``ml_dtypes``, and a CPU tensor holds bf16 exactly, can be pinned
     for the copy back to the card, and is what the checkpoint stores
     keep.  ``unpack`` also reads the JAX package's snapshots, whose
     columns are numpy arrays (bf16 ones as ``ml_dtypes.bfloat16``, read

@@ -11,8 +11,8 @@
   (float32 transcendentals of two libraries).
 * ``reference_jacobi``, five sweeps of the kernel entry point (five of
   the Pallas kernel: ``test_jacobi_multi_sweep_matches_reference``) and
-  the row-block ``_tile_step`` equal JAX's bit for bit (the multi-rank ``make_jacobi_spmd_step`` is
-  ``test_torch_multirank.py``'s).
+  the row-block ``_tile_step`` equal JAX's bit for bit (the multi-rank
+  ``make_jacobi_spmd_step`` is ``test_torch_multirank.py``'s).
 * A CPU tensor runs the plain version and launches nothing; the kernel
   wrapper refuses CPU tensors, wrong dtypes, shapes and overlapping
   buffers.  Kernel vs plain version needs the card: ``test_torch_cuda.py``.
